@@ -9,19 +9,31 @@ Phases, each of which fails the run (exit code 1) when it fails:
    limit and turns TF32 off for fp32 matmuls and convolutions;
 2. build: compiles every CUDA kernel of the port from
    ``yat_tpu_torch/csrc`` with nvcc (one process per source, in parallel);
-3. kernels: holds each kernel against its plain PyTorch version at the
-   serving path's shapes and at ragged shapes, in bf16 and fp32, and times
-   the kernel, the plain version and (where one exists) one PyTorch call
-   computing the same function, beside the least time the card could take;
+3. kernels: holds each kernel (K1, K2, K3 forward; K1b, K2b backward)
+   against its plain PyTorch version at the serving and training paths'
+   shapes and at ragged shapes, in bf16 and fp32, and times the kernel, the
+   plain version and (where one exists) one PyTorch call computing the same
+   function, beside the least time the card could take;
 4. reference: a two-block full-width SANA denoiser on the card against the
    same module on the CPU (the plain versions), fp32;
-5. serve: the port's SANA-0.6B 512px server (Gemma-2-2B caption encoder,
+5. gradient reference: the same two blocks with LoRA (nonzero ``lora_b``),
+   one flow-matching loss and every LoRA gradient on the card (kernels)
+   against the CPU (plain versions), fp32; every gradient nonzero;
+6. serve: the port's SANA-0.6B 512px server (Gemma-2-2B caption encoder,
    SANA-0.6B denoiser with CFG 5.0 and 20 flow-match Euler steps, fp32
    DC-AE decoder) with random weights from a seed, on 127.0.0.1: four
    concurrent /generate requests and one more; checks the images and that
    the kernels' launch counters rose by their per-denoiser-call counts;
    then one more batch of 4 under ``torch.profiler`` for the device time by
-   layer and the device's idle share (after the counters are read).
+   layer and the device's idle share (after the counters are read);
+7. train: SANA-0.6B 512px LoRA training through the port's entry point
+   ``yat_tpu_torch.frontends.sana.main`` on a synthetic feature shard
+   (batch 16, bf16, rank-8 LoRA on to_q/to_k/to_v/to_out, AdamW with
+   warmup, EMA, caption-length buckets), 6 steps; checks the losses, the
+   adapters and their export, and the launches per step; then one more
+   step with remat (``low_vram``) on the same batch and draws, whose loss
+   and gradients must equal the step without, and one step under
+   ``torch.profiler``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -36,6 +48,7 @@ import os
 import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -62,6 +75,17 @@ TOL = {
                 "dot_product_attention": (1e-4, 1e-4),
                 "linear_attention": (1e-4, 1e-4)},
 }
+# backward kernels, each output against the plain backward: bf16 one
+# rounding step of the stored result (and of dS, which is rounded before the
+# dq/dk products); fp32 reduction order only
+TOL["bfloat16"].update({"adaln_layernorm_bwd": (2e-2, 2e-2),
+                        "dot_product_attention_bwd": (2e-2, 2e-2)})
+TOL["float32"].update({"adaln_layernorm_bwd": (1e-4, 1e-4),
+                       "dot_product_attention_bwd": (2e-4, 2e-4)})
+# the case of each kernel that is timed and reported: the main path's shape
+MAIN_CASE = {"adaln_layernorm": "serve", "dot_product_attention": "serve",
+             "linear_attention": "serve", "adaln_layernorm_bwd": "train",
+             "dot_product_attention_bwd": "train-512"}
 
 PROMPTS = ["a red fox in fresh snow", "a lighthouse at dusk",
            "a bowl of ramen on a wooden table", "a city street in the rain"]
@@ -108,8 +132,8 @@ def phase_device():
 # ---------------------------------------------------------------------------
 
 def phase_build():
-    import yat_tpu_torch.ops.attention  # noqa: F401  (registers K2, K3)
-    import yat_tpu_torch.ops.norm  # noqa: F401  (registers K1)
+    import yat_tpu_torch.ops.attention  # noqa: F401  (registers K2, K2b, K3)
+    import yat_tpu_torch.ops.norm  # noqa: F401  (registers K1, K1b)
     from yat_tpu_torch.kernels.build import KERNELS, build_all
     out = build_all()
     log(f"built {sorted({k.source for k in KERNELS.values()})} in "
@@ -159,13 +183,20 @@ def time_ms(fn, inputs, iters, hold_cycles=50_000_000):
 
 
 def compare(name, got, want):
+    """Largest |kernel - plain| over every output, whether all lie within
+    atol + rtol * |plain|, and the tolerance."""
     import torch
-    atol, rtol = TOL[str(want.dtype).replace("torch.", "")][name]
-    g, w = got.float(), want.float()
-    err = (g - w).abs()
-    ok = bool(torch.isfinite(g).all()) and bool(
-        (err <= atol + rtol * w.abs()).all())
-    return float(err.max()), ok, (atol, rtol)
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    atol, rtol = TOL[str(want[0].dtype).replace("torch.", "")][name]
+    err_max, ok = 0.0, True
+    for a, b in zip(got, want):
+        g, w = a.float(), b.float()
+        err = (g - w).abs()
+        ok = ok and bool(torch.isfinite(g).all()) and bool(
+            (err <= atol + rtol * w.abs()).all())
+        err_max = max(err_max, float(err.max()))
+    return err_max, ok, (atol, rtol)
 
 
 def _mask(keep, nk, device):
@@ -176,8 +207,9 @@ def _mask(keep, nk, device):
 
 def kernel_cases(device):
     """(kernel name, case label, dtype, make_inputs, kernel_fn, plain_fn,
-    library_fn or None, bytes, flops) for every case; the first case of
-    each kernel is its serving-path shape in bf16."""
+    library_fn, a (fwd+bwd, fwd) pair or None, bytes, flops) for every
+    case; the first case of each kernel is its main path's shape
+    (``MAIN_CASE``), timed in bf16."""
     import torch
     import torch.nn.functional as F
 
@@ -234,16 +266,82 @@ def kernel_cases(device):
                           es * b * h * d * (2 * nq + 2 * nk)
                           + (4 * b * nk if keep is not None else 0),
                           4 * b * h * nq * nk * d + 5 * b * h * nq * nk))
-        # K3: serving shape q/k/v [8, 256, 36, 32]; ragged: N = 100
+        # K3: serving shape q/k/v [8, 256, 36, 32]; ragged: N = 100.  At
+        # these lengths the JAX package's einsum branch runs, which rounds
+        # the state to the compute dtype (round_kv)
         for label, (b, n, h, d) in (("serve", (8, 256, 36, 32)),
                                     ("ragged", (2, 100, 36, 32))):
             def make(b=b, n=n, h=h, d=d, dtype=dtype):
                 return tuple(randn((b, n, h, d), dtype) for _ in range(3))
+
+            def plain(q, k, v):
+                return A.linear_attention_ref(
+                    q, k, v, round_kv=A.kv_rounding(q.shape[1], q.shape[3]))
             cases.append(("linear_attention", label, dtype, make,
-                          A.linear_attention, A.linear_attention_ref, None,
+                          A.linear_attention, plain, None,
                           es * 4 * b * n * h * d,
                           b * h * (4 * n * d * d + 4 * n * d)))
+        # K1b: training shape x, g [16, 256, 1152], scale [16, 1152];
+        # ragged: one batch element, N = 100.  ~17 flops per element
+        for label, (b, n, d) in (("train", (16, 256, 1152)),
+                                 ("ragged", (1, 100, 1152))):
+            def make(b=b, n=n, d=d, dtype=dtype):
+                return (randn((b, n, d), dtype), randn((b, d), dtype, 0.1),
+                        randn((b, n, d), dtype))
+
+            def kern(x, sc, g):
+                return N._adaln_bwd_cuda(x, sc, g, 1e-6)
+
+            def plain(x, sc, g):
+                return N.adaln_bwd_ref(x, sc, g, 1e-6)
+            cases.append(("adaln_layernorm_bwd", label, dtype, make, kern,
+                          plain, None, es * (3 * b * n * d + 3 * b * d),
+                          17 * b * n * d))
+        # K2b: training shapes q/g [16, 256, 16, 72], k/v [16, L, 16, 72]
+        # at the caption rungs L = 512 and 128 with masks keeping most
+        # keys; ragged: L = 300 keeping 1-300 keys, and L = 16 unmasked
+        for label, (b, nq, nk, h, d, keep) in (
+                ("train-512", (16, 256, 512, 16, 72,
+                               [385 + 7 * i for i in range(16)])),
+                ("train-128", (16, 256, 128, 16, 72,
+                               [100 + i for i in range(16)])),
+                ("ragged-300", (4, 100, 300, 16, 72, [1, 37, 150, 300])),
+                ("ragged-16", (2, 64, 16, 2, 32, None))):
+            def make(b=b, nq=nq, nk=nk, h=h, d=d, keep=keep, dtype=dtype):
+                m = _mask(keep, nk, device) if keep is not None else None
+                return (randn((b, nq, h, d), dtype),
+                        randn((b, nk, h, d), dtype),
+                        randn((b, nk, h, d), dtype), A._key_bias(m, b),
+                        randn((b, nq, h, d), dtype))
+            # the library yardstick: SDPA forward+backward, minus its
+            # forward (both with inputs that require grad)
+            cases.append(("dot_product_attention_bwd", label, dtype, make,
+                          A._attention_bwd_cuda, A.attention_bwd_ref,
+                          (_sdpa_fwd_bwd, _sdpa_fwd),
+                          es * b * h * d * (3 * nq + 4 * nk)
+                          + (4 * b * nk if keep is not None else 0),
+                          10 * b * h * nq * nk * d + 8 * b * h * nq * nk))
     return cases
+
+
+def _sdpa(q, k, v, bias):
+    import torch.nn.functional as F
+    am = None if bias is None else (bias > -1.0)[:, None, None, :]
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=am)
+
+
+def _sdpa_fwd(q, k, v, bias, g):
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    return _sdpa(*leaves, bias)
+
+
+def _sdpa_fwd_bwd(q, k, v, bias, g):
+    import torch
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    return torch.autograd.grad(_sdpa(*leaves, bias), leaves,
+                               g.transpose(1, 2))
 
 
 def phase_kernels(device):
@@ -262,15 +360,20 @@ def phase_kernels(device):
             f"(atol {tol[0]:g}, rtol {tol[1]:g}) {'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"{name} [{label}, {dt}] disagrees with its plain version")
-        if label != "serve" or dtype != torch.bfloat16:
+        if label != MAIN_CASE[name] or dtype != torch.bfloat16:
             continue
         inputs = _rotations(make, nbytes)
         ms = time_ms(kern, inputs, 50)
         plain_ms = time_ms(plain, inputs, 20)
-        lib_ms = time_ms(library, inputs, 50) if library else None
-        # K2's two products are tensor-core work on bf16 inputs; K1's and
-        # K3's arithmetic is fp32 whatever the storage type
-        peak = BF16_FLOPS if name == "dot_product_attention" else FP32_FLOPS
+        if isinstance(library, tuple):
+            lib_ms = time_ms(library[0], inputs, 50) - time_ms(
+                library[1], inputs, 50)
+        else:
+            lib_ms = time_ms(library, inputs, 50) if library else None
+        # K2's and K2b's products are tensor-core work on bf16 inputs; K1's,
+        # K1b's and K3's arithmetic is fp32 whatever the storage type
+        peak = (BF16_FLOPS if name.startswith("dot_product_attention")
+                else FP32_FLOPS)
         t_bytes = nbytes / HBM_BYTES_S * 1e3
         t_ops = flops / peak * 1e3
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -279,7 +382,7 @@ def phase_kernels(device):
                          "bound_by": "bytes" if t_bytes >= t_ops
                          else "operations",
                          "bytes": nbytes, "flops": flops}
-        log(f"{name} [serve, bf16] kernel_ms {ms:.4f}  plain_ms "
+        log(f"{name} [{label}, bf16] kernel_ms {ms:.4f}  plain_ms "
             f"{plain_ms:.4f}  library_ms "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f}'}  bound_ms "
             f"{results[name]['bound_ms']:.4f} ({results[name]['bound_by']}:"
@@ -327,7 +430,90 @@ def phase_reference(device):
 
 
 # ---------------------------------------------------------------------------
-# 5. serve
+# 5. gradient reference: LoRA gradients through the kernels against the CPU
+# ---------------------------------------------------------------------------
+
+LORA_TARGETS = ["to_q", "to_k", "to_v", "to_out"]
+
+
+def phase_grad_reference(device):
+    import copy
+    import dataclasses
+
+    import torch
+
+    from yat_tpu_torch.adapters.builder import (
+        AdapterSpec, adapted_modules, build_adapter_params, lora_parameters)
+    from yat_tpu_torch.models.layers import init_params
+    from yat_tpu_torch.models.sana import SANA_600M, SanaTransformer2D
+    from yat_tpu_torch.ops.schedulers import FlowMatchSchedule
+    from yat_tpu_torch.train.step import loss_and_grads
+    from yat_tpu_torch.train.tasks import make_flow_matching_loss
+
+    cfg = dataclasses.replace(SANA_600M, num_layers=2,
+                              softmax_self_attn_blocks=(1,))
+    cpu = SanaTransformer2D(cfg, dtype=torch.float32)
+    init_params(cpu, torch.Generator().manual_seed(0))
+    n = build_adapter_params(cpu, AdapterSpec("lora", rank=8, alpha=8,
+                                              target_modules=LORA_TARGETS),
+                             torch.Generator().manual_seed(1))
+    gen = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for _, m in adapted_modules(cpu):       # nonzero B: A gets gradients
+            m.lora_b.normal_(0.0, 0.02, generator=gen)
+    gpu = copy.deepcopy(cpu).to(device)
+    rng = np.random.default_rng(0)
+    lat = rng.standard_normal((2, 16, 16, cfg.in_channels), np.float32)
+    emb = rng.standard_normal((2, 300, cfg.caption_channels), np.float32)
+    mask = (np.arange(300)[None] < np.array([[1], [217]])).astype(np.int32)
+    sched = FlowMatchSchedule(shift=3.0)
+    ts, sig = sched.training_draw(torch.Generator().manual_seed(3), 2)
+    noise = rng.standard_normal(lat.shape, np.float32)
+    results = []
+    for model, dev in ((cpu, torch.device("cpu")), (gpu, device)):
+        batch = {"latents": torch.from_numpy(lat).to(dev),
+                 "embeddings": torch.from_numpy(emb).to(dev),
+                 "text_mask": torch.from_numpy(mask).to(dev)}
+        draws = {"timesteps": ts.to(dev), "sigmas": sig.to(dev),
+                 "noise": torch.from_numpy(noise).to(dev)}
+        leaves = [p for _, p in lora_parameters(model)]
+        loss, grads = loss_and_grads(make_flow_matching_loss(model, sched),
+                                     leaves, batch, torch.Generator(), draws)
+        results.append((float(loss), [g.detach().cpu() for g in grads]))
+    (loss_c, grads_c), (loss_g, grads_g) = results
+    names = [name for name, _ in lora_parameters(cpu)]
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    # fp32 throughout (TF32 off), so the sums differ in order only, but
+    # the norm-based relative error per leaf is the measure: ReLU(q) and
+    # ReLU(k) of the linear attention have kinks, and a pre-activation within
+    # rounding of 0 takes the other branch on one of the two devices, which
+    # moves a single gradient entry by its full size
+    worst, zero, rows = 0.0, [], []
+    ok = loss_err <= 1e-4
+    for name, gc, gg in zip(names, grads_c, grads_g):
+        rel = float((gg - gc).norm() / gc.norm().clamp_min(1e-30))
+        rows.append((rel, name, float(gc.abs().max()),
+                     float((gg - gc).abs().max())))
+        worst = max(worst, rel)
+        ok = ok and rel <= 2e-3 and bool(torch.isfinite(gg).all())
+        if not bool((gg != 0).any()):
+            zero.append(name)
+    for rel, name, gmax, dmax in sorted(rows, reverse=True)[:3]:
+        log(f"grad reference:   {name}: |dg|/|g| {rel:.2e}, max|g| "
+            f"{gmax:.3e}, max|dg| {dmax:.3e}")
+    log(f"grad reference: 2-block full-width SANA with LoRA on {n} modules "
+        f"({len(names)} leaves), CUDA vs CPU, fp32: loss {loss_g:.6f} vs "
+        f"{loss_c:.6f} (rel {loss_err:.2e}, tol 1e-4); worst leaf "
+        f"|dg|/|g| {worst:.2e} (tol 2e-3); zero gradients on the card: "
+        f"{len(zero)}")
+    if zero:
+        fail(f"LoRA leaves with no gradient on the card: {zero[:4]}")
+    if not ok:
+        fail("LoRA gradients on the card disagree with the CPU")
+
+
+# ---------------------------------------------------------------------------
+# 6. serve
 # ---------------------------------------------------------------------------
 
 def png_shape(body: bytes, ctype: str):
@@ -466,13 +652,16 @@ def phase_serve(params, device, card, px=512, profile=False):
         f"batch of 1 in {t1:.3f} s; peak device memory "
         f"{peak / 2**30:.2f} GiB; {vp.num_steps} steps, CFG "
         f"{vp.guidance_scale}")
-    return counts
+    return {name: counts[name] for name in per_call}
 
 
 # kernel-name fragments → the layer they belong to
 KERNEL_FAMILIES = (
     ("K1 adaln_layernorm", ("adaln_fwd",)),
+    ("K1b adaln_layernorm_bwd", ("adaln_bwd",)),
     ("K2 dot_product_attention", ("attention_fwd_bf16", "attention_fwd_f32")),
+    ("K2b dot_product_attention_bwd", ("attention_bwd_dq",
+                                       "attention_bwd_dkdv")),
     ("K3 linear_attention", ("linear_attention_fwd",)),
     # convolutions first: cuDNN's implicit-GEMM kernels carry "gemm" too
     ("convolution (cuDNN)", ("conv", "cudnn", "depthwise", "implicit",
@@ -482,8 +671,13 @@ KERNEL_FAMILIES = (
 
 
 def profile_batch(vp, card):
-    """One batch of 4 prompts under torch.profiler: device time by layer and
-    by kernel, and the share of the wall time the device sat idle."""
+    """One batch of 4 prompts under torch.profiler."""
+    profile_run("batch of 4", lambda: vp(PROMPTS), card)
+
+
+def profile_run(label, fn, card):
+    """``fn()`` under torch.profiler: device time by layer and by kernel,
+    and the share of the wall time the device sat idle."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -491,7 +685,7 @@ def profile_batch(vp, card):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        vp(PROMPTS)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans, by_name = [], {}
@@ -507,7 +701,7 @@ def profile_batch(vp, card):
         if b > end:
             busy += b - max(a, end)
             end = b
-    log(f"profile [{card}]: batch of 4 in {wall_us / 1e3:.1f} ms (profiler "
+    log(f"profile [{card}]: {label} in {wall_us / 1e3:.1f} ms (profiler "
         f"on), device busy {busy / 1e3:.1f} ms, idle share "
         f"{1 - busy / wall_us:.3f}")
     families = {}
@@ -523,6 +717,226 @@ def profile_batch(vp, card):
         log(f"profile:     {t / 1e3:9.2f} ms {n:6d}x  {name[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# 7. train
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 6
+
+
+def write_train_shard(path, n=48, latent=(16, 16, 32), dim=2304,
+                      lengths=(100, 500), seed=0):
+    """``n`` feature samples, by default SANA-0.6B 512px ones: ratio "1.0",
+    latents [16, 16, 32] fp32, caption embeddings [L_i, 2304] fp32 with L_i
+    spread over 100-500 tokens."""
+    from yat_tpu_torch.data.tar import TarShardWriter
+    rng = np.random.default_rng(seed)
+    ls = rng.permutation(np.linspace(*lengths, n).round().astype(int))
+    with TarShardWriter(path) as w:
+        for i, length in enumerate(ls):
+            w.write({"__key__": f"{i:06d}", "ratio": "1.0",
+                     "latent.npy": rng.standard_normal(latent,
+                                                       dtype=np.float32),
+                     "emb.npy": rng.standard_normal((int(length), dim),
+                                                    dtype=np.float32)})
+
+
+def train_config(shard, out_dir, **extra):
+    """configs/sana_512_lora.yaml without what needs files (pretrained
+    weights, checkpoints, validation prompts, the TPU mesh) and without
+    caption dropout, for ``TRAIN_STEPS`` steps."""
+    cfg = {"local_shard_paths": [shard], "batch_size": "16",
+           "learning_rate": "1e-4", "steps": str(TRAIN_STEPS),
+           "warmup_steps": "2", "num_steps_per_validation": "500",
+           "validation_prompts": [], "bfloat16": "true", "use_ema": "true",
+           "gradient_accumulation_steps": "1",
+           "train_unconditional_prob": "0", "lora_rank": "8",
+           "lora_alpha": "8", "lora_algo": "lora",
+           "lora_target_modules": LORA_TARGETS,
+           "caption_length_bucketing": "true", "output_dir": out_dir,
+           "dataset_seed": "0", **extra}
+    return cfg
+
+
+def phase_train(device, card, shard_args=None, cfg_extra=None):
+    """The training main path through the entry point; returns the launch
+    counts of its run.  ``shard_args``/``cfg_extra`` shrink it for a
+    rehearsal on the CPU."""
+    import torch
+    import yaml
+
+    from yat_tpu_torch.adapters.builder import adapted_modules, lora_parameters
+    from yat_tpu_torch.adapters.io import read_safetensors
+    from yat_tpu_torch.frontends.sana import main as train_main
+    from yat_tpu_torch.kernels.build import launch_counts, reset_launch_counts
+    from yat_tpu_torch.train.step import loss_and_grads
+
+    cuda = device.type == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        shard = os.path.join(tmp, "shard-000000.tar")
+        t0 = time.perf_counter()
+        write_train_shard(shard, **(shard_args or {}))
+        cfg = {k: v for k, v in train_config(
+            shard, os.path.join(tmp, "out"), **(cfg_extra or {})).items()
+            if v is not None}              # None drops a key
+        cfg_path = os.path.join(tmp, "config.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        log(f"train: wrote a {os.path.getsize(shard) / 1e6:.1f} MB feature "
+            f"shard in {time.perf_counter() - t0:.1f} s")
+
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        # main path: the entry point, as a user runs it
+        t0 = time.perf_counter()
+        trainer = train_main(["--config", cfg_path, "--device", device.type])
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+
+        steps = int(cfg["steps"])
+        hist = trainer.history
+        model = trainer.model
+        adapted = adapted_modules(model)
+        for h in hist:
+            log(f"train: step {h['step']} caption rung {h['caption_len']} "
+                f"loss {h['loss']:.6f} grad_norm {h['grad_norm']:.4f} "
+                f"lr {h['lr']:.3g}")
+        if len(hist) != steps or not all(
+                math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                for h in hist):
+            fail(f"train: expected {steps} finite losses, got {hist}")
+        if hist[0]["lr"] != 0.0 or hist[1]["lr"] <= 0.0:
+            fail("train: warmup should give lr 0 on the first update only")
+        cfg_model = trainer.sana_config
+        # to_q/to_k/to_v/to_out of attn1 and attn2 in every block: 224
+        if len(adapted) != 8 * cfg_model.num_layers:
+            fail(f"train: {len(adapted)} adapted modules, expected "
+                 f"{8 * cfg_model.num_layers}")
+        zero_b = [".".join(p) for p, m in adapted
+                  if not bool((m.lora_b != 0).any())]
+        if zero_b:
+            fail(f"train: lora_b still zero after the updates: {zero_b[:4]}")
+        path = os.path.join(cfg["output_dir"], str(steps),
+                            "adapter_model.safetensors")
+        tensors, meta = read_safetensors(path)
+        if len(tensors) != 2 * len(adapted) or "yat_meta" not in meta:
+            fail(f"train: adapter file holds {len(tensors)} tensors, "
+                 f"expected {2 * len(adapted)}")
+        for name, p in lora_parameters(model):
+            dotted, leaf = name.rsplit(".", 1)
+            key = (f"base_model.model.{dotted}."
+                   f"{'lora_A' if leaf == 'lora_a' else 'lora_B'}.weight")
+            if not np.array_equal(tensors[key],
+                                  p.detach().float().cpu().numpy().T):
+                fail(f"train: exported {key} differs from the live leaf")
+        log(f"train: {len(adapted)} adapted modules; adapter export "
+            f"{os.path.basename(path)} holds {len(tensors)} tensors")
+
+        n_layers = cfg_model.num_layers
+        n_soft = len(cfg_model.softmax_self_attn_blocks)
+        # launches per step; the first norm of block 0 gets no backward:
+        # its input and modulation come from the frozen patch and timestep
+        # embeddings, so no trainable leaf lies upstream of it
+        per_step = {"adaln_layernorm": 2 * n_layers + 1,
+                    "dot_product_attention": n_layers + n_soft,
+                    "linear_attention": n_layers - n_soft,
+                    "adaln_layernorm_bwd": 2 * n_layers,
+                    "dot_product_attention_bwd": n_layers + n_soft}
+        # launches inside the blocks, which remat runs twice
+        in_blocks = {"adaln_layernorm": 2 * n_layers,
+                     "dot_product_attention": n_layers + n_soft,
+                     "linear_attention": n_layers - n_soft}
+        for name, n in per_step.items():
+            want = n * steps if cuda else 0
+            log(f"train: {name} launches {counts[name]} (expected {n} per "
+                f"step x {steps} steps = {want})")
+            if counts[name] != want:
+                fail(f"train: {name}: {counts[name]} launches, expected "
+                     f"{want}")
+        times = trainer._step_times[1:]
+        step_s = sum(times) / len(times)
+        log(f"train [{card}]: {steps} steps in {wall:.2f} s through the "
+            f"entry point (shard read included); steps 2-{steps}: "
+            f"{step_s:.4f} s a step, {1 / step_s:.3f} steps/s, "
+            f"{trainer.params.batch_size / step_s:.2f} images/s; first "
+            f"step {trainer._step_times[0]:.3f} s; peak device memory "
+            f"{peak / 2**30:.2f} GiB")
+
+        # one more step with remat (low_vram), on one batch and one set of
+        # draws, against the step without: the same loss and gradients
+        gen = torch.Generator(device=device).manual_seed(5)
+        b, rung = trainer.params.batch_size, cfg_model.max_caption_len
+        lat_dtype = torch.bfloat16 if trainer.params.bfloat16 else torch.float32
+        batch = {
+            "latents": torch.randn((b, cfg_model.sample_size,
+                                    cfg_model.sample_size,
+                                    cfg_model.in_channels), generator=gen,
+                                   device=device).to(lat_dtype),
+            "embeddings": torch.randn((b, rung, cfg_model.caption_channels),
+                                      generator=gen, device=device),
+            "text_mask": (torch.arange(rung, device=device)[None]
+                          < torch.tensor([rung - i * rung // (4 * b)
+                                          for i in range(b)],
+                                         device=device)[:, None]
+                          ).to(torch.int32)}
+        ts, sig = trainer.schedule.training_draw(gen, b)
+        draws = {"timesteps": ts, "sigmas": sig,
+                 "noise": torch.randn(batch["latents"].shape, generator=gen,
+                                      device=device)}
+        leaves = [p for _, p in lora_parameters(model)]
+        runs = {}
+        for remat in (False, True):
+            model.gradient_checkpointing = remat
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            loss, grads = loss_and_grads(trainer.task_loss, leaves, batch,
+                                         gen, draws)
+            if cuda:
+                torch.cuda.synchronize()
+            runs[remat] = (loss, grads, launch_counts(),
+                           time.perf_counter() - t0,
+                           torch.cuda.max_memory_allocated() if cuda else 0)
+        model.gradient_checkpointing = False
+        (l0, g0, c0, t_0, m0), (l1, g1, c1, t_1, m1) = runs[False], runs[True]
+        same = bool(torch.equal(l0, l1)) and all(
+            bool(torch.equal(a, c)) for a, c in zip(g0, g1))
+        worst = max(float((a.float() - c.float()).abs().max()) for a, c in
+                    zip(g0, g1))
+        log(f"train: remat step loss {float(l1):.6f} vs {float(l0):.6f}, "
+            f"largest gradient difference {worst:.3e}: "
+            f"{'bit-identical' if same else 'DIFFERENT'}; forward launches "
+            f"{c1['adaln_layernorm']}/{c1['dot_product_attention']}/"
+            f"{c1['linear_attention']} vs {c0['adaln_layernorm']}/"
+            f"{c0['dot_product_attention']}/{c0['linear_attention']}, "
+            f"backward {c1['adaln_layernorm_bwd']}/"
+            f"{c1['dot_product_attention_bwd']}")
+        log(f"train [{card}]: loss and gradients of one step at rung {rung}: "
+            f"{t_0:.3f} s and peak {m0 / 2**30:.2f} GiB without remat, "
+            f"{t_1:.3f} s and peak {m1 / 2**30:.2f} GiB with remat")
+        if not same:
+            fail("train: the remat step's loss or gradients differ")
+        for name, n in in_blocks.items():
+            want = c0[name] + (n if cuda else 0)
+            if c1[name] != want:
+                fail(f"train: remat forward launches of {name}: {c1[name]},"
+                     f" expected {want}")
+        for name in ("adaln_layernorm_bwd", "dot_product_attention_bwd"):
+            if c1[name] != c0[name]:
+                fail(f"train: remat backward launches of {name} changed")
+        if cuda:
+            profile_run(f"one training step at rung {rung}",
+                        lambda: trainer._step_fn(batch, gen, draws), card)
+    return {name: counts[name] for name in per_step}
+
+
 def main() -> None:
     card = phase_device()
     import torch
@@ -530,19 +944,32 @@ def main() -> None:
     phase_build()
     kernels = phase_kernels(device)
     phase_reference(device)
-    counts = phase_serve(serve_params(), device, card, profile=True)
+    phase_grad_reference(device)
+    serve_counts = phase_serve(serve_params(), device, card, profile=True)
+    torch.cuda.empty_cache()
+    train_counts = phase_train(device, card)
 
     rows = []
     meta = {"adaln_layernorm": ("yat_tpu_torch/csrc/adaln.cu",
                                 "yat_tpu/ops/norm.py:111"),
+            "adaln_layernorm_bwd": ("yat_tpu_torch/csrc/adaln.cu",
+                                    "yat_tpu/ops/norm.py:132"),
             "dot_product_attention": ("yat_tpu_torch/csrc/softmax_attention.cu",
                                       "yat_tpu/ops/attention.py:311"),
+            "dot_product_attention_bwd": (
+                "yat_tpu_torch/csrc/softmax_attention_bwd.cu",
+                "yat_tpu/ops/attention.py:334"),
             "linear_attention": ("yat_tpu_torch/csrc/linear_attention.cu",
                                  "yat_tpu/ops/attention.py:424")}
     for name, (source, replaces) in meta.items():
         k = kernels[name]
+        # launches: the serving path's run for the forward kernels (each
+        # also launches in the training run: launches_train), the training
+        # path's run for the backward kernels
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": counts[name],
+                     "replaces": replaces,
+                     "launches": serve_counts.get(name, train_counts[name]),
+                     "launches_train": train_counts[name],
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"],

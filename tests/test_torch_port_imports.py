@@ -38,7 +38,11 @@ def imported_modules(path: Path):
 def test_scan_covers_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
     assert {"yat_tpu_torch/models/sana.py", "yat_tpu_torch/serve.py",
-            "chip_smoke.py"} <= names
+            "yat_tpu_torch/adapters/builder.py", "yat_tpu_torch/adapters/io.py",
+            "yat_tpu_torch/train/engine.py", "yat_tpu_torch/train/step.py",
+            "yat_tpu_torch/data/tar.py", "yat_tpu_torch/data/sampler.py",
+            "yat_tpu_torch/utils/logging.py",
+            "yat_tpu_torch/parallel/multihost.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,

@@ -26,7 +26,7 @@ def test_build_flags_and_library_names():
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
     names = {k.source for k in KB.KERNELS.values()}
     assert names == {"adaln.cu", "softmax_attention.cu",
-                     "linear_attention.cu"}
+                     "softmax_attention_bwd.cu", "linear_attention.cu"}
     for src in names:
         p = KB.library_path(src)
         assert p.parent == KB.BUILD_DIR and p.name.endswith(".so")
@@ -123,4 +123,99 @@ def test_card_linear_attention_kernel(cuda, dtype, b, n, h, d):
     out = TA.linear_attention(q, k, v)
     torch.cuda.synchronize()
     assert TA.LINEAR_ATTENTION.launches == before + 1
-    _close(out, TA.linear_attention_ref(q, k, v))
+    # n < 4096: the JAX einsum branch's numerics, the state rounded
+    _close(out, TA.linear_attention_ref(q, k, v, round_kv=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_card_linear_attention_fp32_state(cuda, dtype):
+    """implementation='pallas' keeps the state in fp32 (the Pallas math)."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn((2, 100, 36, 32), generator=g,
+                           device=cuda).to(dtype) for _ in range(3))
+    out = TA.linear_attention(q, k, v, implementation="pallas")
+    torch.cuda.synchronize()
+    _close(out, TA.linear_attention_ref(q, k, v, round_kv=False))
+
+
+# backward kernels: |kernel - plain| <= atol + rtol*|plain|; bf16 one
+# rounding step where the fp32 sums run in another order; fp32 reduction
+# order only (K1b 1e-4, K2b 2e-4)
+BWD_TOL = {"adaln": {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-4)},
+           "attention": {torch.bfloat16: (2e-2, 2e-2),
+                         torch.float32: (2e-4, 2e-4)}}
+
+
+def _close_bwd(kind, got, want):
+    atol, rtol = BWD_TOL[kind][want.dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(16, 256, 1152), (1, 100, 1152)])
+def test_card_adaln_bwd_kernel(cuda, dtype, shape):
+    b, n, d = shape
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    sc = (0.1 * torch.randn((b, 1, d), generator=g, device=cuda)).to(dtype)
+    sh = (0.1 * torch.randn((b, 1, d), generator=g, device=cuda)).to(dtype)
+    gy = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    xs, scs, shs = (t.clone().requires_grad_() for t in (x, sc, sh))
+    before = TN.ADALN_BWD.launches
+    out = TN.adaln_layernorm(xs, scs, shs)
+    assert out.grad_fn is not None
+    out.backward(gy)
+    torch.cuda.synchronize()
+    assert TN.ADALN_BWD.launches == before + 1
+    want = TN.adaln_bwd_ref(x, sc[:, 0], gy)
+    for got, w in zip((xs.grad, scs.grad[:, 0], shs.grad[:, 0]), want):
+        _close_bwd("adaln", got, w)
+    # deterministic: the same inputs give the same bits
+    again = TN._adaln_bwd_cuda(x, sc[:, 0].contiguous(), gy, 1e-6)
+    first = TN._adaln_bwd_cuda(x, sc[:, 0].contiguous(), gy, 1e-6)
+    for a, c in zip(again, first):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,nq,nk,h,d", [(16, 256, 512, 16, 72),
+                                         (16, 256, 128, 16, 72),
+                                         (4, 100, 300, 16, 72),
+                                         (2, 64, 16, 2, 32)])
+def test_card_attention_bwd_kernel(cuda, dtype, b, nq, nk, h, d):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, gy = (torch.randn(s, generator=g, device=cuda).to(dtype)
+                   for s in ((b, nq, h, d), (b, nk, h, d), (b, nk, h, d),
+                             (b, nq, h, d)))
+    keep = torch.linspace(1, nk, b, device=cuda).round()
+    mask = (torch.arange(nk, device=cuda)[None] < keep[:, None]).int()
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    before = TA.SOFTMAX_ATTENTION_BWD.launches
+    out = TA.dot_product_attention(qs, ks, vs, mask=mask)
+    assert out.grad_fn is not None
+    out.backward(gy)
+    torch.cuda.synchronize()
+    assert TA.SOFTMAX_ATTENTION_BWD.launches == before + 1
+    want = TA.attention_bwd_ref(q, k, v, TA._key_bias(mask, b), gy)
+    for got, w in zip((qs.grad, ks.grad, vs.grad), want):
+        _close_bwd("attention", got, w)
+
+
+@pytest.mark.gpu
+def test_card_linear_attention_grad_is_a_plain_recompute(cuda):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v, gy = (torch.randn((2, 100, 36, 32), generator=g,
+                               device=cuda) for _ in range(4))
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    out = TA.linear_attention(qs, ks, vs)
+    assert out.grad_fn is not None
+    out.backward(gy)
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    TA.linear_attention_ref(qr, kr, vr, round_kv=True).backward(gy)
+    for got, w in zip((qs.grad, ks.grad, vs.grad),
+                      (qr.grad, kr.grad, vr.grad)):
+        torch.testing.assert_close(got, w, atol=1e-5, rtol=1e-5)

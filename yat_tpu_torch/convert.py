@@ -16,6 +16,11 @@ Flax names a repeated submodule ``blocks_3``; where the port holds such
 modules in an ``nn.ModuleList`` named ``blocks``, ``blocks_3`` resolves to
 ``blocks[3]``.  Every parameter of ``module`` must be covered by the tree
 and every leaf of the tree must land, else it raises.
+
+``load_flax_adapters(module, adapters, meta)`` does the same for the JAX
+package's LoRA trees (``adapters``/``adapters_meta`` of its train state):
+each ``{"lora_a", "lora_b"}`` leaf set is attached to the ``AdapterDense``
+at its path, with its scale and dropout rate, and the base is frozen.
 """
 
 from __future__ import annotations
@@ -83,3 +88,43 @@ def load_flax_params(module: nn.Module, tree: Mapping) -> None:
     if missing:
         raise KeyError(f"parameters not in the tree: {missing[:8]}"
                        f"{' ...' if len(missing) > 8 else ''}")
+
+
+def load_flax_adapters(module: nn.Module, adapters: Mapping,
+                       meta: Mapping) -> int:
+    """Attach the JAX package's LoRA leaves (nested dicts of numpy arrays,
+    ``lora_a`` ``[in, r]``, ``lora_b`` ``[r, out]``) and their
+    ``lora_scale``/``lora_dropout`` to the matching ``AdapterDense`` modules
+    of ``module``, on its device, in fp32; freeze every other parameter.
+    Returns the number of adapted modules."""
+    from yat_tpu_torch.adapters.builder import freeze_base
+    from yat_tpu_torch.models.layers import AdapterDense
+
+    count = 0
+
+    def walk(mod: nn.Module, node: Mapping, mnode: Mapping, prefix: str):
+        nonlocal count
+        if "lora_a" in node:
+            if not isinstance(mod, AdapterDense):
+                raise KeyError(f"{prefix}: LoRA leaves on a "
+                               f"{type(mod).__name__}, not an AdapterDense")
+            extra = set(node) - {"lora_a", "lora_b"}
+            if extra:
+                raise NotImplementedError(
+                    f"{prefix}: adapter leaves {sorted(extra)} are not "
+                    "ported (LoRA only)")
+            dev = mod.weight.device
+            mod.attach_lora(
+                torch.tensor(np.asarray(node["lora_a"], np.float32), device=dev),
+                torch.tensor(np.asarray(node["lora_b"], np.float32), device=dev),
+                float(np.asarray(mnode["lora_scale"])),
+                float(np.asarray(mnode.get("lora_dropout", 0.0))))
+            count += 1
+            return
+        for key, val in node.items():
+            path = f"{prefix}{key}"
+            walk(_child(mod, key, path), val, mnode[key], path + "/")
+
+    walk(module, adapters, meta, "")
+    freeze_base(module)
+    return count

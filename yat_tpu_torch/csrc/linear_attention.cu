@@ -14,9 +14,13 @@
 //   * the [D, D] state relu(k)^T v and the [D] key sum stay in shared
 //     memory in fp32, accumulated over 32-row tiles of k and v;
 //   * products run on the CUDA cores in fp32.
-// Numerics follow the plain version (ops/attention.py:linear_attention_ref,
-// the math of yat_tpu/ops/attention.py:_reference_linatt): fp32 throughout,
-// output rounded to the storage type once.
+// Numerics follow the plain version (ops/attention.py:linear_attention_ref):
+// fp32 throughout, output rounded to the storage type once.  With round_kv
+// set, the [D, D] state is rounded to the storage type before the second
+// product, as the JAX package's einsum branch does
+// (yat_tpu/ops/attention.py:498, kv.astype(q.dtype)); the key sum and the
+// denominator stay fp32.  Without it the math is that of the Pallas kernel
+// (_reference_linatt, an fp32 state).
 #include "common.cuh"
 
 namespace {
@@ -50,7 +54,7 @@ __global__ void __launch_bounds__(kThreads)
 linear_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, T* __restrict__ out,
                             int n, int d, Strides qs, Strides ks, Strides vs,
-                            Strides os, float eps) {
+                            Strides os, float eps, int round_kv) {
   __shared__ float a_t[kBN * kMaxD];     // relu(k) tiles, then relu(q)
   __shared__ float v_t[kBN * kMaxD];
   __shared__ float kv[kMaxD * kMaxD];
@@ -89,7 +93,7 @@ linear_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < kMaxState; ++r) {
     const int idx = tid + r * kThreads;
-    if (idx < n_state) kv[idx] = acc[r];
+    if (idx < n_state) kv[idx] = round_kv ? yat::rnd<T>(acc[r]) : acc[r];
   }
   if (tid < d) ksum[tid] = ks_acc;
 
@@ -124,12 +128,13 @@ linear_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int b, int n, int h, int d, Strides qs, Strides ks,
-                   Strides vs, Strides os, float eps, cudaStream_t stream) {
+                   Strides vs, Strides os, float eps, int round_kv,
+                   cudaStream_t stream) {
   const dim3 grid(h, b);
   linear_attention_fwd_kernel<T><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), n, d, qs, ks, vs, os,
-      eps);
+      eps, round_kv);
   return cudaGetLastError();
 }
 
@@ -137,21 +142,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 extern "C" int yat_linear_attention_max_head_dim() { return kMaxD; }
 
-// q/k/v/out [B, N, H, D], each with strides (b, n, h, 1).
+// q/k/v/out [B, N, H, D], each with strides (b, n, h, 1); round_kv: 1 to
+// round the state to the storage type before the second product.
 extern "C" int yat_linear_attention_fwd(
     const void* q, const void* k, const void* v, void* out, int b, int n,
     int h, int d, long long q_sb, long long q_sn, long long q_sh,
     long long k_sb, long long k_sn, long long k_sh, long long v_sb,
     long long v_sn, long long v_sh, long long o_sb, long long o_sn,
-    long long o_sh, float eps, int dtype, void* stream) {
+    long long o_sh, float eps, int round_kv, int dtype, void* stream) {
   if (d > kMaxD || d < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides qs{q_sb, q_sn, q_sh}, ks{k_sb, k_sn, k_sh},
       vs{v_sb, v_sn, v_sh}, os{o_sb, o_sn, o_sh};
   if (dtype == yat::kFloat32)
-    return launch<float>(q, k, v, out, b, n, h, d, qs, ks, vs, os, eps, s);
+    return launch<float>(q, k, v, out, b, n, h, d, qs, ks, vs, os, eps,
+                         round_kv, s);
   if (dtype == yat::kBFloat16)
     return launch<__nv_bfloat16>(q, k, v, out, b, n, h, d, qs, ks, vs, os,
-                                 eps, s);
+                                 eps, round_kv, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,11 +1,14 @@
-"""SANA frontend: config → denoiser, encoders, decoder and sampling pipeline.
+"""SANA frontend: config → denoiser, encoders, decoder, trainer, pipeline.
 
-Counterpart of the serving half of ``yat_tpu/frontends/sana.py``:
-``make_pipeline`` takes the place of ``make_trainer`` until the trainer is
-ported.  The repository holds no SANA, Gemma-2 or DC-AE weights, so the
-modules are initialised at random from ``dataset_seed`` (as the JAX
-frontend does without ``pretrained_pipe_path``), or loaded from JAX
-parameter trees through ``convert.load_flax_params``.
+Counterpart of ``yat_tpu/frontends/sana.py``: ``make_trainer`` wires the
+LoRA training path (flow-matching loss, local feature shards, validation
+when prompts are configured) and ``make_pipeline`` the serving path.  The
+repository holds no SANA, Gemma-2 or DC-AE weights, so the modules are
+initialised at random from ``dataset_seed`` (as the JAX frontend does
+without ``pretrained_pipe_path``), or loaded from JAX parameter trees
+through ``convert.load_flax_params``.
+
+    python -m yat_tpu_torch.frontends.sana --config cfg.yaml [--device cpu]
 """
 
 from __future__ import annotations
@@ -18,7 +21,12 @@ from yat_tpu_torch.config import TrainingParameters
 from yat_tpu_torch.convert import load_flax_params
 from yat_tpu_torch.data.sampler import pad_embeddings
 from yat_tpu_torch.device import resolve_device
-from yat_tpu_torch.frontends.common import override_config, slice_caption_rung
+from yat_tpu_torch.frontends.common import (
+    build_feature_sampler,
+    cli_main,
+    override_config,
+    slice_caption_rung,
+)
 from yat_tpu_torch.models.layers import init_params
 from yat_tpu_torch.models.sana import (
     SANA_600M,
@@ -27,6 +35,8 @@ from yat_tpu_torch.models.sana import (
     SanaTransformer2D,
 )
 from yat_tpu_torch.ops.schedulers import FlowMatchSchedule
+from yat_tpu_torch.train.engine import Trainer
+from yat_tpu_torch.train.tasks import make_flow_matching_loss
 from yat_tpu_torch.train.validation import ValidationPipeline, enhance_prompt
 
 PRESETS = {"600M": SANA_600M, "1600M": SANA_1600M}
@@ -148,3 +158,71 @@ def make_pipeline(params: TrainingParameters, device=None,
         decode_latents=decode_latents,
         guidance_scale=5.0, num_steps=20,
         prompt_transform=enhance_prompt, params=params, device=device)
+
+
+def build_sampler(params: TrainingParameters, cfg: SanaConfig):
+    """The pre-extracted feature-shard sampler (local shards)."""
+    if params.dreambooth_dataset_folder:
+        raise NotImplementedError(
+            "Dreambooth sampling is not implemented in the PyTorch port yet "
+            "(ROADMAP queue 1, item 8)")
+    sampler = build_feature_sampler(params, cfg.max_caption_len)
+    if sampler is None:
+        raise ValueError("need local_shard_paths")
+    return sampler
+
+
+def make_trainer(params: TrainingParameters, sampler=None, device=None,
+                 weights: Optional[Mapping] = None) -> Trainer:
+    """The SANA LoRA trainer: the denoiser (bf16 compute and a bf16 frozen
+    base when ``bfloat16`` is set, remat under ``low_vram``), the
+    flow-matching loss at shift 3.0, the local feature-shard sampler, and
+    with ``validation_prompts`` the Gemma-2 encoder (its empty caption feeds
+    unconditional-caption dropout), the DC-AE decoder and the 20-step CFG
+    5.0 validation pipeline on the live model.  ``device`` defaults to
+    ``cuda``; ``weights`` may hold JAX parameter trees as for
+    :func:`make_pipeline`."""
+    device = resolve_device(device)
+    cfg = build_sana_config(params)
+    dtype = torch.bfloat16 if params.bfloat16 else torch.float32
+    weights = weights or {}
+    model = _build(lambda: SanaTransformer2D(
+        cfg, dtype=dtype, gradient_checkpointing=params.low_vram),
+        device, weights.get("transformer"), params.dataset_seed,
+        dtype if params.bfloat16 else None)
+    schedule = FlowMatchSchedule(shift=3.0)
+    loss = make_flow_matching_loss(model, schedule,
+                                   timestep_list=params.timesteps or None)
+    if sampler is None:
+        sampler = build_sampler(params, cfg)
+    trainer = Trainer(params, model, loss, sampler=sampler, device=device)
+    trainer.sana_config = cfg
+    trainer.schedule = schedule
+    if params.validation_prompts:
+        if params.timesteps:
+            raise NotImplementedError(
+                "validation with refiner timestep gating is not implemented "
+                "in the PyTorch port yet (ROADMAP queue 1, item 7)")
+        encode_captions, decode_latents = build_encoders(params, cfg, device,
+                                                         weights)
+        trainer.encode_captions = encode_captions
+        lat = cfg.sample_size
+        pipeline = ValidationPipeline(
+            model, schedule, latent_shape=(lat, lat, cfg.in_channels),
+            encode_prompts=lambda prompts: _prompt_batch(
+                encode_captions, prompts, cfg, device),
+            decode_latents=decode_latents, guidance_scale=5.0, num_steps=20,
+            prompt_transform=enhance_prompt, params=params, device=device)
+        trainer.validate_fn = lambda tr: pipeline(
+            list(params.validation_prompts))
+    return trainer
+
+
+def main(argv: Optional[list] = None):
+    """``python -m yat_tpu_torch.frontends.sana --config cfg.yaml
+    [--device cuda|cpu]``; returns the trainer after its run."""
+    return cli_main(make_trainer, argv)
+
+
+if __name__ == "__main__":
+    main()

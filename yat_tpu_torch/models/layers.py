@@ -10,6 +10,10 @@ while data stays in the compute dtype.
 
 Parameters are created uninitialised; :func:`init_params` fills them the
 way flax's initialisers do (or ``convert.load_flax_params`` loads them).
+LoRA adapters ride on :class:`AdapterDense` as parameters of their own
+(``adapters/builder.py`` attaches them); the modules that the JAX package
+calls with ``deterministic`` take it too, and pass it to their dense layers
+(it gates LoRA dropout).
 """
 
 from __future__ import annotations
@@ -33,10 +37,53 @@ def _lecun_normal_(t: torch.Tensor, fan_in: int, gen: torch.Generator):
     nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
 
 
+def _round_scalar(v: float, dtype: torch.dtype) -> float:
+    """A Python float rounded to ``dtype`` (the JAX ``scale.astype(dtype)``)."""
+    return float(torch.tensor(v, dtype=torch.float32).to(dtype))
+
+
+class _LoraMerged(torch.autograd.Function):
+    """``y = x @ (W + s·A@B)`` with the chain backward of
+    ``yat_tpu/models/layers.py:_lora_merged_matmul``: ``dA = s·xᵀ(g·Bᵀ)``
+    and ``dB = s·(x·A)ᵀ·g``; no full ``dW_eff`` is formed.  The residuals
+    are the raw leaves and the backward merges again.  ``w`` is the torch
+    ``[out, in]`` weight, ``a`` is ``[in, r]`` and ``b`` is ``[r, out]``,
+    all in the compute dtype; ``s`` is a float."""
+
+    @staticmethod
+    def forward(ctx, x, w, a, b, s):
+        ctx.s = s
+        ctx.save_for_backward(x, w, a, b)
+        return F.linear(x, w + s * (a @ b).t())
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, a, b = ctx.saved_tensors
+        s = ctx.s
+        x2 = x.reshape(-1, x.shape[-1])
+        g2 = g.reshape(-1, g.shape[-1])
+        dx = (g @ (w + s * (a @ b).t())) if ctx.needs_input_grad[0] else None
+        dw = (g2.t() @ x2) if ctx.needs_input_grad[1] else None
+        da = s * (x2.t() @ (g2 @ b.t())) if ctx.needs_input_grad[2] else None
+        db = s * ((x2 @ a).t() @ g2) if ctx.needs_input_grad[3] else None
+        return dx, dw, da, db, None
+
+
 class AdapterDense(nn.Module):
-    """Dense layer ``y = x @ W + b`` in the compute dtype (the plain branch
-    of ``yat_tpu/models/layers.py:AdapterDense``; adapters wait for the
-    trainer's slice).  ``dtype=None`` computes in the input's dtype."""
+    """Dense layer ``y = x @ W + b`` in the compute dtype, with an optional
+    LoRA adapter (counterpart of ``yat_tpu/models/layers.py:AdapterDense``,
+    LoRA branch).  ``dtype=None`` computes in the input's dtype.
+
+    :meth:`attach_lora` adds the trainable leaves ``lora_a`` ``[in, r]`` and
+    ``lora_b`` ``[r, out]`` (the JAX orientation) as parameters, with the
+    scale and dropout rate.  The forward then takes the merged form
+    ``x @ (W + s·A@B)`` (:class:`_LoraMerged`) when ``lora_merged`` is set
+    (the ``lora_fused_matmul`` key), else the chain form
+    ``x@W + s·((x@A)@B)``; with LoRA dropout active (``deterministic``
+    false, a rate above 0 and a ``dropout_seed``) it always takes the chain
+    form, dropping inputs of the adapter branch only.  The mask comes from a
+    ``torch.Generator`` seeded with ``dropout_seed``, so a recomputation
+    under remat draws the same mask."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  dtype: Optional[torch.dtype] = None):
@@ -44,15 +91,59 @@ class AdapterDense(nn.Module):
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(features, in_features))
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
+        self.lora_a: Optional[nn.Parameter] = None
+        self.lora_b: Optional[nn.Parameter] = None
+        self.lora_scale = 1.0
+        self.lora_dropout = 0.0
+        self.lora_merged = True
+        self.dropout_seed: Optional[int] = None
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         _lecun_normal_(self.weight.data, self.weight.shape[1], gen)
         if self.bias is not None:
             self.bias.data.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def attach_lora(self, lora_a: torch.Tensor, lora_b: torch.Tensor,
+                    scale: float, dropout: float = 0.0) -> None:
+        """Add (or replace) the LoRA leaves; they train, the base does
+        not."""
+        d_in, d_out = self.weight.shape[1], self.weight.shape[0]
+        if lora_a.shape[0] != d_in or lora_b.shape[1] != d_out \
+                or lora_a.shape[1] != lora_b.shape[0]:
+            raise ValueError(f"LoRA leaves {tuple(lora_a.shape)} / "
+                             f"{tuple(lora_b.shape)} do not fit a "
+                             f"[{d_in} -> {d_out}] layer")
+        self.lora_a = nn.Parameter(lora_a)
+        self.lora_b = nn.Parameter(lora_b)
+        self.lora_scale = float(scale)
+        self.lora_dropout = float(dropout)
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True
+                ) -> torch.Tensor:
         dtype = self.dtype or x.dtype
-        y = F.linear(x.to(dtype), self.weight.to(dtype))
+        x = x.to(dtype)
+        w = self.weight.to(dtype)
+        if self.lora_a is None:
+            y = F.linear(x, w)
+        else:
+            a = self.lora_a.to(dtype)
+            b = self.lora_b.to(dtype)
+            s = _round_scalar(self.lora_scale, dtype)
+            dropout = (self.lora_dropout > 0.0 and not deterministic
+                       and self.dropout_seed is not None)
+            if self.lora_merged and not dropout:
+                y = _LoraMerged.apply(x, w, a, b, s)
+            else:
+                xa = x
+                if dropout:
+                    keep_p = 1.0 - self.lora_dropout
+                    gen = torch.Generator(device=x.device).manual_seed(
+                        self.dropout_seed)
+                    keep = torch.rand(x.shape, generator=gen,
+                                      device=x.device) < keep_p
+                    xa = torch.where(keep, x / _round_scalar(keep_p, dtype),
+                                     torch.zeros_like(x))
+                y = F.linear(x, w) + s * ((xa @ a) @ b)
         if self.bias is not None:
             y = y + self.bias.to(dtype)
         return y
@@ -249,9 +340,9 @@ class Attention(nn.Module):
         self.to_out = AdapterDense(inner, out_features or query_dim, out_bias,
                                    dtype)
 
-    def project_kv(self, context: torch.Tensor):
-        k = self.to_k(context)
-        v = self.to_v(context)
+    def project_kv(self, context: torch.Tensor, deterministic: bool = True):
+        k = self.to_k(context, deterministic)
+        v = self.to_v(context, deterministic)
         if self.qk_norm == "rms_norm_across_heads":
             k = self.norm_k(k)
         b, nk = k.shape[0], k.shape[1]
@@ -263,14 +354,16 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None, *,
-                cached_kv: Optional[tuple] = None, return_kv: bool = False):
+                cached_kv: Optional[tuple] = None, return_kv: bool = False,
+                deterministic: bool = True):
         if cached_kv is not None and not return_kv:
             k, v = cached_kv
         else:
-            k, v = self.project_kv(x if context is None else context)
+            k, v = self.project_kv(x if context is None else context,
+                                   deterministic)
         if return_kv:
             return k, v
-        q = self.to_q(x)
+        q = self.to_q(x, deterministic)
         b, nq = q.shape[0], q.shape[1]
         if self.qk_norm == "rms_norm_across_heads":
             q = self.norm_q(q)
@@ -278,7 +371,8 @@ class Attention(nn.Module):
         if self.qk_norm in ("rms", "rms_norm"):
             q = self.norm_q(q)
         y = dot_product_attention(q, k, v, mask=mask)
-        return self.to_out(y.reshape(b, nq, self.num_heads * self.head_dim))
+        return self.to_out(y.reshape(b, nq, self.num_heads * self.head_dim),
+                           deterministic)
 
 
 class LiteLinearAttention(nn.Module):
@@ -298,9 +392,11 @@ class LiteLinearAttention(nn.Module):
         self.norm_q, self.norm_k = _qk_norm_modules(qk_norm, num_heads, head_dim)
         self.to_out = AdapterDense(inner, dim, True, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True
+                ) -> torch.Tensor:
         b, n, _ = x.shape
-        q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
+        q, k, v = (self.to_q(x, deterministic), self.to_k(x, deterministic),
+                   self.to_v(x, deterministic))
         if self.qk_norm == "rms_norm_across_heads":
             q, k = self.norm_q(q), self.norm_k(k)
         shape = (b, n, self.num_heads, self.head_dim)
@@ -308,7 +404,8 @@ class LiteLinearAttention(nn.Module):
         if self.qk_norm in ("rms", "rms_norm"):
             q, k = self.norm_q(q), self.norm_k(k)
         y = linear_attention(q, k, v, eps=self.eps).to(x.dtype)
-        return self.to_out(y.reshape(b, n, self.num_heads * self.head_dim))
+        return self.to_out(y.reshape(b, n, self.num_heads * self.head_dim),
+                           deterministic)
 
 
 class GLUMBConv(nn.Module):
@@ -325,13 +422,14 @@ class GLUMBConv(nn.Module):
                                  dtype=dtype or torch.float32)
         self.conv_point = AdapterDense(hidden, dim, False, dtype)
 
-    def forward(self, x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, hw: Tuple[int, int],
+                deterministic: bool = True) -> torch.Tensor:
         b, n, _ = x.shape
-        y = F.silu(self.conv_inverted(x))
+        y = F.silu(self.conv_inverted(x, deterministic))
         y = self.conv_depth(y.reshape(b, hw[0], hw[1], self.hidden * 2))
         y, gate = y.chunk(2, dim=-1)
         y = y * F.silu(gate)
-        return self.conv_point(y.reshape(b, n, self.hidden))
+        return self.conv_point(y.reshape(b, n, self.hidden), deterministic)
 
 
 class PatchEmbed(nn.Module):

@@ -6,10 +6,14 @@ softmax cross-attention over Gemma text embeddings → GLUMBConv gated conv
 FFN], AdaLN-single timestep conditioning (one shared 6-way modulation plus
 per-block learned tables) and an AdaLN-modulated output projection.
 
-Layout: latents are NHWC, tokens are [B, N, D].  The three kernels of the
-serving path run inside: K1 (adaLN LayerNorm, twice per block and once at
-the output), K2 (cross-attention, and the self-attention of blocks listed
-in ``softmax_self_attn_blocks``) and K3 (linear self-attention).
+Layout: latents are NHWC, tokens are [B, N, D].  Three kernels run
+inside, forward and backward: K1/K1b (adaLN LayerNorm, twice per block and
+once at the output), K2/K2b (cross-attention, and the self-attention of
+blocks listed in ``softmax_self_attn_blocks``) and K3 (linear
+self-attention; its backward is a plain recompute).  With
+``gradient_checkpointing`` each block runs under
+``torch.utils.checkpoint`` (the JAX ``nn.remat``): its forward runs again
+in the backward, so the forward kernels launch twice per block.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from yat_tpu_torch.models.layers import (
@@ -93,22 +98,22 @@ class SanaBlock(nn.Module):
                         generator=gen)
 
     def forward(self, x, cond_emb, text_emb, text_mask, hw: Tuple[int, int],
-                ctx_kv=None):
+                ctx_kv=None, deterministic: bool = True):
         mod = self.scale_shift_table[None] + cond_emb          # [B, 6, D]
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = [
             mod[:, i][:, None, :].to(x.dtype) for i in range(6)]
 
         # 1) self-attention: linear by default, softmax for listed blocks
         h = adaln_layernorm(x, scale_msa, shift_msa)
-        x = x + gate_msa * self.attn1(h)
+        x = x + gate_msa * self.attn1(h, deterministic=deterministic)
 
         # 2) softmax cross-attention on the caption tokens
         x = x + self.attn2(x, context=text_emb, mask=text_mask,
-                           cached_kv=ctx_kv)
+                           cached_kv=ctx_kv, deterministic=deterministic)
 
         # 3) gated conv FFN
         h = adaln_layernorm(x, scale_mlp, shift_mlp)
-        return x + gate_mlp * self.ff(h, hw)
+        return x + gate_mlp * self.ff(h, hw, deterministic)
 
 
 class SanaTransformer2D(nn.Module):
@@ -120,10 +125,12 @@ class SanaTransformer2D(nn.Module):
     supports_context_cache = True
 
     def __init__(self, cfg: SanaConfig = SanaConfig(),
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 gradient_checkpointing: bool = False):
         super().__init__()
         c = cfg
         self.cfg, self.dtype = cfg, dtype
+        self.gradient_checkpointing = gradient_checkpointing
         p = c.patch_size
         self.patch_embed = PatchEmbed(c.in_channels, c.hidden_dim,
                                       patch_size=p, dtype=dtype)
@@ -149,7 +156,7 @@ class SanaTransformer2D(nn.Module):
                 timesteps: Optional[torch.Tensor],
                 text_mask: Optional[torch.Tensor] = None, *,
                 cached_ctx_kv: Optional[tuple] = None,
-                return_ctx_kv: bool = False):
+                return_ctx_kv: bool = False, deterministic: bool = True):
         c = self.cfg
         # caption projection into model width
         ctx = self.caption_norm(
@@ -169,15 +176,22 @@ class SanaTransformer2D(nn.Module):
         t_emb = self.time_embed(timesteps)
         cond = self.time_proj(F.silu(t_emb)).reshape(b, 6, c.hidden_dim)
 
+        remat = self.gradient_checkpointing and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            x = blk(x, cond, ctx, text_mask, grid_hw,
-                    cached_ctx_kv[i] if cached_ctx_kv is not None else None)
+            args = (x, cond, ctx, text_mask, grid_hw,
+                    cached_ctx_kv[i] if cached_ctx_kv is not None else None,
+                    deterministic)
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(blk, *args,
+                                                      use_reentrant=False)
+            else:
+                x = blk(*args)
 
         # output: AdaLN-modulated norm → projection to patch pixels
         out_mod = self.out_scale_shift_table[None] + t_emb[:, None, :]
         shift = out_mod[:, 0][:, None, :].to(x.dtype)
         scale = out_mod[:, 1][:, None, :].to(x.dtype)
-        x = self.proj_out(adaln_layernorm(x, scale, shift))
+        x = self.proj_out(adaln_layernorm(x, scale, shift), deterministic)
         return unpatchify(x, (h, w), p, c.out_channels)
 
 

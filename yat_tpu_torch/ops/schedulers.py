@@ -1,19 +1,46 @@
-"""Flow-matching noise schedule, the inference half.
+"""Flow-matching noise schedule and the training timestep density.
 
 Counterpart of ``yat_tpu/ops/schedulers.py:FlowMatchSchedule``
 (diffusers ``FlowMatchEulerDiscreteScheduler`` parity): sigmas are a
-shifted linear ramp, the model predicts the velocity ``eps - x``, and
-sampling integrates it with Euler steps.  The training draw waits for the
-trainer's slice of the port.
+shifted linear ramp, the noisy input is ``(1 - sigma) x + sigma eps``, the
+model predicts the velocity ``eps - x``, and sampling integrates it with
+Euler steps.  Training draws come from a ``torch.Generator``; they cannot
+reproduce ``jax.random``'s numbers, so tests hand both sides the same
+draws.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
+
+
+def _expand_to(x: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Right-pad trailing singleton dims so x broadcasts over a batch."""
+    return x.reshape(x.shape + (1,) * (ndim - x.ndim))
+
+
+def sample_timestep_density(gen: torch.Generator, batch_size: int,
+                            weighting_scheme: str = "logit_normal",
+                            logit_mean: float = 0.0, logit_std: float = 1.0,
+                            mode_scale: float = 1.29) -> torch.Tensor:
+    """Draw u in (0, 1) controlling which sigma each sample trains at
+    (diffusers ``compute_density_for_timestep_sampling``), fp32 on the
+    generator's device."""
+    dev = gen.device
+    if weighting_scheme == "logit_normal":
+        z = torch.randn((batch_size,), generator=gen, device=dev)
+        return torch.sigmoid(z * logit_std + logit_mean)
+    if weighting_scheme == "mode":
+        u = torch.rand((batch_size,), generator=gen, device=dev)
+        return 1.0 - u - mode_scale * (torch.cos(math.pi * u / 2.0) ** 2
+                                       - 1.0 + u)
+    if weighting_scheme == "uniform":
+        return torch.rand((batch_size,), generator=gen, device=dev)
+    raise ValueError(f"unknown weighting scheme {weighting_scheme!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,3 +90,38 @@ class FlowMatchSchedule:
         t = torch.linspace(1.0, 1.0 / n, num_steps, dtype=torch.float32)
         return torch.cat([self._shifted(t, mu),
                           torch.zeros((1,), dtype=torch.float32)])
+
+    def training_draw(self, gen: torch.Generator, batch_size: int,
+                      weighting_scheme: str = "logit_normal",
+                      logit_mean: float = 0.0, logit_std: float = 1.0,
+                      mode_scale: float = 1.29,
+                      timestep_list: Optional[Sequence[int]] = None,
+                      mu: Optional[float] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(timesteps, sigmas) for a training batch, fp32 on the generator's
+        device: the density → an index into the sigma table, or a uniform
+        choice from ``timestep_list`` (refiner mode)."""
+        n = self.num_train_timesteps
+        sig = self.sigmas(mu).to(gen.device)
+        if timestep_list:
+            choice = torch.randint(0, len(timestep_list), (batch_size,),
+                                   generator=gen, device=gen.device)
+            indices = torch.tensor(list(timestep_list),
+                                   device=gen.device)[choice]
+        else:
+            u = sample_timestep_density(gen, batch_size, weighting_scheme,
+                                        logit_mean, logit_std, mode_scale)
+            indices = (u * n).to(torch.int64)
+        sigmas = sig[indices.clamp(0, n - 1)]
+        return sigmas * n, sigmas
+
+    def add_noise(self, latents: torch.Tensor, noise: torch.Tensor,
+                  sigmas: torch.Tensor) -> torch.Tensor:
+        """x_sigma = (1 - sigma) x + sigma eps, in the latents' dtype."""
+        s = _expand_to(sigmas.to(latents.dtype), latents.ndim)
+        return (1.0 - s) * latents + s * noise
+
+    def velocity_target(self, latents: torch.Tensor, noise: torch.Tensor
+                        ) -> torch.Tensor:
+        """target = eps - x."""
+        return noise - latents
