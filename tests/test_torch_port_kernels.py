@@ -1,6 +1,7 @@
 """PyTorch port, the CUDA kernels (yat_tpu_torch/csrc, kernels/build.py):
 the build route on any machine, and on a card (``gpu`` marker) each kernel
-against its plain version at the serving shapes and at ragged shapes.
+against its plain version at the serving and training shapes and at
+ragged shapes.
 
 This file imports neither JAX nor the JAX package, so the card tests run
 on a machine without JAX, skipping tests/conftest.py (which sets JAX up):
@@ -80,7 +81,8 @@ def _close(got, want):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", [(8, 256, 1152), (1, 77, 96)])
+@pytest.mark.parametrize("shape", [(8, 256, 1152), (16, 256, 1152),
+                                   (1, 77, 96)])
 def test_card_adaln_kernel(cuda, dtype, shape):
     b, n, d = shape
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -97,6 +99,7 @@ def test_card_adaln_kernel(cuda, dtype, shape):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,nq,nk,h,d", [(8, 256, 512, 16, 72),
+                                         (16, 256, 512, 16, 72),
                                          (4, 100, 300, 16, 72),
                                          (2, 64, 16, 2, 32)])
 def test_card_attention_kernel(cuda, dtype, b, nq, nk, h, d):
@@ -114,7 +117,8 @@ def test_card_attention_kernel(cuda, dtype, b, nq, nk, h, d):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,n,h,d", [(8, 256, 36, 32), (2, 100, 36, 32)])
+@pytest.mark.parametrize("b,n,h,d", [(8, 256, 36, 32), (16, 256, 36, 32),
+                                     (2, 100, 36, 32)])
 def test_card_linear_attention_kernel(cuda, dtype, b, n, h, d):
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn((b, n, h, d), generator=g, device=cuda).to(dtype)
@@ -139,18 +143,40 @@ def test_card_linear_attention_fp32_state(cuda, dtype):
     _close(out, TA.linear_attention_ref(q, k, v, round_kv=False))
 
 
-# backward kernels: |kernel - plain| <= atol + rtol*|plain|; bf16 one
-# rounding step where the fp32 sums run in another order; fp32 reduction
-# order only (K1b 1e-4, K2b 2e-4)
-BWD_TOL = {"adaln": {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-4)},
-           "attention": {torch.bfloat16: (2e-2, 2e-2),
-                         torch.float32: (2e-4, 2e-4)}}
+# backward kernels, each output against the plain backward, with
+# chip_smoke.py's tolerance: bf16 one bf16 step of the element (rtol 2^-7)
+# plus 2^-8 of the output's largest magnitude; fp32 reduction order only
+# (K1b 1e-4, K2b 2e-4)
+def _close_bwd(name, got, want):
+    import chip_smoke
+    err, used, ok, tol = chip_smoke.compare(name, tuple(got), tuple(want))
+    assert ok, f"{name}: max_abs_err {err:.3e}, {used:.3f} of ({tol})"
 
 
-def _close_bwd(kind, got, want):
-    atol, rtol = BWD_TOL[kind][want.dtype]
-    torch.testing.assert_close(got.float(), want.float(), atol=atol,
-                               rtol=rtol)
+def _train_like(b, nq, nk, h, d, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, gy = (torch.randn(s, generator=g).to(dtype)
+                   for s in ((b, nq, h, d), (b, nk, h, d), (b, nk, h, d),
+                             (b, nq, h, d)))
+    keep = torch.linspace(100, 500, b).round()
+    bias = TA._key_bias((torch.arange(nk)[None] < keep[:, None]).int(), b)
+    return q, k, v, bias, gy
+
+
+def test_bwd_tolerance_catches_a_backward_without_the_row_term():
+    """The bf16 backward tolerance at the training shape (batch cut to 2):
+    the plain backward passes against itself and with every element moved
+    one bf16 step; a backward without rowsum(dP P) fails."""
+    import chip_smoke
+    name = "dot_product_attention_bwd"
+    args = _train_like(2, 256, 512, 16, 72, torch.bfloat16)
+    want = TA.attention_bwd_ref(*args)
+    _close_bwd(name, want, want)
+    step = tuple(torch.nextafter(w, torch.full_like(w, float("inf")))
+                 for w in want)
+    _close_bwd(name, step, want)
+    wrong = chip_smoke.attention_bwd_without_row_term(*args)
+    assert not chip_smoke.compare(name, wrong, want)[2]
 
 
 @pytest.mark.gpu
@@ -171,8 +197,8 @@ def test_card_adaln_bwd_kernel(cuda, dtype, shape):
     torch.cuda.synchronize()
     assert TN.ADALN_BWD.launches == before + 1
     want = TN.adaln_bwd_ref(x, sc[:, 0], gy)
-    for got, w in zip((xs.grad, scs.grad[:, 0], shs.grad[:, 0]), want):
-        _close_bwd("adaln", got, w)
+    _close_bwd("adaln_layernorm_bwd",
+               (xs.grad, scs.grad[:, 0], shs.grad[:, 0]), want)
     # deterministic: the same inputs give the same bits
     again = TN._adaln_bwd_cuda(x, sc[:, 0].contiguous(), gy, 1e-6)
     first = TN._adaln_bwd_cuda(x, sc[:, 0].contiguous(), gy, 1e-6)
@@ -201,8 +227,8 @@ def test_card_attention_bwd_kernel(cuda, dtype, b, nq, nk, h, d):
     torch.cuda.synchronize()
     assert TA.SOFTMAX_ATTENTION_BWD.launches == before + 1
     want = TA.attention_bwd_ref(q, k, v, TA._key_bias(mask, b), gy)
-    for got, w in zip((qs.grad, ks.grad, vs.grad), want):
-        _close_bwd("attention", got, w)
+    _close_bwd("dot_product_attention_bwd", (qs.grad, ks.grad, vs.grad),
+               want)
 
 
 @pytest.mark.gpu

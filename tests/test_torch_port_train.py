@@ -195,6 +195,56 @@ def test_every_lora_leaf_gets_a_gradient(tiny_setup):
         assert torch.equal(g, g2)
 
 
+def test_grad_reference_accounts_for_flipped_relu_kinks(tiny_setup):
+    """chip_smoke.py's gradient reference, on two CPU runs that differ only
+    in the side of 0 on which four ReLU(q) pre-activations of block 0's
+    linear attention lie (±1e-30): the flips' share added to the first
+    run's LoRA gradients gives the second run's within 1e-5 of each leaf's
+    largest entry (fp32 runs), while the raw gradients of to_q differ by
+    more than 1e-3 of it."""
+    import chip_smoke
+    from yat_tpu_torch.adapters.builder import lora_parameters
+    from yat_tpu_torch.ops.schedulers import FlowMatchSchedule
+    from yat_tpu_torch.train.step import loss_and_grads
+    from yat_tpu_torch.train.tasks import make_flow_matching_loss
+
+    cfg_j, _, variables, adapters, meta, batch = tiny_setup
+    model, _ = _port_model(cfg_j, variables, adapters, meta)
+    attn = model.blocks[0].attn1
+    leaves = [p for _, p in lora_parameters(model)]
+    names = [n for n, _ in lora_parameters(model)]
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    picked = torch.zeros(4 * 64 * 64, dtype=torch.bool)
+    picked[[5, 1000, 4000, 9000]] = True
+
+    def run(side):
+        def place(module, inputs, out):
+            at = picked.reshape(out.shape)
+            # the value ``side`` there, the gradient passed on to ``out``
+            return torch.where(at, side + (out - out.detach()), out)
+        seen = {}
+        hooks = [attn.to_q.register_forward_hook(place)]
+        hooks += chip_smoke._relu_input_hooks(attn, seen)
+        loss, grads = loss_and_grads(
+            make_flow_matching_loss(model, FlowMatchSchedule(shift=3.0)),
+            leaves, tb, torch.Generator().manual_seed(0))
+        for h in hooks:
+            h.remove()
+        return dict(zip(names, grads)), seen
+
+    grads_a, seen_a = run(-1e-30)
+    grads_b, seen_b = run(1e-30)
+    expected, flips = chip_smoke.with_flips_share(
+        attn, "blocks_0.attn1", grads_a, seen_a, seen_b)
+    assert flips == {"to_q": 4, "to_k": 0}
+    for name, gb in grads_b.items():
+        scale = float(gb.abs().max())
+        fixed = float((gb.double() - expected[name]).abs().max())
+        assert fixed <= 1e-5 * scale, name
+        if name.startswith("blocks_0.attn1.to_q"):
+            assert float((gb - grads_a[name]).abs().max()) > 1e-3 * scale
+
+
 def test_lr_schedule_and_clip_match_optax():
     """The schedule at the pre-increment count (warmup: lr 0 first), the
     cyclic mode, and the clip's (g / norm) * max_norm."""
@@ -395,6 +445,14 @@ def test_trainer_with_encoders_encodes_empty_caption_and_validates(tmp_path):
     assert trainer._empty_raw is not None and trainer._empty_raw.shape[1] == 32
     assert calls == [["validation/0/a fox"]]
     assert (tmp_path / "out" / "2" / "adapter_model.safetensors").exists()
+
+
+def test_chip_smoke_grad_reference_phase_on_cpu():
+    """chip_smoke.py's gradient reference phase with both runs on the CPU
+    (two full-width SANA blocks): the same gradients, no flipped kinks."""
+    import chip_smoke
+
+    chip_smoke.phase_grad_reference(torch.device("cpu"))
 
 
 def test_chip_smoke_train_phase_on_cpu():

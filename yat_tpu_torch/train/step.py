@@ -40,13 +40,12 @@ def loss_and_grads(task_loss, leaves: List[torch.Tensor],
                    batch: Dict[str, torch.Tensor], gen: torch.Generator,
                    draws: Optional[Dict] = None):
     """The scaled training loss and its gradients with respect to
-    ``leaves`` (forward with LoRA dropout active, as in training)."""
+    ``leaves`` (forward with LoRA dropout active, as in training).  A leaf
+    cut off from the loss raises."""
     loss = task_loss(batch, gen, deterministic=False, draws=draws)
     if "loss_scale" in batch:
         loss = loss * batch["loss_scale"]
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return loss.detach(), [torch.zeros_like(p) if g is None else g
-                           for g, p in zip(grads, leaves)]
+    return loss.detach(), list(torch.autograd.grad(loss, leaves))
 
 
 def make_train_step(*, task_loss, optimizer: Optimizer,
