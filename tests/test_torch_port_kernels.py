@@ -27,7 +27,8 @@ def test_build_flags_and_library_names():
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
     names = {k.source for k in KB.KERNELS.values()}
     assert names == {"adaln.cu", "softmax_attention.cu",
-                     "softmax_attention_bwd.cu", "linear_attention.cu"}
+                     "softmax_attention_bwd.cu", "linear_attention.cu",
+                     "flash_attention.cu"}
     for src in names:
         p = KB.library_path(src)
         assert p.parent == KB.BUILD_DIR and p.name.endswith(".so")
@@ -50,7 +51,11 @@ def test_cpu_tensors_never_launch():
             for s in ((1, 5, 8), (1, 6, 2, 8)))
     before = KB.launch_counts()
     TN.adaln_layernorm(x, torch.zeros(1, 8), torch.zeros(1, 1, 8))
+    long = torch.from_numpy(rng.standard_normal((1, 128, 1, 8)).astype(
+        np.float32))
     TA.dot_product_attention(q, q, q)
+    TA.dot_product_attention(q, q, q, implementation="vmem")
+    TA.dot_product_attention(long, long, long, implementation="flash")
     TA.linear_attention(q, q, q)
     assert KB.launch_counts() == before
 
@@ -108,11 +113,84 @@ def test_card_attention_kernel(cuda, dtype, b, nq, nk, h, d):
                for s in ((b, nq, h, d), (b, nk, h, d), (b, nk, h, d)))
     keep = torch.linspace(1, nk, b, device=cuda).round()
     mask = (torch.arange(nk, device=cuda)[None] < keep[:, None]).int()
-    before = TA.SOFTMAX_ATTENTION.launches
+    # the ragged shapes lie outside the short-sequence gate: "vmem" sends
+    # them to the kernel; h * d = 64 is the folded (K4) branch
+    handle = (TA.SOFTMAX_ATTENTION_FOLDED if h * d % 128
+              else TA.SOFTMAX_ATTENTION)
+    before = handle.launches
+    out = TA.dot_product_attention(q, k, v, mask=mask, implementation="vmem")
+    torch.cuda.synchronize()
+    assert handle.launches == before + 1
+    _close(out, TA.attention_ref(q, k, v, TA._key_bias(mask, b)))
+
+
+def _keep_mask(keep, nk, device):
+    return (torch.arange(nk, device=device)[None]
+            < torch.tensor(keep, device=device)[:, None]).int()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,nq,nk,h,d,keep", [
+    (8, 1024, 300, 16, 72, [10 + 290 * i // 7 for i in range(8)]),
+    (2, 128, 4096, 4, 72, [4096, 77])])
+def test_card_folded_attention_kernel(cuda, dtype, b, nq, nk, h, d, keep):
+    """K4's shapes: PixArt-Sigma's cross-attention over T5 captions (10-300
+    kept keys) and the longest key sequence the short-sequence gate admits
+    (fp32 included): the JAX package folds heads there, the port runs K2's
+    kernel and counts it as K4."""
+    assert TA.attention_branch(nq, nk, h, d) == "folded"
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
+               for s in ((b, nq, h, d), (b, nk, h, d), (b, nk, h, d)))
+    mask = _keep_mask(keep, nk, cuda)
+    before = TA.SOFTMAX_ATTENTION_FOLDED.launches
     out = TA.dot_product_attention(q, k, v, mask=mask)
     torch.cuda.synchronize()
-    assert TA.SOFTMAX_ATTENTION.launches == before + 1
+    assert TA.SOFTMAX_ATTENTION_FOLDED.launches == before + 1
     _close(out, TA.attention_ref(q, k, v, TA._key_bias(mask, b)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,nq,nk,h,d,keep", [
+    (8, 1024, 1024, 16, 72, None),           # PixArt-Sigma 512px self
+    (2, 4096, 4096, 16, 72, None),           # 1024px: four key blocks
+    (4, 1024, 1024, 16, 72, [0, 1, 517, 1024]),   # a fully masked row
+    (2, 1024, 1000, 16, 72, [1000, 333]),    # ragged N_k, 8 key blocks
+    (2, 256, 384, 2, 256, [384, 100])])      # head dim 256, 3 key blocks
+def test_card_flash_attention_kernel(cuda, dtype, b, nq, nk, h, d, keep):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
+               for s in ((b, nq, h, d), (b, nk, h, d), (b, nk, h, d)))
+    bias = (None if keep is None else
+            TA._key_bias(_keep_mask(keep, nk, cuda), b, TA.FLASH_MASK_VALUE))
+    before = TA.FLASH_ATTENTION.launches
+    out = TA._flash_attention_cuda(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert TA.FLASH_ATTENTION.launches == before + 1
+    want = TA.flash_attention_ref(q, k, v, bias)
+    _close(out, want)
+    if keep is not None and 0 in keep:
+        # every key masked: the mask value is finite, so the mean of V
+        i = keep.index(0)
+        _close(out[i], v[i].float().mean(0, keepdim=True).expand(
+            nq, h, d).to(dtype))
+
+
+@pytest.mark.gpu
+def test_card_flash_attention_dispatch_and_no_backward(cuda):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn((2, 1024, 16, 72), generator=g, device=cuda,
+                           dtype=torch.bfloat16, requires_grad=True)
+               for _ in range(3))
+    before = KB.launch_counts()
+    out = TA.dot_product_attention(q, k, v)
+    after = KB.launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["attention_xla"] == before["attention_xla"]
+    with pytest.raises(NotImplementedError, match="K6b"):
+        out.float().sum().backward()
 
 
 @pytest.mark.gpu
@@ -221,7 +299,8 @@ def test_card_attention_bwd_kernel(cuda, dtype, b, nq, nk, h, d):
     mask = (torch.arange(nk, device=cuda)[None] < keep[:, None]).int()
     qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
     before = TA.SOFTMAX_ATTENTION_BWD.launches
-    out = TA.dot_product_attention(qs, ks, vs, mask=mask)
+    out = TA.dot_product_attention(qs, ks, vs, mask=mask,
+                                   implementation="vmem")
     assert out.grad_fn is not None
     out.backward(gy)
     torch.cuda.synchronize()

@@ -170,6 +170,155 @@ def test_attention_implementation_strings():
 
 
 # ---------------------------------------------------------------------------
+# The branch choice, K4 (folded layout), K6 (flash) and the XLA branch
+# ---------------------------------------------------------------------------
+
+# bf16: one bf16 rounding step of the output (2^-8 relative), where an
+# exponential or a sum rounds the other way before the probabilities are
+# rounded; fp32 as ATTN_TOL
+BF16_TOL = {"atol": 2.0 ** -9, "rtol": 2.0 ** -8}
+
+
+def _jax_branch(monkeypatch, b, nq, nk, h, d, impl):
+    """The JAX package's own branch for these sizes, its gates asked as on
+    a TPU; the native/folded split is the condition of
+    yat_tpu/ops/attention.py:382-383, copied."""
+    monkeypatch.setattr(JA.jax, "default_backend", lambda: "tpu")
+    q = jax.ShapeDtypeStruct((b, nq, h, d), jnp.bfloat16)
+    k = jax.ShapeDtypeStruct((b, nk, h, d), jnp.bfloat16)
+    if impl == "vmem" or (impl == "auto" and JA._use_vmem_attn(q, k, k)):
+        nkp = -(-nk // 128) * 128
+        vmem_bwd = (3 * (nq + 2 * nkp) * h * d * 2) + 3 * nq * nkp * 4
+        native = (JA._VMEM_NATIVE_LAYOUT and h * d % 128 == 0
+                  and vmem_bwd <= 12 * 2 ** 20)
+        return "native" if native else "folded"
+    if impl == "xla" or (impl == "auto" and not JA._use_pallas_flash(q, k, k)):
+        return "xla"
+    return "flash"
+
+
+@pytest.mark.parametrize("case,sizes,impl,branch", [
+    ("SANA cross", (16, 256, 512, 16, 72), "auto", "native"),
+    ("SANA softmax-patch self", (16, 256, 256, 36, 32), "auto", "native"),
+    ("SANA cross, rung 128", (16, 256, 128, 16, 72), "auto", "native"),
+    ("PixArt cross", (8, 1024, 300, 16, 72), "auto", "folded"),
+    ("PixArt self", (8, 1024, 1024, 16, 72), "auto", "flash"),
+    ("PixArt 1024px self", (2, 4096, 4096, 16, 72), "auto", "flash"),
+    ("896-token bucket", (2, 896, 896, 16, 72), "auto", "xla"),
+    ("d = 512", (2, 1024, 1024, 2, 512), "auto", "xla"),
+    ("longest short keys", (2, 128, 4096, 4, 72), "auto", "folded"),
+    ("ragged queries", (4, 100, 300, 16, 72), "auto", "xla"),
+    ("ragged queries, vmem", (4, 100, 300, 16, 72), "vmem", "native"),
+    ("tiny heads", (2, 64, 16, 2, 32), "auto", "folded"),
+    ("xla asked", (8, 256, 512, 16, 72), "xla", "xla"),
+    ("flash asked", (2, 256, 384, 2, 32), "flash", "flash"),
+])
+def test_attention_branch_matches_jax_gates(monkeypatch, case, sizes, impl,
+                                            branch):
+    b, nq, nk, h, d = sizes
+    assert TA.attention_branch(nq, nk, h, d, impl) == branch, case
+    assert _jax_branch(monkeypatch, b, nq, nk, h, d, impl) == branch, case
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,nq,nk,h,d", [(1, 256, 256, 2, 72),
+                                         (2, 128, 128, 2, 32),
+                                         (1, 128, 384, 2, 32)])
+def test_flash_plain_matches_jax_library_kernel(b, nq, nk, h, d, masked,
+                                                dtype):
+    """K6's plain version against the Pallas library flash kernel
+    (interpreted) through the JAX package's 'flash' branch: one key block
+    (N_k <= 1024 here: P normalised before it is rounded) and three (N_k =
+    384 in blocks of 128: P rounded against the running max)."""
+    q, k, v = _qkv(b, nq, nk, h, d, seed=nk + d)
+    mask = None
+    if masked:
+        keep = np.array([nk // 3] + [nk] * (b - 1))[:, None]
+        mask = (np.arange(nk)[None] < keep).astype(np.int32)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    with pltpu.force_tpu_interpret_mode():
+        want = JA.dot_product_attention(
+            *(jnp.asarray(a, jd) for a in (q, k, v)),
+            mask=None if mask is None else jnp.asarray(mask),
+            implementation="flash")
+    got = TA.dot_product_attention(
+        *(torch.from_numpy(a).to(td) for a in (q, k, v)),
+        mask=None if mask is None else torch.from_numpy(mask),
+        implementation="flash")
+    assert got.dtype == td
+    tol = {"atol": ATTN_TOL} if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(_np(got), np.asarray(want.astype(jnp.float32)),
+                               **tol)
+
+
+def test_flash_plain_masks_like_the_library():
+    """A fully masked row gives the mean of V (the mask value is finite);
+    a row keeping one key gives that key's V."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 128, 256, 2, 16, seed=9))
+    mask = torch.from_numpy((np.arange(256)[None] < np.array([[0], [1]])
+                             ).astype(np.int32))
+    out = TA.dot_product_attention(q, k, v, mask=mask, implementation="flash")
+    torch.testing.assert_close(out[0], v[0].mean(0, keepdim=True).expand(
+        128, 2, 16), atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(out[1], v[1, :1].expand(128, 2, 16))
+
+
+def test_folded_plain_matches_jax_vmem_attn_p():
+    """K4: the port's plain version against the folded-layout Pallas kernel
+    _vmem_attn_p (interpreted) itself and through the JAX package's 'vmem'
+    branch at h = 2, d = 40 (h * d = 80 is not lane-aligned: folded)."""
+    b, nq, nk, h, d = 2, 24, 300, 2, 40
+    assert TA.attention_branch(nq, nk, h, d, "vmem") == "folded"
+    q, k, v = _qkv(b, nq, nk, h, d, seed=4)
+    mask = (np.arange(nk)[None] < np.array([[10], [300]])).astype(np.int32)
+    nkp = 384
+    bias = np.where(np.arange(nkp)[None] < np.array([[10], [300]]), 0.0,
+                    -1e9).astype(np.float32)
+
+    def fold(a, n):
+        a = np.pad(a, ((0, 0), (0, n - a.shape[1]), (0, 0), (0, 0)))
+        return jnp.asarray(a.transpose(0, 2, 1, 3).reshape(b * h, n, d))
+    with pltpu.force_tpu_interpret_mode():
+        kern = JA._vmem_attn_p(
+            1.0 / d ** 0.5, fold(q, nq), fold(k, nkp), fold(v, nkp),
+            jnp.asarray(np.repeat(bias[:, None, None], h, 1).reshape(
+                b * h, 1, nkp)))
+        vmem = JA.dot_product_attention(
+            *(jnp.asarray(a) for a in (q, k, v)), mask=jnp.asarray(mask),
+            implementation="vmem")
+    kern = np.asarray(kern).reshape(b, h, nq, d).transpose(0, 2, 1, 3)
+    port = TA.dot_product_attention(
+        *(torch.from_numpy(a) for a in (q, k, v)),
+        mask=torch.from_numpy(mask), implementation="vmem")
+    np.testing.assert_allclose(_np(port), kern, atol=ATTN_TOL)
+    np.testing.assert_allclose(_np(port), np.asarray(vmem), atol=ATTN_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mask_form", [None, "BN", "B11N"])
+def test_attention_xla_matches_jax_nn(dtype, mask_form):
+    """The XLA branch against jax.nn.dot_product_attention (what the JAX
+    package's branch calls), masks replaced by the large negative and
+    fully masked rows included."""
+    b, nq, nk, h, d = 3, 20, 36, 2, 24
+    q, k, v = _qkv(b, nq, nk, h, d, seed=5)
+    mask = None
+    if mask_form is not None:
+        m = np.arange(nk)[None] < np.array([[0], [7], [36]])
+        mask = m.astype(np.int32) if mask_form == "BN" else m[:, None, None]
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    jm = None if mask is None else jnp.asarray(mask)
+    want = JA.dot_product_attention(*(jnp.asarray(a, jd) for a in (q, k, v)),
+                                    mask=jm, implementation="xla")
+    got = TA.attention_xla(*(torch.from_numpy(a).to(td) for a in (q, k, v)),
+                           None if mask is None else torch.from_numpy(mask))
+    tol = {"atol": ATTN_TOL} if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(_np(got), np.asarray(want.astype(jnp.float32)),
+                               **tol)
+
+
+# ---------------------------------------------------------------------------
 # K3: ReLU linear attention
 # ---------------------------------------------------------------------------
 

@@ -197,7 +197,7 @@ def test_build_sampler_batch_cap_and_refused_options():
     with pytest.raises(ValueError, match=">= 1"):
         build_sampler(_port_params(), "sana", cache_interval=0, device="cpu")
     with pytest.raises(ValueError, match="not ported"):
-        build_sampler(_port_params(), "pixart", device="cpu")
+        build_sampler(_port_params(), "sd15", device="cpu")
     with pytest.raises(ValueError, match="low_vram"):
         build_sampler(_port_params(low_vram=""), "sana", device="cpu")
 

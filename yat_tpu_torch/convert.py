@@ -9,12 +9,16 @@ into the matching parameter of ``module``:
 * a conv ``kernel`` HWIO becomes ``weight`` OIHW (a depthwise or grouped
   conv's ``I`` is already ``in / groups``, as PyTorch's ``groups`` wants);
 * an ``nn.Embed`` ``embedding`` becomes ``weight``, as it is;
-* every other leaf (``bias``, norm ``scale``, modulation tables) keeps its
-  name and shape.
+* every other leaf keeps its name and shape: ``bias``, norm ``scale``
+  (RMSNorm, LayerNorm, flax ``GroupNorm``'s ``scale`` and ``bias``), the
+  ``(6, D)`` and ``(2, D)`` scale-shift tables, T5's
+  ``relative_attention_bias``.
 
-Flax names a repeated submodule ``blocks_3``; where the port holds such
-modules in an ``nn.ModuleList`` named ``blocks``, ``blocks_3`` resolves to
-``blocks[3]``.  Every parameter of ``module`` must be covered by the tree
+This covers the SANA, PixArt-Sigma, Gemma-2, T5, DC-AE and KL-VAE decoder
+trees.  Flax names a repeated submodule ``blocks_3`` (``layers_3``); where
+the port holds such modules in an ``nn.ModuleList`` named ``blocks``
+(``layers``), ``blocks_3`` resolves to ``blocks[3]``; other indexed names
+(``up_0_resnet_1``) are plain submodule names.  Every parameter of ``module`` must be covered by the tree
 and every leaf of the tree must land, else it raises.
 
 ``load_flax_adapters(module, adapters, meta)`` does the same for the JAX

@@ -1,0 +1,117 @@
+// K6: non-causal softmax attention over a long key sequence with an
+//     optional fp32 additive key bias shared by all heads (0 to keep a key,
+//     -0.7 * FLT_MAX to mask it), o = softmax(q k^T / sqrt(D) + bias) v, on
+//     the native [B, N, H, D] layout read and written through strides.
+//
+// Replaces the TPU kernel that yat_tpu/ops/attention.py:dot_product_attention
+// reaches through the Pallas library's flash_attention (forward kernels
+// _flash_attention_kernel_single_batch and ..._single_step of
+// jax/experimental/pallas/ops/tpu/flash_attention.py), which the JAX package
+// runs with block_q = block_k = _flash_block(N) (<= 1024) and a key mask
+// carried as segment ids.
+//
+// What it computes, as the library does: the keys fall into "key blocks"
+// of block_keys = _flash_block(N_k) keys (passed in by the wrapper).  With
+// one block (N_k <= 1024 at the PixArt shapes: the library's single-step
+// kernel) P = exp(s - max) / sum is normalised in fp32 before it is rounded
+// to bf16 for P.V.  With several (N_k = 2048, 4096, ...), each block's
+// P = exp(s - m) is taken against the running max m after that block and
+// rounded to bf16 unnormalised; the fp32 accumulator is rescaled by
+// exp(m_old - m_new) at each block start and divided by the running sum at
+// the end.  A row whose keys are all masked gets the mean of V, because
+// the mask value is finite.
+//
+// Bound on the H100: operations at the PixArt-Sigma 512px self-attention
+// shape, q/k/v [8, 1024, 16, 72] bf16: 4 * 8 * 16 * 1024^2 * 72 = 38.7
+// GFLOP on the tensor cores (0.039 ms at 989 TFLOP/s) against 75.5 MB
+// (0.0225 ms at 3.35 TB/s).  Design, simple before fast:
+//   * one block per (64 queries, head, batch element): 2048 blocks at that
+//     shape; four warps of 16 query rows; no score reaches device memory;
+//   * per key block, two passes over its 64-key tiles, because the single
+//     block's probabilities are normalised before they are rounded: pass 1
+//     the rows' max and exp-sum (online per thread, merged across the four
+//     threads that share a row), pass 2 recomputes the scores, rounds P and
+//     accumulates P.V.  Pass 1 costs half again the operations of one pass;
+//   * both products on the tensor cores with mma.sync m16n8k16 (bf16 in,
+//     fp32 accumulation), operands fetched from shared memory by ldmatrix
+//     (V transposed on the way); the queries' fragments, the scores, P and
+//     the accumulator stay in registers (P is packed from the score
+//     fragments, whose layout is that of the product's A operand);
+//   * the head dim is zero-padded in shared memory to a multiple of 16 (72
+//     -> 80) chosen at compile time, up to 256 (past 128 the query
+//     fragments are re-read from shared memory instead of held);
+//   * the ragged key edge is zero-filled and masked, so N_k needs no
+//     padding; only three 64-row tiles live in shared memory (34 KB at D =
+//     72), so any N_k fits;
+//   * fp32: the same key blocks on the CUDA cores, without rounding P
+//     (attention_tiles.cuh).
+// Faster still (wgmma, TMA, a pipelined producer warp) is later work.
+#include "attention_tiles.cuh"
+
+namespace {
+
+using namespace yat::attn;
+
+constexpr int kMaxD = 256;
+
+template <bool kVec, int kDC>
+__global__ void __launch_bounds__(kThreads, 3)
+flash_attention_fwd_bf16(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const float* __restrict__ bias,
+                         bf16* __restrict__ out, int nq, int nk, int d,
+                         Strides qs, Strides ks, Strides vs,
+                         long long bias_sb, Strides os, float scale,
+                         int block_keys) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  attention_bf16_block<kVec, kDC>(q, k, v, bias, out, nq, nk, d, qs, ks, vs,
+                                  bias_sb, os, scale, block_keys, smem_raw);
+}
+
+struct FlashKernel {
+  template <bool kVec, int kDC>
+  static auto fn() { return flash_attention_fwd_bf16<kVec, kDC>; }
+};
+
+}  // namespace
+
+// Shared memory one block needs, so the wrapper can refuse shapes that do
+// not fit before launching.
+extern "C" long long yat_flash_attention_smem_bytes(int d, int dtype) {
+  if (dtype == yat::kBFloat16)
+    return static_cast<long long>(bf16_smem_bytes(d));
+  return static_cast<long long>(f32_smem_bytes(d));
+}
+
+extern "C" int yat_flash_attention_max_head_dim() { return kMaxD; }
+
+// q [B, Nq, H, D], k/v [B, Nk, H, D], out [B, Nq, H, D], each with strides
+// (b, n, h, 1); bias [B, Nk] fp32 with strides (bias_sb, 1), or null;
+// block_keys: the library's key block, a multiple of 64 unless >= Nk.
+extern "C" int yat_flash_attention_fwd(
+    const void* q, const void* k, const void* v, const void* bias,
+    void* out, int b, int nq, int nk, int h, int d,
+    long long q_sb, long long q_sn, long long q_sh,
+    long long k_sb, long long k_sn, long long k_sh,
+    long long v_sb, long long v_sn, long long v_sh, long long bias_sb,
+    long long o_sb, long long o_sn, long long o_sh, float scale,
+    int block_keys, int dtype, void* stream) {
+  if (d > kMaxD || d < 1 || nk < 1 || block_keys < 1 ||
+      (block_keys < nk && block_keys % kBK != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Strides qs{q_sb, q_sn, q_sh}, ks{k_sb, k_sn, k_sh},
+      vs{v_sb, v_sn, v_sh}, os{o_sb, o_sn, o_sh};
+  const float* bp = static_cast<const float*>(bias);
+  if (dtype == yat::kFloat32)
+    return static_cast<int>(launch_f32(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), bp, static_cast<float*>(out), b, nq,
+        nk, h, d, qs, ks, vs, bias_sb, os, scale, block_keys, st));
+  if (dtype != yat::kBFloat16) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_bf16<FlashKernel>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), bp, static_cast<bf16*>(out), b, nq, nk, h,
+      d, qs, ks, vs, bias_sb, os, scale, block_keys, st));
+}

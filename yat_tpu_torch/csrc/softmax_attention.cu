@@ -5,7 +5,10 @@
 //
 // Replaces the TPU kernel yat_tpu/ops/attention.py:_vmem_mh_fwd_kernel
 // (called through _vmem_attn_native_p), which held one batch element's
-// [N, H*D] slabs in VMEM and looped over heads.
+// [N, H*D] slabs in VMEM and looped over heads, and the folded-layout
+// _vmem_attn_fwd_kernel (K4, called through _vmem_attn_p), which computes
+// the same arithmetic on [B*H, N, D] copies: this kernel reads either
+// layout's [B, N, H, D] source through strides, so both land here.
 //
 // Bound on the H100: bytes at the serving shapes (q [8,256,16,72], k/v
 // [8,512,16,72] bf16: ~28 MB moved against ~4.8 GFLOP, about 170 flop/byte,
@@ -15,388 +18,50 @@
 //   * K and V pass through shared memory in 64-key tiles; the ragged last
 //     tile is zero-filled and masked out of the softmax, so N_k needs no
 //     padding;
-//   * bf16 (the serving path): two passes over the key tiles, both
-//     products on the tensor cores (WMMA 16x16x16, fp32 accumulation; the
-//     head dim zero-padded to a multiple of 16 in shared memory), one warp
-//     per 16 query rows, 16-byte tile loads; only tiles live in shared
-//     memory (~65 KB at D = 72), so several blocks share an SM;
-//   * fp32: the whole fp32 score block [64, N_k] stays in shared memory
-//     (above 48 KB by cudaFuncSetAttribute), a plain max / exp-sum /
-//     divide over full rows, products on the CUDA cores (4x4 register
-//     patches).
+//   * bf16 (the serving path): the tensor-core body shared with K6
+//     (attention_tiles.cuh) with one key block covering every key: two
+//     passes over the key tiles, mma.sync products from ldmatrix operands,
+//     scores, P and the accumulator in registers, 16-byte tile loads; only
+//     tiles live in shared memory (34 KB at D = 72), so several blocks
+//     share an SM;
+//   * fp32: the same two passes over 64-key tiles on the CUDA cores
+//     (attention_tiles.cuh), so any N_k the short-sequence gate admits fits
+//     in shared memory.
 // Numerics follow the plain version (ops/attention.py:attention_ref): fp32
 // scores, max-subtracted exp, division by the row sum, probabilities
 // rounded to the storage type of v before the fp32-accumulated P.V.
-#include <math.h>
-#include <mma.h>
-#include <stdint.h>
-
-#include "common.cuh"
+#include "attention_tiles.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;        // queries per block
-constexpr int kBK = 64;        // keys per shared-memory tile
+using namespace yat::attn;
+
 constexpr int kMaxD = 128;
 
-struct Strides {
-  long long b, n, h;
-};
-
-// ---------------------------------------------------------------------------
-// fp32: CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int kThreads = 256;
-constexpr int kMaxOut = kBQ * kMaxD / kThreads;   // outputs per thread
-
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          Strides st, int b, int h, int row0,
-                                          int rows, int tile, int d, int ld) {
-  for (int idx = threadIdx.x; idx < tile * d; idx += kThreads) {
-    const int r = idx / d;
-    const int e = idx - r * d;
-    const int gr = row0 + r;
-    dst[r * ld + e] =
-        gr < rows ? yat::to_f<T>(src[b * st.b + gr * st.n + h * st.h + e])
-                  : 0.f;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ bias,
-                  float* __restrict__ out, int nq, int nk, int d, Strides qs,
-                  Strides ks, Strides vs, long long bias_sb, Strides os,
-                  float scale) {
-  extern __shared__ float smem[];
-  const int ld = d + 1;            // odd row stride: no bank conflicts
-  float* q_t = smem;               // [kBQ][ld]
-  float* kv_t = q_t + kBQ * ld;    // [kBK][ld], K tiles then V tiles
-  float* p = kv_t + kBK * ld;      // [kBQ][nk] scores, then probabilities
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.x * kBQ;
-  const int tid = threadIdx.x;
-
-  load_tile<float>(q_t, q, qs, b, h, q0, nq, kBQ, d, ld);
-
-  // 1) scores: each thread owns a 4 x 4 patch of the 64 x 64 tile
-  const int tr = tid / 16;         // query rows tr*4 .. tr*4+3
-  const int tc = tid % 16;         // key columns tc + 16*j
-  for (int k0 = 0; k0 < nk; k0 += kBK) {
-    __syncthreads();
-    load_tile<float>(kv_t, k, ks, b, h, k0, nk, kBK, d, ld);
-    __syncthreads();
-    float acc[4][4] = {};
-    for (int e = 0; e < d; ++e) {
-      float a[4], c[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = q_t[(tr * 4 + i) * ld + e];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = kv_t[(tc + 16 * j) * ld + e];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], c[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kj = k0 + tc + 16 * j;
-      if (kj >= nk) continue;
-      const float bj = bias != nullptr ? bias[b * bias_sb + kj] : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        p[(tr * 4 + i) * nk + kj] = __fadd_rn(__fmul_rn(acc[i][j], scale), bj);
-    }
-  }
-  __syncthreads();
-
-  // 2) row softmax in fp32, one warp per row
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  for (int r = warp; r < kBQ; r += kThreads / 32) {
-    float* row = p + r * nk;
-    float m = -INFINITY;
-    for (int j = lane; j < nk; j += 32) m = fmaxf(m, row[j]);
-    m = yat::warp_max(m);
-    float s = 0.f;
-    for (int j = lane; j < nk; j += 32) {
-      const float e = expf(row[j] - m);
-      row[j] = e;
-      s += e;
-    }
-    s = yat::warp_sum(s);
-    for (int j = lane; j < nk; j += 32) row[j] = row[j] / s;
-  }
-
-  // 3) o = P.V, V in 64-key tiles; each thread owns up to kMaxOut outputs
-  const int n_out = kBQ * d;
-  float o[kMaxOut];
-#pragma unroll
-  for (int r = 0; r < kMaxOut; ++r) o[r] = 0.f;
-  for (int k0 = 0; k0 < nk; k0 += kBK) {
-    __syncthreads();
-    load_tile<float>(kv_t, v, vs, b, h, k0, nk, kBK, d, ld);
-    __syncthreads();
-    const int kn = min(kBK, nk - k0);
-#pragma unroll
-    for (int r = 0; r < kMaxOut; ++r) {
-      const int idx = tid + r * kThreads;
-      if (idx < n_out) {
-        const int qi = idx / d;
-        const int e = idx - qi * d;
-        const float* prow = p + qi * nk + k0;
-        float a = o[r];
-        for (int j = 0; j < kn; ++j) a = fmaf(prow[j], kv_t[j * ld + e], a);
-        o[r] = a;
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kMaxOut; ++r) {
-    const int idx = tid + r * kThreads;
-    if (idx < n_out) {
-      const int qi = idx / d;
-      const int e = idx - qi * d;
-      if (q0 + qi < nq) out[b * os.b + (q0 + qi) * os.n + h * os.h + e] = o[r];
-    }
-  }
-}
-
-size_t smem_f32(int nk, int d) {
-  return (static_cast<size_t>(kBQ + kBK) * (d + 1) +
-          static_cast<size_t>(kBQ) * nk) * sizeof(float);
-}
-
-// ---------------------------------------------------------------------------
-// bf16: tensor cores through WMMA
-// ---------------------------------------------------------------------------
-
-using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
-constexpr int kWarps = kBQ / 16;         // one warp per 16 query rows
-constexpr int kWThreads = kWarps * 32;
-constexpr int kMaxFrag = kMaxD / 16;
-constexpr int kRows = 16;                // query rows per warp
-
-struct Layout {                           // shared-memory layout (elements)
-  int dp, ldt, lds, ldp;
-  __host__ __device__ explicit Layout(int d) {
-    dp = (d + 15) & ~15;                  // head dim padded to 16
-    ldt = dp + 8;                         // bf16 tile row stride
-    lds = (kBK > dp ? kBK : dp) + 4;      // fp32 score / output row stride
-    ldp = kBK + 8;                        // bf16 probability row stride
-  }
-  __host__ __device__ size_t bytes() const {
-    return static_cast<size_t>(kBQ) * lds * sizeof(float)      // s_t
-         + static_cast<size_t>(kBQ) * ldp * sizeof(bf16)       // p_t
-         + static_cast<size_t>(kBQ + 2 * kBK) * ldt * sizeof(bf16)  // q, k, v
-         + kBK * sizeof(float);                                // bias tile
-  }
-};
-
-// rows [row0, row0 + 64) of a [N, H, D] slab into a zero-padded bf16 tile;
-// kVec: 16-byte loads (D and the strides are multiples of 8 elements)
-template <bool kVec>
-__device__ __forceinline__ void load_bf16_tile(bf16* dst, const bf16* src,
-                                               Strides st, int b, int h,
-                                               int row0, int rows, int d,
-                                               const Layout& L) {
-  if (kVec) {
-    const int cpr = L.dp / 8;
-    for (int idx = threadIdx.x; idx < kBK * cpr; idx += kWThreads) {
-      const int r = idx / cpr;
-      const int e = (idx - r * cpr) * 8;
-      const int gr = row0 + r;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (gr < rows && e < d)
-        val = *reinterpret_cast<const uint4*>(
-            src + b * st.b + gr * st.n + h * st.h + e);
-      *reinterpret_cast<uint4*>(dst + r * L.ldt + e) = val;
-    }
-  } else {
-    const bf16 zero = __float2bfloat16_rn(0.f);
-    for (int idx = threadIdx.x; idx < kBK * L.dp; idx += kWThreads) {
-      const int r = idx / L.dp;
-      const int e = idx - r * L.dp;
-      const int gr = row0 + r;
-      dst[r * L.ldt + e] = (gr < rows && e < d)
-          ? src[b * st.b + gr * st.n + h * st.h + e] : zero;
-    }
-  }
-}
-
-// raw scores q.k of the warp's 16 rows against a 64-key tile, into s_t
-__device__ __forceinline__ void tile_scores(float* s_t, const bf16* q_t,
-                                            const bf16* k_t, int r0,
-                                            const Layout& L) {
-  for (int nt = 0; nt < kBK / 16; ++nt) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int kk = 0; kk < L.dp; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fa, q_t + r0 * L.ldt + kk, L.ldt);
-      wmma::load_matrix_sync(fb, k_t + nt * 16 * L.ldt + kk, L.ldt);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(s_t + r0 * L.lds + nt * 16, acc, L.lds,
-                            wmma::mem_row_major);
-  }
-}
-
-// Two passes over the keys so that the probabilities are normalised before
-// they are rounded to bf16, as in the plain version: pass 1 finds each
-// row's max and exp-sum (online, per lane, merged across the warp at the
-// end); pass 2 recomputes the scores, forms p = exp(z - max) / sum in bf16
-// and accumulates P.V.  Only 64-key tiles live in shared memory, so
-// several blocks share an SM.
-template <bool kVec>
-__global__ void __launch_bounds__(kWThreads)
+template <bool kVec, int kDC>
+__global__ void __launch_bounds__(kThreads, 3)
 attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const float* __restrict__ bias,
                    bf16* __restrict__ out, int nq, int nk, int d, Strides qs,
                    Strides ks, Strides vs, long long bias_sb, Strides os,
-                   float scale) {
+                   float scale, int block_keys) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Layout L(d);
-  float* s_t = reinterpret_cast<float*>(smem_raw);       // [kBQ][lds]
-  bf16* p_t = reinterpret_cast<bf16*>(s_t + kBQ * L.lds);  // [kBQ][ldp]
-  bf16* q_t = p_t + kBQ * L.ldp;                         // [kBQ][ldt]
-  bf16* k_t = q_t + kBQ * L.ldt;                         // [kBK][ldt]
-  bf16* v_t = k_t + kBK * L.ldt;                         // [kBK][ldt]
-  float* bias_t = reinterpret_cast<float*>(v_t + kBK * L.ldt);  // [kBK]
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.x * kBQ;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int nf = L.dp / 16;
-  // each warp owns query rows [r0, r0 + 16): its rows of s_t and p_t are
-  // private to it; the K/V/bias tiles are shared by the block
-  const int r0 = warp * kRows;
-
-  load_bf16_tile<kVec>(q_t, q, qs, b, h, q0, nq, d, L);
-
-  // score z of tile column c (-inf past the last key)
-  auto score = [&](int r, int c, int k0) {
-    return k0 + c < nk
-        ? __fadd_rn(__fmul_rn(s_t[r * L.lds + c], scale), bias_t[c])
-        : -INFINITY;
-  };
-  auto load_bias = [&](int k0) {
-    for (int j = threadIdx.x; j < kBK; j += kWThreads)
-      bias_t[j] = (k0 + j < nk && bias != nullptr)
-          ? bias[b * bias_sb + k0 + j] : 0.f;
-  };
-
-  // 1) per-row max and exp-sum; each lane keeps partial statistics of
-  //    columns lane and lane + 32 of every tile
-  float m[kRows], l[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-  }
-  for (int k0 = 0; k0 < nk; k0 += kBK) {
-    __syncthreads();
-    load_bf16_tile<kVec>(k_t, k, ks, b, h, k0, nk, d, L);
-    load_bias(k0);
-    __syncthreads();
-    tile_scores(s_t, q_t, k_t, r0, L);
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-      for (int c = lane; c < kBK; c += 32) {
-        const float z = score(r0 + i, c, k0);
-        if (z == -INFINITY) continue;
-        if (z > m[i]) {
-          l[i] = l[i] * expf(m[i] - z) + 1.f;
-          m[i] = z;
-        } else {
-          l[i] += expf(z - m[i]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const float mr = yat::warp_max(m[i]);
-    l[i] = yat::warp_sum(m[i] == -INFINITY ? 0.f : l[i] * expf(m[i] - mr));
-    m[i] = mr;
-  }
-
-  // 2) p = bf16(exp(z - max) / sum), o += P.V on the tensor cores
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[kMaxFrag];
-#pragma unroll
-  for (int f = 0; f < kMaxFrag; ++f) wmma::fill_fragment(o[f], 0.f);
-  const bf16 zero = __float2bfloat16_rn(0.f);
-  for (int k0 = 0; k0 < nk; k0 += kBK) {
-    __syncthreads();
-    load_bf16_tile<kVec>(k_t, k, ks, b, h, k0, nk, d, L);
-    load_bf16_tile<kVec>(v_t, v, vs, b, h, k0, nk, d, L);
-    load_bias(k0);
-    __syncthreads();
-    tile_scores(s_t, q_t, k_t, r0, L);
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-      for (int c = lane; c < kBK; c += 32) {
-        const float z = score(r0 + i, c, k0);
-        p_t[(r0 + i) * L.ldp + c] = z == -INFINITY
-            ? zero : __float2bfloat16_rn(expf(z - m[i]) / l[i]);
-      }
-    }
-    __syncwarp();
-    for (int kt = 0; kt < kBK / 16; ++kt) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, p_t + r0 * L.ldp + kt * 16, L.ldp);
-#pragma unroll
-      for (int f = 0; f < kMaxFrag; ++f) {
-        if (f < nf) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, v_t + kt * 16 * L.ldt + f * 16, L.ldt);
-          wmma::mma_sync(o[f], fa, fb, o[f]);
-        }
-      }
-    }
-  }
-
-  // 3) stage the warp's [16, dp] output through its rows of s_t, write bf16
-#pragma unroll
-  for (int f = 0; f < kMaxFrag; ++f)
-    if (f < nf)
-      wmma::store_matrix_sync(s_t + r0 * L.lds + f * 16, o[f], L.lds,
-                              wmma::mem_row_major);
-  __syncwarp();
-  for (int idx = lane; idx < kRows * d; idx += 32) {
-    const int rr = idx / d;
-    const int e = idx - rr * d;
-    const int gq = q0 + r0 + rr;
-    if (gq < nq)
-      out[b * os.b + gq * os.n + h * os.h + e] =
-          __float2bfloat16_rn(s_t[(r0 + rr) * L.lds + e]);
-  }
+  attention_bf16_block<kVec, kDC>(q, k, v, bias, out, nq, nk, d, qs, ks, vs,
+                                  bias_sb, os, scale, block_keys, smem_raw);
 }
 
-template <typename K>
-cudaError_t set_smem(K kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
+struct SoftmaxKernel {
+  template <bool kVec, int kDC>
+  static auto fn() { return attention_fwd_bf16<kVec, kDC>; }
+};
 
 }  // namespace
 
 // Shared memory one block needs, so the wrapper can refuse shapes that do
 // not fit before launching.
-extern "C" long long yat_attention_smem_bytes(int nk, int d, int dtype) {
-  if (dtype == yat::kBFloat16) return static_cast<long long>(Layout(d).bytes());
-  return static_cast<long long>(smem_f32(nk, d));
+extern "C" long long yat_attention_smem_bytes(int d, int dtype) {
+  if (dtype == yat::kBFloat16) return static_cast<long long>(bf16_smem_bytes(d));
+  return static_cast<long long>(f32_smem_bytes(d));
 }
 
 extern "C" int yat_attention_max_head_dim() { return kMaxD; }
@@ -416,32 +81,15 @@ extern "C" int yat_attention_fwd(
   const Strides qs{q_sb, q_sn, q_sh}, ks{k_sb, k_sn, k_sh},
       vs{v_sb, v_sn, v_sh}, os{o_sb, o_sn, o_sh};
   const float* bp = static_cast<const float*>(bias);
-  const dim3 grid((nq + kBQ - 1) / kBQ, h, b);
-  cudaError_t e;
-  if (dtype == yat::kFloat32) {
-    const size_t smem = smem_f32(nk, d);
-    if ((e = set_smem(attention_fwd_f32, smem)) != cudaSuccess) return e;
-    attention_fwd_f32<<<grid, kThreads, smem, st>>>(
+  // one key block covering every key: P normalised before it is rounded
+  if (dtype == yat::kFloat32)
+    return static_cast<int>(launch_f32(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), bp, static_cast<float*>(out), nq, nk,
-        d, qs, ks, vs, bias_sb, os, scale);
-  } else if (dtype == yat::kBFloat16) {
-    const size_t smem = Layout(d).bytes();
-    // 16-byte loads when every row start is 16-byte aligned
-    const bool vec = d % 8 == 0 && q_sb % 8 == 0 && q_sn % 8 == 0 &&
-        q_sh % 8 == 0 && k_sb % 8 == 0 && k_sn % 8 == 0 && k_sh % 8 == 0 &&
-        v_sb % 8 == 0 && v_sn % 8 == 0 && v_sh % 8 == 0 &&
-        reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
-        reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-        reinterpret_cast<uintptr_t>(v) % 16 == 0;
-    auto kernel = vec ? attention_fwd_bf16<true> : attention_fwd_bf16<false>;
-    if ((e = set_smem(kernel, smem)) != cudaSuccess) return e;
-    kernel<<<grid, kWThreads, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), bp, static_cast<bf16*>(out), nq, nk, d,
-        qs, ks, vs, bias_sb, os, scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+        static_cast<const float*>(v), bp, static_cast<float*>(out), b, nq,
+        nk, h, d, qs, ks, vs, bias_sb, os, scale, nk, st));
+  if (dtype != yat::kBFloat16) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_bf16<SoftmaxKernel>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), bp, static_cast<bf16*>(out), b, nq, nk, h,
+      d, qs, ks, vs, bias_sb, os, scale, nk, st));
 }

@@ -18,16 +18,15 @@ from typing import Mapping, Optional
 import torch
 
 from yat_tpu_torch.config import TrainingParameters
-from yat_tpu_torch.convert import load_flax_params
-from yat_tpu_torch.data.sampler import pad_embeddings
 from yat_tpu_torch.device import resolve_device
 from yat_tpu_torch.frontends.common import (
     build_feature_sampler,
+    build_module,
     cli_main,
+    make_prompt_encoder,
     override_config,
     slice_caption_rung,
 )
-from yat_tpu_torch.models.layers import init_params
 from yat_tpu_torch.models.sana import (
     SANA_600M,
     SANA_1600M,
@@ -56,21 +55,6 @@ def build_sana_config(params: TrainingParameters) -> SanaConfig:
     return override_config(cfg, over, mirror_out_channels=True)
 
 
-def _build(module_fn, device, tree, seed, dtype=None):
-    """Construct a module on ``device`` (no host copy of its parameters),
-    then load ``tree`` or initialise it from ``seed``; optionally store the
-    parameters in ``dtype``."""
-    with torch.device(device):
-        module = module_fn()
-    if tree is not None:
-        load_flax_params(module, tree)
-    else:
-        init_params(module, torch.Generator(device=device).manual_seed(seed))
-    if dtype is not None:
-        module.to(dtype)
-    return module.eval()
-
-
 def build_encoders(params: TrainingParameters, cfg: SanaConfig,
                    device: torch.device,
                    weights: Optional[Mapping] = None):
@@ -90,13 +74,14 @@ def build_encoders(params: TrainingParameters, cfg: SanaConfig,
     tiny = bool(params.model_config_overrides.get("tiny_encoders"))
     dtype = torch.bfloat16 if params.bfloat16 else torch.float32
     te_cfg = GEMMA_TINY_TEST if tiny else GEMMA2_2B
-    te = _build(lambda: Gemma2Encoder(te_cfg, dtype=dtype), device,
-                weights.get("text_encoder"), params.dataset_seed + 1,
-                dtype if params.bfloat16 else None)
+    te = build_module(lambda: Gemma2Encoder(te_cfg, dtype=dtype), device,
+                      weights.get("text_encoder"), params.dataset_seed + 1,
+                      dtype if params.bfloat16 else None)
     vae_tree = weights.get("vae")
-    vae = _build(lambda: DCAE(DCAE_TINY_TEST if tiny else DCAE_SANA), device,
-                 {"decoder": vae_tree["decoder"]} if vae_tree else None,
-                 params.dataset_seed + 2)
+    vae = build_module(lambda: DCAE(DCAE_TINY_TEST if tiny else DCAE_SANA),
+                       device,
+                       {"decoder": vae_tree["decoder"]} if vae_tree else None,
+                       params.dataset_seed + 2)
     tokenize = load_tokenizer(params.pretrained_pipe_path,
                               vocab_size=te.cfg.vocab_size,
                               max_length=cfg.max_caption_len)
@@ -114,13 +99,6 @@ def build_encoders(params: TrainingParameters, cfg: SanaConfig,
         return vae.decode(z)
 
     return encode_captions, decode_latents
-
-
-def _prompt_batch(encode_captions, prompts, cfg: SanaConfig, device):
-    padded, mask = pad_embeddings(encode_captions(list(prompts)),
-                                  cfg.max_caption_len)
-    return {"embeddings": torch.as_tensor(padded, device=device),
-            "text_mask": torch.as_tensor(mask, device=device)}
 
 
 def make_pipeline(params: TrainingParameters, device=None,
@@ -144,17 +122,18 @@ def make_pipeline(params: TrainingParameters, device=None,
     cfg = build_sana_config(params)
     dtype = torch.bfloat16 if params.bfloat16 else torch.float32
     weights = weights or {}
-    model = _build(lambda: SanaTransformer2D(cfg, dtype=dtype), device,
-                   weights.get("transformer"), params.dataset_seed,
-                   dtype if params.bfloat16 else None)
+    model = build_module(lambda: SanaTransformer2D(cfg, dtype=dtype),
+                         device, weights.get("transformer"),
+                         params.dataset_seed,
+                         dtype if params.bfloat16 else None)
     encode_captions, decode_latents = build_encoders(params, cfg, device,
                                                      weights)
     lat = cfg.sample_size
     return ValidationPipeline(
         model, FlowMatchSchedule(shift=3.0),
         latent_shape=(lat, lat, cfg.in_channels),
-        encode_prompts=lambda prompts: _prompt_batch(
-            encode_captions, prompts, cfg, device),
+        encode_prompts=make_prompt_encoder(encode_captions,
+                                           cfg.max_caption_len, device),
         decode_latents=decode_latents,
         guidance_scale=5.0, num_steps=20,
         prompt_transform=enhance_prompt, params=params, device=device)
@@ -186,7 +165,7 @@ def make_trainer(params: TrainingParameters, sampler=None, device=None,
     cfg = build_sana_config(params)
     dtype = torch.bfloat16 if params.bfloat16 else torch.float32
     weights = weights or {}
-    model = _build(lambda: SanaTransformer2D(
+    model = build_module(lambda: SanaTransformer2D(
         cfg, dtype=dtype, gradient_checkpointing=params.low_vram),
         device, weights.get("transformer"), params.dataset_seed,
         dtype if params.bfloat16 else None)
@@ -209,8 +188,8 @@ def make_trainer(params: TrainingParameters, sampler=None, device=None,
         lat = cfg.sample_size
         pipeline = ValidationPipeline(
             model, schedule, latent_shape=(lat, lat, cfg.in_channels),
-            encode_prompts=lambda prompts: _prompt_batch(
-                encode_captions, prompts, cfg, device),
+            encode_prompts=make_prompt_encoder(encode_captions,
+                                               cfg.max_caption_len, device),
             decode_latents=decode_latents, guidance_scale=5.0, num_steps=20,
             prompt_transform=enhance_prompt, params=params, device=device)
         trainer.validate_fn = lambda tr: pipeline(

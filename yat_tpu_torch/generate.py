@@ -3,9 +3,10 @@ images for a prompt list, write PNGs.
 
 Counterpart of ``yat_tpu/generate.py`` on the PyTorch port:
 
-    python -m yat_tpu_torch.generate --family sana --config config.yaml \
-        --prompt "a red fox in snow" --prompt "a lighthouse at dusk" \
-        --steps 20 --guidance-scale 5.0 --out generated/ [--device cuda]
+    python -m yat_tpu_torch.generate --family sana|pixart \
+        --config config.yaml --prompt "a red fox in snow" \
+        --prompt "a lighthouse at dusk" --steps 20 --guidance-scale 5.0 \
+        --out generated/ [--device cuda]
 
 The port serves with random weights until checkpoint loading is ported.
 """
@@ -20,6 +21,7 @@ import numpy as np
 
 FAMILIES = {
     "sana": "yat_tpu_torch.frontends.sana",
+    "pixart": "yat_tpu_torch.frontends.pixart",
 }
 
 
@@ -68,12 +70,14 @@ def refuse_unported(sampler: Optional[str] = None,
                     cache_interval: Optional[int] = None) -> None:
     """Raise for sampling options this slice of the port does not implement
     (DPM-Solver++(2M), the velocity cache), so that none is silently
-    ignored; 'auto' and interval 1 are the flow-match Euler ladder."""
+    ignored; 'auto' and interval 1 are the family's own ladder (flow-match
+    Euler for SANA, DDIM for PixArt-Sigma)."""
     if sampler is not None and sampler not in ("auto", "dpm"):
         raise ValueError(f"unknown sampler {sampler!r}; use auto|dpm")
     if sampler == "dpm":
         raise ValueError("sampler='dpm' (DPM-Solver++(2M)) is not "
-                         "implemented in the PyTorch port yet; use auto")
+                         "implemented in the PyTorch port yet (ROADMAP queue "
+                         "1, item 7); use auto")
     if cache_interval is not None and int(cache_interval) < 1:
         raise ValueError("cache interval must be >= 1 (1 = full ladder, "
                          "no velocity caching)")
@@ -135,7 +139,7 @@ def main(argv: Optional[list] = None) -> None:
     p.add_argument("--guidance-scale", type=float, default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--sampler", default=None, choices=("auto", "dpm"),
-                   help="only auto (flow-match Euler) is ported")
+                   help="only auto (the family's own ladder) is ported")
     p.add_argument("--cache-interval", type=int, default=None,
                    help="only 1 (no velocity cache) is ported")
     p.add_argument("--out", default="generated", dest="out")

@@ -10,7 +10,11 @@ and flags, so an edited kernel is rebuilt.
 
 A :class:`CudaKernel` is one C entry point.  Its ``launches`` counter goes
 up by one for every launch that the CUDA runtime accepted, and only there:
-a run can show that it went through the kernel.
+a run can show that it went through the kernel.  Two handles may share an
+entry point and count apart (K2's kernel also serves the JAX package's
+folded-layout kernel K4).  A :class:`LaunchCounter` alone counts the calls
+of a branch that launches no kernel of the port (the XLA attention
+branch), so a run can show that it was never taken.
 """
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ _lock = threading.Lock()
 _libraries: Dict[str, ctypes.CDLL] = {}
 # every kernel the package defines, by name (filled as modules import)
 KERNELS: Dict[str, "CudaKernel"] = {}
+# every launch counter, kernels' and branches', by name
+COUNTERS: Dict[str, "LaunchCounter"] = {}
 
 
 def find_nvcc() -> str:
@@ -122,7 +128,16 @@ def load(source: str) -> ctypes.CDLL:
         return lib
 
 
-class CudaKernel:
+class LaunchCounter:
+    """A named count, set to 0 by :func:`reset_launch_counts`."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+        COUNTERS[name] = self
+
+
+class CudaKernel(LaunchCounter):
     """One C entry point of a ``csrc`` library with its launch counter.
 
     ``argtypes`` are the ctypes of the entry point's arguments (pointers and
@@ -131,11 +146,10 @@ class CudaKernel:
 
     def __init__(self, name: str, source: str, symbol: str,
                  argtypes: Sequence[type]):
-        self.name = name
+        super().__init__(name)
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes)
-        self.launches = 0
         self._fn: Optional[ctypes._CFuncPtr] = None
         KERNELS[name] = self
 
@@ -176,9 +190,9 @@ def stream_of(t) -> int:
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS.values():
-        k.launches = 0
+    for c in COUNTERS.values():
+        c.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: k.launches for name, k in KERNELS.items()}
+    return {name: c.launches for name, c in COUNTERS.items()}

@@ -1,6 +1,8 @@
-"""Shared building blocks of the SANA denoiser and the Gemma-2 encoder.
+"""Shared building blocks of the SANA and PixArt-Sigma denoisers and the
+text encoders.
 
-Counterpart of the SANA/Gemma subset of ``yat_tpu/models/layers.py``.
+Counterpart of the SANA/PixArt/Gemma/T5 subset of
+``yat_tpu/models/layers.py``.
 Modules keep the JAX package's parameter names (``kernel`` becomes
 ``weight`` in PyTorch's ``[out, in]`` orientation; see ``convert.py``),
 its ``[B, N, D]`` token and NHWC latent layouts, and its dtype policy:
@@ -318,11 +320,14 @@ def _qk_norm_modules(qk_norm, num_heads, head_dim):
 
 class Attention(nn.Module):
     """Multi-head softmax attention (self or cross) with fp32 softmax,
-    through ``ops.attention.dot_product_attention`` (kernel K2 on CUDA).
+    through ``ops.attention.dot_product_attention`` (kernels K2, K4 or K6
+    on CUDA, by shape).
 
     ``forward(..., return_kv=True)`` returns the final (post-norm,
     head-split) K/V of the context; ``cached_kv`` replaces their
-    computation (the per-request caption K/V cache of sampling)."""
+    computation (the per-request caption K/V cache of sampling);
+    ``perturbed=True`` is the identity attention map of perturbed-attention
+    guidance: each query takes its own position's V."""
 
     def __init__(self, query_dim: int, num_heads: int, head_dim: int,
                  out_features: Optional[int] = None,
@@ -355,7 +360,7 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None, *,
                 cached_kv: Optional[tuple] = None, return_kv: bool = False,
-                deterministic: bool = True):
+                perturbed: bool = False, deterministic: bool = True):
         if cached_kv is not None and not return_kv:
             k, v = cached_kv
         else:
@@ -363,14 +368,18 @@ class Attention(nn.Module):
                                    deterministic)
         if return_kv:
             return k, v
-        q = self.to_q(x, deterministic)
-        b, nq = q.shape[0], q.shape[1]
-        if self.qk_norm == "rms_norm_across_heads":
-            q = self.norm_q(q)
-        q = q.reshape(b, nq, self.num_heads, self.head_dim)
-        if self.qk_norm in ("rms", "rms_norm"):
-            q = self.norm_q(q)
-        y = dot_product_attention(q, k, v, mask=mask)
+        b, nq = x.shape[0], x.shape[1]
+        if perturbed:
+            # the query goes unused (the JAX package computes and drops it)
+            y = v
+        else:
+            q = self.to_q(x, deterministic)
+            if self.qk_norm == "rms_norm_across_heads":
+                q = self.norm_q(q)
+            q = q.reshape(b, nq, self.num_heads, self.head_dim)
+            if self.qk_norm in ("rms", "rms_norm"):
+                q = self.norm_q(q)
+            y = dot_product_attention(q, k, v, mask=mask)
         return self.to_out(y.reshape(b, nq, self.num_heads * self.head_dim),
                            deterministic)
 
@@ -430,6 +439,34 @@ class GLUMBConv(nn.Module):
         y, gate = y.chunk(2, dim=-1)
         y = y * F.silu(gate)
         return self.conv_point(y.reshape(b, n, self.hidden), deterministic)
+
+
+_ACTIVATIONS = {
+    "gelu_tanh": lambda y: F.gelu(y, approximate="tanh"),
+    "silu": F.silu,
+    "gelu": lambda y: F.gelu(y, approximate="none"),
+}
+
+
+class MLP(nn.Module):
+    """Transformer FFN: fc1 → activation (``gelu_tanh``, ``silu`` or exact
+    ``gelu``) → fc2, as in PixArt and DiT."""
+
+    def __init__(self, dim: int, mlp_ratio: float = 4.0,
+                 activation: str = "gelu_tanh",
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if activation not in _ACTIVATIONS:
+            raise ValueError(activation)
+        hidden = int(dim * mlp_ratio)
+        self.activation = activation
+        self.fc1 = AdapterDense(dim, hidden, dtype=dtype)
+        self.fc2 = AdapterDense(hidden, dim, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True
+                ) -> torch.Tensor:
+        y = _ACTIVATIONS[self.activation](self.fc1(x, deterministic))
+        return self.fc2(y, deterministic)
 
 
 class PatchEmbed(nn.Module):

@@ -1,18 +1,26 @@
-"""DC-AE, SANA's 32x deep-compression autoencoder: the decode side.
+"""Autoencoders, the decode side: SD's AutoencoderKL (8x, PixArt-Sigma) and
+DC-AE (32x, SANA).
 
-Counterpart of the DC-AE part of ``yat_tpu/models/vae.py``
-(weight-compatible with diffusers ``AutoencoderDC``): conv stem, ResBlock
-stages, EfficientViT stages (multiscale ReLU linear attention + gated
-GLUMBConv, both residual with a trailing channel RMSNorm) and
-pixel-shuffle upsampling with the channel-duplication shortcut.  The VAE
-always runs in fp32.  Tensors are NHWC at every module boundary.  The
-encoder waits for the precompute slice of the port.
+Counterpart of ``yat_tpu/models/vae.py``:
+
+* ``AutoencoderKL``: the SD structure one to one (conv stem, mid block of
+  two resnets around a single-head attention over the latent grid, up
+  stages of resnets with nearest x2 upsampling), flax ``nn.GroupNorm``
+  semantics (32 groups, eps 1e-6, the one-pass variance);
+* DC-AE (weight-compatible with diffusers ``AutoencoderDC``): conv stem,
+  ResBlock stages, EfficientViT stages (multiscale ReLU linear attention +
+  gated GLUMBConv, both residual with a trailing channel RMSNorm) and
+  pixel-shuffle upsampling with the channel-duplication shortcut.
+
+The VAEs always run in fp32; their attentions are plain tensor code, as in
+the JAX package.  Tensors are NHWC at every module boundary.  The encoders
+wait for the precompute slice of the port (ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -20,6 +28,162 @@ from torch import nn
 
 from yat_tpu_torch.models.layers import AdapterDense, Conv2d
 
+
+# ---------------------------------------------------------------------------
+# AutoencoderKL (SD 8x)
+# ---------------------------------------------------------------------------
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm`` on NHWC fp32: statistics per (batch, group)
+    over the grid and the group's channels, ``var = E[x^2] - E[x]^2``
+    clipped at 0, ``y = (x - mean) * (rsqrt(var + eps) * scale) + bias``."""
+
+    def __init__(self, channels: int, num_groups: int = 32,
+                 epsilon: float = 1e-6):
+        super().__init__()
+        self.num_groups, self.epsilon = num_groups, epsilon
+        self.scale = nn.Parameter(torch.empty(channels))
+        self.bias = nn.Parameter(torch.empty(channels))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        self.scale.data.fill_(1.0)
+        self.bias.data.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, g = x.shape[0], x.shape[-1], self.num_groups
+        xg = x.float().reshape(b, -1, g, c // g)
+        mean = xg.mean(dim=(1, 3), keepdim=True)
+        mean2 = (xg * xg).mean(dim=(1, 3), keepdim=True)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.epsilon) * self.scale.reshape(
+            1, 1, g, c // g)
+        y = (xg - mean) * mul + self.bias.reshape(1, 1, g, c // g)
+        return y.reshape(x.shape)
+
+
+class ResnetBlock(nn.Module):
+    """GroupNorm → silu → conv3x3, twice, plus the input (through a 1x1
+    conv when the width changes)."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.norm1 = GroupNorm(in_channels)
+        self.conv1 = Conv2d(in_channels, out_channels, 3)
+        self.norm2 = GroupNorm(out_channels)
+        self.conv2 = Conv2d(out_channels, out_channels, 3)
+        self.conv_shortcut = (Conv2d(in_channels, out_channels, 1)
+                              if in_channels != out_channels else None)
+
+    def forward(self, x):
+        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv2(F.silu(self.norm2(h)))
+        if self.conv_shortcut is not None:
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+class AttnBlock(nn.Module):
+    """Single-head full attention over the spatial grid (the mid block)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        c = channels
+        self.group_norm = GroupNorm(c)
+        f32 = torch.float32
+        self.to_q = AdapterDense(c, c, True, f32)
+        self.to_k = AdapterDense(c, c, True, f32)
+        self.to_v = AdapterDense(c, c, True, f32)
+        self.to_out = AdapterDense(c, c, True, f32)
+
+    def forward(self, x):
+        b, h, w, c = x.shape
+        y = self.group_norm(x).reshape(b, h * w, c)
+        q, k, v = self.to_q(y), self.to_k(y), self.to_v(y)
+        attn = torch.softmax((q @ k.transpose(1, 2)).float()
+                             / torch.sqrt(torch.tensor(float(c))), -1)
+        y = self.to_out(attn.to(v.dtype) @ v)
+        return x + y.reshape(b, h, w, c)
+
+
+@dataclasses.dataclass(frozen=True)
+class KLVAEConfig:
+    """SD1.5/SDXL defaults; scaling_factor 0.18215 (SD15) / 0.13025 (SDXL)."""
+
+    in_channels: int = 3
+    latent_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
+    layers_per_block: int = 2
+    scaling_factor: float = 0.18215
+    shift_factor: Optional[float] = None    # SD3/Flux VAEs use a shift
+
+    @property
+    def compression(self) -> int:
+        return 2 ** (len(self.block_out_channels) - 1)
+
+
+class KLDecoder(nn.Module):
+    def __init__(self, cfg: KLVAEConfig):
+        super().__init__()
+        c = cfg
+        rev = tuple(reversed(c.block_out_channels))
+        self.cfg = cfg
+        self.post_quant_conv = Conv2d(c.latent_channels, c.latent_channels, 1)
+        self.conv_in = Conv2d(c.latent_channels, rev[0], 3)
+        self.mid_resnet_0 = ResnetBlock(rev[0], rev[0])
+        self.mid_attn = AttnBlock(rev[0])
+        self.mid_resnet_1 = ResnetBlock(rev[0], rev[0])
+        # flax names: up_{i}_resnet_{j}, then up_{i}_upsample
+        self.stages = []
+        ch_in = rev[0]
+        for i, ch in enumerate(rev):
+            names = []
+            for j in range(c.layers_per_block + 1):
+                self.add_module(f"up_{i}_resnet_{j}", ResnetBlock(ch_in, ch))
+                names.append(f"up_{i}_resnet_{j}")
+                ch_in = ch
+            if i < len(rev) - 1:
+                self.add_module(f"up_{i}_upsample", Conv2d(ch, ch, 3))
+                names.append(f"up_{i}_upsample")
+            self.stages.append(names)
+        self.conv_norm_out = GroupNorm(rev[-1])
+        self.conv_out = Conv2d(rev[-1], c.in_channels, 3)
+
+    def forward(self, z):
+        h = self.conv_in(self.post_quant_conv(z))
+        h = self.mid_resnet_1(self.mid_attn(self.mid_resnet_0(h)))
+        for names in self.stages:
+            for name in names:
+                if name.endswith("_upsample"):
+                    # nearest x2 (jax.image.resize "nearest" at scale 2)
+                    h = h.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+                h = getattr(self, name)(h)
+        return self.conv_out(F.silu(self.conv_norm_out(h)))
+
+
+class AutoencoderKL(nn.Module):
+    """SD's KL autoencoder, decode side, fp32."""
+
+    def __init__(self, cfg: KLVAEConfig = KLVAEConfig()):
+        super().__init__()
+        self.cfg = cfg
+        self.decoder = KLDecoder(cfg)
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        """NHWC latents → NHWC images in about [-1, 1], fp32."""
+        z = z.float() / self.cfg.scaling_factor
+        if self.cfg.shift_factor is not None:
+            z = z + self.cfg.shift_factor
+        return self.decoder(z)
+
+
+KLVAE_SD15 = KLVAEConfig(scaling_factor=0.18215)
+KLVAE_TINY_TEST = KLVAEConfig(block_out_channels=(32, 32),
+                              layers_per_block=1)
+
+
+# ---------------------------------------------------------------------------
+# DC-AE (SANA 32x)
+# ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class DCAEConfig:

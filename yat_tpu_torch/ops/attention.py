@@ -1,28 +1,42 @@
-"""Attention: short-sequence softmax attention and ReLU linear attention.
+"""Attention: softmax attention (short, folded, flash and XLA branches) and
+ReLU linear attention.
 
 Counterpart of ``yat_tpu/ops/attention.py``.  Tensors keep the JAX
 package's ``[B, N, H, D]`` layout at these functions, and the kernels read
-and write it through strides.  Each public function is a
-``torch.autograd.Function``:
+and write it through strides.
 
-* :func:`dot_product_attention`: on a CUDA tensor kernel K2 forward
-  (``csrc/softmax_attention.cu``, replacing the TPU kernel
-  ``yat_tpu/ops/attention.py:_vmem_mh_fwd_kernel``) and kernel K2b backward
-  (``csrc/softmax_attention_bwd.cu``, replacing ``_vmem_mh_bwd_kernel``);
-  on a CPU tensor :func:`attention_ref` and :func:`attention_bwd_ref`.
-* :func:`linear_attention`: on a CUDA tensor kernel K3 forward
-  (``csrc/linear_attention.cu``, replacing ``_linatt_fwd_kernel``); on a CPU
-  tensor :func:`linear_attention_ref`.  Its backward recomputes the plain
-  version under autograd on either device, as the JAX package's
-  ``_linatt_bwd`` does with ``jax.vjp``: the JAX package has no backward
-  kernel there.
+:func:`dot_product_attention` takes the branch the JAX package takes for
+the same shape and ``implementation`` string (:func:`attention_branch`,
+leaving out only its test for a TPU backend); the branches round
+differently, and each keeps its own rounding:
 
-The JAX package picks among its TPU lowerings by shape and by the
-``implementation`` string.  The port has one lowering per device: the
-strings are checked exactly as there (unknown ones raise), a CUDA tensor
-always goes to its kernel, and for linear attention the string and the
-shape select the numerics of the JAX branch that would run (``round_kv``,
-see :func:`linear_attention`).
+* ``"native"`` and ``"folded"``, short sequences: kernel K2 forward
+  (``csrc/softmax_attention.cu``, replacing the TPU kernels
+  ``_vmem_mh_fwd_kernel`` (K2) and ``_vmem_attn_fwd_kernel`` (K4), which
+  differ only in the memory layout they read) and kernel K2b backward
+  (``csrc/softmax_attention_bwd.cu``); the plain versions
+  :func:`attention_ref` and :func:`attention_bwd_ref`.  The two branches
+  launch one kernel through two handles, so each counts its own launches;
+* ``"flash"``, long sequences: kernel K6 forward
+  (``csrc/flash_attention.cu``, replacing the Pallas library's
+  ``flash_attention``); the plain version :func:`flash_attention_ref`.  Its
+  backward (K6b) is not ported yet and raises;
+* ``"xla"``, every other shape: :func:`attention_xla`, plain tensor code
+  with the rounding of ``jax.nn.dot_product_attention``.  It stands for no
+  TPU kernel; it counts its calls on CUDA tensors, so a run on the card
+  can show that it was not taken.
+
+:func:`linear_attention`: on a CUDA tensor kernel K3 forward
+(``csrc/linear_attention.cu``, replacing ``_linatt_fwd_kernel``); on a CPU
+tensor :func:`linear_attention_ref`.  Its backward recomputes the plain
+version under autograd on either device, as the JAX package's
+``_linatt_bwd`` does with ``jax.vjp``: the JAX package has no backward
+kernel there.  Its implementation string and the shape select the numerics
+of the JAX branch that would run (``round_kv``, see
+:func:`linear_attention`).
+
+A CPU tensor takes the plain versions; a CUDA tensor launches the kernel
+of its branch or raises.
 """
 
 from __future__ import annotations
@@ -32,52 +46,173 @@ from typing import Optional
 
 import torch
 
-from yat_tpu_torch.kernels.build import CudaKernel, dtype_code, stream_of
+from yat_tpu_torch.kernels.build import (
+    CudaKernel,
+    LaunchCounter,
+    dtype_code,
+    stream_of,
+)
 from yat_tpu_torch.ops.norm import acc_dtype
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
+_K2_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_L] * 13 + [_F, _I, _P]
 SOFTMAX_ATTENTION = CudaKernel(
     "dot_product_attention", "softmax_attention.cu", "yat_attention_fwd",
-    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_L] * 13 + [_F, _I, _P])
+    _K2_ARGS)
+# K2's kernel where the JAX package runs its folded-layout kernel K4
+SOFTMAX_ATTENTION_FOLDED = CudaKernel(
+    "dot_product_attention_folded", "softmax_attention.cu",
+    "yat_attention_fwd", _K2_ARGS)
 SOFTMAX_ATTENTION_BWD = CudaKernel(
     "dot_product_attention_bwd", "softmax_attention_bwd.cu",
     "yat_attention_bwd", [_P] * 9 + [_I] * 5 + [_L] * 22 + [_F, _I, _P])
+FLASH_ATTENTION = CudaKernel(
+    "flash_attention", "flash_attention.cu", "yat_flash_attention_fwd",
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_L] * 13
+    + [_F, _I, _I, _P])
 LINEAR_ATTENTION = CudaKernel(
     "linear_attention", "linear_attention.cu", "yat_linear_attention_fwd",
     [_P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 12 + [_F, _I, _I, _P])
+ATTENTION_XLA = LaunchCounter("attention_xla")
 
 # shared memory one block may use on the H100 (232,448 bytes)
 _MAX_SMEM = 232448
+# the additive bias of a masked key: K2's wrapper in the JAX package adds
+# -1e9; the flash library adds -0.7 * FLT_MAX (its DEFAULT_MASK_VALUE), and
+# jax.nn.dot_product_attention puts the same number in place of the logit
+_VMEM_MASK_VALUE = -1e9
+FLASH_MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
 
 
-def _key_bias(mask: Optional[torch.Tensor], b: int) -> Optional[torch.Tensor]:
-    """[B, N_k] keep-mask (or [B, 1, 1, N_k]) → fp32 additive bias."""
+def flash_block(n: int) -> int:
+    """The flash kernel's key (and query) block: the largest of 1024, 512,
+    256, 128 that divides ``n``, else ``min(n, 128)`` (a copy of
+    ``yat_tpu/ops/attention.py:_flash_block``)."""
+    for b in (1024, 512, 256, 128):
+        if n % b == 0:
+            return b
+    return min(n, 128)
+
+
+def attention_branch(n_q: int, n_k: int, h: int, d: int,
+                     implementation: str = "auto") -> str:
+    """The branch the JAX package's ``dot_product_attention`` takes for
+    these sizes (``yat_tpu/ops/attention.py:74-124, 357-395``, leaving out
+    its TPU-backend test): ``"native"`` (``_vmem_attn_native_p``, K2),
+    ``"folded"`` (``_vmem_attn_p``, K4), ``"flash"`` (the library
+    ``flash_attention``, K6) or ``"xla"`` (``jax.nn.dot_product_attention``).
+    """
+    n_kp = -(-n_k // 128) * 128
+    short = n_q % 8 == 0 and d <= 128 and n_q * n_kp <= 512 * 1024
+    if implementation == "vmem" or (implementation == "auto" and short):
+        hd = h * d
+        # the native kernel needs lane-aligned [N, H*D] slabs and its
+        # backward's blocks resident in 12 MB of VMEM
+        vmem_bwd = 3 * (n_q + 2 * n_kp) * hd * 2 + 3 * n_q * n_kp * 4
+        native = hd % 128 == 0 and vmem_bwd <= 12 * 2 ** 20
+        return "native" if native else "folded"
+    long = (n_q >= 1024 and n_k >= 128 and n_q % 128 == 0 and n_k % 128 == 0
+            and d <= 256)
+    if implementation == "xla" or (implementation == "auto" and not long):
+        return "xla"
+    return "flash"
+
+
+def _key_bias(mask: Optional[torch.Tensor], b: int,
+              masked: float = _VMEM_MASK_VALUE) -> Optional[torch.Tensor]:
+    """[B, N_k] keep-mask (or [B, 1, 1, N_k]) → fp32 additive bias: 0 where
+    a key is kept, ``masked`` where it is not."""
     if mask is None:
         return None
     key_mask = mask if mask.ndim == 2 else mask.reshape(b, -1)
-    return torch.where(key_mask.bool(), 0.0, -1e9).to(torch.float32)
+    return torch.where(key_mask.bool(), 0.0, masked).to(torch.float32)
 
 
-def _probs(q, k, bias, acc):
-    """fp32 (or wider) softmax probabilities [B, H, Nq, Nk]."""
+def _scores(q, k, bias, acc):
+    """fp32 (or wider) scaled scores [B, H, Nq, Nk] plus the key bias."""
     scale = 1.0 / (q.shape[-1] ** 0.5)
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * scale
     if bias is not None:
         s = s + bias.to(acc)[:, None, None, :]
+    return s
+
+
+def _softmax(s):
     m = s.amax(-1, keepdim=True)
     e = torch.exp(s - m)
     return e / e.sum(-1, keepdim=True)
 
 
+def _probs(q, k, bias, acc):
+    """fp32 (or wider) softmax probabilities [B, H, Nq, Nk]."""
+    return _softmax(_scores(q, k, bias, acc))
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version: q [B, Nq, H, D], k/v [B, Nk, H, D], bias [B, Nk] fp32
-    additive (the math of ``yat_tpu/ops/attention.py:_vmem_mh_fwd_kernel``:
-    fp32 scores and softmax, probabilities in v's dtype, fp32 P.V)."""
+    additive (the math of ``yat_tpu/ops/attention.py:_vmem_mh_fwd_kernel``
+    and ``_vmem_attn_fwd_kernel``: fp32 scores and softmax, probabilities in
+    v's dtype, fp32 P.V)."""
     acc = acc_dtype(q)
     p = _probs(q, k, bias, acc)
     o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).to(acc), v.to(acc))
+    return o.to(q.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of K6: the Pallas library flash kernel's arithmetic,
+    key block by key block of :func:`flash_block` keys (the last one may be
+    short).  One block: ``P = exp(s - max) / sum`` in fp32, rounded to v's
+    dtype before P.V (its single-step kernel).  Several: per block
+    ``P = exp(s - m_next)`` against the running max, rounded unnormalised,
+    and ``acc = acc * (l_corr / l_next) + (P.V) / l_next``
+    (``flash_attention.py:_flash_attention_kernel_single_batch``).  ``bias``
+    is [B, Nk] fp32 additive (``FLASH_MASK_VALUE`` at masked keys)."""
+    acc = acc_dtype(q)
+    s = _scores(q, k, bias, acc)
+    v32 = v.to(acc)
+    nk = k.shape[1]
+    blk = flash_block(nk)
+    if blk >= nk:
+        p = _softmax(s)
+        return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).to(acc),
+                            v32).to(q.dtype)
+    o = m_prev = l_prev = None
+    for k0 in range(0, nk, blk):
+        sb = s[..., k0:k0 + blk]
+        m_cur = sb.amax(-1, keepdim=True)
+        m_next = m_cur if m_prev is None else torch.maximum(m_prev, m_cur)
+        p = torch.exp(sb - m_next)
+        l_corr = 0.0 if m_prev is None else torch.exp(m_prev - m_next) * l_prev
+        l_next = p.sum(-1, keepdim=True) + l_corr
+        inv = torch.where(l_next == 0.0, 1.0, 1.0 / l_next)
+        pv = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).to(acc),
+                          v32[:, k0:k0 + blk])
+        o = pv * inv if o is None else o * (l_corr * inv) + pv * inv
+        m_prev, l_prev = m_next, l_next
+    return o.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The JAX package's non-Pallas branch, ``jax.nn.dot_product_attention``
+    in plain tensor code on either device: fp32 logits, masked logits
+    replaced by ``FLASH_MASK_VALUE``, fp32 softmax, probabilities rounded to
+    k's dtype, fp32 P.V.  ``mask`` is a [B, N_k] keep-mask or
+    [B, 1, 1, N_k]."""
+    if q.is_cuda:
+        ATTENTION_XLA.launches += 1
+    acc = acc_dtype(q)
+    s = _scores(q, k, None, acc)
+    if mask is not None:
+        key_mask = mask if mask.ndim == 2 else mask.reshape(q.shape[0], -1)
+        s = torch.where(key_mask.bool()[:, None, None, :], s,
+                        FLASH_MASK_VALUE)
+    p = _softmax(s)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(k.dtype).to(acc), v.to(acc))
     return o.to(q.dtype)
 
 
@@ -128,32 +263,50 @@ def _check_attention(q, k, v, bias):
     return bias
 
 
-def _attention_cuda(q, k, v, bias):
-    _check_cuda("dot_product_attention", (q, k, v))
+def _forward_launch(kern, q, k, v, bias, extra, max_symbol, smem_symbol):
+    """Check q/k/v/bias, allocate the output and launch the forward kernel
+    ``kern`` (K2 or K6: one argument layout, ``extra`` before the dtype
+    code)."""
+    _check_cuda(kern.name, (q, k, v))
     b, nq, h, d = q.shape
     nk = k.shape[1]
     out = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     bias = _check_attention(q, k, v, bias)
-    max_d = SOFTMAX_ATTENTION.function("yat_attention_max_head_dim")()
-    smem = SOFTMAX_ATTENTION.function(
-        "yat_attention_smem_bytes", [_I, _I, _I], ctypes.c_longlong)(
-            nk, d, dtype_code(q))
+    max_d = kern.function(max_symbol)()
+    smem = kern.function(smem_symbol, [_I, _I], ctypes.c_longlong)(
+        d, dtype_code(q))
     if d > max_d or smem > _MAX_SMEM:
         raise ValueError(
-            f"dot_product_attention kernel takes head_dim <= {max_d} and a "
-            f"[64, N_k] score block in shared memory; N_k={nk}, D={d} "
-            f"needs {smem} bytes of {_MAX_SMEM}")
+            f"{kern.name} kernel takes head_dim <= {max_d} within "
+            f"{_MAX_SMEM} bytes of shared memory; D={d} in {q.dtype} needs "
+            f"{smem}")
     with torch.cuda.device(q.device):
-        SOFTMAX_ATTENTION.launch(
+        kern.launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             bias.data_ptr() if bias is not None else None, out.data_ptr(),
             b, nq, nk, h, d, *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], bias.stride(0) if bias is not None else 0,
-            *out.stride()[:3], 1.0 / (d ** 0.5), dtype_code(q),
+            *out.stride()[:3], 1.0 / (d ** 0.5), *extra, dtype_code(q),
             stream_of(q))
     return out
+
+
+def _attention_cuda(q, k, v, bias, folded=False):
+    """Kernel K2 (counted as K4 where the JAX package folds heads)."""
+    kern = SOFTMAX_ATTENTION_FOLDED if folded else SOFTMAX_ATTENTION
+    return _forward_launch(kern, q, k, v, bias, (),
+                           "yat_attention_max_head_dim",
+                           "yat_attention_smem_bytes")
+
+
+def _flash_attention_cuda(q, k, v, bias):
+    """Kernel K6, with the library's key block of :func:`flash_block`."""
+    return _forward_launch(FLASH_ATTENTION, q, k, v, bias,
+                           (flash_block(k.shape[1]),),
+                           "yat_flash_attention_max_head_dim",
+                           "yat_flash_attention_smem_bytes")
 
 
 def _attention_bwd_cuda(q, k, v, bias, g):
@@ -195,14 +348,15 @@ def _attention_bwd_cuda(q, k, v, bias, g):
 
 
 class _SoftmaxAttention(torch.autograd.Function):
-    """K2 forward, K2b backward on CUDA; the plain versions on the CPU."""
+    """K2 (or K4) forward, K2b backward on CUDA; the plain versions on the
+    CPU."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias):
+    def forward(ctx, q, k, v, bias, folded):
         ctx.save_for_backward(q, k, v, bias)
         if q.device.type == "cpu":
             return attention_ref(q, k, v, bias)
-        return _attention_cuda(q, k, v, bias)
+        return _attention_cuda(q, k, v, bias, folded)
 
     @staticmethod
     def backward(ctx, g):
@@ -211,13 +365,30 @@ class _SoftmaxAttention(torch.autograd.Function):
             dq, dk, dv = attention_bwd_ref(q, k, v, bias, g)
         else:
             dq, dk, dv = _attention_bwd_cuda(q, k, v, bias, g)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K6 forward on CUDA, its plain version on the CPU; no backward yet."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        if q.device.type == "cpu":
+            return flash_attention_ref(q, k, v, bias)
+        return _flash_attention_cuda(q, k, v, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError(
+            "the flash-attention backward (K6b) is not ported yet; it comes "
+            "with PixArt-Sigma LoRA training (ROADMAP queue 1, slice 4)")
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           mask: Optional[torch.Tensor] = None,
                           implementation: str = "auto") -> torch.Tensor:
-    """q,k,v: [B, N, H, D]; mask: [B, N_k] keep-mask or [B,1,1,N_k] bool."""
+    """q,k,v: [B, N, H, D]; mask: [B, N_k] keep-mask or [B,1,1,N_k] bool.
+    The branch is :func:`attention_branch`'s."""
     if implementation not in ("auto", "xla", "vmem", "flash"):
         raise ValueError(
             f"unknown attention implementation {implementation!r}; expected "
@@ -230,7 +401,15 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "use implementation='auto' to fall back automatically")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"dot_product_attention runs on cuda or cpu, got {q.device}")
-    return _SoftmaxAttention.apply(q, k, v, _key_bias(mask, q.shape[0]))
+    b, n_q, h, d = q.shape
+    branch = attention_branch(n_q, k.shape[1], h, d, implementation)
+    if branch == "xla":
+        return attention_xla(q, k, v, mask)
+    if branch == "flash":
+        return _FlashAttention.apply(q, k, v,
+                                     _key_bias(mask, b, FLASH_MASK_VALUE))
+    return _SoftmaxAttention.apply(q, k, v, _key_bias(mask, b),
+                                   branch == "folded")
 
 
 def linear_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

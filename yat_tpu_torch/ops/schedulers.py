@@ -1,12 +1,18 @@
-"""Flow-matching noise schedule and the training timestep density.
+"""Noise schedules and the training timestep density.
 
-Counterpart of ``yat_tpu/ops/schedulers.py:FlowMatchSchedule``
-(diffusers ``FlowMatchEulerDiscreteScheduler`` parity): sigmas are a
-shifted linear ramp, the noisy input is ``(1 - sigma) x + sigma eps``, the
-model predicts the velocity ``eps - x``, and sampling integrates it with
-Euler steps.  Training draws come from a ``torch.Generator``; they cannot
-reproduce ``jax.random``'s numbers, so tests hand both sides the same
-draws.
+Counterpart of ``yat_tpu/ops/schedulers.py``:
+
+* :class:`FlowMatchSchedule` (diffusers ``FlowMatchEulerDiscreteScheduler``
+  parity): sigmas are a shifted linear ramp, the noisy input is
+  ``(1 - sigma) x + sigma eps``, the model predicts the velocity
+  ``eps - x``, and sampling integrates it with Euler steps;
+* :class:`DDPMSchedule` (diffusers ``DDPMScheduler`` parity): the betas,
+  the cumulative alphas and the deterministic DDIM step that sampling
+  takes.  Its training half (noising, draws, targets) waits for the
+  PixArt-Sigma training slice.
+
+Training draws come from a ``torch.Generator``; they cannot reproduce
+``jax.random``'s numbers, so tests hand both sides the same draws.
 """
 
 from __future__ import annotations
@@ -125,3 +131,47 @@ class FlowMatchSchedule:
                         ) -> torch.Tensor:
         """target = eps - x."""
         return noise - latents
+
+
+@dataclasses.dataclass(frozen=True)
+class DDPMSchedule:
+    """Classic DDPM cumulative-alpha schedule: scaled-linear betas from
+    0.00085 to 0.012 over 1000 steps (SD1.5, SDXL, PixArt-Sigma).  The
+    tables are fp32 on the CPU; callers move them to their device."""
+
+    num_train_timesteps: int = 1000
+    beta_start: float = 0.00085
+    beta_end: float = 0.012
+    beta_schedule: str = "scaled_linear"
+    prediction_type: str = "epsilon"
+
+    def betas(self) -> torch.Tensor:
+        n = self.num_train_timesteps
+        if self.beta_schedule == "linear":
+            return torch.linspace(self.beta_start, self.beta_end, n,
+                                  dtype=torch.float32)
+        if self.beta_schedule == "scaled_linear":
+            return torch.linspace(self.beta_start ** 0.5,
+                                  self.beta_end ** 0.5, n,
+                                  dtype=torch.float32) ** 2
+        if self.beta_schedule == "squaredcos_cap_v2":
+            steps = torch.arange(n + 1, dtype=torch.float32) / n
+            alpha_bar = torch.cos((steps + 0.008) / 1.008 * math.pi / 2) ** 2
+            return torch.clamp(1.0 - alpha_bar[1:] / alpha_bar[:-1], 0.0,
+                               0.999)
+        raise ValueError(f"unknown beta schedule {self.beta_schedule!r}")
+
+    def alphas_cumprod(self) -> torch.Tensor:
+        return torch.cumprod(1.0 - self.betas(), dim=0)
+
+    def ddim_step(self, sample: torch.Tensor, eps_pred: torch.Tensor,
+                  t: int, t_prev: int) -> torch.Tensor:
+        """Deterministic DDIM update (eta = 0) from integer timestep ``t``
+        to ``t_prev`` (-1 past the last step), in the sample's dtype."""
+        abar = self.alphas_cumprod()
+        a_t = abar[int(t)].to(sample.dtype)
+        a_prev = (abar[int(t_prev)] if t_prev >= 0
+                  else torch.tensor(1.0)).to(sample.dtype)
+        a_t, a_prev = a_t.to(sample.device), a_prev.to(sample.device)
+        x0 = (sample - torch.sqrt(1.0 - a_t) * eps_pred) / torch.sqrt(a_t)
+        return torch.sqrt(a_prev) * x0 + torch.sqrt(1.0 - a_prev) * eps_pred

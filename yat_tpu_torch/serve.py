@@ -7,7 +7,7 @@ micro-batched: the sampler thread collects up to ``--max-batch`` prompts
 them as one CFG-batched sampling run.  Sampling settings are
 server-global.
 
-    python -m yat_tpu_torch.serve --config config.yaml --family sana \
+    python -m yat_tpu_torch.serve --config config.yaml --family sana|pixart \
         --port 8000 --max-batch 4 --batch-window-ms 50 [--device cuda]
 
     curl -X POST localhost:8000/generate -d '{"prompt": "a red fox"}'

@@ -1,15 +1,18 @@
 """Text-to-image sampling pipeline: encode prompts, sample, decode.
 
-Counterpart of the flow-match Euler + CFG path of
+Counterpart of the flow-match Euler and DDIM paths of
 ``yat_tpu/train/validation.py:ValidationPipeline``: prompts are encoded
 (with an optional prompt transform), a batch-1 unconditional caption is
 encoded once per call and tiled, the caption K/V of every block is
-projected once per request batch (context-K/V cache), the CFG-batched
-denoiser runs the Euler ladder, and the VAE decodes.  Images come back as
+projected once per request batch (context-K/V cache; not under PAG), the
+CFG-batched denoiser (with a perturbed-attention-guidance call when
+``pag_scale`` > 0) runs the Euler ladder of a flow-match schedule or the
+DDIM ladder of a DDPM one, keeping the first ``pred_slice`` channels of a
+learned-sigma prediction, and the VAE decodes.  Images come back as
 ``{"validation/{i}/{prompt}": [H, W, 3] float in [0, 1]}``.
 
-Not in this slice of the port: PAG, DDIM and DPM-Solver++(2M), the
-velocity cache, refiner timestep gating and EMA weights.
+Not in this slice of the port: DPM-Solver++(2M), the velocity cache,
+refiner timestep gating and EMA weights.
 """
 
 from __future__ import annotations
@@ -19,8 +22,13 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from yat_tpu_torch.ops.sampling import make_cfg_denoiser, sample_flow_match
-from yat_tpu_torch.ops.schedulers import FlowMatchSchedule
+from yat_tpu_torch.ops.sampling import (
+    make_cfg_denoiser,
+    make_pag_cfg_denoiser,
+    sample_ddim,
+    sample_flow_match,
+)
+from yat_tpu_torch.ops.schedulers import DDPMSchedule, FlowMatchSchedule
 
 
 def validation_prompt_groups(params, prompts):
@@ -51,8 +59,8 @@ class ValidationPipeline:
 
     def __init__(
         self,
-        model,                                # SanaTransformer2D
-        schedule: FlowMatchSchedule,
+        model,                                # a denoiser module
+        schedule,                             # FlowMatch- or DDPMSchedule
         latent_shape,                         # (H, W, C) for one image
         encode_prompts: Callable[[List[str]], Dict[str, torch.Tensor]],
         decode_latents: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
@@ -62,9 +70,12 @@ class ValidationPipeline:
         prompt_transform: Optional[Callable[[str], str]] = None,
         params=None,
         device: Optional[torch.device] = None,
+        pag_scale: float = 0.0,
+        pred_slice: Optional[int] = None,
     ):
-        if not isinstance(schedule, FlowMatchSchedule):
-            raise ValueError("the PyTorch port samples flow-match models only")
+        if not isinstance(schedule, (FlowMatchSchedule, DDPMSchedule)):
+            raise ValueError("the PyTorch port samples flow-match and DDPM "
+                             f"schedules, got {type(schedule).__name__}")
         self.model = model
         self.schedule = schedule
         self.latent_shape = tuple(latent_shape)
@@ -76,13 +87,18 @@ class ValidationPipeline:
         self.prompt_transform = prompt_transform
         self.params = params
         self.device = device
+        self.pag_scale = pag_scale
+        self.pred_slice = pred_slice
 
     def sample_latents(self, cond: Dict, uncond: Dict,
                        x0: Optional[torch.Tensor] = None) -> torch.Tensor:
         shape = (cond["embeddings"].shape[0], *self.latent_shape)
-        if getattr(self.model, "supports_context_cache", False):
+        if (getattr(self.model, "supports_context_cache", False)
+                and self.pag_scale == 0.0):
             # the caption embeddings are constant across every denoise
-            # step: project each block's caption K/V once per request
+            # step: project each block's caption K/V once per request (not
+            # under PAG, whose perturbed call runs the full model, as in
+            # the JAX package)
             cond, uncond = dict(cond), dict(uncond)
             for branch in (cond, uncond):
                 branch["cached_ctx_kv"] = self.model(
@@ -90,14 +106,25 @@ class ValidationPipeline:
                     return_ctx_kv=True)
 
         def apply_fn(x, timesteps, **kw):
-            return self.model(x, kw.pop("embeddings"), timesteps,
-                              kw.pop("text_mask", None), **kw)
+            out = self.model(x, kw.pop("embeddings"), timesteps,
+                             kw.pop("text_mask", None), **kw)
+            if self.pred_slice is not None:
+                # learned-sigma models: keep the epsilon half
+                out = out[..., :self.pred_slice]
+            return out
 
-        denoise = make_cfg_denoiser(apply_fn, cond, uncond,
-                                    self.guidance_scale)
-        return sample_flow_match(denoise, shape, self.schedule,
-                                 self.num_steps, self.seed,
-                                 device=self.device, x0=x0)
+        if self.pag_scale > 0.0:
+            denoise = make_pag_cfg_denoiser(apply_fn, cond, uncond,
+                                            self.guidance_scale,
+                                            self.pag_scale)
+        else:
+            denoise = make_cfg_denoiser(apply_fn, cond, uncond,
+                                        self.guidance_scale)
+        sample = (sample_flow_match
+                  if isinstance(self.schedule, FlowMatchSchedule)
+                  else sample_ddim)
+        return sample(denoise, shape, self.schedule, self.num_steps,
+                      self.seed, device=self.device, x0=x0)
 
     @torch.inference_mode()
     def __call__(self, prompts: List[str],
