@@ -10,18 +10,20 @@ Phases, each of which fails the run (exit code 1) when it fails:
 2. build: compiles every CUDA kernel of the port from
    ``yat_tpu_torch/csrc`` with nvcc (one process per source, in parallel);
 3. kernels: holds each kernel (K1, K2, K3, K4 through K2's kernel and K6
-   forward; K1b, K2b backward) against its plain PyTorch version at the
-   serving and training paths' shapes and at ragged and masked shapes, in
-   bf16 and fp32, and times the kernel, the plain version and (where one
-   exists) one PyTorch call computing the same function, beside the least
-   time the card could take;
+   forward; K1b, K2b, K4b through K2b's kernel and K6b backward) against
+   its plain PyTorch version at the serving and training paths' shapes and
+   at ragged and masked shapes, in bf16 and fp32, and times the kernel, the
+   plain version and (where one exists) one PyTorch call computing the
+   same function, beside the least time the card could take;
 4. reference: two-block full-width SANA and PixArt-Sigma denoisers on the
    card against the same modules on the CPU (the plain versions), fp32;
-5. gradient reference: the same two blocks with LoRA (nonzero ``lora_b``),
-   one flow-matching loss and every LoRA gradient on the card (kernels)
-   against the CPU (plain versions), fp32, once the share of the ReLU
-   kinks that fall on different sides of 0 on the two devices is counted
-   and added; every gradient nonzero;
+5. gradient reference: the same two SANA blocks with LoRA (nonzero
+   ``lora_b``), one flow-matching loss and every LoRA gradient on the card
+   (kernels) against the CPU (plain versions), fp32, once the share of the
+   ReLU kinks that fall on different sides of 0 on the two devices is
+   counted and added; every gradient nonzero.  Then two PixArt-Sigma
+   blocks with LoRA and one epsilon loss the same way (K6/K6b, K4/K4b,
+   K1/K1b; no ReLU, so no kinks);
 6. serve: the port's SANA-0.6B 512px server (Gemma-2-2B caption encoder,
    SANA-0.6B denoiser with CFG 5.0 and 20 flow-match Euler steps, fp32
    DC-AE decoder) with random weights from a seed, on 127.0.0.1: four
@@ -40,7 +42,14 @@ Phases, each of which fails the run (exit code 1) when it fails:
    adapters and their export, and the launches per step; then one more
    step with remat (``low_vram``) on the same batch and draws, whose loss
    and gradients must equal the step without, and one step under
-   ``torch.profiler``.
+   ``torch.profiler``;
+8. PixArt-Sigma XL-2 512px LoRA training through
+   ``yat_tpu_torch.frontends.pixart.main`` on a synthetic feature shard
+   (batch 8, bf16, rank-32 LoRA on to_q/to_k/to_v/to_out, 6 steps over the
+   caption rungs 128 and 256/300): the same checks, with the launches per
+   step by caption rung (K6/K6b for the self-attention; K4/K4b at rungs
+   256 and 300, K2/K2b at rung 128 for the cross-attention), a remat step
+   and a profiled step.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -93,9 +102,13 @@ TOL = {
 # round the other way before the dq/dk products.  fp32: reduction order only
 BWD_BF16_ATOL_SHARE = 2.0 ** -8
 TOL["bfloat16"].update({"adaln_layernorm_bwd": (None, 2.0 ** -7),
-                        "dot_product_attention_bwd": (None, 2.0 ** -7)})
+                        "dot_product_attention_bwd": (None, 2.0 ** -7),
+                        "dot_product_attention_folded_bwd": (None, 2.0 ** -7),
+                        "flash_attention_bwd": (None, 2.0 ** -7)})
 TOL["float32"].update({"adaln_layernorm_bwd": (1e-4, 1e-4),
-                       "dot_product_attention_bwd": (2e-4, 2e-4)})
+                       "dot_product_attention_bwd": (2e-4, 2e-4),
+                       "dot_product_attention_folded_bwd": (2e-4, 2e-4),
+                       "flash_attention_bwd": (2e-4, 2e-4)})
 # the gradient reference (fp32, TF32 off): every entry of every LoRA leaf's
 # gradient within this share of the leaf's largest entry, once the share of
 # the ReLU kinks that fell on different sides on the two devices is added
@@ -105,7 +118,9 @@ MAIN_CASE = {"adaln_layernorm": "serve", "dot_product_attention": "serve",
              "dot_product_attention_folded": "serve",
              "flash_attention": "serve", "linear_attention": "serve",
              "adaln_layernorm_bwd": "train",
-             "dot_product_attention_bwd": "train-512"}
+             "dot_product_attention_bwd": "train-512",
+             "dot_product_attention_folded_bwd": "train-300",
+             "flash_attention_bwd": "train"}
 
 PROMPTS = ["a red fox in fresh snow", "a lighthouse at dusk",
            "a bowl of ramen on a wooden table", "a city street in the rain"]
@@ -399,6 +414,56 @@ def kernel_cases(device):
                           es * b * h * d * (3 * nq + 4 * nk)
                           + (4 * b * nk if keep is not None else 0),
                           10 * b * h * nq * nk * d + 8 * b * h * nq * nk))
+        # K4b (K2b's kernel where the JAX package folds heads): PixArt-Sigma
+        # cross-attention q/g [8, 1024, 16, 72] at the caption rungs
+        # L = 300 and 256, keeping 10-L keys
+        for label, nk in (("train-300", 300), ("train-256", 256)):
+            b, nq, h, d = 8, 1024, 16, 72
+
+            def make(nk=nk, dtype=dtype):
+                m = _mask([10 + (nk - 10) * i // 7 for i in range(8)], nk,
+                          device)
+                return (randn((8, 1024, 16, 72), dtype),
+                        randn((8, nk, 16, 72), dtype),
+                        randn((8, nk, 16, 72), dtype), A._key_bias(m, 8),
+                        randn((8, 1024, 16, 72), dtype))
+
+            def kern(q, k, v, bias, g):
+                return A._attention_bwd_cuda(q, k, v, bias, g, folded=True)
+            cases.append(("dot_product_attention_folded_bwd", label, dtype,
+                          make, kern, A.attention_bwd_ref,
+                          (_sdpa_fwd_bwd, _sdpa_fwd),
+                          es * b * h * d * (3 * nq + 4 * nk) + 4 * b * nk,
+                          10 * b * h * nq * nk * d + 8 * b * h * nq * nk))
+        # K6b: PixArt-Sigma 512px self-attention q/k/v/o/g [8, 1024, 16,
+        # 72]; 1024px, [2, 4096, 16, 72] in four key blocks; a masked flash
+        # case at PixArt-1024px's cross-attention shape, q [8, 4096, 16, 72]
+        # over k/v [8, 256, 16, 72] keeping 0-256 keys (0: a fully masked
+        # row); shapes the flash gate admits with several key blocks (N_k =
+        # 640: five; head dim 256: three); a ragged N = 1000, called
+        # directly.  o, l and m come from K6's plain version
+        for label, (b, nq, nk, h, d, keep) in (
+                ("train", (8, 1024, 1024, 16, 72, None)),
+                ("1024px", (2, 4096, 4096, 16, 72, None)),
+                ("masked-cross", (8, 4096, 256, 16, 72,
+                                  [0, 1, 37, 100, 128, 200, 255, 256])),
+                ("blocks-640", (2, 1280, 640, 16, 72, [640, 311])),
+                ("d256", (2, 1024, 384, 2, 256, [384, 100])),
+                ("ragged", (2, 1000, 1000, 16, 72, [1000, 333]))):
+            def make(b=b, nq=nq, nk=nk, h=h, d=d, keep=keep, dtype=dtype):
+                bias = (None if keep is None else A._key_bias(
+                    _mask(keep, nk, device), b, A.FLASH_MASK_VALUE))
+                q, k, v = (randn((b, n, h, d), dtype) for n in (nq, nk, nk))
+                o, l, m = A.flash_attention_ref(q, k, v, bias,
+                                                residuals=True)
+                return q, k, v, bias, o, l, m, randn((b, nq, h, d), dtype)
+            cases.append(("flash_attention_bwd", label, dtype, make,
+                          A._flash_attention_bwd_cuda,
+                          A.flash_attention_bwd_ref,
+                          (_flash_sdpa_fwd_bwd, _flash_sdpa_fwd),
+                          es * b * h * d * (4 * nq + 4 * nk) + 8 * b * h * nq
+                          + (4 * b * nk if keep is not None else 0),
+                          10 * b * h * nq * nk * d + 8 * b * h * nq * nk))
     return cases
 
 
@@ -445,6 +510,25 @@ def _sdpa_fwd_bwd(q, k, v, bias, g):
                                g.transpose(1, 2))
 
 
+def _flash_sdpa_fwd(q, k, v, bias, o, l, m, g):
+    return _sdpa_fwd(q, k, v, bias, g)
+
+
+def _flash_sdpa_fwd_bwd(q, k, v, bias, o, l, m, g):
+    return _sdpa_fwd_bwd(q, k, v, bias, g)
+
+
+def flash_attention_bwd_without_di(q, k, v, bias, o, l, m, g):
+    """A wrong K6b, for checking that the bf16 tolerance catches it: the
+    plain flash backward with ``di = rowsum(o dO)`` dropped from ``ds``
+    (a zero ``o``)."""
+    import torch
+
+    from yat_tpu_torch.ops import attention as A
+    return A.flash_attention_bwd_ref(q, k, v, bias, torch.zeros_like(o), l,
+                                     m, g)
+
+
 def attention_bwd_without_row_term(q, k, v, bias, g):
     """A wrong K2b, for checking that the bf16 tolerance catches it: the
     plain backward with ``dS = P dP``, the ``rowsum(dP P)`` term dropped."""
@@ -460,6 +544,16 @@ def attention_bwd_without_row_term(q, k, v, bias, g):
     dk = torch.einsum("bhqk,bqhd->bkhd", ds_c, q.to(acc)) * scale
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(g.dtype).to(acc), g.to(acc))
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# name: (a backward without its row term, that term) for the power check
+WRONG_BWD = {
+    "dot_product_attention_bwd": (attention_bwd_without_row_term,
+                                  "rowsum(dP P)"),
+    "dot_product_attention_folded_bwd": (attention_bwd_without_row_term,
+                                         "rowsum(dP P)"),
+    "flash_attention_bwd": (flash_attention_bwd_without_di,
+                            "di = rowsum(o dO)")}
 
 
 def phase_kernels(device):
@@ -478,11 +572,12 @@ def phase_kernels(device):
             f"the allowance ({tol}) {'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"{name} [{label}, {dt}] disagrees with its plain version")
-        if name == "dot_product_attention_bwd" and dtype == torch.bfloat16:
-            # the tolerance's power: a K2b without the row term must fail
-            w_err, w_used, w_ok, _ = compare(
-                name, attention_bwd_without_row_term(*args), want)
-            log(f"{name} [{label}, {dt}] a K2b without rowsum(dP P): "
+        wrong = WRONG_BWD.get(name)
+        if wrong is not None and dtype == torch.bfloat16:
+            # the tolerance's power: a backward without its row term (K2b's
+            # rowsum(dP P), K6b's di = rowsum(o dO)) must fail
+            w_err, w_used, w_ok, _ = compare(name, wrong[0](*args), want)
+            log(f"{name} [{label}, {dt}] a backward without {wrong[1]}: "
                 f"max_abs_err {w_err:.3e}, {w_used:.1f} of the allowance "
                 f"{'ACCEPTED' if w_ok else 'rejected'}")
             if w_ok:
@@ -584,15 +679,37 @@ def phase_reference(device):
 LORA_TARGETS = ["to_q", "to_k", "to_v", "to_out"]
 
 
-def phase_grad_reference(device):
+def lora_pair(cls, cfg, rank, device):
+    """An fp32 ``cls(cfg)`` on the CPU from seeds, with rank-``rank`` LoRA
+    on ``LORA_TARGETS`` and a nonzero ``lora_b`` (so ``lora_a`` gets
+    gradients too), and its copy on ``device``; returns both and the number
+    of adapted modules."""
     import copy
-    import dataclasses
 
     import torch
 
     from yat_tpu_torch.adapters.builder import (
-        AdapterSpec, adapted_modules, build_adapter_params, lora_parameters)
+        AdapterSpec, adapted_modules, build_adapter_params)
     from yat_tpu_torch.models.layers import init_params
+
+    cpu = cls(cfg, dtype=torch.float32)
+    init_params(cpu, torch.Generator().manual_seed(0))
+    n = build_adapter_params(cpu, AdapterSpec("lora", rank=rank, alpha=rank,
+                                              target_modules=LORA_TARGETS),
+                             torch.Generator().manual_seed(1))
+    gen = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for _, m in adapted_modules(cpu):
+            m.lora_b.normal_(0.0, 0.02, generator=gen)
+    return cpu, copy.deepcopy(cpu).to(device), n
+
+
+def phase_grad_reference(device):
+    import dataclasses
+
+    import torch
+
+    from yat_tpu_torch.adapters.builder import lora_parameters
     from yat_tpu_torch.models.sana import SANA_600M, SanaTransformer2D
     from yat_tpu_torch.ops.schedulers import FlowMatchSchedule
     from yat_tpu_torch.train.step import loss_and_grads
@@ -600,16 +717,7 @@ def phase_grad_reference(device):
 
     cfg = dataclasses.replace(SANA_600M, num_layers=2,
                               softmax_self_attn_blocks=(1,))
-    cpu = SanaTransformer2D(cfg, dtype=torch.float32)
-    init_params(cpu, torch.Generator().manual_seed(0))
-    n = build_adapter_params(cpu, AdapterSpec("lora", rank=8, alpha=8,
-                                              target_modules=LORA_TARGETS),
-                             torch.Generator().manual_seed(1))
-    gen = torch.Generator().manual_seed(2)
-    with torch.no_grad():
-        for _, m in adapted_modules(cpu):       # nonzero B: A gets gradients
-            m.lora_b.normal_(0.0, 0.02, generator=gen)
-    gpu = copy.deepcopy(cpu).to(device)
+    cpu, gpu, n = lora_pair(SanaTransformer2D, cfg, 8, device)
     rng = np.random.default_rng(0)
     lat = rng.standard_normal((2, 16, 16, cfg.in_channels), np.float32)
     emb = rng.standard_normal((2, 300, cfg.caption_channels), np.float32)
@@ -713,6 +821,89 @@ def _relu_input_hooks(attn, seen):
             for p in ("to_q", "to_k")]
 
 
+def phase_pixart_grad_reference(device, width=None):
+    """Two PixArt-Sigma XL-2 512px blocks with LoRA (nonzero ``lora_b``) at
+    1024 image tokens over a 300-token caption, one epsilon loss with the
+    learned-sigma half sliced off, every LoRA gradient on ``device`` against
+    the CPU, fp32.  On the card the self-attention runs K6/K6b, the
+    cross-attention K4/K4b and the norms K1/K1b.  ``width`` overrides the
+    config's widths for a rehearsal on the CPU."""
+    import dataclasses
+
+    import torch
+
+    from yat_tpu_torch.adapters.builder import lora_parameters
+    from yat_tpu_torch.kernels.build import launch_counts, reset_launch_counts
+    from yat_tpu_torch.models.pixart import PIXART_SIGMA_XL2, \
+        PixArtTransformer2D
+    from yat_tpu_torch.ops.schedulers import DDPMSchedule
+    from yat_tpu_torch.train.step import loss_and_grads
+    from yat_tpu_torch.train.tasks import make_epsilon_loss
+
+    cfg = dataclasses.replace(PIXART_SIGMA_XL2, num_layers=2, **(width or {}))
+    cpu, gpu, n = lora_pair(PixArtTransformer2D, cfg, 32, device)
+    rng = np.random.default_rng(0)
+    grid = cfg.sample_size
+    lat = rng.standard_normal((2, grid, grid, cfg.in_channels), np.float32)
+    emb = rng.standard_normal((2, cfg.max_caption_len, cfg.caption_channels),
+                              np.float32)
+    mask = (np.arange(cfg.max_caption_len)[None]
+            < np.array([[1], [217]])).astype(np.int32)
+    sched = DDPMSchedule()
+    ts = sched.training_draw(torch.Generator().manual_seed(3), 2)
+    noise = rng.standard_normal(lat.shape, np.float32)
+    learned_sigma = cfg.out_channels == 2 * cfg.in_channels
+    results = []
+    for model, dev in ((cpu, torch.device("cpu")), (gpu, device)):
+        batch = {"latents": torch.from_numpy(lat).to(dev),
+                 "embeddings": torch.from_numpy(emb).to(dev),
+                 "text_mask": torch.from_numpy(mask).to(dev)}
+        draws = {"timesteps": ts.to(dev),
+                 "noise": torch.from_numpy(noise).to(dev)}
+        leaves = [p for _, p in lora_parameters(model)]
+        reset_launch_counts()
+        loss, grads = loss_and_grads(
+            make_epsilon_loss(model, sched, learned_sigma=learned_sigma),
+            leaves, batch, torch.Generator(), draws)
+        results.append((float(loss), [g.detach().cpu() for g in grads],
+                        launch_counts()))
+    (loss_c, grads_c, _), (loss_g, grads_g, counts) = results
+    names = [name for name, _ in lora_parameters(cpu)]
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    zero, rows, ok = [], [], loss_err <= 1e-4
+    for name, gc, gg in zip(names, grads_c, grads_g):
+        scale = float(gc.abs().max())
+        rel = float((gg - gc).abs().max()) / scale
+        rows.append((rel, name, scale))
+        ok = ok and rel <= GRAD_REF_TOL and bool(torch.isfinite(gg).all())
+        if not bool((gg != 0).any()):
+            zero.append(name)
+    for rel, name, scale in sorted(rows, reverse=True)[:3]:
+        log(f"pixart grad reference:   {name}: max|g| {scale:.3e}; "
+            f"max|dg|/max|g| {rel:.2e}")
+    # two blocks: per block one self- and one cross-attention forward and
+    # backward, two norms forward and backward, plus the output norm
+    # forward; block 0's first norm needs no backward
+    want = {"flash_attention": 2, "flash_attention_bwd": 2,
+            "dot_product_attention_folded": 2,
+            "dot_product_attention_folded_bwd": 2, "adaln_layernorm": 5,
+            "adaln_layernorm_bwd": 4, "attention_xla": 0}
+    if device.type != "cuda":
+        want = {k: 0 for k in want}
+    log(f"pixart grad reference: 2-block {cfg.hidden_dim}-wide PixArt-Sigma "
+        f"with LoRA on {n} modules ({len(names)} leaves), {device.type} vs "
+        f"CPU, fp32: loss {loss_g:.6f} vs {loss_c:.6f} (rel {loss_err:.2e}, "
+        f"tol 1e-4); worst leaf max|dg|/max|g| {max(r[0] for r in rows):.2e} "
+        f"(tol {GRAD_REF_TOL:g}); zero gradients: {len(zero)}; launches "
+        f"{ {k: counts[k] for k in want} }")
+    if zero:
+        fail(f"pixart: LoRA leaves with no gradient: {zero[:4]}")
+    if not ok:
+        fail("pixart: LoRA gradients on the card disagree with the CPU")
+    if any(counts[k] != v for k, v in want.items()):
+        fail(f"pixart grad reference: launches {counts}, expected {want}")
+
+
 # ---------------------------------------------------------------------------
 # 6. serve
 # ---------------------------------------------------------------------------
@@ -773,7 +964,11 @@ def per_step_launches(family, vp):
             "dot_product_attention": 0, "attention_xla": 0}
 
 
-def phase_serve(params, device, card, family="sana", px=512, profile=False):
+def phase_serve(params, device, card, family="sana", px=512, profile=False,
+                window_ms=100.0):
+    """The serving main path through HTTP.  The batch window only has to
+    cover the arrival of 4 concurrent requests: ``window_ms`` widens it for
+    a rehearsal on a loaded CPU, where the arrivals spread further."""
     import torch
 
     from yat_tpu_torch.kernels.build import launch_counts, reset_launch_counts
@@ -781,9 +976,8 @@ def phase_serve(params, device, card, family="sana", px=512, profile=False):
 
     cuda = device.type == "cuda"
     t0 = time.perf_counter()
-    # the window only has to cover the arrival of 4 concurrent requests
     sampler = build_sampler(params, family, max_batch=4,
-                            batch_window_ms=100.0, device=device)
+                            batch_window_ms=window_ms, device=device)
     vp = sampler.pipeline
     cfg = vp.model.cfg
     if cuda:
@@ -888,8 +1082,9 @@ KERNEL_FAMILIES = (
     ("K6 flash_attention", ("flash_attention_fwd",)),
     ("K2/K4 dot_product_attention", ("attention_fwd_bf16",
                                      "attention_fwd_f32")),
-    ("K2b dot_product_attention_bwd", ("attention_bwd_dq",
-                                       "attention_bwd_dkdv")),
+    ("K6b flash_attention_bwd", ("flash_bwd_",)),
+    ("K2b/K4b dot_product_attention_bwd", ("attention_bwd_dq",
+                                           "attention_bwd_dkdv")),
     ("K3 linear_attention", ("linear_attention_fwd",)),
     # convolutions first: cuDNN's implicit-GEMM kernels carry "gemm" too
     ("convolution (cuDNN)", ("conv", "cudnn", "depthwise", "implicit",
@@ -953,13 +1148,14 @@ TRAIN_STEPS = 6
 
 
 def write_train_shard(path, n=48, latent=(16, 16, 32), dim=2304,
-                      lengths=(100, 500), seed=0):
+                      lengths=(100, 500), seed=0, caption_lengths=None):
     """``n`` feature samples, by default SANA-0.6B 512px ones: ratio "1.0",
     latents [16, 16, 32] fp32, caption embeddings [L_i, 2304] fp32 with L_i
-    spread over 100-500 tokens."""
+    spread over 100-500 tokens (or ``caption_lengths``, in file order)."""
     from yat_tpu_torch.data.tar import TarShardWriter
     rng = np.random.default_rng(seed)
-    ls = rng.permutation(np.linspace(*lengths, n).round().astype(int))
+    ls = (caption_lengths if caption_lengths is not None else
+          rng.permutation(np.linspace(*lengths, n).round().astype(int)))
     with TarShardWriter(path) as w:
         for i, length in enumerate(ls):
             w.write({"__key__": f"{i:06d}", "ratio": "1.0",
@@ -986,86 +1182,195 @@ def train_config(shard, out_dir, **extra):
     return cfg
 
 
-def phase_train(device, card, shard_args=None, cfg_extra=None):
-    """The training main path through the entry point; returns the launch
-    counts of its run.  ``shard_args``/``cfg_extra`` shrink it for a
-    rehearsal on the CPU."""
+def run_entry_point(label, main_fn, device, tmp, cfg, shard_args):
+    """Write the feature shard and the config under ``tmp``, then run the
+    entry point as a user does, the launch counts set to 0 just before.
+    Returns the trainer, the launch counts, the wall seconds and the peak
+    device memory."""
     import torch
     import yaml
 
+    from yat_tpu_torch.kernels.build import launch_counts, reset_launch_counts
+
+    cuda = device.type == "cuda"
+    t0 = time.perf_counter()
+    write_train_shard(cfg["local_shard_paths"][0], **shard_args)
+    cfg_path = os.path.join(tmp, "config.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    log(f"{label}: wrote a "
+        f"{os.path.getsize(cfg['local_shard_paths'][0]) / 1e6:.1f} MB "
+        f"feature shard in {time.perf_counter() - t0:.1f} s")
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    # main path: the entry point, as a user runs it
+    t0 = time.perf_counter()
+    trainer = main_fn(["--config", cfg_path, "--device", device.type])
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    return trainer, counts, wall, peak
+
+
+def check_trained(label, trainer, cfg, n_layers):
+    """Finite losses, the warmup, LoRA on to_q/to_k/to_v/to_out of attn1 and
+    attn2 in every block with every ``lora_b`` moved off zero, and the PEFT
+    export equal to the live leaves."""
     from yat_tpu_torch.adapters.builder import adapted_modules, lora_parameters
     from yat_tpu_torch.adapters.io import read_safetensors
-    from yat_tpu_torch.frontends.sana import main as train_main
+
+    steps = int(cfg["steps"])
+    hist = trainer.history
+    for h in hist:
+        log(f"{label}: step {h['step']} caption rung {h['caption_len']} "
+            f"loss {h['loss']:.6f} grad_norm {h['grad_norm']:.4f} "
+            f"lr {h['lr']:.3g}")
+    if len(hist) != steps or not all(
+            math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+            for h in hist):
+        fail(f"{label}: expected {steps} finite losses, got {hist}")
+    if hist[0]["lr"] != 0.0 or hist[1]["lr"] <= 0.0:
+        fail(f"{label}: warmup should give lr 0 on the first update only")
+    adapted = adapted_modules(trainer.model)
+    if len(adapted) != 8 * n_layers:
+        fail(f"{label}: {len(adapted)} adapted modules, expected "
+             f"{8 * n_layers}")
+    zero_b = [".".join(p) for p, m in adapted
+              if not bool((m.lora_b != 0).any())]
+    if zero_b:
+        fail(f"{label}: lora_b still zero after the updates: {zero_b[:4]}")
+    path = os.path.join(cfg["output_dir"], str(steps),
+                        "adapter_model.safetensors")
+    tensors, meta = read_safetensors(path)
+    if len(tensors) != 2 * len(adapted) or "yat_meta" not in meta:
+        fail(f"{label}: adapter file holds {len(tensors)} tensors, "
+             f"expected {2 * len(adapted)}")
+    for name, p in lora_parameters(trainer.model):
+        dotted, leaf = name.rsplit(".", 1)
+        key = (f"base_model.model.{dotted}."
+               f"{'lora_A' if leaf == 'lora_a' else 'lora_B'}.weight")
+        if not np.array_equal(tensors[key],
+                              p.detach().float().cpu().numpy().T):
+            fail(f"{label}: exported {key} differs from the live leaf")
+    log(f"{label}: {len(adapted)} adapted modules; adapter export "
+        f"{os.path.basename(path)} holds {len(tensors)} tensors")
+
+
+def check_launches(label, counts, want, how):
+    for name, n in want.items():
+        log(f"{label}: {name} launches {counts[name]} (expected {how(name)}"
+            f" = {n})")
+        if counts[name] != n:
+            fail(f"{label}: {name}: {counts[name]} launches, expected {n}")
+
+
+def log_step_rate(label, trainer, wall, peak, card):
+    steps = len(trainer.history)
+    times = trainer._step_times[1:]
+    step_s = sum(times) / len(times)
+    log(f"{label} [{card}]: {steps} steps in {wall:.2f} s through the "
+        f"entry point (shard read included); steps 2-{steps}: "
+        f"{step_s:.4f} s a step, {1 / step_s:.3f} steps/s, "
+        f"{trainer.params.batch_size / step_s:.2f} images/s; first "
+        f"step {trainer._step_times[0]:.3f} s; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+
+
+def remat_step(label, trainer, device, card, batch, draws, in_blocks,
+               bwd_names):
+    """One step's loss and gradients on ``batch`` and ``draws`` with and
+    without remat (``gradient_checkpointing``): the same bits, the forward
+    launches inside the blocks (``in_blocks``, per step) twice, the
+    backward launches (``bwd_names``) once; then one optimizer step under
+    torch.profiler on the card."""
+    import torch
+
+    from yat_tpu_torch.adapters.builder import lora_parameters
     from yat_tpu_torch.kernels.build import launch_counts, reset_launch_counts
     from yat_tpu_torch.train.step import loss_and_grads
 
     cuda = device.type == "cuda"
-    with tempfile.TemporaryDirectory() as tmp:
-        shard = os.path.join(tmp, "shard-000000.tar")
-        t0 = time.perf_counter()
-        write_train_shard(shard, **(shard_args or {}))
-        cfg = {k: v for k, v in train_config(
-            shard, os.path.join(tmp, "out"), **(cfg_extra or {})).items()
-            if v is not None}              # None drops a key
-        cfg_path = os.path.join(tmp, "config.yaml")
-        with open(cfg_path, "w") as f:
-            yaml.safe_dump(cfg, f)
-        log(f"train: wrote a {os.path.getsize(shard) / 1e6:.1f} MB feature "
-            f"shard in {time.perf_counter() - t0:.1f} s")
-
+    model = trainer.model
+    gen = torch.Generator(device=device).manual_seed(5)
+    rung = batch["embeddings"].shape[1]
+    leaves = [p for _, p in lora_parameters(model)]
+    runs = {}
+    for remat in (False, True):
+        model.gradient_checkpointing = remat
         if cuda:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        # main path: the entry point, as a user runs it
         t0 = time.perf_counter()
-        trainer = train_main(["--config", cfg_path, "--device", device.type])
+        loss, grads = loss_and_grads(trainer.task_loss, leaves, batch, gen,
+                                     draws)
         if cuda:
             torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = launch_counts()
-        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        runs[remat] = (loss, grads, launch_counts(),
+                       time.perf_counter() - t0,
+                       torch.cuda.max_memory_allocated() if cuda else 0)
+    model.gradient_checkpointing = False
+    (l0, g0, c0, t_0, m0), (l1, g1, c1, t_1, m1) = runs[False], runs[True]
+    same = bool(torch.equal(l0, l1)) and all(
+        bool(torch.equal(a, c)) for a, c in zip(g0, g1))
+    worst = max(float((a.float() - c.float()).abs().max()) for a, c in
+                zip(g0, g1))
+    log(f"{label}: remat step loss {float(l1):.6f} vs {float(l0):.6f}, "
+        f"largest gradient difference {worst:.3e}: "
+        f"{'bit-identical' if same else 'DIFFERENT'}; forward launches "
+        f"{ {k: (c1[k], c0[k]) for k in in_blocks} } (with, without), "
+        f"backward { {k: (c1[k], c0[k]) for k in bwd_names} }")
+    log(f"{label} [{card}]: loss and gradients of one step at rung {rung}: "
+        f"{t_0:.3f} s and peak {m0 / 2**30:.2f} GiB without remat, "
+        f"{t_1:.3f} s and peak {m1 / 2**30:.2f} GiB with remat")
+    if not same:
+        fail(f"{label}: the remat step's loss or gradients differ")
+    for name, n in in_blocks.items():
+        want = c0[name] + (n if cuda else 0)
+        if c1[name] != want:
+            fail(f"{label}: remat forward launches of {name}: {c1[name]}, "
+                 f"expected {want}")
+    for name in bwd_names:
+        if c1[name] != c0[name]:
+            fail(f"{label}: remat backward launches of {name} changed")
+    if cuda:
+        profile_run(f"one {label} step at rung {rung}",
+                    lambda: trainer._step_fn(batch, gen, draws), card)
 
+
+def _caption_mask(b, rung, device):
+    """[B, rung] keep-masks from the whole rung down to three quarters."""
+    import torch
+    return (torch.arange(rung, device=device)[None]
+            < torch.tensor([rung - i * rung // (4 * b) for i in range(b)],
+                           device=device)[:, None]).to(torch.int32)
+
+
+def phase_train(device, card, shard_args=None, cfg_extra=None):
+    """The SANA training main path through the entry point; returns the
+    launch counts of its run.  ``shard_args``/``cfg_extra`` shrink it for a
+    rehearsal on the CPU."""
+    import torch
+
+    from yat_tpu_torch.frontends.sana import main as train_main
+
+    cuda = device.type == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = {k: v for k, v in train_config(
+            os.path.join(tmp, "shard-000000.tar"), os.path.join(tmp, "out"),
+            **(cfg_extra or {})).items()
+            if v is not None}              # None drops a key
+        trainer, counts, wall, peak = run_entry_point(
+            "train", train_main, device, tmp, cfg, shard_args or {})
         steps = int(cfg["steps"])
-        hist = trainer.history
-        model = trainer.model
-        adapted = adapted_modules(model)
-        for h in hist:
-            log(f"train: step {h['step']} caption rung {h['caption_len']} "
-                f"loss {h['loss']:.6f} grad_norm {h['grad_norm']:.4f} "
-                f"lr {h['lr']:.3g}")
-        if len(hist) != steps or not all(
-                math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
-                for h in hist):
-            fail(f"train: expected {steps} finite losses, got {hist}")
-        if hist[0]["lr"] != 0.0 or hist[1]["lr"] <= 0.0:
-            fail("train: warmup should give lr 0 on the first update only")
         cfg_model = trainer.sana_config
-        # to_q/to_k/to_v/to_out of attn1 and attn2 in every block: 224
-        if len(adapted) != 8 * cfg_model.num_layers:
-            fail(f"train: {len(adapted)} adapted modules, expected "
-                 f"{8 * cfg_model.num_layers}")
-        zero_b = [".".join(p) for p, m in adapted
-                  if not bool((m.lora_b != 0).any())]
-        if zero_b:
-            fail(f"train: lora_b still zero after the updates: {zero_b[:4]}")
-        path = os.path.join(cfg["output_dir"], str(steps),
-                            "adapter_model.safetensors")
-        tensors, meta = read_safetensors(path)
-        if len(tensors) != 2 * len(adapted) or "yat_meta" not in meta:
-            fail(f"train: adapter file holds {len(tensors)} tensors, "
-                 f"expected {2 * len(adapted)}")
-        for name, p in lora_parameters(model):
-            dotted, leaf = name.rsplit(".", 1)
-            key = (f"base_model.model.{dotted}."
-                   f"{'lora_A' if leaf == 'lora_a' else 'lora_B'}.weight")
-            if not np.array_equal(tensors[key],
-                                  p.detach().float().cpu().numpy().T):
-                fail(f"train: exported {key} differs from the live leaf")
-        log(f"train: {len(adapted)} adapted modules; adapter export "
-            f"{os.path.basename(path)} holds {len(tensors)} tensors")
-
         n_layers = cfg_model.num_layers
+        check_trained("train", trainer, cfg, n_layers)
+
         n_soft = len(cfg_model.softmax_self_attn_blocks)
         # launches per step; the first norm of block 0 gets no backward:
         # its input and modulation come from the frozen patch and timestep
@@ -1075,25 +1380,11 @@ def phase_train(device, card, shard_args=None, cfg_extra=None):
                     "linear_attention": n_layers - n_soft,
                     "adaln_layernorm_bwd": 2 * n_layers,
                     "dot_product_attention_bwd": n_layers + n_soft}
-        # launches inside the blocks, which remat runs twice
-        in_blocks = {"adaln_layernorm": 2 * n_layers,
-                     "dot_product_attention": n_layers + n_soft,
-                     "linear_attention": n_layers - n_soft}
-        for name, n in per_step.items():
-            want = n * steps if cuda else 0
-            log(f"train: {name} launches {counts[name]} (expected {n} per "
-                f"step x {steps} steps = {want})")
-            if counts[name] != want:
-                fail(f"train: {name}: {counts[name]} launches, expected "
-                     f"{want}")
-        times = trainer._step_times[1:]
-        step_s = sum(times) / len(times)
-        log(f"train [{card}]: {steps} steps in {wall:.2f} s through the "
-            f"entry point (shard read included); steps 2-{steps}: "
-            f"{step_s:.4f} s a step, {1 / step_s:.3f} steps/s, "
-            f"{trainer.params.batch_size / step_s:.2f} images/s; first "
-            f"step {trainer._step_times[0]:.3f} s; peak device memory "
-            f"{peak / 2**30:.2f} GiB")
+        check_launches("train", counts,
+                       {k: n * steps if cuda else 0
+                        for k, n in per_step.items()},
+                       lambda k: f"{per_step[k]} per step x {steps} steps")
+        log_step_rate("train", trainer, wall, peak, card)
 
         # one more step with remat (low_vram), on one batch and one set of
         # draws, against the step without: the same loss and gradients
@@ -1107,62 +1398,195 @@ def phase_train(device, card, shard_args=None, cfg_extra=None):
                                    device=device).to(lat_dtype),
             "embeddings": torch.randn((b, rung, cfg_model.caption_channels),
                                       generator=gen, device=device),
-            "text_mask": (torch.arange(rung, device=device)[None]
-                          < torch.tensor([rung - i * rung // (4 * b)
-                                          for i in range(b)],
-                                         device=device)[:, None]
-                          ).to(torch.int32)}
+            "text_mask": _caption_mask(b, rung, device)}
         ts, sig = trainer.schedule.training_draw(gen, b)
         draws = {"timesteps": ts, "sigmas": sig,
                  "noise": torch.randn(batch["latents"].shape, generator=gen,
                                       device=device)}
-        leaves = [p for _, p in lora_parameters(model)]
-        runs = {}
-        for remat in (False, True):
-            model.gradient_checkpointing = remat
-            if cuda:
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-            reset_launch_counts()
-            t0 = time.perf_counter()
-            loss, grads = loss_and_grads(trainer.task_loss, leaves, batch,
-                                         gen, draws)
-            if cuda:
-                torch.cuda.synchronize()
-            runs[remat] = (loss, grads, launch_counts(),
-                           time.perf_counter() - t0,
-                           torch.cuda.max_memory_allocated() if cuda else 0)
-        model.gradient_checkpointing = False
-        (l0, g0, c0, t_0, m0), (l1, g1, c1, t_1, m1) = runs[False], runs[True]
-        same = bool(torch.equal(l0, l1)) and all(
-            bool(torch.equal(a, c)) for a, c in zip(g0, g1))
-        worst = max(float((a.float() - c.float()).abs().max()) for a, c in
-                    zip(g0, g1))
-        log(f"train: remat step loss {float(l1):.6f} vs {float(l0):.6f}, "
-            f"largest gradient difference {worst:.3e}: "
-            f"{'bit-identical' if same else 'DIFFERENT'}; forward launches "
-            f"{c1['adaln_layernorm']}/{c1['dot_product_attention']}/"
-            f"{c1['linear_attention']} vs {c0['adaln_layernorm']}/"
-            f"{c0['dot_product_attention']}/{c0['linear_attention']}, "
-            f"backward {c1['adaln_layernorm_bwd']}/"
-            f"{c1['dot_product_attention_bwd']}")
-        log(f"train [{card}]: loss and gradients of one step at rung {rung}: "
-            f"{t_0:.3f} s and peak {m0 / 2**30:.2f} GiB without remat, "
-            f"{t_1:.3f} s and peak {m1 / 2**30:.2f} GiB with remat")
-        if not same:
-            fail("train: the remat step's loss or gradients differ")
-        for name, n in in_blocks.items():
-            want = c0[name] + (n if cuda else 0)
-            if c1[name] != want:
-                fail(f"train: remat forward launches of {name}: {c1[name]},"
-                     f" expected {want}")
-        for name in ("adaln_layernorm_bwd", "dot_product_attention_bwd"):
-            if c1[name] != c0[name]:
-                fail(f"train: remat backward launches of {name} changed")
-        if cuda:
-            profile_run(f"one training step at rung {rung}",
-                        lambda: trainer._step_fn(batch, gen, draws), card)
+        # launches inside the blocks, which remat runs twice
+        in_blocks = {"adaln_layernorm": 2 * n_layers,
+                     "dot_product_attention": n_layers + n_soft,
+                     "linear_attention": n_layers - n_soft}
+        remat_step("train", trainer, device, card, batch, draws, in_blocks,
+                   ("adaln_layernorm_bwd", "dot_product_attention_bwd"))
     return {name: counts[name] for name in per_step}
+
+
+# ---------------------------------------------------------------------------
+# 8. PixArt-Sigma training
+# ---------------------------------------------------------------------------
+
+# attention branch → (forward kernel, backward kernel); the XLA branch is
+# plain tensor code that counts its calls on the card
+BRANCH_KERNELS = {
+    "flash": ("flash_attention", "flash_attention_bwd"),
+    "folded": ("dot_product_attention_folded",
+               "dot_product_attention_folded_bwd"),
+    "native": ("dot_product_attention", "dot_product_attention_bwd"),
+    "xla": ("attention_xla", None)}
+PIXART_TRAIN_KERNELS = ("adaln_layernorm", "adaln_layernorm_bwd") + tuple(
+    name for pair in BRANCH_KERNELS.values() for name in pair if name)
+
+
+def pixart_caption_lengths(cfg, n, tmp):
+    """T5 caption lengths of ``n`` samples, in file order, such that of the
+    ``steps`` batches that ``cfg``'s sampler draws the middle one holds only
+    captions of 128 tokens or fewer (rung 128), the last one only captions
+    of 256 or fewer with one longer than 128 (rung 256), and the others
+    129-300 tokens (rungs 256 and 300).  The sampler's draws (a shuffle
+    buffer of 1000 filled by cycling over the shard, from ``dataset_seed``)
+    do not depend on the contents, so they are read off a probe shard whose
+    i-th sample has i + 1 caption tokens."""
+    from yat_tpu_torch.config import TrainingParameters
+    from yat_tpu_torch.data.tar import TarShardWriter
+    from yat_tpu_torch.frontends.common import build_feature_sampler
+
+    probe = os.path.join(tmp, "probe.tar")
+    with TarShardWriter(probe) as w:
+        for i in range(n):
+            w.write({"__key__": f"{i:06d}", "ratio": "1.0",
+                     "latent.npy": np.zeros((1, 1, 1), np.float32),
+                     "emb.npy": np.zeros((i + 1, 1), np.float32)})
+    params = TrainingParameters.from_dict({**cfg,
+                                           "local_shard_paths": [probe]})
+    draws = iter(build_feature_sampler(params, n))
+    batches = [set((next(draws).text_mask.sum(1) - 1).tolist())
+               for _ in range(int(cfg["steps"]))]
+    short = batches[len(batches) // 2]
+    mid = batches[-1] - short
+    rng = np.random.default_rng(0)
+    lengths = rng.permutation(np.linspace(129, 300, n).round().astype(int))
+    lengths[sorted(mid)] = np.linspace(129, 256, len(mid)).round()
+    lengths[sorted(short)] = np.linspace(40, 128, len(short)).round()
+    return [int(x) for x in lengths]
+
+
+def pixart_train_config(shard, out_dir, **extra):
+    """configs/pixart_repa.yaml (batch 8, lr 2e-5, bf16, rank 32, alpha 32,
+    to_q/to_k/to_v/to_out) without what needs files (the pretrained
+    pipeline, the DINOv2 checkpoint, validation prompts) and without what
+    is not ported (REPA; LoKr becomes lora; the 8-bit base and optimizer;
+    on-the-fly encoding, replaced by a feature shard), with 2 warmup steps,
+    caption-length buckets and no caption dropout, for ``TRAIN_STEPS``
+    steps."""
+    return {"local_shard_paths": [shard], "batch_size": "8",
+            "learning_rate": "2e-5", "steps": str(TRAIN_STEPS),
+            "warmup_steps": "2", "num_steps_per_validation": "1000",
+            "validation_prompts": [], "bfloat16": "true",
+            "train_unconditional_prob": "0", "lora_rank": "32",
+            "lora_alpha": "32", "lora_algo": "lora",
+            "lora_target_modules": LORA_TARGETS,
+            "caption_length_bucketing": "true", "output_dir": out_dir,
+            "dataset_seed": "0", **extra}
+
+
+def pixart_branches(cfg, rung):
+    """The branches of the self-attention and of the cross-attention at
+    caption rung ``rung``."""
+    from yat_tpu_torch.ops.attention import attention_branch
+    tokens = (cfg.sample_size // cfg.patch_size) ** 2
+    return tuple(attention_branch(tokens, nk, cfg.num_attention_heads,
+                                  cfg.attention_head_dim)
+                 for nk in (tokens, rung))
+
+
+def pixart_step_launches(cfg, rung):
+    """Kernel launches of one PixArt-Sigma training step (no remat) at
+    caption rung ``rung``: K1 twice a block and at the output, K1b twice a
+    block (block 0's first norm needs no gradient: its input and modulation
+    come from frozen embeddings), and per block one self- and one
+    cross-attention forward and backward, by branch."""
+    n = cfg.num_layers
+    want = dict.fromkeys(PIXART_TRAIN_KERNELS, 0)
+    want["adaln_layernorm"] = 2 * n + 1
+    want["adaln_layernorm_bwd"] = 2 * n
+    for branch in pixart_branches(cfg, rung):
+        fwd, bwd = BRANCH_KERNELS[branch]
+        want[fwd] += n
+        if bwd:
+            want[bwd] += n
+    return want
+
+
+def phase_pixart_train(device, card, shard_args=None, cfg_extra=None):
+    """The PixArt-Sigma training main path through the entry point; returns
+    the launch counts of its run.  ``shard_args``/``cfg_extra`` shrink it
+    for a rehearsal on the CPU."""
+    import torch
+
+    from yat_tpu_torch.data.sampler import caption_length_buckets
+    from yat_tpu_torch.frontends.pixart import main as train_main
+
+    cuda = device.type == "cuda"
+    label = "pixart train"
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = {k: v for k, v in pixart_train_config(
+            os.path.join(tmp, "shard-000000.tar"), os.path.join(tmp, "out"),
+            **(cfg_extra or {})).items()
+            if v is not None}              # None drops a key
+        # 48 PixArt-Sigma 512px samples: latents [64, 64, 4] fp32, T5-XXL
+        # captions [L_i, 4096] fp32 of 40-300 tokens
+        shard = {"n": 48, "latent": (64, 64, 4), "dim": 4096,
+                 **(shard_args or {})}
+        shard["caption_lengths"] = pixart_caption_lengths(cfg, shard["n"],
+                                                          tmp)
+        trainer, counts, wall, peak = run_entry_point(
+            label, train_main, device, tmp, cfg, shard)
+        cfg_model = trainer.pixart_config
+        n_layers = cfg_model.num_layers
+        check_trained(label, trainer, cfg, n_layers)
+
+        rungs = [h["caption_len"] for h in trainer.history]
+        ladder = caption_length_buckets(cfg_model.max_caption_len)
+        if not set(rungs) <= set(ladder) or len(ladder) > 1 and (
+                min(ladder) not in rungs or max(rungs) == min(ladder)):
+            fail(f"{label}: steps on rungs {rungs}; expected the ladder "
+                 f"{ladder}'s lowest rung and a higher one")
+        if cuda:
+            # on the card the self-attention takes the flash branch, the
+            # cross-attention the native one at rung 128 and the folded one
+            # at 256 and 300, and nothing the XLA branch
+            for rung in sorted(set(rungs)):
+                got = pixart_branches(cfg_model, rung)
+                want = ("flash", "native" if rung <= 128 else "folded")
+                if got != want:
+                    fail(f"{label}: branches at rung {rung}: {got}, "
+                         f"expected {want}")
+        want = dict.fromkeys(PIXART_TRAIN_KERNELS, 0)
+        per_rung = {}
+        for rung in rungs:
+            per_rung[rung] = pixart_step_launches(cfg_model, rung)
+            for name, n in per_rung[rung].items():
+                want[name] += n if cuda else 0
+        check_launches(label, counts, want, lambda k: " + ".join(
+            f"{per_rung[r][k]} at rung {r} x {rungs.count(r)}"
+            for r in sorted(per_rung)))
+        log_step_rate(label, trainer, wall, peak, card)
+
+        # one more step with remat (low_vram) at the longest rung
+        gen = torch.Generator(device=device).manual_seed(5)
+        b, rung = trainer.params.batch_size, cfg_model.max_caption_len
+        lat_dtype = torch.bfloat16 if trainer.params.bfloat16 else torch.float32
+        grid = cfg_model.sample_size
+        batch = {
+            "latents": torch.randn((b, grid, grid, cfg_model.in_channels),
+                                   generator=gen, device=device
+                                   ).to(lat_dtype),
+            "embeddings": torch.randn((b, rung, cfg_model.caption_channels),
+                                      generator=gen, device=device),
+            "text_mask": _caption_mask(b, rung, device)}
+        draws = {"timesteps": trainer.schedule.training_draw(gen, b),
+                 "noise": torch.randn(batch["latents"].shape, generator=gen,
+                                      device=device)}
+        (self_f, self_b), (cross_f, cross_b) = (
+            BRANCH_KERNELS[br] for br in pixart_branches(cfg_model, rung))
+        in_blocks = {"adaln_layernorm": 2 * n_layers}
+        for name in (self_f, cross_f):
+            in_blocks[name] = in_blocks.get(name, 0) + n_layers
+        remat_step(label, trainer, device, card, batch, draws, in_blocks,
+                   ("adaln_layernorm_bwd",) + tuple(
+                       n for n in (self_b, cross_b) if n))
+    return {name: counts[name] for name in PIXART_TRAIN_KERNELS}
 
 
 def main() -> None:
@@ -1175,6 +1599,7 @@ def main() -> None:
     kernels = phase_kernels(device)
     phase_reference(device)
     phase_grad_reference(device)
+    phase_pixart_grad_reference(device)
     counts = {}
     for family in ("sana", "pixart"):
         counts[family] = phase_serve(serve_params(), device, card,
@@ -1182,11 +1607,14 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
     counts["train"] = phase_train(device, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["pixart_train"] = phase_pixart_train(device, card)
 
     rows = []
     # name: (source, the TPU kernel it replaces, the run whose launches
     # count: the serving path of its family for the forward kernels, the
-    # training path for the backward kernels)
+    # training path of its family for the backward kernels)
     meta = {"adaln_layernorm": ("yat_tpu_torch/csrc/adaln.cu",
                                 "yat_tpu/ops/norm.py:111", "sana"),
             "adaln_layernorm_bwd": ("yat_tpu_torch/csrc/adaln.cu",
@@ -1196,6 +1624,12 @@ def main() -> None:
             "dot_product_attention_bwd": (
                 "yat_tpu_torch/csrc/softmax_attention_bwd.cu",
                 "yat_tpu/ops/attention.py:334", "train"),
+            "dot_product_attention_folded_bwd": (
+                "yat_tpu_torch/csrc/softmax_attention_bwd.cu",
+                "yat_tpu/ops/attention.py:209", "pixart_train"),
+            "flash_attention_bwd": (
+                "yat_tpu_torch/csrc/flash_attention_bwd.cu",
+                "yat_tpu/ops/attention.py:122", "pixart_train"),
             "linear_attention": ("yat_tpu_torch/csrc/linear_attention.cu",
                                  "yat_tpu/ops/attention.py:424", "sana"),
             "dot_product_attention_folded": (
@@ -1208,7 +1642,7 @@ def main() -> None:
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": counts[run][name]}
         # K1 launches on every path: its counts on the others beside
-        for other in ("pixart", "train"):
+        for other in ("pixart", "train", "pixart_train"):
             if other != run and name in counts[other] \
                     and counts[other][name]:
                 row[f"launches_{other}"] = counts[other][name]

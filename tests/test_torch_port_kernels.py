@@ -28,7 +28,7 @@ def test_build_flags_and_library_names():
     names = {k.source for k in KB.KERNELS.values()}
     assert names == {"adaln.cu", "softmax_attention.cu",
                      "softmax_attention_bwd.cu", "linear_attention.cu",
-                     "flash_attention.cu"}
+                     "flash_attention.cu", "flash_attention_bwd.cu"}
     for src in names:
         p = KB.library_path(src)
         assert p.parent == KB.BUILD_DIR and p.name.endswith(".so")
@@ -180,6 +180,9 @@ def test_card_flash_attention_kernel(cuda, dtype, b, nq, nk, h, d, keep):
 
 @pytest.mark.gpu
 def test_card_flash_attention_dispatch_and_no_backward(cuda):
+    """The flash branch launches K6 once forward and K6b once backward;
+    under inference_mode the forward keeps no residuals and nothing can
+    take a backward."""
     g = torch.Generator(device=cuda).manual_seed(7)
     q, k, v = (torch.randn((2, 1024, 16, 72), generator=g, device=cuda,
                            dtype=torch.bfloat16, requires_grad=True)
@@ -189,8 +192,72 @@ def test_card_flash_attention_dispatch_and_no_backward(cuda):
     after = KB.launch_counts()
     assert after["flash_attention"] == before["flash_attention"] + 1
     assert after["attention_xla"] == before["attention_xla"]
-    with pytest.raises(NotImplementedError, match="K6b"):
-        out.float().sum().backward()
+    out.float().sum().backward()
+    assert KB.launch_counts()["flash_attention_bwd"] == (
+        before["flash_attention_bwd"] + 1)
+    with torch.inference_mode():
+        served = TA.dot_product_attention(q, k, v)
+    assert served.grad_fn is None
+    torch.testing.assert_close(served, out.detach(), atol=0, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,nq,nk,h,d,keep", [
+    (8, 1024, 1024, 16, 72, None),           # PixArt-Sigma 512px self
+    (2, 4096, 4096, 16, 72, None),           # 1024px: four key blocks
+    (2, 1024, 1000, 16, 72, [1000, 333])])   # ragged N_k, 8 key blocks
+def test_card_flash_attention_residuals(cuda, dtype, b, nq, nk, h, d, keep):
+    """K6 under autograd writes each row's final max and exp-sum, as the
+    plain version computes them; the output is the serving launch's."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
+               for s in ((b, nq, h, d), (b, nk, h, d), (b, nk, h, d)))
+    bias = (None if keep is None else
+            TA._key_bias(_keep_mask(keep, nk, cuda), b, TA.FLASH_MASK_VALUE))
+    o, l, m = TA._flash_attention_cuda(q, k, v, bias, residuals=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, TA._flash_attention_cuda(q, k, v, bias))
+    _, l_ref, m_ref = TA.flash_attention_ref(q, k, v, bias, residuals=True)
+    # fp32 statistics of the same scores summed in another order
+    torch.testing.assert_close(m, m_ref, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(l, l_ref, atol=1e-4, rtol=1e-4)
+
+
+def flash_bwd_cases():
+    """K6b's shapes: PixArt-Sigma 512px self-attention, 1024px in four key
+    blocks, a masked flash case at PixArt-1024px's cross-attention shape
+    (0-256 of 256 keys kept), shapes the flash gate admits with several key
+    blocks (N_k = 640: five; head dim 256: three) and a ragged one (N = 1000,
+    called directly)."""
+    return [(8, 1024, 1024, 16, 72, None),
+            (2, 4096, 4096, 16, 72, None),
+            (8, 4096, 256, 16, 72, [0, 1, 37, 100, 128, 200, 255, 256]),
+            (2, 1280, 640, 16, 72, [640, 311]),
+            (2, 1024, 384, 2, 256, [384, 100]),
+            (2, 1000, 1000, 16, 72, [1000, 333])]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,nq,nk,h,d,keep", flash_bwd_cases())
+def test_card_flash_attention_bwd_kernel(cuda, dtype, b, nq, nk, h, d, keep):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v, gy = (torch.randn(s, generator=g, device=cuda).to(dtype)
+                   for s in ((b, nq, h, d), (b, nk, h, d), (b, nk, h, d),
+                             (b, nq, h, d)))
+    bias = (None if keep is None else
+            TA._key_bias(_keep_mask(keep, nk, cuda), b, TA.FLASH_MASK_VALUE))
+    o, l, m = TA._flash_attention_cuda(q, k, v, bias, residuals=True)
+    before = TA.FLASH_ATTENTION_BWD.launches
+    got = TA._flash_attention_bwd_cuda(q, k, v, bias, o, l, m, gy)
+    torch.cuda.synchronize()
+    assert TA.FLASH_ATTENTION_BWD.launches == before + 1
+    want = TA.flash_attention_bwd_ref(q, k, v, bias, o, l, m, gy)
+    _close_bwd("flash_attention_bwd", got, want)
+    again = TA._flash_attention_bwd_cuda(q, k, v, bias, o, l, m, gy)
+    for a, c in zip(again, got):          # no atomics: the same bits
+        assert torch.equal(a, c)
 
 
 @pytest.mark.gpu
@@ -298,16 +365,47 @@ def test_card_attention_bwd_kernel(cuda, dtype, b, nq, nk, h, d):
     keep = torch.linspace(1, nk, b, device=cuda).round()
     mask = (torch.arange(nk, device=cuda)[None] < keep[:, None]).int()
     qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
-    before = TA.SOFTMAX_ATTENTION_BWD.launches
+    # the folded branch (h * d = 64 here) counts as K4b
+    kern = (TA.SOFTMAX_ATTENTION_FOLDED_BWD
+            if TA.attention_branch(nq, nk, h, d, "vmem") == "folded"
+            else TA.SOFTMAX_ATTENTION_BWD)
+    before = kern.launches
     out = TA.dot_product_attention(qs, ks, vs, mask=mask,
                                    implementation="vmem")
     assert out.grad_fn is not None
     out.backward(gy)
     torch.cuda.synchronize()
-    assert TA.SOFTMAX_ATTENTION_BWD.launches == before + 1
+    assert kern.launches == before + 1
     want = TA.attention_bwd_ref(q, k, v, TA._key_bias(mask, b), gy)
     _close_bwd("dot_product_attention_bwd", (qs.grad, ks.grad, vs.grad),
                want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("nk", [256, 300])
+def test_card_folded_attention_bwd_kernel(cuda, dtype, nk):
+    """K4b: PixArt-Sigma's cross-attention backward at the folded caption
+    rungs (10-300 kept keys) through K2b's kernel under its own counter."""
+    b, nq, h, d = 8, 1024, 16, 72
+    assert TA.attention_branch(nq, nk, h, d) == "folded"
+    g = torch.Generator(device=cuda).manual_seed(10)
+    q, k, v, gy = (torch.randn(s, generator=g, device=cuda).to(dtype)
+                   for s in ((b, nq, h, d), (b, nk, h, d), (b, nk, h, d),
+                             (b, nq, h, d)))
+    mask = _keep_mask([10 + (nk - 10) * i // 7 for i in range(8)], nk, cuda)
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    before = KB.launch_counts()
+    TA.dot_product_attention(qs, ks, vs, mask=mask).backward(gy)
+    torch.cuda.synchronize()
+    after = KB.launch_counts()
+    assert after["dot_product_attention_folded_bwd"] == (
+        before["dot_product_attention_folded_bwd"] + 1)
+    assert after["dot_product_attention_bwd"] == (
+        before["dot_product_attention_bwd"])
+    want = TA.attention_bwd_ref(q, k, v, TA._key_bias(mask, b), gy)
+    _close_bwd("dot_product_attention_folded_bwd",
+               (qs.grad, ks.grad, vs.grad), want)
 
 
 @pytest.mark.gpu

@@ -436,6 +436,103 @@ def test_attention_bwd_matches_jax_native_vjp(nk, keep):
         np.testing.assert_array_equal(_np(f), _np(p))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,nq,nk,h,d", [(1, 256, 256, 2, 72),
+                                         (1, 128, 384, 2, 32)])
+def test_flash_bwd_plain_matches_jax_library_vjp(b, nq, nk, h, d, masked,
+                                                 dtype):
+    """K6b's plain version against jax.vjp of the JAX package's 'flash'
+    branch, the Pallas library's forward and backward kernels interpreted:
+    one key block (N_k = 256) and three (N_k = 384 in blocks of 128), with
+    and without a key mask.  The port's autograd path (K6's residuals,
+    then flash_attention_bwd_ref) gives the same bits as the direct call."""
+    q, k, v = _qkv(b, nq, nk, h, d, seed=nk + d + 1)
+    g = np.random.default_rng(nk).standard_normal((b, nq, h, d)).astype(
+        np.float32)
+    mask = None
+    if masked:
+        mask = (np.arange(nk)[None] < np.array([[nk // 3]])).astype(np.int32)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    jm = None if mask is None else jnp.asarray(mask)
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(lambda q_, k_, v_: JA.dot_product_attention(
+            q_, k_, v_, mask=jm, implementation="flash"),
+            *(jnp.asarray(a, jd) for a in (q, k, v)))
+        want = vjp(jnp.asarray(g, jd))
+    tq, tk, tv, tg = (torch.from_numpy(a).to(td) for a in (q, k, v, g))
+    bias = (None if mask is None else
+            TA._key_bias(torch.from_numpy(mask), b, TA.FLASH_MASK_VALUE))
+    o, l, m = TA.flash_attention_ref(tq, tk, tv, bias, residuals=True)
+    assert l.shape == m.shape == (b, h, nq) and l.dtype == torch.float32
+    assert torch.equal(o, TA.flash_attention_ref(tq, tk, tv, bias))
+    port = TA.flash_attention_bwd_ref(tq, tk, tv, bias, o, l, m, tg)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    TA.dot_product_attention(
+        *leaves, mask=None if mask is None else torch.from_numpy(mask),
+        implementation="flash").backward(tg)
+    tol = {"atol": ATTN_BWD_TOL} if dtype == "float32" else BF16_TOL
+    for p, w, leaf in zip(port, want, leaves):
+        assert p.dtype == td
+        np.testing.assert_allclose(_np(p), np.asarray(w.astype(jnp.float32)),
+                                   **tol)
+        assert torch.equal(leaf.grad, p)
+    if masked:                          # masked keys get no gradient
+        assert not bool(port[1][:, nk // 3:].any())
+        assert not bool(port[2][:, nk // 3:].any())
+
+
+def test_folded_bwd_plain_matches_jax_vmem_attn_vjp():
+    """K4b: the port's plain backward on the folded branch against jax.vjp
+    of the folded-layout Pallas kernel _vmem_attn_p (interpreted; keys
+    padded to 384 with a -1e9 bias) and of the JAX package's 'vmem' branch,
+    at h = 2, d = 40, N_k = 300.  exp(-1e9 - m) is 0 in fp32, so the padded
+    and masked keys get exactly zero gradients on both sides."""
+    b, nq, nk, h, d = 2, 24, 300, 2, 40
+    nkp = 384
+    assert TA.attention_branch(nq, nk, h, d, "vmem") == "folded"
+    assert np.exp(np.float32(-1e9) - np.float32(10.0)) == 0.0
+    q, k, v = _qkv(b, nq, nk, h, d, seed=11)
+    g = np.random.default_rng(12).standard_normal((b, nq, h, d)).astype(
+        np.float32)
+    keep = np.array([[10], [300]])
+    mask = (np.arange(nk)[None] < keep).astype(np.int32)
+    bias = np.where(np.arange(nkp)[None] < keep, 0.0, -1e9).astype(np.float32)
+
+    def fold(a, n):
+        a = np.pad(a, ((0, 0), (0, n - a.shape[1]), (0, 0), (0, 0)))
+        return jnp.asarray(a.transpose(0, 2, 1, 3).reshape(b * h, n, d))
+
+    def unfold(a, n):
+        return np.asarray(a).reshape(b, h, n, d).transpose(0, 2, 1, 3)
+    fb = jnp.asarray(np.repeat(bias[:, None, None], h, 1).reshape(
+        b * h, 1, nkp))
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(lambda q_, k_, v_: JA._vmem_attn_p(
+            1.0 / d ** 0.5, q_, k_, v_, fb),
+            fold(q, nq), fold(k, nkp), fold(v, nkp))
+        kern = [unfold(a, n) for a, n in zip(vjp(fold(g, nq)),
+                                             (nq, nkp, nkp))]
+        _, pub_vjp = jax.vjp(lambda q_, k_, v_: JA.dot_product_attention(
+            q_, k_, v_, mask=jnp.asarray(mask), implementation="vmem"),
+            *(jnp.asarray(a) for a in (q, k, v)))
+        pub = pub_vjp(jnp.asarray(g))
+    for a in kern[1:]:                   # the padded keys: exactly zero
+        assert not a[:, nk:].any()
+    leaves = [_t(a, True) for a in (q, k, v)]
+    TA.dot_product_attention(*leaves, mask=_t(mask),
+                             implementation="vmem").backward(_t(g))
+    port = TA.attention_bwd_ref(_t(q), _t(k), _t(v),
+                                TA._key_bias(_t(mask), b), _t(g))
+    for p, kw, pw, leaf in zip(port, kern, pub, leaves):
+        np.testing.assert_allclose(_np(p), kw[:, :p.shape[1]],
+                                   atol=ATTN_BWD_TOL)
+        np.testing.assert_allclose(_np(p), np.asarray(pw), atol=ATTN_BWD_TOL)
+        np.testing.assert_array_equal(_np(leaf.grad), _np(p))
+    for a in port[1:]:                   # the masked keys of row 0: zero
+        assert not bool(a[0, 10:].any())
+
+
 @pytest.mark.parametrize("impl", ["auto", "pallas"])
 def test_linear_attention_grad_matches_jax_vjp(impl):
     """The port's linear_attention gradient against jax.vjp of the JAX

@@ -212,7 +212,7 @@ def test_chip_smoke_serve_phase_on_cpu():
     params = chip_smoke.serve_params(model_config_overrides=TINY_SANA)
     params.bfloat16 = False
     counts = chip_smoke.phase_serve(params, torch.device("cpu"), "cpu",
-                                    px=16)
+                                    px=16, window_ms=2000.0)
     assert set(counts) == {"adaln_layernorm", "dot_product_attention",
                            "linear_attention"}
     assert not any(counts.values())

@@ -21,6 +21,10 @@
 //   fragments, the scores, P and the accumulator in registers; the head
 //   dim zero-padded in shared memory to 16 x a compiled chunk count;
 // * fp32: on the CUDA cores, P never rounded.
+//
+// When ``res_m``/``res_l`` are not null (K6 under autograd), each query
+// row's final running max and exp-sum go there as fp32 [B, H, N_q]: the
+// residuals of the flash backward (K6b).  K2 and serving pass null.
 #pragma once
 
 #include <math.h>
@@ -226,6 +230,7 @@ __device__ __forceinline__ void attention_bf16_block(
     const bf16* __restrict__ v, const float* __restrict__ bias,
     bf16* __restrict__ out, int nq, int nk, int d, Strides qs, Strides ks,
     Strides vs, long long bias_sb, Strides os, float scale, int block_keys,
+    float* __restrict__ res_m, float* __restrict__ res_l,
     unsigned char* smem_raw) {
   constexpr bool kQRegs = kDC <= 8;
   const Layout L(16 * kDC);
@@ -429,7 +434,18 @@ __device__ __forceinline__ void attention_bf16_block(
     stage ^= 1;
   }
 
-  // 3) divide by the running sum (several key blocks), write bf16
+  // 3) divide by the running sum (several key blocks), write bf16; the
+  //    row statistics (the same in the four threads of a row) by t == 0
+  if (res_m != nullptr && t == 0) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int gq = q0 + r0 + g + 8 * hf;
+      if (gq >= nq) continue;
+      const long long at = (static_cast<long long>(b) * gridDim.y + h) * nq + gq;
+      res_m[at] = M[hf];
+      res_l[at] = Lsum[hf];
+    }
+  }
   float inv[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf)
@@ -454,14 +470,16 @@ cudaError_t launch_bf16_chunks(const bf16* q, const bf16* k, const bf16* v,
                                const float* bias, bf16* out, int b, int nq,
                                int nk, int h, int d, Strides qs, Strides ks,
                                Strides vs, long long bias_sb, Strides os,
-                               float scale, int block_keys, cudaStream_t st) {
+                               float scale, int block_keys, float* res_m,
+                               float* res_l, cudaStream_t st) {
   const size_t smem = bf16_smem_bytes(d);
   const dim3 grid((nq + kBQ - 1) / kBQ, h, b);
   auto kernel = Kernel::template fn<kVec, kDC>();
   cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<grid, kThreads, smem, st>>>(q, k, v, bias, out, nq, nk, d, qs, ks,
-                                       vs, bias_sb, os, scale, block_keys);
+                                       vs, bias_sb, os, scale, block_keys,
+                                       res_m, res_l);
   return cudaGetLastError();
 }
 
@@ -470,7 +488,8 @@ cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v,
                         const float* bias, bf16* out, int b, int nq, int nk,
                         int h, int d, Strides qs, Strides ks, Strides vs,
                         long long bias_sb, Strides os, float scale,
-                        int block_keys, cudaStream_t st) {
+                        int block_keys, float* res_m, float* res_l,
+                        cudaStream_t st) {
   // 16-byte loads when every row start is 16-byte aligned
   const bool vec = vec_ok(d, qs, ks, vs, q, k, v);
 #define YAT_BF16_CASE(DC)                                                    \
@@ -478,7 +497,7 @@ cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v,
     return (vec ? launch_bf16_chunks<Kernel, true, DC>                       \
                 : launch_bf16_chunks<Kernel, false, DC>)(                    \
         q, k, v, bias, out, b, nq, nk, h, d, qs, ks, vs, bias_sb, os, scale, \
-        block_keys, st);
+        block_keys, res_m, res_l, st);
   switch (head_chunks(d)) {
     YAT_BF16_CASE(2)
     YAT_BF16_CASE(4)
@@ -523,7 +542,8 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ bias,
                   float* __restrict__ out, int nq, int nk, int d, Strides qs,
                   Strides ks, Strides vs, long long bias_sb, Strides os,
-                  float scale, int block_keys) {
+                  float scale, int block_keys, float* __restrict__ res_m,
+                  float* __restrict__ res_l) {
   extern __shared__ float smem_f[];
   const int ld = d + 1;
   float* q_t = smem_f;                    // [kBQ][ld]
@@ -664,6 +684,11 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int gq = q0 + r0 + i;
     if (gq >= nq) continue;
     const float inv = single ? 1.f : (L[i] == 0.f ? 1.f : 1.f / L[i]);
+    if (res_m != nullptr && lane == 0) {
+      const long long at = (static_cast<long long>(b) * gridDim.y + h) * nq + gq;
+      res_m[at] = M[i];
+      res_l[at] = L[i];
+    }
 #pragma unroll
     for (int j = 0; j < kMaxE; ++j) {
       const int e = lane + 32 * j;
@@ -677,14 +702,16 @@ inline cudaError_t launch_f32(const float* q, const float* k, const float* v,
                               const float* bias, float* out, int b, int nq,
                               int nk, int h, int d, Strides qs, Strides ks,
                               Strides vs, long long bias_sb, Strides os,
-                              float scale, int block_keys, cudaStream_t st) {
+                              float scale, int block_keys, float* res_m,
+                              float* res_l, cudaStream_t st) {
   const size_t smem = f32_smem_bytes(d);
   const dim3 grid((nq + kBQ - 1) / kBQ, h, b);
   auto kernel = d <= 128 ? attention_fwd_f32<4> : attention_fwd_f32<8>;
   cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<grid, kThreads, smem, st>>>(q, k, v, bias, out, nq, nk, d, qs, ks,
-                                       vs, bias_sb, os, scale, block_keys);
+                                       vs, bias_sb, os, scale, block_keys,
+                                       res_m, res_l);
   return cudaGetLastError();
 }
 

@@ -19,7 +19,11 @@
 // rounded to bf16 unnormalised; the fp32 accumulator is rescaled by
 // exp(m_old - m_new) at each block start and divided by the running sum at
 // the end.  A row whose keys are all masked gets the mean of V, because
-// the mask value is finite.
+// the mask value is finite.  Under autograd it also writes each row's final
+// running max m and exp-sum l, fp32 [B, H, N_q] (the library's l and m
+// residuals, _flash_attention_kernel_single_batch :464-481 and
+// ..._single_step :544-552), which the backward K6b
+// (flash_attention_bwd.cu) reads; serving passes null and writes neither.
 //
 // Bound on the H100: operations at the PixArt-Sigma 512px self-attention
 // shape, q/k/v [8, 1024, 16, 72] bf16: 4 * 8 * 16 * 1024^2 * 72 = 38.7
@@ -63,10 +67,11 @@ flash_attention_fwd_bf16(const bf16* __restrict__ q,
                          bf16* __restrict__ out, int nq, int nk, int d,
                          Strides qs, Strides ks, Strides vs,
                          long long bias_sb, Strides os, float scale,
-                         int block_keys) {
+                         int block_keys, float* res_m, float* res_l) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   attention_bf16_block<kVec, kDC>(q, k, v, bias, out, nq, nk, d, qs, ks, vs,
-                                  bias_sb, os, scale, block_keys, smem_raw);
+                                  bias_sb, os, scale, block_keys, res_m, res_l,
+                                  smem_raw);
 }
 
 struct FlashKernel {
@@ -88,7 +93,8 @@ extern "C" int yat_flash_attention_max_head_dim() { return kMaxD; }
 
 // q [B, Nq, H, D], k/v [B, Nk, H, D], out [B, Nq, H, D], each with strides
 // (b, n, h, 1); bias [B, Nk] fp32 with strides (bias_sb, 1), or null;
-// block_keys: the library's key block, a multiple of 64 unless >= Nk.
+// block_keys: the library's key block, a multiple of 64 unless >= Nk;
+// res_m/res_l: fp32 [B, H, Nq] for the row max and exp-sum, or both null.
 extern "C" int yat_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* bias,
     void* out, int b, int nq, int nk, int h, int d,
@@ -96,7 +102,7 @@ extern "C" int yat_flash_attention_fwd(
     long long k_sb, long long k_sn, long long k_sh,
     long long v_sb, long long v_sn, long long v_sh, long long bias_sb,
     long long o_sb, long long o_sn, long long o_sh, float scale,
-    int block_keys, int dtype, void* stream) {
+    int block_keys, void* res_m, void* res_l, int dtype, void* stream) {
   if (d > kMaxD || d < 1 || nk < 1 || block_keys < 1 ||
       (block_keys < nk && block_keys % kBK != 0))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -104,14 +110,18 @@ extern "C" int yat_flash_attention_fwd(
   const Strides qs{q_sb, q_sn, q_sh}, ks{k_sb, k_sn, k_sh},
       vs{v_sb, v_sn, v_sh}, os{o_sb, o_sn, o_sh};
   const float* bp = static_cast<const float*>(bias);
+  float* rm = static_cast<float*>(res_m);
+  float* rl = static_cast<float*>(res_l);
+  if ((rm == nullptr) != (rl == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == yat::kFloat32)
     return static_cast<int>(launch_f32(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), bp, static_cast<float*>(out), b, nq,
-        nk, h, d, qs, ks, vs, bias_sb, os, scale, block_keys, st));
+        nk, h, d, qs, ks, vs, bias_sb, os, scale, block_keys, rm, rl, st));
   if (dtype != yat::kBFloat16) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_bf16<FlashKernel>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), bp, static_cast<bf16*>(out), b, nq, nk, h,
-      d, qs, ks, vs, bias_sb, os, scale, block_keys, st));
+      d, qs, ks, vs, bias_sb, os, scale, block_keys, rm, rl, st));
 }

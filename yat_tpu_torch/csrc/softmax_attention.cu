@@ -44,10 +44,11 @@ attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const float* __restrict__ bias,
                    bf16* __restrict__ out, int nq, int nk, int d, Strides qs,
                    Strides ks, Strides vs, long long bias_sb, Strides os,
-                   float scale, int block_keys) {
+                   float scale, int block_keys, float* res_m, float* res_l) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   attention_bf16_block<kVec, kDC>(q, k, v, bias, out, nq, nk, d, qs, ks, vs,
-                                  bias_sb, os, scale, block_keys, smem_raw);
+                                  bias_sb, os, scale, block_keys, res_m, res_l,
+                                  smem_raw);
 }
 
 struct SoftmaxKernel {
@@ -86,10 +87,10 @@ extern "C" int yat_attention_fwd(
     return static_cast<int>(launch_f32(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), bp, static_cast<float*>(out), b, nq,
-        nk, h, d, qs, ks, vs, bias_sb, os, scale, nk, st));
+        nk, h, d, qs, ks, vs, bias_sb, os, scale, nk, nullptr, nullptr, st));
   if (dtype != yat::kBFloat16) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_bf16<SoftmaxKernel>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), bp, static_cast<bf16*>(out), b, nq, nk, h,
-      d, qs, ks, vs, bias_sb, os, scale, nk, st));
+      d, qs, ks, vs, bias_sb, os, scale, nk, nullptr, nullptr, st));
 }

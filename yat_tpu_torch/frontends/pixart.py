@@ -1,13 +1,20 @@
-"""PixArt-Sigma frontend: config → denoiser, encoders, decoder, pipeline.
+"""PixArt-Sigma frontend: config → denoiser, encoders, decoder, trainer,
+pipeline.
 
-Counterpart of ``yat_tpu/frontends/pixart.py``, its serving half:
-``make_pipeline`` builds the PixArt-Sigma XL-2 denoiser, the T5-XXL caption
-encoder and the SD KL-VAE decoder and samples the way the JAX frontend's
-validation does (20 DDIM steps, CFG 5.0, PAG 2.0, the epsilon half of the
-learned-sigma output, seed 42).  The repository holds no PixArt, T5 or VAE
-weights, so the modules are random from ``dataset_seed``, or loaded from
-JAX parameter trees through ``convert.load_flax_params``.  Training
-(``make_trainer``, ``main``) waits for the next slice of the port.
+Counterpart of ``yat_tpu/frontends/pixart.py``: ``make_trainer`` wires the
+LoRA training path (epsilon-prediction DDPM loss with the learned-sigma
+half sliced off, local feature shards, validation when prompts are
+configured) and ``make_pipeline`` the serving path, which samples the way
+the JAX frontend's validation does (20 DDIM steps, CFG 5.0, PAG 2.0, the
+epsilon half of the learned-sigma output, seed 42).  The repository holds
+no PixArt, T5 or VAE weights, so the modules are random from
+``dataset_seed``, or loaded from JAX parameter trees through
+``convert.load_flax_params``.
+
+    python -m yat_tpu_torch.frontends.pixart --config cfg.yaml [--device cpu]
+
+REPA, the preservation loss, LoKr and the quantized base with its 8-bit
+optimizer raise, each naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -19,18 +26,19 @@ import torch
 from yat_tpu_torch.config import TrainingParameters
 from yat_tpu_torch.device import resolve_device
 from yat_tpu_torch.frontends.common import (
+    build_feature_sampler,
     build_module,
     build_t5_vae_encoders,
+    cli_main,
     make_prompt_encoder,
     override_config,
 )
 from yat_tpu_torch.models.pixart import PIXART_SIGMA_XL2, PixArtConfig, \
     PixArtTransformer2D
 from yat_tpu_torch.ops.schedulers import DDPMSchedule
+from yat_tpu_torch.train.engine import Trainer
+from yat_tpu_torch.train.tasks import make_epsilon_loss
 from yat_tpu_torch.train.validation import ValidationPipeline
-
-_TRAINING = ("PixArt-Sigma training is not ported to PyTorch yet; it is the "
-             "next slice (ROADMAP queue 1, slice 4)")
 
 
 def build_pixart_config(params: TrainingParameters) -> PixArtConfig:
@@ -72,6 +80,12 @@ def make_pipeline(params: TrainingParameters, device=None,
                          dtype if params.bfloat16 else None)
     encode_captions, decode_latents = build_t5_vae_encoders(
         params, device, cfg.max_caption_len, weights)
+    return _pipeline(params, cfg, model, encode_captions, decode_latents,
+                     device)
+
+
+def _pipeline(params, cfg, model, encode_captions, decode_latents, device):
+    """The 20-step DDIM, CFG 5.0, PAG 2.0 sampler around ``model``."""
     lat = (params.aspect_ratios or cfg.resolution) // cfg.vae_compression
     return ValidationPipeline(
         model, DDPMSchedule(), latent_shape=(lat, lat, cfg.in_channels),
@@ -79,17 +93,76 @@ def make_pipeline(params: TrainingParameters, device=None,
                                            cfg.max_caption_len, device),
         decode_latents=decode_latents, guidance_scale=5.0, num_steps=20,
         params=params, device=device, pag_scale=2.0,
-        pred_slice=(cfg.in_channels
-                    if cfg.out_channels == 2 * cfg.in_channels else None))
+        pred_slice=_pred_slice(cfg))
+
+
+def _pred_slice(cfg: PixArtConfig) -> Optional[int]:
+    """The epsilon half of a learned-sigma head, else None."""
+    return cfg.in_channels if cfg.out_channels == 2 * cfg.in_channels \
+        else None
+
+
+def build_sampler(params: TrainingParameters, cfg: PixArtConfig):
+    """The pre-extracted feature-shard sampler (local shards) at PixArt's
+    300-token caption budget: rungs 128, 256 and 300 under
+    ``caption_length_bucketing``."""
+    if params.dreambooth_dataset_folder:
+        raise NotImplementedError(
+            "Dreambooth sampling is not implemented in the PyTorch port yet "
+            "(ROADMAP queue 1, item 8)")
+    sampler = build_feature_sampler(params, cfg.max_caption_len)
+    if sampler is None:
+        raise ValueError("need local_shard_paths")
+    return sampler
 
 
 def make_trainer(params: TrainingParameters, sampler=None, device=None,
-                 weights: Optional[Mapping] = None):
-    raise NotImplementedError(_TRAINING)
+                 weights: Optional[Mapping] = None) -> Trainer:
+    """The PixArt-Sigma LoRA trainer: the denoiser (bf16 compute and a bf16
+    frozen base when ``bfloat16`` is set, remat under ``low_vram``), the
+    epsilon-prediction loss on ``DDPMSchedule`` with the learned-sigma half
+    sliced off, the local feature-shard sampler, and with
+    ``validation_prompts`` the T5 encoder (its empty caption feeds
+    unconditional-caption dropout), the KL-VAE decoder and the 20-step
+    DDIM, CFG 5.0, PAG 2.0 validation pipeline on the live model.
+    ``device`` defaults to ``cuda``; ``weights`` may hold JAX parameter
+    trees as for :func:`make_pipeline`."""
+    device = resolve_device(device)
+    cfg = build_pixart_config(params)
+    dtype = torch.bfloat16 if params.bfloat16 else torch.float32
+    weights = weights or {}
+    model = build_module(lambda: PixArtTransformer2D(
+        cfg, dtype=dtype, gradient_checkpointing=params.low_vram),
+        device, weights.get("transformer"), params.dataset_seed,
+        dtype if params.bfloat16 else None)
+    schedule = DDPMSchedule()
+    loss = make_epsilon_loss(model, schedule,
+                             timestep_list=params.timesteps or None,
+                             learned_sigma=_pred_slice(cfg) is not None)
+    if sampler is None:
+        sampler = build_sampler(params, cfg)
+    trainer = Trainer(params, model, loss, sampler=sampler, device=device)
+    trainer.pixart_config = cfg
+    trainer.schedule = schedule
+    if params.validation_prompts:
+        if params.timesteps:
+            raise NotImplementedError(
+                "validation with refiner timestep gating is not implemented "
+                "in the PyTorch port yet (ROADMAP queue 1, item 7)")
+        encode_captions, decode_latents = build_t5_vae_encoders(
+            params, device, cfg.max_caption_len, weights)
+        trainer.encode_captions = encode_captions
+        pipeline = _pipeline(params, cfg, model, encode_captions,
+                             decode_latents, device)
+        trainer.validate_fn = lambda tr: pipeline(
+            list(params.validation_prompts))
+    return trainer
 
 
 def main(argv: Optional[list] = None):
-    raise NotImplementedError(_TRAINING)
+    """``python -m yat_tpu_torch.frontends.pixart --config cfg.yaml
+    [--device cuda|cpu]``; returns the trainer after its run."""
+    return cli_main(make_trainer, argv)
 
 
 if __name__ == "__main__":

@@ -14,6 +14,14 @@ place; K1 (adaLN LayerNorm) runs twice per block and once at the output.
 ``pag=True`` is the perturbed pass of perturbed-attention guidance: the
 self-attention of ``pag_applied_layers`` (the middle block by default) is
 the identity map.
+
+In training the backward kernels run too: K6b for the self-attention, K4b
+(K2b's kernel) for the cross-attention at the caption rungs where the JAX
+package folds heads (256 and 300 tokens) and K2/K2b at the 128 rung, K1b
+for the norms.  With ``gradient_checkpointing`` each block runs under
+``torch.utils.checkpoint`` (the JAX ``nn.remat``) while gradients are
+recorded: its forward runs again in the backward, so the forward kernels
+launch twice per block.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from yat_tpu_torch.models.layers import (
@@ -111,9 +120,11 @@ class PixArtTransformer2D(nn.Module):
     supports_context_cache = True
 
     def __init__(self, cfg: PixArtConfig = PixArtConfig(),
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 gradient_checkpointing: bool = False):
         super().__init__()
         c = cfg
+        self.gradient_checkpointing = gradient_checkpointing
         if c.resnet_expansion:
             raise NotImplementedError(
                 "resnet_expansion (the conv-residual branch) is not ported "
@@ -171,11 +182,16 @@ class PixArtTransformer2D(nn.Module):
         cond = self.time_proj(F.silu(t_emb)).reshape(b, 6, c.hidden_dim)
 
         perturbed = self.pag_layers(pag)
+        remat = self.gradient_checkpointing and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            x = blk(x, cond, ctx, text_mask,
+            args = (x, cond, ctx, text_mask,
                     cached_ctx_kv[i] if cached_ctx_kv is not None else None,
-                    pag_perturbed=i in perturbed,
-                    deterministic=deterministic)
+                    i in perturbed, deterministic)
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(blk, *args,
+                                                      use_reentrant=False)
+            else:
+                x = blk(*args)
 
         # diffusers' top-level (2, D) table, modulated by the raw timestep
         # embedding

@@ -16,11 +16,15 @@ differently, and each keeps its own rounding:
   differ only in the memory layout they read) and kernel K2b backward
   (``csrc/softmax_attention_bwd.cu``); the plain versions
   :func:`attention_ref` and :func:`attention_bwd_ref`.  The two branches
-  launch one kernel through two handles, so each counts its own launches;
+  launch one kernel through two handles in each direction (K2/K4 forward,
+  K2b/K4b backward), so each counts its own launches;
 * ``"flash"``, long sequences: kernel K6 forward
   (``csrc/flash_attention.cu``, replacing the Pallas library's
-  ``flash_attention``); the plain version :func:`flash_attention_ref`.  Its
-  backward (K6b) is not ported yet and raises;
+  ``flash_attention``), which under autograd also writes the rows' max and
+  exp-sum, and kernel K6b backward (``csrc/flash_attention_bwd.cu``,
+  replacing the library's ``_flash_attention_bwd_dkv`` and ``_dq``); the
+  plain versions :func:`flash_attention_ref` and
+  :func:`flash_attention_bwd_ref`;
 * ``"xla"``, every other shape: :func:`attention_xla`, plain tensor code
   with the rounding of ``jax.nn.dot_product_attention``.  It stands for no
   TPU kernel; it counts its calls on CUDA tensors, so a run on the card
@@ -64,13 +68,21 @@ SOFTMAX_ATTENTION = CudaKernel(
 SOFTMAX_ATTENTION_FOLDED = CudaKernel(
     "dot_product_attention_folded", "softmax_attention.cu",
     "yat_attention_fwd", _K2_ARGS)
+_K2B_ARGS = [_P] * 9 + [_I] * 5 + [_L] * 22 + [_F, _I, _P]
 SOFTMAX_ATTENTION_BWD = CudaKernel(
     "dot_product_attention_bwd", "softmax_attention_bwd.cu",
-    "yat_attention_bwd", [_P] * 9 + [_I] * 5 + [_L] * 22 + [_F, _I, _P])
+    "yat_attention_bwd", _K2B_ARGS)
+# K2b's kernel where the JAX package runs its folded-layout backward K4b
+SOFTMAX_ATTENTION_FOLDED_BWD = CudaKernel(
+    "dot_product_attention_folded_bwd", "softmax_attention_bwd.cu",
+    "yat_attention_bwd", _K2B_ARGS)
 FLASH_ATTENTION = CudaKernel(
     "flash_attention", "flash_attention.cu", "yat_flash_attention_fwd",
     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_L] * 13
-    + [_F, _I, _I, _P])
+    + [_F, _I, _P, _P, _I, _P])
+FLASH_ATTENTION_BWD = CudaKernel(
+    "flash_attention_bwd", "flash_attention_bwd.cu", "yat_flash_attention_bwd",
+    [_P] * 12 + [_I] * 5 + [_L] * 25 + [_F, _I, _P])
 LINEAR_ATTENTION = CudaKernel(
     "linear_attention", "linear_attention.cu", "yat_linear_attention_fwd",
     [_P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 12 + [_F, _I, _I, _P])
@@ -162,7 +174,8 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        bias: Optional[torch.Tensor] = None,
+                        residuals: bool = False):
     """Plain version of K6: the Pallas library flash kernel's arithmetic,
     key block by key block of :func:`flash_block` keys (the last one may be
     short).  One block: ``P = exp(s - max) / sum`` in fp32, rounded to v's
@@ -170,16 +183,23 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``P = exp(s - m_next)`` against the running max, rounded unnormalised,
     and ``acc = acc * (l_corr / l_next) + (P.V) / l_next``
     (``flash_attention.py:_flash_attention_kernel_single_batch``).  ``bias``
-    is [B, Nk] fp32 additive (``FLASH_MASK_VALUE`` at masked keys)."""
+    is [B, Nk] fp32 additive (``FLASH_MASK_VALUE`` at masked keys).
+
+    With ``residuals`` it returns ``(o, l, m)``: each row's exp-sum and max
+    as the library's forward saves them for its backward (the single
+    block's, or the final running values), fp32 ``[B, H, Nq]``."""
     acc = acc_dtype(q)
     s = _scores(q, k, bias, acc)
     v32 = v.to(acc)
     nk = k.shape[1]
     blk = flash_block(nk)
     if blk >= nk:
-        p = _softmax(s)
-        return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).to(acc),
-                            v32).to(q.dtype)
+        m = s.amax(-1, keepdim=True)
+        e = torch.exp(s - m)
+        l = e.sum(-1, keepdim=True)
+        o = torch.einsum("bhqk,bkhd->bqhd", (e / l).to(v.dtype).to(acc),
+                         v32).to(q.dtype)
+        return (o, l[..., 0], m[..., 0]) if residuals else o
     o = m_prev = l_prev = None
     for k0 in range(0, nk, blk):
         sb = s[..., k0:k0 + blk]
@@ -193,7 +213,41 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           v32[:, k0:k0 + blk])
         o = pv * inv if o is None else o * (l_corr * inv) + pv * inv
         m_prev, l_prev = m_next, l_next
-    return o.permute(0, 2, 1, 3).to(q.dtype)
+    o = o.permute(0, 2, 1, 3).to(q.dtype)
+    return (o, l_prev[..., 0], m_prev[..., 0]) if residuals else o
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, bias: Optional[torch.Tensor],
+                            o: torch.Tensor, l: torch.Tensor, m: torch.Tensor,
+                            g: torch.Tensor):
+    """Plain version of K6b: the Pallas library's flash VJP
+    (``flash_attention.py:_flash_attention_bwd`` and the kernels of
+    ``_flash_attention_bwd_dkv``/``_dq``) from the forward's rounded output
+    ``o`` and its residuals ``l``, ``m`` ([B, H, Nq]), in fp32:
+
+    1. ``s = (q kᵀ) · sm_scale + bias`` (the mask after the scale);
+    2. ``p = exp(s − m) · (1 / l)``, a multiply by the reciprocal;
+    3. ``di = rowsum(o · g)``;
+    4. ``dv = (p rounded to g's dtype)ᵀ g``;
+    5. ``ds = ((g vᵀ − di) · p) · sm_scale``, the scale before ``ds`` is
+       rounded;
+    6. ``dk = (ds rounded)ᵀ q``, ``dq = (ds rounded) k``, no further scale.
+
+    Returns (dq, dk, dv), each rounded once; the bias gets none."""
+    acc = acc_dtype(q)
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    s = _scores(q, k, bias, acc)
+    p = torch.exp(s - m.to(acc)[..., None]) * (1.0 / l.to(acc))[..., None]
+    g32 = g.to(acc)
+    di = (o.to(acc) * g32).sum(-1).permute(0, 2, 1)          # [B, H, Nq]
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(g.dtype).to(acc), g32)
+    dp = torch.einsum("bqhd,bkhd->bhqk", g32, v.to(acc))
+    ds = (dp - di[..., None]) * p * scale
+    ds_c = ds.to(g.dtype).to(acc)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds_c, q.to(acc))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds_c, k.to(acc))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -263,10 +317,10 @@ def _check_attention(q, k, v, bias):
     return bias
 
 
-def _forward_launch(kern, q, k, v, bias, extra, max_symbol, smem_symbol):
+def _forward_launch(kern, q, k, v, bias, extra, prefix):
     """Check q/k/v/bias, allocate the output and launch the forward kernel
     ``kern`` (K2 or K6: one argument layout, ``extra`` before the dtype
-    code)."""
+    code; ``prefix`` names its head-dim and shared-memory queries)."""
     _check_cuda(kern.name, (q, k, v))
     b, nq, h, d = q.shape
     nk = k.shape[1]
@@ -274,14 +328,7 @@ def _forward_launch(kern, q, k, v, bias, extra, max_symbol, smem_symbol):
     if out.numel() == 0:
         return out
     bias = _check_attention(q, k, v, bias)
-    max_d = kern.function(max_symbol)()
-    smem = kern.function(smem_symbol, [_I, _I], ctypes.c_longlong)(
-        d, dtype_code(q))
-    if d > max_d or smem > _MAX_SMEM:
-        raise ValueError(
-            f"{kern.name} kernel takes head_dim <= {max_d} within "
-            f"{_MAX_SMEM} bytes of shared memory; D={d} in {q.dtype} needs "
-            f"{smem}")
+    _check_head_dim(kern, prefix, q)
     with torch.cuda.device(q.device):
         kern.launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -296,41 +343,61 @@ def _forward_launch(kern, q, k, v, bias, extra, max_symbol, smem_symbol):
 def _attention_cuda(q, k, v, bias, folded=False):
     """Kernel K2 (counted as K4 where the JAX package folds heads)."""
     kern = SOFTMAX_ATTENTION_FOLDED if folded else SOFTMAX_ATTENTION
-    return _forward_launch(kern, q, k, v, bias, (),
-                           "yat_attention_max_head_dim",
-                           "yat_attention_smem_bytes")
+    return _forward_launch(kern, q, k, v, bias, (), "yat_attention")
 
 
-def _flash_attention_cuda(q, k, v, bias):
-    """Kernel K6, with the library's key block of :func:`flash_block`."""
-    return _forward_launch(FLASH_ATTENTION, q, k, v, bias,
-                           (flash_block(k.shape[1]),),
-                           "yat_flash_attention_max_head_dim",
-                           "yat_flash_attention_smem_bytes")
+def _flash_attention_cuda(q, k, v, bias, residuals=False):
+    """Kernel K6, with the library's key block of :func:`flash_block`; with
+    ``residuals`` it returns ``(o, l, m)`` as :func:`flash_attention_ref`
+    does, the kernel writing l and m."""
+    b, nq, h, _ = q.shape
+    m = l = None
+    if residuals:
+        m, l = torch.empty((2, b, h, nq), dtype=torch.float32,
+                           device=q.device)
+    out = _forward_launch(FLASH_ATTENTION, q, k, v, bias,
+                          (flash_block(k.shape[1]),
+                           m.data_ptr() if residuals else None,
+                           l.data_ptr() if residuals else None),
+                          "yat_flash_attention")
+    return (out, l, m) if residuals else out
 
 
-def _attention_bwd_cuda(q, k, v, bias, g):
+def _check_bwd_shapes(name, q, k, v, g, bias):
     g = g if g.stride(-1) == 1 else g.contiguous()
-    _check_cuda("dot_product_attention backward", (q, k, v, g))
+    _check_cuda(name, (q, k, v, g))
     if g.shape != q.shape:
         raise ValueError(f"g must have q's shape {tuple(q.shape)}")
+    bias = _check_attention(q, k, v, bias)
+    return g, bias
+
+
+def _check_head_dim(kern, prefix, q):
+    """Raise unless the kernel takes q's head dim within the shared memory
+    of one block (``{prefix}_max_head_dim`` and ``{prefix}_smem_bytes``)."""
+    d = q.shape[-1]
+    max_d = kern.function(f"{prefix}_max_head_dim")()
+    smem = kern.function(f"{prefix}_smem_bytes", [_I, _I],
+                         ctypes.c_longlong)(d, dtype_code(q))
+    if d > max_d or smem > _MAX_SMEM:
+        raise ValueError(
+            f"{kern.name} kernel takes head_dim <= {max_d} within "
+            f"{_MAX_SMEM} bytes of shared memory; D={d} in {q.dtype} needs "
+            f"{smem}")
+
+
+def _attention_bwd_cuda(q, k, v, bias, g, folded=False):
+    """Kernel K2b (counted as K4b where the JAX package folds heads)."""
+    kern = SOFTMAX_ATTENTION_FOLDED_BWD if folded else SOFTMAX_ATTENTION_BWD
+    g, bias = _check_bwd_shapes(kern.name, q, k, v, g, bias)
     b, nq, h, d = q.shape
     nk = k.shape[1]
-    bias = _check_attention(q, k, v, bias)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty((b, nk, h, d), dtype=k.dtype, device=k.device)
     dv = torch.empty((b, nk, h, d), dtype=v.dtype, device=v.device)
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    kern = SOFTMAX_ATTENTION_BWD
-    max_d = kern.function("yat_attention_bwd_max_head_dim")()
-    smem = kern.function("yat_attention_bwd_smem_bytes", [_I, _I],
-                         ctypes.c_longlong)(d, dtype_code(q))
-    if d > max_d or smem > _MAX_SMEM:
-        raise ValueError(
-            f"dot_product_attention backward kernel takes head_dim <= "
-            f"{max_d} within {_MAX_SMEM} bytes of shared memory; D={d} in "
-            f"{q.dtype} needs {smem}")
+    _check_head_dim(kern, "yat_attention_bwd", q)
     # per-query max, exp-sum and rowsum(dP * P), from the dq launch to the
     # dk/dv launch
     stats = torch.empty((3, b, h, nq), dtype=torch.float32, device=q.device)
@@ -347,13 +414,51 @@ def _attention_bwd_cuda(q, k, v, bias, g):
     return dq, dk, dv
 
 
+def _flash_attention_bwd_cuda(q, k, v, bias, o, l, m, g):
+    """Kernel K6b: two launches (dq, then dk/dv) from the forward's output
+    ``o`` and its residuals ``l``, ``m``."""
+    kern = FLASH_ATTENTION_BWD
+    g, bias = _check_bwd_shapes(kern.name, q, k, v, g, bias)
+    _check_cuda(kern.name, (q, o))
+    b, nq, h, d = q.shape
+    nk = k.shape[1]
+    if o.shape != q.shape:
+        raise ValueError(f"o must have q's shape {tuple(q.shape)}")
+    for t in (l, m):
+        if (t.shape != (b, h, nq) or t.dtype != torch.float32
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(f"l and m must be contiguous fp32 [B, H, Nq] = "
+                             f"{(b, h, nq)} on {q.device}")
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty((b, nk, h, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, nk, h, d), dtype=v.dtype, device=v.device)
+    if dq.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    _check_head_dim(kern, "yat_flash_attention_bwd", q)
+    # rowsum(o * g) per query, from the dq launch to the dk/dv launch
+    di = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        kern.launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            bias.data_ptr() if bias is not None else None, o.data_ptr(),
+            g.data_ptr(), m.data_ptr(), l.data_ptr(), di.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, nq, nk, h, d, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], bias.stride(0) if bias is not None else 0,
+            *o.stride()[:3], *g.stride()[:3], *dq.stride()[:3],
+            *dk.stride()[:3], *dv.stride()[:3], 1.0 / (d ** 0.5),
+            dtype_code(q), stream_of(q))
+    return dq, dk, dv
+
+
 class _SoftmaxAttention(torch.autograd.Function):
-    """K2 (or K4) forward, K2b backward on CUDA; the plain versions on the
-    CPU."""
+    """K2 (or K4) forward, K2b (or K4b) backward on CUDA; the plain versions
+    on the CPU."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, folded):
         ctx.save_for_backward(q, k, v, bias)
+        ctx.folded = folded
         if q.device.type == "cpu":
             return attention_ref(q, k, v, bias)
         return _attention_cuda(q, k, v, bias, folded)
@@ -364,24 +469,35 @@ class _SoftmaxAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             dq, dk, dv = attention_bwd_ref(q, k, v, bias, g)
         else:
-            dq, dk, dv = _attention_bwd_cuda(q, k, v, bias, g)
+            dq, dk, dv = _attention_bwd_cuda(q, k, v, bias, g, ctx.folded)
         return dq, dk, dv, None, None
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K6 forward on CUDA, its plain version on the CPU; no backward yet."""
+    """K6 forward, K6b backward on CUDA; the plain versions on the CPU.
+    ``residuals``: whether a backward will follow, so that the forward
+    keeps the rows' max and exp-sum (serving does not ask)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias):
+    def forward(ctx, q, k, v, bias, residuals):
         if q.device.type == "cpu":
-            return flash_attention_ref(q, k, v, bias)
-        return _flash_attention_cuda(q, k, v, bias)
+            out = flash_attention_ref(q, k, v, bias, residuals)
+        else:
+            out = _flash_attention_cuda(q, k, v, bias, residuals)
+        if not residuals:
+            return out
+        o, l, m = out
+        ctx.save_for_backward(q, k, v, bias, o, l, m)
+        return o
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "the flash-attention backward (K6b) is not ported yet; it comes "
-            "with PixArt-Sigma LoRA training (ROADMAP queue 1, slice 4)")
+        q, k, v, bias, o, l, m = ctx.saved_tensors
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attention_bwd_ref(q, k, v, bias, o, l, m, g)
+        else:
+            dq, dk, dv = _flash_attention_bwd_cuda(q, k, v, bias, o, l, m, g)
+        return dq, dk, dv, None, None
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -406,8 +522,11 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if branch == "xla":
         return attention_xla(q, k, v, mask)
     if branch == "flash":
+        residuals = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v))
         return _FlashAttention.apply(q, k, v,
-                                     _key_bias(mask, b, FLASH_MASK_VALUE))
+                                     _key_bias(mask, b, FLASH_MASK_VALUE),
+                                     residuals)
     return _SoftmaxAttention.apply(q, k, v, _key_bias(mask, b),
                                    branch == "folded")
 

@@ -7,9 +7,10 @@ Counterpart of ``yat_tpu/ops/schedulers.py``:
   ``(1 - sigma) x + sigma eps``, the model predicts the velocity
   ``eps - x``, and sampling integrates it with Euler steps;
 * :class:`DDPMSchedule` (diffusers ``DDPMScheduler`` parity): the betas,
-  the cumulative alphas and the deterministic DDIM step that sampling
-  takes.  Its training half (noising, draws, targets) waits for the
-  PixArt-Sigma training slice.
+  the cumulative alphas, the training half (noising with sqrt(abar) and
+  sqrt(1 - abar) rounded to the latents' dtype, integer timesteps from the
+  logit-normal density or a fixed list, epsilon and v-prediction targets)
+  and the deterministic DDIM step that sampling takes.
 
 Training draws come from a ``torch.Generator``; they cannot reproduce
 ``jax.random``'s numbers, so tests hand both sides the same draws.
@@ -163,6 +164,51 @@ class DDPMSchedule:
 
     def alphas_cumprod(self) -> torch.Tensor:
         return torch.cumprod(1.0 - self.betas(), dim=0)
+
+    def _sqrt_abar(self, latents: torch.Tensor, timesteps: torch.Tensor):
+        """sqrt(abar_t) and sqrt(1 - abar_t), fp32 then rounded to the
+        latents' dtype, shaped to broadcast over them."""
+        abar = self.alphas_cumprod().to(latents.device)[timesteps.long()]
+        return (_expand_to(torch.sqrt(abar).to(latents.dtype), latents.ndim),
+                _expand_to(torch.sqrt(1.0 - abar).to(latents.dtype),
+                           latents.ndim))
+
+    def add_noise(self, latents: torch.Tensor, noise: torch.Tensor,
+                  timesteps: torch.Tensor) -> torch.Tensor:
+        """x_t = sqrt(abar_t) x + sqrt(1 - abar_t) eps."""
+        sqrt_abar, sqrt_1m = self._sqrt_abar(latents, timesteps)
+        return sqrt_abar * latents + sqrt_1m * noise
+
+    def training_draw(self, gen: torch.Generator, batch_size: int,
+                      weighting_scheme: str = "logit_normal",
+                      logit_mean: float = 0.0, logit_std: float = 1.0,
+                      mode_scale: float = 1.29,
+                      timestep_list: Optional[Sequence[int]] = None
+                      ) -> torch.Tensor:
+        """int32 timesteps for a training batch on the generator's device:
+        the density (the same as flow matching's) times the step count,
+        clipped to [0, N - 1], or a uniform choice from ``timestep_list``."""
+        dev = gen.device
+        if timestep_list:
+            choice = torch.randint(0, len(timestep_list), (batch_size,),
+                                   generator=gen, device=dev)
+            return torch.tensor(list(timestep_list), dtype=torch.int32,
+                                device=dev)[choice]
+        u = sample_timestep_density(gen, batch_size, weighting_scheme,
+                                    logit_mean, logit_std, mode_scale)
+        n = self.num_train_timesteps
+        return (u * n).to(torch.int32).clamp(0, n - 1)
+
+    def target(self, latents: torch.Tensor, noise: torch.Tensor,
+               timesteps: torch.Tensor) -> torch.Tensor:
+        """The prediction's target: eps, or v = sqrt(abar) eps -
+        sqrt(1 - abar) x."""
+        if self.prediction_type == "epsilon":
+            return noise
+        if self.prediction_type == "v_prediction":
+            sqrt_abar, sqrt_1m = self._sqrt_abar(latents, timesteps)
+            return sqrt_abar * noise - sqrt_1m * latents
+        raise ValueError(f"unknown prediction type {self.prediction_type!r}")
 
     def ddim_step(self, sample: torch.Tensor, eps_pred: torch.Tensor,
                   t: int, t_prev: int) -> torch.Tensor:
