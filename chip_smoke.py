@@ -14,7 +14,10 @@ Phases, each of which fails the run (exit code 1) when it fails:
    its plain PyTorch version at the serving and training paths' shapes and
    at ragged and masked shapes, in bf16 and fp32, and times the kernel, the
    plain version and (where one exists) one PyTorch call computing the
-   same function, beside the least time the card could take;
+   same function, beside the least time the card could take; K5 and K5b
+   (the w8a8 matmul and its backward) must equal their plain versions bit
+   for bit (int8 payload, row scales, output) at SANA's and PixArt's
+   shapes and with zero rows and one-large-value rows;
 4. reference: two-block full-width SANA and PixArt-Sigma denoisers on the
    card against the same modules on the CPU (the plain versions), fp32;
 5. gradient reference: the same two SANA blocks with LoRA (nonzero
@@ -23,7 +26,10 @@ Phases, each of which fails the run (exit code 1) when it fails:
    ReLU kinks that fall on different sides of 0 on the two devices is
    counted and added; every gradient nonzero.  Then two PixArt-Sigma
    blocks with LoRA and one epsilon loss the same way (K6/K6b, K4/K4b,
-   K1/K1b; no ReLU, so no kinks);
+   K1/K1b; no ReLU, so no kinks).  Then the two SANA blocks with an int8
+   base and w8a8 (K5/K5b): the int8 roundings that land on the other side
+   on the two devices are counted (each one step at a near-tie) and the
+   CPU takes the card's step there, the kinks as before;
 6. serve: the port's SANA-0.6B 512px server (Gemma-2-2B caption encoder,
    SANA-0.6B denoiser with CFG 5.0 and 20 flow-match Euler steps, fp32
    DC-AE decoder) with random weights from a seed, on 127.0.0.1: four
@@ -49,7 +55,12 @@ Phases, each of which fails the run (exit code 1) when it fails:
    caption rungs 128 and 256/300): the same checks, with the launches per
    step by caption rung (K6/K6b for the self-attention; K4/K4b at rungs
    256 and 300, K2/K2b at rung 128 for the cross-attention), a remat step
-   and a profiled step.
+   and a profiled step;
+9. int8 train: phase 7's configuration with ``lora_base_model_8bit``,
+   ``int8_w8a8`` and ``use_adamw_8bit`` (an int8 base quantized from the
+   fp32 weights, its products through K5/K5b, Lion with 8-bit momentum):
+   the same checks, 254 K5 and 193 K5b launches a step beside slice 2's,
+   the int8 base's bytes and the peak memory beside phase 7's.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -74,9 +85,11 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # peak rates of one H100 SXM (NVIDIA data sheet, dense): HBM3 bytes/s,
-# bf16 tensor-core FLOP/s, fp32 (non-tensor) FLOP/s
+# bf16 tensor-core FLOP/s, int8 tensor-core operations/s, fp32
+# (non-tensor) FLOP/s
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 FP32_FLOPS = 67e12
 
 # tolerances |kernel - plain| <= atol + rtol * |plain|
@@ -173,6 +186,7 @@ def phase_device():
 def phase_build():
     import yat_tpu_torch.ops.attention  # noqa: F401  (registers K2, K2b, K3)
     import yat_tpu_torch.ops.norm  # noqa: F401  (registers K1, K1b)
+    import yat_tpu_torch.ops.quant  # noqa: F401  (registers K5, K5b)
     from yat_tpu_torch.kernels.build import KERNELS, build_all
     out = build_all()
     log(f"built {sorted({k.source for k in KERNELS.values()})} in "
@@ -467,6 +481,54 @@ def kernel_cases(device):
     return cases
 
 
+def w8a8_inputs(t, k, n, dtype, device, seed=0, special=False):
+    """An activation x ``[t, k]`` and an upstream gradient g ``[t, n]`` in
+    ``dtype``, and an int8 base ``[k -> n]``: the payload q ``[n, k]`` and
+    its fp32 scale, quantized from a lecun-normal weight.  ``special``
+    zeroes rows 0-1 of x and g and puts one large value among the normal
+    ones of rows 2-3."""
+    import torch
+
+    from yat_tpu_torch.ops import quant as Q
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, w_scale = Q.quantize_kernel(
+        torch.randn((n, k), generator=gen, device=device) * k ** -0.5, 8)
+    x = torch.randn((t, k), generator=gen, device=device)
+    g = torch.randn((t, n), generator=gen, device=device)
+    if special:
+        for a in (x, g):
+            a[0:2] = 0.0
+            a[2, 5] = 1e4
+            a[3, -1] = -3e4
+    return x.to(dtype), q, w_scale, g.to(dtype)
+
+
+def _bits(t):
+    """A float tensor's bits, so that equality means bit equality."""
+    import torch
+    return t.view({torch.bfloat16: torch.int16, torch.float32: torch.int32,
+                   torch.int8: torch.int8}[t.dtype])
+
+
+def w8a8_mismatch(got, want):
+    """The first step at which a K5/K5b result ``(out, payload, row
+    scales)`` differs from its plain version's, in the order they are
+    computed (payload, row scales, output), or None when all three are equal
+    bit for bit."""
+    (y, p, s), (yw, pw, sw) = got, want
+    for step, a, b in (("int8 payload", p, pw), ("row scales", s, sw),
+                       ("output", y, yw)):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return f"{step}: {a.dtype} {tuple(a.shape)} against {b.dtype} " \
+                   f"{tuple(b.shape)}"
+        differ = _bits(a) != _bits(b)
+        if bool(differ.any()):
+            worst = float((a.float() - b.float()).abs().max())
+            return (f"{step}: {int(differ.sum())} of {a.numel()} entries "
+                    f"differ (largest |difference| {worst:.3e})")
+    return None
+
+
 def _vmem_attention(q, k, v, m):
     """The public function, sent to K2's kernel whatever the shape."""
     from yat_tpu_torch.ops import attention as A
@@ -612,6 +674,102 @@ def phase_kernels(device):
             f"{'null' if lib_ms is None else f'{lib_ms:.4f}'}  bound_ms "
             f"{results[name]['bound_ms']:.4f} ({results[name]['bound_by']}:"
             f" {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+    return results
+
+
+# K5/K5b cases, [T, K] x [K -> N]: SANA-0.6B's attention projections on the
+# image tokens (the main case) and on the caption, its GLUMB up-projection;
+# PixArt-Sigma XL-2's MLP up and down; the gate's largest K at the smallest
+# T, with zero rows and rows holding one large value
+W8A8_CASES = (("sana-attn", (4096, 1152, 1152), False),
+              ("sana-caption", (8192, 1152, 1152), False),
+              ("sana-glumb-up", (4096, 1152, 5760), False),
+              ("pixart-mlp-up", (8192, 1152, 4608), False),
+              ("pixart-mlp-down", (8192, 4608, 1152), False),
+              ("k6144-special", (128, 6144, 6144), True))
+
+
+def phase_w8a8_kernels(device):
+    """K5 and K5b against their plain versions, bit for bit (the int8
+    payload, the row scales, the output), on every case in bf16 and fp32;
+    then the main case timed in bf16 beside its bound and two labelled
+    library times: ``torch._int_mm`` on the already quantized operands (the
+    int8 GEMM alone) and bf16 ``F.linear`` on the dequantized weight (what
+    the path runs without ``int8_w8a8``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from yat_tpu_torch.ops import quant as Q
+
+    # name: (kernel, plain version, the case's input it takes)
+    kinds = {"w8a8_matmul": (Q._w8a8_cuda, Q.w8a8_matmul_ref, 0),
+             "w8a8_matmul_bwd": (Q._w8a8_bwd_cuda, Q.w8a8_matmul_bwd_ref, 3)}
+    results = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).replace("torch.", "")
+        for label, (t, k, n), special in W8A8_CASES:
+            case = w8a8_inputs(t, k, n, dtype, device, seed=t + k + n,
+                               special=special)
+            x, q, w_scale = case[:3]
+            for name, (kern, plain, arg) in kinds.items():
+                got = kern(case[arg], q, w_scale, quantized=True)
+                want = plain(case[arg], q, w_scale, quantized=True)
+                torch.cuda.synchronize()
+                bad = w8a8_mismatch(got, want)
+                log(f"{name} [{label} {t}x{k}->{n}, {dt}] payload, row "
+                    f"scales and output {'bit-equal' if bad is None else 'DIFFER: ' + bad}")
+                if bad is not None:
+                    fail(f"{name} [{label}, {dt}] differs from its plain "
+                         f"version at the {bad}")
+                if label != "sana-attn" or dtype != torch.bfloat16:
+                    continue
+                es = 2
+                act, out = (k, n) if name == "w8a8_matmul" else (n, k)
+                nbytes = es * t * (act + out) + n * k + 4 * n
+                ops = 2 * t * k * n
+                inputs = _rotations(
+                    lambda: w8a8_inputs(t, k, n, dtype, device,
+                                        seed=len(results))[:4], nbytes)
+                call = (lambda x, q, s, g, kern=kern, arg=arg:
+                        kern((x, q, s, g)[arg], q, s))
+                ms = time_ms(call, inputs, 50)
+                plain_ms = time_ms(
+                    lambda x, q, s, g, plain=plain, arg=arg:
+                    plain((x, q, s, g)[arg], q, s), inputs, 5)
+                # the library: the int8 GEMM of the quantized operands
+                # (x8 [T, K] . qᵀ forward, g8 [T, N] . q backward), and the
+                # bf16 matmul with the dequantized weight w [N, K]
+                fwd = name == "w8a8_matmul"
+                lib_in = []
+                for x_, q_, s_, g_ in inputs:
+                    a8 = Q.row_quantize(x_.float() if fwd else
+                                        g_.float() * s_[None, :])[0]
+                    lib_in.append((a8, q_.t() if fwd else q_,
+                                   Q.dequantize_kernel(q_, s_, dtype),
+                                   x_ if fwd else g_))
+                int_mm_ms = time_ms(lambda a8, b8, w, a: torch._int_mm(a8, b8),
+                                    lib_in, 50)
+                linear_ms = time_ms(
+                    (lambda a8, b8, w, a: F.linear(a, w)) if fwd else
+                    (lambda a8, b8, w, a: a @ w), lib_in, 50)
+                t_bytes = nbytes / HBM_BYTES_S * 1e3
+                t_ops = ops / INT8_OPS * 1e3
+                results[name] = {
+                    "max_abs_err": float((got[0].float()
+                                          - want[0].float()).abs().max()),
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": int_mm_ms,
+                    "library": "torch._int_mm on the quantized operands",
+                    "bf16_linear_ms": linear_ms,
+                    "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "bytes": nbytes, "flops": ops}
+                log(f"{name} [{label}, bf16] kernel_ms {ms:.4f}  plain_ms "
+                    f"{plain_ms:.4f}  bound_ms {results[name]['bound_ms']:.4f}"
+                    f" ({results[name]['bound_by']}: {nbytes / 1e6:.2f} MB, "
+                    f"{ops / 1e9:.3f} G int8 operations)  library: "
+                    f"torch._int_mm {int_mm_ms:.4f} ms (int8 GEMM alone), "
+                    f"bf16 matmul on the dequantized weight {linear_ms:.4f} "
+                    f"ms")
     return results
 
 
@@ -819,6 +977,230 @@ def _relu_input_hooks(attn, seen):
         return hook
     return [getattr(attn, p).register_forward_hook(keep(p))
             for p in ("to_q", "to_k")]
+
+
+# an int8 rounding that lands on the other side in two runs is a flip only
+# where the unrounded value lies within this share of a step of the midpoint
+# between the two steps (the runs' values differ by a few fp32 ulps)
+FLIP_TIE = 1e-2
+
+
+class W8A8Payloads:
+    """The int8 payloads of every kernel-shape ``w8a8_matmul`` call of the
+    given models (the activation rows forward, the rows of g * w_scale
+    backward), keyed by (the calling module's path, "fwd" or "bwd", the
+    call's number for that module).
+
+    ``recording()``: a run keeps its payloads in ``seen`` (the card's, read
+    back from K5/K5b, or the plain versions'). ``forcing(reference)``: the
+    plain versions of a CPU run hold each payload against the reference's.
+    An entry rounded to the other side must differ by one step, with its
+    unrounded value within ``FLIP_TIE`` of a step of the midpoint: it is
+    counted in ``flips``, and this run takes the reference's step there, so
+    that the rest of the run sees the same rounding.  Any other difference
+    goes to ``bad``."""
+
+    def __init__(self, models):
+        self.paths = {}
+        for model in models:
+            for path, m in model.named_modules():
+                if getattr(m, "qweight", None) is not None:
+                    self.paths[m.qweight.data_ptr()] = path
+        self.seen, self.reference = {}, None
+        self.flips, self.worst_tie, self.bad = 0, 0.0, []
+        self._calls = {}
+
+    def _key(self, q, kind):
+        path = self.paths[q.data_ptr()]
+        n = self._calls.get((path, kind), 0)
+        self._calls[(path, kind)] = n + 1
+        return path, kind, n
+
+    def _take(self, key, mine, unrounded):
+        import torch
+        ref = self.reference.get(key)
+        if ref is None or ref.shape != mine.shape:
+            self.bad.append(f"{key}: no reference payload of its shape")
+            return mine
+        ref = ref.to(mine.device)
+        differ = mine != ref
+        if bool(differ.any()):
+            step = int((mine[differ].int() - ref[differ].int()).abs().max())
+            v = unrounded[differ].abs()
+            tie = float(((v - v.floor()) - 0.5).abs().max())
+            self.worst_tie = max(self.worst_tie, tie)
+            self.flips += int(differ.sum())
+            if step != 1 or tie > FLIP_TIE:
+                self.bad.append(f"{key}: {int(differ.sum())} entries differ, "
+                                f"by up to {step} steps, up to {tie:.3g} of "
+                                "a step off the midpoint")
+            mine = torch.where(differ, ref, mine)
+        return mine
+
+    def _record(self, kind, orig):
+        def run(a, q, w_scale, quantized=False):
+            out, payload, scale = orig(a, q, w_scale, quantized=True)
+            self.seen[self._key(q, kind)] = payload.cpu()
+            return (out, payload, scale) if quantized else out
+        return run
+
+    def _forced_fwd(self, x, q, w_scale, quantized=False):
+        """K5's plain version with its payload held to the reference."""
+        from yat_tpu_torch.ops import quant as Q
+        x32 = x.float()
+        x8, xs = Q.row_quantize(x32)
+        x8 = self._take(self._key(q, "fwd"), x8, x32 / xs[:, None])
+        y = ((Q.int8_product(x8, q.t()) * xs[:, None])
+             * w_scale[None, :].float()).to(x.dtype)
+        return (y, x8, xs) if quantized else y
+
+    def _forced_bwd(self, g, q, w_scale, quantized=False):
+        """K5b's plain version with its payload held to the reference."""
+        from yat_tpu_torch.ops import quant as Q
+        g32 = g.float() * w_scale[None, :].float()
+        g8, gs = Q.row_quantize(g32)
+        g8 = self._take(self._key(q, "bwd"), g8, g32 / gs[:, None])
+        dx = (Q.int8_product(g8, q) * gs[:, None]).to(g.dtype)
+        return (dx, g8, gs) if quantized else dx
+
+    def recording(self):
+        """A ``with`` context in which K5/K5b and their plain versions keep
+        their payloads."""
+        from unittest import mock
+
+        from yat_tpu_torch.ops import quant as Q
+        self._calls, self.reference = {}, None
+        return mock.patch.multiple(
+            Q, _w8a8_cuda=self._record("fwd", Q._w8a8_cuda),
+            _w8a8_bwd_cuda=self._record("bwd", Q._w8a8_bwd_cuda),
+            w8a8_matmul_ref=self._record("fwd", Q.w8a8_matmul_ref),
+            w8a8_matmul_bwd_ref=self._record("bwd", Q.w8a8_matmul_bwd_ref))
+
+    def forcing(self, reference):
+        """A ``with`` context in which the plain versions are held to the
+        ``reference`` payloads."""
+        from unittest import mock
+
+        from yat_tpu_torch.ops import quant as Q
+        self._calls, self.reference = {}, reference
+        return mock.patch.multiple(Q, w8a8_matmul_ref=self._forced_fwd,
+                                   w8a8_matmul_bwd_ref=self._forced_bwd)
+
+
+def phase_int8_grad_reference(device, width=None):
+    """Two SANA-0.6B blocks (one linear, one softmax self-attention) with
+    an int8 base quantized from the fp32 weights, w8a8 on and rank-8 LoRA
+    (nonzero ``lora_b``), at 512 image and 1024 caption tokens so that
+    every projection, the caption projection included, takes K5: one
+    flow-matching loss and every LoRA gradient on ``device`` (K5/K5b)
+    against the CPU (the plain versions), fp32.  The card runs first and
+    keeps its int8 payloads; the CPU run counts the entries it rounds to
+    the other side (``W8A8Payloads``) and takes the card's step there.
+    ReLU kinks are counted and their share added as in
+    ``phase_grad_reference``; then every entry of every leaf must agree to
+    ``GRAD_REF_TOL``.  ``width`` overrides the config's widths for a
+    rehearsal on the CPU."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from yat_tpu_torch.adapters.builder import lora_parameters
+    from yat_tpu_torch.kernels.build import launch_counts, reset_launch_counts
+    from yat_tpu_torch.models.layers import AdapterDense
+    from yat_tpu_torch.models.sana import SANA_600M, SanaTransformer2D
+    from yat_tpu_torch.ops.quant import quantize_params
+    from yat_tpu_torch.ops.schedulers import FlowMatchSchedule
+    from yat_tpu_torch.train.step import loss_and_grads
+    from yat_tpu_torch.train.tasks import make_flow_matching_loss
+
+    cfg = dataclasses.replace(SANA_600M, num_layers=2,
+                              softmax_self_attn_blocks=(1,), **(width or {}))
+    cpu, _, n = lora_pair(SanaTransformer2D, cfg, 8, torch.device("cpu"))
+    n_q = quantize_params(cpu, 8)
+    for m in cpu.modules():
+        if isinstance(m, AdapterDense):
+            m.w8a8 = True
+    gpu = copy.deepcopy(cpu).to(device)
+    rng = np.random.default_rng(0)
+    grid, cap = 16, 512
+    lat = rng.standard_normal((2, grid, grid, cfg.in_channels), np.float32)
+    emb = rng.standard_normal((2, cap, cfg.caption_channels), np.float32)
+    mask = (np.arange(cap)[None] < np.array([[100], [500]])).astype(np.int32)
+    sched = FlowMatchSchedule(shift=3.0)
+    ts, sig = sched.training_draw(torch.Generator().manual_seed(3), 2)
+    noise = rng.standard_normal(lat.shape, np.float32)
+    tap = W8A8Payloads([cpu, gpu])
+    results = {}
+    # the card first: the CPU run is held to its payloads
+    for label, model, dev in (("card", gpu, device),
+                              ("cpu", cpu, torch.device("cpu"))):
+        batch = {"latents": torch.from_numpy(lat).to(dev),
+                 "embeddings": torch.from_numpy(emb).to(dev),
+                 "text_mask": torch.from_numpy(mask).to(dev)}
+        draws = {"timesteps": ts.to(dev), "sigmas": sig.to(dev),
+                 "noise": torch.from_numpy(noise).to(dev)}
+        leaves = [p for _, p in lora_parameters(model)]
+        seen = {}
+        hooks = _relu_input_hooks(model.blocks[0].attn1, seen)
+        reset_launch_counts()
+        with (tap.recording() if label == "card"
+              else tap.forcing(dict(tap.seen))):
+            loss, grads = loss_and_grads(
+                make_flow_matching_loss(model, sched), leaves, batch,
+                torch.Generator(), draws)
+        for h in hooks:
+            h.remove()
+        results[label] = (float(loss), [g.detach().cpu() for g in grads],
+                          {k: {n_: t.cpu() for n_, t in v.items()}
+                           for k, v in seen.items()}, launch_counts())
+    loss_g, grads_g, seen_g, counts = results["card"]
+    loss_c, grads_c, seen_c, _ = results["cpu"]
+    names = [name for name, _ in lora_parameters(cpu)]
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    expected, kinks = with_flips_share(cpu.blocks[0].attn1, "blocks_0.attn1",
+                                       dict(zip(names, grads_c)), seen_c,
+                                       seen_g)
+    zero, rows, ok = [], [], loss_err <= 1e-4 and not tap.bad
+    for name, gc, gg in zip(names, grads_c, grads_g):
+        scale = float(gc.abs().max())
+        fixed = float((gg.double() - expected[name]).abs().max()) / scale
+        rows.append((fixed, name, scale))
+        ok = ok and fixed <= GRAD_REF_TOL and bool(torch.isfinite(gg).all())
+        if not bool((gg != 0).any()):
+            zero.append(name)
+    for fixed, name, scale in sorted(rows, reverse=True)[:3]:
+        log(f"int8 grad reference:   {name}: max|g| {scale:.3e}; "
+            f"max|dg|/max|g| {fixed:.2e}")
+    # K5 per block: attn1 q/k/v/out, attn2 q/out and k/v on the caption,
+    # GLUMB's up-projection (its down-projection's K = 2880 is off the
+    # gate); plus the caption projection's two layers.  K5b: the same but
+    # attn2's k/v (nothing trainable upstream of the caption) and block 0's
+    # attn1 q/k/v (their input comes from frozen modules only)
+    want = {"w8a8_matmul": 9 * cfg.num_layers + 2,
+            "w8a8_matmul_bwd": 7 * cfg.num_layers - 3}
+    if device.type != "cuda":
+        want = {k: 0 for k in want}
+    log(f"int8 grad reference: 2-block {cfg.hidden_dim}-wide SANA, int8 base "
+        f"({n_q} dense layers), w8a8, LoRA on {n} modules ({len(names)} "
+        f"leaves), {device.type} vs CPU, fp32: loss {loss_g:.6f} vs "
+        f"{loss_c:.6f} (rel {loss_err:.2e}, tol 1e-4); {len(tap.seen)} "
+        f"payloads, int8 roundings flipped between the devices: "
+        f"{tap.flips} (each one step, at most {tap.worst_tie:.2e} of a step "
+        f"off the midpoint; tie limit {FLIP_TIE:g}); ReLU kinks flipped: "
+        f"{kinks.get('to_q', 0)} of q, {kinks.get('to_k', 0)} of k; worst "
+        f"leaf max|dg|/max|g| {max(r[0] for r in rows):.2e} with the kinks' "
+        f"share (tol {GRAD_REF_TOL:g}); zero gradients: {len(zero)}; "
+        f"launches { {k: counts[k] for k in want} }")
+    if tap.bad:
+        fail(f"int8 payloads that differ by more than a flip: {tap.bad[:4]}")
+    if zero:
+        fail(f"int8: LoRA leaves with no gradient: {zero[:4]}")
+    if not ok:
+        fail("int8: LoRA gradients on the card disagree with the CPU")
+    if any(counts[k] != v for k, v in want.items()):
+        fail(f"int8 grad reference: launches {counts}, expected {want}")
+    return tap.flips
 
 
 def phase_pixart_grad_reference(device, width=None):
@@ -1086,6 +1468,9 @@ KERNEL_FAMILIES = (
     ("K2b/K4b dot_product_attention_bwd", ("attention_bwd_dq",
                                            "attention_bwd_dkdv")),
     ("K3 linear_attention", ("linear_attention_fwd",)),
+    # before cuBLAS: K5's and K5b's GEMMs carry "gemm" too
+    ("K5 w8a8_matmul", ("w8a8_fwd_",)),
+    ("K5b w8a8_matmul_bwd", ("w8a8_bwd_",)),
     # convolutions first: cuDNN's implicit-GEMM kernels carry "gemm" too
     ("convolution (cuDNN)", ("conv", "cudnn", "depthwise", "implicit",
                              "fprop")),
@@ -1350,10 +1735,72 @@ def _caption_mask(b, rung, device):
                            device=device)[:, None]).to(torch.int32)
 
 
-def phase_train(device, card, shard_args=None, cfg_extra=None):
+# the quantized-base LoRA trainer's keys: an int8 base quantized from the
+# fp32 weights, its products through K5/K5b, Lion with 8-bit momentum
+INT8_KEYS = {"lora_base_model_8bit": "true", "int8_w8a8": "true",
+             "use_adamw_8bit": "true"}
+# peak device memory of each training phase's run, by label
+TRAIN_PEAKS = {}
+
+
+def sana_step_launches(cfg_model, w8a8):
+    """Kernel launches of one SANA training step (no remat), and those
+    inside the blocks (which remat runs twice)."""
+    n_layers = cfg_model.num_layers
+    n_soft = len(cfg_model.softmax_self_attn_blocks)
+    # the first norm of block 0 gets no backward: its input and modulation
+    # come from the frozen patch and timestep embeddings, so no trainable
+    # leaf lies upstream of it
+    per_step = {"adaln_layernorm": 2 * n_layers + 1,
+                "dot_product_attention": n_layers + n_soft,
+                "linear_attention": n_layers - n_soft,
+                "adaln_layernorm_bwd": 2 * n_layers,
+                "dot_product_attention_bwd": n_layers + n_soft}
+    in_blocks = {"adaln_layernorm": 2 * n_layers,
+                 "dot_product_attention": n_layers + n_soft,
+                 "linear_attention": n_layers - n_soft}
+    if w8a8:
+        # K5 per block: attn1 q/k/v/out, attn2 q/out and k/v on the caption,
+        # GLUMB's up-projection (its down-projection's K = 2880 is off the
+        # gate), plus the caption projection's two layers outside the
+        # blocks; the timestep MLP (T = batch), the patch embedding (K = 32)
+        # and proj_out (N = 32) fall back.  K5b: the same in the blocks but
+        # attn2's k/v (nothing trainable upstream of the caption) and block
+        # 0's attn1 q/k/v (their input comes from frozen modules only)
+        per_step["w8a8_matmul"] = 9 * n_layers + 2
+        per_step["w8a8_matmul_bwd"] = 7 * n_layers - 3
+        in_blocks["w8a8_matmul"] = 9 * n_layers
+    return per_step, in_blocks
+
+
+def log_int8_base(label, trainer, peak, card):
+    """The quantized base's bytes against the same weights in bf16, and the
+    peak memory beside the bf16 run's."""
+    from yat_tpu_torch.models.layers import AdapterDense
+    dense = [m for m in trainer.model.modules()
+             if isinstance(m, AdapterDense) and m.qweight is not None]
+    n = sum(m.qweight.numel() for m in dense)
+    scales = sum(m.weight_scale.numel() for m in dense)
+    w8a8 = sum(m.w8a8 for m in dense)
+    bf16 = TRAIN_PEAKS.get("train")
+    log(f"{label} [{card}]: {len(dense)} dense layers hold an int8 base "
+        f"({w8a8} with w8a8 on): {n / 2**20:.1f} MiB of payload + "
+        f"{4 * scales / 2**20:.2f} MiB of fp32 scales, against "
+        f"{2 * n / 2**20:.1f} MiB in bf16; peak device memory "
+        f"{peak / 2**30:.2f} GiB"
+        + ("" if bf16 is None else
+           f" against {bf16 / 2**30:.2f} GiB for the bf16 base"))
+    if not dense or w8a8 != len(dense):
+        fail(f"{label}: the trainer left {len(dense) - w8a8} int8 layers "
+             "without w8a8")
+
+
+def phase_train(device, card, shard_args=None, cfg_extra=None,
+                label="train"):
     """The SANA training main path through the entry point; returns the
-    launch counts of its run.  ``shard_args``/``cfg_extra`` shrink it for a
-    rehearsal on the CPU."""
+    launch counts of its run.  With ``INT8_KEYS`` among ``cfg_extra`` it is
+    the quantized-base trainer, whose K5/K5b launches are checked too.
+    ``shard_args``/``cfg_extra`` shrink it for a rehearsal on the CPU."""
     import torch
 
     from yat_tpu_torch.frontends.sana import main as train_main
@@ -1365,26 +1812,22 @@ def phase_train(device, card, shard_args=None, cfg_extra=None):
             **(cfg_extra or {})).items()
             if v is not None}              # None drops a key
         trainer, counts, wall, peak = run_entry_point(
-            "train", train_main, device, tmp, cfg, shard_args or {})
+            label, train_main, device, tmp, cfg, shard_args or {})
+        TRAIN_PEAKS[label] = peak
         steps = int(cfg["steps"])
         cfg_model = trainer.sana_config
         n_layers = cfg_model.num_layers
-        check_trained("train", trainer, cfg, n_layers)
+        check_trained(label, trainer, cfg, n_layers)
 
-        n_soft = len(cfg_model.softmax_self_attn_blocks)
-        # launches per step; the first norm of block 0 gets no backward:
-        # its input and modulation come from the frozen patch and timestep
-        # embeddings, so no trainable leaf lies upstream of it
-        per_step = {"adaln_layernorm": 2 * n_layers + 1,
-                    "dot_product_attention": n_layers + n_soft,
-                    "linear_attention": n_layers - n_soft,
-                    "adaln_layernorm_bwd": 2 * n_layers,
-                    "dot_product_attention_bwd": n_layers + n_soft}
-        check_launches("train", counts,
+        w8a8 = trainer.params.int8_w8a8
+        per_step, in_blocks = sana_step_launches(cfg_model, w8a8)
+        check_launches(label, counts,
                        {k: n * steps if cuda else 0
                         for k, n in per_step.items()},
                        lambda k: f"{per_step[k]} per step x {steps} steps")
-        log_step_rate("train", trainer, wall, peak, card)
+        log_step_rate(label, trainer, wall, peak, card)
+        if trainer.params.lora_base_model_8bit:
+            log_int8_base(label, trainer, peak, card)
 
         # one more step with remat (low_vram), on one batch and one set of
         # draws, against the step without: the same loss and gradients
@@ -1403,12 +1846,9 @@ def phase_train(device, card, shard_args=None, cfg_extra=None):
         draws = {"timesteps": ts, "sigmas": sig,
                  "noise": torch.randn(batch["latents"].shape, generator=gen,
                                       device=device)}
-        # launches inside the blocks, which remat runs twice
-        in_blocks = {"adaln_layernorm": 2 * n_layers,
-                     "dot_product_attention": n_layers + n_soft,
-                     "linear_attention": n_layers - n_soft}
-        remat_step("train", trainer, device, card, batch, draws, in_blocks,
-                   ("adaln_layernorm_bwd", "dot_product_attention_bwd"))
+        bwd = ("adaln_layernorm_bwd", "dot_product_attention_bwd") + (
+            ("w8a8_matmul_bwd",) if w8a8 else ())
+        remat_step(label, trainer, device, card, batch, draws, in_blocks, bwd)
     return {name: counts[name] for name in per_step}
 
 
@@ -1464,9 +1904,10 @@ def pixart_caption_lengths(cfg, n, tmp):
 def pixart_train_config(shard, out_dir, **extra):
     """configs/pixart_repa.yaml (batch 8, lr 2e-5, bf16, rank 32, alpha 32,
     to_q/to_k/to_v/to_out) without what needs files (the pretrained
-    pipeline, the DINOv2 checkpoint, validation prompts) and without what
-    is not ported (REPA; LoKr becomes lora; the 8-bit base and optimizer;
-    on-the-fly encoding, replaced by a feature shard), with 2 warmup steps,
+    pipeline, the DINOv2 checkpoint, validation prompts), without what is
+    not ported (REPA; LoKr becomes lora; on-the-fly encoding, replaced by a
+    feature shard) and without its 8-bit base and optimizer (this cell
+    keeps a bf16 base; phase 9 drives them on SANA), with 2 warmup steps,
     caption-length buckets and no caption dropout, for ``TRAIN_STEPS``
     steps."""
     return {"local_shard_paths": [shard], "batch_size": "8",
@@ -1597,9 +2038,11 @@ def main() -> None:
     device = torch.device("cuda", 0)
     phase_build()
     kernels = phase_kernels(device)
+    kernels.update(phase_w8a8_kernels(device))
     phase_reference(device)
     phase_grad_reference(device)
     phase_pixart_grad_reference(device)
+    phase_int8_grad_reference(device)
     counts = {}
     for family in ("sana", "pixart"):
         counts[family] = phase_serve(serve_params(), device, card,
@@ -1610,6 +2053,10 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     counts["pixart_train"] = phase_pixart_train(device, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["int8_train"] = phase_train(device, card, cfg_extra=INT8_KEYS,
+                                       label="int8 train")
 
     rows = []
     # name: (source, the TPU kernel it replaces, the run whose launches
@@ -1636,13 +2083,17 @@ def main() -> None:
                 "yat_tpu_torch/csrc/softmax_attention.cu",
                 "yat_tpu/ops/attention.py:186", "pixart"),
             "flash_attention": ("yat_tpu_torch/csrc/flash_attention.cu",
-                                "yat_tpu/ops/attention.py:122", "pixart")}
+                                "yat_tpu/ops/attention.py:122", "pixart"),
+            "w8a8_matmul": ("yat_tpu_torch/csrc/w8a8_matmul.cu",
+                            "yat_tpu/ops/quant.py:168", "int8_train"),
+            "w8a8_matmul_bwd": ("yat_tpu_torch/csrc/w8a8_matmul.cu",
+                                "yat_tpu/ops/quant.py:191", "int8_train")}
     for name, (source, replaces, run) in meta.items():
         k = kernels[name]
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": counts[run][name]}
         # K1 launches on every path: its counts on the others beside
-        for other in ("pixart", "train", "pixart_train"):
+        for other in ("pixart", "train", "pixart_train", "int8_train"):
             if other != run and name in counts[other] \
                     and counts[other][name]:
                 row[f"launches_{other}"] = counts[other][name]
@@ -1650,6 +2101,11 @@ def main() -> None:
                     "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                     "bound_by": k["bound_by"],
                     "library_ms": k["library_ms"]})
+        # K5/K5b: which call library_ms times, and the bf16 matmul on the
+        # dequantized weight (the path without int8_w8a8)
+        for key in ("library", "bf16_linear_ms"):
+            if key in k:
+                row[key] = k[key]
         rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -42,7 +42,8 @@ def test_scan_covers_the_package():
             "yat_tpu_torch/train/engine.py", "yat_tpu_torch/train/step.py",
             "yat_tpu_torch/data/tar.py", "yat_tpu_torch/data/sampler.py",
             "yat_tpu_torch/utils/logging.py",
-            "yat_tpu_torch/parallel/multihost.py", "chip_smoke.py"} <= names
+            "yat_tpu_torch/parallel/multihost.py", "yat_tpu_torch/ops/quant.py",
+            "yat_tpu_torch/ops/opt8bit.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,

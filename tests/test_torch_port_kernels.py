@@ -16,6 +16,7 @@ import torch
 from yat_tpu_torch.kernels import build as KB
 from yat_tpu_torch.ops import attention as TA
 from yat_tpu_torch.ops import norm as TN
+from yat_tpu_torch.ops import quant as TQ
 
 # ---------------------------------------------------------------------------
 # the build route
@@ -28,7 +29,8 @@ def test_build_flags_and_library_names():
     names = {k.source for k in KB.KERNELS.values()}
     assert names == {"adaln.cu", "softmax_attention.cu",
                      "softmax_attention_bwd.cu", "linear_attention.cu",
-                     "flash_attention.cu", "flash_attention_bwd.cu"}
+                     "flash_attention.cu", "flash_attention_bwd.cu",
+                     "w8a8_matmul.cu"}
     for src in names:
         p = KB.library_path(src)
         assert p.parent == KB.BUILD_DIR and p.name.endswith(".so")
@@ -57,6 +59,13 @@ def test_cpu_tensors_never_launch():
     TA.dot_product_attention(q, q, q, implementation="vmem")
     TA.dot_product_attention(long, long, long, implementation="flash")
     TA.linear_attention(q, q, q)
+    # K5/K5b's shape (multiples of 128), forward and backward
+    x = torch.from_numpy(rng.standard_normal((128, 256)).astype(
+        np.float32)).requires_grad_()
+    qw, ws = TQ.quantize_kernel(torch.from_numpy(
+        rng.standard_normal((128, 256)).astype(np.float32)))
+    assert TQ.w8a8_branch(128, 256, 128)
+    TQ.w8a8_matmul(x, qw, ws).sum().backward()
     assert KB.launch_counts() == before
 
 
@@ -422,3 +431,75 @@ def test_card_linear_attention_grad_is_a_plain_recompute(cuda):
     for got, w in zip((qs.grad, ks.grad, vs.grad),
                       (qr.grad, kr.grad, vr.grad)):
         torch.testing.assert_close(got, w, atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K5/K5b, the w8a8 matmul: bit-equal to the plain versions
+# ---------------------------------------------------------------------------
+
+# [T, K] x [K -> N]: SANA-0.6B's attention projections on the image tokens
+# and on the caption, its GLUMB up-projection; PixArt-Sigma's MLP; the
+# largest K the gate admits at the smallest T
+W8A8_SHAPES = [(4096, 1152, 1152), (8192, 1152, 1152), (4096, 1152, 5760),
+               (8192, 1152, 4608), (8192, 4608, 1152), (128, 6144, 6144)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t,k,n", W8A8_SHAPES)
+def test_card_w8a8_kernels_bit_equal(cuda, dtype, t, k, n):
+    """K5 and K5b against their plain versions: the int8 payload, the row
+    scales and the output equal bit for bit (zero rows and rows with one
+    large value included)."""
+    import chip_smoke
+    x, q, ws, g = chip_smoke.w8a8_inputs(t, k, n, dtype, cuda, seed=t + k + n,
+                                         special=True)
+    for kern, plain, a in ((TQ._w8a8_cuda, TQ.w8a8_matmul_ref, x),
+                           (TQ._w8a8_bwd_cuda, TQ.w8a8_matmul_bwd_ref, g)):
+        got = kern(a, q, ws, quantized=True)
+        want = plain(a, q, ws, quantized=True)
+        torch.cuda.synchronize()
+        assert chip_smoke.w8a8_mismatch(got, want) is None, (
+            kern.__name__, chip_smoke.w8a8_mismatch(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_card_w8a8_matmul_launches_the_kernels(cuda, dtype, monkeypatch):
+    """A CUDA tensor never takes the plain path: ``w8a8_matmul`` on
+    ``[16, 256, 1152]`` launches K5 forward and K5b backward once each (the
+    plain versions raise here) with the plain versions' bits, and the scale
+    gets a zero gradient.  A shape off the gate takes the dequantized matmul
+    and launches nothing."""
+    import chip_smoke
+    x, q, ws, g = chip_smoke.w8a8_inputs(4096, 1152, 1152, dtype, cuda)
+    want_y = TQ.w8a8_matmul_ref(x, q, ws)
+    want_dx = TQ.w8a8_matmul_bwd_ref(g, q, ws)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+    monkeypatch.setattr(TQ, "w8a8_matmul_ref", plain)
+    monkeypatch.setattr(TQ, "w8a8_matmul_bwd_ref", plain)
+    xs = x.reshape(16, 256, 1152).clone().requires_grad_()
+    wss = ws.clone().requires_grad_()
+    before = KB.launch_counts()
+    y = TQ.w8a8_matmul(xs, q, wss)
+    y.backward(g.reshape(16, 256, 1152))
+    torch.cuda.synchronize()
+    after = KB.launch_counts()
+    assert after["w8a8_matmul"] == before["w8a8_matmul"] + 1
+    assert after["w8a8_matmul_bwd"] == before["w8a8_matmul_bwd"] + 1
+    assert torch.equal(chip_smoke._bits(y.reshape(4096, 1152)),
+                       chip_smoke._bits(want_y))
+    assert torch.equal(chip_smoke._bits(xs.grad.reshape(4096, 1152)),
+                       chip_smoke._bits(want_dx))
+    assert torch.equal(wss.grad, torch.zeros_like(ws))
+    # off the gate (T = 100): the dequantized matmul, no launch
+    before = KB.launch_counts()
+    out = TQ.w8a8_matmul(x[:100], q, ws)
+    assert KB.launch_counts() == before
+    torch.testing.assert_close(
+        out, torch.nn.functional.linear(
+            x[:100], TQ.dequantize_kernel(q, ws, dtype)), atol=0, rtol=0)
+    with pytest.raises(ValueError, match="not a shape"):
+        TQ._w8a8_cuda(x[:100], q, ws)

@@ -392,8 +392,8 @@ def test_entry_point_trains_and_exports(tmp_path):
     ({"use_repa": "true"}, NotImplementedError, "item 10"),
     ({"use_preservation": "true"}, NotImplementedError, "item 13"),
     ({"lora_algo": "lokr"}, NotImplementedError, "lokr"),
-    ({"lora_base_model_8bit": "true"}, NotImplementedError, "item 11"),
-    ({"use_adamw_8bit": "true"}, NotImplementedError, "item 11"),
+    ({"lora_use_dora": "true"}, NotImplementedError, "DoRA"),
+    ({"profile_dir": "prof"}, NotImplementedError, "item 6"),
     ({"compute_features": "true", "vae_max_batch_size": "2",
       "text_encoder_max_batch_size": "2"}, NotImplementedError, "item 8"),
     ({"train_unconditional_prob": "0.1"}, ValueError, "empty-caption"),

@@ -402,7 +402,8 @@ def test_entry_point_trains_and_exports(tmp_path):
     ({"checkpoint_dir": "ckpt"}, NotImplementedError, "checkpoint_dir"),
     ({"exploration_steps": "2"}, NotImplementedError, "exploration_steps"),
     ({"train_unconditional_prob": "0.5"}, ValueError, "empty-caption"),
-    ({"use_adamw_8bit": ""}, NotImplementedError, "use_adamw_8bit"),
+    ({"unfreeze_modules": ["blocks_0"]}, NotImplementedError,
+     "unfreeze_modules"),
     ({"lora_algo": "loha"}, NotImplementedError, "loha"),
 ])
 def test_entry_point_refuses_unported_options(tmp_path, over, exc, match):

@@ -113,7 +113,7 @@ def build_adapter_params(model: nn.Module, spec: AdapterSpec,
     for path, m in dense:
         if not _matches(path, spec.target_modules):
             continue
-        d_out, d_in = m.weight.shape
+        d_in, d_out = m.in_features, m.features
         m.attach_lora(_kaiming_uniform(gen, (d_in, spec.rank)),
                       torch.zeros((spec.rank, d_out), device=gen.device),
                       spec.scale, spec.dropout)

@@ -9,6 +9,9 @@ into the matching parameter of ``module``:
 * a conv ``kernel`` HWIO becomes ``weight`` OIHW (a depthwise or grouped
   conv's ``I`` is already ``in / groups``, as PyTorch's ``groups`` wants);
 * an ``nn.Embed`` ``embedding`` becomes ``weight``, as it is;
+* an int8 or int4 dense ``kernel`` with its ``quant_scales`` leaf
+  ``kernel_scale`` becomes the ``AdapterDense`` buffers ``qweight``
+  ``[out, in]`` (int8) and ``weight_scale``;
 * every other leaf keeps its name and shape: ``bias``, norm ``scale``
   (RMSNorm, LayerNorm, flax ``GroupNorm``'s ``scale`` and ``bias``), the
   ``(6, D)`` and ``(2, D)`` scale-shift tables, T5's
@@ -30,13 +33,15 @@ at its path, with its scale and dropout rate, and the base is frozen.
 from __future__ import annotations
 
 import re
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 _INDEXED = re.compile(r"^(.*)_(\d+)$")
+# integer kernel dtypes of the JAX package's quantized base, by bits
+_INT_BITS = {"int8": 8, "int4": 4}
 
 
 def _child(mod: nn.Module, name: str, path: str) -> nn.Module:
@@ -64,18 +69,35 @@ def _torch_leaf(name: str, arr: np.ndarray):
     return name, arr
 
 
-def load_flax_params(module: nn.Module, tree: Mapping) -> None:
+def load_flax_params(module: nn.Module, tree: Mapping,
+                     quant_scales: Optional[Mapping] = None) -> None:
     """Copy the flax parameter ``tree`` into ``module`` (in place; each
-    parameter keeps its own dtype and device)."""
+    parameter keeps its own dtype and device).  An int8 or int4 dense
+    ``kernel`` (the JAX package's quantized base) becomes the module's
+    int8 ``qweight`` ``[out, in]``, with its ``kernel_scale`` from the same
+    path of ``quant_scales``."""
     loaded = set()
 
-    def walk(mod: nn.Module, node: Mapping, prefix: str) -> None:
+    def walk(mod: nn.Module, node: Mapping, scales: Mapping,
+             prefix: str) -> None:
         for key, val in node.items():
             path = f"{prefix}{key}"
             if isinstance(val, Mapping):
-                walk(_child(mod, key, path), val, path + "/")
+                walk(_child(mod, key, path), val, scales.get(key, {}),
+                     path + "/")
                 continue
-            name, arr = _torch_leaf(key, np.asarray(val, dtype=np.float32))
+            raw = np.asarray(val)
+            if key == "kernel" and raw.dtype.name in _INT_BITS:
+                if "kernel_scale" not in scales:
+                    raise KeyError(f"{path}: a quantized kernel without its "
+                                   "kernel_scale in quant_scales")
+                mod.set_quantized(
+                    torch.from_numpy(raw.astype(np.int8).T.copy()),
+                    torch.from_numpy(np.asarray(scales["kernel_scale"],
+                                                np.float32)),
+                    _INT_BITS[raw.dtype.name])
+                continue
+            name, arr = _torch_leaf(key, raw.astype(np.float32))
             param = getattr(mod, name, None)
             if not isinstance(param, nn.Parameter):
                 raise KeyError(f"{path}: {type(mod).__name__} has no "
@@ -87,7 +109,7 @@ def load_flax_params(module: nn.Module, tree: Mapping) -> None:
                 param.copy_(torch.from_numpy(np.array(arr)))
             loaded.add(id(param))
 
-    walk(module, tree, "")
+    walk(module, tree, quant_scales or {}, "")
     missing = [n for n, p in module.named_parameters() if id(p) not in loaded]
     if missing:
         raise KeyError(f"parameters not in the tree: {missing[:8]}"
@@ -117,7 +139,7 @@ def load_flax_adapters(module: nn.Module, adapters: Mapping,
                 raise NotImplementedError(
                     f"{prefix}: adapter leaves {sorted(extra)} are not "
                     "ported (LoRA only)")
-            dev = mod.weight.device
+            dev = mod.base_device
             mod.attach_lora(
                 torch.tensor(np.asarray(node["lora_a"], np.float32), device=dev),
                 torch.tensor(np.asarray(node["lora_b"], np.float32), device=dev),

@@ -13,8 +13,9 @@ no PixArt, T5 or VAE weights, so the modules are random from
 
     python -m yat_tpu_torch.frontends.pixart --config cfg.yaml [--device cpu]
 
-REPA, the preservation loss, LoKr and the quantized base with its 8-bit
-optimizer raise, each naming its ROADMAP item.
+REPA, the preservation loss and LoKr raise, each naming its ROADMAP item.
+The quantized base (``lora_base_model_8bit``/``_4bit``, ``int8_w8a8``) and
+Lion with 8-bit momentum (``use_adamw_8bit``) run as in the SANA trainer.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from yat_tpu_torch.frontends.common import (
 from yat_tpu_torch.models.pixart import PIXART_SIGMA_XL2, PixArtConfig, \
     PixArtTransformer2D
 from yat_tpu_torch.ops.schedulers import DDPMSchedule
-from yat_tpu_torch.train.engine import Trainer
+from yat_tpu_torch.train.engine import Trainer, quantized_bits
 from yat_tpu_torch.train.tasks import make_epsilon_loss
 from yat_tpu_torch.train.validation import ValidationPipeline
 
@@ -119,7 +120,8 @@ def build_sampler(params: TrainingParameters, cfg: PixArtConfig):
 def make_trainer(params: TrainingParameters, sampler=None, device=None,
                  weights: Optional[Mapping] = None) -> Trainer:
     """The PixArt-Sigma LoRA trainer: the denoiser (bf16 compute and a bf16
-    frozen base when ``bfloat16`` is set, remat under ``low_vram``), the
+    frozen base when ``bfloat16`` is set, or an int8/int4 base quantized
+    from fp32 by the trainer, remat under ``low_vram``), the
     epsilon-prediction loss on ``DDPMSchedule`` with the learned-sigma half
     sliced off, the local feature-shard sampler, and with
     ``validation_prompts`` the T5 encoder (its empty caption feeds
@@ -131,10 +133,13 @@ def make_trainer(params: TrainingParameters, sampler=None, device=None,
     cfg = build_pixart_config(params)
     dtype = torch.bfloat16 if params.bfloat16 else torch.float32
     weights = weights or {}
+    # a quantized base is quantized from the fp32 weights by the trainer,
+    # which then stores the rest in bf16
+    store = (dtype if params.bfloat16 and quantized_bits(params) is None
+             else None)
     model = build_module(lambda: PixArtTransformer2D(
         cfg, dtype=dtype, gradient_checkpointing=params.low_vram),
-        device, weights.get("transformer"), params.dataset_seed,
-        dtype if params.bfloat16 else None)
+        device, weights.get("transformer"), params.dataset_seed, store)
     schedule = DDPMSchedule()
     loss = make_epsilon_loss(model, schedule,
                              timestep_list=params.timesteps or None,

@@ -34,7 +34,7 @@ from yat_tpu_torch.models.sana import (
     SanaTransformer2D,
 )
 from yat_tpu_torch.ops.schedulers import FlowMatchSchedule
-from yat_tpu_torch.train.engine import Trainer
+from yat_tpu_torch.train.engine import Trainer, quantized_bits
 from yat_tpu_torch.train.tasks import make_flow_matching_loss
 from yat_tpu_torch.train.validation import ValidationPipeline, enhance_prompt
 
@@ -154,7 +154,8 @@ def build_sampler(params: TrainingParameters, cfg: SanaConfig):
 def make_trainer(params: TrainingParameters, sampler=None, device=None,
                  weights: Optional[Mapping] = None) -> Trainer:
     """The SANA LoRA trainer: the denoiser (bf16 compute and a bf16 frozen
-    base when ``bfloat16`` is set, remat under ``low_vram``), the
+    base when ``bfloat16`` is set, or an int8/int4 base quantized from fp32
+    by the trainer, remat under ``low_vram``), the
     flow-matching loss at shift 3.0, the local feature-shard sampler, and
     with ``validation_prompts`` the Gemma-2 encoder (its empty caption feeds
     unconditional-caption dropout), the DC-AE decoder and the 20-step CFG
@@ -165,10 +166,13 @@ def make_trainer(params: TrainingParameters, sampler=None, device=None,
     cfg = build_sana_config(params)
     dtype = torch.bfloat16 if params.bfloat16 else torch.float32
     weights = weights or {}
+    # a quantized base is quantized from the fp32 weights by the trainer,
+    # which then stores the rest in bf16
+    store = (dtype if params.bfloat16 and quantized_bits(params) is None
+             else None)
     model = build_module(lambda: SanaTransformer2D(
         cfg, dtype=dtype, gradient_checkpointing=params.low_vram),
-        device, weights.get("transformer"), params.dataset_seed,
-        dtype if params.bfloat16 else None)
+        device, weights.get("transformer"), params.dataset_seed, store)
     schedule = FlowMatchSchedule(shift=3.0)
     loss = make_flow_matching_loss(model, schedule,
                                    timestep_list=params.timesteps or None)

@@ -28,6 +28,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from yat_tpu_torch.ops.attention import dot_product_attention, linear_attention
+from yat_tpu_torch.ops.quant import (
+    dequantize_kernel,
+    quantize_kernel,
+    w8a8_matmul,
+)
 
 # flax's truncated-normal variance scaling divides by this so the kept
 # samples have the requested standard deviation
@@ -73,8 +78,9 @@ class _LoraMerged(torch.autograd.Function):
 
 class AdapterDense(nn.Module):
     """Dense layer ``y = x @ W + b`` in the compute dtype, with an optional
-    LoRA adapter (counterpart of ``yat_tpu/models/layers.py:AdapterDense``,
-    LoRA branch).  ``dtype=None`` computes in the input's dtype.
+    LoRA adapter and an optional quantized base (counterpart of
+    ``yat_tpu/models/layers.py:AdapterDense``, LoRA and quantized
+    branches).  ``dtype=None`` computes in the input's dtype.
 
     :meth:`attach_lora` adds the trainable leaves ``lora_a`` ``[in, r]`` and
     ``lora_b`` ``[r, out]`` (the JAX orientation) as parameters, with the
@@ -85,14 +91,29 @@ class AdapterDense(nn.Module):
     false, a rate above 0 and a ``dropout_seed``) it always takes the chain
     form, dropping inputs of the adapter branch only.  The mask comes from a
     ``torch.Generator`` seeded with ``dropout_seed``, so a recomputation
-    under remat draws the same mask."""
+    under remat draws the same mask.
+
+    :meth:`quantize` replaces ``weight`` with the buffers ``qweight`` (an
+    int8 ``[out, in]`` payload, -127..127 or, at 4 bits, -7..7) and
+    ``weight_scale`` (fp32 ``[out]``).  The base product is then
+    ``ops.quant.w8a8_matmul`` when ``w8a8`` is set (the trainer sets it from
+    ``int8_w8a8``) and the payload has 8 bits, and LoRA takes the chain form
+    on top of it, as in the JAX package (a merged ``W + s·A@B`` would need
+    the weight in the compute dtype); otherwise the weight is dequantized
+    to the compute dtype, ``(q * s).to(dtype)``, and the forms above
+    apply."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dtype = dtype
+        self.in_features, self.features = in_features, features
         self.weight = nn.Parameter(torch.empty(features, in_features))
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
+        self.register_buffer("qweight", None)
+        self.register_buffer("weight_scale", None)
+        self.bits: Optional[int] = None
+        self.w8a8 = False
         self.lora_a: Optional[nn.Parameter] = None
         self.lora_b: Optional[nn.Parameter] = None
         self.lora_scale = 1.0
@@ -101,15 +122,54 @@ class AdapterDense(nn.Module):
         self.dropout_seed: Optional[int] = None
 
     def reset_parameters(self, gen: torch.Generator) -> None:
-        _lecun_normal_(self.weight.data, self.weight.shape[1], gen)
+        if self.weight is not None:
+            _lecun_normal_(self.weight.data, self.in_features, gen)
         if self.bias is not None:
             self.bias.data.zero_()
+
+    def quantize(self, bits: int = 8) -> None:
+        """Quantize the floating weight per output channel into the
+        ``qweight``/``weight_scale`` buffers; the weight is dropped."""
+        q, s = quantize_kernel(self.weight.detach(), bits)
+        self.set_quantized(q, s, bits)
+
+    def set_quantized(self, q: torch.Tensor, scale: torch.Tensor,
+                      bits: int) -> None:
+        """Hold ``q`` (int8 ``[out, in]``) and ``scale`` (fp32 ``[out]``)
+        as the base, in place of the floating weight."""
+        if tuple(q.shape) != (self.features, self.in_features) \
+                or tuple(scale.shape) != (self.features,):
+            raise ValueError(f"quantized base {tuple(q.shape)} / "
+                             f"{tuple(scale.shape)} does not fit a "
+                             f"[{self.in_features} -> {self.features}] layer")
+        device = self.weight.device if self.weight is not None else q.device
+        self.weight = None
+        self.qweight = q.to(device, torch.int8)
+        self.weight_scale = scale.to(device, torch.float32)
+        self.bits = int(bits)
+
+    def dequantize(self, dtype=torch.float32) -> None:
+        """Back to a floating weight of ``dtype`` (for export)."""
+        w = dequantize_kernel(self.qweight, self.weight_scale, dtype)
+        self.qweight = self.weight_scale = self.bits = None
+        self.weight = nn.Parameter(w, requires_grad=False)
+
+    @property
+    def base_device(self) -> torch.device:
+        return (self.weight if self.weight is not None else self.qweight).device
+
+    def base_weight(self, dtype: torch.dtype) -> torch.Tensor:
+        """The base weight ``[out, in]`` in ``dtype`` (dequantized when the
+        base is quantized)."""
+        if self.qweight is None:
+            return self.weight.to(dtype)
+        return dequantize_kernel(self.qweight, self.weight_scale, dtype)
 
     def attach_lora(self, lora_a: torch.Tensor, lora_b: torch.Tensor,
                     scale: float, dropout: float = 0.0) -> None:
         """Add (or replace) the LoRA leaves; they train, the base does
         not."""
-        d_in, d_out = self.weight.shape[1], self.weight.shape[0]
+        d_in, d_out = self.in_features, self.features
         if lora_a.shape[0] != d_in or lora_b.shape[1] != d_out \
                 or lora_a.shape[1] != lora_b.shape[0]:
             raise ValueError(f"LoRA leaves {tuple(lora_a.shape)} / "
@@ -124,16 +184,22 @@ class AdapterDense(nn.Module):
                 ) -> torch.Tensor:
         dtype = self.dtype or x.dtype
         x = x.to(dtype)
-        w = self.weight.to(dtype)
+        # None: the int8 base multiplies through w8a8_matmul (K5/K5b)
+        w = None if self.w8a8 and self.bits == 8 else self.base_weight(dtype)
+
+        def base(t):
+            if w is None:
+                return w8a8_matmul(t, self.qweight, self.weight_scale)
+            return F.linear(t, w)
         if self.lora_a is None:
-            y = F.linear(x, w)
+            y = base(x)
         else:
             a = self.lora_a.to(dtype)
             b = self.lora_b.to(dtype)
             s = _round_scalar(self.lora_scale, dtype)
             dropout = (self.lora_dropout > 0.0 and not deterministic
                        and self.dropout_seed is not None)
-            if self.lora_merged and not dropout:
+            if self.lora_merged and not dropout and w is not None:
                 y = _LoraMerged.apply(x, w, a, b, s)
             else:
                 xa = x
@@ -145,7 +211,7 @@ class AdapterDense(nn.Module):
                                       device=x.device) < keep_p
                     xa = torch.where(keep, x / _round_scalar(keep_p, dtype),
                                      torch.zeros_like(x))
-                y = F.linear(x, w) + s * ((xa @ a) @ b)
+                y = base(x) + s * ((xa @ a) @ b)
         if self.bias is not None:
             y = y + self.bias.to(dtype)
         return y

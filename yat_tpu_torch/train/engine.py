@@ -13,10 +13,17 @@ Divergence from the JAX package: where ``train_unconditional_prob > 0``
 and no caption encoder is attached (feature shards without validation
 prompts), the JAX trainer skips the dropout silently; the port raises.
 
+With ``lora_base_model_8bit`` (or ``_4bit``) :meth:`Trainer.initialize`
+quantizes the frozen base's dense weights per output channel, as the JAX
+trainer does ("base model quantized to int8"), from the weights as the
+frontend built them (fp32: a frontend builds a quantized base in fp32 and
+leaves the cast to the trainer), then stores the parameters that stay
+floating in bf16 under ``bfloat16``; ``int8_w8a8`` sends the 8-bit base
+products through ``ops.quant.w8a8_matmul`` (kernels K5 and K5b).
+
 Not ported yet, each raises ``NotImplementedError`` naming its ROADMAP
 item: full-state checkpoints and resume, the profiler window, loading
-pretrained adapters, quantized bases, full fine-tuning and multi-process
-runs.
+pretrained adapters, full fine-tuning and multi-process runs.
 """
 
 from __future__ import annotations
@@ -39,6 +46,8 @@ from yat_tpu_torch.adapters.builder import (
 from yat_tpu_torch.config import TrainingParameters
 from yat_tpu_torch.data.sampler import pad_embeddings
 from yat_tpu_torch.device import resolve_device
+from yat_tpu_torch.models.layers import AdapterDense
+from yat_tpu_torch.ops.quant import quantize_params
 from yat_tpu_torch.train.state import Optimizer
 from yat_tpu_torch.train.step import make_train_step
 from yat_tpu_torch.utils.logging import MetricLogger
@@ -67,6 +76,14 @@ def adapter_spec_from_params(params: TrainingParameters
     )
 
 
+def quantized_bits(params: TrainingParameters) -> Optional[int]:
+    """The bits of the quantized base (4 wins over 8, as in the JAX
+    trainer), or None for a floating base."""
+    if params.lora_base_model_4bit:
+        return 4
+    return 8 if params.lora_base_model_8bit else None
+
+
 def check_supported(params: TrainingParameters) -> None:
     """Raise for every option whose path is not ported."""
     if params.checkpoint_dir or params.resume:
@@ -77,9 +94,6 @@ def check_supported(params: TrainingParameters) -> None:
                           "6")
     if params.lora_pretrained:
         raise _not_ported("lora_pretrained (adapter import)", "9")
-    if params.lora_base_model_8bit or params.lora_base_model_4bit \
-            or params.int8_w8a8:
-        raise _not_ported("quantized base weights", "11")
     if params.use_repa:
         raise _not_ported("REPA", "10")
     if adapter_spec_from_params(params) is None:
@@ -134,6 +148,20 @@ class Trainer:
                       if id(p) not in lora)
         print(f"trainable params: {n_train:,} || all params: "
               f"{n_total:,} || trainable%: {100 * n_train / n_total:.4f}")
+
+        bits = quantized_bits(params)
+        if bits is not None:
+            quantize_params(self.model, bits)
+            print(f"base model quantized to int{bits}")
+            for m in self.model.modules():
+                if isinstance(m, AdapterDense):
+                    m.w8a8 = params.int8_w8a8
+            if params.bfloat16:
+                lora = {id(p) for _, p in lora_parameters(self.model)}
+                with torch.no_grad():
+                    for p in self.model.parameters():
+                        if id(p) not in lora:
+                            p.data = p.data.to(torch.bfloat16)
 
         leaves = [p for _, p in lora_parameters(self.model)]
         self.optimizer = Optimizer(params, leaves)

@@ -17,8 +17,13 @@ agree:
 * accumulation keeps the running mean of the micro-step gradients and
   applies it on the k-th.
 
-The leaves are updated in place.  Lion-8bit and ``unfreeze_modules`` are not
-ported.
+With ``use_adamw_8bit`` the chain is ``clip_by_global_norm`` → Lion with
+8-bit momentum at rate 1.0 (``ops/opt8bit.py``) → ``scale_by_schedule``
+(``yat_tpu/train/state.py:93-104``): the update ``−u`` is scaled by the
+schedule at the same pre-increment count, so the first update under
+warmup is 0 here too.
+
+The leaves are updated in place.  ``unfreeze_modules`` is not ported.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from typing import Callable, List, Optional, Sequence
 import torch
 
 from yat_tpu_torch.config import TrainingParameters
+from yat_tpu_torch.ops.opt8bit import Lion8bit
 
 
 def make_lr_schedule(params: TrainingParameters) -> Callable[[int], float]:
@@ -60,17 +66,14 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 class Optimizer:
-    """clip by global norm → AdamW → accumulation over ``k`` micro-steps,
+    """clip by global norm → AdamW (or, with ``use_adamw_8bit``, Lion with
+    8-bit momentum and the schedule) → accumulation over ``k`` micro-steps,
     on a fixed list of fp32 leaves."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
 
     def __init__(self, params: TrainingParameters,
                  leaves: List[torch.Tensor]):
-        if params.use_adamw_8bit:
-            raise NotImplementedError(
-                "use_adamw_8bit (Lion with 8-bit momentum) is not implemented "
-                "in the PyTorch port yet (ROADMAP queue 1, item 11)")
         if params.unfreeze_modules:
             raise NotImplementedError(
                 "unfreeze_modules (partial fine-tuning) is not implemented "
@@ -82,9 +85,12 @@ class Optimizer:
         self.k = max(1, int(params.gradient_accumulation_steps))
         self.count = 0           # inner updates applied
         self.mini_step = 0
+        self.lion = (Lion8bit(self.leaves, weight_decay=self.weight_decay)
+                     if params.use_adamw_8bit else None)
         with torch.no_grad():
-            self.mu = [torch.zeros_like(p) for p in self.leaves]
-            self.nu = [torch.zeros_like(p) for p in self.leaves]
+            adam_leaves = self.leaves if self.lion is None else []
+            self.mu = [torch.zeros_like(p) for p in adam_leaves]
+            self.nu = [torch.zeros_like(p) for p in adam_leaves]
             self.acc: Optional[List[torch.Tensor]] = (
                 [torch.zeros_like(p) for p in self.leaves] if self.k > 1
                 else None)
@@ -121,6 +127,12 @@ class Optimizer:
         if not bool(norm < self.max_norm):
             g = torch._foreach_div(g, norm)
             torch._foreach_mul_(g, self.max_norm)
+        if self.lion is not None:
+            upd = self.lion.updates(g, self.leaves)
+            torch._foreach_mul_(upd, self.schedule(self.count))
+            self.count += 1
+            torch._foreach_add_(self.leaves, upd)
+            return
         # mu = (1 - b1) g + b1 mu;  nu = (1 - b2) g^2 + b2 nu
         torch._foreach_mul_(self.mu, self.b1)
         torch._foreach_add_(self.mu, torch._foreach_mul(g, 1.0 - self.b1))
