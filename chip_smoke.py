@@ -9,12 +9,15 @@ Phases, each of which fails the run (exit code 1) when it fails:
    limit and turns TF32 off for fp32 matmuls and convolutions;
 2. build: compiles every CUDA kernel of the port from
    ``yat_tpu_torch/csrc`` with nvcc (one process per source, in parallel);
+   prints ptxas's registers and spills by kernel, and the registers,
+   shared bytes and blocks per SM of K6b's and K2b's bf16 launches;
 3. kernels: holds each kernel (K1, K2, K3, K4 through K2's kernel and K6
    forward; K1b, K2b, K4b through K2b's kernel and K6b backward) against
    its plain PyTorch version at the serving and training paths' shapes and
    at ragged and masked shapes, in bf16 and fp32, and times the kernel, the
    plain version and (where one exists) one PyTorch call computing the
-   same function, beside the least time the card could take; K5 and K5b
+   same function (and the kernel's multiple of it), beside the least time
+   the card could take; K5 and K5b
    (the w8a8 matmul and its backward) must equal their plain versions bit
    for bit (int8 payload, row scales, output) at SANA's and PixArt's
    shapes and with zero rows and one-large-value rows;
@@ -36,7 +39,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
    concurrent /generate requests and one more; checks the images and that
    the kernels' launch counters rose by their per-denoiser-call counts;
    then one more batch of 4 under ``torch.profiler`` for the device time by
-   layer and the device's idle share (after the counters are read);
+   layer and the device's idle share (after the counters are read; every
+   profile checks its port kernels' records against their counters);
    then the same for PixArt-Sigma XL-2 512px (T5-XXL caption encoder,
    20 DDIM steps with CFG 5.0 and PAG 2.0, fp32 SD KL-VAE decoder): K6 runs
    its self-attention, K2's kernel its cross-attention in K4's place, and
@@ -191,10 +195,74 @@ def phase_build():
     out = build_all()
     log(f"built {sorted({k.source for k in KERNELS.values()})} in "
         f"{out['seconds']:.1f} s")
+    # ptxas's registers and spills of each entry function, by name
+    spilled = []
     for source, text in out["logs"].items():
+        entry = "?"
         for line in text.splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"  {source}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = entry_name(line.split("'")[1])
+            elif "Used" in line or "spill" in line:
+                log(f"  {source}: {entry}: {line.strip()}")
+                if " 0 bytes spill stores" not in line and "spill" in line:
+                    spilled.append(entry)
+    log(f"entry functions with register spills: {spilled or 'none'}")
+    log_bwd_launch_info()
+
+
+def entry_name(mangled: str) -> str:
+    """A kernel's name and integer template arguments from its mangled
+    name, e.g. ``flash_bwd_dq_bf16<1,5,5>``."""
+    import re
+    names, i = [], mangled.find("N") + 1 if mangled.startswith("_ZN") else 2
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        names.append(mangled[j:j + n])
+        i = j + n
+    args = re.findall(r"L[a-z](-?\d+)E", mangled[i:].split("EEv")[0]) \
+        if mangled[i:i + 1] == "I" else []
+    name = names[-1] if names else mangled
+    return f"{name}<{','.join(args)}>" if args else name
+
+
+# head dims of each redesigned backward whose launches are reported: the
+# main paths' 72 and the card tests' others
+BWD_INFO_DIMS = {"flash_attention_bwd": (32, 64, 72, 128, 256),
+                 "dot_product_attention_bwd": (32, 64, 72, 128)}
+
+
+def bwd_launch_info(name, d):
+    """Both bf16 launches of K6b or K2b (with 16-byte loads) at head dim d:
+    ((registers, local bytes, shared bytes, blocks per SM) of the dq launch,
+    the same of the dk/dv launch), from the CUDA runtime."""
+    import ctypes
+
+    from yat_tpu_torch.kernels.build import KERNELS
+    kern = KERNELS[name]
+    prefix = ("yat_flash_attention_bwd" if name == "flash_attention_bwd"
+              else "yat_attention_bwd")
+    buf = (ctypes.c_longlong * 8)()
+    err = kern.function(f"{prefix}_launch_info",
+                        [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])(
+        d, 1, ctypes.addressof(buf))
+    if err != 0:
+        fail(f"{name}: launch info at D={d} failed with CUDA error {err}")
+    return tuple(buf[0:4]), tuple(buf[4:8])
+
+
+def log_bwd_launch_info():
+    """Registers, spills, shared bytes and blocks per SM of each bf16 launch
+    of K6b and K2b (K4b runs K2b's)."""
+    for name, dims in BWD_INFO_DIMS.items():
+        for d in dims:
+            for launch, (regs, local, smem, blocks) in zip(
+                    ("dq", "dk/dv"), bwd_launch_info(name, d)):
+                log(f"  {name} bf16 D={d} {launch} launch: {regs} registers, "
+                    f"{local} local (spill) bytes a thread, {smem} shared "
+                    f"bytes, {blocks} blocks ({4 * blocks} warps) per SM")
 
 
 # ---------------------------------------------------------------------------
@@ -673,7 +741,9 @@ def phase_kernels(device):
             f"{plain_ms:.4f}  library_ms "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f}'}  bound_ms "
             f"{results[name]['bound_ms']:.4f} ({results[name]['bound_by']}:"
-            f" {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+            f" {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)"
+            + ("" if lib_ms is None else
+               f"  kernel/library {ms / lib_ms:.2f}x"))
     return results
 
 
@@ -1478,6 +1548,36 @@ KERNEL_FAMILIES = (
 )
 
 
+# the port's kernel families (KERNEL_FAMILIES) → (the counters of their
+# wrappers, device records per counted call), for the trace's completeness
+FAMILY_COUNTERS = {
+    "K1 adaln_layernorm": (("adaln_layernorm",), 1),
+    "K1b adaln_layernorm_bwd": (("adaln_layernorm_bwd",), 2),
+    "K6 flash_attention": (("flash_attention",), 1),
+    "K2/K4 dot_product_attention": (("dot_product_attention",
+                                     "dot_product_attention_folded"), 1),
+    "K6b flash_attention_bwd": (("flash_attention_bwd",), 2),
+    "K2b/K4b dot_product_attention_bwd": (
+        ("dot_product_attention_bwd", "dot_product_attention_folded_bwd"), 2),
+    "K3 linear_attention": (("linear_attention",), 1),
+    "K5 w8a8_matmul": (("w8a8_matmul",), 2),
+    "K5b w8a8_matmul_bwd": (("w8a8_matmul_bwd",), 2),
+}
+
+
+def trace_shortfall(families, calls):
+    """{family: (records expected from the counters, records traced)} for
+    every port kernel family whose trace holds another number of records
+    than its launch counters say ran."""
+    out = {}
+    for fam, (names, per_call) in FAMILY_COUNTERS.items():
+        want = per_call * sum(calls.get(n, 0) for n in names)
+        got = families.get(fam, (0, 0.0))[0]
+        if got != want:
+            out[fam] = (want, got)
+    return out
+
+
 def profile_batch(vp, card):
     """One batch of 4 prompts under torch.profiler."""
     profile_run("batch of 4", lambda: vp(PROMPTS), card)
@@ -1489,13 +1589,18 @@ def profile_run(label, fn, card):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from yat_tpu_torch.kernels.build import launch_counts
+
     torch.cuda.synchronize()
+    before = launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    calls = {k: n - before.get(k, 0) for k, n in launch_counts().items()
+             if n != before.get(k, 0)}
     spans, by_name = [], {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -1504,6 +1609,8 @@ def profile_run(label, fn, card):
         spans.append((e.time_range.start, e.time_range.end))
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + dur)
+    log(f"profile: {sum(n for n, _ in by_name.values())} device records; "
+        f"the port's counters rose by {sorted(calls.items())}")
     busy, end = 0.0, -1.0
     for a, b in sorted(spans):                 # union of kernel intervals
         if b > end:
@@ -1521,8 +1628,24 @@ def profile_run(label, fn, card):
     for fam, (n, t) in sorted(families.items(), key=lambda x: -x[1][1]):
         log(f"profile:   {fam:28s} {t / 1e3:9.2f} ms  {n:6d} launches  "
             f"{t / busy:.3f} of busy")
+    # the trace's completeness: the profiler can lose device records (a
+    # whole K5 call's two in one step of a long run) though the kernels
+    # ran; the port's counters say how many records each family should hold
+    short = trace_shortfall(families, calls)
+    log("profile: trace check: every port kernel's records match its "
+        "launch counter" if not short else
+        f"profile: trace check: records against the counters (expected, "
+        f"traced): {short}; the device time above is off by them")
     for name, (n, t) in sorted(by_name.items(), key=lambda x: -x[1][1])[:12]:
         log(f"profile:     {t / 1e3:9.2f} ms {n:6d}x  {name[:90]}")
+    # every kernel of the port by name, so its records can be set against
+    # its counter (K5/K5b: a quantize and a GEMM record per call)
+    for name, (n, t) in sorted(by_name.items()):
+        fam = next((f for f, keys in KERNEL_FAMILIES
+                    if any(k in name.lower() for k in keys)), "")
+        if fam.startswith("K"):
+            log(f"profile:     {fam.split()[0]:6s} {n:6d}x {t / 1e3:9.2f} ms"
+                f"  {name[:90]}")
 
 
 # ---------------------------------------------------------------------------

@@ -38,6 +38,37 @@ def test_build_flags_and_library_names():
         assert (KB.CSRC_DIR / src).exists()
 
 
+def test_ptxas_entry_names_are_read_from_mangled_names():
+    """chip_smoke.py names each ptxas register/spill line by its kernel and
+    integer template arguments."""
+    import chip_smoke
+    assert chip_smoke.entry_name(
+        "_ZN12_GLOBAL__N_12tc17flash_bwd_dq_bf16ILb1ELi5ELi5EEEvPK13__nv_"
+        "bfloat16S3_") == "flash_bwd_dq_bf16<1,5,5>"
+    assert chip_smoke.entry_name(
+        "_ZN12_GLOBAL__N_13f3216attention_bwd_dqEPKfS2_") == \
+        "attention_bwd_dq"
+
+
+def test_profile_trace_check_counts_records_per_call():
+    """chip_smoke.py's trace check: two device records per K5/K5b/K2b/K6b/
+    K1b call, one per forward call; a family short of records is named."""
+    import chip_smoke
+    calls = {"w8a8_matmul": 254, "dot_product_attention": 28,
+             "dot_product_attention_folded_bwd": 28, "adaln_layernorm": 57}
+    families = {"K5 w8a8_matmul": (508, 1.0),
+                "K2/K4 dot_product_attention": (28, 1.0),
+                "K2b/K4b dot_product_attention_bwd": (56, 1.0),
+                "K1 adaln_layernorm": (57, 1.0)}
+    assert chip_smoke.trace_shortfall(families, calls) == {}
+    families["K5 w8a8_matmul"] = (506, 1.0)
+    assert chip_smoke.trace_shortfall(families, calls) == {
+        "K5 w8a8_matmul": (508, 506)}
+    # every family the profile knows is covered
+    assert {f for f, _ in chip_smoke.KERNEL_FAMILIES if f.startswith("K")} \
+        == set(chip_smoke.FAMILY_COUNTERS)
+
+
 def test_missing_nvcc_raises(monkeypatch):
     import torch.utils.cpp_extension as ce
     monkeypatch.setattr(ce, "CUDA_HOME", None)
@@ -244,7 +275,12 @@ def flash_bwd_cases():
             (8, 4096, 256, 16, 72, [0, 1, 37, 100, 128, 200, 255, 256]),
             (2, 1280, 640, 16, 72, [640, 311]),
             (2, 1024, 384, 2, 256, [384, 100]),
-            (2, 1000, 1000, 16, 72, [1000, 333])]
+            (2, 1000, 1000, 16, 72, [1000, 333]),
+            # the other head dims of the bf16 body (16-wide chunks 2, 4 and
+            # 8), each with N_q not a multiple of 64 and a fully masked row
+            (2, 1000, 300, 4, 32, [0, 300]),
+            (2, 1000, 300, 4, 64, [0, 150]),
+            (2, 1000, 300, 4, 128, [0, 299])]
 
 
 @pytest.mark.gpu
@@ -365,7 +401,10 @@ def test_card_adaln_bwd_kernel(cuda, dtype, shape):
 @pytest.mark.parametrize("b,nq,nk,h,d", [(16, 256, 512, 16, 72),
                                          (16, 256, 128, 16, 72),
                                          (4, 100, 300, 16, 72),
-                                         (2, 64, 16, 2, 32)])
+                                         (2, 64, 16, 2, 32),
+                                         (4, 100, 300, 16, 32),
+                                         (4, 100, 300, 16, 64),
+                                         (4, 100, 300, 8, 128)])
 def test_card_attention_bwd_kernel(cuda, dtype, b, nq, nk, h, d):
     g = torch.Generator(device=cuda).manual_seed(3)
     q, k, v, gy = (torch.randn(s, generator=g, device=cuda).to(dtype)
@@ -382,6 +421,13 @@ def test_card_attention_bwd_kernel(cuda, dtype, b, nq, nk, h, d):
     out = TA.dot_product_attention(qs, ks, vs, mask=mask,
                                    implementation="vmem")
     assert out.grad_fn is not None
+    if dtype == torch.float32 and d == 128:
+        # the fp32 path's shared-memory tiles do not fit one block at
+        # D = 128: the wrapper refuses before launching
+        with pytest.raises(ValueError, match="shared memory"):
+            out.backward(gy)
+        assert kern.launches == before
+        return
     out.backward(gy)
     torch.cuda.synchronize()
     assert kern.launches == before + 1
@@ -415,6 +461,69 @@ def test_card_folded_attention_bwd_kernel(cuda, dtype, nk):
     want = TA.attention_bwd_ref(q, k, v, TA._key_bias(mask, b), gy)
     _close_bwd("dot_product_attention_folded_bwd",
                (qs.grad, ks.grad, vs.grad), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [32, 64, 72, 128])
+@pytest.mark.parametrize("folded", [False, True])
+def test_card_attention_bwd_masked_rows(cuda, dtype, d, folded):
+    """K2b and K4b called directly with N_q = 100 (not a multiple of 64), a
+    ragged N_k = 300 and a fully masked row (batch element 0 keeps no
+    key)."""
+    b, nq, nk, h = 3, 100, 300, 4
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v, gy = (torch.randn(s, generator=g, device=cuda).to(dtype)
+                   for s in ((b, nq, h, d), (b, nk, h, d), (b, nk, h, d),
+                             (b, nq, h, d)))
+    bias = TA._key_bias(_keep_mask([0, 1, 300], nk, cuda), b)
+    kern = (TA.SOFTMAX_ATTENTION_FOLDED_BWD if folded
+            else TA.SOFTMAX_ATTENTION_BWD)
+    before = kern.launches
+    if dtype == torch.float32 and d == 128:
+        # the fp32 path's tiles do not fit one block's shared memory
+        with pytest.raises(ValueError, match="shared memory"):
+            TA._attention_bwd_cuda(q, k, v, bias, gy, folded=folded)
+        assert kern.launches == before
+        return
+    got = TA._attention_bwd_cuda(q, k, v, bias, gy, folded=folded)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    _close_bwd("dot_product_attention_bwd", got,
+               TA.attention_bwd_ref(q, k, v, bias, gy))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["flash", "softmax", "folded"])
+def test_card_attention_bwd_kernels_are_bit_reproducible(cuda, kernel):
+    """K6b, K2b and K4b at their training shapes in bf16: two launches on
+    the same inputs give the same bits (no atomics; every sum in a fixed
+    order)."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    b, nq, nk, h, d = {"flash": (8, 1024, 1024, 16, 72),
+                       "softmax": (16, 256, 512, 16, 72),
+                       "folded": (8, 1024, 300, 16, 72)}[kernel]
+    q, k, v, gy = (torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+                   for s in ((b, nq, h, d), (b, nk, h, d), (b, nk, h, d),
+                             (b, nq, h, d)))
+    if kernel == "flash":
+        bias = None
+        o, l, m = TA._flash_attention_cuda(q, k, v, bias, residuals=True)
+
+        def run():
+            return TA._flash_attention_bwd_cuda(q, k, v, bias, o, l, m, gy)
+    else:
+        bias = TA._key_bias(_keep_mask(
+            [10 + (nk - 10) * i // (b - 1) for i in range(b)], nk, cuda), b)
+
+        def run():
+            return TA._attention_bwd_cuda(q, k, v, bias, gy,
+                                          folded=kernel == "folded")
+    first = run()
+    second = run()
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.equal(a.view(torch.int16), c.view(torch.int16))
 
 
 @pytest.mark.gpu

@@ -396,7 +396,7 @@ def test_entry_point_trains_and_exports(tmp_path):
     ({"profile_dir": "prof"}, NotImplementedError, "item 6"),
     ({"compute_features": "true", "vae_max_batch_size": "2",
       "text_encoder_max_batch_size": "2"}, NotImplementedError, "item 8"),
-    ({"train_unconditional_prob": "0.1"}, ValueError, "empty-caption"),
+    ({"train_unconditional_prob": "0.1"}, ValueError, "empty-caption"),    ({"pretrained_model_path": "ckpt"}, NotImplementedError, "item 7"),
 ])
 def test_entry_point_refuses_unported_options(tmp_path, over, exc, match):
     from yat_tpu_torch.frontends.pixart import main
@@ -404,6 +404,21 @@ def test_entry_point_refuses_unported_options(tmp_path, over, exc, match):
     cfg = _write_config(tmp_path, _tiny_shard(tmp_path / "s.tar"), **over)
     with pytest.raises(exc, match=match):
         main(["--config", cfg, "--device", "cpu"])
+
+
+@pytest.mark.parametrize("key", ["pretrained_model_path",
+                                 "pretrained_pipe_path",
+                                 "pretrained_pipe_single_file"])
+def test_pretrained_paths_name_their_roadmap_item(key):
+    """Loading pretrained weights is unported: each of the three paths
+    raises NotImplementedError naming ROADMAP item 7."""
+    from yat_tpu_torch.config import TrainingParameters
+    from yat_tpu_torch.frontends.pixart import build_pixart_config
+
+    params = TrainingParameters()
+    setattr(params, key, "weights")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        build_pixart_config(params)
 
 
 def test_trainer_with_encoders_encodes_empty_caption_and_validates(tmp_path):

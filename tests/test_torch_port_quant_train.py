@@ -313,6 +313,99 @@ def test_pixart_int8_base_lion_step_matches_jax(monkeypatch, tmp_path, bits):
     assert not any(m.w8a8 for m in dense)
 
 
+# PixArt-Sigma at widths that pass the w8a8 gate: width 128 (2 heads of
+# 64, MLP ratio 1), 128 caption channels, batch 2 of 16x16 latents (64
+# image tokens: T = 128); the caption length is the rung
+TINY_PIXART_W8A8 = {"hidden_dim": 128, "num_layers": 2,
+                    "num_attention_heads": 2, "attention_head_dim": 64,
+                    "caption_channels": 128, "sample_size": 16,
+                    "mlp_ratio": 1.0}
+
+
+def _pixart_w8a8_setup(cap):
+    from yat_tpu.adapters.builder import AdapterSpec, build_adapter_params
+    from yat_tpu.models.pixart import PIXART_TINY_TEST, PixArtTransformer2D
+
+    cfg = dataclasses.replace(PIXART_TINY_TEST, max_caption_len=cap,
+                              **TINY_PIXART_W8A8)
+    rng = np.random.default_rng(0)
+    b, n = 2, cfg.sample_size
+    mask = np.ones((b, cap), np.int32)
+    mask[0, cap // 2:] = 0
+    batch = {"latents": rng.standard_normal((b, n, n, cfg.in_channels),
+                                            np.float32),
+             "embeddings": rng.standard_normal((b, cap, cfg.caption_channels),
+                                               np.float32),
+             "text_mask": mask}
+    model = PixArtTransformer2D(cfg=cfg, dtype=jnp.float32)
+    variables = model.init(jax.random.PRNGKey(1),
+                           jnp.asarray(batch["latents"]),
+                           jnp.asarray(batch["embeddings"]),
+                           jnp.zeros((b,)), jnp.asarray(mask))
+    # nonzero modulation tables, so every LoRA leaf gets a gradient
+    variables = {"params": jax.tree_util.tree_map_with_path(
+        lambda path, a: a + 0.05 * jax.random.normal(
+            jax.random.PRNGKey(len(str(path))), a.shape)
+        if "table" in path[-1].key else a, variables["params"])}
+    adapters, meta = build_adapter_params(
+        variables, AdapterSpec("lora", rank=4, alpha=8,
+                               target_modules=TARGETS),
+        jax.random.PRNGKey(3))
+    adapters = jax.tree_util.tree_map_with_path(
+        lambda p, x: (jnp.asarray(0.1 * rng.standard_normal(x.shape),
+                                  jnp.float32)
+                      if p[-1].key == "lora_b" else x), adapters)
+    return cfg, model, variables, adapters, meta, batch
+
+
+@pytest.mark.parametrize("cap", [64, 40])
+def test_pixart_int8_w8a8_step_matches_jax(monkeypatch, tmp_path, cap):
+    """PixArt-Sigma's quantized-base trainer with ``int8_w8a8`` (K5/K5b,
+    chain LoRA, Lion-8bit) against the JAX package's step on a tiny PixArt
+    whose widths pass the w8a8 gate, at two caption rungs: at 64 tokens
+    the caption-side products (T = 128) take K5 like the image side; at 40
+    (T = 80) they fall back to the dequantized weight.  Flips are counted
+    and taken from the JAX side as for SANA."""
+    from tests.test_torch_port_pixart_train import _jax_draws
+    from yat_tpu.ops.schedulers import DDPMSchedule as JSchedule
+    from yat_tpu.train.tasks import make_epsilon_loss as j_loss
+    from yat_tpu_torch.frontends import pixart
+    from yat_tpu_torch.models.layers import AdapterDense
+
+    cfg, jmodel, variables, adapters, meta, batch = _pixart_w8a8_setup(cap)
+    jsched = JSchedule()
+    overrides = {k: str(v) for k, v in dataclasses.asdict(cfg).items()
+                 if k in ("hidden_dim", "num_layers", "num_attention_heads",
+                          "attention_head_dim", "caption_channels",
+                          "max_caption_len", "sample_size", "mlp_ratio")}
+    raw = _raw(int8_w8a8="true", model_config_overrides=overrides)
+    branches = []
+    gate = TQ.w8a8_branch
+
+    def spy(t, k, n):
+        branches.append(((t, k, n), gate(t, k, n)))
+        return branches[-1][1]
+    monkeypatch.setattr(TQ, "w8a8_branch", spy)
+    out = _one_step_both(monkeypatch, tmp_path, pixart, jmodel, variables,
+                         adapters, meta, batch, raw,
+                         j_loss(jmodel, jsched, learned_sigma=True),
+                         lambda rng, lat: _jax_draws(jsched, rng, lat),
+                         w8a8=True)
+    _check(out, lr=1e-3, wd=0.01)
+    dense = [m for m in out["trainer"].model.modules()
+             if isinstance(m, AdapterDense)]
+    assert all(m.w8a8 for m in dense)
+    kernel = {shape for shape, ok in branches if ok}
+    fallback = {shape for shape, ok in branches if not ok}
+    # the image side (T = 128) takes K5 on both rungs; the caption side
+    # only where 2 x cap is a multiple of 128
+    assert (128, 128, 128) in kernel
+    assert ((2 * cap, 128, 128) in kernel) == (cap == 64)
+    assert ((2 * cap, 128, 128) in fallback) == (cap == 40)
+    print(f"rung {cap}: int8 roundings flipped (gradient program, step "
+          f"program):", out["flips"])
+
+
 def test_payload_flips_are_counted_and_forced():
     """``chip_smoke.W8A8Payloads``: an entry rounded one step the other way
     at a near-tie is a flip (counted; the run takes the reference's step);

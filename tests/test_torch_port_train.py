@@ -404,7 +404,7 @@ def test_entry_point_trains_and_exports(tmp_path):
     ({"train_unconditional_prob": "0.5"}, ValueError, "empty-caption"),
     ({"unfreeze_modules": ["blocks_0"]}, NotImplementedError,
      "unfreeze_modules"),
-    ({"lora_algo": "loha"}, NotImplementedError, "loha"),
+    ({"lora_algo": "loha"}, NotImplementedError, "loha"),    ({"pretrained_model_path": "ckpt"}, NotImplementedError, "item 7"),
 ])
 def test_entry_point_refuses_unported_options(tmp_path, over, exc, match):
     from yat_tpu_torch.frontends.sana import main
@@ -412,6 +412,21 @@ def test_entry_point_refuses_unported_options(tmp_path, over, exc, match):
     cfg = _write_config(tmp_path, _tiny_shard(tmp_path / "s.tar"), **over)
     with pytest.raises(exc, match=match):
         main(["--config", cfg, "--device", "cpu"])
+
+
+@pytest.mark.parametrize("key", ["pretrained_model_path",
+                                 "pretrained_pipe_path",
+                                 "pretrained_pipe_single_file"])
+def test_pretrained_paths_name_their_roadmap_item(key):
+    """Loading pretrained weights is unported: each of the three paths
+    raises NotImplementedError naming ROADMAP item 7."""
+    from yat_tpu_torch.config import TrainingParameters
+    from yat_tpu_torch.frontends.sana import build_sana_config
+
+    params = TrainingParameters()
+    setattr(params, key, "weights")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        build_sana_config(params)
 
 
 def test_trainer_with_encoders_encodes_empty_caption_and_validates(tmp_path):

@@ -1,0 +1,252 @@
+#!/usr/bin/env python3
+"""Run the port's attention kernels on the host CPU, to check fragment maps,
+masks and ring stages of a kernel before its first call on the card.
+
+    python3 tools/cuda_emulator/emulate.py [fwd] [k6b] [k2b]
+
+The sources of ``yat_tpu_torch/csrc`` are copied to ``_build/`` beside this
+file with the inline-asm helpers of ``attention_tiles.cuh`` (ldmatrix,
+mma.sync, cp.async) replaced by the warp-level model of ``runtime.cpp``,
+``extern __shared__`` arrays by one host buffer and ``<<<...>>>`` launches
+by ``emu_launch``; ``g++`` builds one shared library per source, and each
+case calls its C entry point on CPU tensors and holds the result against
+the plain version with ``chip_smoke.py``'s tolerance (and, for the
+backwards, checks that two launches give the same bits and that a backward
+without its row term is rejected).  ``fwd`` (K6, verified on the card) is
+the check of the model itself: it agrees with the plain version to within
+fp32 summation order.
+
+Timings mean nothing here, and nvcc may still refuse what g++ accepts.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+REPO = HERE.parent.parent
+BUILD = HERE / "_build"
+sys.path.insert(0, str(REPO))
+
+import torch  # noqa: E402
+
+import chip_smoke  # noqa: E402
+from yat_tpu_torch.kernels.build import CSRC_DIR  # noqa: E402
+from yat_tpu_torch.ops import attention as A  # noqa: E402
+
+SOURCES = {"fwd": "flash_attention", "k6b": "flash_attention_bwd",
+           "k2b": "softmax_attention_bwd"}
+ASM = {"ldsm_x4": "emu_ldsm(r, p, false);",
+       "ldsm_x4_t": "emu_ldsm(r, p, true);",
+       "mma_bf16": "emu_mma(c, a, b0, b1);",
+       "cp_async16": "emu_cp_async(dst, src, src_bytes, 16);",
+       "cp_async4": "emu_cp_async(dst, src, src_bytes, 4);",
+       "cp_async_commit": "emu_commit();",
+       "cp_async_wait": "emu_wait(kPending);"}
+
+
+def _top_level_split(text):
+    parts, depth, cur = [], 0, ""
+    for ch in text:
+        depth += ch in "(<"
+        depth -= ch in ")>"
+        if ch == "," and depth == 0:
+            parts.append(cur)
+            cur = ""
+        else:
+            cur += ch
+    return parts + [cur]
+
+
+def _launch(m):
+    grid, threads = _top_level_split(m.group(2))[:2]
+    return f"emu_launch({grid}, {threads}, [&] {{ {m.group(1)}({m.group(3)}); }});"
+
+
+def prepare():
+    """Copy csrc/ to _build/src with the device-only constructs replaced."""
+    out = BUILD / "src"
+    out.mkdir(parents=True, exist_ok=True)
+    for p in list(CSRC_DIR.glob("*.cuh")) + list(CSRC_DIR.glob("*.cu")):
+        s = p.read_text()
+        for name, body in ASM.items():
+            s, n = re.subn(
+                r"(__device__ __forceinline__ void %s\(.*?\)\s*)\{.*?\n\}\n"
+                % name, lambda m: m.group(1) + "{ " + body + " }\n", s,
+                flags=re.S)
+            if p.name == "attention_tiles.cuh" and n != 1:
+                raise RuntimeError(f"{name} not found in {p.name}")
+        s = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?"
+                   r"((?:unsigned )?\w+) (\w+)\[\];",
+                   r"\1* \2 = (\1*)emu_smem();", s)
+        s = re.sub(r"(\w+)\s*<<<(.*?)>>>\s*\((.*?)\);", _launch, s,
+                   flags=re.S)
+        (out / p.name).write_text(s)
+    return out
+
+
+def build(names):
+    src = prepare()
+    procs = {}
+    for name in names:
+        lib = BUILD / f"lib{name}.so"
+        procs[name] = subprocess.Popen(
+            ["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC",
+             "-shared", "-Wno-unknown-pragmas", f"-I{HERE / 'include'}",
+             f"-I{src}", "-include", "fake_cuda.h", "-x", "c++",
+             str(src / f"{name}.cu"), str(HERE / "runtime.cpp"), "-o",
+             str(lib), "-lpthread"], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    for name, p in procs.items():
+        log, _ = p.communicate()
+        if p.returncode:
+            raise RuntimeError(f"g++ failed on {name}.cu:\n{log}")
+    return {name: ctypes.CDLL(str(BUILD / f"lib{name}.so")) for name in names}
+
+
+V, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+DTYPE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _st(t):
+    return list(t.stride()[:3])
+
+
+def _bias_stride(bias):
+    return bias.stride(0) if bias is not None else 0
+
+
+def run_fwd(lib, q, k, v, bias):
+    b, nq, h, d = q.shape
+    nk = k.shape[1]
+    out = torch.empty_like(q)
+    m, l = torch.empty(2, b, h, nq)
+    fn = lib.yat_flash_attention_fwd
+    fn.argtypes = [V] * 5 + [I] * 5 + [L] * 13 + [F, I, V, V, I, V]
+    err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(out), b, nq, nk, h,
+             d, *_st(q), *_st(k), *_st(v), _bias_stride(bias), *_st(out),
+             1 / d ** 0.5, A.flash_block(nk), _ptr(m), _ptr(l), DTYPE[q.dtype],
+             None)
+    assert err == 0, err
+    return out, l, m
+
+
+def run_k6b(lib, q, k, v, bias, o, l, m, g):
+    b, nq, h, d = q.shape
+    nk = k.shape[1]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    di = torch.empty(b, h, nq)
+    fn = lib.yat_flash_attention_bwd
+    fn.argtypes = [V] * 12 + [I] * 5 + [L] * 25 + [F, I, V]
+    err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(o), _ptr(g),
+             _ptr(m), _ptr(l), _ptr(di), _ptr(dq), _ptr(dk), _ptr(dv), b, nq,
+             nk, h, d, *_st(q), *_st(k), *_st(v), _bias_stride(bias),
+             *_st(o), *_st(g), *_st(dq), *_st(dk), *_st(dv), 1 / d ** 0.5,
+             DTYPE[q.dtype], None)
+    assert err == 0, err
+    return dq, dk, dv
+
+
+def run_k2b(lib, q, k, v, bias, g):
+    b, nq, h, d = q.shape
+    nk = k.shape[1]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty(3, b, h, nq)
+    fn = lib.yat_attention_bwd
+    fn.argtypes = [V] * 9 + [I] * 5 + [L] * 22 + [F, I, V]
+    err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(g), _ptr(dq),
+             _ptr(dk), _ptr(dv), _ptr(stats), b, nq, nk, h, d, *_st(q),
+             *_st(k), *_st(v), _bias_stride(bias), *_st(g), *_st(dq),
+             *_st(dk), *_st(dv), 1 / d ** 0.5, DTYPE[q.dtype], None)
+    assert err == 0, err
+    return dq, dk, dv
+
+
+def inputs(b, nq, nk, h, d, dtype, keep, mask_value, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, g = (torch.randn(s, generator=gen).to(dtype)
+                  for s in ((b, nq, h, d), (b, nk, h, d), (b, nk, h, d),
+                            (b, nq, h, d)))
+    bias = None
+    if keep is not None:
+        kept = torch.arange(nk)[None] < torch.tensor(keep)[:, None]
+        bias = A._key_bias(kept.int(), b, mask_value)
+    return q, k, v, bias, g
+
+
+# (b, nq, nk, h, d, keep): d = 20 and 40 take the element loads, the
+# others 16-byte cp.async; ragged edges; a fully masked row (keep 0); the
+# head dims 32, 64, 72, 128 and (K6, K6b) 256
+CASES = [(1, 70, 50, 2, 20, [30]), (1, 30, 200, 1, 40, None),
+         (1, 100, 100, 2, 32, None), (2, 64, 16, 2, 32, None),
+         (2, 100, 300, 1, 72, [1, 300]), (2, 130, 70, 1, 72, [0, 70]),
+         (1, 64, 64, 1, 64, None), (1, 80, 90, 1, 128, [90]),
+         (1, 70, 100, 1, 256, [100])]
+
+
+def check(which, lib, dtype, case):
+    b, nq, nk, h, d, keep = case
+    if which == "k2b":
+        if d > 128:
+            return None
+        q, k, v, bias, g = inputs(b, nq, nk, h, d, dtype, keep, -1e9)
+        args = (q, k, v, bias, g)
+        got, want = run_k2b(lib, *args), A.attention_bwd_ref(*args)
+        name, wrong = ("dot_product_attention_bwd",
+                       chip_smoke.attention_bwd_without_row_term)
+        again = run_k2b(lib, *args)
+    else:
+        if dtype == torch.float32 and d > 128 and which == "fwd":
+            return None
+        q, k, v, bias, g = inputs(b, nq, nk, h, d, dtype, keep,
+                                  A.FLASH_MASK_VALUE)
+        if which == "fwd":
+            got = run_fwd(lib, q, k, v, bias)
+            want = A.flash_attention_ref(q, k, v, bias, residuals=True)
+            return "max |kernel - plain| of o, l, m " + ", ".join(
+                f"{float((x.float() - y.float()).abs().max()):.2e}"
+                for x, y in zip(got, want))
+        o, l, m = A.flash_attention_ref(q, k, v, bias, residuals=True)
+        args = (q, k, v, bias, o, l, m, g)
+        got, want = run_k6b(lib, *args), A.flash_attention_bwd_ref(*args)
+        name, wrong = ("flash_attention_bwd",
+                       chip_smoke.flash_attention_bwd_without_di)
+        again = run_k6b(lib, *args)
+    err, used, ok, _ = chip_smoke.compare(name, got, want)
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    text = f"max_abs_err {err:.3e}, {used:.3f} of the allowance, " \
+        f"{'ok' if ok else 'MISMATCH'}, {'same bits' if same else 'NOT REPRODUCIBLE'}"
+    if dtype == torch.bfloat16:
+        rejected = not chip_smoke.compare(name, wrong(*args), want)[2]
+        text += ", row-term-less backward " + (
+            "rejected" if rejected else "ACCEPTED")
+        ok = ok and rejected
+    if not (ok and same):
+        raise SystemExit(f"{which} {dtype} {case}: {text}")
+    return text
+
+
+def main(argv):
+    which = argv or list(SOURCES)
+    libs = build([SOURCES[w] for w in which])
+    for w in which:
+        for dtype in (torch.bfloat16, torch.float32):
+            for case in CASES:
+                t0 = time.perf_counter()
+                text = check(w, libs[SOURCES[w]], dtype, case)
+                if text is not None:
+                    print(f"{w} {str(dtype)[6:]} {case}: {text} "
+                          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

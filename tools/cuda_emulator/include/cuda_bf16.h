@@ -1,0 +1,1 @@
+#include "fake_cuda.h"

@@ -45,9 +45,10 @@ from yat_tpu_torch.train.validation import ValidationPipeline
 def build_pixart_config(params: TrainingParameters) -> PixArtConfig:
     if (params.pretrained_model_path or params.pretrained_pipe_path
             or params.pretrained_pipe_single_file):
-        raise ValueError("loading pretrained checkpoints is not implemented "
-                         "in the PyTorch port yet; unset the pretrained "
-                         "paths to serve with random weights")
+        raise NotImplementedError(
+            "loading pretrained checkpoints is not ported to PyTorch yet "
+            "(ROADMAP queue 1, item 7); unset the pretrained paths to run "
+            "with random weights")
     if params.use_repa:
         raise NotImplementedError("REPA is not ported to PyTorch yet "
                                   "(ROADMAP queue 1, item 10)")

@@ -44,9 +44,10 @@ PRESETS = {"600M": SANA_600M, "1600M": SANA_1600M}
 def build_sana_config(params: TrainingParameters) -> SanaConfig:
     if (params.pretrained_model_path or params.pretrained_pipe_path
             or params.pretrained_pipe_single_file):
-        raise ValueError("loading pretrained checkpoints is not implemented "
-                         "in the PyTorch port yet; unset the pretrained "
-                         "paths to serve with random weights")
+        raise NotImplementedError(
+            "loading pretrained checkpoints is not ported to PyTorch yet "
+            "(ROADMAP queue 1, item 7); unset the pretrained paths to run "
+            "with random weights")
     cfg = SANA_600M
     over = dict(params.model_config_overrides)
     preset = over.pop("preset", None)
