@@ -10,14 +10,17 @@ Phases, each of which fails the run (exit code 1) when it fails:
 2. build: compiles every CUDA kernel of the port from
    ``yat_tpu_torch/csrc`` with nvcc (one process per source, in parallel);
    prints ptxas's registers and spills by kernel, and the registers,
-   shared bytes and blocks per SM of K6b's and K2b's bf16 launches;
+   shared bytes and blocks per SM of the bf16 launches of K6 and K2 (the
+   forwards) and of K6b and K2b;
 3. kernels: holds each kernel (K1, K2, K3, K4 through K2's kernel and K6
    forward; K1b, K2b, K4b through K2b's kernel and K6b backward) against
    its plain PyTorch version at the serving and training paths' shapes and
-   at ragged and masked shapes, in bf16 and fp32, and times the kernel, the
-   plain version and (where one exists) one PyTorch call computing the
-   same function (and the kernel's multiple of it), beside the least time
-   the card could take; K5 and K5b
+   at ragged and masked shapes (the forwards also at masks whose kept keys
+   fill one middle or the last key tile only), in bf16 and fp32, and times
+   the kernel, the plain version and (where one exists) one PyTorch call
+   computing the same function (and the kernel's multiple of it and of the
+   bound), beside the least time the card could take (for the masked
+   forwards, counting the kept keys only); K5 and K5b
    (the w8a8 matmul and its backward) must equal their plain versions bit
    for bit (int8 payload, row scales, output) at SANA's and PixArt's
    shapes and with zero rows and one-large-value rows;
@@ -207,6 +210,7 @@ def phase_build():
                 if " 0 bytes spill stores" not in line and "spill" in line:
                     spilled.append(entry)
     log(f"entry functions with register spills: {spilled or 'none'}")
+    log_fwd_launch_info()
     log_bwd_launch_info()
 
 
@@ -228,10 +232,43 @@ def entry_name(mangled: str) -> str:
     return f"{name}<{','.join(args)}>" if args else name
 
 
-# head dims of each redesigned backward whose launches are reported: the
-# main paths' 72 and the card tests' others
+# head dims of each redesigned forward and backward whose launches are
+# reported: the main paths' 72 and the card tests' others
+FWD_INFO_DIMS = {"flash_attention": (32, 64, 72, 128, 256),
+                 "dot_product_attention": (32, 64, 72, 128)}
 BWD_INFO_DIMS = {"flash_attention_bwd": (32, 64, 72, 128, 256),
                  "dot_product_attention_bwd": (32, 64, 72, 128)}
+
+
+def fwd_launch_info(name, d):
+    """The 128-query bf16 launch of K6 or K2 (with 16-byte loads) at head
+    dim d: ((registers, local bytes, shared bytes, blocks per SM) without
+    a key bias, the same with one), from the CUDA runtime."""
+    import ctypes
+
+    from yat_tpu_torch.kernels.build import KERNELS
+    prefix = ("yat_flash_attention" if name == "flash_attention"
+              else "yat_attention")
+    buf = (ctypes.c_longlong * 8)()
+    err = KERNELS[name].function(f"{prefix}_launch_info",
+                                 [ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_void_p])(
+        d, 1, ctypes.addressof(buf))
+    if err != 0:
+        fail(f"{name}: launch info at D={d} failed with CUDA error {err}")
+    return tuple(buf[0:4]), tuple(buf[4:8])
+
+
+def log_fwd_launch_info():
+    """Registers, spills, shared bytes and blocks per SM of the bf16
+    forwards K6 and K2 (K4 runs K2's) at 128 queries a block (8 warps)."""
+    for name, dims in FWD_INFO_DIMS.items():
+        for d in dims:
+            for variant, (regs, local, smem, blocks) in zip(
+                    ("no bias", "key bias"), fwd_launch_info(name, d)):
+                log(f"  {name} bf16 D={d} {variant}: {regs} registers, "
+                    f"{local} local (spill) bytes a thread, {smem} shared "
+                    f"bytes, {blocks} blocks ({8 * blocks} warps) per SM")
 
 
 def bwd_launch_info(name, d):
@@ -326,9 +363,52 @@ def compare(name, got, want):
 
 
 def _mask(keep, nk, device):
+    """[B, N_k] int32 keep-mask: an int keeps that many leading keys, a
+    (lo, hi) pair the keys [lo, hi)."""
     import torch
-    idx = torch.arange(nk, device=device)[None, :]
-    return (idx < torch.tensor(keep, device=device)[:, None]).to(torch.int32)
+    idx = torch.arange(nk, device=device)
+    return torch.stack([
+        (idx >= x[0]) & (idx < x[1]) if isinstance(x, tuple) else idx < x
+        for x in keep]).to(torch.int32)
+
+
+def poison_masked_tiles(k, v, kept):
+    """k and v with NaN in every 64-key tile whose keys are all masked
+    (``kept`` [B, N_k] false), in each batch element that keeps a key: a
+    forward that never reads such tiles gives the same bits on them as on
+    the clean inputs."""
+    k, v = k.clone(), v.clone()
+    for i in range(kept.shape[0]):
+        if not bool(kept[i].any()):
+            continue
+        for k0 in range(0, kept.shape[1], 64):
+            if not bool(kept[i, k0:k0 + 64].any()):
+                k[i, k0:k0 + 64] = float("nan")
+                v[i, k0:k0 + 64] = float("nan")
+    return k, v
+
+
+# the forwards whose bf16 body skips fully masked key tiles, and what
+# their fourth argument is: a keep-mask (K2, K4) or K6's additive bias
+FWD_SKIP = {"dot_product_attention": "mask",
+            "dot_product_attention_folded": "mask",
+            "flash_attention": "bias"}
+
+
+def attention_work(b, nq, nk, h, d, es, keep, elementwise=0):
+    """(bytes, operations) that a masked attention forward's function needs:
+    q read, o written and the key bias read whole; for a batch element
+    that keeps keys, k and v read at those keys and the two products over
+    them (plus ``elementwise`` operations per score); for one that keeps
+    none, whose rows are the mean of V, v read once and summed, with no
+    product."""
+    n = [nk] * b if keep is None else [
+        x[1] - x[0] if isinstance(x, tuple) else x for x in keep]
+    kept = sum(n)
+    empty = n.count(0)
+    nbytes = es * h * d * (2 * b * nq + 2 * kept + nk * empty) + (
+        4 * b * nk if keep is not None else 0)
+    return nbytes, (4 * d + elementwise) * h * nq * kept + h * d * nk * empty
 
 
 def kernel_cases(device):
@@ -372,7 +452,10 @@ def kernel_cases(device):
         # caption masks (uncond keeps 1 key, cond ~150); training shape
         # q [16, 256, 16, 72], k/v [16, 512, 16, 72] with the training
         # shard's captions (100-500 of 512 keys kept); ragged: N_k = 300
-        # keeping 1-300 keys with N_q = 100, and N_k = 16 without a mask.
+        # keeping 1-300 keys with N_q = 100, and N_k = 16 without a mask;
+        # one request's CFG pair (batch 2, below one 128-query block per
+        # SM); at the serving shape, kept keys in one middle or the last
+        # 64-key tile only, or none (the tile walk of the forward body).
         # The ragged shapes lie outside the short-sequence gate, so they
         # reach the kernel through implementation="vmem"
         for label, (b, nq, nk, h, d, keep) in (
@@ -381,7 +464,11 @@ def kernel_cases(device):
                 ("train-512", (16, 256, 512, 16, 72,
                                [100 + 400 * i // 15 for i in range(16)])),
                 ("ragged-300", (4, 100, 300, 16, 72, [1, 37, 150, 300])),
-                ("ragged-16", (2, 64, 16, 2, 32, None))):
+                ("ragged-16", (2, 64, 16, 2, 32, None)),
+                ("serve-1", (2, 256, 512, 16, 72, [1, 143])),
+                ("serve-tiles", (8, 256, 512, 16, 72,
+                                 [(130, 190), (200, 201), (480, 512),
+                                  (500, 512), 0, (64, 128), 512, 0]))):
             def make(b=b, nq=nq, nk=nk, h=h, d=d, keep=keep, dtype=dtype):
                 m = _mask(keep, nk, device) if keep is not None else None
                 return (randn((b, nq, h, d), dtype), randn((b, nk, h, d), dtype),
@@ -397,17 +484,20 @@ def kernel_cases(device):
                     attn_mask=am).transpose(1, 2)
             cases.append(("dot_product_attention", label, dtype, make,
                           _vmem_attention, plain, library,
-                          es * b * h * d * (2 * nq + 2 * nk)
-                          + (4 * b * nk if keep is not None else 0),
-                          4 * b * h * nq * nk * d + 5 * b * h * nq * nk))
+                          *attention_work(b, nq, nk, h, d, es, keep, 5)))
         # K4 (K2's kernel where the JAX package folds heads): PixArt-Sigma
         # cross-attention q [8, 1024, 16, 72] over T5 captions k/v
         # [8, 300, 16, 72] keeping 10-300 keys; the longest key sequence
-        # the short-sequence gate admits, N_k = 4096 at N_q = 128
+        # the short-sequence gate admits, N_k = 4096 at N_q = 128; at the
+        # serving shape, kept keys in one middle or the last tile only, or
+        # none
         for label, (b, nq, nk, h, d, keep) in (
                 ("serve", (8, 1024, 300, 16, 72,
                            [10 + 290 * i // 7 for i in range(8)])),
-                ("long-keys", (2, 128, 4096, 4, 72, [4096, 77]))):
+                ("long-keys", (2, 128, 4096, 4, 72, [4096, 77])),
+                ("serve-tiles", (8, 1024, 300, 16, 72,
+                                 [(64, 128), (70, 80), (256, 300),
+                                  (299, 300), 0, 300, (0, 64), 1]))):
             def make(b=b, nq=nq, nk=nk, h=h, d=d, keep=keep, dtype=dtype):
                 return (randn((b, nq, h, d), dtype), randn((b, nk, h, d), dtype),
                         randn((b, nk, h, d), dtype), _mask(keep, nk, device))
@@ -416,17 +506,23 @@ def kernel_cases(device):
                 return A.attention_ref(q, k, v, A._key_bias(m, q.shape[0]))
             cases.append(("dot_product_attention_folded", label, dtype, make,
                           A.dot_product_attention, plain, _sdpa_masked,
-                          es * b * h * d * (2 * nq + 2 * nk) + 4 * b * nk,
-                          4 * b * h * nq * nk * d))
+                          *attention_work(b, nq, nk, h, d, es, keep)))
         # K6: PixArt-Sigma 512px self-attention q/k/v [8, 1024, 16, 72]
         # (the CFG call); 1024px, [2, 4096, 16, 72] in four key blocks;
         # masks keeping 0-1024 of 1024 keys (0: a fully masked row); a
-        # ragged N_k = 1000 in eight key blocks of 128
+        # ragged N_k = 1000 in eight key blocks of 128; kept keys in one
+        # middle or the last tile only; 1024px with the first (or the
+        # second) of the four key blocks fully masked
         for label, (b, nq, nk, h, d, keep) in (
                 ("serve", (8, 1024, 1024, 16, 72, None)),
                 ("1024px", (2, 4096, 4096, 16, 72, None)),
                 ("masked", (4, 1024, 1024, 16, 72, [0, 1, 517, 1024])),
-                ("ragged", (2, 1024, 1000, 16, 72, [1000, 333]))):
+                ("ragged", (2, 1024, 1000, 16, 72, [1000, 333])),
+                ("masked-tiles", (4, 1024, 1024, 16, 72,
+                                  [(500, 520), (960, 1024), (1023, 1024),
+                                   (0, 64)])),
+                ("masked-blocks", (2, 4096, 4096, 16, 72,
+                                   [(1024, 4096), (0, 1100)]))):
             def make(b=b, nq=nq, nk=nk, h=h, d=d, keep=keep, dtype=dtype):
                 bias = (None if keep is None else A._key_bias(
                     _mask(keep, nk, device), b, A.FLASH_MASK_VALUE))
@@ -435,9 +531,7 @@ def kernel_cases(device):
             cases.append(("flash_attention", label, dtype, make,
                           A._flash_attention_cuda, A.flash_attention_ref,
                           _sdpa_biased,
-                          es * b * h * d * (2 * nq + 2 * nk)
-                          + (4 * b * nk if keep is not None else 0),
-                          4 * b * h * nq * nk * d))
+                          *attention_work(b, nq, nk, h, d, es, keep)))
         # K3: serving shape q/k/v [8, 256, 36, 32], training shape
         # [16, 256, 36, 32]; ragged: N = 100.  At these lengths the JAX
         # package's einsum branch runs, which rounds the state to the
@@ -686,12 +780,16 @@ WRONG_BWD = {
                             "di = rowsum(o dO)")}
 
 
-def phase_kernels(device):
+def phase_kernels(device, names=None):
+    """Every kernel case (those of ``names`` only, when given) against its
+    plain version; the main cases timed."""
     import torch
 
     results = {}
     for (name, label, dtype, make, kern, plain, library, nbytes,
          flops) in kernel_cases(device):
+        if names is not None and name not in names:
+            continue
         args = make()
         got = kern(*args)
         want = plain(*args)
@@ -702,6 +800,17 @@ def phase_kernels(device):
             f"the allowance ({tol}) {'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"{name} [{label}, {dt}] disagrees with its plain version")
+        if FWD_SKIP.get(name) and dtype == torch.bfloat16 \
+                and args[3] is not None:
+            # the tile walk: NaN in the K and V rows of every fully masked
+            # 64-key tile changes no bit
+            kept = (args[3] > -1.0 if FWD_SKIP[name] == "bias"
+                    else args[3].bool())
+            pk, pv = poison_masked_tiles(args[1], args[2], kept)
+            if not torch.equal(kern(args[0], pk, pv, args[3]), got):
+                fail(f"{name} [{label}, {dt}] reads a fully masked key "
+                     "tile")
+            log(f"{name} [{label}, {dt}] fully masked key tiles: never read")
         wrong = WRONG_BWD.get(name)
         if wrong is not None and dtype == torch.bfloat16:
             # the tolerance's power: a backward without its row term (K2b's
@@ -741,7 +850,8 @@ def phase_kernels(device):
             f"{plain_ms:.4f}  library_ms "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f}'}  bound_ms "
             f"{results[name]['bound_ms']:.4f} ({results[name]['bound_by']}:"
-            f" {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)"
+            f" {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)  "
+            f"kernel/bound {ms / results[name]['bound_ms']:.2f}x"
             + ("" if lib_ms is None else
                f"  kernel/library {ms / lib_ms:.2f}x"))
     return results

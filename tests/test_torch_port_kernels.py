@@ -9,6 +9,7 @@ on a machine without JAX, skipping tests/conftest.py (which sets JAX up):
     python -m pytest tests/test_torch_port_kernels.py -m gpu --noconftest
 """
 
+
 import numpy as np
 import pytest
 import torch
@@ -165,8 +166,10 @@ def test_card_attention_kernel(cuda, dtype, b, nq, nk, h, d):
 
 
 def _keep_mask(keep, nk, device):
-    return (torch.arange(nk, device=device)[None]
-            < torch.tensor(keep, device=device)[:, None]).int()
+    """[B, N_k] keep-mask: an int keeps that many leading keys, a (lo, hi)
+    pair the keys [lo, hi)."""
+    import chip_smoke
+    return chip_smoke._mask(keep, nk, device)
 
 
 @pytest.mark.gpu
@@ -262,6 +265,107 @@ def test_card_flash_attention_residuals(cuda, dtype, b, nq, nk, h, d, keep):
     # fp32 statistics of the same scores summed in another order
     torch.testing.assert_close(m, m_ref, atol=1e-4, rtol=1e-5)
     torch.testing.assert_close(l, l_ref, atol=1e-4, rtol=1e-4)
+
+
+# the forwards' tile walk: kept keys in one middle 64-key tile, in the last
+# tile only, none (the mean of V), every key; N_q = 200 is no multiple of
+# 128; K6's N_k = 640 is five key blocks of 128
+FWD_TILE_MASKS = [(130, 190), (600, 640), 0, 640]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kernel,d", [
+    (kernel, d) for kernel in ("flash", "softmax", "folded")
+    for d in (32, 64, 72, 128, 256) if kernel == "flash" or d <= 128])
+def test_card_attention_fwd_mask_layouts(cuda, dtype, kernel, d):
+    """K6, K2 and K4 at the mask layouts of the tile walk against the
+    plain version, at the head dims each admits; two launches give the
+    same bits, and in bf16 so do K and V rows of NaN in the fully masked
+    tiles, which the walk never reads."""
+    flash = kernel == "flash"
+    b, nq, nk, h = 4, 200, 640 if flash else 300, 2
+    keep = FWD_TILE_MASKS if flash else [(130, 190), (290, 300), 0, 300]
+    mask_value = TA.FLASH_MASK_VALUE if flash else TA._VMEM_MASK_VALUE
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
+               for s in ((b, nq, h, d), (b, nk, h, d), (b, nk, h, d)))
+    bias = TA._key_bias(_keep_mask(keep, nk, cuda), b, mask_value)
+    if flash:
+        handle = TA.FLASH_ATTENTION
+        want = TA.flash_attention_ref(q, k, v, bias)
+
+        def run(k, v):
+            return TA._flash_attention_cuda(q, k, v, bias)
+    else:
+        handle = (TA.SOFTMAX_ATTENTION_FOLDED if kernel == "folded"
+                  else TA.SOFTMAX_ATTENTION)
+        want = TA.attention_ref(q, k, v, bias)
+
+        def run(k, v):
+            return TA._attention_cuda(q, k, v, bias,
+                                      folded=kernel == "folded")
+    import chip_smoke
+    pk, pv = chip_smoke.poison_masked_tiles(k, v, bias != mask_value)
+    before = handle.launches
+    out = run(k, v)
+    again = run(k, v)
+    torch.cuda.synchronize()
+    assert handle.launches == before + 2
+    _close(out, want)
+    assert torch.equal(out, again)
+    if dtype == torch.bfloat16:
+        assert torch.equal(run(pk, pv), out)
+    _close(out[2], v[2].float().mean(0, keepdim=True).expand(
+        nq, h, d).to(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_card_flash_attention_first_key_block_masked(cuda, dtype):
+    """K6 in four key blocks of 1024 with the first fully masked (and, in
+    the second batch element, the second): output and l/m residuals
+    against the plain version."""
+    b, nq, nk, h, d = 2, 256, 4096, 4, 72
+    g = torch.Generator(device=cuda).manual_seed(14)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
+               for s in ((b, nq, h, d), (b, nk, h, d), (b, nk, h, d)))
+    bias = TA._key_bias(_keep_mask([(1024, 4096), (0, 1024)], nk, cuda),
+                        b, TA.FLASH_MASK_VALUE)
+    o, l, m = TA._flash_attention_cuda(q, k, v, bias, residuals=True)
+    torch.cuda.synchronize()
+    o_ref, l_ref, m_ref = TA.flash_attention_ref(q, k, v, bias,
+                                                 residuals=True)
+    _close(o, o_ref)
+    torch.testing.assert_close(m, m_ref, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(l, l_ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["flash", "softmax", "folded"])
+def test_card_attention_fwd_kernels_are_bit_reproducible(cuda, kernel):
+    """K6, K2 and K4 at their serving shapes in bf16: two launches on the
+    same inputs give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    b, nq, nk, h, d = {"flash": (8, 1024, 1024, 16, 72),
+                       "softmax": (8, 256, 512, 16, 72),
+                       "folded": (8, 1024, 300, 16, 72)}[kernel]
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+               for s in ((b, nq, h, d), (b, nk, h, d), (b, nk, h, d)))
+    if kernel == "flash":
+        def run():
+            return TA._flash_attention_cuda(q, k, v, None)
+    else:
+        bias = TA._key_bias(_keep_mask(
+            [10 + (nk - 10) * i // (b - 1) for i in range(b)], nk, cuda), b)
+
+        def run():
+            return TA._attention_cuda(q, k, v, bias,
+                                      folded=kernel == "folded")
+    first = run()
+    second = run()
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
 
 
 def flash_bwd_cases():

@@ -264,6 +264,80 @@ def test_flash_plain_masks_like_the_library():
     torch.testing.assert_close(out[1], v[1, :1].expand(128, 2, 16))
 
 
+def _drop_masked_tiles(k, v, bias, mask_value):
+    """k, v and bias of one batch element without its 64-key tiles whose
+    keys are all masked."""
+    keep = torch.cat([torch.arange(k0, min(k0 + 64, k.shape[1]))
+                      for k0 in range(0, k.shape[1], 64)
+                      if bool((bias[0, k0:k0 + 64] != mask_value).any())])
+    return k[:, keep], v[:, keep], bias[:, keep]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["tile-middle", "tile-last",
+                                  "flash-leading-block", "zero-probs",
+                                  "no-kept-key"])
+def test_masked_key_tiles_contribute_exactly_nothing(case, dtype,
+                                                    monkeypatch):
+    """What lets the bf16 forwards (K2, K4, K6) skip the 64-key tiles whose
+    keys are all masked, held on the plain versions:
+
+    * tile-middle, tile-last: K2's plain version with those tiles removed
+      equals the full one bit for bit (kept keys in one middle tile; in the
+      ragged last tile only);
+    * flash-leading-block: K6's plain version with a fully masked leading
+      key block removed, at the full N_k's key block (384 keys in blocks of
+      128), equals the full one bit for bit, its l and m too;
+    * zero-probs: with one kept key in the row, the probabilities at the
+      masked keys are exactly 0.0 (both mask values);
+    * no-kept-key: a batch element with no kept key returns the mean of V
+      (fp32: within fp32 rounding; bf16: one bf16 step)."""
+    td = getattr(torch, dtype)
+    nk = {"tile-middle": 256, "tile-last": 300, "flash-leading-block": 384,
+          "zero-probs": 256, "no-kept-key": 256}[case]
+    q, k, v = (torch.from_numpy(a).to(td)
+               for a in _qkv(1, 24, nk, 2, 32, seed=nk))
+    idx = torch.arange(nk)[None]
+    if case == "tile-middle":
+        bias = TA._key_bias(((idx >= 130) & (idx < 141)).int(), 1)
+        full = TA.attention_ref(q, k, v, bias)
+        kd, vd, bd = _drop_masked_tiles(k, v, bias, TA._VMEM_MASK_VALUE)
+        assert kd.shape[1] == 64
+        assert torch.equal(TA.attention_ref(q, kd, vd, bd), full)
+    elif case == "tile-last":
+        bias = TA._key_bias((idx >= 290).int(), 1)
+        full = TA.attention_ref(q, k, v, bias)
+        kd, vd, bd = _drop_masked_tiles(k, v, bias, TA._VMEM_MASK_VALUE)
+        assert kd.shape[1] == 44
+        assert torch.equal(TA.attention_ref(q, kd, vd, bd), full)
+    elif case == "flash-leading-block":
+        assert TA.flash_block(nk) == 128
+        bias = TA._key_bias((idx >= 128).int(), 1, TA.FLASH_MASK_VALUE)
+        full = TA.flash_attention_ref(q, k, v, bias, residuals=True)
+        # the remaining 256 keys in the full N_k's blocks of 128
+        monkeypatch.setattr(TA, "flash_block", lambda n: 128)
+        part = TA.flash_attention_ref(q, k[:, 128:], v[:, 128:],
+                                      bias[:, 128:], residuals=True)
+        for a, b in zip(part, full):
+            assert torch.equal(a, b)
+    elif case == "zero-probs":
+        keep = ((idx >= 100) & (idx < 101)) | (idx >= 250)
+        for mask_value in (TA._VMEM_MASK_VALUE, TA.FLASH_MASK_VALUE):
+            bias = TA._key_bias(keep.int(), 1, mask_value)
+            p = TA._probs(q, k, bias, torch.float32)
+            assert bool((p[..., ~keep[0]] == 0.0).all())
+            assert bool((p[..., keep[0]] > 0.0).all())
+    else:
+        mean = v.float().mean(1, keepdim=True).expand(1, 24, 2, 32)
+        tol = (dict(atol=1e-6, rtol=1e-6) if dtype == "float32"
+               else dict(atol=0.0, rtol=2.0 ** -8))
+        none = torch.zeros((1, nk), dtype=torch.int32)
+        for out in (TA.attention_ref(q, k, v, TA._key_bias(none, 1)),
+                    TA.flash_attention_ref(q, k, v, TA._key_bias(
+                        none, 1, TA.FLASH_MASK_VALUE))):
+            torch.testing.assert_close(out.float(), mean, **tol)
+
+
 def test_folded_plain_matches_jax_vmem_attn_p():
     """K4: the port's plain version against the folded-layout Pallas kernel
     _vmem_attn_p (interpreted) itself and through the JAX package's 'vmem'

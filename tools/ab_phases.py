@@ -1,0 +1,57 @@
+#!/usr/bin/env python3
+"""Run this checkout's ``chip_smoke.py`` phases against another checkout's
+``yat_tpu_torch`` on the card: the kernel phase of the bf16 attention
+forwards (K2, K4 and K6), and the serve phase of SANA-0.6B and
+PixArt-Sigma XL-2 at 512px (random weights from a seed, five requests over
+HTTP and one profiled batch of 4).
+
+    python3 tools/ab_phases.py TREE [kernels] [sana] [pixart]
+
+TREE is the root of the checkout whose package runs; the cases, the
+tolerance and the timing are this checkout's, so two checkouts run the
+same cases.  The kernel phase's check that fully masked key tiles go
+unread is left to ``chip_smoke.py`` itself: a checkout from before the
+tile walk reads them.  To compare two checkouts on one card, run them in turns in
+one call: parent, change, change, parent.  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import gc
+import importlib.util
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+FORWARDS = ("dot_product_attention", "dot_product_attention_folded",
+            "flash_attention")
+
+
+def main(argv):
+    tree = Path(argv[0]).resolve()
+    phases = argv[1:] or ["kernels", "sana", "pixart"]
+    spec = importlib.util.spec_from_file_location("chip_smoke_cases",
+                                                  HERE / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    card = cs.phase_device()  # puts this checkout on sys.path; TREE goes first
+    sys.path.insert(0, str(tree))
+    import torch
+
+    from yat_tpu_torch.ops import attention
+    assert Path(attention.__file__).is_relative_to(tree), attention.__file__
+    device = torch.device("cuda", 0)
+    cs.log(f"phases {phases} of {tree}")
+    if "kernels" in phases:
+        cs.FWD_SKIP = {}
+        cs.phase_kernels(device, names=FORWARDS)
+    for family in ("sana", "pixart"):
+        if family in phases:
+            cs.phase_serve(cs.serve_params(), device, card, family=family,
+                           profile=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

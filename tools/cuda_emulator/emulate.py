@@ -2,7 +2,7 @@
 """Run the port's attention kernels on the host CPU, to check fragment maps,
 masks and ring stages of a kernel before its first call on the card.
 
-    python3 tools/cuda_emulator/emulate.py [fwd] [k6b] [k2b]
+    python3 tools/cuda_emulator/emulate.py [fwd] [k2] [k6b] [k2b]
 
 The sources of ``yat_tpu_torch/csrc`` are copied to ``_build/`` beside this
 file with the inline-asm helpers of ``attention_tiles.cuh`` (ldmatrix,
@@ -10,11 +10,13 @@ mma.sync, cp.async) replaced by the warp-level model of ``runtime.cpp``,
 ``extern __shared__`` arrays by one host buffer and ``<<<...>>>`` launches
 by ``emu_launch``; ``g++`` builds one shared library per source, and each
 case calls its C entry point on CPU tensors and holds the result against
-the plain version with ``chip_smoke.py``'s tolerance (and, for the
-backwards, checks that two launches give the same bits and that a backward
-without its row term is rejected).  ``fwd`` (K6, verified on the card) is
-the check of the model itself: it agrees with the plain version to within
-fp32 summation order.
+the plain version with ``chip_smoke.py``'s tolerance, and checks that two
+launches give the same bits (and, for the backwards, that a backward
+without its row term is rejected).  The forwards ``fwd`` (K6) and ``k2``
+(K2, K4) also run at masks whose kept keys fill one middle or the last
+64-key tile, with a leading or middle key block of K6 fully masked, at
+and N_q past 128, and must give the same bits when the K and V rows of
+every fully masked tile are NaN: such tiles are never read.
 
 Timings mean nothing here, and nvcc may still refuse what g++ accepts.
 """
@@ -39,15 +41,16 @@ import chip_smoke  # noqa: E402
 from yat_tpu_torch.kernels.build import CSRC_DIR  # noqa: E402
 from yat_tpu_torch.ops import attention as A  # noqa: E402
 
-SOURCES = {"fwd": "flash_attention", "k6b": "flash_attention_bwd",
-           "k2b": "softmax_attention_bwd"}
+SOURCES = {"fwd": "flash_attention", "k2": "softmax_attention",
+           "k6b": "flash_attention_bwd", "k2b": "softmax_attention_bwd"}
 ASM = {"ldsm_x4": "emu_ldsm(r, p, false);",
        "ldsm_x4_t": "emu_ldsm(r, p, true);",
        "mma_bf16": "emu_mma(c, a, b0, b1);",
        "cp_async16": "emu_cp_async(dst, src, src_bytes, 16);",
        "cp_async4": "emu_cp_async(dst, src, src_bytes, 4);",
        "cp_async_commit": "emu_commit();",
-       "cp_async_wait": "emu_wait(kPending);"}
+       "cp_async_wait": "emu_wait(kPending);",
+       "ex2_approx": "return emu_ex2(x);"}
 
 
 def _top_level_split(text):
@@ -76,7 +79,7 @@ def prepare():
         s = p.read_text()
         for name, body in ASM.items():
             s, n = re.subn(
-                r"(__device__ __forceinline__ void %s\(.*?\)\s*)\{.*?\n\}\n"
+                r"(__device__ __forceinline__ \w+ %s\(.*?\)\s*)\{.*?\n\}\n"
                 % name, lambda m: m.group(1) + "{ " + body + " }\n", s,
                 flags=re.S)
             if p.name == "attention_tiles.cuh" and n != 1:
@@ -140,6 +143,19 @@ def run_fwd(lib, q, k, v, bias):
     return out, l, m
 
 
+def run_k2(lib, q, k, v, bias):
+    b, nq, h, d = q.shape
+    nk = k.shape[1]
+    out = torch.empty_like(q)
+    fn = lib.yat_attention_fwd
+    fn.argtypes = [V] * 5 + [I] * 5 + [L] * 13 + [F, I, V]
+    err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(out), b, nq, nk, h,
+             d, *_st(q), *_st(k), *_st(v), _bias_stride(bias), *_st(out),
+             1 / d ** 0.5, DTYPE[q.dtype], None)
+    assert err == 0, err
+    return out
+
+
 def run_k6b(lib, q, k, v, bias, o, l, m, g):
     b, nq, h, d = q.shape
     nk = k.shape[1]
@@ -178,8 +194,7 @@ def inputs(b, nq, nk, h, d, dtype, keep, mask_value, seed=0):
                             (b, nq, h, d)))
     bias = None
     if keep is not None:
-        kept = torch.arange(nk)[None] < torch.tensor(keep)[:, None]
-        bias = A._key_bias(kept.int(), b, mask_value)
+        bias = A._key_bias(chip_smoke._mask(keep, nk, "cpu"), b, mask_value)
     return q, k, v, bias, g
 
 
@@ -191,6 +206,55 @@ CASES = [(1, 70, 50, 2, 20, [30]), (1, 30, 200, 1, 40, None),
          (2, 100, 300, 1, 72, [1, 300]), (2, 130, 70, 1, 72, [0, 70]),
          (1, 64, 64, 1, 64, None), (1, 80, 90, 1, 128, [90]),
          (1, 70, 100, 1, 256, [100])]
+# the forwards' tile walk: kept keys in one middle tile, in the last tile
+# only, none (mean of V); N_k = 400 is four key blocks of K6 (128, 128,
+# 128, 16), its first or second fully masked; N_q past 128 and ragged
+FWD_CASES = [(2, 200, 300, 1, 72, [(130, 141), (290, 300)]),
+             (2, 150, 400, 1, 64, [(128, 400), (0, 130)]),
+             (3, 40, 400, 1, 72, [(300, 310), 0, (256, 400)]),
+             (1, 130, 200, 1, 40, [(70, 75)])]
+
+
+def check_fwd(which, lib, dtype, case):
+    """K6 (``fwd``, with its l and m residuals) or K2 (``k2``) against its
+    plain version; two launches, and one with the fully masked tiles'
+    K and V rows poisoned, give the same bits."""
+    b, nq, nk, h, d, keep = case
+    if d > (128 if which == "k2" or dtype == torch.float32 else 256):
+        return None
+    flash = which == "fwd"
+    mask_value = A.FLASH_MASK_VALUE if flash else A._VMEM_MASK_VALUE
+    q, k, v, bias, _ = inputs(b, nq, nk, h, d, dtype, keep, mask_value)
+    if flash:
+        def run(k, v):
+            return run_fwd(lib, q, k, v, bias)
+        want = A.flash_attention_ref(q, k, v, bias, residuals=True)
+        name = "flash_attention"
+    else:
+        def run(k, v):
+            return (run_k2(lib, q, k, v, bias),)
+        want = (A.attention_ref(q, k, v, bias),)
+        name = "dot_product_attention"
+    got = run(k, v)
+    # the output against the tolerance; l and m (fp32 statistics of the
+    # same scores summed in another order) printed beside it
+    err, used, ok, _ = chip_smoke.compare(name, got[0], want[0])
+    stats = ", ".join(f"|{n} - plain| {float((x - y).abs().max()):.1e}"
+                      for n, x, y in zip("lm", got[1:], want[1:]))
+    same = all(torch.equal(x, y) for x, y in zip(got, run(k, v)))
+    pk, pv = ((k, v) if bias is None else
+              chip_smoke.poison_masked_tiles(k, v, bias != mask_value))
+    skipped = dtype == torch.float32 or all(
+        torch.equal(x, y) for x, y in zip(got, run(pk, pv)))
+    text = (f"max_abs_err {err:.3e}, {used:.3f} of the allowance"
+            + (f" ({stats})" if stats else "")
+            + f", {'ok' if ok else 'MISMATCH'}, "
+            f"{'same bits' if same else 'NOT REPRODUCIBLE'}"
+            + ("" if dtype == torch.float32 else
+               ", masked tiles " + ("skipped" if skipped else "READ")))
+    if not (ok and same and skipped):
+        raise SystemExit(f"{which} {dtype} {case}: {text}")
+    return text
 
 
 def check(which, lib, dtype, case):
@@ -209,12 +273,6 @@ def check(which, lib, dtype, case):
             return None
         q, k, v, bias, g = inputs(b, nq, nk, h, d, dtype, keep,
                                   A.FLASH_MASK_VALUE)
-        if which == "fwd":
-            got = run_fwd(lib, q, k, v, bias)
-            want = A.flash_attention_ref(q, k, v, bias, residuals=True)
-            return "max |kernel - plain| of o, l, m " + ", ".join(
-                f"{float((x.float() - y.float()).abs().max()):.2e}"
-                for x, y in zip(got, want))
         o, l, m = A.flash_attention_ref(q, k, v, bias, residuals=True)
         args = (q, k, v, bias, o, l, m, g)
         got, want = run_k6b(lib, *args), A.flash_attention_bwd_ref(*args)
@@ -239,10 +297,12 @@ def main(argv):
     which = argv or list(SOURCES)
     libs = build([SOURCES[w] for w in which])
     for w in which:
+        fwd = w in ("fwd", "k2")
         for dtype in (torch.bfloat16, torch.float32):
-            for case in CASES:
+            for case in CASES + (FWD_CASES if fwd else []):
                 t0 = time.perf_counter()
-                text = check(w, libs[SOURCES[w]], dtype, case)
+                text = (check_fwd(w, libs[SOURCES[w]], dtype, case)
+                        if fwd else check(w, libs[SOURCES[w]], dtype, case))
                 if text is not None:
                     print(f"{w} {str(dtype)[6:]} {case}: {text} "
                           f"({time.perf_counter() - t0:.1f} s)", flush=True)

@@ -97,7 +97,10 @@ inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 
 void __syncthreads();
+int __syncthreads_or(int pred);
 void __syncwarp();
+int __any_sync(unsigned, int pred);
+float emu_ex2(float x);
 unsigned emu_shfl(unsigned bits, int lane_mask);
 template <class T>
 T __shfl_xor_sync(unsigned, T v, int lane_mask) {

@@ -6,6 +6,7 @@
 // fragment layouts of the PTX ISA.  cp.async copies are queued per thread
 // and land when cp.async.wait_group retires their group, so a read before
 // the wait sees the stale stage.
+#include <atomic>
 #include <barrier>
 #include <cstdio>
 #include <cstdlib>
@@ -59,7 +60,35 @@ unsigned char* emu_smem() { return g_smem; }
 
 void __syncthreads() { g_block->arrive_and_wait(); }
 
+// a barrier that also returns whether any thread's pred is nonzero
+int __syncthreads_or(int pred) {
+  static std::atomic<int> any{0};
+  g_block->arrive_and_wait();
+  if (pred) any.store(1);
+  g_block->arrive_and_wait();
+  const int r = any.load();
+  g_block->arrive_and_wait();
+  if (threadIdx.x == 0) any.store(0);
+  return r;
+}
+
 void __syncwarp() { warp().bar.arrive_and_wait(); }
+
+int __any_sync(unsigned, int pred) {
+  Warp& w = warp();
+  w.x[lane()][7] = pred != 0;
+  w.bar.arrive_and_wait();
+  int r = 0;
+  for (int l = 0; l < 32; ++l) r |= w.x[l][7];
+  w.bar.arrive_and_wait();
+  return r;
+}
+
+// ex2.approx.ftz.f32: results below the smallest normal float flush to 0
+float emu_ex2(float x) {
+  const float y = exp2f(x);
+  return y < 1.17549435e-38f ? 0.f : y;
+}
 
 unsigned emu_shfl(unsigned bits, int lane_mask) {
   Warp& w = warp();

@@ -56,25 +56,6 @@ inline bool bwd_vec_ok(int d, Strides a, Strides b, Strides c, Strides e,
   return vec_ok(d, a, b, c, pa, pb, pc) && vec_ok(d, e, e, e, pe, pe, pe);
 }
 
-// Registers a thread, local (spill) bytes a thread, dynamic shared bytes
-// and resident blocks per SM of one launch, into out[0:4]
-template <typename K>
-cudaError_t launch_info(K kernel, size_t smem, long long* out) {
-  cudaError_t e = set_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  cudaFuncAttributes fa;
-  if ((e = cudaFuncGetAttributes(&fa, kernel)) != cudaSuccess) return e;
-  int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                    kThreads, smem);
-  if (e != cudaSuccess) return e;
-  out[0] = fa.numRegs;
-  out[1] = static_cast<long long>(fa.localSizeBytes);
-  out[2] = static_cast<long long>(smem);
-  out[3] = blocks;
-  return cudaSuccess;
-}
-
 // start copying the key bias of keys [k0, k0 + 64) (0 past nk, or when
 // there is no bias)
 __device__ __forceinline__ void issue_bias(float* dst, const float* bias,

@@ -28,28 +28,39 @@
 // Bound on the H100: operations at the PixArt-Sigma 512px self-attention
 // shape, q/k/v [8, 1024, 16, 72] bf16: 4 * 8 * 16 * 1024^2 * 72 = 38.7
 // GFLOP on the tensor cores (0.039 ms at 989 TFLOP/s) against 75.5 MB
-// (0.0225 ms at 3.35 TB/s).  Design, simple before fast:
-//   * one block per (64 queries, head, batch element): 2048 blocks at that
-//     shape; four warps of 16 query rows; no score reaches device memory;
+// (0.0225 ms at 3.35 TB/s).  With a key mask, the bound counts the kept
+// keys only, and so does the kernel's walk.  Design (attention_tiles.cuh,
+// attention_bf16_block):
+//   * one block per (128 queries, head, batch element): 1024 blocks at that
+//     shape, two per SM; eight warps of 16 query rows; K and V tiles of 64
+//     keys serve all 128 queries; no score reaches device memory;
 //   * per key block, two passes over its 64-key tiles, because the single
 //     block's probabilities are normalised before they are rounded: pass 1
-//     the rows' max and exp-sum (online per thread, merged across the four
-//     threads that share a row), pass 2 recomputes the scores, rounds P and
-//     accumulates P.V.  Pass 1 costs half again the operations of one pass;
+//     the rows' max and exp-sum (online per thread in 32-key sub-steps,
+//     merged across the four threads that share a row), pass 2 recomputes
+//     the scores, rounds P and accumulates P.V;
+//   * the 64-key tiles whose keys are all masked (every bias entry the
+//     library's mask value) are walked by neither pass: the block flags
+//     the kept tiles from its batch element's bias row first.  Exact: see
+//     attention_bf16_block;
+//   * per score: the scale multiply, the bias add only with a bias, the
+//     ragged-key compare only on a key block's last tile, e^x as
+//     ex2.approx(x log2 e); the single block's division a multiply by the
+//     row's reciprocal and one FMA correction (the correctly rounded
+//     quotient);
 //   * both products on the tensor cores with mma.sync m16n8k16 (bf16 in,
-//     fp32 accumulation), operands fetched from shared memory by ldmatrix
-//     (V transposed on the way); the queries' fragments, the scores, P and
-//     the accumulator stay in registers (P is packed from the score
-//     fragments, whose layout is that of the product's A operand);
+//     fp32 accumulation), operands by ldmatrix (V transposed on the way);
+//     the queries' fragments (up to D = 80), the scores, P and the
+//     accumulator stay in registers;
+//   * K and V through a three-stage cp.async ring (two stages past D = 80)
+//     with one barrier per tile;
 //   * the head dim is zero-padded in shared memory to a multiple of 16 (72
-//     -> 80) chosen at compile time, up to 256 (past 128 the query
-//     fragments are re-read from shared memory instead of held);
-//   * the ragged key edge is zero-filled and masked, so N_k needs no
-//     padding; only three 64-row tiles live in shared memory (34 KB at D =
-//     72), so any N_k fits;
-//   * fp32: the same key blocks on the CUDA cores, without rounding P
-//     (attention_tiles.cuh).
-// Faster still (wgmma, TMA, a pipelined producer warp) is later work.
+//     -> 80) chosen at compile time, up to 256; no head dim spills (the
+//     launch bound asks for two blocks per SM up to D = 128, one at 256);
+//   * the output goes out through shared memory in 16-byte stores;
+//   * fp32: the same key blocks on the CUDA cores, without rounding P, every
+//     tile walked (attention_fwd_f32).
+// Faster still (wgmma, TMA, a producer warp) is later work.
 #include "attention_tiles.cuh"
 
 namespace {
@@ -58,38 +69,45 @@ using namespace yat::attn;
 
 constexpr int kMaxD = 256;
 
-template <bool kVec, int kDC>
-__global__ void __launch_bounds__(kThreads, 3)
-flash_attention_fwd_bf16(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const float* __restrict__ bias,
-                         bf16* __restrict__ out, int nq, int nk, int d,
-                         Strides qs, Strides ks, Strides vs,
-                         long long bias_sb, Strides os, float scale,
-                         int block_keys, float* res_m, float* res_l) {
+template <bool kVec, int kDC, bool kBias>
+__global__ void __launch_bounds__(kFwdThreads, fwd_min_blocks(kDC, kVec))
+flash_attention_fwd_bf16(const FwdArgs a, float mask_value) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  attention_bf16_block<kVec, kDC>(q, k, v, bias, out, nq, nk, d, qs, ks, vs,
-                                  bias_sb, os, scale, block_keys, res_m, res_l,
-                                  smem_raw);
+  attention_bf16_block<kVec, kDC, kBias>(a, mask_value, smem_raw);
 }
 
 struct FlashKernel {
-  template <bool kVec, int kDC>
-  static auto fn() { return flash_attention_fwd_bf16<kVec, kDC>; }
+  // the library's DEFAULT_MASK_VALUE, -0.7 * FLT_MAX rounded to fp32: the
+  // bias of a masked key
+  static constexpr float kMaskValue =
+      static_cast<float>(-0.7 * 3.4028234663852886e38);
+  static constexpr int kMaxDC = 16;
+  template <bool kVec, int kDC, bool kBias>
+  static auto fn() { return flash_attention_fwd_bf16<kVec, kDC, kBias>; }
 };
 
 }  // namespace
 
-// Shared memory one block needs, so the wrapper can refuse shapes that do
-// not fit before launching.
+// Shared memory one block needs (bf16: a 128-query block), so the wrapper
+// can refuse shapes that do not fit before launching.
 extern "C" long long yat_flash_attention_smem_bytes(int d, int dtype) {
   if (dtype == yat::kBFloat16)
-    return static_cast<long long>(bf16_smem_bytes(d));
+    return static_cast<long long>(fwd_smem_bytes(d));
   return static_cast<long long>(f32_smem_bytes(d));
 }
 
 extern "C" int yat_flash_attention_max_head_dim() { return kMaxD; }
+
+// Registers a thread, local (spill) bytes a thread, shared bytes and
+// blocks per SM of the bf16 launch at head dim d with 16-byte loads (vec)
+// or element loads, without a bias (out[0:4]) and with one (out[4:8]).
+extern "C" int yat_flash_attention_launch_info(int d, int vec,
+                                               long long* out) {
+  if (d > kMaxD || d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  FwdArgs a{};
+  a.d = d;
+  return static_cast<int>(fwd_bf16<FlashKernel>(a, vec != 0, nullptr, out));
+}
 
 // q [B, Nq, H, D], k/v [B, Nk, H, D], out [B, Nq, H, D], each with strides
 // (b, n, h, 1); bias [B, Nk] fp32 with strides (bias_sb, 1), or null;
@@ -120,8 +138,9 @@ extern "C" int yat_flash_attention_fwd(
         static_cast<const float*>(v), bp, static_cast<float*>(out), b, nq,
         nk, h, d, qs, ks, vs, bias_sb, os, scale, block_keys, rm, rl, st));
   if (dtype != yat::kBFloat16) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_bf16<FlashKernel>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), bp, static_cast<bf16*>(out), b, nq, nk, h,
-      d, qs, ks, vs, bias_sb, os, scale, block_keys, rm, rl, st));
+  const FwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), bp, static_cast<bf16*>(out),
+                  b, nq, nk, h, d, qs, ks, vs, bias_sb, os, scale,
+                  block_keys, rm, rl};
+  return static_cast<int>(launch_bf16<FlashKernel>(a, st));
 }
