@@ -11,7 +11,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
    ``yat_tpu_torch/csrc`` with nvcc (one process per source, in parallel);
    prints ptxas's registers and spills by kernel, and the registers,
    shared bytes and blocks per SM of the bf16 launches of K6 and K2 (the
-   forwards) and of K6b and K2b;
+   forwards), of K6b and K2b, and of K5's and K5b's quantize and GEMM at
+   every w8a8 case with the GEMM grid the launcher chooses;
 3. kernels: holds each kernel (K1, K2, K3, K4 through K2's kernel and K6
    forward; K1b, K2b, K4b through K2b's kernel and K6b backward) against
    its plain PyTorch version at the serving and training paths' shapes and
@@ -23,7 +24,10 @@ Phases, each of which fails the run (exit code 1) when it fails:
    forwards, counting the kept keys only); K5 and K5b
    (the w8a8 matmul and its backward) must equal their plain versions bit
    for bit (int8 payload, row scales, output) at SANA's and PixArt's
-   shapes and with zero rows and one-large-value rows;
+   shapes and with zero rows and one-large-value rows; at the main case
+   their quantize and GEMM launches are timed apart (a profiler window),
+   beside ``torch._int_mm`` with the weight K-major and row-major and the
+   host's time a call (the two tensor maps' encoding included);
 4. reference: two-block full-width SANA and PixArt-Sigma denoisers on the
    card against the same modules on the CPU (the plain versions), fp32;
 5. gradient reference: the same two SANA blocks with LoRA (nonzero
@@ -212,6 +216,7 @@ def phase_build():
     log(f"entry functions with register spills: {spilled or 'none'}")
     log_fwd_launch_info()
     log_bwd_launch_info()
+    log_w8a8_launch_info()
 
 
 def entry_name(mangled: str) -> str:
@@ -869,13 +874,134 @@ W8A8_CASES = (("sana-attn", (4096, 1152, 1152), False),
               ("k6144-special", (128, 6144, 6144), True))
 
 
+def w8a8_launch_info(t, k, n, bwd, dtype):
+    """The launches of one K5 (or K5b, ``bwd``) call at [t, k] x [k -> n]:
+    the GEMM's grid, its 128x128 tiles and ring stages, registers, local
+    (spill) bytes a thread, shared bytes and blocks per SM, and the chunks
+    of 16 values a lane of the quantize holds, its registers, local bytes,
+    shared bytes and blocks per SM, from the CUDA runtime."""
+    import ctypes
+
+    from yat_tpu_torch.kernels.build import DTYPE_CODES, KERNELS
+    fn = KERNELS["w8a8_matmul"].function(
+        "yat_w8a8_launch_info", [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    buf = (ctypes.c_longlong * 12)()
+    err = fn(t, k, n, int(bwd), DTYPE_CODES[str(dtype)],
+             ctypes.addressof(buf))
+    if err != 0:
+        fail(f"w8a8 launch info at [{t}, {k}] x [{k} -> {n}] failed with "
+             f"CUDA error {err}")
+    keys = ("grid", "tiles", "stages", "regs", "local", "smem", "blocks",
+            "q_hold", "q_regs", "q_local", "q_smem", "q_blocks")
+    return dict(zip(keys, buf))
+
+
+def w8a8_info_text(info):
+    return (f"GEMM grid {info['grid']} blocks for {info['tiles']} tiles of "
+            f"128x128, {info['stages']} ring stages")
+
+
+def log_w8a8_launch_info():
+    """Registers, spills, shared bytes and blocks per SM of K5's and K5b's
+    bf16 launches at every case's shape, with the grid the launcher
+    chooses."""
+    import torch
+    for label, (t, k, n), _ in W8A8_CASES:
+        for name, bwd in (("w8a8_matmul", False), ("w8a8_matmul_bwd", True)):
+            i = w8a8_launch_info(t, k, n, bwd, torch.bfloat16)
+            log(f"  {name} bf16 [{label} {t}x{k}->{n}]: {w8a8_info_text(i)},"
+                f" {i['regs']} registers, {i['local']} local (spill) bytes "
+                f"a thread, {i['smem']} shared bytes, {i['blocks']} blocks "
+                f"(12 warps) per SM; quantize holding {i['q_hold']} chunks "
+                f"of 16 values a lane, {i['q_regs']} registers, "
+                f"{i['q_local']} local bytes, {i['q_blocks']} blocks (8 "
+                "warps) per SM")
+
+
+def w8a8_split(call, inputs, iters=20):
+    """Device milliseconds of the quantize launch and of the GEMM launch of
+    one call, from a profiler window over ``iters`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for args in inputs:
+        call(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            call(*inputs[i % len(inputs)])
+        torch.cuda.synchronize()
+    sums = {"quantize": [0, 0.0], "gemm": [0, 0.0]}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for part, acc in sums.items():
+            if part in e.name:
+                acc[0] += 1
+                acc[1] += e.time_range.end - e.time_range.start
+    if any(n != iters for n, _ in sums.values()):
+        log(f"w8a8 split: the profiler holds {sums['quantize'][0]} quantize "
+            f"and {sums['gemm'][0]} GEMM records of {iters} calls")
+    return tuple(t / 1e3 / max(n, 1) for n, t in sums.values())
+
+
+def w8a8_host_us(call, inputs, calls=200):
+    """Host microseconds a call takes to enqueue, the stream held so the
+    queue never drains."""
+    import torch
+    for args in inputs:
+        call(*args)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)
+    t0 = time.perf_counter()
+    for i in range(calls):
+        call(*inputs[i % len(inputs)])
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def w8a8_host_parts(name, inputs):
+    """The parts of a K5 (or K5b) wrapper's host time at one case, in
+    microseconds a call: the C entry point through ctypes (its checks, the
+    two tensor maps' encoding and the two launches) and the wrapper's three
+    ``torch.empty`` (output, payload, row scales); the rest of the
+    wrapper's time is its Python."""
+    import torch
+
+    from yat_tpu_torch.kernels.build import dtype_code, stream_of
+    from yat_tpu_torch.ops import quant as Q
+    x, q, s, g = inputs[0]
+    a = x if name == "w8a8_matmul" else g
+    t, c = a.shape
+    out_w = q.shape[0] if name == "w8a8_matmul" else q.shape[1]
+    entry = (Q.W8A8_MATMUL if name == "w8a8_matmul"
+             else Q.W8A8_MATMUL_BWD).function()
+    out = torch.empty((t, out_w), dtype=a.dtype, device=a.device)
+    a8 = torch.empty((t, c), dtype=torch.int8, device=a.device)
+    rs = torch.empty((t,), dtype=torch.float32, device=a.device)
+    ptrs = (a.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
+            a8.data_ptr(), rs.data_ptr(), t, q.shape[1], q.shape[0],
+            dtype_code(a), stream_of(a))
+    entry_us = w8a8_host_us(lambda: entry(*ptrs), [()])
+    empty_us = w8a8_host_us(
+        lambda: (torch.empty((t, out_w), dtype=a.dtype, device=a.device),
+                 torch.empty((t, c), dtype=torch.int8, device=a.device),
+                 torch.empty((t,), dtype=torch.float32, device=a.device)),
+        [()])
+    return entry_us, empty_us
+
+
 def phase_w8a8_kernels(device):
     """K5 and K5b against their plain versions, bit for bit (the int8
-    payload, the row scales, the output), on every case in bf16 and fp32;
-    then the main case timed in bf16 beside its bound and two labelled
-    library times: ``torch._int_mm`` on the already quantized operands (the
-    int8 GEMM alone) and bf16 ``F.linear`` on the dequantized weight (what
-    the path runs without ``int8_w8a8``)."""
+    payload, the row scales, the output), on every case in bf16 and fp32,
+    with the grid the launcher chose; then the main case timed in bf16
+    beside its bound, the quantize's and the GEMM's device time apart, the
+    host's cost per call, and three labelled library times:
+    ``torch._int_mm`` on the already quantized operands (the int8 GEMM
+    alone) with the weight K-major (the layout cuBLAS's int8 GEMM wants;
+    ``library_ms``) and row-major, and bf16 ``F.linear`` on the dequantized
+    weight (what the path runs without ``int8_w8a8``)."""
     import torch
     import torch.nn.functional as F
 
@@ -896,8 +1022,10 @@ def phase_w8a8_kernels(device):
                 want = plain(case[arg], q, w_scale, quantized=True)
                 torch.cuda.synchronize()
                 bad = w8a8_mismatch(got, want)
+                info = w8a8_launch_info(t, k, n, arg == 3, dtype)
                 log(f"{name} [{label} {t}x{k}->{n}, {dt}] payload, row "
-                    f"scales and output {'bit-equal' if bad is None else 'DIFFER: ' + bad}")
+                    f"scales and output {'bit-equal' if bad is None else 'DIFFER: ' + bad}"
+                    f" ({w8a8_info_text(info)})")
                 if bad is not None:
                     fail(f"{name} [{label}, {dt}] differs from its plain "
                          f"version at the {bad}")
@@ -913,43 +1041,65 @@ def phase_w8a8_kernels(device):
                 call = (lambda x, q, s, g, kern=kern, arg=arg:
                         kern((x, q, s, g)[arg], q, s))
                 ms = time_ms(call, inputs, 50)
+                quantize_ms, gemm_ms = w8a8_split(call, inputs)
+                host_us = w8a8_host_us(call, inputs)
+                entry_us, empty_us = w8a8_host_parts(name, inputs)
                 plain_ms = time_ms(
                     lambda x, q, s, g, plain=plain, arg=arg:
                     plain((x, q, s, g)[arg], q, s), inputs, 5)
                 # the library: the int8 GEMM of the quantized operands
-                # (x8 [T, K] . qᵀ forward, g8 [T, N] . q backward), and the
-                # bf16 matmul with the dequantized weight w [N, K]
+                # (x8 [T, K] . qᵀ forward, g8 [T, N] . q backward) with the
+                # weight K-major (copies made here, outside the timed calls)
+                # and row-major, and the bf16 matmul with the dequantized
+                # weight w [N, K]
                 fwd = name == "w8a8_matmul"
                 lib_in = []
                 for x_, q_, s_, g_ in inputs:
                     a8 = Q.row_quantize(x_.float() if fwd else
                                         g_.float() * s_[None, :])[0]
-                    lib_in.append((a8, q_.t() if fwd else q_,
+                    # B [contraction, out] in both layouts
+                    b_kmajor = q_.t() if fwd else q_.t().contiguous().t()
+                    b_rowmajor = q_.t().contiguous() if fwd else q_
+                    lib_in.append((a8, b_kmajor, b_rowmajor,
                                    Q.dequantize_kernel(q_, s_, dtype),
                                    x_ if fwd else g_))
-                int_mm_ms = time_ms(lambda a8, b8, w, a: torch._int_mm(a8, b8),
-                                    lib_in, 50)
+                int_mm_ms = time_ms(
+                    lambda a8, bk, br, w, a: torch._int_mm(a8, bk), lib_in, 50)
+                int_mm_row_ms = time_ms(
+                    lambda a8, bk, br, w, a: torch._int_mm(a8, br), lib_in,
+                    50)
                 linear_ms = time_ms(
-                    (lambda a8, b8, w, a: F.linear(a, w)) if fwd else
-                    (lambda a8, b8, w, a: a @ w), lib_in, 50)
+                    (lambda a8, bk, br, w, a: F.linear(a, w)) if fwd else
+                    (lambda a8, bk, br, w, a: a @ w), lib_in, 50)
                 t_bytes = nbytes / HBM_BYTES_S * 1e3
                 t_ops = ops / INT8_OPS * 1e3
+                bound = max(t_bytes, t_ops)
                 results[name] = {
                     "max_abs_err": float((got[0].float()
                                           - want[0].float()).abs().max()),
                     "ms": ms, "plain_ms": plain_ms, "library_ms": int_mm_ms,
-                    "library": "torch._int_mm on the quantized operands",
+                    "library": "torch._int_mm on the quantized operands, "
+                               "the weight K-major",
+                    "int_mm_row_major_ms": int_mm_row_ms,
                     "bf16_linear_ms": linear_ms,
-                    "bound_ms": max(t_bytes, t_ops),
+                    "quantize_ms": quantize_ms, "gemm_ms": gemm_ms,
+                    "host_us": host_us, "host_entry_us": entry_us,
+                    "host_empty_us": empty_us,
+                    "bound_ms": bound,
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                     "bytes": nbytes, "flops": ops}
-                log(f"{name} [{label}, bf16] kernel_ms {ms:.4f}  plain_ms "
-                    f"{plain_ms:.4f}  bound_ms {results[name]['bound_ms']:.4f}"
-                    f" ({results[name]['bound_by']}: {nbytes / 1e6:.2f} MB, "
+                log(f"{name} [{label}, bf16] kernel_ms {ms:.4f} "
+                    f"({ms / bound:.1f}x the bound; profiled: quantize "
+                    f"{quantize_ms:.4f} ms + GEMM {gemm_ms:.4f} ms)  plain_ms "
+                    f"{plain_ms:.4f}  bound_ms {bound:.4f} "
+                    f"({results[name]['bound_by']}: {nbytes / 1e6:.2f} MB, "
                     f"{ops / 1e9:.3f} G int8 operations)  library: "
-                    f"torch._int_mm {int_mm_ms:.4f} ms (int8 GEMM alone), "
-                    f"bf16 matmul on the dequantized weight {linear_ms:.4f} "
-                    f"ms")
+                    f"torch._int_mm {int_mm_ms:.4f} ms with the weight "
+                    f"K-major, {int_mm_row_ms:.4f} ms row-major (the int8 "
+                    f"GEMM alone), bf16 matmul on the dequantized weight "
+                    f"{linear_ms:.4f} ms; host {host_us:.1f} us a call "
+                    f"(the C entry point {entry_us:.1f}, three torch.empty "
+                    f"{empty_us:.1f}, the wrapper's Python the rest)")
     return results
 
 
@@ -2334,9 +2484,13 @@ def main() -> None:
                     "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                     "bound_by": k["bound_by"],
                     "library_ms": k["library_ms"]})
-        # K5/K5b: which call library_ms times, and the bf16 matmul on the
-        # dequantized weight (the path without int8_w8a8)
-        for key in ("library", "bf16_linear_ms"):
+        # K5/K5b: which call library_ms times, _int_mm with the weight
+        # row-major, the bf16 matmul on the dequantized weight (the path
+        # without int8_w8a8), the quantize's and the GEMM's device time
+        # and the host's time a call with its parts
+        for key in ("library", "int_mm_row_major_ms", "bf16_linear_ms",
+                    "quantize_ms", "gemm_ms", "host_us", "host_entry_us",
+                    "host_empty_us"):
             if key in k:
                 row[key] = k[key]
         rows.append(row)

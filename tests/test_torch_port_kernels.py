@@ -652,10 +652,15 @@ def test_card_linear_attention_grad_is_a_plain_recompute(cuda):
 
 # [T, K] x [K -> N]: SANA-0.6B's attention projections on the image tokens
 # and on the caption, its GLUMB up-projection; PixArt-Sigma's MLP; the
-# largest K the gate admits at the smallest T
+# largest K the gate admits at the smallest T; then T = 128, 256, 384 at
+# N = 128 and 5760 (K5b contracting over 5760) and K = 2304 and 6144, so
+# the quantize holds 3, 6 and 12 chunks a lane (fp32: 3, 4 and rows read
+# again) and the GEMM takes both grids: one block a tile (fewer tiles than
+# SMs) and one block per SM walking the tiles
 W8A8_SHAPES = [(4096, 1152, 1152), (8192, 1152, 1152), (4096, 1152, 5760),
-               (8192, 1152, 4608), (8192, 4608, 1152), (128, 6144, 6144)]
-
+               (8192, 1152, 4608), (8192, 4608, 1152), (128, 6144, 6144),
+               (128, 1152, 128), (256, 2304, 384), (384, 1152, 5760),
+               (128, 6144, 256), (384, 256, 6144)]
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -674,6 +679,45 @@ def test_card_w8a8_kernels_bit_equal(cuda, dtype, t, k, n):
         torch.cuda.synchronize()
         assert chip_smoke.w8a8_mismatch(got, want) is None, (
             kern.__name__, chip_smoke.w8a8_mismatch(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_card_w8a8_kernels_are_bit_reproducible(cuda, dtype):
+    """Two launches of K5 and of K5b on the same inputs give the same bits
+    (payload, row scales and output)."""
+    import chip_smoke
+    x, q, ws, g = chip_smoke.w8a8_inputs(4096, 1152, 1152, dtype, cuda)
+    for kern, a in ((TQ._w8a8_cuda, x), (TQ._w8a8_bwd_cuda, g)):
+        first = kern(a, q, ws, quantized=True)
+        second = kern(a, q, ws, quantized=True)
+        torch.cuda.synchronize()
+        for u, v in zip(first, second):
+            assert torch.equal(chip_smoke._bits(u), chip_smoke._bits(v))
+
+
+@pytest.mark.gpu
+def test_card_w8a8_wrappers_refuse_unaligned_bases(cuda):
+    """TMA and the 16-byte loads need 16-byte-aligned bases: an activation,
+    gradient or weight that starts off a 16-byte boundary raises, and
+    launches nothing."""
+    import chip_smoke
+    t, k, n = 256, 1152, 1152
+    x, q, ws, g = chip_smoke.w8a8_inputs(t, k, n, torch.bfloat16, cuda)
+    x_off = torch.empty(t * k + 1, dtype=x.dtype, device=cuda)[1:].view(t, k)
+    x_off.copy_(x)
+    g_off = torch.empty(t * n + 1, dtype=g.dtype, device=cuda)[1:].view(t, n)
+    g_off.copy_(g)
+    q_off = torch.empty(n * k + 8, dtype=q.dtype, device=cuda)[8:].view(n, k)
+    q_off.copy_(q)
+    before = KB.launch_counts()
+    for call in (lambda: TQ._w8a8_cuda(x_off, q, ws),
+                 lambda: TQ._w8a8_cuda(x, q_off, ws),
+                 lambda: TQ._w8a8_bwd_cuda(g_off, q, ws),
+                 lambda: TQ._w8a8_bwd_cuda(g, q_off, ws)):
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            call()
+    assert KB.launch_counts() == before
 
 
 @pytest.mark.gpu

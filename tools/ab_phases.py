@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Run this checkout's ``chip_smoke.py`` phases against another checkout's
 ``yat_tpu_torch`` on the card: the kernel phase of the bf16 attention
-forwards (K2, K4 and K6), and the serve phase of SANA-0.6B and
-PixArt-Sigma XL-2 at 512px (random weights from a seed, five requests over
-HTTP and one profiled batch of 4).
+forwards (K2, K4 and K6), the kernel phase of K5 and K5b (the w8a8 matmul
+and its backward: bit equality, the main case's times and yardsticks), the
+serve phase of SANA-0.6B and PixArt-Sigma XL-2 at 512px (random weights
+from a seed, five requests over HTTP and one profiled batch of 4), and the
+SANA-0.6B LoRA training phase on an int8 base with w8a8 (six steps, a
+remat step and a profiled step).
 
-    python3 tools/ab_phases.py TREE [kernels] [sana] [pixart]
+    python3 tools/ab_phases.py TREE [kernels] [w8a8] [sana] [pixart] [int8]
 
 TREE is the root of the checkout whose package runs; the cases, the
 tolerance and the timing are this checkout's, so two checkouts run the
@@ -27,9 +30,19 @@ FORWARDS = ("dot_product_attention", "dot_product_attention_folded",
             "flash_attention")
 
 
+def has_symbol(kernel, symbol):
+    """Whether TREE's library of ``kernel`` (a ``CudaKernel``) exports
+    ``symbol``."""
+    try:
+        kernel.function(symbol, [])
+    except AttributeError:
+        return False
+    return True
+
+
 def main(argv):
     tree = Path(argv[0]).resolve()
-    phases = argv[1:] or ["kernels", "sana", "pixart"]
+    phases = argv[1:] or ["kernels", "w8a8", "sana", "pixart", "int8"]
     spec = importlib.util.spec_from_file_location("chip_smoke_cases",
                                                   HERE / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
@@ -45,12 +58,22 @@ def main(argv):
     if "kernels" in phases:
         cs.FWD_SKIP = {}
         cs.phase_kernels(device, names=FORWARDS)
+    if "w8a8" in phases:
+        from yat_tpu_torch.ops import quant
+        if not has_symbol(quant.W8A8_MATMUL, "yat_w8a8_launch_info"):
+            # a library from before the launch info: nothing to print
+            cs.w8a8_launch_info = lambda *args: None
+            cs.w8a8_info_text = lambda info: "no launch info in this library"
+        cs.phase_w8a8_kernels(device)
     for family in ("sana", "pixart"):
         if family in phases:
             cs.phase_serve(cs.serve_params(), device, card, family=family,
                            profile=True)
             gc.collect()
             torch.cuda.empty_cache()
+    if "int8" in phases:
+        cs.phase_train(device, card, cfg_extra=cs.INT8_KEYS,
+                       label="int8 train")
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Run the port's attention kernels on the host CPU, to check fragment maps,
-masks and ring stages of a kernel before its first call on the card.
+"""Run the port's attention and int8 kernels on the host CPU, to check
+fragment maps, masks, descriptors and ring stages of a kernel before its
+first call on the card.
 
-    python3 tools/cuda_emulator/emulate.py [fwd] [k2] [k6b] [k2b]
+    python3 tools/cuda_emulator/emulate.py [fwd] [k2] [k6b] [k2b] [k5] [k5b]
 
 The sources of ``yat_tpu_torch/csrc`` are copied to ``_build/`` beside this
 file with the inline-asm helpers of ``attention_tiles.cuh`` (ldmatrix,
@@ -17,6 +18,15 @@ without its row term is rejected).  The forwards ``fwd`` (K6) and ``k2``
 64-key tile, with a leading or middle key block of K6 fully masked, at
 and N_q past 128, and must give the same bits when the K and V rows of
 every fully masked tile are NaN: such tiles are never read.
+
+``k5`` and ``k5b`` (the w8a8 matmul and its backward, one source) run
+with Hopper's mbarriers, TMA tile loads (128-byte swizzle) and wgmma s8
+from shared-memory descriptors replaced by runtime.cpp's models, on a
+3-SM device, at small shapes that take a persistent grid (each block
+walking several tiles, the ring wrapping) and a grid of one block per
+tile, and every quantize hold (3, 6 and 12 chunks a lane; fp32 rows past
+2048 read again), zero rows and large values included; payload, row
+scales and output must equal the plain versions' bit for bit, twice.
 
 Timings mean nothing here, and nvcc may still refuse what g++ accepts.
 """
@@ -42,7 +52,8 @@ from yat_tpu_torch.kernels.build import CSRC_DIR  # noqa: E402
 from yat_tpu_torch.ops import attention as A  # noqa: E402
 
 SOURCES = {"fwd": "flash_attention", "k2": "softmax_attention",
-           "k6b": "flash_attention_bwd", "k2b": "softmax_attention_bwd"}
+           "k6b": "flash_attention_bwd", "k2b": "softmax_attention_bwd",
+           "k5": "w8a8_matmul", "k5b": "w8a8_matmul"}
 ASM = {"ldsm_x4": "emu_ldsm(r, p, false);",
        "ldsm_x4_t": "emu_ldsm(r, p, true);",
        "mma_bf16": "emu_mma(c, a, b0, b1);",
@@ -51,6 +62,25 @@ ASM = {"ldsm_x4": "emu_ldsm(r, p, false);",
        "cp_async_commit": "emu_commit();",
        "cp_async_wait": "emu_wait(kPending);",
        "ex2_approx": "return emu_ex2(x);"}
+# w8a8_matmul.cu's Hopper primitives
+W8A8_ASM = {"smem_addr": "return emu_smem_offset(p);",
+            "mbar_init": "emu_mbar_init(bar, count);",
+            "mbar_fence_init": "",
+            "mbar_expect_tx": "emu_mbar_arrive(bar, bytes);",
+            "mbar_arrive": "emu_mbar_arrive(bar, 0);",
+            "mbar_wait": "emu_mbar_wait(bar, parity);",
+            "tma_load_2d": "emu_tma_load_2d(dst, map, bar, c0, c1);",
+            "tma_prefetch": "(void)map;",
+            "fence_proxy_async": "",
+            # .sync.aligned: the lanes of a warp meet at each wgmma
+            # instruction, and a retired group is done for all of them
+            "wgmma_fence": "__syncwarp();",
+            "wgmma_commit": "__syncwarp(); emu_wgmma_commit();",
+            "wgmma_wait": "__syncwarp(); emu_wgmma_wait(N); __syncwarp();",
+            "setmaxnreg_inc": "",
+            "setmaxnreg_dec": "",
+            "fence_acc": "(void)d;",
+            "wgmma_s8": "__syncwarp(); emu_wgmma_s8(d, kBN, da, db, scale_d);"}
 
 
 def _top_level_split(text):
@@ -77,13 +107,16 @@ def prepare():
     out.mkdir(parents=True, exist_ok=True)
     for p in list(CSRC_DIR.glob("*.cuh")) + list(CSRC_DIR.glob("*.cu")):
         s = p.read_text()
-        for name, body in ASM.items():
-            s, n = re.subn(
-                r"(__device__ __forceinline__ \w+ %s\(.*?\)\s*)\{.*?\n\}\n"
-                % name, lambda m: m.group(1) + "{ " + body + " }\n", s,
-                flags=re.S)
-            if p.name == "attention_tiles.cuh" and n != 1:
-                raise RuntimeError(f"{name} not found in {p.name}")
+        for table, owner in ((ASM, "attention_tiles.cuh"),
+                             (W8A8_ASM, "w8a8_matmul.cu")):
+            for name, body in table.items():
+                s, n = re.subn(
+                    r"(__device__ __forceinline__ \w+ %s\(.*?\)\s*)"
+                    r"\{.*?\n\}\n" % name,
+                    lambda m: m.group(1) + "{ " + body + " }\n", s,
+                    flags=re.S)
+                if p.name == owner and n != 1:
+                    raise RuntimeError(f"{name} not found in {p.name}")
         s = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?"
                    r"((?:unsigned )?\w+) (\w+)\[\];",
                    r"\1* \2 = (\1*)emu_smem();", s)
@@ -96,7 +129,7 @@ def prepare():
 def build(names):
     src = prepare()
     procs = {}
-    for name in names:
+    for name in dict.fromkeys(names):
         lib = BUILD / f"lib{name}.so"
         procs[name] = subprocess.Popen(
             ["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC",
@@ -293,10 +326,72 @@ def check(which, lib, dtype, case):
     return text
 
 
+# (t, k, n): K5 at [t, k] x [k -> n], K5b contracting over n into [t, k].
+# 3 x 3 tiles on 3 SMs (each block walks three, the ring wraps more than
+# once), 2 x 3 (two each), 1 x 4 (unequal counts), 1 x 3 and 1 x 1 (one
+# block a tile); the quantize holding 3, 6 and 12 chunks a lane (fp32
+# rows past 2048 read again)
+W8A8_CASES = {"k5": [(384, 512, 384), (256, 256, 384), (128, 256, 512),
+                     (128, 512, 384), (128, 1664, 128), (128, 3200, 128)],
+              "k5b": [(384, 384, 512), (256, 384, 256), (128, 512, 256),
+                      (128, 384, 512), (128, 128, 1664), (128, 128, 3200)]}
+
+
+def run_w8a8(lib, which, a, q, w_scale):
+    """One K5 (``k5``) or K5b call on CPU tensors: (out, payload, row
+    scales)."""
+    t, c = a.shape
+    n, k = q.shape
+    out = torch.empty((t, n if which == "k5" else k), dtype=a.dtype)
+    a8 = torch.empty((t, c), dtype=torch.int8)
+    scale = torch.empty((t,), dtype=torch.float32)
+    fn = lib.yat_w8a8_fwd if which == "k5" else lib.yat_w8a8_bwd
+    fn.argtypes = [V] * 6 + [I] * 4 + [V]
+    err = fn(a.data_ptr(), q.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
+             a8.data_ptr(), scale.data_ptr(), t, k, n, DTYPE[a.dtype], None)
+    assert err == 0, err
+    return out, a8, scale
+
+
+def check_w8a8(which, lib, dtype, case):
+    """K5 or K5b against its plain version, bit for bit, twice."""
+    from yat_tpu_torch.ops import quant as Q
+    t, k, n = case
+    x, q, w_scale, g = chip_smoke.w8a8_inputs(t, k, n, dtype, "cpu",
+                                              seed=t + k + n, special=True)
+    bwd = which == "k5b"
+    info = (ctypes.c_longlong * 12)()
+    lib.yat_w8a8_launch_info.argtypes = [I] * 5 + [V]
+    assert lib.yat_w8a8_launch_info(t, k, n, int(bwd), DTYPE[dtype],
+                                    ctypes.addressof(info)) == 0
+    a = g if bwd else x
+    got = run_w8a8(lib, which, a, q, w_scale)
+    again = run_w8a8(lib, which, a, q, w_scale)
+    want = (Q.w8a8_matmul_bwd_ref if bwd else Q.w8a8_matmul_ref)(
+        a, q, w_scale, quantized=True)
+    bad = chip_smoke.w8a8_mismatch(got, want)
+    same = all(torch.equal(u, v) for u, v in zip(got, again))
+    text = (f"grid {info[0]} for {info[1]} tiles, {info[2]} stages, "
+            f"quantize holding {info[7]} chunks a lane: "
+            + ("bit-equal" if bad is None else f"DIFFER at the {bad}")
+            + (", same bits" if same else ", NOT REPRODUCIBLE"))
+    if bad is not None or not same:
+        raise SystemExit(f"{which} {dtype} {case}: {text}")
+    return text
+
+
 def main(argv):
     which = argv or list(SOURCES)
     libs = build([SOURCES[w] for w in which])
     for w in which:
+        if w in W8A8_CASES:
+            for dtype in (torch.bfloat16, torch.float32):
+                for case in W8A8_CASES[w]:
+                    t0 = time.perf_counter()
+                    text = check_w8a8(w, libs[SOURCES[w]], dtype, case)
+                    print(f"{w} {str(dtype)[6:]} {case}: {text} "
+                          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+            continue
         fwd = w in ("fwd", "k2")
         for dtype in (torch.bfloat16, torch.float32):
             for case in CASES + (FWD_CASES if fwd else []):

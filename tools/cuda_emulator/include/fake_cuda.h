@@ -2,7 +2,8 @@
 // C++ compiler (see emulate.py): qualifiers become nothing, threadIdx is
 // per host thread, bf16 rounds to nearest even, and the warp-collective
 // operations (ldmatrix, mma.sync, shuffles) and cp.async are functions of
-// runtime.cpp that exchange data between the 32 host threads of a warp.
+// runtime.cpp that exchange data between the 32 host threads of a warp;
+// so are Hopper's mbarriers, TMA tile loads and wgmma (w8a8_matmul.cu).
 #pragma once
 
 #include <cmath>
@@ -18,6 +19,8 @@
 #define __launch_bounds__(...)
 #define __align__(n) alignas(n)
 #define __shared__
+#define __grid_constant__
+#define CUDART_VERSION 12080
 
 struct dim3 {
   unsigned x, y, z;
@@ -33,6 +36,13 @@ extern dim3 gridDim, blockDim;
 struct uint4 {
   unsigned x, y, z, w;
 };
+struct float2 {
+  float x, y;
+};
+template <class T>
+T __ldg(const T* p) {
+  return *p;
+}
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
   return {a, b, c, d};
 }
@@ -68,14 +78,56 @@ inline int max(int a, int b) { return a > b ? a : b; }
 inline size_t __cvta_generic_to_shared(const void* p) {
   return reinterpret_cast<size_t>(p);
 }
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  memcpy(&u, &f, 4);
+  return u;
+}
+inline float __uint_as_float(unsigned u) {
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
+// prmt in its default mode: byte i of the result is byte s_i of {y, x}
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const uint64_t v = (uint64_t(y) << 32) | x;
+  unsigned r = 0;
+  for (int i = 0; i < 4; ++i)
+    r |= unsigned((v >> (8 * ((s >> (4 * i)) & 7))) & 0xff) << (8 * i);
+  return r;
+}
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaErrorNotSupported = 801
+};
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+enum cudaDriverEntryPointQueryResult {
+  cudaDriverEntryPointSuccess = 0,
+  cudaDriverEntryPointSymbolNotFound = 1
+};
+enum { cudaEnableDefault = 0 };
+inline cudaError_t cudaGetDevice(int* d) {
+  *d = 0;
+  return cudaSuccess;
+}
+// three SMs, so that a persistent grid walks several tiles a block
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 3;
+  return cudaSuccess;
+}
+cudaError_t cudaGetDriverEntryPointByVersion(const char* name, void** fn,
+                                             unsigned version,
+                                             unsigned long long flags,
+                                             cudaDriverEntryPointQueryResult* q);
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 struct cudaFuncAttributes {
   int numRegs;
   size_t localSizeBytes;
+  size_t sharedSizeBytes;
 };
 template <class K>
 cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
@@ -85,6 +137,7 @@ template <class K>
 cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, K) {
   a->numRegs = 0;
   a->localSizeBytes = 0;
+  a->sharedSizeBytes = 0;
   return cudaSuccess;
 }
 template <class K>
@@ -118,4 +171,12 @@ void emu_cp_async(void* dst, const void* src, int src_bytes, int bytes);
 void emu_commit();
 void emu_wait(int pending);
 unsigned char* emu_smem();
+uint32_t emu_smem_offset(const void* p);
+void emu_mbar_init(void* bar, int count);
+void emu_mbar_arrive(void* bar, uint32_t tx_bytes);
+void emu_mbar_wait(void* bar, uint32_t parity);
+void emu_tma_load_2d(void* dst, const void* map, void* bar, int c0, int c1);
+void emu_wgmma_s8(int* d, int n, uint64_t da, uint64_t db, int scale_d);
+void emu_wgmma_commit();
+void emu_wgmma_wait(int pending);
 void emu_launch(dim3 grid, int threads, std::function<void()> body);

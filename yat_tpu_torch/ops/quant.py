@@ -184,11 +184,21 @@ def _check(a, q, w_scale, name):
                          f"most {MAX_DIM})")
 
 
+def _check_aligned(name, **tensors):
+    """The kernels read their inputs by TMA and 16-byte loads: every base
+    pointer on a 16-byte boundary."""
+    for label, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the {label} starts at "
+                             f"{t.data_ptr():#x}, not on a 16-byte boundary")
+
+
 def _w8a8_cuda(x, q, w_scale, quantized=False):
     """K5: quantize the rows of x, then the int8 GEMM with the fused
     epilogue (two launches of one entry point, one count)."""
     _check(x, q, w_scale, "w8a8_matmul")
     x, q = x.contiguous(), q.contiguous()
+    _check_aligned("w8a8_matmul", activation=x, weight=q, scale=w_scale)
     t, k = x.shape
     n = q.shape[0]
     y = torch.empty((t, n), dtype=x.dtype, device=x.device)
@@ -203,13 +213,15 @@ def _w8a8_cuda(x, q, w_scale, quantized=False):
 
 def _w8a8_bwd_cuda(g, q, w_scale, quantized=False):
     """K5b: quantize the rows of g * w_scale, then the int8 GEMM over N
-    with q's tiles transposed as they are staged."""
+    with q's tiles transposed in shared memory."""
     g = g.contiguous()
     if g.ndim != 2 or g.shape[1] != q.shape[0]:
         raise ValueError(f"w8a8_matmul backward: g {tuple(g.shape)} does not "
                          f"fit the weight {tuple(q.shape)}")
     _check(g, q, w_scale, "w8a8_matmul backward")
     q = q.contiguous()
+    _check_aligned("w8a8_matmul backward", gradient=g, weight=q,
+                   scale=w_scale)
     t, n = g.shape
     k = q.shape[1]
     dx = torch.empty((t, k), dtype=g.dtype, device=g.device)
