@@ -11,17 +11,24 @@ Phases, each of which fails the run (exit code 1) when it fails:
    ``yat_tpu_torch/csrc`` with nvcc (one process per source, in parallel);
    prints ptxas's registers and spills by kernel, and the registers,
    shared bytes and blocks per SM of the bf16 launches of K6 and K2 (the
-   forwards), of K6b and K2b, and of K5's and K5b's quantize and GEMM at
-   every w8a8 case with the GEMM grid the launcher chooses;
+   forwards), of K6b and K2b, of K5's and K5b's quantize and GEMM at
+   every w8a8 case with the GEMM grid the launcher chooses, and of K3's
+   (tensor-core and CUDA-core paths, each padded head dim) and K1's (the
+   row in registers, the generic loop) launches;
 3. kernels: holds each kernel (K1, K2, K3, K4 through K2's kernel and K6
    forward; K1b, K2b, K4b through K2b's kernel and K6b backward) against
    its plain PyTorch version at the serving and training paths' shapes and
    at ragged and masked shapes (the forwards also at masks whose kept keys
-   fill one middle or the last key tile only), in bf16 and fp32, and times
+   fill one middle or the last key tile only; K1 also at PixArt-Sigma's
+   serving shape and on its generic-width path; K3 also at head dim 64,
+   at N = 17, with an fp32 state, and with NaN inputs, whose NaN outputs
+   must fall where the plain version's do), in bf16 and fp32, naming the
+   path each K1 and K3 launch took, and times
    the kernel, the plain version and (where one exists) one PyTorch call
    computing the same function (and the kernel's multiple of it and of the
    bound), beside the least time the card could take (for the masked
-   forwards, counting the kept keys only); K5 and K5b
+   forwards, counting the kept keys only), at the main path's shape and,
+   for K1 and K3, at every case; K5 and K5b
    (the w8a8 matmul and its backward) must equal their plain versions bit
    for bit (int8 payload, row scales, output) at SANA's and PixArt's
    shapes and with zero rows and one-large-value rows; at the main case
@@ -217,6 +224,7 @@ def phase_build():
     log_fwd_launch_info()
     log_bwd_launch_info()
     log_w8a8_launch_info()
+    log_k1_k3_launch_info()
 
 
 def entry_name(mangled: str) -> str:
@@ -307,6 +315,36 @@ def log_bwd_launch_info():
                     f"bytes, {blocks} blocks ({4 * blocks} warps) per SM")
 
 
+# K3's launches reported by the build phase: (dtype, implementation, head
+# dim); "auto" below N = 4096 rounds the state (bf16: the tensor cores),
+# "pallas" keeps it in fp32 (the CUDA cores)
+K3_INFO = [(dt, impl, d) for dt in ("bfloat16", "float32")
+           for impl in ("auto", "pallas") for d in (16, 32, 48, 64)
+           if dt == "bfloat16" or impl == "auto"]
+# K1's: (dtype, width); 1152 holds the row in registers
+K1_INFO = [(dt, d) for dt in ("bfloat16", "float32") for d in (1152, 1000)]
+
+
+def log_k1_k3_launch_info():
+    """The path, registers, spills, shared bytes and blocks per SM of K3's
+    launches (each dtype, state and padded head dim) and K1's (the
+    register path's width and another), with 16-byte aligned rows."""
+    import torch
+
+    from yat_tpu_torch.ops import attention as A
+    from yat_tpu_torch.ops import norm as N
+    dev = torch.device("cuda", 0)
+    for dt, impl, d in K3_INFO:
+        q = torch.zeros((1, 16, 1, d), dtype=getattr(torch, dt), device=dev)
+        log(f"  linear_attention {dt} {impl} D={d}: "
+            + launch_text(A.linear_attention_launch_info(q, q, q, impl)))
+    for dt, d in K1_INFO:
+        x = torch.zeros((1, 8, d), dtype=getattr(torch, dt), device=dev)
+        m = torch.zeros((1, 1, d), dtype=x.dtype, device=dev)
+        log(f"  adaln_layernorm {dt} D={d}: "
+            + launch_text(N.adaln_launch_info(x, m, m)))
+
+
 # ---------------------------------------------------------------------------
 # 3. kernels
 # ---------------------------------------------------------------------------
@@ -367,6 +405,19 @@ def compare(name, got, want):
     return err_max, used, ok and used <= 1.0, text
 
 
+def compare_nan(name, got, want):
+    """``compare`` for outputs that hold NaN: the NaN count of the plain
+    version, whether the kernel's NaN fall on exactly the plain version's
+    positions, and the other entries against the tolerance:
+    (count, same positions, max |kernel - plain|, share used, ok, tol)."""
+    import torch
+    gn, wn = torch.isnan(got), torch.isnan(want)
+    where = bool(torch.equal(gn, wn))
+    err, used, ok, tol = compare(name, got.masked_fill(gn, 0),
+                                 want.masked_fill(wn, 0))
+    return int(wn.sum()), where, err, used, ok and where, tol
+
+
 def _mask(keep, nk, device):
     """[B, N_k] int32 keep-mask: an int keeps that many leading keys, a
     (lo, hi) pair the keys [lo, hi)."""
@@ -418,9 +469,11 @@ def attention_work(b, nq, nk, h, d, es, keep, elementwise=0):
 
 def kernel_cases(device):
     """(kernel name, case label, dtype, make_inputs, kernel_fn, plain_fn,
-    library_fn, a (fwd+bwd, fwd) pair or None, bytes, flops) for every
-    case; the first case of each kernel is its main path's shape
-    (``MAIN_CASE``), timed in bf16."""
+    library_fn, a (fwd+bwd, fwd) pair or None, bytes, flops, info_fn or
+    None) for every case; the first case of each kernel is its main path's
+    shape (``MAIN_CASE``), timed in bf16.  ``info_fn(*inputs)`` (K1, K3)
+    describes the launch the kernel makes: its path, registers, local
+    bytes, shared bytes and blocks per SM."""
     import torch
     import torch.nn.functional as F
 
@@ -438,10 +491,14 @@ def kernel_cases(device):
         es = torch.finfo(dtype).bits // 8
         # K1: serving shape x [8, 256, 1152], modulators [8, 1, 1152];
         # training shape x [16, 256, 1152]; ragged: one batch element,
-        # N = 77 rows
+        # N = 77 rows; PixArt-Sigma's serving shape [8, 1024, 1152]; the
+        # generic loop at another width, D = 1000 (the row in registers
+        # takes D = 1152)
         for label, (b, n, d) in (("serve", (8, 256, 1152)),
                                  ("train", (16, 256, 1152)),
-                                 ("ragged", (1, 77, 1152))):
+                                 ("ragged", (1, 77, 1152)),
+                                 ("pixart-serve", (8, 1024, 1152)),
+                                 ("generic", (4, 77, 1000))):
             def make(b=b, n=n, d=d, dtype=dtype):
                 return (randn((b, n, d), dtype), randn((b, 1, d), dtype, 0.1),
                         randn((b, 1, d), dtype, 0.1))
@@ -452,7 +509,8 @@ def kernel_cases(device):
             cases.append(("adaln_layernorm", label, dtype, make,
                           N.adaln_layernorm, plain, None,
                           es * (2 * b * n * d + 2 * b * d),
-                          8 * b * n * d))
+                          8 * b * n * d,
+                          getattr(N, "adaln_launch_info", None)))
         # K2: serving shape q [8, 256, 16, 72], k/v [8, 512, 16, 72] with
         # caption masks (uncond keeps 1 key, cond ~150); training shape
         # q [16, 256, 16, 72], k/v [16, 512, 16, 72] with the training
@@ -538,22 +596,42 @@ def kernel_cases(device):
                           _sdpa_biased,
                           *attention_work(b, nq, nk, h, d, es, keep)))
         # K3: serving shape q/k/v [8, 256, 36, 32], training shape
-        # [16, 256, 36, 32]; ragged: N = 100.  At these lengths the JAX
-        # package's einsum branch runs, which rounds the state to the
-        # compute dtype (round_kv)
-        for label, (b, n, h, d) in (("serve", (8, 256, 36, 32)),
-                                    ("train", (16, 256, 36, 32)),
-                                    ("ragged", (2, 100, 36, 32))):
-            def make(b=b, n=n, h=h, d=d, dtype=dtype):
-                return tuple(randn((b, n, h, d), dtype) for _ in range(3))
+        # [16, 256, 36, 32]; ragged: N = 100 and 17; head dim 64 at the
+        # same width; the fp32 state (implementation "pallas", the JAX
+        # package's Pallas math); NaN in one k entry (its head's outputs
+        # all NaN) and one q entry (its row NaN).  Below N = 4096 "auto"
+        # takes the JAX package's einsum branch, which rounds the state to
+        # the compute dtype (round_kv)
+        for label, (b, n, h, d), impl in (
+                ("serve", (8, 256, 36, 32), "auto"),
+                ("train", (16, 256, 36, 32), "auto"),
+                ("ragged", (2, 100, 36, 32), "auto"),
+                ("ragged-17", (2, 17, 36, 32), "auto"),
+                ("d64", (8, 256, 18, 64), "auto"),
+                ("fp32-state", (8, 256, 36, 32), "pallas"),
+                ("nan", (8, 256, 36, 32), "auto")):
+            def make(b=b, n=n, h=h, d=d, dtype=dtype, label=label):
+                q, k, v = (randn((b, n, h, d), dtype) for _ in range(3))
+                if label == "nan":
+                    k[1, 100, 5, 7] = float("nan")
+                    q[3, 200, 10, 3] = float("nan")
+                return q, k, v
 
-            def plain(q, k, v):
+            def kern(q, k, v, impl=impl):
+                return A.linear_attention(q, k, v, implementation=impl)
+
+            def plain(q, k, v, impl=impl):
                 return A.linear_attention_ref(
-                    q, k, v, round_kv=A.kv_rounding(q.shape[1], q.shape[3]))
-            cases.append(("linear_attention", label, dtype, make,
-                          A.linear_attention, plain, None,
-                          es * 4 * b * n * h * d,
-                          b * h * (4 * n * d * d + 4 * n * d)))
+                    q, k, v,
+                    round_kv=A.kv_rounding(q.shape[1], q.shape[3], impl))
+
+            def info(q, k, v, impl=impl):
+                return A.linear_attention_launch_info(q, k, v, impl)
+            cases.append(("linear_attention", label, dtype, make, kern,
+                          plain, None, es * 4 * b * n * h * d,
+                          b * h * (4 * n * d * d + 4 * n * d),
+                          info if hasattr(A, "linear_attention_launch_info")
+                          else None))
         # K1b: training shape x, g [16, 256, 1152], scale [16, 1152];
         # ragged: one batch element, N = 100.  ~17 flops per element
         for label, (b, n, d) in (("train", (16, 256, 1152)),
@@ -785,24 +863,57 @@ WRONG_BWD = {
                             "di = rowsum(o dO)")}
 
 
-def phase_kernels(device, names=None):
-    """Every kernel case (those of ``names`` only, when given) against its
-    plain version; the main cases timed."""
+# kernels timed at every case of the kernel phase, both dtypes, beside
+# their main case
+TIMED_EVERY_CASE = ("adaln_layernorm", "linear_attention")
+# cases whose outputs hold NaN on purpose: their NaN must fall where the
+# plain version's do (compare_nan); not timed
+NAN_CASES = {("linear_attention", "nan")}
+
+
+def launch_text(info):
+    """A K1 or K3 launch (``adaln_launch_info``/``linear_attention_launch_
+    info``) as text."""
+    copy = (f", {info['copy_bytes']}-byte copies" if "copy_bytes" in info
+            else "")
+    return (f"path {info['path']}{copy}: {info['registers']} registers, "
+            f"{info['local_bytes']} local (spill) bytes a thread, "
+            f"{info['shared_bytes']} shared bytes, {info['blocks_per_sm']} "
+            "blocks per SM")
+
+
+def phase_kernels(device, names=None, skip_labels=()):
+    """Every kernel case (those of ``names`` only, when given, less the
+    labels in ``skip_labels``) against its plain version; the main cases
+    timed, and every case of K1 and K3, each with the path its launch
+    took."""
     import torch
 
     results = {}
-    for (name, label, dtype, make, kern, plain, library, nbytes,
-         flops) in kernel_cases(device):
-        if names is not None and name not in names:
+    for case in kernel_cases(device):
+        name, label, dtype, make, kern, plain, library, nbytes, flops = \
+            case[:9]
+        info_fn = case[9] if len(case) > 9 else None
+        if (names is not None and name not in names) or label in skip_labels:
             continue
         args = make()
         got = kern(*args)
         want = plain(*args)
         torch.cuda.synchronize()
-        err, used, ok, tol = compare(name, got, want)
         dt = str(dtype).replace("torch.", "")
-        log(f"{name} [{label}, {dt}] max_abs_err {err:.3e}, {used:.3f} of "
-            f"the allowance ({tol}) {'ok' if ok else 'MISMATCH'}")
+        path = "" if info_fn is None else launch_text(info_fn(*args))
+        if (name, label) in NAN_CASES:
+            count, where, err, used, ok, tol = compare_nan(name, got, want)
+            log(f"{name} [{label}, {dt}] {count} NaN outputs "
+                + ("where the plain version has them" if where
+                   else "MISPLACED against the plain version's")
+                + f"; the rest max_abs_err {err:.3e}, {used:.3f} of the "
+                f"allowance ({tol}) {'ok' if ok else 'MISMATCH'}; {path}")
+        else:
+            err, used, ok, tol = compare(name, got, want)
+            log(f"{name} [{label}, {dt}] max_abs_err {err:.3e}, {used:.3f} of "
+                f"the allowance ({tol}) {'ok' if ok else 'MISMATCH'}"
+                + (f"; {path}" if path else ""))
         if not ok:
             fail(f"{name} [{label}, {dt}] disagrees with its plain version")
         if FWD_SKIP.get(name) and dtype == torch.bfloat16 \
@@ -827,16 +938,19 @@ def phase_kernels(device, names=None):
             if w_ok:
                 fail(f"{name} [{label}, {dt}]: the tolerance accepts a "
                      "backward without the row term")
-        if label != MAIN_CASE[name] or dtype != torch.bfloat16:
+        main = label == MAIN_CASE[name] and dtype == torch.bfloat16
+        every = name in TIMED_EVERY_CASE and (name, label) not in NAN_CASES
+        if not (main or every):
             continue
         inputs = _rotations(make, nbytes)
         ms = time_ms(kern, inputs, 50)
         plain_ms = time_ms(plain, inputs, 20)
-        if isinstance(library, tuple):
+        lib_ms = None
+        if main and isinstance(library, tuple):
             lib_ms = time_ms(library[0], inputs, 50) - time_ms(
                 library[1], inputs, 50)
-        else:
-            lib_ms = time_ms(library, inputs, 50) if library else None
+        elif main and library:
+            lib_ms = time_ms(library, inputs, 50)
         # the softmax attentions' products are tensor-core work on bf16
         # inputs; K1's, K1b's and K3's arithmetic is fp32 whatever the
         # storage type
@@ -845,18 +959,25 @@ def phase_kernels(device, names=None):
                 else FP32_FLOPS)
         t_bytes = nbytes / HBM_BYTES_S * 1e3
         t_ops = flops / peak * 1e3
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "library_ms": lib_ms,
-                         "bound_ms": max(t_bytes, t_ops),
-                         "bound_by": "bytes" if t_bytes >= t_ops
-                         else "operations",
-                         "bytes": nbytes, "flops": flops}
-        log(f"{name} [{label}, bf16] kernel_ms {ms:.4f}  plain_ms "
+        bound = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        if main:
+            results[name] = {"max_abs_err": err, "ms": ms,
+                             "plain_ms": plain_ms, "library_ms": lib_ms,
+                             "bound_ms": bound, "bound_by": bound_by,
+                             "bytes": nbytes, "flops": flops,
+                             **({"cases": results[name]["cases"]}
+                                if "cases" in results.get(name, {}) else {})}
+        if every:
+            results.setdefault(name, {}).setdefault("cases", []).append(
+                {"case": label, "dtype": dt, "path": path, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                 "max_abs_err": err})
+        log(f"{name} [{label}, {dt}] kernel_ms {ms:.4f}  plain_ms "
             f"{plain_ms:.4f}  library_ms "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f}'}  bound_ms "
-            f"{results[name]['bound_ms']:.4f} ({results[name]['bound_by']}:"
-            f" {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)  "
-            f"kernel/bound {ms / results[name]['bound_ms']:.2f}x"
+            f"{bound:.4f} ({bound_by}: {nbytes / 1e6:.2f} MB, "
+            f"{flops / 1e9:.3f} GFLOP)  kernel/bound {ms / bound:.2f}x"
             + ("" if lib_ms is None else
                f"  kernel/library {ms / lib_ms:.2f}x"))
     return results
@@ -2488,9 +2609,10 @@ def main() -> None:
         # row-major, the bf16 matmul on the dequantized weight (the path
         # without int8_w8a8), the quantize's and the GEMM's device time
         # and the host's time a call with its parts
+        # K1/K3: every kernel-phase case's time and path ("cases")
         for key in ("library", "int_mm_row_major_ms", "bf16_linear_ms",
                     "quantize_ms", "gemm_ms", "host_us", "host_entry_us",
-                    "host_empty_us"):
+                    "host_empty_us", "cases"):
             if key in k:
                 row[key] = k[key]
         rows.append(row)

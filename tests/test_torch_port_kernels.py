@@ -101,6 +101,60 @@ def test_cpu_tensors_never_launch():
     assert KB.launch_counts() == before
 
 
+def test_linear_attention_wrapper_refuses_rows_off_four_bytes():
+    """K3 copies rows in 4-byte pieces at least: an odd bf16 head dim, or a
+    stride that leaves rows on 2-byte boundaries, raises before any build
+    or launch."""
+    q = torch.zeros((1, 4, 2, 5), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="4-byte"):
+        TA._linear_attention_args(q, q, q, torch.empty_like(q), 1e-15, True)
+    wide = torch.zeros((1, 4, 2, 9), dtype=torch.bfloat16)[..., 1:]
+    with pytest.raises(ValueError, match="4-byte"):
+        TA._linear_attention_args(wide, wide, wide, torch.empty_like(wide),
+                                  1e-15, True)
+
+
+def test_compare_nan_holds_nan_positions():
+    """chip_smoke.compare_nan passes NaN where the plain version has them
+    and fails a NaN swallowed or moved."""
+    import chip_smoke
+    want = torch.tensor([[1.0, float("nan")], [2.0, 3.0]])
+    count, where, _, _, ok, _ = chip_smoke.compare_nan(
+        "linear_attention", want.clone(), want)
+    assert (count, where, ok) == (1, True, True)
+    swallowed = torch.tensor([[1.0, 0.0], [2.0, 3.0]])
+    moved = torch.tensor([[float("nan"), 5.0], [2.0, 3.0]])
+    for got in (swallowed, moved):
+        assert not chip_smoke.compare_nan("linear_attention", got, want)[4]
+
+
+def test_chip_smoke_k1_k3_cases_on_cpu():
+    """chip_smoke.py's K1 and K3 cases, fp32 on the CPU (the wrappers take
+    the plain versions there): every case builds its inputs, runs and
+    passes its comparison; the NaN case puts NaN in one k head and one q
+    row."""
+    import chip_smoke
+    labels = {"adaln_layernorm": [], "linear_attention": []}
+    for case in chip_smoke.kernel_cases("cpu"):
+        name, label, dtype, make, kern, plain = case[:6]
+        if name not in labels or dtype != torch.float32:
+            continue
+        labels[name].append(label)
+        args = make()
+        got, want = kern(*args), plain(*args)
+        if (name, label) in chip_smoke.NAN_CASES:
+            count, where, _, _, ok, _ = chip_smoke.compare_nan(name, got,
+                                                               want)
+            assert count == 256 * 32 + 32 and where and ok
+        else:
+            assert chip_smoke.compare(name, got, want)[2]
+    assert labels == {
+        "adaln_layernorm": ["serve", "train", "ragged", "pixart-serve",
+                            "generic"],
+        "linear_attention": ["serve", "train", "ragged", "ragged-17", "d64",
+                             "fp32-state", "nan"]}
+
+
 # ---------------------------------------------------------------------------
 # on the card: each kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -435,6 +489,112 @@ def test_card_linear_attention_fp32_state(cuda, dtype):
     out = TA.linear_attention(q, k, v, implementation="pallas")
     torch.cuda.synchronize()
     _close(out, TA.linear_attention_ref(q, k, v, round_kv=False))
+
+
+# K3's launches: (b, n, h, d, implementation, the path it takes in bf16)
+K3_PATH_CASES = [(8, 256, 36, 32, "auto", "tensor cores"),
+                 (2, 17, 36, 32, "auto", "tensor cores"),
+                 (4, 256, 18, 64, "auto", "tensor cores"),
+                 (2, 600, 4, 16, "auto", "tensor cores"),
+                 (8, 256, 36, 32, "pallas", "CUDA cores"),
+                 (2, 17, 36, 64, "pallas", "CUDA cores")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n,h,d,impl,path", K3_PATH_CASES)
+def test_card_linear_attention_paths(cuda, dtype, b, n, h, d, impl, path):
+    """Both K3 paths (bf16 with a rounded state on the tensor cores; the
+    fp32 state and fp32 on the CUDA cores) against the plain version with
+    the state of the JAX branch that implementation names."""
+    g = torch.Generator(device=cuda).manual_seed(n + d)
+    q, k, v = (torch.randn((b, n, h, d), generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    info = TA.linear_attention_launch_info(q, k, v, impl)
+    assert info["path"] == (path if dtype == torch.bfloat16
+                            else "CUDA cores")
+    assert info["copy_bytes"] == 16 and info["local_bytes"] == 0
+    out = TA.linear_attention(q, k, v, implementation=impl)
+    torch.cuda.synchronize()
+    _close(out, TA.linear_attention_ref(
+        q, k, v, round_kv=TA.kv_rounding(n, d, impl)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["auto", "pallas"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_card_linear_attention_carries_nan(cuda, dtype, impl):
+    """ReLU keeps NaN on both paths: a NaN in k spoils its head, a NaN in q
+    its row, exactly where linear_attention_ref puts them."""
+    import chip_smoke
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn((2, 100, 4, 32), generator=g,
+                           device=cuda).to(dtype) for _ in range(3))
+    k[1, 40, 2, 5] = float("nan")
+    q[0, 70, 1, 9] = float("nan")
+    out = TA.linear_attention(q, k, v, implementation=impl)
+    want = TA.linear_attention_ref(q, k, v,
+                                   round_kv=TA.kv_rounding(100, 32, impl))
+    torch.cuda.synchronize()
+    count, where, _, _, ok, _ = chip_smoke.compare_nan("linear_attention",
+                                                       out, want)
+    assert count == 100 * 32 + 32 and where and ok
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,layout,path", [
+    ((2, 77, 1000), "plain", "generic"),
+    ((1, 9, 96), "plain", "generic"),
+    ((2, 33, 1152), "unaligned", "generic"),
+    ((8, 1024, 1152), "plain", "registers")])
+def test_card_adaln_paths(cuda, dtype, shape, layout, path):
+    """K1's generic loop (other widths; rows off the four-value vectors)
+    and its row in registers (D = 1152) against the plain version."""
+    b, n, d = shape
+    g = torch.Generator(device=cuda).manual_seed(d)
+    x = torch.randn((b, n, d + (layout == "unaligned")), generator=g,
+                    device=cuda).to(dtype)
+    x = x[..., 1:] if layout == "unaligned" else x
+    sc, sh = ((0.1 * torch.randn((b, 1, d), generator=g, device=cuda)
+               ).to(dtype) for _ in range(2))
+    info = TN.adaln_launch_info(x, sc, sh)
+    assert info["path"] == path and info["local_bytes"] == 0
+    assert info["shared_bytes"] == 0
+    out = TN.adaln_layernorm(x, sc, sh)
+    torch.cuda.synchronize()
+    _close(out, TN.adaln_ref(x, sc[:, 0], sh[:, 0]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["k3", "k3-fp32-state", "k3-fp32",
+                                    "k1", "k1-generic", "k1-fp32"])
+def test_card_k1_k3_are_bit_reproducible(cuda, kernel):
+    """K3 on each path and K1 on each path, at the serving shapes: two
+    launches on the same inputs give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    dtype = torch.float32 if kernel.endswith("fp32") else torch.bfloat16
+    if kernel.startswith("k3"):
+        q, k, v = (torch.randn((8, 256, 36, 32), generator=g,
+                               device=cuda).to(dtype) for _ in range(3))
+        impl = "pallas" if kernel == "k3-fp32-state" else "auto"
+
+        def run():
+            return TA.linear_attention(q, k, v, implementation=impl)
+    else:
+        d = 1000 if kernel == "k1-generic" else 1152
+        x = torch.randn((8, 256, d), generator=g, device=cuda).to(dtype)
+        sc, sh = ((0.1 * torch.randn((8, 1, d), generator=g,
+                                     device=cuda)).to(dtype)
+                  for _ in range(2))
+
+        def run():
+            return TN.adaln_layernorm(x, sc, sh)
+    first = run()
+    second = run()
+    torch.cuda.synchronize()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(first.view(bits), second.view(bits))
 
 
 # backward kernels, each output against the plain backward, with

@@ -414,6 +414,32 @@ def test_linear_attention_matches_jax_kernel_and_public(n):
                                rtol=LINATT_TOL)
 
 
+@pytest.mark.parametrize("where", ["k", "q"])
+def test_linear_attention_ref_carries_nan_like_jax(where):
+    """A NaN in k (its head's every output) or in q (its row) lands where
+    the JAX package's linear_attention and its Pallas kernel (interpret
+    mode) put it: torch.relu and jnp.maximum both keep NaN.  The finite
+    entries agree at the pinned 1e-4."""
+    b, n, h, d = 2, 40, 3, 16
+    q, k, v = _qkv(b, n, n, h, d, seed=5)
+    (k if where == "k" else q)[1, 17, 2, 6] = np.nan
+
+    def fold(a):
+        return jnp.asarray(a.transpose(0, 2, 1, 3).reshape(b * h, n, d))
+    with pltpu.force_tpu_interpret_mode():
+        kern = JA._linear_attention_p(fold(q), fold(k), fold(v), 1e-15)
+    kern = np.asarray(kern).reshape(b, h, n, d).transpose(0, 2, 1, 3)
+    pub = np.asarray(JA.linear_attention(*(jnp.asarray(a) for a in (q, k, v))))
+    port = _np(TA.linear_attention_ref(*(torch.from_numpy(a)
+                                         for a in (q, k, v))))
+    nan = np.isnan(port)
+    assert nan.sum() == (n * d if where == "k" else d)
+    for want in (pub, kern):
+        np.testing.assert_array_equal(np.isnan(want), nan)
+        np.testing.assert_allclose(port[~nan], want[~nan], atol=LINATT_TOL,
+                                   rtol=LINATT_TOL)
+
+
 def test_linear_attention_implementation_strings():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 8, 1, 8))
     ref = TA.linear_attention(q, k, v)

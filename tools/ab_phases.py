@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
 """Run this checkout's ``chip_smoke.py`` phases against another checkout's
-``yat_tpu_torch`` on the card: the kernel phase of the bf16 attention
-forwards (K2, K4 and K6), the kernel phase of K5 and K5b (the w8a8 matmul
-and its backward: bit equality, the main case's times and yardsticks), the
-serve phase of SANA-0.6B and PixArt-Sigma XL-2 at 512px (random weights
-from a seed, five requests over HTTP and one profiled batch of 4), and the
-SANA-0.6B LoRA training phase on an int8 base with w8a8 (six steps, a
-remat step and a profiled step).
+``yat_tpu_torch`` on the card: the kernel phase of the attention forwards
+(K2, K4 and K6), of K1 (the adaLN forward) and of K3 (the ReLU linear
+attention; every K1 and K3 case timed), the kernel phase of K5 and K5b
+(the w8a8 matmul and its backward: bit equality, the main case's times
+and yardsticks), the serve phase of SANA-0.6B and PixArt-Sigma XL-2 at
+512px (random weights from a seed, five requests over HTTP and one
+profiled batch of 4), and the SANA-0.6B LoRA training phase on a bf16
+base (``train``) and on an int8 base with w8a8 (``int8``; six steps, a
+remat step and a profiled step each).
 
-    python3 tools/ab_phases.py TREE [kernels] [w8a8] [sana] [pixart] [int8]
+    python3 tools/ab_phases.py TREE [kernels] [w8a8] [sana] [pixart] [train]
+                                    [int8]
 
 TREE is the root of the checkout whose package runs; the cases, the
 tolerance and the timing are this checkout's, so two checkouts run the
 same cases.  The kernel phase's check that fully masked key tiles go
 unread is left to ``chip_smoke.py`` itself: a checkout from before the
-tile walk reads them.  To compare two checkouts on one card, run them in turns in
+tile walk reads them.  So is K3's NaN case where TREE's K3 predates its
+launch info (``linear_attention_launch_info``), as it predates the ReLU
+that keeps NaN.  To compare two checkouts on one card, run them in turns in
 one call: parent, change, change, parent.  Imports nothing of JAX.
 """
 
@@ -27,7 +32,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
 FORWARDS = ("dot_product_attention", "dot_product_attention_folded",
-            "flash_attention")
+            "flash_attention", "adaln_layernorm", "linear_attention")
 
 
 def has_symbol(kernel, symbol):
@@ -42,7 +47,8 @@ def has_symbol(kernel, symbol):
 
 def main(argv):
     tree = Path(argv[0]).resolve()
-    phases = argv[1:] or ["kernels", "w8a8", "sana", "pixart", "int8"]
+    phases = argv[1:] or ["kernels", "w8a8", "sana", "pixart", "train",
+                          "int8"]
     spec = importlib.util.spec_from_file_location("chip_smoke_cases",
                                                   HERE / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
@@ -57,7 +63,9 @@ def main(argv):
     cs.log(f"phases {phases} of {tree}")
     if "kernels" in phases:
         cs.FWD_SKIP = {}
-        cs.phase_kernels(device, names=FORWARDS)
+        skip = () if hasattr(attention, "linear_attention_launch_info") \
+            else ("nan",)
+        cs.phase_kernels(device, names=FORWARDS, skip_labels=skip)
     if "w8a8" in phases:
         from yat_tpu_torch.ops import quant
         if not has_symbol(quant.W8A8_MATMUL, "yat_w8a8_launch_info"):
@@ -71,6 +79,10 @@ def main(argv):
                            profile=True)
             gc.collect()
             torch.cuda.empty_cache()
+    if "train" in phases:
+        cs.phase_train(device, card)
+        gc.collect()
+        torch.cuda.empty_cache()
     if "int8" in phases:
         cs.phase_train(device, card, cfg_extra=cs.INT8_KEYS,
                        label="int8 train")

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Run the port's attention and int8 kernels on the host CPU, to check
-fragment maps, masks, descriptors and ring stages of a kernel before its
-first call on the card.
+"""Run the port's attention, int8, linear-attention and adaLN kernels on
+the host CPU, to check fragment maps, masks, descriptors and ring stages
+of a kernel before its first call on the card.
 
     python3 tools/cuda_emulator/emulate.py [fwd] [k2] [k6b] [k2b] [k5] [k5b]
+                                           [k3] [k1]
 
 The sources of ``yat_tpu_torch/csrc`` are copied to ``_build/`` beside this
 file with the inline-asm helpers of ``attention_tiles.cuh`` (ldmatrix,
@@ -27,6 +28,17 @@ walking several tiles, the ring wrapping) and a grid of one block per
 tile, and every quantize hold (3, 6 and 12 chunks a lane; fp32 rows past
 2048 read again), zero rows and large values included; payload, row
 scales and output must equal the plain versions' bit for bit, twice.
+
+``k3`` (ReLU linear attention) runs bf16 with a rounded state (the
+tensor-core path), bf16 with an fp32 state and fp32 (the CUDA-core path)
+at N = 256, the ragged N = 100 and 17, N = 600 (each warp's ring of
+stages wrapping), head dims 16, 32, 64 and 20 (4-byte copies), q/k/v as
+views of one fused [B, N, 3, H, D] tensor, and with a NaN in one k entry
+and one q entry (the NaN positions must be the plain version's).  ``k1``
+(the adaLN forward) runs D = 1152 (the row in registers), D = 1000 and an
+unaligned D = 1152 view (the generic loop), at ragged N.  Each case names
+the path the launch took, is held against its plain version with
+``chip_smoke.py``'s tolerance and must give the same bits twice.
 
 Timings mean nothing here, and nvcc may still refuse what g++ accepts.
 """
@@ -53,7 +65,8 @@ from yat_tpu_torch.ops import attention as A  # noqa: E402
 
 SOURCES = {"fwd": "flash_attention", "k2": "softmax_attention",
            "k6b": "flash_attention_bwd", "k2b": "softmax_attention_bwd",
-           "k5": "w8a8_matmul", "k5b": "w8a8_matmul"}
+           "k5": "w8a8_matmul", "k5b": "w8a8_matmul",
+           "k3": "linear_attention", "k1": "adaln"}
 ASM = {"ldsm_x4": "emu_ldsm(r, p, false);",
        "ldsm_x4_t": "emu_ldsm(r, p, true);",
        "mma_bf16": "emu_mma(c, a, b0, b1);",
@@ -120,8 +133,8 @@ def prepare():
         s = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?"
                    r"((?:unsigned )?\w+) (\w+)\[\];",
                    r"\1* \2 = (\1*)emu_smem();", s)
-        s = re.sub(r"(\w+)\s*<<<(.*?)>>>\s*\((.*?)\);", _launch, s,
-                   flags=re.S)
+        s = re.sub(r"(\w+(?:<[\w\s,]*>)?)\s*<<<(.*?)>>>\s*\((.*?)\);",
+                   _launch, s, flags=re.S)
         (out / p.name).write_text(s)
     return out
 
@@ -380,10 +393,148 @@ def check_w8a8(which, lib, dtype, case):
     return text
 
 
+# K3: (b, n, h, d, layout): N = 256 (a warp's whole stream in its ring),
+# ragged 100 and 17, 600 (the ring wraps); head dims 16, 64 and 20 (4-byte
+# copies); q/k/v as views of one fused [B, N, 3, H, D] tensor
+K3_CASES = [(1, 256, 2, 32, "plain"), (1, 100, 2, 32, "plain"),
+            (1, 17, 2, 32, "plain"), (1, 600, 1, 32, "plain"),
+            (1, 256, 1, 16, "plain"), (1, 100, 1, 64, "plain"),
+            (1, 70, 1, 20, "plain"), (2, 40, 2, 32, "fused")]
+# (dtype, round_kv): the tensor-core path, then the CUDA-core path
+K3_MODES = [(torch.bfloat16, True), (torch.bfloat16, False),
+            (torch.float32, False)]
+
+
+def k3_inputs(b, n, h, d, dtype, layout, nan=False, seed=0):
+    gen = torch.Generator().manual_seed(seed + n + d)
+    if layout == "fused":
+        qkv = torch.randn((b, n, 3, h, d), generator=gen).to(dtype)
+        q, k, v = qkv.unbind(2)
+    else:
+        q, k, v = (torch.randn((b, n, h, d), generator=gen).to(dtype)
+                   for _ in range(3))
+    if nan:
+        # k's NaN spoils its whole head, q's its own row
+        k[0, n // 3, h - 1, d // 4] = float("nan")
+        q[0, n // 2, 0, d // 3] = float("nan")
+    return q, k, v
+
+
+def run_k3(lib, q, k, v, round_kv):
+    """One K3 call: (output, [path, copy bytes, ...] of the launch)."""
+    b, n, h, d = q.shape
+    out = torch.empty((b, n, h, d), dtype=q.dtype)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n,
+            h, d, *_st(q), *_st(k), *_st(v), *_st(out), 1e-15,
+            int(round_kv), DTYPE[q.dtype]]
+    argtypes = [V] * 4 + [I] * 4 + [L] * 12 + [F, I, I, V]
+    lib.yat_linear_attention_fwd.argtypes = argtypes
+    lib.yat_linear_attention_info.argtypes = argtypes
+    info = (ctypes.c_longlong * 6)()
+    assert lib.yat_linear_attention_info(*args, ctypes.addressof(info)) == 0
+    err = lib.yat_linear_attention_fwd(*args, None)
+    assert err == 0, err
+    return out, list(info)
+
+
+def check_k3(lib, dtype, round_kv, case, nan=False):
+    b, n, h, d, layout = case
+    q, k, v = k3_inputs(b, n, h, d, dtype, layout, nan)
+    got, info = run_k3(lib, q, k, v, round_kv)
+    again, _ = run_k3(lib, q, k, v, round_kv)
+    want = A.linear_attention_ref(q, k, v, round_kv=round_kv)
+    same = torch.equal(got.view(torch.int16 if dtype == torch.bfloat16
+                                else torch.int32),
+                       again.view(torch.int16 if dtype == torch.bfloat16
+                                  else torch.int32))
+    path = (f"{'tensor cores' if info[0] else 'CUDA cores'}, "
+            f"{info[1]}-byte copies")
+    if nan:
+        count, where, err, used, ok, _ = chip_smoke.compare_nan(
+            "linear_attention", got, want)
+        placed = "where the plain version has them" if where else "MISPLACED"
+        text = (f"{path}: {count} NaN outputs {placed}, the rest "
+                f"max_abs_err {err:.3e}, {used:.3f} of the allowance")
+    else:
+        err, used, ok, _ = chip_smoke.compare("linear_attention", got, want)
+        text = f"{path}: max_abs_err {err:.3e}, {used:.3f} of the allowance"
+    text += (f", {'ok' if ok else 'MISMATCH'}, "
+             f"{'same bits' if same else 'NOT REPRODUCIBLE'}")
+    if not (ok and same):
+        raise SystemExit(f"k3 {dtype} round_kv={round_kv} {case}: {text}")
+    return text
+
+
+# K1: (b, n, d, layout): the width the row-in-registers path is built for,
+# another width, and a view whose rows are not 8-byte aligned (the generic
+# loop at D = 1152); ragged N
+K1_CASES = [(2, 37, 1152, "plain"), (1, 5, 1152, "plain"),
+            (1, 77, 1000, "plain"), (2, 9, 1152, "unaligned")]
+
+
+def run_k1(lib, x, sc, sh):
+    b, n, d = x.shape
+    out = torch.empty((b, n, d), dtype=x.dtype)
+    args = [x.data_ptr(), sc.data_ptr(), sh.data_ptr(), out.data_ptr(), b, n,
+            d, x.stride(0), x.stride(1), sc.stride(0), sh.stride(0),
+            out.stride(0), out.stride(1), 1e-6, DTYPE[x.dtype]]
+    argtypes = [V] * 4 + [I] * 3 + [L] * 6 + [F, I, V]
+    lib.yat_adaln_fwd.argtypes = argtypes
+    lib.yat_adaln_fwd_info.argtypes = argtypes
+    info = (ctypes.c_longlong * 5)()
+    assert lib.yat_adaln_fwd_info(*args, ctypes.addressof(info)) == 0
+    err = lib.yat_adaln_fwd(*args, None)
+    assert err == 0, err
+    return out, list(info)
+
+
+def check_k1(lib, dtype, case):
+    from yat_tpu_torch.ops import norm as N
+    b, n, d, layout = case
+    gen = torch.Generator().manual_seed(n + d)
+    if layout == "unaligned":
+        x = torch.randn((b, n, d + 1), generator=gen).to(dtype)[..., 1:]
+    else:
+        x = torch.randn((b, n, d), generator=gen).to(dtype)
+    sc, sh = ((0.1 * torch.randn((b, d), generator=gen)).to(dtype)
+              for _ in range(2))
+    got, info = run_k1(lib, x, sc, sh)
+    again, _ = run_k1(lib, x, sc, sh)
+    want = N.adaln_ref(x, sc, sh)
+    err, used, ok, _ = chip_smoke.compare("adaln_layernorm", got, want)
+    same = torch.equal(got, again)
+    text = (f"{'row in registers' if info[0] else 'generic loop'}: "
+            f"max_abs_err {err:.3e}, {used:.3f} of the allowance, "
+            f"{'ok' if ok else 'MISMATCH'}, "
+            f"{'same bits' if same else 'NOT REPRODUCIBLE'}")
+    if not (ok and same):
+        raise SystemExit(f"k1 {dtype} {case}: {text}")
+    return text
+
+
 def main(argv):
     which = argv or list(SOURCES)
     libs = build([SOURCES[w] for w in which])
     for w in which:
+        if w == "k3":
+            for dtype, round_kv in K3_MODES:
+                for case, nan in ([(c, False) for c in K3_CASES]
+                                  + [(K3_CASES[1], True)]):
+                    t0 = time.perf_counter()
+                    text = check_k3(libs[SOURCES[w]], dtype, round_kv, case,
+                                    nan)
+                    print(f"k3 {str(dtype)[6:]} round_kv={int(round_kv)} "
+                          f"{case}{' NaN' if nan else ''}: {text} "
+                          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+            continue
+        if w == "k1":
+            for dtype in (torch.bfloat16, torch.float32):
+                for case in K1_CASES:
+                    t0 = time.perf_counter()
+                    text = check_k1(libs[SOURCES[w]], dtype, case)
+                    print(f"k1 {str(dtype)[6:]} {case}: {text} "
+                          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+            continue
         if w in W8A8_CASES:
             for dtype in (torch.bfloat16, torch.float32):
                 for case in W8A8_CASES[w]:

@@ -33,11 +33,17 @@ extern thread_local uint3 threadIdx;
 extern uint3 blockIdx;
 extern dim3 gridDim, blockDim;
 
+struct uint2 {
+  unsigned x, y;
+};
 struct uint4 {
   unsigned x, y, z, w;
 };
 struct float2 {
   float x, y;
+};
+struct float4 {
+  float x, y, z, w;
 };
 template <class T>
 T __ldg(const T* p) {
@@ -67,6 +73,15 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
 }
 inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
   return {__float2bfloat16_rn(a), __float2bfloat16_rn(b)};
+}
+// max of each half; a NaN in either operand gives the canonical NaN
+inline __nv_bfloat16 emu_hmax_nan(__nv_bfloat16 a, __nv_bfloat16 b) {
+  const float x = __bfloat162float(a), y = __bfloat162float(b);
+  if (x != x || y != y) return {uint16_t(0x7fff)};
+  return x < y ? b : a;
+}
+inline __nv_bfloat162 __hmax2_nan(__nv_bfloat162 a, __nv_bfloat162 b) {
+  return {emu_hmax_nan(a.x, b.x), emu_hmax_nan(a.y, b.y)};
 }
 
 // compiled with -ffp-contract=off, so each operation rounds on its own

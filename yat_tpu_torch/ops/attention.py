@@ -551,25 +551,62 @@ def linear_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (num / (den + eps)).to(q.dtype)
 
 
-def _linear_attention_cuda(q, k, v, eps, round_kv):
-    _check_cuda("linear_attention", (q, k, v))
+def _linear_attention_args(q, k, v, out, eps, round_kv):
+    """Check q/k/v/out for K3 and return its C arguments up to the dtype
+    code (the stream, or the info buffer, follows)."""
+    _check_cuda("linear_attention", (q, k, v, out))
     b, n, h, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError("linear_attention takes q, k, v of one shape")
-    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
+    es = q.element_size()
+    for t in (q, k, v, out):
+        if (d * es) % 4 or t.data_ptr() % 4 or any(
+                (s * es) % 4 for s in t.stride()[:3]):
+            raise ValueError(
+                "linear_attention kernel copies rows in 4-byte pieces: D and "
+                "the strides of q, k, v must keep every row on a 4-byte "
+                f"boundary (got D={d}, {q.dtype}, strides "
+                f"{[t.stride() for t in (q, k, v)]})")
     max_d = LINEAR_ATTENTION.function("yat_linear_attention_max_head_dim")()
     if d > max_d:
         raise ValueError(f"linear_attention kernel takes head_dim <= {max_d},"
                          f" got {d}")
-    with torch.cuda.device(q.device):
-        LINEAR_ATTENTION.launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, n, h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], float(eps), int(round_kv), dtype_code(q),
-            stream_of(q))
+            *out.stride()[:3], float(eps), int(round_kv), dtype_code(q))
+
+
+def _linear_attention_cuda(q, k, v, eps, round_kv):
+    b, n, h, d = q.shape
+    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    args = _linear_attention_args(q, k, v, out, eps, round_kv)
+    with torch.cuda.device(q.device):
+        LINEAR_ATTENTION.launch(*args, stream_of(q))
     return out
+
+
+def linear_attention_launch_info(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor,
+                                 implementation: str = "auto") -> dict:
+    """The launch K3 makes for these CUDA tensors (without making it): its
+    path (``"tensor cores"`` for bf16 with a rounded state, else ``"CUDA
+    cores"``), copy width in bytes, registers and local (spill) bytes a
+    thread, shared bytes and blocks per SM."""
+    round_kv = kv_rounding(q.shape[1], q.shape[3], implementation)
+    out = torch.empty_like(q)
+    buf = (ctypes.c_longlong * 6)()
+    fn = LINEAR_ATTENTION.function(
+        "yat_linear_attention_info", LINEAR_ATTENTION.argtypes[:-1] + [_P])
+    err = fn(*_linear_attention_args(q, k, v, out, 1e-15, round_kv),
+             ctypes.addressof(buf))
+    if err != 0:
+        raise RuntimeError(f"linear_attention launch info failed: CUDA error "
+                           f"{err}")
+    return {"path": "tensor cores" if buf[0] else "CUDA cores",
+            "copy_bytes": buf[1], "registers": buf[2], "local_bytes": buf[3],
+            "shared_bytes": buf[4], "blocks_per_sm": buf[5]}
 
 
 class _LinearAttention(torch.autograd.Function):

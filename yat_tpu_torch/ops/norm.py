@@ -93,6 +93,16 @@ def _check_rows(x, mods):
             raise ValueError(f"g must have x's shape {tuple(x.shape)}")
 
 
+def _adaln_args(x, scale, shift, out, eps):
+    """K1's C arguments up to the dtype code (the stream, or the info
+    buffer, follows)."""
+    b, n, d = x.shape
+    return (x.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(),
+            b, n, d, x.stride(0), x.stride(1), scale.stride(0),
+            shift.stride(0), out.stride(0), out.stride(1), float(eps),
+            dtype_code(x))
+
+
 def _adaln_cuda(x, scale, shift, eps):
     _check_rows(x, (("scale", scale), ("shift", shift)))
     b, n, d = x.shape
@@ -100,11 +110,30 @@ def _adaln_cuda(x, scale, shift, eps):
     if out.numel() == 0:
         return out
     with torch.cuda.device(x.device):
-        ADALN.launch(x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                     out.data_ptr(), b, n, d, x.stride(0), x.stride(1),
-                     scale.stride(0), shift.stride(0), out.stride(0),
-                     out.stride(1), float(eps), dtype_code(x), stream_of(x))
+        ADALN.launch(*_adaln_args(x, scale, shift, out, eps), stream_of(x))
     return out
+
+
+def adaln_launch_info(x: torch.Tensor, scale: torch.Tensor,
+                      shift: torch.Tensor) -> dict:
+    """The launch K1 makes for these CUDA tensors (scale/shift [B, D] or
+    [B, 1, D]), without making it: its path (``"registers"``, the row held
+    in registers at the width it is built for, else ``"generic"``),
+    registers and local (spill) bytes a thread, shared bytes and blocks
+    per SM."""
+    scale = scale.reshape(scale.shape[0], scale.shape[-1])
+    shift = shift.reshape(shift.shape[0], shift.shape[-1])
+    _check_rows(x, (("scale", scale), ("shift", shift)))
+    out = torch.empty_like(x)
+    buf = (ctypes.c_longlong * 5)()
+    fn = ADALN.function("yat_adaln_fwd_info", ADALN.argtypes[:-1] + [_P])
+    err = fn(*_adaln_args(x, scale, shift, out, 1e-6), ctypes.addressof(buf))
+    if err != 0:
+        raise RuntimeError(f"adaln_layernorm launch info failed: CUDA error "
+                           f"{err}")
+    return {"path": "registers" if buf[0] else "generic",
+            "registers": buf[1], "local_bytes": buf[2],
+            "shared_bytes": buf[3], "blocks_per_sm": buf[4]}
 
 
 def _adaln_bwd_cuda(x, scale, g, eps):
