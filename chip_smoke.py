@@ -13,22 +13,27 @@ Phases, each of which fails the run (exit code 1) when it fails:
    shared bytes and blocks per SM of the bf16 launches of K6 and K2 (the
    forwards), of K6b and K2b, of K5's and K5b's quantize and GEMM at
    every w8a8 case with the GEMM grid the launcher chooses, and of K3's
-   (tensor-core and CUDA-core paths, each padded head dim) and K1's (the
-   row in registers, the generic loop) launches;
+   (tensor-core and CUDA-core paths, each padded head dim), K1's (the row
+   in registers, the generic loop) and K1b's (the ring, the generic loop)
+   launches;
 3. kernels: holds each kernel (K1, K2, K3, K4 through K2's kernel and K6
    forward; K1b, K2b, K4b through K2b's kernel and K6b backward) against
    its plain PyTorch version at the serving and training paths' shapes and
    at ragged and masked shapes (the forwards also at masks whose kept keys
    fill one middle or the last key tile only; K1 also at PixArt-Sigma's
-   serving shape and on its generic-width path; K3 also at head dim 64,
-   at N = 17, with an fp32 state, and with NaN inputs, whose NaN outputs
-   must fall where the plain version's do), in bf16 and fp32, naming the
-   path each K1 and K3 launch took, and times
-   the kernel, the plain version and (where one exists) one PyTorch call
-   computing the same function (and the kernel's multiple of it and of the
-   bound), beside the least time the card could take (for the masked
-   forwards, counting the kept keys only), at the main path's shape and,
-   for K1 and K3, at every case; K5 and K5b
+   serving shape and on its generic-width path; K1b at SANA's and
+   PixArt-Sigma's training shapes, ragged, at another width and on a view
+   off the vectors, a backward without its xhat * m2 term rejected; K3
+   also at head dim 64, at N = 17, with an fp32 state, and with NaN
+   inputs, whose NaN outputs must fall where the plain version's do), in
+   bf16 and fp32, naming the path each K1, K1b and K3 launch took, and
+   times the kernel, the plain version and (where one exists) one PyTorch
+   call computing the same function (and the kernel's multiple of it and
+   of the bound; for K1b LayerNorm's fused backward on the same bytes with
+   one weight shared across the batch), beside the least time the card
+   could take (for the masked forwards, counting the kept keys only), at
+   the main path's shape and, for K1, K1b and K3, at every case (K1b also
+   the host's time a call); K5 and K5b
    (the w8a8 matmul and its backward) must equal their plain versions bit
    for bit (int8 payload, row scales, output) at SANA's and PixArt's
    shapes and with zero rows and one-large-value rows; at the main case
@@ -321,14 +326,16 @@ def log_bwd_launch_info():
 K3_INFO = [(dt, impl, d) for dt in ("bfloat16", "float32")
            for impl in ("auto", "pallas") for d in (16, 32, 48, 64)
            if dt == "bfloat16" or impl == "auto"]
-# K1's: (dtype, width); 1152 holds the row in registers
+# K1's and K1b's: (dtype, width); 1152 holds the row in registers (K1) or
+# streams it through the warps' rings (K1b)
 K1_INFO = [(dt, d) for dt in ("bfloat16", "float32") for d in (1152, 1000)]
 
 
 def log_k1_k3_launch_info():
     """The path, registers, spills, shared bytes and blocks per SM of K3's
-    launches (each dtype, state and padded head dim) and K1's (the
-    register path's width and another), with 16-byte aligned rows."""
+    launches (each dtype, state and padded head dim), K1's and K1b's (the
+    width of the register and ring paths, and another), with 16-byte
+    aligned rows."""
     import torch
 
     from yat_tpu_torch.ops import attention as A
@@ -343,6 +350,8 @@ def log_k1_k3_launch_info():
         m = torch.zeros((1, 1, d), dtype=x.dtype, device=dev)
         log(f"  adaln_layernorm {dt} D={d}: "
             + launch_text(N.adaln_launch_info(x, m, m)))
+        log(f"  adaln_layernorm_bwd {dt} D={d}: "
+            + launch_text(N.adaln_bwd_launch_info(x, m, x)))
 
 
 # ---------------------------------------------------------------------------
@@ -467,11 +476,36 @@ def attention_work(b, nq, nk, h, d, es, keep, elementwise=0):
     return nbytes, (4 * d + elementwise) * h * nq * kept + h * d * nk * empty
 
 
+def layer_norm_bwd_yardstick():
+    """K1b's library yardstick: ``native_layer_norm_backward`` on K1b's
+    bytes, x viewed as [B*N, D] with one weight ``1 + scale[0]`` shared
+    across the batch (dx, dweight, dbias).  Its mean, rstd and weight are
+    made at the first call on each input and kept, so the timed calls run
+    the backward alone."""
+    import torch
+    made = {}
+
+    def call(x, sc, g):
+        key = (x.data_ptr(), tuple(x.shape))
+        if key not in made:
+            x2 = x.reshape(-1, x.shape[-1])
+            w = 1.0 + sc[0]
+            bias = torch.zeros_like(w)
+            _, mean, rstd = torch.ops.aten.native_layer_norm(
+                x2, [x.shape[-1]], w, bias, 1e-6)
+            made[key] = (x2, w, bias, mean, rstd)
+        x2, w, bias, mean, rstd = made[key]
+        return torch.ops.aten.native_layer_norm_backward(
+            g.reshape(x2.shape), x2, [x2.shape[-1]], mean, rstd, w, bias,
+            [True, True, True])
+    return call
+
+
 def kernel_cases(device):
     """(kernel name, case label, dtype, make_inputs, kernel_fn, plain_fn,
     library_fn, a (fwd+bwd, fwd) pair or None, bytes, flops, info_fn or
     None) for every case; the first case of each kernel is its main path's
-    shape (``MAIN_CASE``), timed in bf16.  ``info_fn(*inputs)`` (K1, K3)
+    shape (``MAIN_CASE``), timed in bf16.  ``info_fn(*inputs)`` (K1, K1b, K3)
     describes the launch the kernel makes: its path, registers, local
     bytes, shared bytes and blocks per SM."""
     import torch
@@ -632,13 +666,22 @@ def kernel_cases(device):
                           b * h * (4 * n * d * d + 4 * n * d),
                           info if hasattr(A, "linear_attention_launch_info")
                           else None))
-        # K1b: training shape x, g [16, 256, 1152], scale [16, 1152];
-        # ragged: one batch element, N = 100.  ~17 flops per element
+        # K1b: SANA's training shape x, g [16, 256, 1152], scale
+        # [16, 1152]; PixArt-Sigma's [8, 1024, 1152]; ragged: one batch
+        # element, N = 100; the generic loop at D = 1000 and on a D = 1152
+        # view whose rows start one value off the vectors.  ~17 flops per
+        # element.  The yardstick: LayerNorm's fused backward on the same
+        # bytes (x as [B*N, D], one weight 1 + scale[0] shared across the
+        # batch; mean and rstd made before the timing)
         for label, (b, n, d) in (("train", (16, 256, 1152)),
-                                 ("ragged", (1, 100, 1152))):
-            def make(b=b, n=n, d=d, dtype=dtype):
-                return (randn((b, n, d), dtype), randn((b, d), dtype, 0.1),
-                        randn((b, n, d), dtype))
+                                 ("pixart-train", (8, 1024, 1152)),
+                                 ("ragged", (1, 100, 1152)),
+                                 ("generic", (4, 77, 1000)),
+                                 ("unaligned", (2, 100, 1152))):
+            def make(b=b, n=n, d=d, dtype=dtype, label=label):
+                wide = d + (label == "unaligned")
+                x = randn((b, n, wide), dtype)[..., wide - d:]
+                return x, randn((b, d), dtype, 0.1), randn((b, n, d), dtype)
 
             def kern(x, sc, g):
                 return N._adaln_bwd_cuda(x, sc, g, 1e-6)
@@ -646,8 +689,9 @@ def kernel_cases(device):
             def plain(x, sc, g):
                 return N.adaln_bwd_ref(x, sc, g, 1e-6)
             cases.append(("adaln_layernorm_bwd", label, dtype, make, kern,
-                          plain, None, es * (3 * b * n * d + 3 * b * d),
-                          17 * b * n * d))
+                          plain, layer_norm_bwd_yardstick(),
+                          es * (3 * b * n * d + 3 * b * d), 17 * b * n * d,
+                          getattr(N, "adaln_bwd_launch_info", None)))
         # K2b: training shapes q/g [16, 256, 16, 72], k/v [16, L, 16, 72]
         # at the caption rungs L = 512 (the training shard's 100-500 kept
         # keys) and 128 (100-115 kept); ragged: L = 300 keeping 1-300 keys,
@@ -853,8 +897,26 @@ def attention_bwd_without_row_term(q, k, v, bias, g):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def adaln_bwd_without_m2(x, scale, g, eps=1e-6):
+    """A wrong K1b, for checking that the bf16 tolerance catches it: the
+    plain backward with the ``xhat * m2`` term of dx dropped."""
+    import torch
+
+    from yat_tpu_torch.ops import norm as N
+    x32, g32 = x.float(), g.float()
+    d = x.shape[-1]
+    mean = x32.sum(-1, keepdim=True) / d
+    xc = x32 - mean
+    inv = torch.rsqrt((xc * xc).sum(-1, keepdim=True) / d + eps)
+    dxh = g32 * (1.0 + scale.float()[:, None, :])
+    dx = inv * (dxh - dxh.sum(-1, keepdim=True) / d)
+    _, dscale, dshift = N.adaln_bwd_ref(x, scale, g, eps)
+    return dx.to(x.dtype), dscale, dshift
+
+
 # name: (a backward without its row term, that term) for the power check
 WRONG_BWD = {
+    "adaln_layernorm_bwd": (adaln_bwd_without_m2, "xhat * m2"),
     "dot_product_attention_bwd": (attention_bwd_without_row_term,
                                   "rowsum(dP P)"),
     "dot_product_attention_folded_bwd": (attention_bwd_without_row_term,
@@ -865,15 +927,16 @@ WRONG_BWD = {
 
 # kernels timed at every case of the kernel phase, both dtypes, beside
 # their main case
-TIMED_EVERY_CASE = ("adaln_layernorm", "linear_attention")
+TIMED_EVERY_CASE = ("adaln_layernorm", "linear_attention",
+                    "adaln_layernorm_bwd")
 # cases whose outputs hold NaN on purpose: their NaN must fall where the
 # plain version's do (compare_nan); not timed
 NAN_CASES = {("linear_attention", "nan")}
 
 
 def launch_text(info):
-    """A K1 or K3 launch (``adaln_launch_info``/``linear_attention_launch_
-    info``) as text."""
+    """A K1, K1b or K3 launch (``adaln_launch_info``, ``adaln_bwd_launch_
+    info``, ``linear_attention_launch_info``) as text."""
     copy = (f", {info['copy_bytes']}-byte copies" if "copy_bytes" in info
             else "")
     return (f"path {info['path']}{copy}: {info['registers']} registers, "
@@ -885,8 +948,8 @@ def launch_text(info):
 def phase_kernels(device, names=None, skip_labels=()):
     """Every kernel case (those of ``names`` only, when given, less the
     labels in ``skip_labels``) against its plain version; the main cases
-    timed, and every case of K1 and K3, each with the path its launch
-    took."""
+    timed, and every case of K1, K1b and K3, each with the path its
+    launch took."""
     import torch
 
     results = {}
@@ -946,10 +1009,10 @@ def phase_kernels(device, names=None, skip_labels=()):
         ms = time_ms(kern, inputs, 50)
         plain_ms = time_ms(plain, inputs, 20)
         lib_ms = None
-        if main and isinstance(library, tuple):
+        if isinstance(library, tuple):
             lib_ms = time_ms(library[0], inputs, 50) - time_ms(
                 library[1], inputs, 50)
-        elif main and library:
+        elif library:
             lib_ms = time_ms(library, inputs, 50)
         # the softmax attentions' products are tensor-core work on bf16
         # inputs; K1's, K1b's and K3's arithmetic is fp32 whatever the
@@ -968,11 +1031,15 @@ def phase_kernels(device, names=None, skip_labels=()):
                              "bytes": nbytes, "flops": flops,
                              **({"cases": results[name]["cases"]}
                                 if "cases" in results.get(name, {}) else {})}
+            if name == "adaln_layernorm_bwd":   # the wrapper's host time
+                host = results[name]["host_us"] = w8a8_host_us(kern, inputs)
+                log(f"{name} [{label}, {dt}] host {host:.1f} us a call (the "
+                    "stream held)")
         if every:
             results.setdefault(name, {}).setdefault("cases", []).append(
                 {"case": label, "dtype": dt, "path": path, "ms": ms,
-                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-                 "max_abs_err": err})
+                 "plain_ms": plain_ms, "library_ms": lib_ms,
+                 "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err})
         log(f"{name} [{label}, {dt}] kernel_ms {ms:.4f}  plain_ms "
             f"{plain_ms:.4f}  library_ms "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f}'}  bound_ms "
@@ -1933,7 +2000,7 @@ KERNEL_FAMILIES = (
 # wrappers, device records per counted call), for the trace's completeness
 FAMILY_COUNTERS = {
     "K1 adaln_layernorm": (("adaln_layernorm",), 1),
-    "K1b adaln_layernorm_bwd": (("adaln_layernorm_bwd",), 2),
+    "K1b adaln_layernorm_bwd": (("adaln_layernorm_bwd",), 1),
     "K6 flash_attention": (("flash_attention",), 1),
     "K2/K4 dot_product_attention": (("dot_product_attention",
                                      "dot_product_attention_folded"), 1),

@@ -52,15 +52,18 @@ def test_ptxas_entry_names_are_read_from_mangled_names():
 
 
 def test_profile_trace_check_counts_records_per_call():
-    """chip_smoke.py's trace check: two device records per K5/K5b/K2b/K6b/
-    K1b call, one per forward call; a family short of records is named."""
+    """chip_smoke.py's trace check: two device records per K5/K5b/K2b/K6b
+    call, one per forward and per K1b call; a family short of records is
+    named."""
     import chip_smoke
     calls = {"w8a8_matmul": 254, "dot_product_attention": 28,
-             "dot_product_attention_folded_bwd": 28, "adaln_layernorm": 57}
+             "dot_product_attention_folded_bwd": 28, "adaln_layernorm": 57,
+             "adaln_layernorm_bwd": 56}
     families = {"K5 w8a8_matmul": (508, 1.0),
                 "K2/K4 dot_product_attention": (28, 1.0),
                 "K2b/K4b dot_product_attention_bwd": (56, 1.0),
-                "K1 adaln_layernorm": (57, 1.0)}
+                "K1 adaln_layernorm": (57, 1.0),
+                "K1b adaln_layernorm_bwd": (56, 1.0)}
     assert chip_smoke.trace_shortfall(families, calls) == {}
     families["K5 w8a8_matmul"] = (506, 1.0)
     assert chip_smoke.trace_shortfall(families, calls) == {
@@ -153,6 +156,68 @@ def test_chip_smoke_k1_k3_cases_on_cpu():
                             "generic"],
         "linear_attention": ["serve", "train", "ragged", "ragged-17", "d64",
                              "fp32-state", "nan"]}
+
+
+def _k1b_cases(dtype):
+    import chip_smoke
+    return [c for c in chip_smoke.kernel_cases("cpu")
+            if c[0] == "adaln_layernorm_bwd" and c[2] == dtype]
+
+
+def test_chip_smoke_k1b_cases_on_cpu():
+    """chip_smoke.py's K1b cases, fp32 on the CPU: every case builds its
+    inputs (the unaligned one a view one value off the vectors) and its
+    plain backward passes the comparison against itself."""
+    import chip_smoke
+    labels = []
+    for case in _k1b_cases(torch.float32):
+        name, label, _, make, _, plain = case[:6]
+        labels.append(label)
+        x, sc, g = make()
+        assert x.shape[:2] == g.shape[:2] and sc.shape == (x.shape[0],
+                                                          x.shape[2])
+        assert (x.storage_offset() == 1) == (label == "unaligned")
+        want = plain(x, sc, g)
+        assert chip_smoke.compare(name, want, want)[2]
+    assert labels == ["train", "pixart-train", "ragged", "generic",
+                      "unaligned"]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k1b_tolerance_rejects_a_backward_without_m2(dtype):
+    """The K1b tolerance at the ragged and generic cases: the plain
+    backward moved one step of its type passes; the backward without the
+    xhat * m2 term of dx fails."""
+    import chip_smoke
+    name = "adaln_layernorm_bwd"
+    for case in _k1b_cases(dtype):
+        if case[1] not in ("ragged", "generic"):
+            continue
+        args = case[3]()
+        want = case[5](*args)
+        step = tuple(torch.nextafter(w, torch.full_like(w, float("inf")))
+                     for w in want)
+        assert chip_smoke.compare(name, step, want)[2]
+        wrong, _ = chip_smoke.WRONG_BWD[name]
+        assert not chip_smoke.compare(name, wrong(*args), want)[2]
+
+
+def test_k1b_yardstick_is_layer_norm_backward():
+    """K1b's library yardstick computes K1b's function where one weight is
+    shared: at one batch element its dx, dweight and dbias are the plain
+    backward's dx, dscale and dshift."""
+    import chip_smoke
+    rng = np.random.default_rng(3)
+    x, g = (torch.from_numpy(rng.standard_normal((1, 40, 96)).astype(
+        np.float32)) for _ in range(2))
+    sc = torch.from_numpy(0.1 * rng.standard_normal((1, 96)).astype(
+        np.float32))
+    got = chip_smoke.layer_norm_bwd_yardstick()(x, sc, g)
+    want = TN.adaln_bwd_ref(x, sc, g)
+    torch.testing.assert_close(got[0].reshape(x.shape), want[0],
+                               atol=1e-5, rtol=1e-5)
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b[0], atol=1e-4, rtol=1e-4)
 
 
 # ---------------------------------------------------------------------------
@@ -633,17 +698,38 @@ def test_bwd_tolerance_catches_a_backward_without_the_row_term():
     assert not chip_smoke.compare(name, wrong, want)[2]
 
 
+def _k1b_device_records(run):
+    """K1b's device records while ``run()`` runs, from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    return out, sum(1 for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and "adaln_bwd" in e.name)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", [(16, 256, 1152), (1, 100, 1152)])
-def test_card_adaln_bwd_kernel(cuda, dtype, shape):
+@pytest.mark.parametrize("shape,layout", [
+    ((16, 256, 1152), "plain"), ((1, 100, 1152), "plain"),
+    ((8, 1024, 1152), "plain"), ((4, 77, 1000), "plain"),
+    ((2, 100, 1152), "unaligned")])
+def test_card_adaln_bwd_kernel(cuda, dtype, shape, layout):
+    """K1b through autograd against the plain backward (x a view one value
+    off the vectors in the unaligned layout): one launch and one device
+    record a call, the same bits twice."""
     b, n, d = shape
+    wide = d + (layout == "unaligned")
     g = torch.Generator(device=cuda).manual_seed(2)
-    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    x_wide = torch.randn((b, n, wide), generator=g, device=cuda).to(dtype)
+    x = x_wide[..., wide - d:]
     sc = (0.1 * torch.randn((b, 1, d), generator=g, device=cuda)).to(dtype)
     sh = (0.1 * torch.randn((b, 1, d), generator=g, device=cuda)).to(dtype)
     gy = torch.randn(shape, generator=g, device=cuda).to(dtype)
-    xs, scs, shs = (t.clone().requires_grad_() for t in (x, sc, sh))
+    xw, scs, shs = (t.clone().requires_grad_() for t in (x_wide, sc, sh))
+    xs = xw[..., wide - d:]
     before = TN.ADALN_BWD.launches
     out = TN.adaln_layernorm(xs, scs, shs)
     assert out.grad_fn is not None
@@ -652,12 +738,50 @@ def test_card_adaln_bwd_kernel(cuda, dtype, shape):
     assert TN.ADALN_BWD.launches == before + 1
     want = TN.adaln_bwd_ref(x, sc[:, 0], gy)
     _close_bwd("adaln_layernorm_bwd",
-               (xs.grad, scs.grad[:, 0], shs.grad[:, 0]), want)
-    # deterministic: the same inputs give the same bits
+               (xw.grad[..., wide - d:], scs.grad[:, 0], shs.grad[:, 0]),
+               want)
+    # one device record a call; deterministic: the same inputs give the
+    # same bits
+    first, records = _k1b_device_records(
+        lambda: TN._adaln_bwd_cuda(x, sc[:, 0].contiguous(), gy, 1e-6))
     again = TN._adaln_bwd_cuda(x, sc[:, 0].contiguous(), gy, 1e-6)
-    first = TN._adaln_bwd_cuda(x, sc[:, 0].contiguous(), gy, 1e-6)
+    assert records == 1
     for a, c in zip(again, first):
         assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,layout,path", [
+    ((16, 256, 1152), "plain", "ring"),
+    ((8, 1024, 1152), "plain", "ring"),
+    ((3, 17, 1152), "plain", "ring"),
+    ((4, 77, 1000), "plain", "generic"),
+    ((1, 9, 96), "plain", "generic"),
+    ((2, 33, 1152), "unaligned", "generic"),
+    ((2, 33, 1152), "g-unaligned", "generic")])
+def test_card_adaln_bwd_paths(cuda, dtype, shape, layout, path):
+    """K1b's ring (D = 1152, x and g rows on 16-byte boundaries) and its
+    generic loop (other widths; x or g off the vectors) against the plain
+    backward, without spills, in one device record a call, leaving the
+    arrival counters at 0."""
+    b, n, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(d + n)
+
+    def rows(off):
+        t = torch.randn((b, n, d + off), generator=gen, device=cuda)
+        return t.to(dtype)[..., off:]
+    x = rows(layout == "unaligned")
+    gy = rows(layout == "g-unaligned")
+    sc = (0.1 * torch.randn((b, d), generator=gen, device=cuda)).to(dtype)
+    info = TN.adaln_bwd_launch_info(x, sc, gy)
+    assert info["path"] == path and info["local_bytes"] == 0
+    got, records = _k1b_device_records(
+        lambda: TN._adaln_bwd_cuda(x, sc, gy, 1e-6))
+    assert records == 1
+    _close_bwd("adaln_layernorm_bwd", got, TN.adaln_bwd_ref(x, sc, gy))
+    for partial, arrivals in TN._BWD_SCRATCH.values():
+        assert not bool(arrivals.any())
 
 
 @pytest.mark.gpu

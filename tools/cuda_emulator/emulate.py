@@ -4,7 +4,7 @@ the host CPU, to check fragment maps, masks, descriptors and ring stages
 of a kernel before its first call on the card.
 
     python3 tools/cuda_emulator/emulate.py [fwd] [k2] [k6b] [k2b] [k5] [k5b]
-                                           [k3] [k1]
+                                           [k3] [k1] [k1b]
 
 The sources of ``yat_tpu_torch/csrc`` are copied to ``_build/`` beside this
 file with the inline-asm helpers of ``attention_tiles.cuh`` (ldmatrix,
@@ -36,9 +36,16 @@ stages wrapping), head dims 16, 32, 64 and 20 (4-byte copies), q/k/v as
 views of one fused [B, N, 3, H, D] tensor, and with a NaN in one k entry
 and one q entry (the NaN positions must be the plain version's).  ``k1``
 (the adaLN forward) runs D = 1152 (the row in registers), D = 1000 and an
-unaligned D = 1152 view (the generic loop), at ragged N.  Each case names
-the path the launch took, is held against its plain version with
-``chip_smoke.py``'s tolerance and must give the same bits twice.
+unaligned D = 1152 view (the generic loop), at ragged N.  ``k1b`` (its
+backward, one launch whose last block of each batch element adds the
+blocks' column sums) runs the same three layouts, bf16 and fp32, at N =
+256 (each warp's ring wraps), 100 (a last block with fewer rows than
+warps) and 17, B = 1 and 3; the blocks run in an order drawn anew for
+every launch, so the block that arrives last changes, and the arrival
+counters must be back at 0 after each launch.  Each case names the path
+the launch took, is held against its plain version with ``chip_smoke.py``'s
+tolerance and must give the same bits twice (a bf16 K1b without its
+xhat * m2 term must be rejected).
 
 Timings mean nothing here, and nvcc may still refuse what g++ accepts.
 """
@@ -66,7 +73,7 @@ from yat_tpu_torch.ops import attention as A  # noqa: E402
 SOURCES = {"fwd": "flash_attention", "k2": "softmax_attention",
            "k6b": "flash_attention_bwd", "k2b": "softmax_attention_bwd",
            "k5": "w8a8_matmul", "k5b": "w8a8_matmul",
-           "k3": "linear_attention", "k1": "adaln"}
+           "k3": "linear_attention", "k1": "adaln", "k1b": "adaln"}
 ASM = {"ldsm_x4": "emu_ldsm(r, p, false);",
        "ldsm_x4_t": "emu_ldsm(r, p, true);",
        "mma_bf16": "emu_mma(c, a, b0, b1);",
@@ -512,6 +519,75 @@ def check_k1(lib, dtype, case):
     return text
 
 
+# K1b: (b, n, d, layout): the ring path's width, where every warp's ring
+# wraps (on the 3-SM device a warp walks 2 to 32 rows), a batch element is
+# cut into one to three blocks, and N = 17 at B = 1 leaves its last block
+# one row; the generic loop (16-row blocks) at D = 1000 and on an
+# unaligned D = 1152 view; B = 1 and 3
+K1B_CASES = [(3, 256, 1152, "plain"), (1, 256, 1152, "plain"),
+             (1, 100, 1152, "plain"), (3, 17, 1152, "plain"),
+             (1, 17, 1152, "plain"), (3, 100, 1000, "plain"),
+             (1, 17, 1000, "plain"), (3, 100, 1152, "unaligned"),
+             (1, 17, 1152, "unaligned")]
+
+
+def run_k1b(lib, x, sc, g):
+    """One K1b call: ((dx, dscale, dshift), the launch's path, the arrival
+    counters after it)."""
+    b, n, d = x.shape
+    dx = torch.empty((b, n, d), dtype=x.dtype)
+    dsc, dsh = torch.empty((2, b, d), dtype=x.dtype)
+    lib.yat_adaln_bwd_chunks.argtypes = [I]
+    partial = torch.full((b * lib.yat_adaln_bwd_chunks(n) * 2 * d,),
+                         float("nan"))
+    arrivals = torch.zeros(b, dtype=torch.int32)
+    args = [x.data_ptr(), sc.data_ptr(), g.data_ptr(), dx.data_ptr(),
+            dsc.data_ptr(), dsh.data_ptr(), partial.data_ptr(),
+            arrivals.data_ptr(), b, n, d, x.stride(0), x.stride(1),
+            sc.stride(0), g.stride(0), g.stride(1), dx.stride(0),
+            dx.stride(1), 1e-6, DTYPE[x.dtype]]
+    argtypes = [V] * 8 + [I] * 3 + [L] * 7 + [F, I, V]
+    lib.yat_adaln_bwd.argtypes = argtypes
+    lib.yat_adaln_bwd_info.argtypes = argtypes
+    info = (ctypes.c_longlong * 5)()
+    assert lib.yat_adaln_bwd_info(*args, ctypes.addressof(info)) == 0
+    err = lib.yat_adaln_bwd(*args, None)
+    assert err == 0, err
+    return (dx, dsc, dsh), info[0], arrivals
+
+
+def check_k1b(lib, dtype, case):
+    from yat_tpu_torch.ops import norm as N
+    b, n, d, layout = case
+    gen = torch.Generator().manual_seed(n + d + b)
+    x = torch.randn((b, n, d + (layout == "unaligned")), generator=gen)
+    x = x.to(dtype)[..., 1:] if layout == "unaligned" else x.to(dtype)
+    sc = (0.1 * torch.randn((b, d), generator=gen)).to(dtype)
+    g = torch.randn((b, n, d), generator=gen).to(dtype)
+    got, ring, arrivals = run_k1b(lib, x, sc, g)
+    again, _, _ = run_k1b(lib, x, sc, g)
+    want = N.adaln_bwd_ref(x, sc, g)
+    err, used, ok, _ = chip_smoke.compare("adaln_layernorm_bwd", got, want)
+    same = all(torch.equal(u, v) for u, v in zip(got, again))
+    reset = not bool(arrivals.any())
+    path = "ring" if ring else "generic loop"
+    text = (f"{path}: max_abs_err {err:.3e}, {used:.3f} of the allowance, "
+            f"{'ok' if ok else 'MISMATCH'}, "
+            f"{'same bits' if same else 'NOT REPRODUCIBLE'}, counters "
+            + ("back at 0" if reset else "LEFT SET"))
+    if dtype == torch.bfloat16:
+        wrong, term = chip_smoke.WRONG_BWD["adaln_layernorm_bwd"]
+        rejected = not chip_smoke.compare("adaln_layernorm_bwd",
+                                          wrong(x, sc, g), want)[2]
+        text += f", a backward without {term} " + (
+            "rejected" if rejected else "ACCEPTED")
+        ok = ok and rejected
+    if not (ok and same and reset and ring == (d == 1152
+                                              and layout == "plain")):
+        raise SystemExit(f"k1b {dtype} {case}: {text}")
+    return text
+
+
 def main(argv):
     which = argv or list(SOURCES)
     libs = build([SOURCES[w] for w in which])
@@ -527,12 +603,14 @@ def main(argv):
                           f"{case}{' NaN' if nan else ''}: {text} "
                           f"({time.perf_counter() - t0:.1f} s)", flush=True)
             continue
-        if w == "k1":
+        if w in ("k1", "k1b"):
+            check_one, cases = ((check_k1, K1_CASES) if w == "k1"
+                                else (check_k1b, K1B_CASES))
             for dtype in (torch.bfloat16, torch.float32):
-                for case in K1_CASES:
+                for case in cases:
                     t0 = time.perf_counter()
-                    text = check_k1(libs[SOURCES[w]], dtype, case)
-                    print(f"k1 {str(dtype)[6:]} {case}: {text} "
+                    text = check_one(libs[SOURCES[w]], dtype, case)
+                    print(f"{w} {str(dtype)[6:]} {case}: {text} "
                           f"({time.perf_counter() - t0:.1f} s)", flush=True)
             continue
         if w in W8A8_CASES:

@@ -49,6 +49,13 @@ template <class T>
 T __ldg(const T* p) {
   return *p;
 }
+template <class T>
+T __ldcg(const T* p) {
+  return *p;
+}
+inline float4 make_float4(float a, float b, float c, float d) {
+  return {a, b, c, d};
+}
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
   return {a, b, c, d};
 }
@@ -166,6 +173,12 @@ inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 
 void __syncthreads();
 int __syncthreads_or(int pred);
+// device-wide atomics and fences; blocks run one at a time (runtime.cpp),
+// in an order that changes from launch to launch
+inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
 void __syncwarp();
 int __any_sync(unsigned, int pred);
 float emu_ex2(float x);

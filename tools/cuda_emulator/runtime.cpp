@@ -1,11 +1,14 @@
-// Runs a kernel launch on the host: one block at a time, one host thread
-// per CUDA thread, a barrier per block for __syncthreads and one per warp
-// for the collectives.  ldmatrix, mma.sync m16n8k16 (bf16, fp32
+// Runs a kernel launch on the host: one block at a time, in an order drawn
+// anew for every launch (the card keeps no order, so a reduce across blocks
+// that sums in arrival order gives other bits from launch to launch), one
+// host thread per CUDA thread, a barrier per block for __syncthreads and
+// one per warp for the collectives.  ldmatrix, mma.sync m16n8k16 (bf16, fp32
 // accumulation) and shuffles gather every lane's operands into the warp's
 // exchange area and hand each lane its part of the result, in the
 // fragment layouts of the PTX ISA.  cp.async copies are queued per thread
 // and land when cp.async.wait_group retires their group, so a read before
 // the wait sees the stale stage.
+#include <algorithm>
 #include <atomic>
 #include <chrono>
 #include <barrier>
@@ -16,6 +19,7 @@
 #include <cstdlib>
 #include <deque>
 #include <memory>
+#include <random>
 #include <thread>
 #include <vector>
 
@@ -388,39 +392,43 @@ void emu_wait(int pending) {
 }
 
 void emu_launch(dim3 grid, int threads, std::function<void()> body) {
+  static unsigned launches = 0;
   gridDim = grid;
   blockDim = dim3(threads);
+  std::vector<uint3> order;
   for (unsigned z = 0; z < grid.z; ++z)
     for (unsigned y = 0; y < grid.y; ++y)
-      for (unsigned x = 0; x < grid.x; ++x) {
-        blockIdx = {x, y, z};
-        memset(g_smem, 0xcd, sizeof(g_smem));  // stale, as on the card
-        g_block = std::make_unique<std::barrier<>>(threads);
-        g_warps.clear();
-        {
-          std::lock_guard<std::mutex> lk(g_mu);
-          g_bars.clear();
+      for (unsigned x = 0; x < grid.x; ++x) order.push_back({x, y, z});
+  std::shuffle(order.begin(), order.end(), std::mt19937(++launches));
+  for (const uint3& block : order) {
+    blockIdx = block;
+    memset(g_smem, 0xcd, sizeof(g_smem));  // stale, as on the card
+    g_block = std::make_unique<std::barrier<>>(threads);
+    g_warps.clear();
+    {
+      std::lock_guard<std::mutex> lk(g_mu);
+      g_bars.clear();
+    }
+    for (int i = 0; i < threads / 32; ++i)
+      g_warps.push_back(std::make_unique<Warp>());
+    std::vector<std::thread> ts;
+    for (int t = 0; t < threads; ++t)
+      ts.emplace_back([&, t] {
+        threadIdx = {unsigned(t), 0, 0};
+        t_groups.clear();
+        t_open.clear();
+        t_wg_groups.clear();
+        t_wg_open.clear();
+        body();
+        if (!t_groups.empty() || !t_open.empty()) {
+          fprintf(stderr, "a thread ended with cp.async copies pending\n");
+          abort();
         }
-        for (int i = 0; i < threads / 32; ++i)
-          g_warps.push_back(std::make_unique<Warp>());
-        std::vector<std::thread> ts;
-        for (int t = 0; t < threads; ++t)
-          ts.emplace_back([&, t] {
-            threadIdx = {unsigned(t), 0, 0};
-            t_groups.clear();
-            t_open.clear();
-            t_wg_groups.clear();
-            t_wg_open.clear();
-            body();
-            if (!t_groups.empty() || !t_open.empty()) {
-              fprintf(stderr, "a thread ended with cp.async copies pending\n");
-              abort();
-            }
-            if (!t_wg_groups.empty() || !t_wg_open.empty()) {
-              fprintf(stderr, "a thread ended with wgmma groups pending\n");
-              abort();
-            }
-          });
-        for (auto& th : ts) th.join();
-      }
+        if (!t_wg_groups.empty() || !t_wg_open.empty()) {
+          fprintf(stderr, "a thread ended with wgmma groups pending\n");
+          abort();
+        }
+      });
+    for (auto& th : ts) th.join();
+  }
 }

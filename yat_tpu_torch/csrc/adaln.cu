@@ -37,23 +37,40 @@
 // dshift = sum_N g, with the statistics recomputed from x and all
 // intermediates in fp32 (the plain version is ops/norm.py:adaln_bwd_ref).
 // Bound on the H100: bytes (x and g read once, dx written once; ~20 flops
-// per element).  Design:
-//   * blocks of 16 token rows of one batch element (256 blocks at the
-//     training shape [16, 256, 1152], where one block per batch element
-//     would give 16);
-//   * phase A, one warp per row: the row statistics and the two row means
-//     of the LayerNorm backward, kept in shared memory;
-//   * phase B, one thread per column: dx of every row of the block, with
-//     the block's dscale/dshift partial sums over its rows in registers;
-//     the chunk re-reads its rows (~70 KB) from L1/L2, not from HBM;
-//   * the partial sums go to an fp32 scratch and a second small launch
-//     adds them in chunk order: no float atomics, so the result is the
-//     same from run to run.
-#include "common.cuh"
+// per element).  Design against that bound, in one launch:
+//   * at the models' width (D = 1152, adaln_bwd_ring) one warp works one
+//     token row at a time, several rows of one batch element in a fixed
+//     order; the next row of x and g reaches the warp's two-slot ring in
+//     shared memory by 16-byte cp.async while the warp works on the
+//     current one from its slot, so x and g are read from device memory
+//     once.  Lane l owns the four-value vectors l + 32 c (the layout of
+//     adaln_fwd_rows); the row statistics and the two row means come from
+//     warp shuffles, dx leaves as the same vectors, and each lane keeps its
+//     36 columns' sums of g * xhat and g in fp32 registers over every row
+//     it walks.  A warp walks enough rows for about one block per SM (four
+//     at SANA's training shape, eight at PixArt-Sigma's): one block a
+//     batch element's chunk of rows, its warps' column sums added in warp
+//     order through their rings.  Timed on the H100 and dropped: two
+//     blocks per SM (registers capped at 128, spilling; more blocks a
+//     batch element, so a longer reduce), a three-slot ring (PERF.md §6);
+//   * other widths, or rows off the vectors (adaln_bwd_generic): blocks of
+//     16 rows; one warp per row for the statistics, then one thread per
+//     column for dx and the block's column sums;
+//   * each block writes its column sums to an fp32 scratch row; the last
+//     block of its batch element to arrive (an arrival counter, which the
+//     last block sets back to 0) adds the rows in chunk order: no float
+//     atomics and no second launch, and the same bits from run to run.
+#include "attention_tiles.cuh"
 
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
+
+using yat::attn::cp_async16;
+using yat::attn::cp_async_commit;
+using yat::attn::cp_async_wait;
 
 constexpr int kRowsPerBlock = 8;   // one warp per row, 256 threads
 constexpr int kRowWidth = 1152;    // the width adaln_fwd_rows is built for
@@ -262,36 +279,262 @@ cudaError_t launch(const void* x, const void* scale, const void* shift,
 // K1b: the backward, recomputing the statistics from x.
 // ---------------------------------------------------------------------------
 
-constexpr int kBwdThreads = 256;   // 8 warps
-constexpr int kBwdRows = 16;       // token rows per block (one chunk of N)
+constexpr int kBwdWarps = 8;
+constexpr int kBwdThreads = kBwdWarps * 32;
+constexpr int kMinRowsPerWarp = 2;         // ring path: rows a warp walks
+constexpr int kStages = 2;                 // ring slots a warp
+constexpr int kGenericRows = 16;           // rows a block (generic loop)
+constexpr int kSumCols = 9;                // reduce: columns a thread
 
-// Phase A, one warp per row: mean and 1/sqrt(var + eps) of x, then
-// m1 = mean(dxh) and m2 = mean(dxh * xhat) with dxh = g * (1 + scale).
-// Phase B, one thread per column: dx for every row of the chunk, and the
-// chunk's fp32 partial sums of g * xhat (dscale) and g (dshift), written
-// to `partial` [2][B][chunks][D] for the reduce launch.
+template <typename T>
+struct BwdArgs {
+  const T* x;
+  const T* scale;
+  const T* g;
+  T* dx;
+  T* dscale;
+  T* dshift;
+  float* partial;   // [B][chunks][2][d]: each block's dscale, dshift sums
+  int* arrivals;    // [B], 0 between launches
+  int n, d, chunks;
+  int rows_per_warp;   // ring path
+  long long x_sb, x_sn, scale_sb, g_sb, g_sn, dx_sb, dx_sn;
+  float eps;
+};
+
+// The block's row of `partial` is written (every thread wrote its own
+// values).  Each block of batch element b then counts itself in, as a
+// grid barrier does: the block's barrier, then one thread's fence and
+// atomic.  The last block to arrive adds the element's rows in chunk order
+// (kSumCols columns a thread, their loads from four chunks in flight
+// together), writes dscale and dshift, and sets the counter back to 0.
+// The order of the sums does not depend on which block arrives last, so
+// two launches give the same bits.
+template <typename T>
+__device__ __forceinline__ void arrive_and_reduce(const BwdArgs<T>& a) {
+  const int b = blockIdx.y;
+  const int w = 2 * a.d;
+  __syncthreads();
+  int last = 0;
+  if (threadIdx.x == 0) {
+    __threadfence();   // the block's row, before its arrival
+    last = atomicAdd(a.arrivals + b, 1) == a.chunks - 1;
+    if (last) __threadfence();   // the other rows, after their arrivals
+  }
+  if (!__syncthreads_or(last)) return;
+  const float* rows = a.partial + static_cast<long long>(b) * a.chunks * w;
+  const long long out = static_cast<long long>(b) * a.d;
+  for (int j0 = threadIdx.x; j0 < w; j0 += kSumCols * kBwdThreads) {
+    float s[kSumCols];
+#pragma unroll
+    for (int k = 0; k < kSumCols; ++k) s[k] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < a.chunks; ++c) {
+      const float* r = rows + static_cast<long long>(c) * w;
+#pragma unroll
+      for (int k = 0; k < kSumCols; ++k) {
+        const int j = j0 + k * kBwdThreads;
+        if (j < w) s[k] += __ldcg(r + j);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kSumCols; ++k) {
+      const int j = j0 + k * kBwdThreads;
+      if (j < a.d)
+        a.dscale[out + j] = yat::from_f<T>(s[k]);
+      else if (j < w)
+        a.dshift[out + j - a.d] = yat::from_f<T>(s[k]);
+    }
+  }
+  if (threadIdx.x == 0) a.arrivals[b] = 0;
+}
+
+// Shared memory of the ring path: (1 + scale) of the batch element in
+// fp32, then each warp's ring of kStages slots, a slot one row of x and
+// then the same row of g.  After the walk a warp's ring holds its fp32
+// column sums [2][kRowWidth].
+template <typename T>
+struct RingShape {
+  static constexpr int kRowBytes = kRowWidth * static_cast<int>(sizeof(T));
+  static constexpr int kSlotBytes = 2 * kRowBytes;
+  static constexpr int kCopies = kSlotBytes / 16;   // 16-byte pieces a slot
+  static constexpr int kWarpBytes = kStages * kSlotBytes;
+  static constexpr int kScaleBytes = kRowWidth * 4;
+  static constexpr size_t kSmem = kScaleBytes + kBwdWarps * kWarpBytes;
+  static_assert(kWarpBytes >= 2 * kRowWidth * 4,
+                "a warp's ring holds its column sums");
+  static_assert(kCopies % 32 == 0, "whole copies a lane");
+};
+
+// The ring path (D = kRowWidth, x and g rows on 16-byte boundaries, dx
+// rows on four-value ones).  Block (chunk, b) gives warp w the rows
+// chunk * 8 * rows_per_warp + w + 8 * i of batch element b, i <
+// rows_per_warp.  A warp copies its next row of x and g into its ring with
+// 16-byte cp.async while it works on the current one; lane l works on the
+// four-value vectors l + 32 c (c < 9) of the row, reading them from the
+// slot three times: sum x and sum dxh (dxh = g * (1 + scale)); sum
+// (x - mean)^2 and sum dxh * (x - mean); then dx and the column sums.
+// m2 = mean(dxh * xhat) is inv * mean(dxh * (x - mean)).  The lane's 36
+// columns keep their sums of g * xhat and g in registers over every row of
+// the warp.
 template <typename T>
 __global__ void __launch_bounds__(kBwdThreads)
-adaln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ scale,
-                 const T* __restrict__ g, T* __restrict__ dx,
-                 float* __restrict__ partial, int batch, int n, int d,
-                 long long x_sb, long long x_sn, long long scale_sb,
-                 long long g_sb, long long g_sn, long long dx_sb,
-                 long long dx_sn, float eps) {
-  __shared__ float stats[kBwdRows][4];   // mean, inv, m1, m2
-  const int b = blockIdx.y;
-  const int chunk = blockIdx.x;
-  const int chunks = gridDim.x;
-  const int r0 = chunk * kBwdRows;
-  const int rows = min(kBwdRows, n - r0);
+adaln_bwd_ring(const BwdArgs<T> a) {
+  using V = Vec4<T>;
+  using Raw = typename V::Raw;
+  using S = RingShape<T>;
+  constexpr int kC = kRowWidth / 128;
+  constexpr float kD = static_cast<float>(kRowWidth);
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s1 = reinterpret_cast<float*>(smem);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const float fd = static_cast<float>(d);
-  const T* sc = scale + b * scale_sb;
+  unsigned char* ring = smem + S::kScaleBytes + warp * S::kWarpBytes;
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * kBwdWarps * a.rows_per_warp + warp;
+  const int rows = r0 >= a.n ? 0
+                             : min(a.rows_per_warp,
+                                   (a.n - r0 + kBwdWarps - 1) / kBwdWarps);
 
-  for (int r = warp; r < rows; r += kBwdThreads / 32) {
-    const T* xr = x + b * x_sb + (r0 + r) * x_sn;
-    const T* gr = g + b * g_sb + (r0 + r) * g_sn;
+  // row i of the warp into slot i % kStages; one commit group a row, empty
+  // past the warp's last row
+  auto fetch = [&](int i) {
+    if (i < rows) {
+      const long long r = r0 + kBwdWarps * i;
+      const unsigned char* xs = reinterpret_cast<const unsigned char*>(
+          a.x + b * a.x_sb + r * a.x_sn);
+      const unsigned char* gs = reinterpret_cast<const unsigned char*>(
+          a.g + b * a.g_sb + r * a.g_sn);
+      unsigned char* dst = ring + (i % kStages) * S::kSlotBytes;
+#pragma unroll
+      for (int k = lane; k < S::kCopies; k += 32) {
+        const int off = 16 * k;
+        cp_async16(dst + off,
+                   off < S::kRowBytes ? xs + off : gs + (off - S::kRowBytes),
+                   16);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) fetch(i);
+  const T* sc = a.scale + b * a.scale_sb;
+  for (int j = threadIdx.x; j < kRowWidth; j += kBwdThreads)
+    s1[j] = 1.0f + yat::to_f<T>(sc[j]);
+  __syncthreads();
+
+  const float4* s1v = reinterpret_cast<const float4*>(s1);
+  float dsc[kC][4], dsh[kC][4];
+#pragma unroll
+  for (int c = 0; c < kC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dsc[c][e] = dsh[c][e] = 0.f;
+
+  for (int i = 0; i < rows; ++i) {
+    fetch(i + kStages - 1);
+    cp_async_wait<kStages - 1>();
+    __syncwarp();
+    const unsigned char* slot = ring + (i % kStages) * S::kSlotBytes;
+    const Raw* xr = reinterpret_cast<const Raw*>(slot);
+    const Raw* gr = reinterpret_cast<const Raw*>(slot + S::kRowBytes);
+    float sx = 0.f, sd = 0.f;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      float xv[4], gv[4];
+      V::get(xr[lane + 32 * c], xv);
+      V::get(gr[lane + 32 * c], gv);
+      const float4 s = s1v[lane + 32 * c];
+      sx += (xv[0] + xv[1]) + (xv[2] + xv[3]);
+      sd += (gv[0] * s.x + gv[1] * s.y) + (gv[2] * s.z + gv[3] * s.w);
+    }
+    const float mean = yat::warp_sum(sx) / kD;
+    const float m1 = yat::warp_sum(sd) / kD;
+    float ss = 0.f, sm = 0.f;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      float xv[4], gv[4];
+      V::get(xr[lane + 32 * c], xv);
+      V::get(gr[lane + 32 * c], gv);
+      const float4 s = s1v[lane + 32 * c];
+      const float sv[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float xc = xv[e] - mean;
+        ss += xc * xc;
+        sm += gv[e] * sv[e] * xc;
+      }
+    }
+    const float inv = 1.0f / sqrtf(yat::warp_sum(ss) / kD + a.eps);
+    const float m2 = yat::warp_sum(sm) / kD * inv;
+    const long long r = r0 + kBwdWarps * i;
+    Raw* out = reinterpret_cast<Raw*>(a.dx + b * a.dx_sb + r * a.dx_sn);
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      float xv[4], gv[4], dv[4];
+      V::get(xr[lane + 32 * c], xv);
+      V::get(gr[lane + 32 * c], gv);
+      const float4 s = s1v[lane + 32 * c];
+      const float sv[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float xhat = (xv[e] - mean) * inv;
+        dv[e] = inv * ((gv[e] * sv[e] - m1) - xhat * m2);
+        dsc[c][e] += gv[e] * xhat;
+        dsh[c][e] += gv[e];
+      }
+      out[lane + 32 * c] = V::put(dv);
+    }
+    __syncwarp();   // every lane has read the slot before it is refilled
+  }
+  cp_async_wait<0>();
+  __syncwarp();
+
+  // the warps' column sums through their rings, added in warp order
+  float* mine = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int c = 0; c < kC; ++c) {
+    const int j = 4 * (lane + 32 * c);
+    *reinterpret_cast<float4*>(mine + j) =
+        make_float4(dsc[c][0], dsc[c][1], dsc[c][2], dsc[c][3]);
+    *reinterpret_cast<float4*>(mine + kRowWidth + j) =
+        make_float4(dsh[c][0], dsh[c][1], dsh[c][2], dsh[c][3]);
+  }
+  __syncthreads();
+  float* row = a.partial + (static_cast<long long>(b) * a.chunks +
+                            blockIdx.x) * 2 * kRowWidth;
+  for (int j = threadIdx.x; j < 2 * kRowWidth; j += kBwdThreads) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kBwdWarps; ++w)
+      s += reinterpret_cast<const float*>(smem + S::kScaleBytes +
+                                          w * S::kWarpBytes)[j];
+    row[j] = s;
+  }
+  arrive_and_reduce(a);
+}
+
+// Any width, or rows off the vectors: blocks of kGenericRows rows.  Phase
+// A, one warp per row: the row statistics and the two row means, kept in
+// shared memory; phase B, one thread per column: dx of every row of the
+// block and the block's sums of g * xhat and g, written to its row of
+// `partial`; then the same reduce as the ring path.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+adaln_bwd_generic(const BwdArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float(*stats)[4] = reinterpret_cast<float(*)[4]>(smem);  // mean, inv, m1, m2
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * kGenericRows;
+  const int rows = min(kGenericRows, a.n - r0);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int d = a.d;
+  const float fd = static_cast<float>(d);
+  const T* sc = a.scale + b * a.scale_sb;
+
+  for (int r = warp; r < rows; r += kBwdWarps) {
+    const T* xr = a.x + b * a.x_sb + (r0 + r) * a.x_sn;
+    const T* gr = a.g + b * a.g_sb + (r0 + r) * a.g_sn;
     float s = 0.f;
     for (int j = lane; j < d; j += 32) s += yat::to_f<T>(xr[j]);
     const float mean = yat::warp_sum(s) / fd;
@@ -300,7 +543,7 @@ adaln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ scale,
       const float c = yat::to_f<T>(xr[j]) - mean;
       ss += c * c;
     }
-    const float inv = 1.0f / sqrtf(yat::warp_sum(ss) / fd + eps);
+    const float inv = 1.0f / sqrtf(yat::warp_sum(ss) / fd + a.eps);
     float s1 = 0.f, s2 = 0.f;
     for (int j = lane; j < d; j += 32) {
       const float xhat = (yat::to_f<T>(xr[j]) - mean) * inv;
@@ -319,102 +562,154 @@ adaln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ scale,
   }
   __syncthreads();
 
-  float* p_sc = partial + (static_cast<long long>(b) * chunks + chunk) * d;
-  float* p_sh = p_sc + static_cast<long long>(batch) * chunks * d;
+  float* row = a.partial +
+               (static_cast<long long>(b) * a.chunks + blockIdx.x) * 2 * d;
   for (int j = threadIdx.x; j < d; j += kBwdThreads) {
     const float s1 = 1.0f + yat::to_f<T>(sc[j]);
     float dsc = 0.f, dsh = 0.f;
     for (int r = 0; r < rows; ++r) {
       const long long i = r0 + r;
-      const float xv = yat::to_f<T>(x[b * x_sb + i * x_sn + j]);
-      const float gv = yat::to_f<T>(g[b * g_sb + i * g_sn + j]);
+      const float xv = yat::to_f<T>(a.x[b * a.x_sb + i * a.x_sn + j]);
+      const float gv = yat::to_f<T>(a.g[b * a.g_sb + i * a.g_sn + j]);
       const float xhat = (xv - stats[r][0]) * stats[r][1];
       const float dxh = gv * s1;
-      dx[b * dx_sb + i * dx_sn + j] = yat::from_f<T>(
+      a.dx[b * a.dx_sb + i * a.dx_sn + j] = yat::from_f<T>(
           stats[r][1] * ((dxh - stats[r][2]) - xhat * stats[r][3]));
       dsc += gv * xhat;
       dsh += gv;
     }
-    p_sc[j] = dsc;
-    p_sh[j] = dsh;
+    row[j] = dsc;
+    row[d + j] = dsh;
   }
+  arrive_and_reduce(a);
 }
 
-// dscale/dshift [B, D] (contiguous): the chunks' partial sums added in
-// chunk order, so the result does not depend on the schedule.
+// whether the ring path takes this call: the width it is built for, x and
+// g rows on 16-byte boundaries (the cp.async pieces), dx rows on
+// four-value ones (the vector stores); scale is read a value at a time
 template <typename T>
-__global__ void adaln_bwd_reduce(const float* __restrict__ partial,
-                                 T* __restrict__ dscale,
-                                 T* __restrict__ dshift, int batch,
-                                 int chunks, int d) {
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x +
-                        threadIdx.x;
-  if (idx >= static_cast<long long>(batch) * d) return;
-  const long long b = idx / d;
-  const long long j = idx - b * d;
-  const float* p_sc = partial + b * chunks * d + j;
-  const float* p_sh = p_sc + static_cast<long long>(batch) * chunks * d;
-  float s = 0.f, t = 0.f;
-  for (int c = 0; c < chunks; ++c) {
-    s += p_sc[static_cast<long long>(c) * d];
-    t += p_sh[static_cast<long long>(c) * d];
-  }
-  dscale[idx] = yat::from_f<T>(s);
-  dshift[idx] = yat::from_f<T>(t);
+bool ring_path(const BwdArgs<T>& a) {
+  constexpr long long kPiece = 16 / sizeof(T);
+  auto al = [](const void* p, uintptr_t v) {
+    return reinterpret_cast<uintptr_t>(p) % v == 0;
+  };
+  return a.d == kRowWidth && al(a.x, 16) && al(a.g, 16) &&
+         al(a.dx, 4 * sizeof(T)) && a.x_sb % kPiece == 0 &&
+         a.x_sn % kPiece == 0 && a.g_sb % kPiece == 0 &&
+         a.g_sn % kPiece == 0 && a.dx_sb % 4 == 0 && a.dx_sn % 4 == 0;
 }
 
+// Launch K1b (info == nullptr), or write its path (1: the ring, 0: the
+// generic loop), registers, local bytes, shared bytes and blocks per SM
+// into info[0:5].
 template <typename T>
-cudaError_t launch_bwd(const void* x, const void* scale, const void* g,
-                       void* dx, void* dscale, void* dshift, void* partial,
-                       int b, int n, int d, long long x_sb, long long x_sn,
-                       long long scale_sb, long long g_sb, long long g_sn,
-                       long long dx_sb, long long dx_sn, float eps,
-                       cudaStream_t stream) {
-  const int chunks = (n + kBwdRows - 1) / kBwdRows;
-  adaln_bwd_kernel<T><<<dim3(chunks, b), kBwdThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(scale),
-      static_cast<const T*>(g), static_cast<T*>(dx),
-      static_cast<float*>(partial), b, n, d, x_sb, x_sn, scale_sb, g_sb,
-      g_sn, dx_sb, dx_sn, eps);
-  cudaError_t e = cudaGetLastError();
+cudaError_t launch_bwd(BwdArgs<T> a, int batch, cudaStream_t stream,
+                       long long* info) {
+  const bool ring = ring_path(a);
+  int rows = kGenericRows;
+  if (ring && info == nullptr) {
+    // about one block per SM: a warp walks enough rows to cover the batch
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    const long long want = (static_cast<long long>(batch) * a.n +
+                            kBwdWarps * sms - 1) / (kBwdWarps * sms);
+    const long long whole = (a.n + kBwdWarps - 1) / kBwdWarps;
+    a.rows_per_warp = static_cast<int>(
+        std::max<long long>(kMinRowsPerWarp, std::min(want, whole)));
+    rows = kBwdWarps * a.rows_per_warp;
+  }
+  const size_t smem =
+      ring ? RingShape<T>::kSmem : kGenericRows * 4 * sizeof(float);
+  auto kernel = ring ? adaln_bwd_ring<T> : adaln_bwd_generic<T>;
+  if (info != nullptr) {
+    info[0] = ring ? 1 : 0;
+    return yat::attn::launch_info(kernel, smem, info + 1, kBwdThreads);
+  }
+  cudaError_t e = yat::attn::set_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  const long long total = static_cast<long long>(b) * d;
-  adaln_bwd_reduce<T><<<static_cast<unsigned>((total + 255) / 256), 256, 0,
-                        stream>>>(static_cast<const float*>(partial),
-                                  static_cast<T*>(dscale),
-                                  static_cast<T*>(dshift), b, chunks, d);
+  a.chunks = (a.n + rows - 1) / rows;
+  kernel<<<dim3(a.chunks, batch), kBwdThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T>
+int bwd_entry(const void* x, const void* scale, const void* g, void* dx,
+              void* dscale, void* dshift, void* partial, void* arrivals,
+              int b, int n, int d, long long x_sb, long long x_sn,
+              long long scale_sb, long long g_sb, long long g_sn,
+              long long dx_sb, long long dx_sn, float eps, void* stream,
+              long long* info) {
+  const BwdArgs<T> a{static_cast<const T*>(x), static_cast<const T*>(scale),
+                     static_cast<const T*>(g), static_cast<T*>(dx),
+                     static_cast<T*>(dscale), static_cast<T*>(dshift),
+                     static_cast<float*>(partial), static_cast<int*>(arrivals),
+                     n, d, 0, 0, x_sb, x_sn, scale_sb, g_sb, g_sn, dx_sb, dx_sn,
+                     eps};
+  return static_cast<int>(
+      launch_bwd<T>(a, b, static_cast<cudaStream_t>(stream), info));
+}
+
+int bwd_dispatch(const void* x, const void* scale, const void* g, void* dx,
+                 void* dscale, void* dshift, void* partial, void* arrivals,
+                 int b, int n, int d, long long x_sb, long long x_sn,
+                 long long scale_sb, long long g_sb, long long g_sn,
+                 long long dx_sb, long long dx_sn, float eps, int dtype,
+                 void* stream, long long* info) {
+  if (dtype == yat::kFloat32)
+    return bwd_entry<float>(x, scale, g, dx, dscale, dshift, partial,
+                            arrivals, b, n, d, x_sb, x_sn, scale_sb, g_sb,
+                            g_sn, dx_sb, dx_sn, eps, stream, info);
+  if (dtype == yat::kBFloat16)
+    return bwd_entry<__nv_bfloat16>(x, scale, g, dx, dscale, dshift, partial,
+                                    arrivals, b, n, d, x_sb, x_sn, scale_sb,
+                                    g_sb, g_sn, dx_sb, dx_sn, eps, stream,
+                                    info);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// Number of N-chunks of the backward: `partial` holds [2][B][chunks][D]
-// fp32 values.
+// The most N-chunks a K1b launch cuts: `partial` holds
+// [B][yat_adaln_bwd_chunks(n)][2][D] fp32 values.
 extern "C" int yat_adaln_bwd_chunks(int n) {
-  return (n + kBwdRows - 1) / kBwdRows;
+  return (n + kGenericRows - 1) / kGenericRows;
 }
 
-// K1b.  x, g, dx [B, N, D] with strides (*_sb, *_sn, 1); scale [B, D] with
-// strides (scale_sb, 1); dscale/dshift [B, D] contiguous, in scale's dtype
-// (the dtype of x); partial: fp32 scratch of yat_adaln_bwd_chunks(n) rows.
+// K1b, one launch.  x, g, dx [B, N, D] with strides (*_sb, *_sn, 1); scale
+// [B, D] with strides (scale_sb, 1); dscale/dshift [B, D] contiguous, in
+// scale's dtype (the dtype of x); partial: fp32 scratch of
+// yat_adaln_bwd_chunks(n) chunks; arrivals: int32 [B], all 0, and left so.
 extern "C" int yat_adaln_bwd(const void* x, const void* scale, const void* g,
                              void* dx, void* dscale, void* dshift,
-                             void* partial, int b, int n, int d,
-                             long long x_sb, long long x_sn,
+                             void* partial, void* arrivals, int b, int n,
+                             int d, long long x_sb, long long x_sn,
                              long long scale_sb, long long g_sb,
                              long long g_sn, long long dx_sb,
                              long long dx_sn, float eps, int dtype,
                              void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == yat::kFloat32)
-    return launch_bwd<float>(x, scale, g, dx, dscale, dshift, partial, b, n,
-                             d, x_sb, x_sn, scale_sb, g_sb, g_sn, dx_sb,
-                             dx_sn, eps, s);
-  if (dtype == yat::kBFloat16)
-    return launch_bwd<__nv_bfloat16>(x, scale, g, dx, dscale, dshift,
-                                     partial, b, n, d, x_sb, x_sn, scale_sb,
-                                     g_sb, g_sn, dx_sb, dx_sn, eps, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return bwd_dispatch(x, scale, g, dx, dscale, dshift, partial, arrivals, b,
+                      n, d, x_sb, x_sn, scale_sb, g_sb, g_sn, dx_sb, dx_sn,
+                      eps, dtype, stream, nullptr);
+}
+
+// The launch yat_adaln_bwd makes for the same arguments, without making it:
+// path (1: the ring, 0: the generic loop), registers a thread, local
+// (spill) bytes a thread, shared bytes and blocks per SM into info[0:5].
+extern "C" int yat_adaln_bwd_info(const void* x, const void* scale,
+                                  const void* g, void* dx, void* dscale,
+                                  void* dshift, void* partial,
+                                  void* arrivals, int b, int n, int d,
+                                  long long x_sb, long long x_sn,
+                                  long long scale_sb, long long g_sb,
+                                  long long g_sn, long long dx_sb,
+                                  long long dx_sn, float eps, int dtype,
+                                  void* info) {
+  return bwd_dispatch(x, scale, g, dx, dscale, dshift, partial, arrivals, b,
+                      n, d, x_sb, x_sn, scale_sb, g_sb, g_sn, dx_sb, dx_sn,
+                      eps, dtype, nullptr, static_cast<long long*>(info));
 }
 
 static int fwd_entry(const void* x, const void* scale, const void* shift,

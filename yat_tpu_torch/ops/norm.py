@@ -6,7 +6,8 @@ Counterpart of ``yat_tpu/ops/norm.py``.  :func:`adaln_layernorm` is a
 * on a CUDA tensor its forward launches kernel K1 (``csrc/adaln.cu``,
   replacing the TPU kernel ``yat_tpu/ops/norm.py:_fwd_kernel``) and its
   backward launches kernel K1b (``yat_adaln_bwd`` in the same source,
-  replacing ``_bwd_kernel``);
+  replacing ``_bwd_kernel``), one launch that also reduces ``dscale`` and
+  ``dshift`` over N in a fixed order;
 * on a CPU tensor the same function runs :func:`adaln_ref` forward and
   :func:`adaln_bwd_ref` backward, the plain versions of the two kernels.
 
@@ -33,7 +34,7 @@ ADALN = CudaKernel(
     [_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L, _L, _F, _I, _P])
 ADALN_BWD = CudaKernel(
     "adaln_layernorm_bwd", "adaln.cu", "yat_adaln_bwd",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I] + [_L] * 7 + [_F, _I, _P])
+    [_P] * 8 + [_I] * 3 + [_L] * 7 + [_F, _I, _P])
 
 
 def acc_dtype(t: torch.Tensor) -> torch.dtype:
@@ -136,30 +137,91 @@ def adaln_launch_info(x: torch.Tensor, scale: torch.Tensor,
             "shared_bytes": buf[3], "blocks_per_sm": buf[4]}
 
 
-def _adaln_bwd_cuda(x, scale, g, eps):
+# K1b's scratch by (device, stream): the blocks' fp32 column sums
+# [B][chunks][2][D] and the int32 arrival counter of each batch element,
+# which every launch leaves at 0.  A launch uses them in its stream's
+# order, so one pair serves every call on that stream.
+_BWD_SCRATCH: dict = {}
+_bwd_chunks = None
+
+
+def _bwd_scratch(x):
+    """K1b's (partial, arrivals) for x's shape on x's current stream, grown
+    when a call needs more."""
+    global _bwd_chunks
+    if _bwd_chunks is None:
+        _bwd_chunks = ADALN_BWD.function("yat_adaln_bwd_chunks", [_I], _I)
+    b, n, d = x.shape
+    stream = stream_of(x)
+    key = (x.device.index, stream)
+    floats = b * _bwd_chunks(n) * 2 * d
+    held = _BWD_SCRATCH.get(key)
+    if held is None or held[0].numel() < floats or held[1].numel() < b:
+        had = (0, 0) if held is None else (held[0].numel(), held[1].numel())
+        held = (torch.empty(max(floats, had[0]), dtype=torch.float32,
+                            device=x.device),
+                torch.zeros(max(b, had[1]), dtype=torch.int32,
+                            device=x.device))
+        _BWD_SCRATCH[key] = held
+    return held, stream
+
+
+def _adaln_bwd_args(x, scale, g, dx, dscale, dshift, partial, arrivals, eps):
+    """K1b's C arguments up to the dtype code (the stream, or the info
+    buffer, follows)."""
+    b, n, d = x.shape
+    return (x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(),
+            dscale.data_ptr(), dshift.data_ptr(), partial, arrivals, b, n, d,
+            x.stride(0), x.stride(1), scale.stride(0), g.stride(0),
+            g.stride(1), dx.stride(0), dx.stride(1), float(eps),
+            dtype_code(x))
+
+
+def _check_bwd(x, scale, g):
     g = g if g.stride(-1) == 1 else g.contiguous()
     _check_rows(x, (("scale", scale), ("g", g)))
     if g.dtype != x.dtype or scale.dtype != x.dtype:
         raise TypeError("adaln backward: x, scale and g must share a dtype")
+    return g
+
+
+def _adaln_bwd_cuda(x, scale, g, eps):
+    g = _check_bwd(x, scale, g)
     b, n, d = x.shape
     dx = torch.empty((b, n, d), dtype=x.dtype, device=x.device)
-    dscale = torch.empty((b, d), dtype=scale.dtype, device=x.device)
-    dshift = torch.empty((b, d), dtype=scale.dtype, device=x.device)
+    dscale, dshift = torch.empty((2, b, d), dtype=scale.dtype,
+                                 device=x.device)
     if dx.numel() == 0:
         return dx, dscale, dshift
-    chunks = ADALN_BWD.function("yat_adaln_bwd_chunks", [_I], _I)(n)
-    # per-chunk fp32 partial sums of dscale and dshift, reduced in a fixed
-    # order by the entry point's second launch (deterministic)
-    partial = torch.empty((2, b, chunks, d), dtype=torch.float32,
-                          device=x.device)
+    (partial, arrivals), stream = _bwd_scratch(x)
     with torch.cuda.device(x.device):
-        ADALN_BWD.launch(x.data_ptr(), scale.data_ptr(), g.data_ptr(),
-                         dx.data_ptr(), dscale.data_ptr(), dshift.data_ptr(),
-                         partial.data_ptr(), b, n, d, x.stride(0),
-                         x.stride(1), scale.stride(0), g.stride(0),
-                         g.stride(1), dx.stride(0), dx.stride(1), float(eps),
-                         dtype_code(x), stream_of(x))
+        ADALN_BWD.launch(*_adaln_bwd_args(
+            x, scale, g, dx, dscale, dshift, partial.data_ptr(),
+            arrivals.data_ptr(), eps), stream)
     return dx, dscale, dshift
+
+
+def adaln_bwd_launch_info(x: torch.Tensor, scale: torch.Tensor,
+                          g: torch.Tensor) -> dict:
+    """The launch K1b makes for these CUDA tensors (scale [B, D] or
+    [B, 1, D]), without making it: its path (``"ring"``, rows streamed
+    through each warp's cp.async ring at the width it is built for, else
+    ``"generic"``), registers and local (spill) bytes a thread, shared
+    bytes and blocks per SM."""
+    scale = scale.reshape(scale.shape[0], scale.shape[-1])
+    g = _check_bwd(x, scale, g)
+    dx = torch.empty_like(x, memory_format=torch.contiguous_format)
+    buf = (ctypes.c_longlong * 5)()
+    fn = ADALN_BWD.function("yat_adaln_bwd_info",
+                            ADALN_BWD.argtypes[:-1] + [_P])
+    err = fn(*_adaln_bwd_args(x, scale, g, dx, dx, dx, None, None, 1e-6),
+             ctypes.addressof(buf))
+    if err != 0:
+        raise RuntimeError(f"adaln_layernorm_bwd launch info failed: CUDA "
+                           f"error {err}")
+    return {"path": "ring" if buf[0] else "generic",
+            "registers": buf[1], "local_bytes": buf[2],
+            "shared_bytes": buf[3], "blocks_per_sm": buf[4]}
 
 
 class _AdaLN(torch.autograd.Function):
