@@ -64,6 +64,28 @@ Phases, each of which fails the run (exit code 1) when it fails:
    20 DDIM steps with CFG 5.0 and PAG 2.0, fp32 SD KL-VAE decoder): K6 runs
    its self-attention, K2's kernel its cross-attention in K4's place, and
    the XLA attention branch must not run;
+6b. pretrained: SANA-0.6B 512px served from a seeded synthetic diffusers
+   pipe directory in a temporary directory (``tools/synth_checkpoint.py``:
+   ``transformer/`` with the full key space and its ``config.json``,
+   ``text_encoder/`` Gemma-2-2B, ``vae/`` the DC-AE f32c32 with both
+   halves; BF16, deleted at the end) through ``make_pipeline``: every
+   parameter must equal its synthesized value after the same casts (a
+   bias the published layout leaves out: zero); the seconds each model
+   took from file to card and the host's peak RSS; the HTTP main path of
+   phase 6 (K1, K2, K3 by their per-call counts); a batch of 4 with
+   Euler, DPM-Solver++(2M) and the velocity cache at interval 2 (12
+   denoiser calls over 20 steps, counted on K1/K2/K3), each with its
+   latency and the denoiser's device time; refiner gating with a random
+   nonzero LoRA (no active step: the latents of the pipeline without
+   LoRA, every step active: those of the ungated LoRA pipeline, bit for
+   bit); one ``low_vram`` batch (encoder and decoder weights on the host
+   after it, one prompt at a time, device memory at rest and peak beside
+   the normal batch's).  Then PixArt-Sigma XL-2 the same way with
+   ``transformer/`` and ``vae/`` (the SD KL-VAE) from files and DDIM and
+   DPM batches (2 denoiser calls a step under PAG; K1, K4, K6); T5-XXL
+   stays random (its encoder file is about 9.5 GB in bf16; its loader is
+   held against the JAX package on the CPU).  The hash tokenizer stands
+   in for the pipe's (the card's machine has no ``transformers``);
 7. train: SANA-0.6B 512px LoRA training through the port's entry point
    ``yat_tpu_torch.frontends.sana.main`` on a synthetic feature shard
    (batch 16, bf16, rank-8 LoRA on to_q/to_k/to_v/to_out, AdamW with
@@ -92,9 +114,11 @@ package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
+import shutil
 import struct
 import subprocess
 import sys
@@ -1865,10 +1889,12 @@ def per_step_launches(family, vp):
 
 
 def phase_serve(params, device, card, family="sana", px=512, profile=False,
-                window_ms=100.0):
+                window_ms=100.0, on_built=None, after=None):
     """The serving main path through HTTP.  The batch window only has to
     cover the arrival of 4 concurrent requests: ``window_ms`` widens it for
-    a rehearsal on a loaded CPU, where the arrivals spread further."""
+    a rehearsal on a loaded CPU, where the arrivals spread further.
+    ``on_built(vp)`` runs once the pipeline is built, ``after(vp)`` once
+    the main path's counts are read (before the server stops)."""
     import torch
 
     from yat_tpu_torch.kernels.build import launch_counts, reset_launch_counts
@@ -1883,8 +1909,11 @@ def phase_serve(params, device, card, family="sana", px=512, profile=False,
     if cuda:
         torch.cuda.synchronize()
     log(f"serve {family}: built the denoiser ({cfg.hidden_dim}-wide, "
-        f"{cfg.num_layers} blocks), caption encoder and decoder with random "
-        f"weights in {time.perf_counter() - t0:.1f} s")
+        f"{cfg.num_layers} blocks), caption encoder and decoder "
+        f"{'from ' + params.pretrained_pipe_path if params.pretrained_pipe_path else 'with random weights'}"
+        f" in {time.perf_counter() - t0:.1f} s")
+    if on_built is not None:
+        on_built(vp)
     server = make_server(sampler, host="127.0.0.1", port=0)
     port = server.server_address[1]
     th = threading.Thread(target=server.serve_forever, daemon=True)
@@ -1927,6 +1956,8 @@ def phase_serve(params, device, card, family="sana", px=512, profile=False,
         batches = sampler.stats["batches"] - batches0
         if profile:
             profile_batch(vp, card)
+        if after is not None:
+            after(vp)
     finally:
         server.shutdown()
         server.server_close()
@@ -2031,6 +2062,16 @@ def profile_batch(vp, card):
     profile_run("batch of 4", lambda: vp(PROMPTS), card)
 
 
+def busy_union(spans):
+    """The length of the union of ``(start, end)`` intervals."""
+    busy, end = 0.0, -1.0
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
 def profile_run(label, fn, card):
     """``fn()`` under torch.profiler: device time by layer and by kernel,
     and the share of the wall time the device sat idle."""
@@ -2059,11 +2100,7 @@ def profile_run(label, fn, card):
         by_name[e.name] = (n + 1, t + dur)
     log(f"profile: {sum(n for n, _ in by_name.values())} device records; "
         f"the port's counters rose by {sorted(calls.items())}")
-    busy, end = 0.0, -1.0
-    for a, b in sorted(spans):                 # union of kernel intervals
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    busy = busy_union(spans)
     log(f"profile [{card}]: {label} in {wall_us / 1e3:.1f} ms (profiler "
         f"on), device busy {busy / 1e3:.1f} ms, idle share "
         f"{1 - busy / wall_us:.3f}")
@@ -2094,6 +2131,486 @@ def profile_run(label, fn, card):
         if fam.startswith("K"):
             log(f"profile:     {fam.split()[0]:6s} {n:6d}x {t / 1e3:9.2f} ms"
                 f"  {name[:90]}")
+
+
+
+# ---------------------------------------------------------------------------
+# 6b. pretrained serving from files, the samplers, gating, low_vram
+# ---------------------------------------------------------------------------
+
+SYNTH_SEED = 7
+
+
+def synth_module():
+    from tools import synth_checkpoint
+    return synth_checkpoint
+
+
+@contextlib.contextmanager
+def hash_tokenizer():
+    """The hash tokenizer in place of the pipe directory's: the card's
+    machine has no ``transformers`` and the repository no tokenizer
+    files, so the synthesized pipe directory holds none."""
+    from yat_tpu_torch.utils import tokenizer as T
+    real = T.load_tokenizer
+
+    def load(path, subfolder="tokenizer", vocab_size=256, max_length=77,
+             require=False):
+        return T.HashTokenizer(vocab_size=vocab_size, max_length=max_length)
+    T.load_tokenizer = load
+    try:
+        yield
+    finally:
+        T.load_tokenizer = real
+
+
+def host_rss_bytes():
+    """The process's resident set now, from /proc/self/statm (None where
+    the kernel does not provide it)."""
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, ValueError, IndexError):
+        return None
+
+
+class HostPeak:
+    """The largest resident set seen between :meth:`start` and
+    :meth:`stop`, sampled every 20 ms on a thread (/proc/self/status has
+    no VmHWM in some sandboxes); ``gib`` is None where the resident set
+    cannot be read."""
+
+    def start(self):
+        self.peak = host_rss_bytes()
+        self._stop = threading.Event()
+
+        def poll():
+            while not self._stop.wait(0.02):
+                now = host_rss_bytes()
+                if now is not None:
+                    self.peak = max(self.peak or 0, now)
+        self._thread = threading.Thread(target=poll, daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join()
+
+    @property
+    def gib(self):
+        return None if self.peak is None else self.peak / 2**30
+
+
+def pipe_entries(family, params):
+    """``[(subdirectory, module on the meta device, rules, file name,
+    config.json)]`` of the family's synthesized pipe directory: the
+    denoiser, and for SANA Gemma-2 and the DC-AE decoder, for
+    PixArt-Sigma the KL-VAE decoder (T5-XXL stays random: its encoder
+    file is about 9.5 GB in bf16)."""
+    import torch
+
+    from yat_tpu_torch.models import text_encoders as TE
+    from yat_tpu_torch.models import vae as V
+
+    S = synth_module()
+    tiny = bool(params.model_config_overrides.get("tiny_encoders"))
+    main = "diffusion_pytorch_model.safetensors"
+    with torch.device("meta"):
+        if family == "sana":
+            from yat_tpu_torch.frontends.sana import build_sana_config
+            from yat_tpu_torch.models.sana import SanaTransformer2D
+            cfg = build_sana_config(params)
+            vae_cfg = V.DCAE_TINY_TEST if tiny else V.DCAE_SANA
+            return [
+                ("transformer", SanaTransformer2D(cfg), S.SANA_RULES, main,
+                 S.sana_config_json(cfg)),
+                ("text_encoder", TE.Gemma2Encoder(
+                    TE.GEMMA_TINY_TEST if tiny else TE.GEMMA2_2B),
+                 S.GEMMA2_RULES, "model.safetensors", None),
+                ("vae", V.DCAE(vae_cfg), S.dcae_rules(vae_cfg), main, None)]
+        from yat_tpu_torch.frontends.pixart import build_pixart_config
+        from yat_tpu_torch.models.pixart import PixArtTransformer2D
+        cfg = build_pixart_config(params)
+        return [
+            ("transformer", PixArtTransformer2D(cfg),
+             S.pixart_rules(cfg.patch_size), main, None),
+            ("vae", V.AutoencoderKL(V.KLVAE_TINY_TEST if tiny
+                                    else V.KLVAE_SD15),
+             S.VAE_KL_RULES, main, None)]
+
+
+def vae_encoder_shapes(vae):
+    """The flax shapes of the encoder half of ``vae``'s checkpoint (the
+    port holds the decoder only; published files hold both halves, and
+    the converters read both), built from the port's block classes on the
+    meta device."""
+    import torch
+    from torch import nn
+
+    from yat_tpu_torch.convert import flax_params
+    from yat_tpu_torch.models import vae as V
+    from yat_tpu_torch.models.layers import Conv2d
+
+    cfg = vae.cfg
+    ch = cfg.block_out_channels
+    with torch.device("meta"):
+        enc = nn.Module()
+        enc.conv_in = Conv2d(cfg.in_channels, ch[0], 3)
+        if isinstance(vae, V.DCAE):
+            for i, c in enumerate(ch):
+                if i > 0:
+                    down = nn.Module()
+                    down.conv = Conv2d(ch[i - 1], c // 4, 3)
+                    enc.add_module(f"down_{i}", down)
+                for j in range(cfg.encoder_layers[i]):
+                    enc.add_module(f"stage_{i}_block_{j}", V.EfficientViTBlock(
+                        c, head_dim=cfg.attention_head_dim,
+                        scales=cfg.qkv_multiscales, expand=cfg.glu_expand)
+                        if cfg.attention_stages[i] else V.DCResBlock(c))
+            enc.conv_out = Conv2d(ch[-1], cfg.latent_channels, 3)
+        else:
+            cin = ch[0]
+            for i, c in enumerate(ch):
+                for j in range(cfg.layers_per_block):
+                    enc.add_module(f"down_{i}_resnet_{j}",
+                                   V.ResnetBlock(cin, c))
+                    cin = c
+                if i < len(ch) - 1:
+                    enc.add_module(f"down_{i}_downsample", Conv2d(c, c, 3))
+            enc.mid_resnet_0 = V.ResnetBlock(ch[-1], ch[-1])
+            enc.mid_attn = V.AttnBlock(ch[-1])
+            enc.mid_resnet_1 = V.ResnetBlock(ch[-1], ch[-1])
+            enc.conv_norm_out = V.GroupNorm(ch[-1])
+            enc.conv_out = Conv2d(ch[-1], 2 * cfg.latent_channels, 3)
+            enc.quant_conv = Conv2d(2 * cfg.latent_channels,
+                                    2 * cfg.latent_channels, 1)
+    return {f"encoder.{k}": tuple(v.shape)
+            for k, v in flax_params(enc).items()}
+
+
+def write_pipe(pipe, family, params):
+    """Synthesize the family's pipe directory (BF16 files, seeded);
+    returns ``{subdirectory: rules}``."""
+    from yat_tpu_torch.convert import flax_params
+
+    S = synth_module()
+    rules = {}
+    for sub, module, sub_rules, name, config in pipe_entries(family, params):
+        t0 = time.perf_counter()
+        shapes = {k: tuple(v.shape) for k, v in flax_params(module).items()}
+        if sub == "vae":
+            shapes.update(vae_encoder_shapes(module))
+        info = S.write_checkpoint(os.path.join(pipe, sub), shapes, sub_rules,
+                                  SYNTH_SEED, "BF16", name=name,
+                                  config=config)
+        log(f"pretrained {family}: synthesized {sub}/{name}: "
+            f"{info['tensors']} tensors, {info['bytes'] / 2**30:.2f} GiB "
+            f"BF16 ({len(info['dropped'])} biases left out, as the "
+            f"published layout does) in {time.perf_counter() - t0:.1f} s")
+        rules[sub] = sub_rules
+    return rules
+
+
+def check_loaded(label, module, rules):
+    """Every parameter of ``module`` equals its synthesized value after
+    the same casts (a left-out bias: exactly zero)."""
+    import torch
+
+    from yat_tpu_torch.convert import flax_params
+
+    S = synth_module()
+    bad, n = [], 0
+    for path, t in flax_params(module).items():
+        _, kind = S.match(path, rules)
+        v = S.leaf_value(SYNTH_SEED, path, tuple(t.shape), kind, "BF16")
+        want = torch.from_numpy(v).to(device=t.device, dtype=t.dtype)
+        if not torch.equal(t, want):
+            bad.append(path)
+        n += t.numel()
+    if bad:
+        fail(f"{label}: {len(bad)} parameters differ from the checkpoint, "
+             f"e.g. {bad[:4]}")
+    log(f"{label}: all {n:,} parameters ({len(flax_params(module))} "
+        "tensors) equal the synthesized values after the same casts")
+
+
+def prepared(vp, prompts):
+    """The conditioning a pipeline call builds for ``prompts``."""
+    from yat_tpu_torch.train.validation import tile_batch
+    enhanced = [vp.prompt_transform(p) if vp.prompt_transform else p
+                for p in prompts]
+    return (tile_batch(vp.encode_prompts(enhanced), len(prompts)),
+            tile_batch(vp.encode_prompts([""]), len(prompts)))
+
+
+def denoiser_device_ms(vp, cond, uncond):
+    """The device's busy time (union of kernel records) of one
+    ``sample_latents`` under torch.profiler, and the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        vp.sample_latents(cond, uncond)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return busy_union(spans) / 1e3, wall * 1e3
+
+
+def sampler_runs(family, vp, card, px):
+    """A batch of 4 with each sampler of the family: the default ladder,
+    DPM-Solver++(2M) and, for SANA, the velocity cache at interval 2;
+    latency, launches (one count per evaluated step) and the denoiser's
+    device time.  Returns the default batch's peak device memory."""
+    import torch
+
+    from yat_tpu_torch.kernels.build import launch_counts, reset_launch_counts
+    from yat_tpu_torch.ops.sampling import cache_eval_mask
+    from yat_tpu_torch.train.validation import set_cache_interval, set_sampler
+
+    cuda = vp.device.type == "cuda"
+    runs = [("euler" if family == "sana" else "ddim", None, 1),
+            ("dpm", "dpm", 1)]
+    if family == "sana":
+        runs.append(("cache-2", None, 2))
+    per_step = per_step_launches(family, vp)
+    peak = 0
+    for label, sampler, interval in runs:
+        vp.sampler, vp.cache_interval = "auto", 1
+        if sampler:
+            set_sampler(vp, sampler)
+        set_cache_interval(vp, interval)
+        calls = sum(cache_eval_mask(vp.num_steps, vp.cache_interval))
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        images = vp(PROMPTS)
+        if cuda:
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = launch_counts()
+        if label in ("euler", "ddim") and cuda:
+            peak = torch.cuda.max_memory_allocated()
+        for img in images.values():
+            if img.shape != (px, px, 3) or not np.isfinite(img).all():
+                fail(f"sampler {family} {label}: image {img.shape} not "
+                     f"finite / not {px}x{px}x3")
+        for name, n in per_step.items():
+            want = n * calls if cuda else 0
+            if counts[name] != want:
+                fail(f"sampler {family} {label}: {name} {counts[name]} "
+                     f"launches, expected {n} x {calls} denoiser steps")
+        busy = "not measured (CPU)"
+        if cuda:
+            ms, wall = denoiser_device_ms(vp, *prepared(vp, PROMPTS))
+            busy = f"{ms:.1f} ms busy of {wall:.1f} ms (profiler on)"
+        log(f"sampler {family} {label} [{card}]: batch of 4 in {dt:.3f} s; "
+            f"{calls} denoiser steps of {vp.num_steps} "
+            f"({', '.join(f'{k} {counts[k]}' for k in per_step)}); "
+            f"denoiser device time {busy}")
+    vp.sampler, vp.cache_interval = "auto", 1
+    return peak
+
+
+def gating_invariants(vp):
+    """Refiner gating on SANA with a random nonzero LoRA: active timesteps
+    holding none of the ladder's steps give the latents of the pipeline
+    without LoRA bit for bit, holding all of them those of the ungated
+    LoRA pipeline.  All four runs skip the caption K/V cache (a gated run
+    must), so each pair runs the same GEMM shapes."""
+    import torch
+
+    from yat_tpu_torch.adapters.builder import AdapterSpec, \
+        build_adapter_params
+    from yat_tpu_torch.models.layers import AdapterDense
+
+    cond, uncond = prepared(vp, PROMPTS)
+    ladder = vp.schedule.inference_sigmas(vp.num_steps)[:-1]
+    steps = sorted({int(torch.round(s * vp.schedule.num_train_timesteps))
+                    for s in ladder})
+    # shadow the class attribute on the instance for the four runs
+    vp.model.supports_context_cache = False
+
+    def latents(active):
+        vp.active_timesteps = active
+        with torch.inference_mode():
+            return vp.sample_latents(cond, uncond).float().cpu()
+
+    try:
+        plain = latents(None)
+        gen = torch.Generator(device=vp.device).manual_seed(3)
+        n = build_adapter_params(vp.model, AdapterSpec(
+            "lora", rank=8, alpha=8.0, target_modules=LORA_TARGETS), gen)
+        with torch.no_grad():
+            for m in vp.model.modules():
+                if isinstance(m, AdapterDense) and m.lora_b is not None:
+                    m.lora_b.normal_(0.0, 0.05, generator=gen)
+        lora = latents(None)
+        off = latents((max(steps) + 1,))
+        on = latents(tuple(steps))
+    finally:
+        vp.active_timesteps = None
+        del vp.model.supports_context_cache
+    moved = float((lora - plain).abs().max())
+    log(f"gating: {n} LoRA modules move the latents by {moved:.3e}; "
+        f"ladder steps {steps}")
+    if not moved > 0:
+        fail("gating: the random LoRA does not change the latents")
+    if not torch.equal(off, plain):
+        fail(f"gating: no active step differs from the pipeline without "
+             f"LoRA by {float((off - plain).abs().max()):.3e}")
+    if not torch.equal(on, lora):
+        fail(f"gating: every step active differs from the ungated LoRA "
+             f"pipeline by {float((on - lora).abs().max()):.3e}")
+    log("gating: no step active == no LoRA, bit for bit; every step active "
+        "== ungated LoRA, bit for bit")
+
+
+def low_vram_batch(family, params, device, card, peak_normal):
+    """One ``low_vram`` batch of 4 from the same pipe directory: the
+    caption encoder's and decoder's weights rest on the host, the prompts
+    go one at a time, the decoder tiles; the device's memory at rest and
+    its peak beside the normal batch's."""
+    import torch
+
+    from yat_tpu_torch.frontends.sana import make_pipeline
+
+    cuda = device.type == "cuda"
+    low = serve_params(**{**raw_of(params), "low_vram": ""})
+    low.bfloat16 = params.bfloat16
+    with hash_tokenizer():
+        vp = make_pipeline(low, device)
+    modules = {"caption encoder": vp.encode_prompts.encode_captions.module,
+               "decoder": vp.decode_latents.module}
+    batches = []
+    sample = vp.sample_latents
+
+    def recording(cond, uncond, x0=None):
+        batches.append(int(cond["embeddings"].shape[0]))
+        return sample(cond, uncond, x0)
+    vp.sample_latents = recording
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    rest = torch.cuda.memory_allocated() if cuda else 0
+    t0 = time.perf_counter()
+    images = vp(PROMPTS)
+    if cuda:
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    for name, m in modules.items():
+        where = {p.device.type for p in m.parameters()}
+        if where != {"cpu"}:
+            fail(f"low_vram: the {name}'s parameters sit on {where} after "
+                 "the batch")
+    if batches != [1] * len(PROMPTS):
+        fail(f"low_vram: sampling runs of batch {batches}, expected one "
+             "prompt at a time")
+    if len(images) != len(PROMPTS) or not all(
+            np.isfinite(i).all() for i in images.values()):
+        fail("low_vram: images missing or not finite")
+    log(f"low_vram {family} [{card}]: batch of 4 (one prompt at a time) in "
+        f"{dt:.3f} s; device memory at rest {rest / 2**30:.2f} GiB, peak "
+        f"{peak / 2**30:.2f} GiB (normal batch's peak "
+        f"{peak_normal / 2**30:.2f} GiB); the caption encoder's and "
+        "decoder's parameters sit on the host after the batch")
+
+
+def raw_of(params):
+    """The configuration keys of a serving ``params`` built by
+    :func:`serve_params`."""
+    return {"pretrained_pipe_path": params.pretrained_pipe_path,
+            "model_config_overrides": dict(params.model_config_overrides),
+            **({"aspect_ratio": str(params.aspect_ratios)}
+               if params.aspect_ratios else {})}
+
+
+def phase_pretrained(device, card, family="sana", extra=None, px=512,
+                     window_ms=100.0, bfloat16=True):
+    """Serving from a synthesized diffusers pipe directory (BF16 files in
+    a temporary directory, deleted at the end) through ``make_pipeline``:
+    every parameter checked against its synthesized value, the seconds
+    each model took from file to the device and the host's peak RSS, the
+    HTTP main path (launch counts as in the serve phase), then each
+    sampler's batch, and for SANA the gating invariants and one
+    ``low_vram`` batch.  ``extra``: configuration keys of a rehearsal
+    (tiny overrides).  Returns the serve main path's launch counts."""
+    import gc
+
+    import torch
+
+    cuda = device.type == "cuda"
+    extra = dict(extra or {})
+    pipe = tempfile.mkdtemp(prefix=f"pipe-{family}-")
+    peak, rss = {}, None
+    try:
+        rules = write_pipe(pipe, family, serve_params(**extra))
+        params = serve_params(pretrained_pipe_path=pipe, **extra)
+        params.bfloat16 = bfloat16
+        before = host_rss_bytes()
+        rss_before = ("not readable" if before is None
+                      else f"{before / 2**30:.2f} GiB")
+        rss = HostPeak().start()
+
+        def on_built(vp):
+            rss.stop()
+            peak_rss = ("not readable" if rss.gib is None
+                        else f"{rss.gib:.2f} GiB")
+            modules = {"transformer": vp.model,
+                       "text_encoder": vp.encode_prompts.encode_captions.module,
+                       "vae": vp.decode_latents.module}
+            seconds = {k: getattr(m, "load_seconds", None)
+                       for k, m in modules.items()}
+            loaded = {k for k, v in seconds.items() if v is not None}
+            if loaded != set(rules):
+                fail(f"pretrained {family}: loaded {sorted(loaded)}, the "
+                     f"pipe holds {sorted(rules)}")
+            log(f"pretrained {family}: from file to {device.type} "
+                + ", ".join(f"{k} {seconds[k]:.1f} s" for k in rules)
+                + f"; peak host RSS while the pipeline was built {peak_rss}"
+                f" (before it {rss_before})")
+            t0 = time.perf_counter()
+            check_loaded(f"pretrained {family} transformer", vp.model,
+                         rules["transformer"])
+            if "text_encoder" in rules:
+                check_loaded(f"pretrained {family} text_encoder",
+                             vp.encode_prompts.encode_captions.module,
+                             rules["text_encoder"])
+            check_loaded(f"pretrained {family} vae",
+                         vp.decode_latents.module, rules["vae"])
+            log(f"pretrained {family}: parameter checks took "
+                f"{time.perf_counter() - t0:.1f} s")
+
+        def after(vp):
+            peak["normal"] = sampler_runs(family, vp, card, px)
+            if family == "sana":
+                gating_invariants(vp)
+
+        with hash_tokenizer():
+            counts = phase_serve(params, device, card, family=family, px=px,
+                                 window_ms=window_ms, on_built=on_built,
+                                 after=after)
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        if family == "sana":
+            low_vram_batch(family, params, device, card, peak["normal"])
+    finally:
+        if rss is not None:
+            rss.stop()
+        shutil.rmtree(pipe, ignore_errors=True)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -2620,6 +3137,9 @@ def main() -> None:
                                      family=family, profile=True)
         gc.collect()
         torch.cuda.empty_cache()
+    for family in ("sana", "pixart"):
+        counts[f"pretrained_{family}"] = phase_pretrained(device, card,
+                                                          family)
     counts["train"] = phase_train(device, card)
     gc.collect()
     torch.cuda.empty_cache()

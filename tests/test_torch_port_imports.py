@@ -1,7 +1,9 @@
 """PyTorch port, import boundary: no module of ``yat_tpu_torch/`` and not
-``chip_smoke.py`` imports JAX, flax, optax or the JAX package.  A static
-scan of the source (the test process itself has JAX loaded, so
-``sys.modules`` says nothing)."""
+``chip_smoke.py`` (nor ``tools/synth_checkpoint.py``, which it imports)
+imports JAX, flax, optax, the JAX package or ``safetensors`` (the card's
+machine has none; the port reads the format itself).  A static scan of
+the source (the test process itself has JAX loaded, so ``sys.modules``
+says nothing)."""
 
 import ast
 from pathlib import Path
@@ -9,9 +11,9 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "yat_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "yat_tpu", "safetensors")
 SOURCES = sorted((ROOT / "yat_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "synth_checkpoint.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -59,3 +61,4 @@ def test_matcher_is_exact():
     assert _forbidden("yat_tpu") and _forbidden("flax.linen")
     assert not _forbidden("yat_tpu_torch.ops.norm")
     assert not _forbidden("jaxtyping_like") and not _forbidden("torch")
+    assert _forbidden("safetensors.numpy")

@@ -141,9 +141,31 @@ def test_convert_rejects_mismatch():
     with pytest.raises(ValueError, match="does not fit"):
         load_flax_params(dense, {**good, "kernel": np.zeros((3, 4))})
     with pytest.raises(KeyError, match="not in the tree"):
-        load_flax_params(dense, {"kernel": good["kernel"]})
+        load_flax_params(dense, {"bias": good["bias"]})
+    # a bias the tree lacks (a torch layer without one) is set to zero,
+    # whatever the constructor left there
+    with torch.no_grad():
+        dense.bias.fill_(float("nan"))
+    load_flax_params(dense, {"kernel": good["kernel"]})
+    assert torch.equal(dense.bias, torch.zeros(3))
     with pytest.raises(KeyError, match="no parameter"):
         load_flax_params(dense, {**good, "scale": np.zeros((3,))})
+    # only a leaf named ``bias`` may be missing: T5's learned position
+    # table ``relative_attention_bias`` is a weight
+    from yat_tpu_torch.convert import flax_params
+    from yat_tpu_torch.models.text_encoders import T5_TINY_TEST, T5Encoder
+
+    t5 = T5Encoder(T5_TINY_TEST, dtype=torch.float32)
+    tree = {}
+    for path, t in flax_params(t5).items():
+        if not path.endswith("relative_attention_bias"):
+            *keys, leaf = path.split(".")
+            node = tree
+            for k in keys:
+                node = node.setdefault(k, {})
+            node[leaf] = t.numpy().copy()
+    with pytest.raises(KeyError, match="relative_attention_bias"):
+        load_flax_params(t5, tree)
 
 
 # ---------------------------------------------------------------------------

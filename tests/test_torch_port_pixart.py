@@ -345,9 +345,10 @@ def test_serve_and_generate_pixart_on_cpu(tmp_path):
                    "a red fox", "--steps", "2", "--out", str(out),
                    "--device", "cpu"])
     assert len((out / "prompts.txt").read_text().splitlines()) == 1
-    with pytest.raises(ValueError, match="dpm"):
+    # the velocity cache has no epsilon form: the gate refuses it
+    with pytest.raises(ValueError, match="requires a flow-match family"):
         generate.main(["--config", str(cfg), "--family", "pixart",
-                       "--prompt", "x", "--sampler", "dpm", "--device",
+                       "--prompt", "x", "--cache-interval", "2", "--device",
                        "cpu", "--out", str(out)])
     # the trainer (tests/test_torch_port_pixart_train.py) needs shards
     with pytest.raises(ValueError, match="local_shard_paths"):

@@ -396,7 +396,8 @@ def test_entry_point_trains_and_exports(tmp_path):
     ({"profile_dir": "prof"}, NotImplementedError, "item 6"),
     ({"compute_features": "true", "vae_max_batch_size": "2",
       "text_encoder_max_batch_size": "2"}, NotImplementedError, "item 8"),
-    ({"train_unconditional_prob": "0.1"}, ValueError, "empty-caption"),    ({"pretrained_model_path": "ckpt"}, NotImplementedError, "item 7"),
+    ({"train_unconditional_prob": "0.1"}, ValueError, "empty-caption"),    ({"pretrained_model_path": "ckpt"}, ValueError,
+     "no denoiser checkpoint was found"),
 ])
 def test_entry_point_refuses_unported_options(tmp_path, over, exc, match):
     from yat_tpu_torch.frontends.pixart import main
@@ -409,16 +410,21 @@ def test_entry_point_refuses_unported_options(tmp_path, over, exc, match):
 @pytest.mark.parametrize("key", ["pretrained_model_path",
                                  "pretrained_pipe_path",
                                  "pretrained_pipe_single_file"])
-def test_pretrained_paths_name_their_roadmap_item(key):
-    """Loading pretrained weights is unported: each of the three paths
-    raises NotImplementedError naming ROADMAP item 7."""
+def test_pretrained_paths_name_their_roadmap_item(key, tmp_path):
+    """Each of the three pretrained paths, pointing at no checkpoint,
+    raises naming the configured paths instead of running random weights
+    (loading itself is tests/test_torch_port_pretrained.py)."""
     from yat_tpu_torch.config import TrainingParameters
+    from yat_tpu_torch.frontends.common import load_pretrained_backbone
     from yat_tpu_torch.frontends.pixart import build_pixart_config
 
     params = TrainingParameters()
-    setattr(params, key, "weights")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        build_pixart_config(params)
+    setattr(params, key, str(tmp_path / "weights"))
+    cfg = build_pixart_config(params)
+    with pytest.raises(ValueError, match="no denoiser checkpoint was found"
+                       ) as e:
+        load_pretrained_backbone(params, "pixart", cfg)
+    assert repr(str(tmp_path / "weights")) in str(e.value)
 
 
 def test_trainer_with_encoders_encodes_empty_caption_and_validates(tmp_path):

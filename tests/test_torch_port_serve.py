@@ -191,15 +191,27 @@ def test_build_sampler_batch_cap_and_refused_options():
         assert p2.validation_batch == 4           # default aligns
     finally:
         s2.stop()
-    # options this slice does not implement raise, never silently ignored
-    with pytest.raises(ValueError, match="velocity caching"):
-        build_sampler(_port_params(), "sana", cache_interval=2, device="cpu")
+    # the sampler options go through the JAX package's gates: the cache
+    # and DPM reach the pipeline, a bad interval or family raises
+    s3 = build_sampler(_port_params(), "sana", cache_interval=2,
+                       sampler="auto", device="cpu")
+    try:
+        assert s3.pipeline.cache_interval == 2
+    finally:
+        s3.stop()
     with pytest.raises(ValueError, match=">= 1"):
         build_sampler(_port_params(), "sana", cache_interval=0, device="cpu")
+    with pytest.raises(ValueError, match="requires a flow-match family"):
+        build_sampler(_port_params(), "sana", cache_interval=2,
+                      sampler="dpm", device="cpu")
     with pytest.raises(ValueError, match="not ported"):
         build_sampler(_port_params(), "sd15", device="cpu")
-    with pytest.raises(ValueError, match="low_vram"):
-        build_sampler(_port_params(low_vram=""), "sana", device="cpu")
+    # low_vram serves one prompt at a time
+    s4 = build_sampler(_port_params(low_vram=""), "sana", device="cpu")
+    try:
+        assert s4.pipeline.params.low_vram
+    finally:
+        s4.stop()
 
 
 def test_chip_smoke_serve_phase_on_cpu():
@@ -245,6 +257,13 @@ def test_generate_cli_writes_pngs(tmp_path):
     assert [ln.split("\t")[1] for ln in lines] == ["a red fox", "a blue bird"]
     for ln in lines:
         assert (out / ln.split("\t")[0]).stat().st_size > 0
-    with pytest.raises(ValueError, match="dpm"):
-        generate.main(["--config", str(cfg), "--prompt", "x", "--sampler",
-                       "dpm", "--device", "cpu", "--out", str(out)])
+    # DPM-Solver++(2M) and the velocity cache reach the pipeline; a cache
+    # interval below 1 raises
+    generate.main(["--config", str(cfg), "--prompt", "x", "--sampler",
+                   "dpm", "--steps", "2", "--device", "cpu", "--out",
+                   str(out / "dpm")])
+    assert (out / "dpm" / "prompts.txt").exists()
+    with pytest.raises(ValueError, match=">= 1"):
+        generate.main(["--config", str(cfg), "--prompt", "x",
+                       "--cache-interval", "0", "--device", "cpu", "--out",
+                       str(out)])

@@ -404,7 +404,8 @@ def test_entry_point_trains_and_exports(tmp_path):
     ({"train_unconditional_prob": "0.5"}, ValueError, "empty-caption"),
     ({"unfreeze_modules": ["blocks_0"]}, NotImplementedError,
      "unfreeze_modules"),
-    ({"lora_algo": "loha"}, NotImplementedError, "loha"),    ({"pretrained_model_path": "ckpt"}, NotImplementedError, "item 7"),
+    ({"lora_algo": "loha"}, NotImplementedError, "loha"),    ({"pretrained_model_path": "ckpt"}, ValueError,
+     "no denoiser checkpoint was found"),
 ])
 def test_entry_point_refuses_unported_options(tmp_path, over, exc, match):
     from yat_tpu_torch.frontends.sana import main
@@ -417,16 +418,21 @@ def test_entry_point_refuses_unported_options(tmp_path, over, exc, match):
 @pytest.mark.parametrize("key", ["pretrained_model_path",
                                  "pretrained_pipe_path",
                                  "pretrained_pipe_single_file"])
-def test_pretrained_paths_name_their_roadmap_item(key):
-    """Loading pretrained weights is unported: each of the three paths
-    raises NotImplementedError naming ROADMAP item 7."""
+def test_pretrained_paths_name_their_roadmap_item(key, tmp_path):
+    """Each of the three pretrained paths, pointing at no checkpoint,
+    raises naming the configured paths instead of running random weights
+    (loading itself is tests/test_torch_port_pretrained.py)."""
     from yat_tpu_torch.config import TrainingParameters
+    from yat_tpu_torch.frontends.common import load_pretrained_backbone
     from yat_tpu_torch.frontends.sana import build_sana_config
 
     params = TrainingParameters()
-    setattr(params, key, "weights")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        build_sana_config(params)
+    setattr(params, key, str(tmp_path / "weights"))
+    cfg = build_sana_config(params)
+    with pytest.raises(ValueError, match="no denoiser checkpoint was found"
+                       ) as e:
+        load_pretrained_backbone(params, "sana", cfg)
+    assert repr(str(tmp_path / "weights")) in str(e.value)
 
 
 def test_trainer_with_encoders_encodes_empty_caption_and_validates(tmp_path):

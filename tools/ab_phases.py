@@ -11,7 +11,8 @@ and yardsticks), the serve phase of SANA-0.6B and PixArt-Sigma XL-2 at
 profiled batch of 4), the SANA-0.6B LoRA training phase on a bf16 base
 (``train``) and on an int8 base with w8a8 (``int8``), and the
 PixArt-Sigma XL-2 LoRA training phase (``pixart-train``; six steps, a
-remat step and a profiled step each).
+remat step and a profiled step each).  Each serve phase then times five
+more batches of 4 straight through the pipeline.
 
     python3 tools/ab_phases.py TREE [kernels] [k1b] [w8a8] [sana] [pixart]
                                     [train] [int8] [pixart-train]
@@ -50,6 +51,23 @@ def has_symbol(kernel, symbol):
     return True
 
 
+def timed_batches(cs, family, vp, card, n=5):
+    """``n`` batches of 4 straight through the pipeline (no HTTP), each
+    timed to its images on the host: the batch latency with the server's
+    queue taken out."""
+    import statistics
+    import time
+
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        vp(cs.PROMPTS)
+        times.append(time.perf_counter() - t0)
+    cs.log(f"serve {family} [{card}]: {n} batches of 4 through the "
+           f"pipeline in {', '.join(f'{t:.3f}' for t in times)} s; median "
+           f"{statistics.median(times):.3f} s")
+
+
 def main(argv):
     tree = Path(argv[0]).resolve()
     phases = argv[1:] or ["kernels", "k1b", "w8a8", "sana", "pixart",
@@ -83,7 +101,9 @@ def main(argv):
     for family in ("sana", "pixart"):
         if family in phases:
             cs.phase_serve(cs.serve_params(), device, card, family=family,
-                           profile=True)
+                           profile=True,
+                           after=lambda vp, f=family: timed_batches(
+                               cs, f, vp, card))
             gc.collect()
             torch.cuda.empty_cache()
     if "train" in phases:

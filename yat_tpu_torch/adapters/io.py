@@ -8,9 +8,11 @@ Counterpart of the export half of ``yat_tpu/adapters/io.py``.  Keys are
 (the torch layout), and the header's metadata carries the scales as JSON
 under ``yat_meta``, as the JAX package writes them; its
 ``load_adapter_safetensors`` reads the file back.  The safetensors format
-is written here directly (an 8-byte little-endian header length, a JSON
-header, then the raw little-endian tensors back to back), so the port
-needs no ``safetensors`` package.
+is written and read here directly (an 8-byte little-endian header length,
+a JSON header, then the raw little-endian tensors back to back), so the
+port needs no ``safetensors`` package.  Adapter files are written in F32;
+the reader also takes the F16 and BF16 tensors of pretrained checkpoints
+(``models/convert.py``).
 """
 
 from __future__ import annotations
@@ -30,7 +32,11 @@ _PEFT_NAMES = {
 
 # the adapter files hold fp32 tensors only
 _DTYPES = {np.dtype("float32"): "F32"}
-_NP_DTYPES = {v: k for k, v in _DTYPES.items()}
+# what the reader takes; BF16 has no numpy type and is widened to fp32
+_NP_DTYPES = {"F32": np.dtype("float32"), "F16": np.dtype("float16"),
+              "F64": np.dtype("float64"), "I64": np.dtype("int64"),
+              "I32": np.dtype("int32"), "I8": np.dtype("int8"),
+              "U8": np.dtype("uint8"), "BOOL": np.dtype("bool")}
 
 
 def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()):
@@ -71,20 +77,40 @@ def write_safetensors(path: str, tensors: Dict[str, np.ndarray],
     os.replace(tmp, path)
 
 
+def _decode(raw: bytearray, code: str, shape) -> np.ndarray:
+    if code == "BF16":
+        import torch
+        if not raw:
+            return np.zeros(shape, np.float32)
+        return torch.frombuffer(raw, dtype=torch.bfloat16).float().numpy(
+            ).reshape(shape)
+    if code not in _NP_DTYPES:
+        raise TypeError(f"safetensors dtype {code} is not read here")
+    dt = _NP_DTYPES[code].newbyteorder("<")
+    return np.frombuffer(raw, dtype=dt).reshape(shape).astype(
+        dt.newbyteorder("="))
+
+
 def read_safetensors(path: str) -> Tuple[Dict[str, np.ndarray],
                                          Dict[str, str]]:
-    """(tensors, metadata) of a safetensors file."""
+    """(tensors, metadata) of a safetensors file: F32, F16 and the integer
+    types as numpy arrays of their own dtype, BF16 widened to fp32.  Each
+    tensor is read on its own, so the file never sits in memory whole."""
+    out = {}
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(n))
-        body = f.read()
-    meta = header.pop("__metadata__", {}) or {}
-    out = {}
-    for name, info in header.items():
-        begin, end = info["data_offsets"]
-        dt = _NP_DTYPES[info["dtype"]].newbyteorder("<")
-        out[name] = np.frombuffer(body[begin:end], dtype=dt).reshape(
-            info["shape"]).astype(dt.newbyteorder("="))
+        base = 8 + n
+        meta = header.pop("__metadata__", {}) or {}
+        for name, info in sorted(header.items(),
+                                 key=lambda kv: kv[1]["data_offsets"][0]):
+            begin, end = info["data_offsets"]
+            raw = bytearray(end - begin)
+            f.seek(base + begin)
+            if f.readinto(raw) != len(raw):
+                raise ValueError(f"{path}: {name} runs past the end of the "
+                                 "file")
+            out[name] = _decode(raw, info["dtype"], info["shape"])
     return out, meta
 
 

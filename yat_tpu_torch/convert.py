@@ -21,8 +21,17 @@ This covers the SANA, PixArt-Sigma, Gemma-2, T5, DC-AE and KL-VAE decoder
 trees.  Flax names a repeated submodule ``blocks_3`` (``layers_3``); where
 the port holds such modules in an ``nn.ModuleList`` named ``blocks``
 (``layers``), ``blocks_3`` resolves to ``blocks[3]``; other indexed names
-(``up_0_resnet_1``) are plain submodule names.  Every parameter of ``module`` must be covered by the tree
-and every leaf of the tree must land, else it raises.
+(``up_0_resnet_1``) are plain submodule names.  Every leaf of the tree
+must land (an orphan raises), and every parameter of ``module`` must be
+covered, except a ``bias``: a bias the tree lacks (a torch layer built with
+``bias=False``) is set to zero, the value flax's initialiser gives it in
+the JAX package, never left as the constructor made it.
+
+``flax_params(module)`` is the inverse view: every parameter under its
+flax path, as a tensor in the flax layout (``[in, out]`` kernels, HWIO
+conv kernels), sharing the parameter's storage.  A caption encoder's or
+VAE's converted checkpoint is merged against its paths
+(``frontends/common.py``).
 
 ``load_flax_adapters(module, adapters, meta)`` does the same for the JAX
 package's LoRA trees (``adapters``/``adapters_meta`` of its train state):
@@ -33,7 +42,7 @@ at its path, with its scale and dropout rate, and the base is frozen.
 from __future__ import annotations
 
 import re
-from typing import Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -97,7 +106,7 @@ def load_flax_params(module: nn.Module, tree: Mapping,
                                                 np.float32)),
                     _INT_BITS[raw.dtype.name])
                 continue
-            name, arr = _torch_leaf(key, raw.astype(np.float32))
+            name, arr = _torch_leaf(key, raw.astype(np.float32, copy=False))
             param = getattr(mod, name, None)
             if not isinstance(param, nn.Parameter):
                 raise KeyError(f"{path}: {type(mod).__name__} has no "
@@ -106,14 +115,65 @@ def load_flax_params(module: nn.Module, tree: Mapping,
                 raise ValueError(f"{path}: shape {arr.shape} does not fit "
                                  f"{name} {tuple(param.shape)}")
             with torch.no_grad():
-                param.copy_(torch.from_numpy(np.array(arr)))
+                # a transposed view copies in torch's (threaded) copy
+                param.copy_(torch.from_numpy(arr) if arr.flags.writeable
+                            else torch.tensor(arr))
             loaded.add(id(param))
 
     walk(module, tree, quant_scales or {}, "")
-    missing = [n for n, p in module.named_parameters() if id(p) not in loaded]
-    if missing:
-        raise KeyError(f"parameters not in the tree: {missing[:8]}"
-                       f"{' ...' if len(missing) > 8 else ''}")
+    missing = [(n, p) for n, p in module.named_parameters()
+               if id(p) not in loaded]
+    # only a leaf named ``bias`` (not T5's ``relative_attention_bias``)
+    hard = [n for n, _ in missing if n.rsplit(".", 1)[-1] != "bias"]
+    if hard:
+        raise KeyError(f"parameters not in the tree: {hard[:8]}"
+                       f"{' ...' if len(hard) > 8 else ''}")
+    with torch.no_grad():
+        for _, p in missing:
+            p.zero_()
+
+
+def flax_params(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """``{dotted flax path: parameter viewed in the flax layout}`` for every
+    parameter of ``module`` (the inverse of :func:`load_flax_params`'s
+    mapping); the views share the parameters' storage."""
+    from yat_tpu_torch.models.layers import Embed
+
+    out = {}
+    lists = {name for name, m in module.named_modules()
+             if isinstance(m, nn.ModuleList)}
+    for name, p in module.named_parameters():
+        parts = name.split(".")
+        path = []
+        for i, part in enumerate(parts[:-1]):
+            if part.isdigit() and ".".join(parts[:i]) in lists:
+                path[-1] = f"{path[-1]}_{part}"
+            else:
+                path.append(part)
+        owner = module.get_submodule(".".join(parts[:-1]))
+        leaf, t = parts[-1], p.detach()
+        if leaf == "weight":
+            if isinstance(owner, (Embed, nn.Embedding)):
+                leaf = "embedding"
+            elif t.ndim == 2:
+                leaf, t = "kernel", t.t()
+            elif t.ndim == 4:
+                leaf, t = "kernel", t.permute(2, 3, 1, 0)
+        out[".".join(path + [leaf])] = t
+    return out
+
+
+def flax_shapes(module: nn.Module) -> Dict[str, Any]:
+    """The nested tree of :func:`flax_params`' paths, each leaf a
+    ``torch.Size`` (the model side of a coverage check)."""
+    tree: Dict[str, Any] = {}
+    for path, t in flax_params(module).items():
+        *keys, leaf = path.split(".")
+        node = tree
+        for k in keys:
+            node = node.setdefault(k, {})
+        node[leaf] = t.shape
+    return tree
 
 
 def load_flax_adapters(module: nn.Module, adapters: Mapping,

@@ -6,10 +6,12 @@ LoRA training path (epsilon-prediction DDPM loss with the learned-sigma
 half sliced off, local feature shards, validation when prompts are
 configured) and ``make_pipeline`` the serving path, which samples the way
 the JAX frontend's validation does (20 DDIM steps, CFG 5.0, PAG 2.0, the
-epsilon half of the learned-sigma output, seed 42).  The repository holds
-no PixArt, T5 or VAE weights, so the modules are random from
-``dataset_seed``, or loaded from JAX parameter trees through
-``convert.load_flax_params``.
+epsilon half of the learned-sigma output, seed 42).  The denoiser loads
+from a diffusers checkpoint (``pretrained_model_path``, or
+``transformer/`` of ``pretrained_pipe_path``), T5 and the KL-VAE from
+``text_encoder/`` and ``vae/`` of ``pretrained_pipe_path``; without those
+paths the modules are random from ``dataset_seed``.  Tests may pass JAX
+parameter trees instead (``weights``).
 
     python -m yat_tpu_torch.frontends.pixart --config cfg.yaml [--device cpu]
 
@@ -27,8 +29,8 @@ import torch
 from yat_tpu_torch.config import TrainingParameters
 from yat_tpu_torch.device import resolve_device
 from yat_tpu_torch.frontends.common import (
+    build_backbone,
     build_feature_sampler,
-    build_module,
     build_t5_vae_encoders,
     cli_main,
     make_prompt_encoder,
@@ -43,16 +45,20 @@ from yat_tpu_torch.train.validation import ValidationPipeline
 
 
 def build_pixart_config(params: TrainingParameters) -> PixArtConfig:
-    if (params.pretrained_model_path or params.pretrained_pipe_path
-            or params.pretrained_pipe_single_file):
-        raise NotImplementedError(
-            "loading pretrained checkpoints is not ported to PyTorch yet "
-            "(ROADMAP queue 1, item 7); unset the pretrained paths to run "
-            "with random weights")
     if params.use_repa:
         raise NotImplementedError("REPA is not ported to PyTorch yet "
                                   "(ROADMAP queue 1, item 10)")
     return override_config(PIXART_SIGMA_XL2, params.model_config_overrides)
+
+
+def build_denoiser(params: TrainingParameters, cfg: PixArtConfig, device,
+                   tree=None, store=None, remat: bool = False):
+    """The PixArt-Sigma denoiser (see ``common.build_backbone``)."""
+    dtype = torch.bfloat16 if params.bfloat16 else torch.float32
+    return build_backbone(
+        lambda: PixArtTransformer2D(cfg, dtype=dtype,
+                                    gradient_checkpointing=remat),
+        params, "pixart", cfg, device, tree, store)
 
 
 def make_pipeline(params: TrainingParameters, device=None,
@@ -60,26 +66,16 @@ def make_pipeline(params: TrainingParameters, device=None,
     """The PixArt-Sigma serving pipeline: the denoiser (bf16 when
     ``bfloat16`` is set, its parameters stored in bf16 too), the T5 encoder
     (same) and the fp32 KL-VAE decoder; 20 DDIM steps, CFG 5.0, PAG 2.0,
-    ``pred_slice`` = ``in_channels`` for a learned-sigma head, seed 42.
-    ``device`` defaults to ``cuda``.  ``weights`` may hold JAX parameter
-    trees under ``"transformer"``, ``"text_encoder"`` and ``"vae"``."""
+    ``pred_slice`` = ``in_channels`` for a learned-sigma head, seed 42,
+    refiner gating on ``timesteps``.  ``device`` defaults to ``cuda``.  The
+    weights come from the pretrained paths, or from JAX parameter trees
+    under ``"transformer"``, ``"text_encoder"`` and ``"vae"`` of
+    ``weights``, else at random."""
     device = resolve_device(device)
-    if params.low_vram:
-        raise ValueError("low_vram (tiled decode, prompt-at-a-time) is not "
-                         "implemented in the PyTorch port yet")
-    if params.timesteps:
-        raise ValueError("refiner timestep gating is not implemented in the "
-                         "PyTorch port yet")
-    if params.use_ema:
-        raise ValueError("EMA weights are not implemented in the PyTorch "
-                         "port yet")
     cfg = build_pixart_config(params)
-    dtype = torch.bfloat16 if params.bfloat16 else torch.float32
     weights = weights or {}
-    model = build_module(lambda: PixArtTransformer2D(cfg, dtype=dtype),
-                         device, weights.get("transformer"),
-                         params.dataset_seed,
-                         dtype if params.bfloat16 else None)
+    model = build_denoiser(params, cfg, device, weights.get("transformer"),
+                           torch.bfloat16 if params.bfloat16 else None)
     encode_captions, decode_latents = build_t5_vae_encoders(
         params, device, cfg.max_caption_len, weights)
     return _pipeline(params, cfg, model, encode_captions, decode_latents,
@@ -95,7 +91,8 @@ def _pipeline(params, cfg, model, encode_captions, decode_latents, device):
                                            cfg.max_caption_len, device),
         decode_latents=decode_latents, guidance_scale=5.0, num_steps=20,
         params=params, device=device, pag_scale=2.0,
-        pred_slice=_pred_slice(cfg))
+        pred_slice=_pred_slice(cfg),
+        active_timesteps=params.timesteps or None)
 
 
 def _pred_slice(cfg: PixArtConfig) -> Optional[int]:
@@ -122,12 +119,14 @@ def make_trainer(params: TrainingParameters, sampler=None, device=None,
                  weights: Optional[Mapping] = None) -> Trainer:
     """The PixArt-Sigma LoRA trainer: the denoiser (bf16 compute and a bf16
     frozen base when ``bfloat16`` is set, or an int8/int4 base quantized
-    from fp32 by the trainer, remat under ``low_vram``), the
+    from fp32 by the trainer, remat under ``low_vram``; loaded from the
+    pretrained paths before any quantization), the
     epsilon-prediction loss on ``DDPMSchedule`` with the learned-sigma half
     sliced off, the local feature-shard sampler, and with
     ``validation_prompts`` the T5 encoder (its empty caption feeds
     unconditional-caption dropout), the KL-VAE decoder and the 20-step
-    DDIM, CFG 5.0, PAG 2.0 validation pipeline on the live model.
+    DDIM, CFG 5.0, PAG 2.0 validation pipeline on the live model (on its
+    EMA leaves under ``use_ema``; refiner-gated on ``timesteps``).
     ``device`` defaults to ``cuda``; ``weights`` may hold JAX parameter
     trees as for :func:`make_pipeline`."""
     device = resolve_device(device)
@@ -138,9 +137,8 @@ def make_trainer(params: TrainingParameters, sampler=None, device=None,
     # which then stores the rest in bf16
     store = (dtype if params.bfloat16 and quantized_bits(params) is None
              else None)
-    model = build_module(lambda: PixArtTransformer2D(
-        cfg, dtype=dtype, gradient_checkpointing=params.low_vram),
-        device, weights.get("transformer"), params.dataset_seed, store)
+    model = build_denoiser(params, cfg, device, weights.get("transformer"),
+                           store, remat=params.low_vram)
     schedule = DDPMSchedule()
     loss = make_epsilon_loss(model, schedule,
                              timestep_list=params.timesteps or None,
@@ -151,17 +149,13 @@ def make_trainer(params: TrainingParameters, sampler=None, device=None,
     trainer.pixart_config = cfg
     trainer.schedule = schedule
     if params.validation_prompts:
-        if params.timesteps:
-            raise NotImplementedError(
-                "validation with refiner timestep gating is not implemented "
-                "in the PyTorch port yet (ROADMAP queue 1, item 7)")
         encode_captions, decode_latents = build_t5_vae_encoders(
             params, device, cfg.max_caption_len, weights)
         trainer.encode_captions = encode_captions
         pipeline = _pipeline(params, cfg, model, encode_captions,
                              decode_latents, device)
-        trainer.validate_fn = lambda tr: pipeline(
-            list(params.validation_prompts))
+        trainer.validation_pipeline = pipeline
+        trainer.validate_fn = pipeline.validate
     return trainer
 
 

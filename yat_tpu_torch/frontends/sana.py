@@ -3,10 +3,12 @@
 Counterpart of ``yat_tpu/frontends/sana.py``: ``make_trainer`` wires the
 LoRA training path (flow-matching loss, local feature shards, validation
 when prompts are configured) and ``make_pipeline`` the serving path.  The
-repository holds no SANA, Gemma-2 or DC-AE weights, so the modules are
-initialised at random from ``dataset_seed`` (as the JAX frontend does
-without ``pretrained_pipe_path``), or loaded from JAX parameter trees
-through ``convert.load_flax_params``.
+denoiser loads from a diffusers checkpoint (``pretrained_model_path``, or
+``transformer/`` of ``pretrained_pipe_path``, whose ``config.json`` sets
+the architecture), Gemma-2 and the DC-AE from ``text_encoder/`` and
+``vae/`` of ``pretrained_pipe_path``; without those paths the modules are
+random from ``dataset_seed``, as in the JAX frontend.  Tests may pass JAX
+parameter trees instead (``weights``).
 
     python -m yat_tpu_torch.frontends.sana --config cfg.yaml [--device cpu]
 """
@@ -20,12 +22,16 @@ import torch
 from yat_tpu_torch.config import TrainingParameters
 from yat_tpu_torch.device import resolve_device
 from yat_tpu_torch.frontends.common import (
+    build_backbone,
     build_feature_sampler,
-    build_module,
+    build_pipe_component,
     cli_main,
+    find_model_config_json,
     make_prompt_encoder,
+    make_tiling_decoder,
     override_config,
     slice_caption_rung,
+    staged,
 )
 from yat_tpu_torch.models.sana import (
     SANA_600M,
@@ -42,17 +48,40 @@ PRESETS = {"600M": SANA_600M, "1600M": SANA_1600M}
 
 
 def build_sana_config(params: TrainingParameters) -> SanaConfig:
-    if (params.pretrained_model_path or params.pretrained_pipe_path
-            or params.pretrained_pipe_single_file):
-        raise NotImplementedError(
-            "loading pretrained checkpoints is not ported to PyTorch yet "
-            "(ROADMAP queue 1, item 7); unset the pretrained paths to run "
-            "with random weights")
+    """The preset (``model_config_overrides.preset``), replaced by the
+    diffusers ``config.json`` next to the weights when a pretrained path
+    has one (its head counts, caption channels, ``qk_norm`` and the
+    softmax ``modified_blocks``), then the overrides."""
     cfg = SANA_600M
     over = dict(params.model_config_overrides)
     preset = over.pop("preset", None)
     if preset:
         cfg = PRESETS[preset]
+    if params.pretrained_model_path or params.pretrained_pipe_path:
+        dj = find_model_config_json(params)
+        if dj is not None:
+            heads = dj.get("num_attention_heads", cfg.num_attention_heads)
+            head_dim = dj.get("attention_head_dim", cfg.attention_head_dim)
+            cfg = SanaConfig(
+                in_channels=dj.get("in_channels", cfg.in_channels),
+                out_channels=dj.get("out_channels", cfg.out_channels),
+                hidden_dim=heads * head_dim,
+                num_layers=dj.get("num_layers", cfg.num_layers),
+                num_attention_heads=heads,
+                attention_head_dim=head_dim,
+                num_cross_attention_heads=dj.get(
+                    "num_cross_attention_heads",
+                    cfg.num_cross_attention_heads),
+                cross_attention_head_dim=dj.get(
+                    "cross_attention_head_dim", cfg.cross_attention_head_dim),
+                caption_channels=dj.get("caption_channels",
+                                        cfg.caption_channels),
+                mlp_ratio=dj.get("mlp_ratio", cfg.mlp_ratio),
+                patch_size=dj.get("patch_size", cfg.patch_size),
+                sample_size=dj.get("sample_size", cfg.sample_size),
+                softmax_self_attn_blocks=tuple(
+                    int(i) for i in dj.get("modified_blocks", ())),
+                qk_norm=dj.get("qk_norm", cfg.qk_norm))
     return override_config(cfg, over, mirror_out_channels=True)
 
 
@@ -63,9 +92,16 @@ def build_encoders(params: TrainingParameters, cfg: SanaConfig,
 
     ``encode_captions(captions)`` → list of fp32 ``[L_i, D]`` host arrays
     (tokenize, trim to the caption rung, encode, mask-compress);
-    ``decode_latents(z)`` → NHWC images (fp32).  ``weights`` may hold JAX
-    parameter trees under ``"text_encoder"`` and ``"vae"`` (the VAE tree
-    needs only its ``"decoder"`` part)."""
+    ``decode_latents(z)`` → NHWC images (fp32; tiled under ``low_vram``).
+    The weights are the JAX parameter trees under ``"text_encoder"`` and
+    ``"vae"`` of ``weights`` when given (the VAE tree needs only its
+    ``"decoder"`` part), else they load from ``text_encoder/`` and ``vae/``
+    of ``pretrained_pipe_path`` where present, else they are random.
+    Under ``low_vram`` both rest on the host between calls.  The Gemma
+    module rides along as ``encode_captions.module`` (``chip_smoke.py``
+    checks its weights)."""
+    from yat_tpu_torch.models.convert import convert_gemma2
+    from yat_tpu_torch.models.convert_dcae import convert_dcae
     from yat_tpu_torch.models.text_encoders import (
         GEMMA2_2B, GEMMA_TINY_TEST, Gemma2Encoder, compress_embeddings)
     from yat_tpu_torch.models.vae import DCAE, DCAE_SANA, DCAE_TINY_TEST
@@ -75,31 +111,43 @@ def build_encoders(params: TrainingParameters, cfg: SanaConfig,
     tiny = bool(params.model_config_overrides.get("tiny_encoders"))
     dtype = torch.bfloat16 if params.bfloat16 else torch.float32
     te_cfg = GEMMA_TINY_TEST if tiny else GEMMA2_2B
-    te = build_module(lambda: Gemma2Encoder(te_cfg, dtype=dtype), device,
-                      weights.get("text_encoder"), params.dataset_seed + 1,
-                      dtype if params.bfloat16 else None)
-    vae_tree = weights.get("vae")
-    vae = build_module(lambda: DCAE(DCAE_TINY_TEST if tiny else DCAE_SANA),
-                       device,
-                       {"decoder": vae_tree["decoder"]} if vae_tree else None,
-                       params.dataset_seed + 2)
+    vae_cfg = DCAE_TINY_TEST if tiny else DCAE_SANA
+    low = params.low_vram
+    te = build_pipe_component(
+        params, "text_encoder",
+        lambda sd: convert_gemma2(sd, te_cfg.num_layers),
+        lambda: Gemma2Encoder(te_cfg, dtype=dtype), device,
+        params.dataset_seed + 1, dtype if params.bfloat16 else None,
+        weights.get("text_encoder"))
+    vae = build_pipe_component(
+        params, "vae", lambda sd: convert_dcae(sd, vae_cfg),
+        lambda: DCAE(vae_cfg), device, params.dataset_seed + 2,
+        tree=weights.get("vae"), pick="decoder")
     tokenize = load_tokenizer(params.pretrained_pipe_path,
-                              vocab_size=te.cfg.vocab_size,
+                              vocab_size=te_cfg.vocab_size,
                               max_length=cfg.max_caption_len)
 
     @torch.inference_mode()
     def encode_captions(captions):
         ids, mask = tokenize(list(captions), max_length=cfg.max_caption_len)
         ids, mask = slice_caption_rung(ids, mask)
-        hidden = te(torch.as_tensor(ids, device=device),
-                    torch.as_tensor(mask, device=device))
+        with staged(te, device, low):
+            hidden = te(torch.as_tensor(ids, device=device),
+                        torch.as_tensor(mask, device=device))
         return compress_embeddings(hidden, mask)
 
-    @torch.inference_mode()
-    def decode_latents(z):
-        return vae.decode(z)
+    encode_captions.module = te
+    return encode_captions, make_tiling_decoder(vae, device, low)
 
-    return encode_captions, decode_latents
+
+def build_denoiser(params: TrainingParameters, cfg: SanaConfig, device,
+                   tree=None, store=None, remat: bool = False):
+    """The SANA denoiser (see ``common.build_backbone``)."""
+    dtype = torch.bfloat16 if params.bfloat16 else torch.float32
+    return build_backbone(
+        lambda: SanaTransformer2D(cfg, dtype=dtype,
+                                  gradient_checkpointing=remat),
+        params, "sana", cfg, device, tree, store)
 
 
 def make_pipeline(params: TrainingParameters, device=None,
@@ -107,28 +155,23 @@ def make_pipeline(params: TrainingParameters, device=None,
     """The SANA serving pipeline: SANA denoiser (bf16 when ``bfloat16``
     is set, its parameters stored in bf16 too), Gemma-2 encoder (same), and
     the fp32 DC-AE decoder; 20 flow-match Euler steps at shift 3.0, CFG 5.0,
-    prompt enhancement, seed 42.  ``device`` defaults to ``cuda``.
-    ``weights`` may hold JAX parameter trees under ``"transformer"``,
-    ``"text_encoder"`` and ``"vae"``."""
+    prompt enhancement, seed 42, refiner gating on ``timesteps``.
+    ``device`` defaults to ``cuda``.  The weights come from the pretrained
+    paths, or from JAX parameter trees under ``"transformer"``,
+    ``"text_encoder"`` and ``"vae"`` of ``weights``, else at random."""
     device = resolve_device(device)
-    if params.low_vram:
-        raise ValueError("low_vram (tiled decode, prompt-at-a-time) is not "
-                         "implemented in the PyTorch port yet")
-    if params.timesteps:
-        raise ValueError("refiner timestep gating is not implemented in the "
-                         "PyTorch port yet")
-    if params.use_ema:
-        raise ValueError("EMA weights are not implemented in the PyTorch "
-                         "port yet")
     cfg = build_sana_config(params)
-    dtype = torch.bfloat16 if params.bfloat16 else torch.float32
     weights = weights or {}
-    model = build_module(lambda: SanaTransformer2D(cfg, dtype=dtype),
-                         device, weights.get("transformer"),
-                         params.dataset_seed,
-                         dtype if params.bfloat16 else None)
+    model = build_denoiser(params, cfg, device, weights.get("transformer"),
+                           torch.bfloat16 if params.bfloat16 else None)
     encode_captions, decode_latents = build_encoders(params, cfg, device,
                                                      weights)
+    return _pipeline(params, cfg, model, encode_captions, decode_latents,
+                     device)
+
+
+def _pipeline(params, cfg, model, encode_captions, decode_latents, device):
+    """The 20-step flow-match Euler, CFG 5.0 sampler around ``model``."""
     lat = cfg.sample_size
     return ValidationPipeline(
         model, FlowMatchSchedule(shift=3.0),
@@ -137,7 +180,8 @@ def make_pipeline(params: TrainingParameters, device=None,
                                            cfg.max_caption_len, device),
         decode_latents=decode_latents,
         guidance_scale=5.0, num_steps=20,
-        prompt_transform=enhance_prompt, params=params, device=device)
+        prompt_transform=enhance_prompt, params=params, device=device,
+        active_timesteps=params.timesteps or None)
 
 
 def build_sampler(params: TrainingParameters, cfg: SanaConfig):
@@ -156,12 +200,14 @@ def make_trainer(params: TrainingParameters, sampler=None, device=None,
                  weights: Optional[Mapping] = None) -> Trainer:
     """The SANA LoRA trainer: the denoiser (bf16 compute and a bf16 frozen
     base when ``bfloat16`` is set, or an int8/int4 base quantized from fp32
-    by the trainer, remat under ``low_vram``), the
-    flow-matching loss at shift 3.0, the local feature-shard sampler, and
-    with ``validation_prompts`` the Gemma-2 encoder (its empty caption feeds
-    unconditional-caption dropout), the DC-AE decoder and the 20-step CFG
-    5.0 validation pipeline on the live model.  ``device`` defaults to
-    ``cuda``; ``weights`` may hold JAX parameter trees as for
+    by the trainer, remat under ``low_vram``; loaded from the pretrained
+    paths before any quantization), the flow-matching loss at shift 3.0,
+    the local feature-shard sampler, and with ``validation_prompts`` the
+    Gemma-2 encoder (its empty caption feeds unconditional-caption
+    dropout), the DC-AE decoder and the 20-step CFG 5.0 validation
+    pipeline on the live model (on its EMA leaves under ``use_ema``;
+    refiner-gated on ``timesteps``).  ``device`` defaults to ``cuda``;
+    ``weights`` may hold JAX parameter trees as for
     :func:`make_pipeline`."""
     device = resolve_device(device)
     cfg = build_sana_config(params)
@@ -171,9 +217,8 @@ def make_trainer(params: TrainingParameters, sampler=None, device=None,
     # which then stores the rest in bf16
     store = (dtype if params.bfloat16 and quantized_bits(params) is None
              else None)
-    model = build_module(lambda: SanaTransformer2D(
-        cfg, dtype=dtype, gradient_checkpointing=params.low_vram),
-        device, weights.get("transformer"), params.dataset_seed, store)
+    model = build_denoiser(params, cfg, device, weights.get("transformer"),
+                           store, remat=params.low_vram)
     schedule = FlowMatchSchedule(shift=3.0)
     loss = make_flow_matching_loss(model, schedule,
                                    timestep_list=params.timesteps or None)
@@ -183,22 +228,13 @@ def make_trainer(params: TrainingParameters, sampler=None, device=None,
     trainer.sana_config = cfg
     trainer.schedule = schedule
     if params.validation_prompts:
-        if params.timesteps:
-            raise NotImplementedError(
-                "validation with refiner timestep gating is not implemented "
-                "in the PyTorch port yet (ROADMAP queue 1, item 7)")
         encode_captions, decode_latents = build_encoders(params, cfg, device,
                                                          weights)
         trainer.encode_captions = encode_captions
-        lat = cfg.sample_size
-        pipeline = ValidationPipeline(
-            model, schedule, latent_shape=(lat, lat, cfg.in_channels),
-            encode_prompts=make_prompt_encoder(encode_captions,
-                                               cfg.max_caption_len, device),
-            decode_latents=decode_latents, guidance_scale=5.0, num_steps=20,
-            prompt_transform=enhance_prompt, params=params, device=device)
-        trainer.validate_fn = lambda tr: pipeline(
-            list(params.validation_prompts))
+        pipeline = _pipeline(params, cfg, model, encode_captions,
+                             decode_latents, device)
+        trainer.validation_pipeline = pipeline
+        trainer.validate_fn = pipeline.validate
     return trainer
 
 

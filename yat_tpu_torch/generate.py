@@ -6,9 +6,15 @@ Counterpart of ``yat_tpu/generate.py`` on the PyTorch port:
     python -m yat_tpu_torch.generate --family sana|pixart \
         --config config.yaml --prompt "a red fox in snow" \
         --prompt "a lighthouse at dusk" --steps 20 --guidance-scale 5.0 \
-        --out generated/ [--device cuda]
+        [--sampler auto|dpm] [--cache-interval N] --out generated/ \
+        [--device cuda]
 
-The port serves with random weights until checkpoint loading is ported.
+The YAML is a training config: ``pretrained_pipe_path`` (a diffusers
+pipeline directory) or ``pretrained_model_path`` decides what weights
+load; without them the modules are random from ``dataset_seed``.
+``--sampler dpm`` selects DPM-Solver++(2M); ``--cache-interval N`` (flow
+families) evaluates the denoiser on every Nth step and extrapolates the
+velocity in between.
 """
 
 from __future__ import annotations
@@ -66,35 +72,23 @@ def write_png(path: str, img: np.ndarray) -> str:
     return path
 
 
-def refuse_unported(sampler: Optional[str] = None,
-                    cache_interval: Optional[int] = None) -> None:
-    """Raise for sampling options this slice of the port does not implement
-    (DPM-Solver++(2M), the velocity cache), so that none is silently
-    ignored; 'auto' and interval 1 are the family's own ladder (flow-match
-    Euler for SANA, DDIM for PixArt-Sigma)."""
-    if sampler is not None and sampler not in ("auto", "dpm"):
-        raise ValueError(f"unknown sampler {sampler!r}; use auto|dpm")
-    if sampler == "dpm":
-        raise ValueError("sampler='dpm' (DPM-Solver++(2M)) is not "
-                         "implemented in the PyTorch port yet (ROADMAP queue "
-                         "1, item 7); use auto")
-    if cache_interval is not None and int(cache_interval) < 1:
-        raise ValueError("cache interval must be >= 1 (1 = full ladder, "
-                         "no velocity caching)")
-    if cache_interval is not None and int(cache_interval) > 1:
-        raise ValueError("cache interval > 1 (velocity caching) is not "
-                         "implemented in the PyTorch port yet; use 1")
-
-
-def configure_pipeline(vp, steps=None, guidance_scale=None,
-                       seed=None) -> None:
-    """Apply the CLI's sampling settings to the pipeline."""
+def configure_pipeline(vp, steps=None, guidance_scale=None, seed=None,
+                       sampler=None, cache_interval=None) -> None:
+    """Apply the CLI's sampling settings to the pipeline; the sampler and
+    the velocity cache go through their gates
+    (``train/validation.py:set_sampler``, ``set_cache_interval``)."""
+    from yat_tpu_torch.train.validation import (set_cache_interval,
+                                                set_sampler)
     if steps is not None:
         vp.num_steps = int(steps)
     if guidance_scale is not None:
         vp.guidance_scale = float(guidance_scale)
     if seed is not None:
         vp.seed = int(seed)
+    if sampler is not None:
+        set_sampler(vp, sampler)
+    if cache_interval is not None:
+        set_cache_interval(vp, cache_interval)
 
 
 def generate(params, family: str, prompts: list,
@@ -107,10 +101,9 @@ def generate(params, family: str, prompts: list,
     """Build the family pipeline, sample, write files.  Returns
     {written_path: prompt}."""
     mod = family_module(family)
-    # refuse unsupported options before building the models
-    refuse_unported(sampler, cache_interval)
     vp = mod.make_pipeline(params, device)
-    configure_pipeline(vp, steps, guidance_scale, seed)
+    configure_pipeline(vp, steps, guidance_scale, seed, sampler,
+                       cache_interval)
     images = vp(list(prompts))                   # {key: [H, W, 3] float}
     os.makedirs(output_dir, exist_ok=True)
     written = {}
@@ -139,9 +132,11 @@ def main(argv: Optional[list] = None) -> None:
     p.add_argument("--guidance-scale", type=float, default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--sampler", default=None, choices=("auto", "dpm"),
-                   help="only auto (the family's own ladder) is ported")
+                   help="auto: the family's ladder (flow-match Euler, "
+                        "DDIM); dpm: DPM-Solver++(2M)")
     p.add_argument("--cache-interval", type=int, default=None,
-                   help="only 1 (no velocity cache) is ported")
+                   help="flow families: evaluate the denoiser every Nth "
+                        "step and extrapolate the velocity in between")
     p.add_argument("--out", default="generated", dest="out")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")

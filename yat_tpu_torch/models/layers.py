@@ -101,7 +101,13 @@ class AdapterDense(nn.Module):
     on top of it, as in the JAX package (a merged ``W + s·A@B`` would need
     the weight in the compute dtype); otherwise the weight is dequantized
     to the compute dtype, ``(q * s).to(dtype)``, and the forms above
-    apply."""
+    apply.
+
+    ``lora_gate`` is the per-step gate of refiner timestep gating
+    (:func:`set_adapter_gate`; the counterpart of the JAX package's
+    ``gate_adapter_meta``, which multiplies the adapter's scale by a 0/1
+    gate): None or 1 keeps the adapter branch, 0 drops it, so the layer
+    computes exactly what it would without an adapter."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  dtype: Optional[torch.dtype] = None):
@@ -120,6 +126,7 @@ class AdapterDense(nn.Module):
         self.lora_dropout = 0.0
         self.lora_merged = True
         self.dropout_seed: Optional[int] = None
+        self.lora_gate: Optional[float] = None
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         if self.weight is not None:
@@ -191,7 +198,7 @@ class AdapterDense(nn.Module):
             if w is None:
                 return w8a8_matmul(t, self.qweight, self.weight_scale)
             return F.linear(t, w)
-        if self.lora_a is None:
+        if self.lora_a is None or self.lora_gate == 0.0:
             y = base(x)
         else:
             a = self.lora_a.to(dtype)
@@ -565,6 +572,16 @@ def unpatchify(tokens: torch.Tensor, hw: Tuple[int, int], patch_size: int,
     p = patch_size
     x = tokens.reshape(b, h // p, w // p, p, p, out_channels)
     return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, out_channels)
+
+
+def set_adapter_gate(module: nn.Module, gate: Optional[float]) -> None:
+    """Gate the adapter branch of every :class:`AdapterDense` in
+    ``module``: 0.0 drops it, 1.0 keeps it, None clears the gate.  The
+    sampler sets it for each step of a refiner-gated ladder and clears it
+    afterwards."""
+    for m in module.modules():
+        if isinstance(m, AdapterDense):
+            m.lora_gate = gate
 
 
 def init_params(module: nn.Module, gen: torch.Generator) -> None:

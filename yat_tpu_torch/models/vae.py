@@ -13,8 +13,10 @@ Counterpart of ``yat_tpu/models/vae.py``:
   pixel-shuffle upsampling with the channel-duplication shortcut.
 
 The VAEs always run in fp32; their attentions are plain tensor code, as in
-the JAX package.  Tensors are NHWC at every module boundary.  The encoders
-wait for the precompute slice of the port (ROADMAP queue 1, item 8).
+the JAX package.  Tensors are NHWC at every module boundary.
+``decode_tiled`` decodes in overlapping latent tiles, feathered together
+(``low_vram`` and 2048 px).  The encoders wait for the precompute slice of
+the port (ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -395,3 +397,41 @@ DCAE_TINY_TEST = DCAEConfig(block_out_channels=(32, 32, 64),
                             decoder_layers=(1, 1, 1),
                             attention_stages=(False, False, True),
                             attention_head_dim=16, glu_expand=1.0)
+
+
+def decode_tiled(vae, latents: torch.Tensor, tile_latent: int = 128,
+                 overlap: int = 16) -> torch.Tensor:
+    """Memory-bounded decode by overlapping latent tiles, feathered
+    together with weights that ramp linearly across the ``overlap``-latent
+    bands (counterpart of ``yat_tpu/models/vae.py:decode_tiled``).
+    Latents that fit one tile decode whole."""
+    b, h, w, _ = latents.shape
+    comp = vae.cfg.compression
+    step = tile_latent - overlap
+    if h <= tile_latent and w <= tile_latent:
+        return vae.decode(latents)
+
+    dev = latents.device
+    out = weight = None
+    band = float(overlap * comp)
+    for y0 in range(0, max(h - overlap, 1), step):
+        for x0 in range(0, max(w - overlap, 1), step):
+            y1, x1 = min(y0 + tile_latent, h), min(x0 + tile_latent, w)
+            img = vae.decode(latents[:, y0:y1, x0:x1])
+            ph, pw = img.shape[1], img.shape[2]
+            if out is None:
+                out = torch.zeros((b, h * comp, w * comp, img.shape[-1]),
+                                  dtype=torch.float32, device=dev)
+                weight = torch.zeros((b, h * comp, w * comp, 1),
+                                     dtype=torch.float32, device=dev)
+            ry = torch.arange(ph, device=dev)
+            rx = torch.arange(pw, device=dev)
+            wy = torch.minimum(ry + 1, ry.flip(0) + 1).clamp(
+                max=overlap * comp).float() / band
+            wx = torch.minimum(rx + 1, rx.flip(0) + 1).clamp(
+                max=overlap * comp).float() / band
+            wmap = (wy[:, None] * wx[None, :])[None, :, :, None]
+            oy, ox = y0 * comp, x0 * comp
+            out[:, oy:oy + ph, ox:ox + pw] += img.float() * wmap
+            weight[:, oy:oy + ph, ox:ox + pw] += wmap
+    return (out / weight.clamp(min=1e-8)).to(latents.dtype)

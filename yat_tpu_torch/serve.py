@@ -8,7 +8,8 @@ them as one CFG-batched sampling run.  Sampling settings are
 server-global.
 
     python -m yat_tpu_torch.serve --config config.yaml --family sana|pixart \
-        --port 8000 --max-batch 4 --batch-window-ms 50 [--device cuda]
+        --port 8000 --max-batch 4 --batch-window-ms 50 \
+        [--sampler auto|dpm] [--cache-interval N] [--device cuda]
 
     curl -X POST localhost:8000/generate -d '{"prompt": "a red fox"}'
     # → image/png bytes
@@ -27,7 +28,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 
 from yat_tpu_torch.generate import FAMILIES, configure_pipeline, \
-    family_module, png_bytes, refuse_unported
+    family_module, png_bytes
 
 
 class _Request:
@@ -180,13 +181,13 @@ def build_sampler(params, family: str, max_batch: int = 4,
                   guidance_scale: Optional[float] = None,
                   seed: Optional[int] = None,
                   cache_interval: Optional[int] = None,
-                  device=None) -> BatchingSampler:
+                  device=None,
+                  sampler: Optional[str] = None) -> BatchingSampler:
     """Build the family's pipeline and start the sampler thread.  A
     defaulted ``validation_batch`` aligns to ``--max-batch`` (one sampling
     run per micro-batch); an explicit one is an operator's memory cap and
     is kept."""
     mod = family_module(family)
-    refuse_unported(cache_interval=cache_interval)
     if not getattr(params, "low_vram", False):
         explicit = ("validation_batch"
                     in getattr(params, "explicit_keys", frozenset()))
@@ -197,7 +198,8 @@ def build_sampler(params, family: str, max_batch: int = 4,
         else:
             params.validation_batch = max(1, int(max_batch))
     vp = mod.make_pipeline(params, device)
-    configure_pipeline(vp, steps, guidance_scale, seed)
+    configure_pipeline(vp, steps, guidance_scale, seed, sampler,
+                       cache_interval)
     return BatchingSampler(vp, max_batch=max_batch,
                            batch_window_ms=batch_window_ms)
 
@@ -273,8 +275,11 @@ def main(argv: Optional[list] = None) -> None:
     p.add_argument("--steps", type=int, default=None)
     p.add_argument("--guidance-scale", type=float, default=None)
     p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--sampler", default=None, choices=("auto", "dpm"),
+                   help="auto: the family's ladder; dpm: DPM-Solver++(2M)")
     p.add_argument("--cache-interval", type=int, default=None,
-                   help="only 1 (no velocity cache) is ported")
+                   help="flow families: evaluate the denoiser every Nth "
+                        "step and extrapolate the velocity in between")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
@@ -285,7 +290,7 @@ def main(argv: Optional[list] = None) -> None:
                             guidance_scale=args.guidance_scale,
                             seed=args.seed,
                             cache_interval=args.cache_interval,
-                            device=args.device)
+                            device=args.device, sampler=args.sampler)
     print("[serve] warming the sampler...")
     sampler.warmup()
     server = make_server(sampler, args.host, args.port)

@@ -6,7 +6,10 @@ line), the optimizer and EMA, the empty-caption embedding for
 unconditional-caption dropout, batches moved to the device, gradient
 accumulation, the no-progress watchdog, the ``[engine] step i/N`` and
 images/sec lines, TensorBoard scalars, validation on its cadence with the
-three-failure escalation, and the adapter export to
+three-failure escalation (a frontend's ``validate_fn`` samples on the EMA
+copies of the trainable leaves when ``use_ema`` keeps them, and its
+``validation_pipeline`` takes the ``validation_cache_interval`` key
+before the first step), and the adapter export to
 ``{output_dir}/{step}/adapter_model.safetensors``.
 
 Divergence from the JAX package: where ``train_unconditional_prob > 0``
@@ -119,6 +122,8 @@ class Trainer:
         self.device = resolve_device(device)
         # validate_fn(trainer) -> {tag: image}, attached by a frontend
         self.validate_fn: Optional[Callable[["Trainer"], Dict]] = None
+        # the ValidationPipeline behind validate_fn, attached by a frontend
+        self.validation_pipeline = None
         self.global_step = 0
         self.logger: Optional[MetricLogger] = None
         self.optimizer: Optional[Optimizer] = None
@@ -163,7 +168,7 @@ class Trainer:
                         if id(p) not in lora:
                             p.data = p.data.to(torch.bfloat16)
 
-        leaves = [p for _, p in lora_parameters(self.model)]
+        leaves = self.trainable_leaves()
         self.optimizer = Optimizer(params, leaves)
         self.ema = ([p.detach().clone() for p in leaves] if params.use_ema
                     else None)
@@ -183,6 +188,11 @@ class Trainer:
                     "shards without validation prompts): add "
                     "validation_prompts or set train_unconditional_prob to 0")
             self._empty_raw = np.asarray(encode([""])[0], np.float32)
+
+    def trainable_leaves(self) -> List[torch.Tensor]:
+        """The trainable leaves (the LoRA parameters), in the order of the
+        optimizer's and the EMA's."""
+        return [p for _, p in lora_parameters(self.model)]
 
     # ------------------------------------------------------------------
     def _device_batch(self, batch) -> Dict[str, torch.Tensor]:
@@ -212,6 +222,13 @@ class Trainer:
             self.initialize()
         if self.sampler is None:
             raise ValueError("no sampler configured")
+        # the validation velocity-cache key applies before the loop, so a
+        # key the pipeline cannot honour (an epsilon family, the dpm
+        # sampler, refiner gating) fails at step 0
+        pipeline = getattr(self, "validation_pipeline", None)
+        if self.validate_fn is not None and pipeline is not None:
+            from yat_tpu_torch.train.validation import apply_cache_interval
+            apply_cache_interval(params, pipeline)
         if params.warmup_compile:
             print("[engine] warmup_compile: eager PyTorch has no programs to "
                   "compile ahead of the first step; nothing to warm")

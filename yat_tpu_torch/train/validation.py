@@ -1,32 +1,42 @@
 """Text-to-image sampling pipeline: encode prompts, sample, decode.
 
-Counterpart of the flow-match Euler and DDIM paths of
-``yat_tpu/train/validation.py:ValidationPipeline``: prompts are encoded
-(with an optional prompt transform), a batch-1 unconditional caption is
-encoded once per call and tiled, the caption K/V of every block is
-projected once per request batch (context-K/V cache; not under PAG), the
-CFG-batched denoiser (with a perturbed-attention-guidance call when
-``pag_scale`` > 0) runs the Euler ladder of a flow-match schedule or the
-DDIM ladder of a DDPM one, keeping the first ``pred_slice`` channels of a
-learned-sigma prediction, and the VAE decodes.  Images come back as
-``{"validation/{i}/{prompt}": [H, W, 3] float in [0, 1]}``.
+Counterpart of ``yat_tpu/train/validation.py``: prompts are encoded (with
+an optional prompt transform), a batch-1 unconditional caption is encoded
+once per call and tiled, the caption K/V of every block is projected once
+per request batch (context-K/V cache; not under PAG or refiner gating),
+the CFG-batched denoiser (with a perturbed-attention-guidance call when
+``pag_scale`` > 0) runs the family's ladder, keeping the first
+``pred_slice`` channels of a learned-sigma prediction, and the VAE
+decodes.  Images come back as ``{"validation/{i}/{prompt}": [H, W, 3]
+float in [0, 1]}``.
 
-Not in this slice of the port: DPM-Solver++(2M), the velocity cache,
-refiner timestep gating and EMA weights.
+The ladder (``sampler``, ``cache_interval``): ``auto`` is flow-match
+Euler on a flow-match schedule (the velocity cache at ``cache_interval`` >
+1) and DDIM on a DDPM one; ``dpm`` is DPM-Solver++(2M) in the schedule's
+form.  ``set_sampler``, ``set_cache_interval`` and
+``apply_cache_interval`` are the one gate every entry point goes through.
+``active_timesteps`` gates the denoiser's adapters per step.
+:meth:`ValidationPipeline.validate` samples a trainer's validation prompts
+on the EMA copies of its trainable leaves when it keeps them (swapped in,
+then restored and checked).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from yat_tpu_torch.models.layers import set_adapter_gate
 from yat_tpu_torch.ops.sampling import (
     make_cfg_denoiser,
     make_pag_cfg_denoiser,
     sample_ddim,
+    sample_dpm_solver_2m,
+    sample_dpm_solver_2m_flow,
     sample_flow_match,
+    sample_flow_match_cached,
 )
 from yat_tpu_torch.ops.schedulers import DDPMSchedule, FlowMatchSchedule
 
@@ -53,9 +63,53 @@ def tile_batch(x, p: int):
     return x
 
 
+def set_cache_interval(vp, cache_interval: int) -> None:
+    """The one velocity-cache gate (generate, serve and the trainer's
+    ``validation_cache_interval`` key go through it): interval 1 is the
+    full ladder, below 1 raises, above 1 needs a pipeline that supports
+    the cache (flow-match Euler with no refiner timestep gating: a gated
+    adapter's active steps could land only on skipped steps)."""
+    ci = int(cache_interval)
+    if ci < 1:
+        raise ValueError("cache interval must be >= 1 (1 = full ladder, "
+                         "no velocity caching)")
+    if ci == 1:
+        return
+    if not getattr(vp, "supports_velocity_cache", False):
+        raise ValueError(
+            "cache interval > 1 requires a flow-match family with the "
+            "default Euler sampler and no refiner timestep gating")
+    vp.cache_interval = ci
+
+
+def set_sampler(vp, sampler: str) -> None:
+    """The one sampler-selection gate: 'auto' keeps the pipeline's
+    default ladder, 'dpm' selects DPM-Solver++(2M)."""
+    if sampler not in ("auto", "dpm"):
+        raise ValueError(f"unknown sampler {sampler!r}; use auto|dpm")
+    if sampler == "auto":
+        return
+    if not getattr(vp, "supports_dpm", False):
+        raise ValueError("sampler='dpm' is not supported by this family's "
+                         "pipeline")
+    vp.sampler = sampler
+
+
+def apply_cache_interval(params, vp) -> None:
+    """Apply the ``validation_cache_interval`` key to a validation
+    pipeline (the trainer calls it before its first step, so a key the
+    pipeline cannot honour fails at step 0)."""
+    set_cache_interval(
+        vp, int(getattr(params, "validation_cache_interval", 1) or 1))
+
+
 class ValidationPipeline:
     """Bundles denoiser + schedule + encoders/decoder into one callable,
-    ``pipeline(prompts) -> {tag: image}``."""
+    ``pipeline(prompts) -> {tag: image}``; :meth:`validate` is the
+    trainer's ``validate_fn``."""
+
+    # set_sampler's gate: this pipeline routes sampler='dpm'
+    supports_dpm = True
 
     def __init__(
         self,
@@ -72,6 +126,9 @@ class ValidationPipeline:
         device: Optional[torch.device] = None,
         pag_scale: float = 0.0,
         pred_slice: Optional[int] = None,
+        sampler: str = "auto",
+        active_timesteps: Optional[Sequence[int]] = None,
+        cache_interval: int = 1,
     ):
         if not isinstance(schedule, (FlowMatchSchedule, DDPMSchedule)):
             raise ValueError("the PyTorch port samples flow-match and DDPM "
@@ -89,16 +146,33 @@ class ValidationPipeline:
         self.device = device
         self.pag_scale = pag_scale
         self.pred_slice = pred_slice
+        if sampler not in ("auto", "dpm"):
+            raise ValueError(f"unknown sampler {sampler!r}; "
+                             "expected 'auto' or 'dpm'")
+        self.sampler = sampler
+        self.active_timesteps = (tuple(active_timesteps)
+                                 if active_timesteps else None)
+        self.cache_interval = 1
+        set_cache_interval(self, cache_interval)
+
+    @property
+    def supports_velocity_cache(self) -> bool:
+        # not under refiner gating: a skipped step never sets its gate
+        return (self.sampler != "dpm"
+                and isinstance(self.schedule, FlowMatchSchedule)
+                and self.active_timesteps is None)
 
     def sample_latents(self, cond: Dict, uncond: Dict,
                        x0: Optional[torch.Tensor] = None) -> torch.Tensor:
         shape = (cond["embeddings"].shape[0], *self.latent_shape)
         if (getattr(self.model, "supports_context_cache", False)
-                and self.pag_scale == 0.0):
+                and self.pag_scale == 0.0
+                and self.active_timesteps is None):
             # the caption embeddings are constant across every denoise
             # step: project each block's caption K/V once per request (not
-            # under PAG, whose perturbed call runs the full model, as in
-            # the JAX package)
+            # under PAG, whose perturbed call runs the full model, nor
+            # under refiner gating, whose per-step gate may change the K/V
+            # projections' adapters, as in the JAX package)
             cond, uncond = dict(cond), dict(uncond)
             for branch in (cond, uncond):
                 branch["cached_ctx_kv"] = self.model(
@@ -120,11 +194,49 @@ class ValidationPipeline:
         else:
             denoise = make_cfg_denoiser(apply_fn, cond, uncond,
                                         self.guidance_scale)
-        sample = (sample_flow_match
-                  if isinstance(self.schedule, FlowMatchSchedule)
-                  else sample_ddim)
+        flow = isinstance(self.schedule, FlowMatchSchedule)
+        kw = dict(device=self.device, x0=x0,
+                  active_timesteps=self.active_timesteps,
+                  set_gate=lambda g: set_adapter_gate(self.model, g))
+        if self.sampler == "dpm":
+            sample = sample_dpm_solver_2m_flow if flow \
+                else sample_dpm_solver_2m
+        elif flow and self.cache_interval > 1:
+            sample = sample_flow_match_cached
+            kw["cache_interval"] = self.cache_interval
+        else:
+            sample = sample_flow_match if flow else sample_ddim
         return sample(denoise, shape, self.schedule, self.num_steps,
-                      self.seed, device=self.device, x0=x0)
+                      self.seed, **kw)
+
+    def validate(self, trainer, x0: Optional[torch.Tensor] = None
+                 ) -> Dict[str, np.ndarray]:
+        """The trainer's validation: its ``validation_prompts``, on the EMA
+        copies of the trainable leaves when the trainer keeps them (the
+        live leaves are swapped out for the call and restored after it;
+        the restore is checked)."""
+        prompts = list(trainer.params.validation_prompts or [])
+        ema = getattr(trainer, "ema", None)
+        if not prompts or ema is None:
+            return self(prompts, x0)
+        leaves = trainer.trainable_leaves()
+        if len(leaves) != len(ema):
+            raise ValueError(f"{len(ema)} EMA copies for {len(leaves)} "
+                             "trainable leaves")
+        saved = [p.detach().clone() for p in leaves]
+        with torch.no_grad():
+            for p, e in zip(leaves, ema):
+                p.copy_(e)
+        try:
+            return self(prompts, x0)
+        finally:
+            with torch.no_grad():
+                for p, live in zip(leaves, saved):
+                    p.copy_(live)
+            if not all(torch.equal(p, live) for p, live in zip(leaves,
+                                                                saved)):
+                raise RuntimeError("the live trainable leaves were not "
+                                   "restored after the EMA validation")
 
     @torch.inference_mode()
     def __call__(self, prompts: List[str],
