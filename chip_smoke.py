@@ -33,7 +33,9 @@ Phases, each of which fails the run (exit code 1) when it fails:
    one weight shared across the batch), beside the least time the card
    could take (for the masked forwards, counting the kept keys only), at
    the main path's shape and, for K1, K1b and K3, at every case (K1b also
-   the host's time a call); K5 and K5b
+   the host's time a call), K2 and K2b also at the self-attention of
+   SANA's softmax-patched blocks in training (q/k/v ``[16,256,36,32]``,
+   no key bias); K5 and K5b
    (the w8a8 matmul and its backward) must equal their plain versions bit
    for bit (int8 payload, row scales, output) at SANA's and PixArt's
    shapes and with zero rows and one-large-value rows; at the main case
@@ -51,7 +53,11 @@ Phases, each of which fails the run (exit code 1) when it fails:
    K1/K1b; no ReLU, so no kinks).  Then the two SANA blocks with an int8
    base and w8a8 (K5/K5b): the int8 roundings that land on the other side
    on the two devices are counted (each one step at a near-tie) and the
-   CPU takes the card's step there, the kinks as before;
+   CPU takes the card's step there, the kinks as before.  Then the two
+   SANA blocks under full fine-tuning: every parameter's gradient, the
+   CPU taking the card's side of each flipped ReLU kink (so no leaf
+   upstream of it sees the flip), the softmax key biases (0 in exact
+   arithmetic) against the largest gradient;
 6. serve: the port's SANA-0.6B 512px server (Gemma-2-2B caption encoder,
    SANA-0.6B denoiser with CFG 5.0 and 20 flow-match Euler steps, fp32
    DC-AE decoder) with random weights from a seed, on 127.0.0.1: four
@@ -90,10 +96,12 @@ Phases, each of which fails the run (exit code 1) when it fails:
    ``yat_tpu_torch.frontends.sana.main`` on a synthetic feature shard
    (batch 16, bf16, rank-8 LoRA on to_q/to_k/to_v/to_out, AdamW with
    warmup, EMA, caption-length buckets), 6 steps; checks the losses, the
-   adapters and their export, and the launches per step; then one more
-   step with remat (``low_vram``) on the same batch and draws, whose loss
-   and gradients must equal the step without, and one step under
-   ``torch.profiler``;
+   adapters and their export, and the launches per step; its
+   ``checkpoint_dir`` writes at steps 3 and 6, and the last checkpoint is
+   held against the live state and restored into a wiped state, bit for
+   bit; then one more step with remat (``low_vram``) on the same batch and
+   draws, whose loss and gradients must equal the step without, and one
+   step under ``torch.profiler``;
 8. PixArt-Sigma XL-2 512px LoRA training through
    ``yat_tpu_torch.frontends.pixart.main`` on a synthetic feature shard
    (batch 8, bf16, rank-32 LoRA on to_q/to_k/to_v/to_out, 6 steps over the
@@ -105,7 +113,22 @@ Phases, each of which fails the run (exit code 1) when it fails:
    ``int8_w8a8`` and ``use_adamw_8bit`` (an int8 base quantized from the
    fp32 weights, its products through K5/K5b, Lion with 8-bit momentum):
    the same checks, 254 K5 and 193 K5b launches a step beside slice 2's,
-   the int8 base's bytes and the peak memory beside phase 7's.
+   the int8 base's bytes and the peak memory beside phase 7's, the int8
+   payloads and Lion's through the checkpoint's save and restore;
+10. full fine-tune: ``configs/sana_softmax_patch.yaml`` through the entry
+   point (SANA-0.6B with softmax self-attention in blocks 12-15, only
+   those unfrozen, batch 16, bf16 compute over fp32 leaves, EMA, lr 1e-5),
+   16 steps with checkpoints at 8 and 16 and the profiler window of steps
+   10-14: 57 K1b, 32 K2/K2b, 24 K3 launches a step, every leaf outside
+   blocks 12-15 bit-unchanged, the export and its ``config.json``, one
+   checkpoint's bytes and seconds, the save and restore bit for bit; then
+   the step-16 checkpoint removed (a run killed between its writes) and a
+   run of the same config with ``resume`` from step 8 to 16 on the first
+   run's batches; each trace names K2, K2b and K1b;
+11. exploration and preservation: SANA-0.6B LoRA (phase 7's config) with
+   ``exploration_steps: 4`` and ``use_preservation``, 3 steps (7 forwards
+   and 2 backwards a step, counted), and PixArt-Sigma XL-2 LoRA (phase
+   8's) with ``use_preservation``, 2 steps (3 forwards, 2 backwards).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -576,9 +599,11 @@ def kernel_cases(device):
         # keeping 1-300 keys with N_q = 100, and N_k = 16 without a mask;
         # one request's CFG pair (batch 2, below one 128-query block per
         # SM); at the serving shape, kept keys in one middle or the last
-        # 64-key tile only, or none (the tile walk of the forward body).
-        # The ragged shapes lie outside the short-sequence gate, so they
-        # reach the kernel through implementation="vmem"
+        # 64-key tile only, or none (the tile walk of the forward body);
+        # the self-attention of SANA's softmax-patched blocks in training,
+        # q/k/v [16, 256, 36, 32], no key bias.  The ragged shapes lie
+        # outside the short-sequence gate, so they reach the kernel through
+        # implementation="vmem"
         for label, (b, nq, nk, h, d, keep) in (
                 ("serve", (8, 256, 512, 16, 72,
                            [1, 1, 1, 1, 143, 151, 139, 160])),
@@ -589,7 +614,8 @@ def kernel_cases(device):
                 ("serve-1", (2, 256, 512, 16, 72, [1, 143])),
                 ("serve-tiles", (8, 256, 512, 16, 72,
                                  [(130, 190), (200, 201), (480, 512),
-                                  (500, 512), 0, (64, 128), 512, 0]))):
+                                  (500, 512), 0, (64, 128), 512, 0])),
+                ("self-train", (16, 256, 256, 36, 32, None))):
             def make(b=b, nq=nq, nk=nk, h=h, d=d, keep=keep, dtype=dtype):
                 m = _mask(keep, nk, device) if keep is not None else None
                 return (randn((b, nq, h, d), dtype), randn((b, nk, h, d), dtype),
@@ -719,14 +745,16 @@ def kernel_cases(device):
         # K2b: training shapes q/g [16, 256, 16, 72], k/v [16, L, 16, 72]
         # at the caption rungs L = 512 (the training shard's 100-500 kept
         # keys) and 128 (100-115 kept); ragged: L = 300 keeping 1-300 keys,
-        # and L = 16 unmasked
+        # and L = 16 unmasked; the softmax-patched blocks' self-attention,
+        # q/k/v/g [16, 256, 36, 32], no key bias
         for label, (b, nq, nk, h, d, keep) in (
                 ("train-512", (16, 256, 512, 16, 72,
                                [100 + 400 * i // 15 for i in range(16)])),
                 ("train-128", (16, 256, 128, 16, 72,
                                [100 + i for i in range(16)])),
                 ("ragged-300", (4, 100, 300, 16, 72, [1, 37, 150, 300])),
-                ("ragged-16", (2, 64, 16, 2, 32, None))):
+                ("ragged-16", (2, 64, 16, 2, 32, None)),
+                ("self-train", (16, 256, 256, 36, 32, None))):
             def make(b=b, nq=nq, nk=nk, h=h, d=d, keep=keep, dtype=dtype):
                 m = _mask(keep, nk, device) if keep is not None else None
                 return (randn((b, nq, h, d), dtype),
@@ -953,6 +981,10 @@ WRONG_BWD = {
 # their main case
 TIMED_EVERY_CASE = ("adaln_layernorm", "linear_attention",
                     "adaln_layernorm_bwd")
+# other cases timed in both dtypes and reported under their kernel's
+# "cases": K2 and K2b at the softmax-patched SANA blocks' self-attention
+TIMED_CASES = {("dot_product_attention", "self-train"),
+               ("dot_product_attention_bwd", "self-train")}
 # cases whose outputs hold NaN on purpose: their NaN must fall where the
 # plain version's do (compare_nan); not timed
 NAN_CASES = {("linear_attention", "nan")}
@@ -1026,7 +1058,8 @@ def phase_kernels(device, names=None, skip_labels=()):
                 fail(f"{name} [{label}, {dt}]: the tolerance accepts a "
                      "backward without the row term")
         main = label == MAIN_CASE[name] and dtype == torch.bfloat16
-        every = name in TIMED_EVERY_CASE and (name, label) not in NAN_CASES
+        every = (name in TIMED_EVERY_CASE and (name, label) not in NAN_CASES
+                 or (name, label) in TIMED_CASES)
         if not (main or every):
             continue
         inputs = _rotations(make, nbytes)
@@ -1480,6 +1513,107 @@ def phase_grad_reference(device):
         fail(f"LoRA leaves with no gradient on the card: {zero[:4]}")
     if not ok:
         fail("LoRA gradients on the card disagree with the CPU")
+
+
+def phase_full_ft_grad_reference(device, width=None):
+    """The two SANA blocks of :func:`phase_grad_reference` (block 1 with
+    softmax self-attention) under full fine-tuning: every parameter's
+    gradient on the card against the CPU's, fp32.  The card runs first and
+    keeps block 0's ReLU(q), ReLU(k) pre-activations; where the CPU's fall
+    on the other side of 0, the CPU takes the card's value (its gradient
+    passed through), so a kink's flip reaches no leaf upstream of it.  Each
+    leaf within ``GRAD_REF_TOL`` of its largest entry; the softmax
+    attentions' key biases, whose gradient is 0 in exact arithmetic (the
+    bias shifts a whole row of logits), within it of the largest entry of
+    every leaf.  ``width`` shrinks the blocks for a rehearsal on the
+    CPU."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from yat_tpu_torch.convert import flax_named_parameters
+    from yat_tpu_torch.models.layers import init_params
+    from yat_tpu_torch.models.sana import SANA_600M, SanaTransformer2D
+    from yat_tpu_torch.ops.schedulers import FlowMatchSchedule
+    from yat_tpu_torch.train.step import loss_and_grads
+    from yat_tpu_torch.train.tasks import make_flow_matching_loss
+
+    cfg = dataclasses.replace(SANA_600M, num_layers=2,
+                              softmax_self_attn_blocks=(1,), **(width or {}))
+    cpu = SanaTransformer2D(cfg, dtype=torch.float32)
+    init_params(cpu, torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).to(device)
+    rng = np.random.default_rng(0)
+    lat = rng.standard_normal((2, 16, 16, cfg.in_channels), np.float32)
+    emb = rng.standard_normal((2, 300, cfg.caption_channels), np.float32)
+    mask = (np.arange(300)[None] < np.array([[1], [217]])).astype(np.int32)
+    sched = FlowMatchSchedule(shift=3.0)
+    ts, sig = sched.training_draw(torch.Generator().manual_seed(3), 2)
+    noise = rng.standard_normal(lat.shape, np.float32)
+    attn = {"card": gpu.blocks[0].attn1, "cpu": cpu.blocks[0].attn1}
+    card_y, flips, runs = {}, {}, {}
+    for where, model, dev in (("card", gpu, device),
+                              ("cpu", cpu, torch.device("cpu"))):
+        for p in model.parameters():
+            p.requires_grad_(True)
+
+        def hook(proj, where=where):
+            def run(module, inputs, out):
+                if where == "card":
+                    card_y[proj] = out.detach().cpu()
+                    return out
+                y = card_y[proj]
+                flip = (out > 0) != (y > 0)
+                flips[proj] = int(flip.sum())
+                return torch.where(flip, y + (out - out.detach()), out)
+            return run
+        hooks = [getattr(attn[where], p).register_forward_hook(hook(p))
+                 for p in ("to_q", "to_k")]
+        batch = {"latents": torch.from_numpy(lat).to(dev),
+                 "embeddings": torch.from_numpy(emb).to(dev),
+                 "text_mask": torch.from_numpy(mask).to(dev)}
+        draws = {"timesteps": ts.to(dev), "sigmas": sig.to(dev),
+                 "noise": torch.from_numpy(noise).to(dev)}
+        named = flax_named_parameters(model)
+        loss, grads = loss_and_grads(make_flow_matching_loss(model, sched),
+                                     [p for _, p in named], batch,
+                                     torch.Generator(), draws)
+        for h in hooks:
+            h.remove()
+        runs[where] = (float(loss), {n: g.detach().cpu() for (n, _), g
+                                     in zip(named, grads)})
+    (loss_g, grads_g), (loss_c, grads_c) = runs["card"], runs["cpu"]
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    top = max(float(g.abs().max()) for g in grads_c.values())
+    rows, zero, ok = [], [], loss_err <= 1e-4
+    for name, gc in grads_c.items():
+        gg = grads_g[name]
+        diff = float((gg - gc).abs().max())
+        key_bias = name.endswith("to_k.bias")
+        scale = top if key_bias else float(gc.abs().max())
+        rows.append((diff / scale, name, key_bias))
+        ok = ok and diff <= GRAD_REF_TOL * scale and bool(
+            torch.isfinite(gg).all())
+        if not key_bias and not bool((gg != 0).any()):
+            zero.append(name)
+    for err, name, key_bias in sorted(rows, reverse=True)[:3]:
+        log(f"full-FT grad reference:   {name}: max|dg| / "
+            f"{'the largest gradient' if key_bias else 'max|g|'} {err:.2e}")
+    worst = max(r[0] for r in rows if not r[2])
+    worst_bias = max((r[0] for r in rows if r[2]), default=0.0)
+    log(f"full-FT grad reference: 2-block full-width SANA, every one of "
+        f"{len(rows)} parameters trained, CUDA vs CPU, fp32: loss "
+        f"{loss_g:.6f} vs {loss_c:.6f} (rel {loss_err:.2e}, tol 1e-4); "
+        f"ReLU kinks on the other side on the CPU, set to the card's: "
+        f"{flips.get('to_q', 0)} of q, {flips.get('to_k', 0)} of k; worst "
+        f"leaf max|dg|/max|g| {worst:.2e}, softmax key biases "
+        f"{worst_bias:.2e} of the largest gradient (tol {GRAD_REF_TOL:g}); "
+        f"zero gradients on the card: {len(zero)}")
+    if zero:
+        fail(f"parameters with no gradient on the card: {zero[:4]}")
+    if not ok:
+        fail("full fine-tuning gradients on the card disagree with the CPU")
 
 
 def with_flips_share(attn, path, grads, seen_a, seen_b):
@@ -2640,11 +2774,14 @@ def write_train_shard(path, n=48, latent=(16, 16, 32), dim=2304,
 
 def train_config(shard, out_dir, **extra):
     """configs/sana_512_lora.yaml without what needs files (pretrained
-    weights, checkpoints, validation prompts, the TPU mesh) and without
-    caption dropout, for ``TRAIN_STEPS`` steps."""
+    weights, validation prompts, the TPU mesh) and without caption
+    dropout, for ``TRAIN_STEPS`` steps, with its ``checkpoint_dir`` beside
+    the shard and the validation (and checkpoint) cadence cut from 500 to
+    3 steps, so the run writes two checkpoints."""
     cfg = {"local_shard_paths": [shard], "batch_size": "16",
            "learning_rate": "1e-4", "steps": str(TRAIN_STEPS),
-           "warmup_steps": "2", "num_steps_per_validation": "500",
+           "warmup_steps": "2", "num_steps_per_validation": "3",
+           "checkpoint_dir": os.path.join(os.path.dirname(shard), "ckpt"),
            "validation_prompts": [], "bfloat16": "true", "use_ema": "true",
            "gradient_accumulation_steps": "1",
            "train_unconditional_prob": "0", "lora_rank": "8",
@@ -2742,12 +2879,17 @@ def check_launches(label, counts, want, how):
 
 
 def log_step_rate(label, trainer, wall, peak, card):
+    """The run's step rate over its steps but the first (mean and median:
+    a step after a validation cadence carries the export and the
+    checkpoint's copy to the host) and its peak device memory."""
+    import statistics
     steps = len(trainer.history)
     times = trainer._step_times[1:]
     step_s = sum(times) / len(times)
     log(f"{label} [{card}]: {steps} steps in {wall:.2f} s through the "
         f"entry point (shard read included); steps 2-{steps}: "
-        f"{step_s:.4f} s a step, {1 / step_s:.3f} steps/s, "
+        f"{step_s:.4f} s a step (median {statistics.median(times):.4f}), "
+        f"{1 / step_s:.3f} steps/s, "
         f"{trainer.params.batch_size / step_s:.2f} images/s; first "
         f"step {trainer._step_times[0]:.3f} s; peak device memory "
         f"{peak / 2**30:.2f} GiB")
@@ -2829,20 +2971,26 @@ INT8_KEYS = {"lora_base_model_8bit": "true", "int8_w8a8": "true",
              "use_adamw_8bit": "true"}
 # peak device memory of each training phase's run, by label
 TRAIN_PEAKS = {}
+# SANA LoRA with best-of-4 exploration and the preservation term, 3 steps;
+# PixArt-Sigma LoRA with the preservation term, 2 steps
+EXPLORE_KEYS = {"exploration_steps": "4", "use_preservation": "true",
+                "steps": "3"}
+PIXART_PRESERVE_KEYS = {"use_preservation": "true", "steps": "2"}
 
 
-def sana_step_launches(cfg_model, w8a8):
-    """Kernel launches of one SANA training step (no remat), and those
-    inside the blocks (which remat runs twice)."""
+def sana_step_launches(cfg_model, w8a8, full_ft=False):
+    """Kernel launches of one SANA training step (no remat) with one
+    forward and one backward, and those inside the blocks (which remat runs
+    twice).  Under LoRA the first norm of block 0 gets no backward: its
+    input and modulation come from the frozen patch and timestep
+    embeddings, so no trainable leaf lies upstream of it; under full
+    fine-tuning (``full_ft``) those embeddings train, and it does."""
     n_layers = cfg_model.num_layers
     n_soft = len(cfg_model.softmax_self_attn_blocks)
-    # the first norm of block 0 gets no backward: its input and modulation
-    # come from the frozen patch and timestep embeddings, so no trainable
-    # leaf lies upstream of it
     per_step = {"adaln_layernorm": 2 * n_layers + 1,
                 "dot_product_attention": n_layers + n_soft,
                 "linear_attention": n_layers - n_soft,
-                "adaln_layernorm_bwd": 2 * n_layers,
+                "adaln_layernorm_bwd": 2 * n_layers + bool(full_ft),
                 "dot_product_attention_bwd": n_layers + n_soft}
     in_blocks = {"adaln_layernorm": 2 * n_layers,
                  "dot_product_attention": n_layers + n_soft,
@@ -2859,6 +3007,102 @@ def sana_step_launches(cfg_model, w8a8):
         per_step["w8a8_matmul_bwd"] = 7 * n_layers - 3
         in_blocks["w8a8_matmul"] = 9 * n_layers
     return per_step, in_blocks
+
+
+def step_passes(params):
+    """(forwards, backwards) of one training step: the task loss's, one
+    no-grad forward per exploration candidate, and with the preservation
+    term the adapted model's forward and backward and the base's no-grad
+    forward."""
+    pres = bool(params.use_preservation)
+    return 1 + (params.exploration_steps or 0) + 2 * pres, 1 + pres
+
+
+def scale_launches(per_step, passes):
+    """One forward's and one backward's launches (``per_step``) times the
+    step's (forwards, backwards)."""
+    fwd, bwd = passes
+    return {k: n * (bwd if k.endswith("_bwd") else fwd)
+            for k, n in per_step.items()}
+
+
+def state_leaves(node, path=""):
+    """(path, leaf) of a train state (``Trainer.train_state``)."""
+    if isinstance(node, dict):
+        for k, v in node.items():
+            yield from state_leaves(v, f"{path}/{k}")
+    elif isinstance(node, (list, tuple)):
+        for i, v in enumerate(node):
+            yield from state_leaves(v, f"{path}[{i}]")
+    else:
+        yield path, node
+
+
+def host_state(trainer):
+    """The trainer's state, every tensor copied to the host."""
+    import torch
+    return {k: v.detach().cpu().clone() if isinstance(v, torch.Tensor)
+            else v for k, v in state_leaves(trainer.train_state())}
+
+
+def same_state(label, what, got, want):
+    """Fail unless two host states hold the same leaves, bit for bit."""
+    import torch
+    if list(got) != list(want):
+        fail(f"{label}: {what}: the leaves differ "
+             f"({sorted(set(got) ^ set(want))[:4]})")
+    for k, v in want.items():
+        g = got[k]
+        same = (torch.equal(g, v) and g.dtype == v.dtype
+                if isinstance(v, torch.Tensor) else g == v)
+        if not same:
+            fail(f"{label}: {what}: {k} differs")
+
+
+def checkpoint_round_trip(label, trainer, card):
+    """The run's last checkpoint (``checkpoint_dir``, written at the step
+    it ended on) against the live state, bit for bit; then the live state
+    wiped to 0 and restored from it by ``Trainer.restore_checkpoint``, bit
+    for bit again.  Returns the checkpoint's bytes and the restore's
+    seconds."""
+    import torch
+
+    from yat_tpu_torch.train.checkpoint import checkpoint_steps
+
+    cuda = trainer.device.type == "cuda"
+    d = trainer.params.checkpoint_dir
+    steps = checkpoint_steps(d)
+    if not steps or steps[-1] != trainer.global_step:
+        fail(f"{label}: checkpoints {steps} in {d}; expected the last at "
+             f"step {trainer.global_step}")
+    path = os.path.join(d, f"{steps[-1]}.pt")
+    live = host_state(trainer)
+    saved = dict(state_leaves(torch.load(path, map_location="cpu",
+                                         weights_only=True)))
+    same_state(label, f"checkpoint {os.path.basename(path)} against the "
+               "live state", saved, live)
+    with torch.no_grad():
+        for _, v in state_leaves(trainer.train_state()):
+            if isinstance(v, torch.Tensor):
+                v.zero_()
+    trainer.global_step = trainer.optimizer.count = 0
+    trainer.optimizer.mini_step = 0
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.restore_checkpoint()
+    if cuda:
+        torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same_state(label, "the restored state against the saved one",
+               host_state(trainer), live)
+    nbytes = os.path.getsize(path)
+    n = sum(1 for v in live.values() if hasattr(v, "dtype"))
+    log(f"{label} [{card}]: checkpoint steps {steps}; step {steps[-1]} "
+        f"holds {n} tensors in {nbytes / 2**30:.3f} GiB; restored to the "
+        f"{'card' if cuda else 'host'} in {restore_s:.2f} s; every restored "
+        "tensor bit-equal to the one saved")
+    return nbytes, restore_s
 
 
 def log_int8_base(label, trainer, peak, card):
@@ -2884,10 +3128,13 @@ def log_int8_base(label, trainer, peak, card):
 
 
 def phase_train(device, card, shard_args=None, cfg_extra=None,
-                label="train"):
+                label="train", remat=True):
     """The SANA training main path through the entry point; returns the
     launch counts of its run.  With ``INT8_KEYS`` among ``cfg_extra`` it is
-    the quantized-base trainer, whose K5/K5b launches are checked too.
+    the quantized-base trainer, whose K5/K5b launches are checked too; with
+    exploration steps or the preservation term, the launches of each extra
+    forward and backward.  The run's last checkpoint goes through a save
+    and a restore.  ``remat`` adds the remat and profiled step.
     ``shard_args``/``cfg_extra`` shrink it for a rehearsal on the CPU."""
     import torch
 
@@ -2908,36 +3155,57 @@ def phase_train(device, card, shard_args=None, cfg_extra=None,
         check_trained(label, trainer, cfg, n_layers)
 
         w8a8 = trainer.params.int8_w8a8
-        per_step, in_blocks = sana_step_launches(cfg_model, w8a8)
+        one, in_blocks = sana_step_launches(cfg_model, w8a8)
+        passes = step_passes(trainer.params)
+        per_step = scale_launches(one, passes)
         check_launches(label, counts,
                        {k: n * steps if cuda else 0
                         for k, n in per_step.items()},
-                       lambda k: f"{per_step[k]} per step x {steps} steps")
+                       lambda k: f"{per_step[k]} per step ({passes[0]} "
+                       f"forwards, {passes[1]} backwards) x {steps} steps")
         log_step_rate(label, trainer, wall, peak, card)
         if trainer.params.lora_base_model_8bit:
             log_int8_base(label, trainer, peak, card)
+        checkpoint_round_trip(label, trainer, card)
 
         # one more step with remat (low_vram), on one batch and one set of
-        # draws, against the step without: the same loss and gradients
-        gen = torch.Generator(device=device).manual_seed(5)
-        b, rung = trainer.params.batch_size, cfg_model.max_caption_len
-        lat_dtype = torch.bfloat16 if trainer.params.bfloat16 else torch.float32
-        batch = {
-            "latents": torch.randn((b, cfg_model.sample_size,
-                                    cfg_model.sample_size,
-                                    cfg_model.in_channels), generator=gen,
-                                   device=device).to(lat_dtype),
-            "embeddings": torch.randn((b, rung, cfg_model.caption_channels),
-                                      generator=gen, device=device),
-            "text_mask": _caption_mask(b, rung, device)}
-        ts, sig = trainer.schedule.training_draw(gen, b)
-        draws = {"timesteps": ts, "sigmas": sig,
-                 "noise": torch.randn(batch["latents"].shape, generator=gen,
-                                      device=device)}
-        bwd = ("adaln_layernorm_bwd", "dot_product_attention_bwd") + (
-            ("w8a8_matmul_bwd",) if w8a8 else ())
-        remat_step(label, trainer, device, card, batch, draws, in_blocks, bwd)
+        # draws, against the step without: the same loss and gradients;
+        # without remat, one step under torch.profiler
+        gen, batch, draws = sana_batch(trainer, device)
+        if remat:
+            bwd = ("adaln_layernorm_bwd", "dot_product_attention_bwd") + (
+                ("w8a8_matmul_bwd",) if w8a8 else ())
+            remat_step(label, trainer, device, card, batch, draws, in_blocks,
+                       bwd)
+        elif cuda:
+            profile_run(f"one {label} step at rung "
+                        f"{batch['embeddings'].shape[1]}",
+                        lambda: trainer._step_fn(batch, gen, draws), card)
     return {name: counts[name] for name in per_step}
+
+
+def sana_batch(trainer, device):
+    """A seeded SANA training batch at the longest caption rung (masks
+    from the whole rung down to three quarters) and one set of draws, with
+    their generator."""
+    import torch
+    cfg_model = trainer.sana_config
+    gen = torch.Generator(device=device).manual_seed(5)
+    b, rung = trainer.params.batch_size, cfg_model.max_caption_len
+    lat_dtype = torch.bfloat16 if trainer.params.bfloat16 else torch.float32
+    batch = {
+        "latents": torch.randn((b, cfg_model.sample_size,
+                                cfg_model.sample_size,
+                                cfg_model.in_channels), generator=gen,
+                               device=device).to(lat_dtype),
+        "embeddings": torch.randn((b, rung, cfg_model.caption_channels),
+                                  generator=gen, device=device),
+        "text_mask": _caption_mask(b, rung, device)}
+    ts, sig = trainer.schedule.training_draw(gen, b)
+    draws = {"timesteps": ts, "sigmas": sig,
+             "noise": torch.randn(batch["latents"].shape, generator=gen,
+                                  device=device)}
+    return gen, batch, draws
 
 
 # ---------------------------------------------------------------------------
@@ -3037,17 +3305,19 @@ def pixart_step_launches(cfg, rung):
     return want
 
 
-def phase_pixart_train(device, card, shard_args=None, cfg_extra=None):
+def phase_pixart_train(device, card, shard_args=None, cfg_extra=None,
+                       label="pixart train", remat=True):
     """The PixArt-Sigma training main path through the entry point; returns
-    the launch counts of its run.  ``shard_args``/``cfg_extra`` shrink it
-    for a rehearsal on the CPU."""
+    the launch counts of its run (with the preservation term, those of its
+    extra forwards and backward).  ``remat`` adds the remat and profiled
+    step.  ``shard_args``/``cfg_extra`` shrink it for a rehearsal on the
+    CPU."""
     import torch
 
     from yat_tpu_torch.data.sampler import caption_length_buckets
     from yat_tpu_torch.frontends.pixart import main as train_main
 
     cuda = device.type == "cuda"
-    label = "pixart train"
     with tempfile.TemporaryDirectory() as tmp:
         cfg = {k: v for k, v in pixart_train_config(
             os.path.join(tmp, "shard-000000.tar"), os.path.join(tmp, "out"),
@@ -3083,16 +3353,20 @@ def phase_pixart_train(device, card, shard_args=None, cfg_extra=None):
                          f"expected {want}")
         want = dict.fromkeys(PIXART_TRAIN_KERNELS, 0)
         per_rung = {}
+        passes = step_passes(trainer.params)
         for rung in rungs:
-            per_rung[rung] = pixart_step_launches(cfg_model, rung)
+            per_rung[rung] = scale_launches(
+                pixart_step_launches(cfg_model, rung), passes)
             for name, n in per_rung[rung].items():
                 want[name] += n if cuda else 0
         check_launches(label, counts, want, lambda k: " + ".join(
             f"{per_rung[r][k]} at rung {r} x {rungs.count(r)}"
-            for r in sorted(per_rung)))
+            for r in sorted(per_rung)) + f" ({passes[0]} forwards, "
+            f"{passes[1]} backwards a step)")
         log_step_rate(label, trainer, wall, peak, card)
 
-        # one more step with remat (low_vram) at the longest rung
+        # one more step with remat (low_vram) at the longest rung (without
+        # remat, one step under torch.profiler)
         gen = torch.Generator(device=device).manual_seed(5)
         b, rung = trainer.params.batch_size, cfg_model.max_caption_len
         lat_dtype = torch.bfloat16 if trainer.params.bfloat16 else torch.float32
@@ -3107,6 +3381,11 @@ def phase_pixart_train(device, card, shard_args=None, cfg_extra=None):
         draws = {"timesteps": trainer.schedule.training_draw(gen, b),
                  "noise": torch.randn(batch["latents"].shape, generator=gen,
                                       device=device)}
+        if not remat:
+            if cuda:
+                profile_run(f"one {label} step at rung {rung}",
+                            lambda: trainer._step_fn(batch, gen, draws), card)
+            return {name: counts[name] for name in PIXART_TRAIN_KERNELS}
         (self_f, self_b), (cross_f, cross_b) = (
             BRANCH_KERNELS[br] for br in pixart_branches(cfg_model, rung))
         in_blocks = {"adaln_layernorm": 2 * n_layers}
@@ -3116,6 +3395,218 @@ def phase_pixart_train(device, card, shard_args=None, cfg_extra=None):
                    ("adaln_layernorm_bwd",) + tuple(
                        n for n in (self_b, cross_b) if n))
     return {name: counts[name] for name in PIXART_TRAIN_KERNELS}
+
+
+# ---------------------------------------------------------------------------
+# 10. full fine-tuning, checkpoints, resume, the profiler window
+# ---------------------------------------------------------------------------
+
+FULL_FT_STEPS = 16
+# kernel names a trace must hold (KERNEL_FAMILIES' keys): K2, K2b, K1b
+TRACE_KERNELS = {"K2": "attention_fwd_bf16", "K2b": "attention_bwd_dq",
+                 "K1b": "adaln_bwd"}
+
+
+def full_ft_config(shard, tmp, **extra):
+    """configs/sana_softmax_patch.yaml without what needs files (the
+    validation prompt; the shard is synthetic), for ``FULL_FT_STEPS``
+    steps with the validation (export and checkpoint) cadence cut from
+    1000 to 8, and ``checkpoint_dir`` and ``profile_dir`` beside the
+    shard."""
+    return {"local_shard_paths": [shard], "batch_size": "16",
+            "learning_rate": "1e-5", "steps": str(FULL_FT_STEPS),
+            "num_steps_per_validation": "8", "validation_prompts": [],
+            "bfloat16": "true", "use_ema": "true",
+            "model_config_overrides": {
+                "preset": "600M", "softmax_self_attn_blocks": [12, 13, 14,
+                                                               15]},
+            "unfreeze_modules": [f"blocks_{i}" for i in (12, 13, 14, 15)],
+            "warmup_compile": "true", "caption_length_bucketing": "true",
+            "checkpoint_dir": os.path.join(tmp, "ckpt"),
+            "profile_dir": os.path.join(tmp, "prof"),
+            "output_dir": os.path.join(tmp, "out"), "dataset_seed": "0",
+            **extra}
+
+
+def check_frozen(label, trainer, init, patterns):
+    """Every leaf outside ``patterns`` bit-equal to ``init`` (host
+    tensors, flax paths); returns how many of the unfrozen ones moved."""
+    import torch
+
+    from yat_tpu_torch.convert import flax_params
+    from yat_tpu_torch.train.state import unfreeze_mask
+    moved = 0
+    for name, t in flax_params(trainer.model).items():
+        same = torch.equal(t.detach().cpu(), init[name])
+        if unfreeze_mask([name], patterns)[0]:
+            moved += not same
+        elif not same:
+            fail(f"{label}: {name} changed, though outside "
+                 f"unfreeze_modules {patterns}")
+    return moved
+
+
+def check_traces(label, prof_dir, cuda=True):
+    """The profiler's traces under ``prof_dir``: each must hold K2's, K2b's
+    and K1b's kernels (on the CPU, which runs none: PyTorch's operators);
+    returns their count."""
+    traces = sorted(os.listdir(prof_dir)) if os.path.isdir(prof_dir) else []
+    traces = [t for t in traces if t.endswith(".pt.trace.json")]
+    if not traces:
+        fail(f"{label}: no profiler trace in {prof_dir}")
+    for t in traces:
+        with open(os.path.join(prof_dir, t)) as f:
+            text = f.read()
+        names = TRACE_KERNELS if cuda else {"operators": "aten::"}
+        found = {k: text.count(v) for k, v in names.items()}
+        log(f"{label}: trace {t} ({len(text) / 2**20:.1f} MiB): kernel "
+            f"names by count {found}")
+        missing = [k for k, n in found.items() if not n]
+        if missing:
+            fail(f"{label}: trace {t} names no {missing}")
+    return len(traces)
+
+
+def phase_full_finetune(device, card, shard_args=None, cfg_extra=None):
+    """configs/sana_softmax_patch.yaml's full fine-tuning through the entry
+    point (SANA-0.6B, blocks 12-15 with softmax self-attention and the only
+    ones unfrozen, batch 16, bf16 compute over fp32 leaves, EMA, lr 1e-5),
+    16 steps with checkpoints at 8 and 16 and the profiler over steps
+    10-14; then the run is cut back to its step-8 checkpoint (the step-16
+    file removed, as a run killed between the two writes leaves it) and a
+    second run of the same config with ``resume`` carries on from step 8 to
+    16.  Checks the losses, the launches per step, every leaf outside
+    blocks 12-15 bit-unchanged, the export and its ``config.json``, the
+    checkpoint against the live state, the restore bit for bit, the resumed
+    run's caption rungs against the first run's (the data fast-forward) and
+    the traces.  Returns the first run's launch counts.
+    ``shard_args``/``cfg_extra`` shrink it for a rehearsal on the CPU."""
+    import gc
+
+    import torch
+
+    from yat_tpu_torch.convert import flax_params
+    from yat_tpu_torch.frontends.sana import build_denoiser
+    from yat_tpu_torch.frontends.sana import main as train_main
+    from yat_tpu_torch.train.checkpoint import (save_train_state,
+                                                wait_for_checkpoints)
+    from yat_tpu_torch.train.state import unfreeze_mask
+
+    cuda = device.type == "cuda"
+    label = "full fine-tune"
+    with tempfile.TemporaryDirectory() as tmp:
+        shard = os.path.join(tmp, "shard-000000.tar")
+        cfg = {k: v for k, v in full_ft_config(shard, tmp,
+                                               **(cfg_extra or {})).items()
+               if v is not None}
+        steps = int(cfg["steps"])
+        half = int(cfg["num_steps_per_validation"])
+        patterns = cfg["unfreeze_modules"]
+        trainer, counts, wall, peak = run_entry_point(
+            label, train_main, device, tmp, cfg, shard_args or {})
+        hist = trainer.history
+        if [h["step"] for h in hist] != list(range(1, steps + 1)) or not all(
+                math.isfinite(h["loss"]) for h in hist):
+            fail(f"{label}: expected {steps} finite losses, got {hist}")
+        for h in hist:
+            log(f"{label}: step {h['step']} caption rung {h['caption_len']} "
+                f"loss {h['loss']:.6f} grad_norm {h['grad_norm']:.4f}")
+        cfg_model = trainer.sana_config
+        one, _ = sana_step_launches(cfg_model, False, full_ft=True)
+        check_launches(label, counts,
+                       {k: n * steps if cuda else 0 for k, n in one.items()},
+                       lambda k: f"{one[k]} per step x {steps} steps")
+        log_step_rate(label, trainer, wall, peak, card)
+        n_leaves = len(trainer.trainable_leaves())
+        log(f"{label}: {n_leaves} fp32 leaves "
+            f"({sum(p.numel() for p in trainer.trainable_leaves()):,} "
+            f"values), {len(trainer.optimizer.active)} updated by "
+            f"unfreeze_modules {patterns}; peak device memory "
+            f"{peak / 2**30:.2f} GiB")
+        if any(p.dtype != torch.float32 for p in trainer.trainable_leaves()):
+            fail(f"{label}: full fine-tuning leaves not stored in fp32")
+
+        init_model = build_denoiser(trainer.params, cfg_model, device)
+        init = {k: v.detach().cpu() for k, v in
+                flax_params(init_model).items()}
+        del init_model
+        moved = check_frozen(label, trainer, init, patterns)
+        log(f"{label}: every leaf outside {patterns} bit-unchanged after "
+            f"{steps} steps; {moved} of the "
+            f"{sum(unfreeze_mask(list(init), patterns))} leaves inside "
+            "moved")
+        if not moved:
+            fail(f"{label}: no leaf of {patterns} moved")
+        out = os.path.join(cfg["output_dir"], str(steps))
+        with open(os.path.join(out, "config.json")) as f:
+            exported = json.load(f)
+        size = os.path.getsize(os.path.join(out, "model.safetensors"))
+        log(f"{label}: export {out}: model.safetensors "
+            f"{size / 2**30:.3f} GiB, config.json {exported}")
+        if exported.get("modified_blocks") != list(
+                cfg_model.softmax_self_attn_blocks):
+            fail(f"{label}: config.json records {exported}")
+
+        # one checkpoint's bytes and seconds: the host copy (before
+        # save_train_state returns) and the write (the background thread)
+        timing = os.path.join(tmp, "timing")
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_train_state(timing, trainer.train_state(), steps)
+        t1 = time.perf_counter()
+        wait_for_checkpoints(timing)
+        t2 = time.perf_counter()
+        nbytes = os.path.getsize(os.path.join(timing, f"{steps}.pt"))
+        shutil.rmtree(timing)
+        log(f"{label} [{card}]: one checkpoint {nbytes / 2**30:.3f} GiB: "
+            f"copy to the host {t1 - t0:.2f} s, write {t2 - t1:.2f} s "
+            f"({nbytes / 2**30 / max(t2 - t1, 1e-9):.2f} GiB/s)")
+        checkpoint_round_trip(label, trainer, card)
+        first_rungs = [h["caption_len"] for h in hist]
+        if cuda:
+            gen, batch, draws = sana_batch(trainer, device)
+            profile_run(f"one {label} step at rung "
+                        f"{batch['embeddings'].shape[1]}",
+                        lambda: trainer._step_fn(batch, gen, draws), card)
+        del trainer
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # the run killed between its step-8 and step-16 writes
+        os.remove(os.path.join(cfg["checkpoint_dir"], f"{steps}.pt"))
+        resumed = dict(cfg, resume="true")
+        t0 = time.perf_counter()
+        again, counts2, wall2, peak2 = run_entry_point(
+            f"{label} (resumed)", train_main, device, tmp, resumed,
+            shard_args or {})
+        hist2 = again.history
+        if [h["step"] for h in hist2] != list(range(half + 1, steps + 1)):
+            fail(f"{label}: the resumed run took steps "
+                 f"{[h['step'] for h in hist2]}, expected {half + 1}-"
+                 f"{steps}")
+        rungs2 = [h["caption_len"] for h in hist2]
+        if rungs2 != first_rungs[half:]:
+            fail(f"{label}: the resumed run's caption rungs {rungs2} are "
+                 f"not the first run's {first_rungs[half:]}")
+        check_launches(f"{label} (resumed)", counts2,
+                       {k: n * (steps - half) if cuda else 0
+                        for k, n in one.items()},
+                       lambda k: f"{one[k]} per step x {steps - half} steps")
+        log_step_rate(f"{label} (resumed)", again, wall2, peak2, card)
+        check_frozen(f"{label} (resumed)", again, init, patterns)
+        log(f"{label}: resumed from step {half} to {again.global_step}; "
+            f"rungs {rungs2} as the first run's; every leaf outside "
+            f"{patterns} still bit-unchanged")
+        checkpoint_round_trip(f"{label} (resumed)", again, card)
+        n = check_traces(label, cfg["profile_dir"], cuda)
+        log(f"{label}: {n} profiler traces (steps 10-14 of each run)")
+        del again
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return {name: counts[name] for name in one}
 
 
 def main() -> None:
@@ -3131,6 +3622,7 @@ def main() -> None:
     phase_grad_reference(device)
     phase_pixart_grad_reference(device)
     phase_int8_grad_reference(device)
+    phase_full_ft_grad_reference(device)
     counts = {}
     for family in ("sana", "pixart"):
         counts[family] = phase_serve(serve_params(), device, card,
@@ -3148,6 +3640,17 @@ def main() -> None:
     torch.cuda.empty_cache()
     counts["int8_train"] = phase_train(device, card, cfg_extra=INT8_KEYS,
                                        label="int8 train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["full_ft"] = phase_full_finetune(device, card)
+    counts["explore_train"] = phase_train(
+        device, card, cfg_extra=EXPLORE_KEYS, label="explore+preserve train",
+        remat=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["pixart_preserve_train"] = phase_pixart_train(
+        device, card, cfg_extra=PIXART_PRESERVE_KEYS,
+        label="pixart preserve train", remat=False)
 
     rows = []
     # name: (source, the TPU kernel it replaces, the run whose launches
@@ -3184,7 +3687,8 @@ def main() -> None:
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": counts[run][name]}
         # K1 launches on every path: its counts on the others beside
-        for other in ("pixart", "train", "pixart_train", "int8_train"):
+        for other in ("pixart", "train", "pixart_train", "int8_train",
+                      "full_ft", "explore_train", "pixart_preserve_train"):
             if other != run and name in counts[other] \
                     and counts[other][name]:
                 row[f"launches_{other}"] = counts[other][name]

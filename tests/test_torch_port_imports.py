@@ -42,6 +42,7 @@ def test_scan_covers_the_package():
     assert {"yat_tpu_torch/models/sana.py", "yat_tpu_torch/serve.py",
             "yat_tpu_torch/adapters/builder.py", "yat_tpu_torch/adapters/io.py",
             "yat_tpu_torch/train/engine.py", "yat_tpu_torch/train/step.py",
+            "yat_tpu_torch/train/checkpoint.py",
             "yat_tpu_torch/data/tar.py", "yat_tpu_torch/data/sampler.py",
             "yat_tpu_torch/utils/logging.py",
             "yat_tpu_torch/parallel/multihost.py", "yat_tpu_torch/ops/quant.py",

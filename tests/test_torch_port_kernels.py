@@ -826,6 +826,30 @@ def test_card_attention_bwd_kernel(cuda, dtype, b, nq, nk, h, d):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_card_softmax_self_attention_fwd_bwd(cuda, dtype):
+    """The self-attention of SANA's softmax-patched blocks in training:
+    q/k/v [16, 256, 36, 32], 256 keys, no key bias; the short-sequence
+    gate sends it to K2 (native layout), its backward to K2b, one launch
+    each, against the plain versions."""
+    b, n, h, d = 16, 256, 36, 32
+    assert TA.attention_branch(n, n, h, d) == "native"
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v, gy = (torch.randn((b, n, h, d), generator=g,
+                               device=cuda).to(dtype) for _ in range(4))
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    fwd, bwd = TA.SOFTMAX_ATTENTION.launches, TA.SOFTMAX_ATTENTION_BWD.launches
+    out = TA.dot_product_attention(qs, ks, vs)
+    out.backward(gy)
+    torch.cuda.synchronize()
+    assert TA.SOFTMAX_ATTENTION.launches == fwd + 1
+    assert TA.SOFTMAX_ATTENTION_BWD.launches == bwd + 1
+    _close(out.detach(), TA.attention_ref(q, k, v, None))
+    _close_bwd("dot_product_attention_bwd", (qs.grad, ks.grad, vs.grad),
+               TA.attention_bwd_ref(q, k, v, None, gy))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("nk", [256, 300])
 def test_card_folded_attention_bwd_kernel(cuda, dtype, nk):
     """K4b: PixArt-Sigma's cross-attention backward at the folded caption

@@ -7,6 +7,8 @@ branch and its plain backward); remat; and the entry point
 ``yat_tpu_torch.frontends.pixart.main`` end to end (``--device cpu``)."""
 
 import dataclasses
+import glob
+import os
 
 import jax
 import jax.numpy as jnp
@@ -355,7 +357,9 @@ def _write_config(tmp_path, shard, **over):
            "model_config_overrides": dict(TINY_PIXART)}
     cfg.update(over)
     path = tmp_path / "config.yaml"
-    path.write_text(yaml.safe_dump(cfg))
+    # None drops a key
+    path.write_text(yaml.safe_dump({k: v for k, v in cfg.items()
+                                    if v is not None}))
     return str(path)
 
 
@@ -389,15 +393,22 @@ def test_entry_point_trains_and_exports(tmp_path):
 
 
 @pytest.mark.parametrize("over,exc,match", [
-    ({"use_repa": "true"}, NotImplementedError, "item 10"),
-    ({"use_preservation": "true"}, NotImplementedError, "item 13"),
-    ({"lora_algo": "lokr"}, NotImplementedError, "lokr"),
-    ({"lora_use_dora": "true"}, NotImplementedError, "DoRA"),
-    ({"profile_dir": "prof"}, NotImplementedError, "item 6"),
-    ({"compute_features": "true", "vae_max_batch_size": "2",
-      "text_encoder_max_batch_size": "2"}, NotImplementedError, "item 8"),
-    ({"train_unconditional_prob": "0.1"}, ValueError, "empty-caption"),    ({"pretrained_model_path": "ckpt"}, ValueError,
-     "no denoiser checkpoint was found"),
+    pytest.param({"use_repa": "true"}, NotImplementedError, "item 10",
+                 id="over0-NotImplementedError-item 10"),
+    pytest.param({"lora_algo": "lokr"}, NotImplementedError, "lokr",
+                 id="over2-NotImplementedError-lokr"),
+    pytest.param({"lora_use_dora": "true"}, NotImplementedError, "DoRA",
+                 id="over3-NotImplementedError-DoRA"),
+    pytest.param({"compute_features": "true", "vae_max_batch_size": "2",
+                  "text_encoder_max_batch_size": "2"}, NotImplementedError,
+                 "item 8", id="over5-NotImplementedError-item 8"),
+    pytest.param({"train_unconditional_prob": "0.1"}, ValueError,
+                 "empty-caption", id="over6-ValueError-empty-caption"),
+    pytest.param({"pretrained_model_path": "ckpt"}, ValueError,
+                 "no denoiser checkpoint was found",
+                 id="over7-ValueError-no denoiser checkpoint was found"),
+    pytest.param({"lora_pretrained": "a.safetensors"}, NotImplementedError,
+                 "item 9", id="lora_pretrained-item-9"),
 ])
 def test_entry_point_refuses_unported_options(tmp_path, over, exc, match):
     from yat_tpu_torch.frontends.pixart import main
@@ -405,6 +416,51 @@ def test_entry_point_refuses_unported_options(tmp_path, over, exc, match):
     cfg = _write_config(tmp_path, _tiny_shard(tmp_path / "s.tar"), **over)
     with pytest.raises(exc, match=match):
         main(["--config", cfg, "--device", "cpu"])
+
+
+@pytest.mark.parametrize("key", ["use_preservation", "profile_dir",
+                                 "full_finetune"])
+def test_entry_point_runs_ported_options(tmp_path, monkeypatch, capsys, key):
+    """The keys the port refused before its training loop was complete run
+    through ``main([..., "--device", "cpu"])``: the epsilon-form
+    preservation term once a step, a profiler trace (a run of 12 steps
+    ends inside the window of steps 10-14), and full fine-tuning (no
+    adapter spec) of every parameter, stored in fp32 under ``bfloat16``
+    (cast at use), exported as ``model.safetensors``."""
+    from yat_tpu_torch.frontends import pixart
+
+    calls = []
+    if key == "use_preservation":
+        make = pixart.make_preservation_loss
+
+        def counted(*a, **kw):
+            pres = make(*a, **kw)
+
+            def call(*b, **kwb):
+                calls.append(1)
+                return pres(*b, **kwb)
+            return call
+        monkeypatch.setattr(pixart, "make_preservation_loss", counted)
+    over = {"use_preservation": {"use_preservation": "true"},
+            "profile_dir": {"profile_dir": str(tmp_path / "prof"),
+                            "steps": "12"},
+            "full_finetune": {"lora_rank": None, "lora_algo": None,
+                              "lora_target_modules": None,
+                              "bfloat16": "true"}}[key]
+    cfg = _write_config(tmp_path, _tiny_shard(tmp_path / "s.tar"), **over)
+    trainer = pixart.main(["--config", cfg, "--device", "cpu"])
+    out = capsys.readouterr().out
+    if key == "use_preservation":
+        assert len(calls) == 3
+    elif key == "profile_dir":
+        assert "[engine] profiler trace in" in out
+        assert len(glob.glob(str(tmp_path / "prof" / "*.pt.trace.json"))
+                   ) == 1
+    else:
+        leaves = trainer.trainable_leaves()
+        assert len(leaves) == len(list(trainer.model.parameters()))
+        assert all(p.dtype == torch.float32 for p in leaves)
+        assert os.path.exists(tmp_path / "out" / "3" / "model.safetensors")
 
 
 @pytest.mark.parametrize("key", ["pretrained_model_path",

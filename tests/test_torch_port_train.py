@@ -4,7 +4,9 @@ the same weights, adapters, batches and draws; the data plane against the
 JAX package's sampler on the same shards; and the entry point
 ``yat_tpu_torch.frontends.sana.main`` end to end (``--device cpu``)."""
 
+import glob
 import itertools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -360,7 +362,9 @@ def _write_config(tmp_path, shard, **over):
            "model_config_overrides": dict(TINY_OVERRIDES)}
     cfg.update(over)
     path = tmp_path / "config.yaml"
-    path.write_text(yaml.safe_dump(cfg))
+    # None drops a key
+    path.write_text(yaml.safe_dump({k: v for k, v in cfg.items()
+                                    if v is not None}))
     return str(path)
 
 
@@ -399,13 +403,20 @@ def test_entry_point_trains_and_exports(tmp_path):
 
 
 @pytest.mark.parametrize("over,exc,match", [
-    ({"checkpoint_dir": "ckpt"}, NotImplementedError, "checkpoint_dir"),
-    ({"exploration_steps": "2"}, NotImplementedError, "exploration_steps"),
-    ({"train_unconditional_prob": "0.5"}, ValueError, "empty-caption"),
-    ({"unfreeze_modules": ["blocks_0"]}, NotImplementedError,
-     "unfreeze_modules"),
-    ({"lora_algo": "loha"}, NotImplementedError, "loha"),    ({"pretrained_model_path": "ckpt"}, ValueError,
-     "no denoiser checkpoint was found"),
+    pytest.param({"train_unconditional_prob": "0.5"}, ValueError,
+                 "empty-caption", id="over2-ValueError-empty-caption"),
+    pytest.param({"lora_algo": "loha"}, NotImplementedError, "loha",
+                 id="over4-NotImplementedError-loha"),
+    pytest.param({"pretrained_model_path": "ckpt"}, ValueError,
+                 "no denoiser checkpoint was found",
+                 id="over5-ValueError-no denoiser checkpoint was found"),
+    pytest.param({"lora_pretrained": "a.safetensors"}, NotImplementedError,
+                 "item 9", id="lora_pretrained-item-9"),
+    pytest.param({"use_repa": "true"}, NotImplementedError, "item 10",
+                 id="use_repa-item-10"),
+    pytest.param({"lora_rank": None, "lora_algo": None,
+                  "unfreeze_modules": ["blocks_9"]}, ValueError,
+                 "matched no parameter", id="unfreeze_modules-matching-none"),
 ])
 def test_entry_point_refuses_unported_options(tmp_path, over, exc, match):
     from yat_tpu_torch.frontends.sana import main
@@ -413,6 +424,81 @@ def test_entry_point_refuses_unported_options(tmp_path, over, exc, match):
     cfg = _write_config(tmp_path, _tiny_shard(tmp_path / "s.tar"), **over)
     with pytest.raises(exc, match=match):
         main(["--config", cfg, "--device", "cpu"])
+
+
+def _ported_effect(key, tmp_path, trainer, out, counts):
+    """What each formerly refused key does in a run of 3 steps."""
+    from yat_tpu_torch.convert import flax_params
+    from yat_tpu_torch.frontends.sana import build_denoiser
+
+    if key == "checkpoint_dir":
+        assert sorted(os.listdir(tmp_path / "ckpt")) == ["1.pt", "2.pt",
+                                                         "3.pt"]
+    elif key == "resume":
+        assert "resumed from step 3" in out and trainer.global_step == 5
+        assert len(trainer.history) == 2
+    elif key == "exploration_steps":
+        # one search of 2 candidates a step
+        assert counts == {"explore": 3}
+    elif key == "unfreeze_modules":
+        init = flax_params(build_denoiser(trainer.params,
+                                          trainer.sana_config, "cpu"))
+        moved = {k for k, v in flax_params(trainer.model).items()
+                 if not torch.equal(v, init[k])}
+        assert moved and all(k.startswith("blocks_0.attn2.") for k in moved)
+    elif key == "use_preservation":
+        assert counts == {"preservation": 3}
+    else:
+        assert len(glob.glob(str(tmp_path / "prof" / "*.pt.trace.json"))
+                   ) == 1
+
+
+@pytest.mark.parametrize("key", ["checkpoint_dir", "resume",
+                                 "exploration_steps", "unfreeze_modules",
+                                 "use_preservation", "profile_dir"])
+def test_entry_point_runs_ported_options(tmp_path, monkeypatch, capsys, key):
+    """The keys the port refused before its training loop was complete run
+    through ``main([..., "--device", "cpu"])`` and do what they say:
+    checkpoints on the validation cadence, a resume from them, a best-of-2
+    search a step, only ``attn2`` (a path segment) trained under full
+    fine-tuning, the preservation term a step, and a profiler trace (a run
+    of 12 steps ends inside the window of steps 10-14)."""
+    from yat_tpu_torch.frontends.sana import main
+    from yat_tpu_torch.train import step as step_module
+
+    counts = {}
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            counts[name] = counts.get(name, 0) + 1
+            return fn(*a, **kw)
+        return call
+    monkeypatch.setattr(step_module, "explore",
+                        counted("explore", step_module.explore))
+    ckpt = {"checkpoint_dir": str(tmp_path / "ckpt"),
+            "num_steps_per_validation": "1"}
+    over = {"checkpoint_dir": ckpt,
+            "exploration_steps": {"exploration_steps": "2"},
+            "unfreeze_modules": {"lora_rank": None, "lora_algo": None,
+                                 "unfreeze_modules": ["attn2"]},
+            "use_preservation": {"use_preservation": "true"},
+            "profile_dir": {"profile_dir": str(tmp_path / "prof"),
+                            "steps": "12"}}.get(key, {})
+    shard = _tiny_shard(tmp_path / "s.tar")
+    if key == "resume":
+        main(["--config", _write_config(tmp_path, shard, **ckpt),
+              "--device", "cpu"])
+        capsys.readouterr()
+        over = dict(ckpt, resume="true", steps="5")
+    if key == "use_preservation":
+        from yat_tpu_torch.frontends import sana
+        make = sana.make_preservation_loss
+        monkeypatch.setattr(sana, "make_preservation_loss",
+                            lambda *a, **kw: counted("preservation",
+                                                     make(*a, **kw)))
+    trainer = main(["--config", _write_config(tmp_path, shard, **over),
+                    "--device", "cpu"])
+    _ported_effect(key, tmp_path, trainer, capsys.readouterr().out, counts)
 
 
 @pytest.mark.parametrize("key", ["pretrained_model_path",

@@ -24,8 +24,11 @@ unread is left to ``chip_smoke.py`` itself: a checkout from before the
 tile walk reads them.  So is K3's NaN case where TREE's K3 predates its
 launch info (``linear_attention_launch_info``), as it predates the ReLU
 that keeps NaN.  K1b's path is printed where TREE has its launch info
-(``adaln_bwd_launch_info``).  To compare two checkouts on one card, run
-them in turns in one call: parent, change, change, parent.  Imports
+(``adaln_bwd_launch_info``).  The SANA training phases write
+checkpoints (``checkpoint_dir``), so TREE's trainer must take that key
+(a checkout with ``yat_tpu_torch/train/checkpoint.py``).  To compare two
+checkouts on one card, run them in turns in one call: parent, change,
+change, parent.  Imports
 nothing of JAX.
 """
 

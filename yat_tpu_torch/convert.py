@@ -29,7 +29,9 @@ the JAX package, never left as the constructor made it.
 
 ``flax_params(module)`` is the inverse view: every parameter under its
 flax path, as a tensor in the flax layout (``[in, out]`` kernels, HWIO
-conv kernels), sharing the parameter's storage.  A caption encoder's or
+conv kernels), sharing the parameter's storage; ``flax_named_parameters``
+names the parameters themselves by those paths (the trainable leaves of
+full fine-tuning and the ``unfreeze_modules`` mask).  A caption encoder's or
 VAE's converted checkpoint is merged against its paths
 (``frontends/common.py``).
 
@@ -42,7 +44,7 @@ at its path, with its scale and dropout rate, and the base is frozen.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -133,13 +135,12 @@ def load_flax_params(module: nn.Module, tree: Mapping,
             p.zero_()
 
 
-def flax_params(module: nn.Module) -> Dict[str, torch.Tensor]:
-    """``{dotted flax path: parameter viewed in the flax layout}`` for every
-    parameter of ``module`` (the inverse of :func:`load_flax_params`'s
-    mapping); the views share the parameters' storage."""
+def _flax_entries(module: nn.Module):
+    """(dotted flax path, parameter, the parameter viewed in the flax
+    layout) for every parameter of ``module``, in ``named_parameters``
+    order."""
     from yat_tpu_torch.models.layers import Embed
 
-    out = {}
     lists = {name for name, m in module.named_modules()
              if isinstance(m, nn.ModuleList)}
     for name, p in module.named_parameters():
@@ -159,8 +160,22 @@ def flax_params(module: nn.Module) -> Dict[str, torch.Tensor]:
                 leaf, t = "kernel", t.t()
             elif t.ndim == 4:
                 leaf, t = "kernel", t.permute(2, 3, 1, 0)
-        out[".".join(path + [leaf])] = t
-    return out
+        yield ".".join(path + [leaf]), p, t
+
+
+def flax_params(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """``{dotted flax path: parameter viewed in the flax layout}`` for every
+    parameter of ``module`` (the inverse of :func:`load_flax_params`'s
+    mapping); the views share the parameters' storage."""
+    return {path: t for path, _, t in _flax_entries(module)}
+
+
+def flax_named_parameters(module: nn.Module
+                          ) -> List[Tuple[str, nn.Parameter]]:
+    """``[(dotted flax path, parameter)]`` for every parameter of
+    ``module``, in ``named_parameters`` order: the names of the JAX
+    package's parameter tree for the port's own tensors."""
+    return [(path, p) for path, p, _ in _flax_entries(module)]
 
 
 def flax_shapes(module: nn.Module) -> Dict[str, Any]:

@@ -122,7 +122,10 @@ def find_model_config_json(params: TrainingParameters) -> Optional[dict]:
 def load_pretrained_backbone(params: TrainingParameters, family: str, cfg):
     """The converted flax-layout tree of the denoiser checkpoint of
     ``pretrained_model_path`` or ``pretrained_pipe_path/transformer``, or
-    None when no pretrained path is configured.
+    None when no pretrained path is configured.  A full fine-tuning export
+    of either package (``model.safetensors`` with flat flax keys, whose
+    ``config.json`` carries the architecture flags) is read as the tree
+    itself; the JAX loader converts diffusers keys only.
 
     Raises when a path is configured but no checkpoint is found (a random
     backbone is never trained or served silently), as the JAX package's
@@ -155,6 +158,19 @@ def load_pretrained_backbone(params: TrainingParameters, family: str, cfg):
             "checkpoint was found — refusing to run a randomly "
             "initialized backbone")
     sd = load_torch_state_dict(dirpath)
+    if any(k.endswith(".kernel") for k in sd):
+        # the full fine-tuning export (``model.safetensors`` with flat
+        # flax keys): already the tree, no converter
+        tree: dict = {}
+        for k, v in sd.items():
+            *keys, leaf = k.split(".")
+            node = tree
+            for key in keys:
+                node = node.setdefault(key, {})
+            node[leaf] = v
+        print(f"[{family}] read a full fine-tuning export from {dirpath}: "
+              f"{len(sd)} tensors")
+        return tree
     if family == "sana":
         from yat_tpu_torch.models.convert import convert_sana
         tree = convert_sana(sd, cfg.num_layers)

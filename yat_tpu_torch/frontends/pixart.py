@@ -2,11 +2,12 @@
 pipeline.
 
 Counterpart of ``yat_tpu/frontends/pixart.py``: ``make_trainer`` wires the
-LoRA training path (epsilon-prediction DDPM loss with the learned-sigma
-half sliced off, local feature shards, validation when prompts are
-configured) and ``make_pipeline`` the serving path, which samples the way
-the JAX frontend's validation does (20 DDIM steps, CFG 5.0, PAG 2.0, the
-epsilon half of the learned-sigma output, seed 42).  The denoiser loads
+training path (LoRA or full fine-tuning, the epsilon-prediction DDPM loss
+with the learned-sigma half sliced off, the preservation term, local
+feature shards, validation when prompts are configured) and
+``make_pipeline`` the serving path, which samples the way the JAX
+frontend's validation does (20 DDIM steps, CFG 5.0, PAG 2.0, the epsilon
+half of the learned-sigma output, seed 42).  The denoiser loads
 from a diffusers checkpoint (``pretrained_model_path``, or
 ``transformer/`` of ``pretrained_pipe_path``), T5 and the KL-VAE from
 ``text_encoder/`` and ``vae/`` of ``pretrained_pipe_path``; without those
@@ -15,9 +16,9 @@ parameter trees instead (``weights``).
 
     python -m yat_tpu_torch.frontends.pixart --config cfg.yaml [--device cpu]
 
-REPA, the preservation loss and LoKr raise, each naming its ROADMAP item.
-The quantized base (``lora_base_model_8bit``/``_4bit``, ``int8_w8a8``) and
-Lion with 8-bit momentum (``use_adamw_8bit``) run as in the SANA trainer.
+REPA and LoKr raise, each naming its ROADMAP item.  The quantized base
+(``lora_base_model_8bit``/``_4bit``, ``int8_w8a8``) and Lion with 8-bit
+momentum (``use_adamw_8bit``) run as in the SANA trainer.
 """
 
 from __future__ import annotations
@@ -39,8 +40,9 @@ from yat_tpu_torch.frontends.common import (
 from yat_tpu_torch.models.pixart import PIXART_SIGMA_XL2, PixArtConfig, \
     PixArtTransformer2D
 from yat_tpu_torch.ops.schedulers import DDPMSchedule
-from yat_tpu_torch.train.engine import Trainer, quantized_bits
-from yat_tpu_torch.train.tasks import make_epsilon_loss
+from yat_tpu_torch.train.engine import Trainer, stored_dtype
+from yat_tpu_torch.train.tasks import (make_epsilon_loss,
+                                      make_preservation_loss)
 from yat_tpu_torch.train.validation import ValidationPipeline
 
 
@@ -117,12 +119,14 @@ def build_sampler(params: TrainingParameters, cfg: PixArtConfig):
 
 def make_trainer(params: TrainingParameters, sampler=None, device=None,
                  weights: Optional[Mapping] = None) -> Trainer:
-    """The PixArt-Sigma LoRA trainer: the denoiser (bf16 compute and a bf16
-    frozen base when ``bfloat16`` is set, or an int8/int4 base quantized
-    from fp32 by the trainer, remat under ``low_vram``; loaded from the
-    pretrained paths before any quantization), the
-    epsilon-prediction loss on ``DDPMSchedule`` with the learned-sigma half
-    sliced off, the local feature-shard sampler, and with
+    """The PixArt-Sigma trainer (LoRA, or full fine-tuning without an
+    adapter spec): the denoiser (bf16 compute, with a bf16 frozen base under
+    LoRA when ``bfloat16`` is set, fp32 leaves under full fine-tuning, or an
+    int8/int4 base quantized from fp32 by the trainer, remat under
+    ``low_vram``; loaded from the pretrained paths before any
+    quantization), the epsilon-prediction loss on ``DDPMSchedule`` with the
+    learned-sigma half sliced off (and the epsilon-form preservation term
+    under ``use_preservation``), the local feature-shard sampler, and with
     ``validation_prompts`` the T5 encoder (its empty caption feeds
     unconditional-caption dropout), the KL-VAE decoder and the 20-step
     DDIM, CFG 5.0, PAG 2.0 validation pipeline on the live model (on its
@@ -131,21 +135,19 @@ def make_trainer(params: TrainingParameters, sampler=None, device=None,
     trees as for :func:`make_pipeline`."""
     device = resolve_device(device)
     cfg = build_pixart_config(params)
-    dtype = torch.bfloat16 if params.bfloat16 else torch.float32
     weights = weights or {}
-    # a quantized base is quantized from the fp32 weights by the trainer,
-    # which then stores the rest in bf16
-    store = (dtype if params.bfloat16 and quantized_bits(params) is None
-             else None)
     model = build_denoiser(params, cfg, device, weights.get("transformer"),
-                           store, remat=params.low_vram)
+                           stored_dtype(params), remat=params.low_vram)
     schedule = DDPMSchedule()
     loss = make_epsilon_loss(model, schedule,
                              timestep_list=params.timesteps or None,
                              learned_sigma=_pred_slice(cfg) is not None)
+    pres = (make_preservation_loss(model, schedule, is_flow=False)
+            if params.use_preservation else None)
     if sampler is None:
         sampler = build_sampler(params, cfg)
-    trainer = Trainer(params, model, loss, sampler=sampler, device=device)
+    trainer = Trainer(params, model, loss, sampler=sampler, device=device,
+                      preservation_loss=pres)
     trainer.pixart_config = cfg
     trainer.schedule = schedule
     if params.validation_prompts:

@@ -1,8 +1,9 @@
 """SANA frontend: config → denoiser, encoders, decoder, trainer, pipeline.
 
 Counterpart of ``yat_tpu/frontends/sana.py``: ``make_trainer`` wires the
-LoRA training path (flow-matching loss, local feature shards, validation
-when prompts are configured) and ``make_pipeline`` the serving path.  The
+training path (LoRA or full fine-tuning, flow-matching loss, the
+preservation term, local feature shards, validation when prompts are
+configured) and ``make_pipeline`` the serving path.  The
 denoiser loads from a diffusers checkpoint (``pretrained_model_path``, or
 ``transformer/`` of ``pretrained_pipe_path``, whose ``config.json`` sets
 the architecture), Gemma-2 and the DC-AE from ``text_encoder/`` and
@@ -40,8 +41,9 @@ from yat_tpu_torch.models.sana import (
     SanaTransformer2D,
 )
 from yat_tpu_torch.ops.schedulers import FlowMatchSchedule
-from yat_tpu_torch.train.engine import Trainer, quantized_bits
-from yat_tpu_torch.train.tasks import make_flow_matching_loss
+from yat_tpu_torch.train.engine import Trainer, stored_dtype
+from yat_tpu_torch.train.tasks import (make_flow_matching_loss,
+                                      make_preservation_loss)
 from yat_tpu_torch.train.validation import ValidationPipeline, enhance_prompt
 
 PRESETS = {"600M": SANA_600M, "1600M": SANA_1600M}
@@ -198,11 +200,15 @@ def build_sampler(params: TrainingParameters, cfg: SanaConfig):
 
 def make_trainer(params: TrainingParameters, sampler=None, device=None,
                  weights: Optional[Mapping] = None) -> Trainer:
-    """The SANA LoRA trainer: the denoiser (bf16 compute and a bf16 frozen
-    base when ``bfloat16`` is set, or an int8/int4 base quantized from fp32
-    by the trainer, remat under ``low_vram``; loaded from the pretrained
-    paths before any quantization), the flow-matching loss at shift 3.0,
-    the local feature-shard sampler, and with ``validation_prompts`` the
+    """The SANA trainer (LoRA, or full fine-tuning without an adapter
+    spec): the denoiser (bf16 compute, with a bf16 frozen base under LoRA
+    when ``bfloat16`` is set, fp32 leaves under full fine-tuning, or an
+    int8/int4 base quantized from fp32 by the trainer, remat under
+    ``low_vram``; loaded from the pretrained paths before any
+    quantization), the flow-matching loss at shift 3.0 (and the
+    preservation term under ``use_preservation``), the export's
+    ``config.json`` for softmax-patched blocks or ``qk_norm``, the local
+    feature-shard sampler, and with ``validation_prompts`` the
     Gemma-2 encoder (its empty caption feeds unconditional-caption
     dropout), the DC-AE decoder and the 20-step CFG 5.0 validation
     pipeline on the live model (on its EMA leaves under ``use_ema``;
@@ -211,22 +217,29 @@ def make_trainer(params: TrainingParameters, sampler=None, device=None,
     :func:`make_pipeline`."""
     device = resolve_device(device)
     cfg = build_sana_config(params)
-    dtype = torch.bfloat16 if params.bfloat16 else torch.float32
     weights = weights or {}
-    # a quantized base is quantized from the fp32 weights by the trainer,
-    # which then stores the rest in bf16
-    store = (dtype if params.bfloat16 and quantized_bits(params) is None
-             else None)
     model = build_denoiser(params, cfg, device, weights.get("transformer"),
-                           store, remat=params.low_vram)
+                           stored_dtype(params), remat=params.low_vram)
     schedule = FlowMatchSchedule(shift=3.0)
     loss = make_flow_matching_loss(model, schedule,
                                    timestep_list=params.timesteps or None)
+    pres = (make_preservation_loss(model, schedule, is_flow=True)
+            if params.use_preservation else None)
     if sampler is None:
         sampler = build_sampler(params, cfg)
-    trainer = Trainer(params, model, loss, sampler=sampler, device=device)
+    trainer = Trainer(params, model, loss, sampler=sampler, device=device,
+                      preservation_loss=pres)
     trainer.sana_config = cfg
     trainer.schedule = schedule
+    if cfg.softmax_self_attn_blocks or cfg.qk_norm:
+        # the export records the architecture flags, so a reload through
+        # pretrained_model_path builds the same model
+        trainer.model_config_json = {}
+        if cfg.softmax_self_attn_blocks:
+            trainer.model_config_json["modified_blocks"] = [
+                int(i) for i in cfg.softmax_self_attn_blocks]
+        if cfg.qk_norm:
+            trainer.model_config_json["qk_norm"] = cfg.qk_norm
     if params.validation_prompts:
         encode_captions, decode_latents = build_encoders(params, cfg, device,
                                                          weights)

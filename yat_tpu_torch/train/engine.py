@@ -2,19 +2,30 @@
 
 Counterpart of ``yat_tpu/train/engine.py:Trainer``, single process:
 LoRA adapters attached from a seeded generator (the trainable-parameter
-line), the optimizer and EMA, the empty-caption embedding for
+line), or full fine-tuning (no adapter spec: every parameter is a
+trainable leaf, ``unfreeze_modules`` masks which of them update), the
+optimizer and EMA, the frozen snapshot of the preservation term under
+full fine-tuning, exploration steps, the empty-caption embedding for
 unconditional-caption dropout, batches moved to the device, gradient
 accumulation, the no-progress watchdog, the ``[engine] step i/N`` and
 images/sec lines, TensorBoard scalars, validation on its cadence with the
 three-failure escalation (a frontend's ``validate_fn`` samples on the EMA
 copies of the trainable leaves when ``use_ema`` keeps them, and its
 ``validation_pipeline`` takes the ``validation_cache_interval`` key
-before the first step), and the adapter export to
-``{output_dir}/{step}/adapter_model.safetensors``.
+before the first step), full train-state checkpoints on the validation
+cadence (``checkpoint_dir``; ``resume`` restores the latest once
+everything is built, and the run skips the batches it consumed), the
+``torch.profiler`` window of steps 10-14 (``profile_dir``), and the export
+to ``{output_dir}/{step}/``: ``adapter_model.safetensors`` (adapters) or
+``model.safetensors`` (full fine-tuning, fp32, flat flax keys), with the
+frontend's ``config.json`` beside it and an upload to ``output_repo``.
 
-Divergence from the JAX package: where ``train_unconditional_prob > 0``
+Divergences from the JAX package: where ``train_unconditional_prob > 0``
 and no caption encoder is attached (feature shards without validation
 prompts), the JAX trainer skips the dropout silently; the port raises.
+The JAX profiler window stops only when a batch arrives at step 15, so a
+run of 15 steps or fewer never writes its trace; the port also stops it
+when the run ends.  ``unfreeze_modules`` that match no parameter raise.
 
 With ``lora_base_model_8bit`` (or ``_4bit``) :meth:`Trainer.initialize`
 quantizes the frozen base's dense weights per output channel, as the JAX
@@ -25,15 +36,16 @@ floating in bf16 under ``bfloat16``; ``int8_w8a8`` sends the 8-bit base
 products through ``ops.quant.w8a8_matmul`` (kernels K5 and K5b).
 
 Not ported yet, each raises ``NotImplementedError`` naming its ROADMAP
-item: full-state checkpoints and resume, the profiler window, loading
-pretrained adapters, full fine-tuning and multi-process runs.
+item: loading pretrained adapters (item 9) and REPA (item 10).  The
+trainer is single-process (item 12).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -47,11 +59,12 @@ from yat_tpu_torch.adapters.builder import (
     lora_parameters,
 )
 from yat_tpu_torch.config import TrainingParameters
+from yat_tpu_torch.convert import flax_named_parameters
 from yat_tpu_torch.data.sampler import pad_embeddings
 from yat_tpu_torch.device import resolve_device
 from yat_tpu_torch.models.layers import AdapterDense
 from yat_tpu_torch.ops.quant import quantize_params
-from yat_tpu_torch.train.state import Optimizer
+from yat_tpu_torch.train.state import Optimizer, unfreeze_mask
 from yat_tpu_torch.train.step import make_train_step
 from yat_tpu_torch.utils.logging import MetricLogger
 
@@ -87,25 +100,24 @@ def quantized_bits(params: TrainingParameters) -> Optional[int]:
     return 8 if params.lora_base_model_8bit else None
 
 
+def stored_dtype(params: TrainingParameters) -> Optional[torch.dtype]:
+    """The dtype ``make_trainer`` stores the denoiser's parameters in:
+    bf16 for a frozen LoRA base under ``bfloat16``; None (fp32) for a
+    quantized base, which the trainer quantizes from fp32, and under full
+    fine-tuning, whose leaves are fp32 masters cast at use, as in the JAX
+    trainer."""
+    if (params.bfloat16 and quantized_bits(params) is None
+            and adapter_spec_from_params(params) is not None):
+        return torch.bfloat16
+    return None
+
+
 def check_supported(params: TrainingParameters) -> None:
     """Raise for every option whose path is not ported."""
-    if params.checkpoint_dir or params.resume:
-        raise _not_ported("checkpoint_dir/resume (full train-state "
-                          "checkpoints)", "6")
-    if params.profile_dir:
-        raise _not_ported("profile_dir (the profiler window of steps 10-14)",
-                          "6")
     if params.lora_pretrained:
         raise _not_ported("lora_pretrained (adapter import)", "9")
     if params.use_repa:
         raise _not_ported("REPA", "10")
-    if adapter_spec_from_params(params) is None:
-        raise _not_ported("full fine-tuning (no LoRA rank, or lora_algo "
-                          "'full')", "13")
-    if params.exploration_steps:
-        raise _not_ported("exploration_steps (best-of-N noise search)", "13")
-    if params.use_preservation:
-        raise _not_ported("use_preservation (the preservation loss)", "13")
 
 
 class Trainer:
@@ -113,12 +125,13 @@ class Trainer:
     (``encode_captions`` and ``validate_fn`` may be attached)."""
 
     def __init__(self, params: TrainingParameters, model, task_loss,
-                 sampler=None, device=None):
+                 sampler=None, device=None, preservation_loss=None):
         check_supported(params)
         self.params = params
         self.model = model
         self.task_loss = task_loss
         self.sampler = sampler
+        self.preservation_loss = preservation_loss
         self.device = resolve_device(device)
         # validate_fn(trainer) -> {tag: image}, attached by a frontend
         self.validate_fn: Optional[Callable[["Trainer"], Dict]] = None
@@ -128,7 +141,13 @@ class Trainer:
         self.logger: Optional[MetricLogger] = None
         self.optimizer: Optional[Optimizer] = None
         self.ema: Optional[List[torch.Tensor]] = None
+        # the initial parameters, the preservation term's base under full
+        # fine-tuning ({parameter name: tensor})
+        self.frozen_base: Optional[Dict[str, torch.Tensor]] = None
+        # the export's config.json (architecture flags), set by a frontend
+        self.model_config_json: Optional[Dict[str, Any]] = None
         self._step_fn = None
+        self._profiler = None
         self._empty_raw: Optional[np.ndarray] = None
         self._validation_failures = 0
         # per optimizer step: {"step", "loss", "grad_norm", "lr",
@@ -142,11 +161,68 @@ class Trainer:
         self.logger = MetricLogger(logdir="runs")
         os.makedirs(params.output_dir, exist_ok=True)
 
+        spec = adapter_spec_from_params(params)
+        if spec is not None:
+            self._attach_adapters(spec)
+        else:
+            # full fine-tuning: every parameter is a trainable leaf (the
+            # JAX trainer quantizes no base here)
+            for p in self.model.parameters():
+                p.requires_grad_(True)
+
+        names = self.trainable_names()
+        mask = None
+        if params.unfreeze_modules:
+            mask = unfreeze_mask(names, params.unfreeze_modules)
+            if not any(mask):
+                raise ValueError(
+                    f"unfreeze_modules {list(params.unfreeze_modules)} "
+                    "matched no parameter; the dotted flax paths include "
+                    f"{names[:8]}")
+            print(f"unfreeze_modules: {sum(mask)} of {len(mask)} leaves "
+                  "update")
+        leaves = self.trainable_leaves()
+        self.optimizer = Optimizer(params, leaves, mask)
+        self.ema = ([p.detach().clone() for p in leaves] if params.use_ema
+                    else None)
+        if (params.use_preservation and self.preservation_loss is not None
+                and spec is None):
+            self.frozen_base = {n: p.detach().clone()
+                                for n, p in self.model.named_parameters()}
+        self._step_fn = make_train_step(
+            task_loss=self.task_loss, optimizer=self.optimizer,
+            ema=self.ema, ema_decay=params.ema_decay,
+            uncond_prob=params.train_unconditional_prob,
+            exploration_steps=params.exploration_steps,
+            preservation_ratio=(params.preservation_ratio
+                                if params.use_preservation else 0.0),
+            preservation_loss=self.preservation_loss,
+            frozen_base=self.frozen_base)
+
+        # empty-caption embedding for unconditional-caption dropout: encode
+        # '' once, pad per batch
+        if params.train_unconditional_prob > 0.0:
+            encode = getattr(self, "encode_captions", None)
+            if encode is None:
+                raise ValueError(
+                    "train_unconditional_prob > 0 needs the empty-caption "
+                    "embedding, and no caption encoder is attached (feature "
+                    "shards without validation prompts): add "
+                    "validation_prompts or set train_unconditional_prob to 0")
+            self._empty_raw = np.asarray(encode([""])[0], np.float32)
+
+        if params.checkpoint_dir and params.resume:
+            self.restore_checkpoint()
+
+    def _attach_adapters(self, spec: AdapterSpec) -> None:
+        """LoRA from the seeded generator (unless attached already), the
+        trainable-parameter line, and the quantized base."""
+        params = self.params
         if not adapted_modules(self.model):
             gen = torch.Generator(device=self.device).manual_seed(
                 params.dataset_seed)
-            build_adapter_params(self.model, adapter_spec_from_params(params),
-                                 gen, merged=params.lora_fused_matmul)
+            build_adapter_params(self.model, spec, gen,
+                                 merged=params.lora_fused_matmul)
         n_train = count_adapter_params(self.model)
         lora = {id(p) for _, p in lora_parameters(self.model)}
         n_total = sum(p.numel() for p in self.model.parameters()
@@ -162,37 +238,38 @@ class Trainer:
                 if isinstance(m, AdapterDense):
                     m.w8a8 = params.int8_w8a8
             if params.bfloat16:
-                lora = {id(p) for _, p in lora_parameters(self.model)}
                 with torch.no_grad():
                     for p in self.model.parameters():
                         if id(p) not in lora:
                             p.data = p.data.to(torch.bfloat16)
 
-        leaves = self.trainable_leaves()
-        self.optimizer = Optimizer(params, leaves)
-        self.ema = ([p.detach().clone() for p in leaves] if params.use_ema
-                    else None)
-        self._step_fn = make_train_step(
-            task_loss=self.task_loss, optimizer=self.optimizer,
-            ema=self.ema, ema_decay=params.ema_decay,
-            uncond_prob=params.train_unconditional_prob)
+    def full_finetune(self) -> bool:
+        return adapter_spec_from_params(self.params) is None
 
-        # empty-caption embedding for unconditional-caption dropout: encode
-        # '' once, pad per batch
-        if params.train_unconditional_prob > 0.0:
-            encode = getattr(self, "encode_captions", None)
-            if encode is None:
-                raise ValueError(
-                    "train_unconditional_prob > 0 needs the empty-caption "
-                    "embedding, and no caption encoder is attached (feature "
-                    "shards without validation prompts): add "
-                    "validation_prompts or set train_unconditional_prob to 0")
-            self._empty_raw = np.asarray(encode([""])[0], np.float32)
+    def _trainable(self):
+        if self.full_finetune():
+            return flax_named_parameters(self.model)
+        return lora_parameters(self.model)
 
     def trainable_leaves(self) -> List[torch.Tensor]:
-        """The trainable leaves (the LoRA parameters), in the order of the
-        optimizer's and the EMA's."""
-        return [p for _, p in lora_parameters(self.model)]
+        """The trainable leaves (the LoRA parameters, or under full
+        fine-tuning every parameter), in the order of the optimizer's and
+        the EMA's."""
+        return [p for _, p in self._trainable()]
+
+    def trainable_names(self) -> List[str]:
+        """The dotted flax paths of :meth:`trainable_leaves`."""
+        return [n for n, _ in self._trainable()]
+
+    def train_state(self) -> Dict[str, Any]:
+        """Everything a checkpoint holds, as the live tensors: the step,
+        the model's state dict (a quantized base's payloads and scales
+        included), the optimizer's state, the EMA copies and the frozen
+        snapshot."""
+        return {"step": self.global_step,
+                "model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "ema": self.ema, "frozen_base": self.frozen_base}
 
     # ------------------------------------------------------------------
     def _device_batch(self, batch) -> Dict[str, torch.Tensor]:
@@ -232,14 +309,76 @@ class Trainer:
         if params.warmup_compile:
             print("[engine] warmup_compile: eager PyTorch has no programs to "
                   "compile ahead of the first step; nothing to warm")
+        # the start step seeds the generator, so a resumed run draws fresh
+        # noise instead of replaying what the checkpointed run consumed
         gen = torch.Generator(device=self.device).manual_seed(
             params.dataset_seed + 1 + self.global_step)
+        sampler_iter = None
+        if self.global_step > 0 and params.resume_data_fastforward:
+            sampler_iter = self._fastforward_data(
+                self.global_step * params.gradient_accumulation_steps)
         try:
-            self._run_loop(iter(self.sampler), gen)
+            self._run_loop(sampler_iter or iter(self.sampler), gen)
         finally:
+            # a run that ends inside the window still writes its trace
+            self._stop_profiler()
             stop = getattr(self.sampler, "stop", None)
             if stop is not None:
                 stop()
+
+    def _fastforward_data(self, n_batches: int):
+        """Skip the ``n_batches`` the checkpointed run consumed: the
+        sampler replays a deterministic stream, so draining it continues
+        on unseen data.  Raises after two passes that yield nothing."""
+        t0 = time.monotonic()
+        it = iter(self.sampler)
+        done, dry = 0, 0
+        while done < n_batches:
+            try:
+                next(it)
+                done += 1
+                dry = 0
+            except StopIteration:
+                dry += 1
+                if dry >= 2:
+                    raise RuntimeError(
+                        f"data fast-forward stalled at {done}/{n_batches} "
+                        "batches — the dataset no longer yields what the "
+                        "checkpointed run consumed (disable "
+                        "resume_data_fastforward to start the stream over)")
+                it = iter(self.sampler)
+        print(f"[engine] data fast-forward: skipped {n_batches} batches in "
+              f"{time.monotonic() - t0:.1f}s")
+        return it
+
+    def _profile_window(self) -> None:
+        """torch.profiler over the steps from 10 to 14: started when a
+        batch arrives at step 10, stopped when one arrives at step 15 (or
+        when the run ends first)."""
+        profile_dir = self.params.profile_dir
+        if not profile_dir:
+            return
+        if self.global_step == 10 and self._profiler is None:
+            from torch.profiler import (ProfilerActivity, profile,
+                                        tensorboard_trace_handler)
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self._profiler = profile(
+                activities=acts,
+                on_trace_ready=tensorboard_trace_handler(profile_dir))
+            self._profiler.start()
+        elif self._profiler is not None and self.global_step >= 15:
+            self._stop_profiler()
+
+    def _stop_profiler(self) -> None:
+        prof, self._profiler = self._profiler, None
+        if prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        print(f"[engine] profiler trace in {self.params.profile_dir}")
 
     def _held_buckets(self) -> Dict[str, int]:
         buckets = getattr(self.sampler, "buckets", None)
@@ -255,6 +394,7 @@ class Trainer:
         empty_passes = 0
         batches_this_pass = 0
         held_prev = -1
+        first_step = self.global_step
         t_start = t_last = time.monotonic()
         while self.global_step < params.steps:
             try:
@@ -286,6 +426,7 @@ class Trainer:
                 sampler_iter = iter(self.sampler)
                 continue
 
+            self._profile_window()
             lr = self.optimizer.lr
             device_batch = self._device_batch(batch)
             metrics = self._step_fn(device_batch, gen)
@@ -320,10 +461,14 @@ class Trainer:
             self._log_metrics(*pending)
         if self.global_step % params.num_steps_per_validation != 0:
             self.save_model()
+        if params.checkpoint_dir:
+            from yat_tpu_torch.train.checkpoint import wait_for_checkpoints
+            wait_for_checkpoints(params.checkpoint_dir)
         dt = time.monotonic() - t_start
-        n_images = self.global_step * params.batch_size * accum
+        # this run's steps only (a resumed run starts past 0)
+        n_images = (self.global_step - first_step) * params.batch_size * accum
         if dt > 0:
-            print(f"[engine] {self.global_step} steps, "
+            print(f"[engine] {self.global_step - first_step} steps, "
                   f"{n_images / dt:.2f} images/sec")
 
     # ------------------------------------------------------------------
@@ -359,15 +504,65 @@ class Trainer:
                         "consecutive times — validate_fn is broken, not "
                         "flaky") from e
         self.save_model()
+        if self.params.checkpoint_dir:
+            self.save_checkpoint()
 
     # ------------------------------------------------------------------
     def save_model(self) -> str:
-        """Adapters-only export to
-        ``{output_dir}/{step}/adapter_model.safetensors`` (PEFT names);
-        returns the file's path."""
-        from yat_tpu_torch.adapters.io import save_adapter_safetensors
+        """Weights-only export to ``{output_dir}/{step}``: the adapters as
+        ``adapter_model.safetensors`` (PEFT names), or under full
+        fine-tuning the model as ``model.safetensors`` (fp32, flat flax
+        keys in the flax layouts); ``config.json`` from
+        ``model_config_json`` beside it; then the upload to
+        ``output_repo``.  Returns the weights file's path."""
         out = os.path.join(self.params.output_dir, str(self.global_step))
-        path = os.path.join(out, "adapter_model.safetensors")
-        adapters, meta = adapter_tree(self.model)
-        save_adapter_safetensors(path, adapters, meta)
+        if self.full_finetune():
+            from yat_tpu_torch.convert import flax_params
+            from yat_tpu_torch.train.checkpoint import save_params_only
+            save_params_only(out, flax_params(self.model))
+            path = os.path.join(out, "model.safetensors")
+        else:
+            from yat_tpu_torch.adapters.io import save_adapter_safetensors
+            path = os.path.join(out, "adapter_model.safetensors")
+            adapters, meta = adapter_tree(self.model)
+            save_adapter_safetensors(path, adapters, meta)
+        if self.model_config_json:
+            with open(os.path.join(out, "config.json"), "w") as f:
+                json.dump(self.model_config_json, f, indent=2)
+        if self.params.output_repo:
+            self._push_to_hub(out)
         return path
+
+    def _push_to_hub(self, folder: str) -> None:
+        """Upload the export to the ``output_repo`` hub repository under
+        ``{step}/``; without ``huggingface_hub``, or when the upload
+        fails, print a warning and go on."""
+        try:
+            from huggingface_hub import HfApi
+            HfApi().upload_folder(folder_path=folder,
+                                  repo_id=self.params.output_repo,
+                                  path_in_repo=str(self.global_step))
+            print(f"[engine] pushed {folder} to {self.params.output_repo}")
+        except Exception as e:  # noqa: BLE001 — offline or unauthenticated
+            print(f"[Warning] output_repo upload failed: {e}")
+
+    def save_checkpoint(self) -> None:
+        """The whole train state as step ``global_step`` of
+        ``checkpoint_dir`` (copied to the host now, written in the
+        background)."""
+        from yat_tpu_torch.train.checkpoint import save_train_state
+        save_train_state(self.params.checkpoint_dir, self.train_state(),
+                         self.global_step)
+
+    def restore_checkpoint(self) -> None:
+        """The latest step of ``checkpoint_dir`` into the live state, in
+        place; nothing when the directory holds none."""
+        from yat_tpu_torch.train.checkpoint import restore_train_state
+        restored, step = restore_train_state(self.params.checkpoint_dir,
+                                             self.train_state())
+        if restored is None:
+            return
+        self.global_step = step
+        self.optimizer.count = restored["optimizer"]["count"]
+        self.optimizer.mini_step = restored["optimizer"]["mini_step"]
+        print(f"[engine] resumed from step {step}")

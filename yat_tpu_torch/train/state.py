@@ -17,18 +17,29 @@ agree:
 * accumulation keeps the running mean of the micro-step gradients and
   applies it on the k-th.
 
+``unfreeze_modules`` (partial fine-tuning) is the mask of
+``yat_tpu/train/state.py:105-127``: a leaf updates when one pattern equals a
+segment of its dotted flax path (``blocks_1`` never matches ``blocks_10``)
+or the whole path.  As under ``optax.masked``, the clip's global norm, the
+Adam moments (or Lion's momentum) and weight decay see only the unfrozen
+leaves, and a frozen leaf's update is exactly 0; accumulation keeps the
+unfrozen leaves' mean only (``MultiSteps`` accumulates every leaf, but the
+frozen ones' mean is never read).
+
 With ``use_adamw_8bit`` the chain is ``clip_by_global_norm`` → Lion with
 8-bit momentum at rate 1.0 (``ops/opt8bit.py``) → ``scale_by_schedule``
 (``yat_tpu/train/state.py:93-104``): the update ``−u`` is scaled by the
 schedule at the same pre-increment count, so the first update under
 warmup is 0 here too.
 
-The leaves are updated in place.  ``unfreeze_modules`` is not ported.
+The leaves are updated in place.  :meth:`Optimizer.state_dict` is the
+state a checkpoint holds: the update count, the accumulation's micro-step
+and mean, and the moments (the Lion payloads and block scales).
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -65,34 +76,49 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
 
 
+def unfreeze_mask(names: Sequence[str], patterns: Sequence[str]
+                  ) -> List[bool]:
+    """For each dotted flax path in ``names``: whether ``unfreeze_modules``
+    (``patterns``) lets it update: a pattern equal to one path segment, or
+    to the whole path."""
+    pats = tuple(patterns)
+    return [any(p in name.split(".") or p == name for p in pats)
+            for name in names]
+
+
 class Optimizer:
     """clip by global norm → AdamW (or, with ``use_adamw_8bit``, Lion with
     8-bit momentum and the schedule) → accumulation over ``k`` micro-steps,
-    on a fixed list of fp32 leaves."""
+    on a fixed list of fp32 leaves, of which ``mask`` (default: all) says
+    which update."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
 
     def __init__(self, params: TrainingParameters,
-                 leaves: List[torch.Tensor]):
-        if params.unfreeze_modules:
-            raise NotImplementedError(
-                "unfreeze_modules (partial fine-tuning) is not implemented "
-                "in the PyTorch port yet (ROADMAP queue 1, item 13)")
+                 leaves: List[torch.Tensor],
+                 mask: Optional[Sequence[bool]] = None):
         self.leaves = list(leaves)
+        if mask is not None and len(mask) != len(self.leaves):
+            raise ValueError(f"a mask of {len(mask)} entries for "
+                             f"{len(self.leaves)} leaves")
+        self.mask = list(mask) if mask is not None else None
+        # the leaves that update (all of them without a mask)
+        self.active = (self.leaves if mask is None else
+                       [p for p, m in zip(self.leaves, mask) if m])
         self.schedule = make_lr_schedule(params)
         self.max_norm = float(params.max_grad_norm)
         self.weight_decay = float(params.weight_decay)
         self.k = max(1, int(params.gradient_accumulation_steps))
         self.count = 0           # inner updates applied
         self.mini_step = 0
-        self.lion = (Lion8bit(self.leaves, weight_decay=self.weight_decay)
+        self.lion = (Lion8bit(self.active, weight_decay=self.weight_decay)
                      if params.use_adamw_8bit else None)
         with torch.no_grad():
-            adam_leaves = self.leaves if self.lion is None else []
+            adam_leaves = self.active if self.lion is None else []
             self.mu = [torch.zeros_like(p) for p in adam_leaves]
             self.nu = [torch.zeros_like(p) for p in adam_leaves]
             self.acc: Optional[List[torch.Tensor]] = (
-                [torch.zeros_like(p) for p in self.leaves] if self.k > 1
+                [torch.zeros_like(p) for p in self.active] if self.k > 1
                 else None)
 
     @property
@@ -102,8 +128,11 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor]) -> bool:
-        """Take one micro-step's gradients; returns True when an update
-        was applied (the accumulation synced)."""
+        """Take one micro-step's gradients (one per leaf, frozen leaves
+        included); returns True when an update was applied (the
+        accumulation synced)."""
+        if self.mask is not None:
+            grads = [g for g, m in zip(grads, self.mask) if m]
         if self.acc is None:
             self._apply(grads)
             return True
@@ -127,11 +156,12 @@ class Optimizer:
         if not bool(norm < self.max_norm):
             g = torch._foreach_div(g, norm)
             torch._foreach_mul_(g, self.max_norm)
+        leaves = self.active
         if self.lion is not None:
-            upd = self.lion.updates(g, self.leaves)
+            upd = self.lion.updates(g, leaves)
             torch._foreach_mul_(upd, self.schedule(self.count))
             self.count += 1
-            torch._foreach_add_(self.leaves, upd)
+            torch._foreach_add_(leaves, upd)
             return
         # mu = (1 - b1) g + b1 mu;  nu = (1 - b2) g^2 + b2 nu
         torch._foreach_mul_(self.mu, self.b1)
@@ -150,9 +180,19 @@ class Optimizer:
         upd = torch._foreach_div(mhat, denom)
         if self.weight_decay:
             torch._foreach_add_(upd, torch._foreach_mul(
-                self.leaves, self.weight_decay))
+                leaves, self.weight_decay))
         torch._foreach_mul_(upd, -lr)
-        torch._foreach_add_(self.leaves, upd)
+        torch._foreach_add_(leaves, upd)
+
+    def state_dict(self) -> Dict[str, object]:
+        """The optimizer's state as the live tensors (no copies)."""
+        state: Dict[str, object] = {
+            "count": self.count, "mini_step": self.mini_step,
+            "mu": self.mu, "nu": self.nu, "acc": self.acc}
+        if self.lion is not None:
+            state["lion_payload"] = [q for q, _ in self.lion.momentum]
+            state["lion_scale"] = [s for _, s in self.lion.momentum]
+        return state
 
 
 def ema_update(ema: List[torch.Tensor], leaves: Sequence[torch.Tensor],
