@@ -128,7 +128,30 @@ Phases, each of which fails the run (exit code 1) when it fails:
 11. exploration and preservation: SANA-0.6B LoRA (phase 7's config) with
    ``exploration_steps: 4`` and ``use_preservation``, 3 steps (7 forwards
    and 2 backwards a step, counted), and PixArt-Sigma XL-2 LoRA (phase
-   8's) with ``use_preservation``, 2 steps (3 forwards, 2 backwards).
+   8's) with ``use_preservation``, 2 steps (3 forwards, 2 backwards);
+12. raw images: which decoder runs (the native libjpeg decoder where it
+   builds, else cv2; printed with the reason) on 64 seeded JPEGs at four
+   512px buckets in two local ``{jpg, txt}`` shards, and the host's decode
+   and resize of a batch of 16; ``configs/sana_extract_features.yaml``
+   through ``yat_tpu_torch.frontends.sana.main`` without its R2 account
+   (a stand-in S3 endpoint on 127.0.0.1, served from a thread here, checks
+   each upload's SigV4 signature) and pretrained pipe (random Gemma-2-2B
+   in bf16 and DC-AE f32c32 in fp32), batch 16 in chunks of 8: the
+   uploaded feature shards' fields, buckets and shapes against the
+   bucketing and the extractor's report, the DC-AE latent of one image
+   against the CPU (fp32, 1e-4), both encoders' device time per chunk of
+   8, images/s, the peak memory; phase 7's training (3 steps) on those
+   shards; ``configs/sana_512_lora.yaml`` (without its files and
+   validation prompts) encoding on the fly for 6 steps, then from its
+   step-3 checkpoint a resume whose ``skip_batches`` runs no encoder, and
+   one profiled step with the cache encoding behind it;
+   ``configs/pixart_repa.yaml`` without REPA and with LoRA for LoKr
+   (T5-XXL, the SD KL-VAE encoder, PixArt-Sigma XL-2 on an int8 base with
+   8-bit Lion), encoding on the fly, 2 steps; a 2-step SANA Dreambooth run
+   over an instance and a regularization folder.  Every run's launches
+   are checked by step, on the attention branch each step's latent grid
+   gives (the non-square buckets' cross-attentions take the XLA branch,
+   as in the JAX package).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -138,6 +161,7 @@ package.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import json
 import math
 import os
@@ -2265,6 +2289,8 @@ def profile_run(label, fn, card):
         if fam.startswith("K"):
             log(f"profile:     {fam.split()[0]:6s} {n:6d}x {t / 1e3:9.2f} ms"
                 f"  {name[:90]}")
+    PROFILES[label] = (wall_us / 1e3, busy / 1e3)
+    return PROFILES[label]
 
 
 
@@ -2374,55 +2400,6 @@ def pipe_entries(family, params):
              S.VAE_KL_RULES, main, None)]
 
 
-def vae_encoder_shapes(vae):
-    """The flax shapes of the encoder half of ``vae``'s checkpoint (the
-    port holds the decoder only; published files hold both halves, and
-    the converters read both), built from the port's block classes on the
-    meta device."""
-    import torch
-    from torch import nn
-
-    from yat_tpu_torch.convert import flax_params
-    from yat_tpu_torch.models import vae as V
-    from yat_tpu_torch.models.layers import Conv2d
-
-    cfg = vae.cfg
-    ch = cfg.block_out_channels
-    with torch.device("meta"):
-        enc = nn.Module()
-        enc.conv_in = Conv2d(cfg.in_channels, ch[0], 3)
-        if isinstance(vae, V.DCAE):
-            for i, c in enumerate(ch):
-                if i > 0:
-                    down = nn.Module()
-                    down.conv = Conv2d(ch[i - 1], c // 4, 3)
-                    enc.add_module(f"down_{i}", down)
-                for j in range(cfg.encoder_layers[i]):
-                    enc.add_module(f"stage_{i}_block_{j}", V.EfficientViTBlock(
-                        c, head_dim=cfg.attention_head_dim,
-                        scales=cfg.qkv_multiscales, expand=cfg.glu_expand)
-                        if cfg.attention_stages[i] else V.DCResBlock(c))
-            enc.conv_out = Conv2d(ch[-1], cfg.latent_channels, 3)
-        else:
-            cin = ch[0]
-            for i, c in enumerate(ch):
-                for j in range(cfg.layers_per_block):
-                    enc.add_module(f"down_{i}_resnet_{j}",
-                                   V.ResnetBlock(cin, c))
-                    cin = c
-                if i < len(ch) - 1:
-                    enc.add_module(f"down_{i}_downsample", Conv2d(c, c, 3))
-            enc.mid_resnet_0 = V.ResnetBlock(ch[-1], ch[-1])
-            enc.mid_attn = V.AttnBlock(ch[-1])
-            enc.mid_resnet_1 = V.ResnetBlock(ch[-1], ch[-1])
-            enc.conv_norm_out = V.GroupNorm(ch[-1])
-            enc.conv_out = Conv2d(ch[-1], 2 * cfg.latent_channels, 3)
-            enc.quant_conv = Conv2d(2 * cfg.latent_channels,
-                                    2 * cfg.latent_channels, 1)
-    return {f"encoder.{k}": tuple(v.shape)
-            for k, v in flax_params(enc).items()}
-
-
 def write_pipe(pipe, family, params):
     """Synthesize the family's pipe directory (BF16 files, seeded);
     returns ``{subdirectory: rules}``."""
@@ -2432,9 +2409,8 @@ def write_pipe(pipe, family, params):
     rules = {}
     for sub, module, sub_rules, name, config in pipe_entries(family, params):
         t0 = time.perf_counter()
+        # a VAE's both halves, as the published files hold them
         shapes = {k: tuple(v.shape) for k, v in flax_params(module).items()}
-        if sub == "vae":
-            shapes.update(vae_encoder_shapes(module))
         info = S.write_checkpoint(os.path.join(pipe, sub), shapes, sub_rules,
                                   SYNTH_SEED, "BF16", name=name,
                                   config=config)
@@ -2794,23 +2770,28 @@ def train_config(shard, out_dir, **extra):
 
 def run_entry_point(label, main_fn, device, tmp, cfg, shard_args):
     """Write the feature shard and the config under ``tmp``, then run the
-    entry point as a user does, the launch counts set to 0 just before.
-    Returns the trainer, the launch counts, the wall seconds and the peak
-    device memory."""
+    entry point as a user does (:func:`drive_entry_point`)."""
+    t0 = time.perf_counter()
+    write_train_shard(cfg["local_shard_paths"][0], **shard_args)
+    log(f"{label}: wrote a "
+        f"{os.path.getsize(cfg['local_shard_paths'][0]) / 1e6:.1f} MB "
+        f"feature shard in {time.perf_counter() - t0:.1f} s")
+    return drive_entry_point(label, main_fn, device, tmp, cfg)
+
+
+def drive_entry_point(label, main_fn, device, tmp, cfg):
+    """Write ``cfg`` under ``tmp`` and run the entry point as a user does,
+    the launch counts set to 0 just before.  Returns the trainer, the
+    launch counts, the wall seconds and the peak device memory."""
     import torch
     import yaml
 
     from yat_tpu_torch.kernels.build import launch_counts, reset_launch_counts
 
     cuda = device.type == "cuda"
-    t0 = time.perf_counter()
-    write_train_shard(cfg["local_shard_paths"][0], **shard_args)
-    cfg_path = os.path.join(tmp, "config.yaml")
+    cfg_path = os.path.join(tmp, f"{label.replace(' ', '_')}.yaml")
     with open(cfg_path, "w") as f:
         yaml.safe_dump(cfg, f)
-    log(f"{label}: wrote a "
-        f"{os.path.getsize(cfg['local_shard_paths'][0]) / 1e6:.1f} MB "
-        f"feature shard in {time.perf_counter() - t0:.1f} s")
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2893,6 +2874,7 @@ def log_step_rate(label, trainer, wall, peak, card):
         f"{trainer.params.batch_size / step_s:.2f} images/s; first "
         f"step {trainer._step_times[0]:.3f} s; peak device memory "
         f"{peak / 2**30:.2f} GiB")
+    IMAGES_PER_S[label] = trainer.params.batch_size / step_s
 
 
 def remat_step(label, trainer, device, card, batch, draws, in_blocks,
@@ -2971,6 +2953,11 @@ INT8_KEYS = {"lora_base_model_8bit": "true", "int8_w8a8": "true",
              "use_adamw_8bit": "true"}
 # peak device memory of each training phase's run, by label
 TRAIN_PEAKS = {}
+# images/s of each run by label (log_step_rate), and the wall and busy ms
+# of each profiled window by label (profile_run): phase 12 sets the step
+# that encodes on the fly beside phase 7's on pre-extracted features
+IMAGES_PER_S = {}
+PROFILES = {}
 # SANA LoRA with best-of-4 exploration and the preservation term, 3 steps;
 # PixArt-Sigma LoRA with the preservation term, 2 steps
 EXPLORE_KEYS = {"exploration_steps": "4", "use_preservation": "true",
@@ -3277,27 +3264,29 @@ def pixart_train_config(shard, out_dir, **extra):
             "dataset_seed": "0", **extra}
 
 
-def pixart_branches(cfg, rung):
+def pixart_branches(cfg, rung, tokens=None):
     """The branches of the self-attention and of the cross-attention at
-    caption rung ``rung``."""
+    caption rung ``rung`` (``tokens`` image tokens; the square grid of
+    ``sample_size`` by default)."""
     from yat_tpu_torch.ops.attention import attention_branch
-    tokens = (cfg.sample_size // cfg.patch_size) ** 2
+    tokens = tokens or (cfg.sample_size // cfg.patch_size) ** 2
     return tuple(attention_branch(tokens, nk, cfg.num_attention_heads,
                                   cfg.attention_head_dim)
                  for nk in (tokens, rung))
 
 
-def pixart_step_launches(cfg, rung):
+def pixart_step_launches(cfg, rung, tokens=None):
     """Kernel launches of one PixArt-Sigma training step (no remat) at
-    caption rung ``rung``: K1 twice a block and at the output, K1b twice a
-    block (block 0's first norm needs no gradient: its input and modulation
-    come from frozen embeddings), and per block one self- and one
-    cross-attention forward and backward, by branch."""
+    caption rung ``rung`` (and ``tokens`` image tokens): K1 twice a block
+    and at the output, K1b twice a block (block 0's first norm needs no
+    gradient: its input and modulation come from frozen embeddings), and
+    per block one self- and one cross-attention forward and backward, by
+    branch."""
     n = cfg.num_layers
     want = dict.fromkeys(PIXART_TRAIN_KERNELS, 0)
     want["adaln_layernorm"] = 2 * n + 1
     want["adaln_layernorm_bwd"] = 2 * n
-    for branch in pixart_branches(cfg, rung):
+    for branch in pixart_branches(cfg, rung, tokens):
         fwd, bwd = BRANCH_KERNELS[branch]
         want[fwd] += n
         if bwd:
@@ -3609,48 +3598,830 @@ def phase_full_finetune(device, card, shard_args=None, cfg_extra=None):
     return {name: counts[name] for name in one}
 
 
+# ---------------------------------------------------------------------------
+# 12. raw images: decode, the encoders, extraction, on-the-fly training,
+#     resume through skip_batches, PixArt-Sigma on the fly, Dreambooth
+# ---------------------------------------------------------------------------
+
+# source images per 512px bucket: (source height, width), 1.25x the bucket
+# so every image is resized; the buckets "1.0", "0.78", "1.29" and "0.5"
+RAW_SOURCES = ((640, 640), (560, 720), (720, 560), (440, 880))
+# the stand-in R2 account of the extraction (the config's own is left out)
+S3_KEYS = ("AKIDSTANDIN", "stand-in-secret", "my-dataset")
+# captions of 8 to 240 words (Gemma-2's and T5's rungs 64 to 256)
+CAPTION_WORDS = ("a photo of a small red fox sitting in fresh snow near an "
+                 "old wooden fence under a pale winter sky with pine trees "
+                 "and distant hills").split()
+
+
+def raw_caption(i, n_words):
+    words = [CAPTION_WORDS[(i + k) % len(CAPTION_WORDS)]
+             for k in range(n_words)]
+    return f"image {i}: " + " ".join(words)
+
+
+def jpeg_bytes(img):
+    """RGB uint8 → JPEG bytes through cv2, else PIL (the card's machine has
+    both; a machine without either cannot make the phase's data)."""
+    try:
+        import cv2
+        ok, enc = cv2.imencode(".jpg", img[..., ::-1],
+                               [cv2.IMWRITE_JPEG_QUALITY, 90])
+        if not ok:
+            fail("cv2 could not encode a JPEG")
+        return enc.tobytes()
+    except ImportError:
+        import io
+
+        from PIL import Image
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format="JPEG", quality=90)
+        return buf.getvalue()
+
+
+def raw_image(rng, h, w):
+    """A smooth seeded RGB image (gradients and a few discs) with noise."""
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([x / w, y / h, 0.5 + 0.5 * np.sin((x + y) / 37.0)], -1)
+    for _ in range(3):
+        cy, cx, r = rng.uniform(0, h), rng.uniform(0, w), rng.uniform(20, 90)
+        img[(y - cy) ** 2 + (x - cx) ** 2 < r * r] = rng.uniform(0, 1, 3)
+    img = img * 255.0 + rng.normal(0, 6, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_raw_shards(tmp, per_bucket, scale=1.0, shards=2, seed=0):
+    """``per_bucket`` JPEG samples at each of ``RAW_SOURCES`` (times
+    ``scale``), interleaved, with captions of 8-240 words, over ``shards``
+    local ``{jpg, txt}`` shards.  Returns the paths and each sample's
+    source size."""
+    from yat_tpu_torch.data.tar import TarShardWriter
+
+    rng = np.random.default_rng(seed)
+    n = per_bucket * len(RAW_SOURCES)
+    words = rng.permutation(np.linspace(8, 240, n).round().astype(int))
+    paths = [os.path.join(tmp, f"raw-{i:06d}.tar") for i in range(shards)]
+    sizes = []
+    writers = [TarShardWriter(p) for p in paths]
+    try:
+        for i in range(n):
+            h, w = (int(d * scale) for d in RAW_SOURCES[i % len(RAW_SOURCES)])
+            sizes.append((h, w))
+            writers[i * shards // n].write({
+                "__key__": f"{i:06d}",
+                "jpg": jpeg_bytes(raw_image(rng, h, w)),
+                "txt": raw_caption(i, int(words[i]))})
+    finally:
+        for wr in writers:
+            wr.close()
+    return paths, sizes
+
+
+def write_image_folder(path, n, size, seed, caption=None):
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        with open(os.path.join(path, f"{i:03d}.jpg"), "wb") as f:
+            f.write(jpeg_bytes(raw_image(rng, *size)))
+        if caption and i == 0:
+            with open(os.path.join(path, f"{i:03d}.txt"), "w") as f:
+                f.write(caption)
+    return path
+
+
+class StandInS3:
+    """An S3 endpoint on 127.0.0.1, served from a thread of this process:
+    each PUT's presigned query must carry the SigV4 signature that the
+    credentials give for its method, bucket, key, date and expiry (else
+    403); accepted bodies are stored under ``root/<key>``."""
+
+    def __init__(self, root, access_key, secret_key, bucket):
+        import http.server
+        import urllib.parse
+
+        from yat_tpu_torch.data.r2 import R2Client
+
+        self.root, self.bucket = root, bucket
+        self.stored, self.rejected = [], 0
+        outer = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_PUT(self):
+                url = urllib.parse.urlsplit(self.path)
+                q = dict(urllib.parse.parse_qsl(url.query))
+                parts = [urllib.parse.unquote(p)
+                         for p in url.path.lstrip("/").split("/")]
+                body = self.rfile.read(int(self.headers["Content-Length"]))
+                ok = False
+                if parts[0] == outer.bucket and "X-Amz-Date" in q:
+                    when = datetime.datetime.strptime(
+                        q["X-Amz-Date"], "%Y%m%dT%H%M%SZ").replace(
+                        tzinfo=datetime.timezone.utc)
+                    want = R2Client(access_key, secret_key, outer.url).presign(
+                        "PUT", outer.bucket, "/".join(parts[1:]),
+                        int(q.get("X-Amz-Expires", 0)), now=when)
+                    ok = want == f"{outer.url}{self.path}"
+                if not ok:
+                    outer.rejected += 1
+                    self.send_response(403)
+                    self.end_headers()
+                    return
+                dest = os.path.join(outer.root, *parts[1:])
+                os.makedirs(os.path.dirname(dest), exist_ok=True)
+                with open(dest, "wb") as f:
+                    f.write(body)
+                outer.stored.append(("/".join(parts[1:]), len(body)))
+                self.send_response(200)
+                self.end_headers()
+
+            def log_message(self, *a):
+                pass
+
+        self.srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.srv.server_address[1]}"
+        self.thread = threading.Thread(target=self.srv.serve_forever,
+                                       daemon=True)
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.srv.shutdown()
+        self.srv.server_close()
+        self.thread.join(timeout=30)
+
+
+@contextlib.contextmanager
+def working_dir(path):
+    """Run the block in ``path`` (the extraction writes ``features/`` under
+    the working directory)."""
+    old = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(old)
+
+
+@contextlib.contextmanager
+def recorded_batches():
+    """The latent grid and caption rung of every batch the trainers of the
+    block move to the device, in order (one a step without accumulation):
+    which attention branch a step takes depends on them."""
+    from yat_tpu_torch.train.engine import Trainer
+
+    seen = []
+    move = Trainer._device_batch
+
+    def recording(self, batch):
+        out = move(self, batch)
+        seen.append((tuple(out["latents"].shape[1:3]),
+                     int(out["embeddings"].shape[1])))
+        return out
+    Trainer._device_batch = recording
+    try:
+        yield seen
+    finally:
+        Trainer._device_batch = move
+
+
+def sana_launches_at(cfg, grid, rung):
+    """One SANA LoRA step's launches at latent ``grid`` and caption
+    ``rung``: ``sana_step_launches``, with the cross-attention (and the
+    softmax self-attention) taking the branch its sizes give; the XLA
+    branch launches no kernel and counts its calls."""
+    from yat_tpu_torch.ops.attention import attention_branch
+    per_step, _ = sana_step_launches(cfg, False)
+    per_step["attention_xla"] = 0
+    tokens = (grid[0] // cfg.patch_size) * (grid[1] // cfg.patch_size)
+    n_soft = len(cfg.softmax_self_attn_blocks)
+    for n_k, heads, dim, n in (
+            (rung, cfg.num_cross_attention_heads,
+             cfg.cross_attention_head_dim, cfg.num_layers),
+            (tokens, cfg.num_attention_heads, cfg.attention_head_dim,
+             n_soft)):
+        if n and attention_branch(tokens, n_k, heads, dim) == "xla":
+            per_step["dot_product_attention"] -= n
+            per_step["dot_product_attention_bwd"] -= n
+            per_step["attention_xla"] += n
+    return per_step
+
+
+@contextlib.contextmanager
+def counted_encoders():
+    """Count the image and caption encoders' calls (direct or through
+    ``.dispatch``) of the SANA and PixArt trainers built in the block
+    (``calls``), and those made inside each ``skip_batches``
+    (``calls["in_skip"]``); ``calls["tf32"]`` holds the (matmul, cuDNN)
+    TF32 flags in force at each image encode."""
+    import torch
+
+    from yat_tpu_torch.frontends import pixart, sana
+    from yat_tpu_torch.train.encode import OnTheFlyEncodingSampler
+
+    calls = {"images": 0, "captions": 0, "in_skip": [], "skipped": [],
+             "tf32": set()}
+
+    def counting(make, key):
+        def build(*a, **kw):
+            fn = make(*a, **kw)
+            if fn is None:
+                return None
+
+            def counted(f):
+                def call(x):
+                    calls[key] += 1
+                    if key == "images":
+                        calls["tf32"].add((
+                            torch.backends.cuda.matmul.allow_tf32,
+                            torch.backends.cudnn.allow_tf32))
+                    return f(x)
+                return call
+            call = counted(fn)
+            call.dispatch, call.module = counted(fn.dispatch), fn.module
+            return call
+        return build
+
+    saved = [(sana, "make_image_encoder"), (sana, "make_caption_encoder"),
+             (pixart, "build_t5_vae_encoders"),
+             (OnTheFlyEncodingSampler, "skip_batches")]
+    old = {(id(m), n): getattr(m, n) for m, n in saved}
+    sana.make_image_encoder = counting(sana.make_image_encoder, "images")
+    sana.make_caption_encoder = counting(sana.make_caption_encoder,
+                                         "captions")
+    t5_vae = pixart.build_t5_vae_encoders
+
+    def counted_t5_vae(*a, **kw):
+        ei, ec, dl = t5_vae(*a, **kw)
+        return (counting(lambda: ei, "images")(),
+                counting(lambda: ec, "captions")(), dl)
+    pixart.build_t5_vae_encoders = counted_t5_vae
+    skip = OnTheFlyEncodingSampler.skip_batches
+
+    def counted_skip(self, n):
+        before = calls["images"] + calls["captions"]
+        skip(self, n)
+        calls["in_skip"].append(calls["images"] + calls["captions"] - before)
+        calls["skipped"].append(n)
+    OnTheFlyEncodingSampler.skip_batches = counted_skip
+    try:
+        yield calls
+    finally:
+        for m, n in saved:
+            setattr(m, n, old[(id(m), n)])
+
+
+def cuda_ms(fn, reps=3):
+    """Median device milliseconds of ``fn()`` by CUDA events, after one
+    warm-up call."""
+    import statistics
+
+    import torch
+    fn()
+    out = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return statistics.median(out)
+
+
+def decode_ms(datas, th, tw, decoder, reps=3):
+    """Host milliseconds to decode and resize one batch of JPEG bytes to
+    ``(th, tw)`` uint8 by ``decoder`` (median of ``reps``)."""
+    import statistics
+
+    from yat_tpu_torch.data import native
+    from yat_tpu_torch.data.sampler import decode_image, resize_u8
+
+    def run():
+        if decoder == "native":
+            out, status = native.decode_batch(datas, th, tw)
+            if status.any():
+                fail(f"native decode failed: status {status}")
+            return out
+        return np.stack([resize_u8(decode_image(d), th, tw) for d in datas])
+
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = run()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def raw_train_keys(tiny):
+    """The SANA model keys of phase 12's runs: none at full width (SANA-0.6B
+    512px); the tiny model, encoders and 256px bins for the rehearsal."""
+    if tiny is None:
+        return {}
+    return {"model_config_overrides": dict(tiny["sana"]),
+            "aspect_ratio": str(tiny["resolution"])}
+
+
+def extract_config(raw, s3, batch, chunk, tiny):
+    """configs/sana_extract_features.yaml without its R2 account (the
+    stand-in endpoint's instead) and its pretrained pipe (random Gemma-2-2B
+    and DC-AE from the seed), on local raw shards, with Gemma-2-2B in bf16
+    (the slice's width; the file runs it in fp32)."""
+    ak, sk, bucket = S3_KEYS
+    return {"extract_features": "true", "compute_features": "true",
+            "vae_max_batch_size": str(chunk),
+            "text_encoder_max_batch_size": str(chunk),
+            "local_shard_paths": raw, "r2_endpoint": s3.url,
+            "r2_access_key": ak, "r2_secret_key": sk,
+            "r2_bucket_name": bucket, "r2_dataset_folder": "raw",
+            "r2_upload_key": "features", "r2_upload_shard_size": "1000",
+            "num_shards": "128", "batch_size": str(batch),
+            "learning_rate": "1e-4", "steps": "1",
+            "num_steps_per_validation": "1000", "validation_prompts": [],
+            "bfloat16": "true", "dataset_seed": "0", **raw_train_keys(tiny)}
+
+
+def expected_extraction(sizes, bins, batch):
+    """The samples a one-pass, unshuffled bucketing of sources of ``sizes``
+    emits, by bucket (only full batches leave a bucket)."""
+    from yat_tpu_torch.data.bins import find_closest_ratio
+    per = {}
+    for h, w in sizes:
+        key = find_closest_ratio(h / w, bins)
+        per[key] = per.get(key, 0) + 1
+    return {k: n - n % batch for k, n in per.items() if n >= batch}
+
+
+def check_feature_shards(label, root, names, bins, comp, dim, max_len,
+                         want):
+    """The uploaded feature shards: every sample ``{ratio, latent.npy,
+    emb.npy}``, latents ``[h/comp, w/comp, C]`` of the bucket, captions
+    ``[L, dim]`` with 0 < L <= ``max_len``, finite, and the samples by
+    bucket as the bucketing gives them.  Returns the shard paths."""
+    from yat_tpu_torch.data.tar import iter_tar_samples
+
+    got, paths, channels = {}, [], set()
+    for name in names:
+        path = os.path.join(root, name)
+        paths.append(path)
+        for elem in iter_tar_samples(path):
+            if set(elem) != {"__key__", "ratio", "latent.npy", "emb.npy"}:
+                fail(f"{label}: sample fields {sorted(elem)}")
+            key, lat, emb = elem["ratio"], elem["latent.npy"], elem["emb.npy"]
+            h, w = bins[key]
+            channels.add(lat.shape[-1])
+            if lat.shape[:2] != (h // comp, w // comp) or lat.ndim != 3:
+                fail(f"{label}: bucket {key} latent {lat.shape}")
+            if emb.ndim != 2 or emb.shape[1] != dim or not (
+                    0 < emb.shape[0] <= max_len):
+                fail(f"{label}: caption embedding {emb.shape}")
+            if not (np.isfinite(lat).all() and np.isfinite(emb).all()):
+                fail(f"{label}: non-finite features in bucket {key}")
+            got[key] = got.get(key, 0) + 1
+    if got != want:
+        fail(f"{label}: samples by bucket {got}, expected {want}")
+    log(f"{label}: {sum(got.values())} samples in {len(names)} uploaded "
+        f"shard(s), by bucket {got}; latents [h/{comp}, w/{comp}, "
+        f"{sorted(channels)}], captions [L <= {max_len}, {dim}]")
+    return paths
+
+
+def phase_raw_images(device, card, tiny=None):
+    """Phase 12: training from raw images through the port's entry points.
+    ``tiny`` (the CPU rehearsal) shrinks the models, bins, batches and
+    images; on the card everything runs at full width: the DC-AE f32c32
+    encoder at 512px in fp32 (TF32 off), Gemma-2-2B in bf16, SANA-0.6B (28
+    blocks, width 1152), and for PixArt the SD KL-VAE encoder, T5-XXL and
+    PixArt-Sigma XL-2 (all its 28 blocks, 2 steps).  Returns the launch
+    counts of the on-the-fly SANA and PixArt-Sigma runs."""
+    import copy
+    import gc
+
+    import torch
+
+    from yat_tpu_torch.data import native
+    from yat_tpu_torch.data.bins import bin_for_resolution
+    from yat_tpu_torch.data.sampler import (DreamboothSampler,
+                                            ImageBucketSampler)
+    from yat_tpu_torch.frontends.common import slice_caption_rung, u8_to_unit
+    from yat_tpu_torch.frontends.pixart import main as pixart_main
+    from yat_tpu_torch.frontends.sana import main as sana_main
+    from yat_tpu_torch.train.encode import FeatureCache
+    from yat_tpu_torch.utils.tokenizer import load_tokenizer
+
+    cuda = device.type == "cuda"
+    t = tiny or {}
+    batch, chunk = t.get("batch", 16), t.get("chunk", 8)
+    res = t.get("resolution", 512)
+    bins = bin_for_resolution(res)
+    out = {}
+    if cuda:
+        # TF32 on, as a user's process may have it (cuDNN's default): the
+        # entry points must turn it off for the fp32 encoders themselves
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the decoder, and real JPEG bytes to decode
+        decoder = "native" if native.available() else "cv2"
+        why = native.unavailable_reason()
+        log(f"raw images: decoder: {decoder}"
+            + (f" (native unavailable: {why})" if why else ""))
+        t0 = time.perf_counter()
+        raw, sizes = write_raw_shards(tmp, t.get("per_bucket", 16),
+                                      scale=res / 512)
+        log(f"raw images: wrote {len(sizes)} JPEGs at sources "
+            f"{sorted(set(sizes))} into {len(raw)} shards "
+            f"({sum(os.path.getsize(p) for p in raw) / 1e6:.1f} MB) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        sampler = ImageBucketSampler(raw, batch, bins, shuffle_buffer=1)
+        if sampler.decoder != decoder:
+            fail(f"the sampler decodes through {sampler.decoder}, "
+                 f"native.available() says {decoder}")
+        first = next(iter(sampler))
+        th, tw = bins[first.ratio]
+        if first.images.shape != (batch, th, tw, 3) or \
+                first.images.dtype != np.uint8:
+            fail(f"raw images: batch {first.images.shape} "
+                 f"{first.images.dtype}")
+        from yat_tpu_torch.data.tar import iter_tar_samples
+        datas = [e["jpg"] for e in iter_tar_samples(raw[0])][:batch]
+        timings = {}
+        for dec in ("native", "cv2") if decoder == "native" else ("cv2",):
+            timings[dec], _ = decode_ms(datas, th, tw, dec)
+        log(f"raw images [{card}]: host decode + resize of a batch of "
+            f"{len(datas)} to {th}x{tw}: "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in timings.items()))
+
+        # (b) the extraction pass through the entry point, uploading to the
+        # stand-in endpoint
+        with StandInS3(os.path.join(tmp, "s3"), *S3_KEYS) as s3, \
+                working_dir(tmp), counted_encoders() as calls:
+            cfg = extract_config(raw, s3, batch, chunk, tiny)
+            trainer, counts, wall, peak = drive_entry_point(
+                "extract", sana_main, device, tmp, cfg)
+        check_fp32_encodes("extract", calls, cuda)
+        ex = trainer.extraction
+        if s3.rejected or sorted(n for n, _ in s3.stored) != sorted(
+                f"features/{n}" for n in ex.uploaded) or not ex.uploaded:
+            fail(f"extract: uploads {s3.stored}, rejected {s3.rejected}, "
+                 f"the extractor reports {ex.uploaded}")
+        want = expected_extraction(sizes, bins, batch)
+        if ex.written != sum(want.values()):
+            fail(f"extract: {ex.written} samples written, the bucketing "
+                 f"gives {want}")
+        enc_i, enc_c = trainer.encode_images, trainer.encode_captions
+        vae, gemma = enc_i.module, enc_c.module
+        comp, lat_c = vae.cfg.compression, vae.cfg.latent_channels
+        shards = check_feature_shards(
+            "extract", os.path.join(tmp, "s3"),
+            [n for n, _ in s3.stored], bins, comp,
+            trainer.sana_config.caption_channels,
+            trainer.sana_config.max_caption_len, want)
+        phases = {k: round(v / 1e3, 3) for k, v in ex.phase_ms.items()}
+        log(f"extract [{card}]: {ex.written} images in {wall:.1f} s through "
+            f"the entry point (models built); the pass "
+            f"{ex.images_per_sec:.2f} images/s; phase seconds {phases}; "
+            f"{len(s3.stored)} signed PUTs accepted "
+            f"({sum(b for _, b in s3.stored) / 1e6:.1f} MB), 0 rejected; "
+            f"peak device memory {peak / 2**30:.2f} GiB with the encoders "
+            f"and SANA resident")
+        # the encoders are plain PyTorch, and the pass runs no denoiser
+        launched = {k: n for k, n in counts.items() if n}
+        if launched:
+            fail(f"extract: the pass launched port kernels {launched}")
+
+        # the DC-AE latent of one image on the device against the CPU, fp32
+        img = torch.as_tensor(first.images[:1])
+        with torch.inference_mode():
+            got = vae.encode_mode(u8_to_unit(img.to(device))).cpu()
+            cpu_vae = copy.deepcopy(vae).to("cpu")
+            ref = cpu_vae.encode_mode(u8_to_unit(img))
+        del cpu_vae
+        err = float((got - ref).abs().max())
+        ok = bool(torch.isfinite(got).all()) and bool(
+            ((got - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all())
+        log(f"extract: DC-AE latent {tuple(got.shape)} of one {th}x{tw} "
+            f"image, {device.type} vs CPU, fp32: max_abs_err {err:.3e} "
+            f"(tol 1e-4 + 1e-4 * |ref|, the decoder's) "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail("the DC-AE encoder on the device disagrees with the CPU")
+        if got.shape[-1] != lat_c:
+            fail(f"latent channels {got.shape[-1]}, expected {lat_c}")
+        if cuda:
+            x8 = u8_to_unit(torch.as_tensor(first.images[:chunk]).to(device))
+            caps = first.captions[:chunk]
+            with torch.inference_mode():
+                vae_ms = cuda_ms(lambda: vae.encode_mode(x8))
+            max_len = trainer.sana_config.max_caption_len
+            tok = load_tokenizer(None, vocab_size=gemma.cfg.vocab_size,
+                                 max_length=max_len)
+            ids, mask = slice_caption_rung(*tok(caps, max_length=max_len))
+            ids, mask = (torch.as_tensor(a, device=device) for a in (ids,
+                                                                     mask))
+            with torch.inference_mode():
+                te_ms = cuda_ms(lambda: gemma(ids, mask))
+            log(f"encoders [{card}]: device ms per chunk of {chunk}: DC-AE "
+                f"encoder {vae_ms:.2f} ms at {th}x{tw} (fp32), Gemma-2-2B "
+                f"{te_ms:.2f} ms (bf16, {len(caps)} captions at rung "
+                f"{ids.shape[1]})")
+        del trainer, vae, gemma, enc_i, enc_c
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # (c) phase 7's training on the shards (b) wrote
+        cfg = train_config(shards[0], os.path.join(tmp, "out-c"),
+                           local_shard_paths=shards, steps="3",
+                           checkpoint_dir=None, **raw_train_keys(tiny))
+        cfg = {k: v for k, v in cfg.items() if v is not None}
+        with recorded_batches() as grids:
+            trainer, counts, wall, peak = drive_entry_point(
+                "train on extracted", sana_main, device, tmp, cfg)
+        check_sana_run("train on extracted", trainer, cfg, counts, cuda,
+                       grids)
+        log_step_rate("train on extracted", trainer, wall, peak, card)
+        del trainer
+        gc.collect()
+
+        # (d) configs/sana_512_lora.yaml encoding on the fly, 6 steps, then
+        # a resume from step 3 through skip_batches
+        cfg = otf_config(raw, os.path.join(tmp, "out-d"),
+                         os.path.join(tmp, "ckpt-d"), chunk, batch, tiny)
+        with counted_encoders() as calls, recorded_batches() as grids:
+            trainer, counts, wall, peak = drive_entry_point(
+                "on the fly", sana_main, device, tmp, cfg)
+            check_sana_run("on the fly", trainer, cfg, counts, cuda, grids)
+            log_step_rate("on the fly", trainer, wall, peak, card)
+            log(f"on the fly: encoder calls {calls['images']} image chunks, "
+                f"{calls['captions']} caption chunks (the cache encodes "
+                "ahead of the steps)")
+            out["raw_sana"] = counts
+            del trainer
+            gc.collect()
+            os.remove(os.path.join(cfg["checkpoint_dir"], "6.pt"))
+            before = calls["images"] + calls["captions"]
+            del grids[:]
+            cfg = dict(cfg, resume="true")
+            trainer, counts, wall, peak = drive_entry_point(
+                "on the fly resumed", sana_main, device, tmp, cfg)
+            if calls["skipped"] != [3] or calls["in_skip"] != [0]:
+                fail(f"resume: skipped {calls['skipped']} batches with "
+                     f"{calls['in_skip']} encoder calls; expected [3] and "
+                     "[0]")
+            log(f"on the fly resumed: skip_batches skipped 3 batches with 0 "
+                f"encoder calls; the run's encoder calls "
+                f"{calls['images'] + calls['captions'] - before}")
+            if [h["step"] for h in trainer.history] != [4, 5, 6]:
+                fail(f"resume: steps {[h['step'] for h in trainer.history]}")
+            check_sana_run("on the fly resumed", trainer, cfg, counts, cuda,
+                           grids, steps=3)
+        check_fp32_encodes("on the fly", calls, cuda)
+        if cuda:
+            # one step under the profiler while a cache's thread encodes the
+            # next batches on the same device (the run's cache is stopped)
+            gen = torch.Generator(device=device).manual_seed(5)
+            cache = FeatureCache(trainer.sampler.sampler,
+                                 cache_size=trainer.sampler.q.maxsize)
+            it = iter(cache)
+            next(it)
+
+            def one_step():
+                trainer._step_fn(trainer._device_batch(next(it)), gen)
+            try:
+                wall_ms, busy_ms = profile_run(
+                    f"one on-the-fly step (batch {batch}, the cache "
+                    "encoding behind it)", one_step, card)
+            finally:
+                cache.stop()
+            log(f"on the fly [{card}]: a profiled step {wall_ms:.1f} ms, "
+                f"device busy {busy_ms:.1f} ms, idle share "
+                f"{1 - busy_ms / wall_ms:.3f}")
+            base = next((v for k, v in PROFILES.items()
+                         if k.startswith("one train step")), None)
+            if base is not None and "train" in IMAGES_PER_S:
+                log(f"on the fly [{card}]: {IMAGES_PER_S['on the fly']:.2f} "
+                    f"images/s, idle share {1 - busy_ms / wall_ms:.3f}; "
+                    f"phase 7 on pre-extracted features "
+                    f"{IMAGES_PER_S['train']:.2f} images/s, idle share "
+                    f"{1 - base[1] / base[0]:.3f}")
+        del trainer
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # (e) PixArt-Sigma XL-2 encoding on the fly
+        cfg = pixart_otf_config(raw, os.path.join(tmp, "out-e"), chunk,
+                                tiny)
+        with recorded_batches() as grids, counted_encoders() as calls:
+            trainer, counts, wall, peak = drive_entry_point(
+                "pixart on the fly", pixart_main, device, tmp, cfg)
+        check_fp32_encodes("pixart on the fly", calls, cuda)
+        check_pixart_run("pixart on the fly", trainer, cfg, counts, cuda,
+                         grids)
+        log_step_rate("pixart on the fly", trainer, wall, peak, card)
+        out["raw_pixart"] = counts
+        del trainer
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # (f) Dreambooth: an instance folder and a regularization folder
+        size = tuple(int(d * res / 512) for d in RAW_SOURCES[0])
+        inst = write_image_folder(os.path.join(tmp, "inst"), batch, size, 1)
+        reg = write_image_folder(os.path.join(tmp, "reg"), batch, size, 2,
+                                 caption="a dog on a beach")
+        flags = [b.is_regularization for _, b in zip(range(2), iter(
+            DreamboothSampler(inst, reg, "sks", "dog", 1, batch, bins)))]
+        if flags != [False, True]:
+            fail(f"dreambooth: batches {flags}, expected instance then "
+                 "regularization")
+        cfg = train_config(raw[0], os.path.join(tmp, "out-f"),
+                           local_shard_paths=None, steps="2",
+                           checkpoint_dir=None,
+                           dreambooth_dataset_folder=inst,
+                           dreambooth_regularization_folder=reg,
+                           dreambooth_instance="sks",
+                           dreambooth_class="dog",
+                           dreambooth_lambda="0.5",
+                           batch_size=str(batch), **raw_train_keys(tiny))
+        cfg = {k: v for k, v in cfg.items() if v is not None}
+        with recorded_batches() as grids:
+            trainer, counts, wall, peak = drive_entry_point(
+                "dreambooth", sana_main, device, tmp, cfg)
+        check_sana_run("dreambooth", trainer, cfg, counts, cuda, grids)
+        log_step_rate("dreambooth", trainer, wall, peak, card)
+        del trainer
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def check_fp32_encodes(label, calls, cuda):
+    """On the card, every image encode of the entry point's run saw TF32
+    off for matmuls and convolutions (phase 12 turns it on before the
+    runs, so the entry point turned it off)."""
+    if not calls["images"]:
+        fail(f"{label}: the image encoder never ran")
+    if not cuda:
+        return
+    if calls["tf32"] != {(False, False)}:
+        fail(f"{label}: TF32 (matmul, cuDNN) at the image encodes: "
+             f"{sorted(calls['tf32'])}; the entry point must turn it off")
+    log(f"{label}: TF32 off for matmuls and convolutions at each of "
+        f"{calls['images']} image encodes (set by the entry point)")
+
+
+def otf_config(raw, out_dir, ckpt, chunk, batch, tiny):
+    """configs/sana_512_lora.yaml encoding raw shards on the fly
+    (``compute_features`` with chunks of ``chunk``) without what needs
+    files (pretrained weights), its validation prompts (their sampling
+    would add denoiser launches to the steps') and the TPU mesh, for 6
+    steps with the checkpoint cadence cut from 500 to 3."""
+    return {"local_shard_paths": raw, "batch_size": str(batch),
+            "learning_rate": "1e-4", "steps": "6", "warmup_steps": "200",
+            "num_steps_per_validation": "3", "checkpoint_dir": ckpt,
+            "validation_prompts": [], "bfloat16": "true", "use_ema": "true",
+            "gradient_accumulation_steps": "1",
+            "train_unconditional_prob": "0.1", "lora_rank": "8",
+            "lora_alpha": "8", "lora_algo": "lora",
+            "lora_target_modules": LORA_TARGETS,
+            "caption_length_bucketing": "true", "output_dir": out_dir,
+            "compute_features": "true", "vae_max_batch_size": str(chunk),
+            "text_encoder_max_batch_size": str(chunk), "dataset_seed": "0",
+            **raw_train_keys(tiny)}
+
+
+def pixart_otf_config(raw, out_dir, chunk, tiny):
+    """configs/pixart_repa.yaml without REPA (item 10), with LoRA in place
+    of LoKr (item 9), without its files (the pretrained pipe, the DINOv2
+    checkpoint), encoding on the fly as the file sets it (chunks of 8),
+    its int8 base and 8-bit Lion kept, for 2 steps (validation every
+    1000 steps, so its prompt builds the encoders and samples nothing)."""
+    extra = {}
+    if tiny is not None:
+        extra = {"model_config_overrides": dict(tiny["pixart"]),
+                 "aspect_ratio": str(tiny["resolution"])}
+    return {"local_shard_paths": raw, "compute_features": "true",
+            "vae_max_batch_size": str(chunk),
+            "text_encoder_max_batch_size": str(chunk),
+            "batch_size": str(tiny["batch"] if tiny else 8),
+            "learning_rate": "2e-5", "steps": "2", "warmup_steps": "1",
+            "num_steps_per_validation": "1000",
+            "validation_prompts": ["a cat wearing a tiny hat"],
+            "bfloat16": "true", "lora_rank": "32", "lora_alpha": "32",
+            "lora_algo": "lora", "lora_target_modules": LORA_TARGETS,
+            "lora_base_model_8bit": "true", "use_adamw_8bit": "true",
+            "output_dir": out_dir, "dataset_seed": "0", **extra}
+
+
+def check_sana_run(label, trainer, cfg, counts, cuda, grids, steps=None):
+    """Finite losses, the adapters and their export (``check_trained``)
+    and the SANA kernels' launches: one forward and one backward a step, on
+    the branches each step's latent grid and caption rung (``grids``)
+    give."""
+    steps = steps or int(cfg["steps"])
+    cfg_model = trainer.sana_config
+    if len(trainer.history) != steps or not all(
+            math.isfinite(h["loss"]) for h in trainer.history):
+        fail(f"{label}: expected {steps} finite losses, got "
+             f"{trainer.history}")
+    if steps == int(cfg["steps"]):
+        check_trained(label, trainer, cfg, cfg_model.num_layers)
+    else:
+        for h in trainer.history:
+            log(f"{label}: step {h['step']} caption rung "
+                f"{h['caption_len']} loss {h['loss']:.6f} grad_norm "
+                f"{h['grad_norm']:.4f}")
+    if len(grids) != steps:
+        fail(f"{label}: {len(grids)} batches moved for {steps} steps")
+    want, how = {}, {}
+    for grid, rung in grids:
+        for k, n in sana_launches_at(cfg_model, grid, rung).items():
+            want[k] = want.get(k, 0) + (n if cuda else 0)
+            how.setdefault(k, []).append(n)
+    check_launches(label, counts, want,
+                   lambda k: " + ".join(map(str, how[k])) + " by step "
+                   f"(grids {[g for g, _ in grids]})")
+
+
+def check_pixart_run(label, trainer, cfg, counts, cuda, grids):
+    """Finite losses and the PixArt-Sigma kernels' launches, by each step's
+    latent grid and caption rung (``grids``)."""
+    cfg_model = trainer.pixart_config
+    steps = int(cfg["steps"])
+    hist = trainer.history
+    if len(hist) != steps or not all(math.isfinite(h["loss"])
+                                     for h in hist) or len(grids) != steps:
+        fail(f"{label}: expected {steps} finite losses, got {hist}")
+    want = dict.fromkeys(PIXART_TRAIN_KERNELS, 0)
+    for h, (grid, rung) in zip(hist, grids):
+        tokens = (grid[0] // cfg_model.patch_size) * (
+            grid[1] // cfg_model.patch_size)
+        log(f"{label}: step {h['step']} latent grid {grid} caption rung "
+            f"{rung} branches {pixart_branches(cfg_model, rung, tokens)} "
+            f"loss {h['loss']:.6f} grad_norm {h['grad_norm']:.4f}")
+        for name, n in pixart_step_launches(cfg_model, rung,
+                                            tokens).items():
+            want[name] += n if cuda else 0
+    check_launches(label, counts, want,
+                   lambda k: f"by step, at grids {[g for g, _ in grids]}")
+
+
 def main() -> None:
     import gc
 
+    t_start = time.perf_counter()
     card = phase_device()
     import torch
     device = torch.device("cuda", 0)
-    phase_build()
-    kernels = phase_kernels(device)
-    kernels.update(phase_w8a8_kernels(device))
-    phase_reference(device)
-    phase_grad_reference(device)
-    phase_pixart_grad_reference(device)
-    phase_int8_grad_reference(device)
-    phase_full_ft_grad_reference(device)
-    counts = {}
-    for family in ("sana", "pixart"):
-        counts[family] = phase_serve(serve_params(), device, card,
-                                     family=family, profile=True)
+    seconds = {}
+
+    def timed(name, fn, *args, **kw):
+        """Run one phase, free what it left on the card, keep its
+        seconds."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
         gc.collect()
         torch.cuda.empty_cache()
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    timed("build", phase_build)
+    kernels = timed("kernels", phase_kernels, device)
+    kernels.update(timed("w8a8 kernels", phase_w8a8_kernels, device))
+    timed("reference", phase_reference, device)
+    timed("grad reference", phase_grad_reference, device)
+    timed("pixart grad reference", phase_pixart_grad_reference, device)
+    timed("int8 grad reference", phase_int8_grad_reference, device)
+    timed("full-ft grad reference", phase_full_ft_grad_reference, device)
+    counts = {}
     for family in ("sana", "pixart"):
-        counts[f"pretrained_{family}"] = phase_pretrained(device, card,
-                                                          family)
-    counts["train"] = phase_train(device, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    counts["pixart_train"] = phase_pixart_train(device, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    counts["int8_train"] = phase_train(device, card, cfg_extra=INT8_KEYS,
-                                       label="int8 train")
-    gc.collect()
-    torch.cuda.empty_cache()
-    counts["full_ft"] = phase_full_finetune(device, card)
-    counts["explore_train"] = phase_train(
-        device, card, cfg_extra=EXPLORE_KEYS, label="explore+preserve train",
+        counts[family] = timed(f"serve {family}", phase_serve,
+                               serve_params(), device, card, family=family,
+                               profile=True)
+    for family in ("sana", "pixart"):
+        counts[f"pretrained_{family}"] = timed(
+            f"pretrained {family}", phase_pretrained, device, card, family)
+    counts["train"] = timed("train", phase_train, device, card)
+    counts["pixart_train"] = timed("pixart train", phase_pixart_train,
+                                   device, card)
+    counts["int8_train"] = timed("int8 train", phase_train, device, card,
+                                 cfg_extra=INT8_KEYS, label="int8 train")
+    counts["full_ft"] = timed("full fine-tune", phase_full_finetune, device,
+                              card)
+    counts["explore_train"] = timed(
+        "explore+preserve train", phase_train, device, card,
+        cfg_extra=EXPLORE_KEYS, label="explore+preserve train", remat=False)
+    counts["pixart_preserve_train"] = timed(
+        "pixart preserve train", phase_pixart_train, device, card,
+        cfg_extra=PIXART_PRESERVE_KEYS, label="pixart preserve train",
         remat=False)
-    gc.collect()
-    torch.cuda.empty_cache()
-    counts["pixart_preserve_train"] = phase_pixart_train(
-        device, card, cfg_extra=PIXART_PRESERVE_KEYS,
-        label="pixart preserve train", remat=False)
+    counts.update(timed("raw images", phase_raw_images, device, card))
+    log(f"seconds by phase: {seconds}; "
+        f"{time.perf_counter() - t_start:.1f} s in all")
 
     rows = []
     # name: (source, the TPU kernel it replaces, the run whose launches
@@ -3688,7 +4459,8 @@ def main() -> None:
                "replaces": replaces, "launches": counts[run][name]}
         # K1 launches on every path: its counts on the others beside
         for other in ("pixart", "train", "pixart_train", "int8_train",
-                      "full_ft", "explore_train", "pixart_preserve_train"):
+                      "full_ft", "explore_train", "pixart_preserve_train",
+                      "raw_sana", "raw_pixart"):
             if other != run and name in counts[other] \
                     and counts[other][name]:
                 row[f"launches_{other}"] = counts[other][name]

@@ -78,3 +78,75 @@ def test_card_samplers_match_the_cpu(cuda, sampler):
            for dev in (torch.device("cpu"), cuda)]
     np.testing.assert_allclose(out[1].numpy(), out[0].numpy(),
                                atol=CARD_SAMPLER_TOL, rtol=CARD_SAMPLER_TOL)
+
+
+# a 40x24 JPEG (gradients), so the card test needs no encoder of its own
+TINY_JPEG = (
+    "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAYEBQYFBAYGBQYHBwYIChAKCgkJChQODwwQFxQY"
+    "GBcUFhYaHSUfGhsjHBYWICwgIyYnKSopGR8tMC0oMCUoKSj/2wBDAQcHBwoIChMKChMoGhYa"
+    "KCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCj/wAAR"
+    "CAAYACgDASIAAhEBAxEB/8QAHwAAAQUBAQEBAQEAAAAAAAAAAAECAwQFBgcICQoL/8QAtRAA"
+    "AgEDAwIEAwUFBAQAAAF9AQIDAAQRBRIhMUEGE1FhByJxFDKBkaEII0KxwRVS0fAkM2JyggkK"
+    "FhcYGRolJicoKSo0NTY3ODk6Q0RFRkdISUpTVFVWV1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWG"
+    "h4iJipKTlJWWl5iZmqKjpKWmp6ipqrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi4+Tl"
+    "5ufo6erx8vP09fb3+Pn6/8QAHwEAAwEBAQEBAQEBAQAAAAAAAAECAwQFBgcICQoL/8QAtREA"
+    "AgECBAQDBAcFBAQAAQJ3AAECAxEEBSExBhJBUQdhcRMiMoEIFEKRobHBCSMzUvAVYnLRChYk"
+    "NOEl8RcYGRomJygpKjU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6goOE"
+    "hYaHiImKkpOUlZaXmJmaoqOkpaanqKmqsrO0tba3uLm6wsPExcbHyMnK0tPU1dbX2Nna4uPk"
+    "5ebn6Onq8vP09fb3+Pn6/9oADAMBAAIRAxEAPwD57g0bp8taMGjf7NdvBo3T5a0YNG/2a5MF"
+    "mm2pw0sd5nEQaN/s1owaN0+Wu3g0b/ZrRg0bp8tfW4LNNtT0qWO8ziING6fLRXpEGjdPlor6"
+    "ejmnu7noRx2m5LBo3+zWjBo3T5aKK/m/BYiemp+Z0q0jQg0bp8taMGjf7NFFfXYLET01PTpV"
+    "pGjBo3T5aKKK+no4ifLuehGtKx//2Q==")
+
+
+@pytest.mark.gpu
+def test_card_native_decoder_builds_and_decodes(cuda):
+    """On the card's machine: build ``native/decode.cpp`` into the port's
+    ``_build/`` and decode one JPEG to a bucket's size; the pixels reach
+    the device as uint8.  Skips, with g++'s message, where the machine
+    cannot build it (no libjpeg headers): the samplers then decode
+    through cv2."""
+    import base64
+
+    from yat_tpu_torch.data import native
+
+    if not native.available():
+        pytest.skip(f"native decoder unavailable on this machine: "
+                    f"{native.unavailable_reason()}")
+    data = base64.b64decode(TINY_JPEG)
+    assert native.jpeg_dims(data) == (24, 40)
+    out, status = native.decode_batch([data, b"junk"], 32, 48)
+    assert list(status != 0) == [False, True]
+    assert out.dtype == np.uint8 and out.shape == (2, 32, 48, 3)
+    dev = torch.as_tensor(out[:1]).to(cuda)
+    assert dev.dtype == torch.uint8 and int(dev.max()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["dcae", "klvae"])
+def test_card_vae_encoders_match_cpu(cuda, kind):
+    """The tiny DC-AE and KL-VAE encoders (``encode_mode`` from uint8
+    pixels normalised on the device) on the card against the CPU, fp32
+    with TF32 off, within the decoders' tolerance 1e-4."""
+    from yat_tpu_torch.frontends.common import u8_to_unit
+    from yat_tpu_torch.models import vae as V
+    from yat_tpu_torch.models.layers import init_params
+
+    vae = (V.DCAE(V.DCAE_TINY_TEST) if kind == "dcae"
+           else V.AutoencoderKL(V.KLVAE_TINY_TEST))
+    init_params(vae, torch.Generator().manual_seed(SEED))
+    u8 = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, (2, 32, 48, 3), np.uint8))
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            want = vae.encode_mode(u8_to_unit(u8))
+            got = vae.to(cuda).encode_mode(u8_to_unit(u8.to(cuda))).cpu()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4,
+                               rtol=1e-4)

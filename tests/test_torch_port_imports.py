@@ -3,7 +3,8 @@
 imports JAX, flax, optax, the JAX package or ``safetensors`` (the card's
 machine has none; the port reads the format itself).  A static scan of
 the source (the test process itself has JAX loaded, so ``sys.modules``
-says nothing)."""
+says nothing).  The native decoder's library is built inside the port's
+own build directory."""
 
 import ast
 from pathlib import Path
@@ -46,7 +47,27 @@ def test_scan_covers_the_package():
             "yat_tpu_torch/data/tar.py", "yat_tpu_torch/data/sampler.py",
             "yat_tpu_torch/utils/logging.py",
             "yat_tpu_torch/parallel/multihost.py", "yat_tpu_torch/ops/quant.py",
-            "yat_tpu_torch/ops/opt8bit.py", "chip_smoke.py"} <= names
+            "yat_tpu_torch/ops/opt8bit.py", "yat_tpu_torch/data/bins.py",
+            "yat_tpu_torch/data/native.py", "yat_tpu_torch/data/r2.py",
+            "yat_tpu_torch/data/generate_shards.py",
+            "yat_tpu_torch/train/encode.py", "yat_tpu_torch/train/extract.py",
+            "chip_smoke.py"} <= names
+
+
+def test_native_decoder_builds_inside_the_port():
+    """The port builds ``native/decode.cpp`` into its own ``_build/``
+    (gitignored), never into or from the JAX package's
+    ``native/libyatdecode.so``; importing the module builds nothing."""
+    from yat_tpu_torch.data import native
+
+    assert native.SOURCE == ROOT / "native" / "decode.cpp"
+    assert native.BUILD_DIR == ROOT / "yat_tpu_torch" / "_build"
+    path = native.library_path()
+    assert path.parent == native.BUILD_DIR
+    assert path.name.startswith("libyatdecode-") and path.suffix == ".so"
+    assert "libyatdecode.so" not in (
+        ROOT / "yat_tpu_torch" / "data" / "native.py").read_text()
+    assert "yat_tpu_torch/_build/" in (ROOT / ".gitignore").read_text()
 
 
 @pytest.mark.parametrize("path", SOURCES,

@@ -203,7 +203,7 @@ def test_dcae_decode_matches_jax():
     want = jax.jit(lambda v, z: jm.apply(v, z, method=jm.decode))(
         variables, z)
     tm = DCAE(DCAE_TINY_TEST)
-    load_flax_params(tm, {"decoder": _tree(variables)["decoder"]})
+    load_flax_params(tm, _tree(variables))
     with torch.inference_mode():
         got = tm.decode(_t(z))
     assert got.shape == (2, 16, 16, 3)

@@ -111,7 +111,7 @@ def test_kl_decoder_tiny_matches_jax():
         np.float32)
     want = jm.apply({"params": params}, jnp.asarray(z), method=jm.decode)
     tm = AutoencoderKL(KLVAE_TINY_TEST)
-    load_flax_params(tm, {"decoder": _tree({"params": params})["decoder"]})
+    load_flax_params(tm, _tree({"params": params}))
     got = tm.decode(torch.from_numpy(z))
     assert got.shape == (2, 16, 16, 3)
     _close(got, want)

@@ -399,9 +399,6 @@ def test_entry_point_trains_and_exports(tmp_path):
                  id="over2-NotImplementedError-lokr"),
     pytest.param({"lora_use_dora": "true"}, NotImplementedError, "DoRA",
                  id="over3-NotImplementedError-DoRA"),
-    pytest.param({"compute_features": "true", "vae_max_batch_size": "2",
-                  "text_encoder_max_batch_size": "2"}, NotImplementedError,
-                 "item 8", id="over5-NotImplementedError-item 8"),
     pytest.param({"train_unconditional_prob": "0.1"}, ValueError,
                  "empty-caption", id="over6-ValueError-empty-caption"),
     pytest.param({"pretrained_model_path": "ckpt"}, ValueError,
@@ -419,15 +416,17 @@ def test_entry_point_refuses_unported_options(tmp_path, over, exc, match):
 
 
 @pytest.mark.parametrize("key", ["use_preservation", "profile_dir",
-                                 "full_finetune"])
+                                 "full_finetune", "compute_features"])
 def test_entry_point_runs_ported_options(tmp_path, monkeypatch, capsys, key):
-    """The keys the port refused before its training loop was complete run
-    through ``main([..., "--device", "cpu"])``: the epsilon-form
-    preservation term once a step, a profiler trace (a run of 12 steps
-    ends inside the window of steps 10-14), and full fine-tuning (no
-    adapter spec) of every parameter, stored in fp32 under ``bfloat16``
-    (cast at use), exported as ``model.safetensors``."""
+    """The keys the port once refused run through ``main([...,
+    "--device", "cpu"])``: the epsilon-form preservation term once a step,
+    a profiler trace (a run of 12 steps ends inside the window of steps
+    10-14), full fine-tuning (no adapter spec) of every parameter, stored
+    in fp32 under ``bfloat16`` (cast at use), exported as
+    ``model.safetensors``, and ``compute_features`` (raw JPEG shards
+    encoded on the fly by the tiny KL-VAE and T5)."""
     from yat_tpu_torch.frontends import pixart
+    from tests.test_torch_port_encode import make_image_shard
 
     calls = []
     if key == "use_preservation":
@@ -446,7 +445,13 @@ def test_entry_point_runs_ported_options(tmp_path, monkeypatch, capsys, key):
                             "steps": "12"},
             "full_finetune": {"lora_rank": None, "lora_algo": None,
                               "lora_target_modules": None,
-                              "bfloat16": "true"}}[key]
+                              "bfloat16": "true"},
+            "compute_features": {
+                "local_shard_paths": [make_image_shard(
+                    tmp_path / "raw.tar", n=6, hw=(64, 64), wide=False)],
+                "compute_features": "true", "vae_max_batch_size": "1",
+                "text_encoder_max_batch_size": "2",
+                "aspect_ratio": "256"}}[key]
     cfg = _write_config(tmp_path, _tiny_shard(tmp_path / "s.tar"), **over)
     trainer = pixart.main(["--config", cfg, "--device", "cpu"])
     out = capsys.readouterr().out
@@ -456,6 +461,11 @@ def test_entry_point_runs_ported_options(tmp_path, monkeypatch, capsys, key):
         assert "[engine] profiler trace in" in out
         assert len(glob.glob(str(tmp_path / "prof" / "*.pt.trace.json"))
                    ) == 1
+    elif key == "compute_features":
+        assert "raw images decode through" in out
+        assert trainer.global_step == 3
+        assert all(np.isfinite(h["loss"]) for h in trainer.history)
+        assert trainer.encode_images.module.encoder is not None
     else:
         leaves = trainer.trainable_leaves()
         assert len(leaves) == len(list(trainer.model.parameters()))

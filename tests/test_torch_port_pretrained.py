@@ -362,8 +362,18 @@ def test_pipe_path_loads_like_jax(tmp_path, family):
     vae_mod = _port_module(vp, "decode")
     _assert_params(te_mod, _jax_component(te_family, "text_encoder", pipe,
                                           te_init, te_cfg))
-    _assert_params(vae_mod, {"decoder": _jax_component(
-        vae_family, "vae", pipe, vae_init, vae_cfg)["decoder"]})
+    jvae = _jax_component(vae_family, "vae", pipe, vae_init, vae_cfg)
+    # serving holds the decoder half; a run that encodes images both
+    _assert_params(vae_mod, {"decoder": jvae["decoder"]})
+    tp = TrainingParameters.from_dict(raw)
+    if family == "sana":
+        t_images = front.build_encoders(tp, front.build_sana_config(tp),
+                                        "cpu")[0]
+    else:
+        from yat_tpu_torch.frontends.common import build_t5_vae_encoders
+        t_images = build_t5_vae_encoders(
+            tp, "cpu", front.build_pixart_config(tp).max_caption_len)[0]
+    _assert_params(t_images.module, jvae)
 
     jp = JParams.from_dict(raw)
     if family == "sana":
@@ -519,16 +529,20 @@ def test_chip_smoke_pretrained_phase_on_cpu(family):
     each sampler's batch, and for SANA the gating invariants and the
     low_vram batch; no kernel launches on the CPU."""
     import chip_smoke
+    from yat_tpu_torch.convert import flax_params
     from yat_tpu_torch.models import vae as TV
 
-    # the encoder halves the phase synthesizes have the JAX encoders' shapes
+    # the encoder halves the phase synthesizes (the port's VAEs' own) have
+    # the JAX encoders' shapes
     for family_vae, port_vae in (("dcae", TV.DCAE(TV.DCAE_TINY_TEST)),
                                  ("klvae", TV.AutoencoderKL(
                                      TV.KLVAE_TINY_TEST))):
         _, _, init, _ = _jax_model(family_vae)
         want = {k: v for k, v in S.leaf_shapes(init).items()
                 if k.startswith("encoder.")}
-        assert chip_smoke.vae_encoder_shapes(port_vae) == want
+        got = {k: tuple(v.shape) for k, v in flax_params(port_vae).items()
+               if k.startswith("encoder.")}
+        assert got == want
     if family == "sana":
         extra, px = {"model_config_overrides": TINY_SANA}, 16
     else:

@@ -494,8 +494,7 @@ def test_decode_tiled_matches_jax(family):
             TV.DCAE_TINY_TEST)
         lat = (1, 10, 14, 32)
     v = jvae.init(jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 3)))
-    load_flax_params(tvae, {"decoder": jax.tree.map(
-        np.asarray, v["params"]["decoder"])})
+    load_flax_params(tvae, jax.tree.map(np.asarray, v["params"]))
     z = np.random.default_rng(0).standard_normal(lat).astype(np.float32)
     want = JV.decode_tiled(jvae, v, jnp.asarray(z), tile_latent=6,
                            overlap=2)

@@ -448,6 +448,11 @@ def _ported_effect(key, tmp_path, trainer, out, counts):
         assert moved and all(k.startswith("blocks_0.attn2.") for k in moved)
     elif key == "use_preservation":
         assert counts == {"preservation": 3}
+    elif key == "compute_features":
+        assert "raw images decode through" in out
+        assert trainer.global_step == 3
+        assert all(np.isfinite(h["loss"]) for h in trainer.history)
+        assert trainer.encode_images.module.encoder is not None
     else:
         assert len(glob.glob(str(tmp_path / "prof" / "*.pt.trace.json"))
                    ) == 1
@@ -455,15 +460,18 @@ def _ported_effect(key, tmp_path, trainer, out, counts):
 
 @pytest.mark.parametrize("key", ["checkpoint_dir", "resume",
                                  "exploration_steps", "unfreeze_modules",
-                                 "use_preservation", "profile_dir"])
+                                 "use_preservation", "profile_dir",
+                                 "compute_features"])
 def test_entry_point_runs_ported_options(tmp_path, monkeypatch, capsys, key):
-    """The keys the port refused before its training loop was complete run
-    through ``main([..., "--device", "cpu"])`` and do what they say:
-    checkpoints on the validation cadence, a resume from them, a best-of-2
-    search a step, only ``attn2`` (a path segment) trained under full
-    fine-tuning, the preservation term a step, and a profiler trace (a run
-    of 12 steps ends inside the window of steps 10-14)."""
+    """The keys the port once refused run through ``main([...,
+    "--device", "cpu"])`` and do what they say: checkpoints on the
+    validation cadence, a resume from them, a best-of-2 search a step,
+    only ``attn2`` (a path segment) trained under full fine-tuning, the
+    preservation term a step, a profiler trace (a run of 12 steps ends
+    inside the window of steps 10-14), and ``compute_features`` (raw JPEG
+    shards encoded on the fly by the tiny DC-AE and Gemma-2)."""
     from yat_tpu_torch.frontends.sana import main
+    from tests.test_torch_port_encode import make_image_shard
     from yat_tpu_torch.train import step as step_module
 
     counts = {}
@@ -483,7 +491,16 @@ def test_entry_point_runs_ported_options(tmp_path, monkeypatch, capsys, key):
                                  "unfreeze_modules": ["attn2"]},
             "use_preservation": {"use_preservation": "true"},
             "profile_dir": {"profile_dir": str(tmp_path / "prof"),
-                            "steps": "12"}}.get(key, {})
+                            "steps": "12"},
+            "compute_features": {
+                "local_shard_paths": [make_image_shard(
+                    tmp_path / "raw.tar", n=6, hw=(64, 64), wide=False)],
+                "compute_features": "true", "vae_max_batch_size": "1",
+                "text_encoder_max_batch_size": "2", "aspect_ratio": "256",
+                "model_config_overrides": {
+                    **TINY_OVERRIDES, "in_channels": "32",
+                    "caption_channels": "32", "vae_compression": "4",
+                    "tiny_encoders": "1"}}}.get(key, {})
     shard = _tiny_shard(tmp_path / "s.tar")
     if key == "resume":
         main(["--config", _write_config(tmp_path, shard, **ckpt),

@@ -17,8 +17,8 @@ into the matching parameter of ``module``:
   ``(6, D)`` and ``(2, D)`` scale-shift tables, T5's
   ``relative_attention_bias``.
 
-This covers the SANA, PixArt-Sigma, Gemma-2, T5, DC-AE and KL-VAE decoder
-trees.  Flax names a repeated submodule ``blocks_3`` (``layers_3``); where
+This covers the SANA, PixArt-Sigma, Gemma-2, T5, DC-AE and KL-VAE trees
+(both VAE halves, encoder and decoder).  Flax names a repeated submodule ``blocks_3`` (``layers_3``); where
 the port holds such modules in an ``nn.ModuleList`` named ``blocks``
 (``layers``), ``blocks_3`` resolves to ``blocks[3]``; other indexed names
 (``up_0_resnet_1``) are plain submodule names.  Every leaf of the tree

@@ -1,33 +1,49 @@
-"""The feature-shard data plane: shard source, bucket sampler, captions.
+"""The data plane: shard sources, bucket samplers, captions.
 
-Copies of ``Batch``, ``LocalShardSource``, ``FeatureBucketSampler``,
-``caption_length_buckets``, ``caption_rung`` and ``pad_embeddings`` from
-``yat_tpu/data/sampler.py`` (stdlib and numpy only), so the port yields
-the same batches, in the same order, as the JAX package from the same
-shards and seed, without importing it.  Single process: the multi-host
-bucket sync hook, the URL/R2 sources and the raw-image samplers are not
-ported (ROADMAP queue 1, items 8 and 12).
+Copies of ``yat_tpu/data/sampler.py`` (stdlib and numpy only), so the port
+yields the same batches, in the same order, as the JAX package from the
+same shards and seed, without importing it:
+
+* shard sources: ``LocalShardSource`` (local TARs, shuffled per pass),
+  ``UrlShardSource`` (plain or presigned URLs) and ``RemoteShardSource``
+  (R2 presigned GETs), the last two downloading ahead on a thread;
+* ``FeatureBucketSampler``: pre-extracted ``{ratio, latent, emb}`` shards;
+* ``ImageBucketSampler``: raw ``{jpg, txt}`` shards bucketed by aspect
+  ratio, uint8 pixels at the bucket's size (JPEGs bucketed from their
+  header and decoded at emit by the native decoder when it is available,
+  else cv2 per image; ``decoder`` says which);
+* ``DreamboothSampler``: instance and regularization passes in turn;
+* the caption padding helpers.
+
+Single process: the multi-host bucket sync hook is not ported (ROADMAP
+queue 1, item 12); the remote sources take ``process_index`` 0.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import queue
 import random
+import threading
 from collections import deque
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from yat_tpu_torch.data.bins import find_closest_ratio
 from yat_tpu_torch.data.tar import IMAGE_EXTS, iter_tar_samples
 
 
 @dataclasses.dataclass
 class Batch:
-    """One bucket batch of pre-extracted features (host numpy arrays)."""
+    """One bucket batch (host numpy arrays): features, or raw pixels and
+    captions before the encoders."""
 
     ratio: str
     latents: Optional[np.ndarray] = None          # [B, H, W, C]
+    images: Optional[np.ndarray] = None           # [B, H, W, 3] uint8
+    captions: Optional[List[str]] = None
     embeddings: Optional[np.ndarray] = None       # [B, L, D]
     text_mask: Optional[np.ndarray] = None        # [B, L]
     pooled_text: Optional[np.ndarray] = None      # [B, D_pool]
@@ -61,6 +77,147 @@ class LocalShardSource:
             for p in order:
                 if os.path.exists(p):
                     yield p
+
+
+
+class _DownloadingSource:
+    """Shards downloaded ahead by a daemon thread into ``local_temp_dir``
+    through a queue of ``queue_depth`` paths; each path is removed once the
+    consumer moves past it.  After 20 failed downloads in a row the
+    consumer gets a RuntimeError instead of waiting forever.  ``one_pass``
+    walks the shard list once, in order, and then ends (the extraction
+    pass); otherwise shards are drawn at random forever.  ``stop`` ends
+    both sides within 0.2 s: the thread downloads no further shard and the
+    consumer's iteration ends, whether or not a shard is on its way (the
+    feature cache joins its thread through here)."""
+
+    _MAX_CONSECUTIVE_FAILURES = 20
+    _END = object()
+    _prefix = "shard"
+
+    def __init__(self, names: Sequence[str], seed: int,
+                 probs: Optional[Sequence[float]], local_temp_dir: str,
+                 queue_depth: int, process_index: int, one_pass: bool):
+        self.names = list(names)
+        self.probs = list(probs) if probs else None
+        self.rng = random.Random(seed + process_index)
+        self.temp = local_temp_dir
+        self.q: "queue.Queue[object]" = queue.Queue(maxsize=queue_depth)
+        self.process_index = process_index
+        self.one_pass = one_pass
+        self._started = False
+        self._stop = threading.Event()
+
+    def _pick(self) -> str:
+        if self.probs:
+            return self.rng.choices(self.names, weights=self.probs, k=1)[0]
+        return self.names[self.rng.randrange(len(self.names))]
+
+    def _url(self, name: str) -> str:
+        raise NotImplementedError
+
+    def _worker(self):
+        from yat_tpu_torch.data.r2 import download_tar
+        os.makedirs(self.temp, exist_ok=True)
+        order = iter(self.names) if self.one_pass else None
+        item = failures = 0
+        while not self._stop.is_set():
+            name = next(order, None) if order is not None else self._pick()
+            if name is None:
+                self._put(self._END)
+                return
+            path = os.path.join(
+                self.temp, f"{self._prefix}_{self.process_index}_{item}.tar")
+            try:
+                download_tar(self._url(name), path)
+            except Exception as e:  # noqa: BLE001 — skip to the next shard
+                print(f"[sampler] shard download failed, skipping: {e}")
+                failures += 1
+                if failures >= self._MAX_CONSECUTIVE_FAILURES:
+                    self._put(RuntimeError(
+                        f"{failures} consecutive shard download failures "
+                        f"(last: {e}) — the urls or the R2 credentials, "
+                        "endpoint, bucket or shard list are wrong or "
+                        "expired"))
+                    return
+                continue
+            failures = 0
+            if not self._put(path):
+                os.remove(path)
+                return
+            item += 1
+
+    def _put(self, item) -> bool:
+        """Queue ``item`` unless ``stop`` comes first."""
+        while not self._stop.is_set():
+            try:
+                self.q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def __iter__(self) -> Iterator[str]:
+        if not self._started:
+            threading.Thread(target=self._worker, daemon=True).start()
+            self._started = True
+        while not self._stop.is_set():
+            try:
+                path = self.q.get(timeout=0.2)
+            except queue.Empty:
+                continue
+            if path is self._END:
+                return
+            if isinstance(path, Exception):
+                raise path
+            yield path
+            if os.path.exists(path):
+                os.remove(path)
+
+    def stop(self):
+        self._stop.set()
+
+
+class UrlShardSource(_DownloadingSource):
+    """Shards streamed from plain (public or presigned) URLs, drawn at
+    random (weighted by ``probs``)."""
+
+    _prefix = "urlshard"
+
+    def __init__(self, urls: Sequence[str], seed: int = 0,
+                 probs: Optional[Sequence[float]] = None,
+                 local_temp_dir: str = "temp", queue_depth: int = 4,
+                 process_index: int = 0, one_pass: bool = False):
+        if not urls:
+            raise ValueError("no urls given")
+        super().__init__(urls, seed, probs, local_temp_dir, queue_depth,
+                         process_index, one_pass)
+        self.urls = self.names
+
+    def _url(self, name: str) -> str:
+        return name
+
+
+class RemoteShardSource(_DownloadingSource):
+    """Shards of an R2 bucket (``features_path/name``), each fetched
+    through a presigned GET."""
+
+    def __init__(self, shards: Sequence[str], features_path: str,
+                 r2_access_key: str, r2_secret_key: str, r2_endpoint: str,
+                 r2_bucket_name: str, seed: int = 0,
+                 local_temp_dir: str = "temp", queue_depth: int = 4,
+                 process_index: int = 0, one_pass: bool = False):
+        from yat_tpu_torch.data.r2 import R2Client
+        super().__init__(shards, seed, None, local_temp_dir, queue_depth,
+                         process_index, one_pass)
+        self.shards = self.names
+        self.features_path = features_path
+        self.client = R2Client(r2_access_key, r2_secret_key, r2_endpoint)
+        self.bucket = r2_bucket_name
+
+    def _url(self, name: str) -> str:
+        key = f"{self.features_path}/{name}" if self.features_path else name
+        return self.client.presign_get(self.bucket, key)
 
 
 def caption_length_buckets(max_len: int, step: int = 128) -> Tuple[int, ...]:
@@ -182,7 +339,11 @@ class FeatureBucketSampler:
                                 f"shard {shard_path} contains raw image "
                                 "samples but this run is on the "
                                 "pre-extracted-feature path — every sample "
-                                "would be dropped and the run would starve; "
+                                "would be dropped and the run would starve. "
+                                "Set 'compute_features' (with "
+                                "vae_max_batch_size/"
+                                "text_encoder_max_batch_size) to encode "
+                                "raw {jpg, txt} shards on the fly, or "
                                 "point at {ratio, latent, emb} feature "
                                 "shards")
                     continue
@@ -216,3 +377,251 @@ class FeatureBucketSampler:
         stop = getattr(self.source, "stop", None)
         if stop is not None:
             stop()
+
+
+def decode_image(data: bytes) -> Optional[np.ndarray]:
+    """JPEG/PNG/WebP bytes → RGB uint8 HWC through cv2, or None."""
+    import cv2
+    img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    if img is None:
+        return None
+    return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+
+
+def resize_u8(img: np.ndarray, th: int, tw: int) -> np.ndarray:
+    """cv2 resize to ``(th, tw)``: area filter when shrinking the height,
+    bilinear otherwise; stays uint8 (the encoders normalise on the
+    device)."""
+    import cv2
+    interp = cv2.INTER_AREA if img.shape[0] > th else cv2.INTER_LINEAR
+    return cv2.resize(img, (int(tw), int(th)), interpolation=interp)
+
+
+class ImageBucketSampler:
+    """Raw ``{jpg/jpeg/png/webp, txt}`` shards → uint8 NHWC batches at one
+    aspect bucket's size, with their captions.
+
+    JPEGs are bucketed from their header alone and decoded and resized at
+    emit, in one pass across a thread pool, by the native decoder when it
+    is available (``decoder == "native"``); other images, and every image
+    without it, decode through cv2 at ingest (``decoder == "cv2"``).  A
+    sample whose deferred decode fails is replaced by another sample of its
+    batch, never zero-filled (black pixels under a real caption) and never
+    dropped (every batch keeps ``batch_size``); a batch with no decodable
+    image is dropped.  Samples pass a bounded shuffle of
+    ``shuffle_buffer``; buckets drain in sorted key order the moment one
+    holds ``batch_size``.  (The JAX sampler's ``bucket_repeat`` is left
+    out: the port repeats after the encode, ``OnTheFlyEncodingSampler``.)"""
+
+    def __init__(self, shard_source, batch_size: int,
+                 aspect_ratios: Dict[str, Tuple[int, int]],
+                 seed: int = 0, shuffle_buffer: int = 256,
+                 use_native: bool = True):
+        self.source = shard_source
+        self.batch_size = batch_size
+        self.aspect_ratios = aspect_ratios
+        self.buckets: Dict[str, deque] = {}
+        self.rng = random.Random(seed)
+        self.shuffle_buffer = shuffle_buffer
+        self.native = None
+        if use_native:
+            from yat_tpu_torch.data import native as _native
+            self.native = _native if _native.available() else None
+
+    @property
+    def decoder(self) -> str:
+        """``"native"`` (libjpeg through ``native/decode.cpp``) or
+        ``"cv2"``."""
+        return "native" if self.native is not None else "cv2"
+
+    def _emit(self, key: str) -> Optional[Batch]:
+        items = [self.buckets[key].popleft() for _ in range(self.batch_size)]
+        th, tw = (int(d) for d in self.aspect_ratios[key])
+        raw = [im for im, _ in items]
+        captions = [c for _, c in items]
+        bad: list = []
+        if self.native is not None and all(isinstance(r, bytes) for r in raw):
+            images, status = self.native.decode_batch(raw, th, tw)
+            for i in np.nonzero(status != 0)[0]:
+                img = decode_image(raw[int(i)])
+                if img is not None:
+                    images[int(i)] = resize_u8(img, th, tw)
+                else:
+                    bad.append(int(i))
+        else:
+            decoded = [r if not isinstance(r, bytes) else decode_image(r)
+                       for r in raw]
+            bad = [i for i, im in enumerate(decoded) if im is None]
+            images = np.stack([
+                resize_u8(im, th, tw) if im is not None
+                else np.zeros((th, tw, 3), np.uint8) for im in decoded])
+        if bad:
+            good = [i for i in range(len(raw)) if i not in set(bad)]
+            if not good:
+                print(f"[sampler] dropping bucket batch {key}: every "
+                      "image failed to decode")
+                return None
+            for j, b in enumerate(bad):
+                g = good[j % len(good)]
+                images[b] = images[g]
+                captions[b] = captions[g]
+        return Batch(ratio=key, images=images, captions=captions)
+
+    def _bucket_and_emit(self, payload, ratio, caption) -> Iterator[Batch]:
+        key = find_closest_ratio(ratio, self.aspect_ratios)
+        self.buckets.setdefault(key, deque()).append((payload, caption))
+        for k in sorted(k for k, v in self.buckets.items()
+                        if len(v) >= self.batch_size):
+            batch = self._emit(k)
+            if batch is not None:
+                yield batch
+
+    def __iter__(self) -> Iterator[Batch]:
+        buf: list = []
+        for shard_path in self.source:
+            for elem in iter_tar_samples(shard_path):
+                img_bytes = next((elem[e] for e in IMAGE_EXTS if e in elem),
+                                 None)
+                caption = elem.get("txt")
+                if img_bytes is None or caption is None:
+                    continue
+                item = None
+                if self.native is not None and ("jpg" in elem
+                                                or "jpeg" in elem):
+                    dims = self.native.jpeg_dims(img_bytes)
+                    if dims is not None:
+                        h, w = dims
+                        item = (img_bytes, h / w)   # decode at emit
+                if item is None:
+                    img = decode_image(img_bytes)
+                    if img is None:
+                        continue
+                    item = (img, img.shape[0] / img.shape[1])
+                payload, ratio = item
+                buf.append((payload, ratio, caption))
+                if len(buf) < self.shuffle_buffer:
+                    continue
+                idx = self.rng.randrange(len(buf))
+                buf[idx], buf[-1] = buf[-1], buf[idx]
+                yield from self._bucket_and_emit(*buf.pop())
+        while buf:
+            idx = self.rng.randrange(len(buf))
+            buf[idx], buf[-1] = buf[-1], buf[idx]
+            yield from self._bucket_and_emit(*buf.pop())
+
+    def stop(self):
+        stop = getattr(self.source, "stop", None)
+        if stop is not None:
+            stop()
+
+
+class DreamboothSampler(ImageBucketSampler):
+    """Instance-folder passes (``num_repeats`` of them) in turn with
+    ``num_regularisation_passes`` regularization passes (over
+    ``reg_shard_source`` shards when given, else the regularization
+    folder), forever; buckets are cleared between the two.  Instance images
+    caption as ``"<instance> <class>"``, regularization images as
+    ``"<class>"``, unless an image carries its own ``.txt``; the
+    regularization batches carry ``is_regularization`` (the loss scales
+    them by ``dreambooth_lambda``).  Images decode through cv2."""
+
+    def __init__(self, instance_folder: str,
+                 regularization_folder: Optional[str],
+                 instance: str, class_name: str, num_repeats: int,
+                 batch_size: int, aspect_ratios: Dict[str, Tuple[int, int]],
+                 num_regularisation_passes: int = 1, seed: int = 0,
+                 reg_shard_source=None):
+        super().__init__(shard_source=None, batch_size=batch_size,
+                         aspect_ratios=aspect_ratios, seed=seed,
+                         use_native=False)
+        self.instance_folder = instance_folder
+        self.regularization_folder = regularization_folder
+        self.instance = instance
+        self.class_name = class_name
+        self.num_repeats = num_repeats
+        self.num_reg_passes = num_regularisation_passes
+        self._reg_source_raw = reg_shard_source
+        self.reg_shard_source = (iter(reg_shard_source)
+                                 if reg_shard_source else None)
+
+    def stop(self):
+        stop = getattr(self._reg_source_raw, "stop", None)
+        if stop is not None:
+            stop()
+
+    def _iter_folder(self, folder: str
+                     ) -> Iterator[Tuple[np.ndarray, Optional[str]]]:
+        names = sorted(os.listdir(folder))
+        self.rng.shuffle(names)
+        for name in names:
+            if not name.lower().endswith((".jpg", ".jpeg", ".png", ".webp")):
+                continue
+            with open(os.path.join(folder, name), "rb") as f:
+                img = decode_image(f.read())
+            if img is None:
+                continue
+            cap_path = os.path.splitext(os.path.join(folder, name))[0] + ".txt"
+            caption = None
+            if os.path.exists(cap_path):
+                with open(cap_path) as f:
+                    caption = f.read().strip()
+            yield img, caption
+
+    def _drain(self, is_reg: bool) -> Iterator[Batch]:
+        for k in sorted(k for k, v in self.buckets.items()
+                        if len(v) >= self.batch_size):
+            b = self._emit(k)
+            if b is None:
+                continue
+            b.is_regularization = is_reg
+            yield b
+
+    def _ingest_image(self, img, caption, default_caption):
+        key = find_closest_ratio(img.shape[0] / img.shape[1],
+                                 self.aspect_ratios)
+        self.buckets.setdefault(key, deque()).append(
+            (img, caption or default_caption))
+
+    def _next_reg_shard(self) -> Optional[str]:
+        """The next regularization shard; a finite source starts over."""
+        try:
+            return next(self.reg_shard_source)
+        except StopIteration:
+            self.reg_shard_source = iter(self._reg_source_raw)
+        try:
+            return next(self.reg_shard_source)
+        except StopIteration:
+            print("[dreambooth] regularization shard source is empty; "
+                  "skipping reg pass")
+            return None
+
+    def __iter__(self) -> Iterator[Batch]:
+        instance_caption = f"{self.instance} {self.class_name}"
+        while True:
+            for _ in range(self.num_repeats):
+                for img, cap in self._iter_folder(self.instance_folder):
+                    self._ingest_image(img, cap, instance_caption)
+                    yield from self._drain(False)
+            self.buckets.clear()
+            for _ in range(self.num_reg_passes):
+                if self.reg_shard_source is not None:
+                    shard = self._next_reg_shard()
+                    if shard is None:
+                        continue
+                    for elem in iter_tar_samples(shard):
+                        data = next((elem[e] for e in IMAGE_EXTS
+                                     if e in elem), None)
+                        if data is None:
+                            continue
+                        img = decode_image(data)
+                        if img is None:
+                            continue
+                        self._ingest_image(img, elem.get("txt"),
+                                           self.class_name)
+                        yield from self._drain(True)
+                elif self.regularization_folder:
+                    for img, cap in self._iter_folder(
+                            self.regularization_folder):
+                        self._ingest_image(img, cap, self.class_name)
+                        yield from self._drain(True)
+            self.buckets.clear()

@@ -2,7 +2,9 @@
 
 A copy of ``yat_tpu/data/tar.py`` (stdlib and numpy; ``.pt`` fields load
 with ``torch``) so the port reads and writes the JAX package's feature
-shards without importing it:
+shards without importing it (``ShardWriter`` rolls ``shard-%06d.tar``
+files of a fixed sample count, for the feature extractor and the shard
+generator):
 
 * samples are groups of files sharing a basename key: ``key.jpg``,
   ``key.txt``, ``key.ratio``, ``key.latent.npy`` ...
@@ -130,6 +132,50 @@ class TarShardWriter:
 
     def close(self):
         self._tf.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class ShardWriter:
+    """Multi-shard writer: ``pattern % index`` files of at most
+    ``maxcount`` samples each; ``on_shard_complete(path, index)`` runs as
+    each shard closes (the uploaders hang off it)."""
+
+    def __init__(self, pattern: str, maxcount: int = 10000,
+                 on_shard_complete=None):
+        self.pattern = pattern
+        self.maxcount = maxcount
+        self.on_shard_complete = on_shard_complete
+        self.shard_index = 0
+        self._writer: Optional[TarShardWriter] = None
+
+    def _close_current(self):
+        path = self._writer.path
+        self._writer.close()
+        self._writer = None
+        if self.on_shard_complete:
+            self.on_shard_complete(path, self.shard_index - 1)
+
+    def _roll(self):
+        if self._writer is not None:
+            self._close_current()
+        path = self.pattern % self.shard_index
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self._writer = TarShardWriter(path)
+        self.shard_index += 1
+
+    def write(self, sample: Dict[str, Any]) -> None:
+        if self._writer is None or self._writer.count >= self.maxcount:
+            self._roll()
+        self._writer.write(sample)
+
+    def close(self):
+        if self._writer is not None:
+            self._close_current()
 
     def __enter__(self):
         return self

@@ -6,13 +6,19 @@ slicer, the module builder (random weights from a seed, or a JAX parameter
 tree), pretrained loading (``load_pretrained_backbone`` for the denoiser
 from ``pretrained_model_path`` or ``pretrained_pipe_path/transformer``,
 ``load_pipe_component`` for the caption encoder and VAE of
-``pretrained_pipe_path``), the ``low_vram`` staging of encoder and decoder
-weights, the tiling decoder, the prompt encoder's padding, the T5 caption
-encoder and KL-VAE decoder of ``build_t5_vae_encoders``, the local
-feature-shard sampler and the training CLI (``cli_main``, which adds
-``--device`` to the JAX package's ``--config``).  Streaming from URLs or
-R2, the image encoders, the feature-extraction phase, the single-file
-CompVis checkpoints and the PixelDiT hub fetch are not ported.
+``pretrained_pipe_path``; a VAE's encoder half only for a run that
+encodes images: ``encodes_images``), the ``low_vram`` staging of
+encoder and decoder weights, the tiling decoder, the image encoder (uint8
+pixels cross to the device and are normalised there: ``pixels_to_u8``,
+``u8_to_unit``), the prompt encoder's padding, the T5 caption encoder and
+KL-VAE of ``build_t5_vae_encoders``, the shard sources (local paths, then
+``urls``, then R2), the sampler selection every family shares
+(``build_family_sampler``: Dreambooth, then ``compute_features``, then
+feature shards) and the training CLI (``cli_main``, which adds
+``--device`` to the JAX package's ``--config`` and routes
+``extract_features`` to the extraction pass).  The single-file CompVis
+checkpoints, the PixelDiT hub fetch, CLIP and DINOv2 are not ported
+(ROADMAP queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ from yat_tpu_torch.models.convert import CKPT_NAMES
 from yat_tpu_torch.data.sampler import (
     FeatureBucketSampler,
     LocalShardSource,
+    RemoteShardSource,
+    UrlShardSource,
     caption_length_buckets,
     caption_rung,
     pad_embeddings,
@@ -197,20 +205,18 @@ def load_pipe_component(params: TrainingParameters, sub: str, convert):
 
 
 def build_pipe_component(params: TrainingParameters, sub: str, convert,
-                         module_fn, device, seed, dtype=None, tree=None,
-                         pick: Optional[str] = None):
+                         module_fn, device, seed, dtype=None, tree=None):
     """A caption encoder or VAE of the pipe directory: the JAX parameter
     ``tree`` when given, else ``pretrained_pipe_path/sub`` converted by
-    ``convert(state_dict)`` where present (its ``pick`` half for a VAE),
-    else random from ``seed`` (:func:`build_component`).  A module loaded
-    from its file carries the seconds that took in ``load_seconds``, which
+    ``convert(state_dict)`` where present, else random from ``seed``
+    (:func:`build_component`; a VAE built without its encoder drops that
+    half of the tree).  A module loaded from
+    its file carries the seconds that took in ``load_seconds``, which
     ``chip_smoke.py`` reports."""
     t0 = time.perf_counter()
     from_file = tree is None
     if from_file:
         tree = load_pipe_component(params, sub, convert)
-    if tree is not None and pick:
-        tree = {pick: tree[pick]}
     module = build_component(module_fn, device, tree, seed, dtype,
                              params.low_vram)
     if from_file and tree is not None:
@@ -224,8 +230,9 @@ def build_component(module_fn, device, tree, seed, dtype=None,
                     low_vram: bool = False):
     """A caption encoder or VAE: :func:`build_module` on ``device`` with
     the converted ``tree`` merged strictly (every parameter must be in it;
-    leaves the module has no place for, such as a VAE's encoder half, are
-    dropped), or random from ``seed``.  Under ``low_vram`` its weights then
+    leaves the module has no place for, such as the encoder half of a
+    decode-only VAE, are dropped), or random from ``seed``.  Under
+    ``low_vram`` its weights then
     rest on the host (:func:`staged` brings them to the device for a
     call)."""
     if tree is not None:
@@ -253,6 +260,72 @@ def staged(module, device, low_vram: bool):
         yield module
     finally:
         module.to("cpu")
+
+
+def pixels_to_u8(images) -> np.ndarray:
+    """Host pixels → uint8 for the trip to the device: uint8 stays as it
+    is, float pixels in [-1, 1] round to the nearest of 256 steps (exact
+    for decoded images, which are uint8 to begin with)."""
+    arr = np.asarray(images)
+    if arr.dtype == np.uint8:
+        return arr
+    return np.rint((arr.astype(np.float32) + 1.0) * 127.5).clip(
+        0, 255).astype(np.uint8)
+
+
+def u8_to_unit(x: torch.Tensor) -> torch.Tensor:
+    """The device side of :func:`pixels_to_u8`: uint8 → fp32 in [-1, 1]."""
+    return x.float() / 127.5 - 1.0
+
+
+def make_image_encoder(vae, device, low_vram: bool):
+    """``encode_images(pixels)`` → fp32 NHWC latents on the host
+    (``vae.encode_mode``; pixels go to the device as uint8 and are
+    normalised there).  ``encode_images.dispatch(pixels)`` launches the
+    encode on the device's stream and returns a closure that waits for it
+    as it copies the latents to the host, so several chunks can be in
+    flight (the extraction pass).  The VAE rides along as
+    ``encode_images.module``."""
+
+    @torch.inference_mode()
+    def dispatch(images):
+        u8 = torch.as_tensor(pixels_to_u8(images)).to(device)
+        with staged(vae, device, low_vram):
+            z = vae.encode_mode(u8_to_unit(u8))
+        return lambda: z.cpu().numpy()
+
+    def encode_images(images):
+        return dispatch(images)()
+
+    encode_images.dispatch = dispatch
+    encode_images.module = vae
+    return encode_images
+
+
+def make_caption_encoder(te, tokenize, max_len: int, device,
+                         low_vram: bool):
+    """``encode_captions(captions)`` → list of fp32 ``[L_i, D]`` host
+    arrays: tokenize to ``max_len``, trim to the caption rung, encode,
+    mask-compress.  ``encode_captions.dispatch`` launches and returns a
+    closure that compresses (and so waits) later.  The encoder rides along
+    as ``encode_captions.module``."""
+    from yat_tpu_torch.models.text_encoders import compress_embeddings
+
+    @torch.inference_mode()
+    def dispatch(captions):
+        ids, mask = tokenize(list(captions), max_length=max_len)
+        ids, mask = slice_caption_rung(ids, mask)
+        with staged(te, device, low_vram):
+            hidden = te(torch.as_tensor(ids, device=device),
+                        torch.as_tensor(mask, device=device))
+        return lambda: compress_embeddings(hidden, mask)
+
+    def encode_captions(captions):
+        return dispatch(captions)()
+
+    encode_captions.dispatch = dispatch
+    encode_captions.module = te
+    return encode_captions
 
 
 def make_tiling_decoder(vae, device, low_vram: bool):
@@ -322,26 +395,29 @@ def make_prompt_encoder(encode_captions, max_len: int, device):
 
 def build_t5_vae_encoders(params: TrainingParameters, device,
                           max_caption_len: int = 300,
-                          weights: Optional[Mapping] = None):
-    """The T5 caption encoder and the fp32 KL-VAE decoder of the
-    PixArt-Sigma path as callables (T5-XXL and SD's VAE, or their tiny test
-    configurations under ``tiny_encoders``).
+                          weights: Optional[Mapping] = None,
+                          images: bool = True):
+    """The fp32 KL-VAE encoder, the T5 caption encoder and the fp32 KL-VAE
+    decoder of the PixArt-Sigma path as callables (SD's VAE and T5-XXL, or
+    their tiny test configurations under ``tiny_encoders``):
+    ``(encode_images, encode_captions, decode_latents)``; without
+    ``images`` the KL-VAE is its decoder alone and ``encode_images`` is
+    None (serving).
 
+    ``encode_images(pixels)`` → latents (:func:`make_image_encoder`);
     ``encode_captions(captions)`` → list of fp32 ``[L_i, D]`` host arrays
-    (tokenize to ``max_caption_len``, trim to the caption rung, encode,
-    mask-compress); ``decode_latents(z)`` → NHWC images (fp32).  The
-    weights are the JAX parameter trees under ``"text_encoder"`` and
-    ``"vae"`` of ``weights`` when given, else they load from
-    ``pretrained_pipe_path``'s ``text_encoder/`` and ``vae/`` where present
-    (the VAE's decoder half), else they are random from ``dataset_seed``;
-    under ``low_vram`` both rest on the host.  The T5 module rides along as
-    ``encode_captions.module`` (``chip_smoke.py`` checks its weights).
-    The image encoder waits for the precompute slice (ROADMAP queue 1,
-    item 8)."""
+    (:func:`make_caption_encoder`); ``decode_latents(z)`` → NHWC images
+    (fp32).  The weights are the JAX parameter trees under
+    ``"text_encoder"`` and ``"vae"`` of ``weights`` when given, else they
+    load from ``pretrained_pipe_path``'s ``text_encoder/`` and ``vae/``
+    where present, else they are random from
+    ``dataset_seed``; under ``low_vram`` both rest on the host.  The
+    modules ride along as ``.module`` of each callable (``chip_smoke.py``
+    checks their weights)."""
     from yat_tpu_torch.models.convert import convert_t5_encoder
     from yat_tpu_torch.models.convert_unet import convert_vae_kl
     from yat_tpu_torch.models.text_encoders import (
-        T5_TINY_TEST, T5_XXL, T5Encoder, compress_embeddings)
+        T5_TINY_TEST, T5_XXL, T5Encoder)
     from yat_tpu_torch.models.vae import (
         KLVAE_SD15, KLVAE_TINY_TEST, AutoencoderKL)
     from yat_tpu_torch.utils.tokenizer import load_tokenizer
@@ -361,23 +437,14 @@ def build_t5_vae_encoders(params: TrainingParameters, device,
     vae = build_pipe_component(
         params, "vae", lambda sd: convert_vae_kl(
             sd, vae_cfg.block_out_channels, vae_cfg.layers_per_block),
-        lambda: AutoencoderKL(vae_cfg), device, params.dataset_seed + 2,
-        tree=weights.get("vae"), pick="decoder")
+        lambda: AutoencoderKL(vae_cfg, encoder=images), device,
+        params.dataset_seed + 2, tree=weights.get("vae"))
     tokenize = load_tokenizer(params.pretrained_pipe_path,
                               vocab_size=te_cfg.vocab_size,
                               max_length=max_caption_len)
-
-    @torch.inference_mode()
-    def encode_captions(captions):
-        ids, mask = tokenize(list(captions), max_length=max_caption_len)
-        ids, mask = slice_caption_rung(ids, mask)
-        with staged(te, device, low):
-            hidden = te(torch.as_tensor(ids, device=device),
-                        torch.as_tensor(mask, device=device))
-        return compress_embeddings(hidden, mask)
-
-    encode_captions.module = te
-    return encode_captions, make_tiling_decoder(vae, device, low)
+    return (make_image_encoder(vae, device, low) if images else None,
+            make_caption_encoder(te, tokenize, max_caption_len, device, low),
+            make_tiling_decoder(vae, device, low))
 
 
 def _coerce_like(cur, v):
@@ -419,6 +486,44 @@ def override_config(cfg, overrides: dict, mirror_out_channels: bool = False):
     return dataclasses.replace(cfg, **typed)
 
 
+def shard_range_for_host(num_shards: int, process_index: int = 0,
+                         process_count: int = 1) -> range:
+    """The shards of one process: an even split, the last process taking
+    the remainder; every shard when there are fewer shards than
+    processes.  The port runs one process (ROADMAP queue 1, item 12)."""
+    if num_shards < process_count:
+        return range(0, num_shards)
+    per = num_shards // process_count
+    begin = process_index * per
+    end = num_shards if process_index == process_count - 1 else begin + per
+    return range(begin, end)
+
+
+def r2_shard_names(params: TrainingParameters, per_host: bool = True
+                   ) -> list:
+    """The R2 shard list: ``r2_tar_files``, else ``shard-%06d.tar`` over
+    ``num_shards``; ``per_host`` restricts it to this process's range."""
+    if params.r2_tar_files:
+        names = list(params.r2_tar_files)
+        if per_host:
+            names = [names[i] for i in shard_range_for_host(len(names))]
+        return names
+    n = params.num_shards or 1
+    rng = shard_range_for_host(n) if per_host else range(n)
+    return [f"shard-{i:06d}.tar" for i in rng]
+
+
+def make_remote_source(params: TrainingParameters, per_host: bool = True,
+                       one_pass: bool = False) -> RemoteShardSource:
+    """The R2 source over ``r2_dataset_folder`` (presigned GETs)."""
+    return RemoteShardSource(
+        r2_shard_names(params, per_host=per_host),
+        params.r2_dataset_folder or "",
+        params.r2_access_key, params.r2_secret_key,
+        params.r2_endpoint, params.r2_bucket_name,
+        seed=params.dataset_seed, one_pass=one_pass)
+
+
 def make_local_source(params: TrainingParameters) -> LocalShardSource:
     """The local shard source of process 0 (one process: every path), its
     shuffle seeded with ``host_seed(dataset_seed)`` as in the JAX
@@ -427,28 +532,160 @@ def make_local_source(params: TrainingParameters) -> LocalShardSource:
                             seed=host_seed(params.dataset_seed))
 
 
+def make_shard_source(params: TrainingParameters, one_pass: bool = False):
+    """The shard source by precedence: ``local_shard_paths``, then
+    ``urls``, then R2; None when none is configured.  ``one_pass`` (the
+    extraction pass) reads every shard once, in the configured order, and
+    ends; otherwise the sources cycle."""
+    if params.local_shard_paths:
+        if one_pass:
+            return list(params.local_shard_paths)
+        return make_local_source(params)
+    if params.urls:
+        return UrlShardSource(params.urls, seed=params.dataset_seed,
+                              probs=params.url_probs, one_pass=one_pass)
+    if params.r2_endpoint:
+        return make_remote_source(params, one_pass=one_pass)
+    return None
+
+
+def make_image_source(params: TrainingParameters, one_pass: bool = False):
+    """The raw ``{jpg, txt}`` shard source of ``compute_features`` and
+    ``extract_features`` (:func:`make_shard_source`); raises when none is
+    configured."""
+    source = make_shard_source(params, one_pass=one_pass)
+    if source is None:
+        raise ValueError(
+            "a raw-image shard source is required (compute_features / "
+            "extract_features): configure local_shard_paths, urls, or R2 "
+            "credentials")
+    return source
+
+
 def build_feature_sampler(params: TrainingParameters, max_caption_len: int):
-    """The pre-extracted feature-shard sampler over ``local_shard_paths``;
-    None when no data source is configured."""
-    if params.urls or params.r2_endpoint:
-        raise NotImplementedError(
-            "streaming feature shards from urls or R2 is not implemented in "
-            "the PyTorch port yet (ROADMAP queue 1, item 8); use "
-            "local_shard_paths")
-    if not params.local_shard_paths:
+    """The pre-extracted feature-shard sampler over the configured source
+    (:func:`make_shard_source`); None when no data source is
+    configured."""
+    source = make_shard_source(params)
+    if source is None:
         return None
     cb = (caption_length_buckets(max_caption_len)
           if params.caption_length_bucketing else None)
-    return FeatureBucketSampler(make_local_source(params), params.batch_size,
-                                max_caption_len, seed=params.dataset_seed,
-                                caption_buckets=cb,
+    return FeatureBucketSampler(source, params.batch_size, max_caption_len,
+                                seed=params.dataset_seed, caption_buckets=cb,
                                 bucket_repeat=params.bucket_repeat)
+
+
+def encodes_images(params: TrainingParameters) -> bool:
+    """Whether a run encodes images (Dreambooth, ``compute_features`` or
+    the extraction pass), and so needs its VAE's encoder half."""
+    return bool(params.dreambooth_dataset_folder or params.extract_features
+                or (params.compute_features
+                    and not params.use_calculated_features))
+
+
+@dataclasses.dataclass
+class FamilySpec:
+    """What a model family gives the shared sampler selection: its caption
+    budget, its default resolution (the bin table), and how to build its
+    encoders: ``build_encoders(params)`` → a dict with ``encode_images``,
+    ``encode_captions`` and ``decode_latents``."""
+
+    family: str
+    max_caption_len: int
+    default_resolution: int
+    build_encoders: Callable[[TrainingParameters], dict]
+
+
+def ensure_encoders(params: TrainingParameters, spec: FamilySpec,
+                    holder: dict, trainer=None) -> dict:
+    """Build the family's encoders once into ``holder`` (shared by the
+    sampler, validation and the extraction pass); with ``trainer``, set
+    them on it as attributes too."""
+    if "encode_captions" not in holder:
+        built = spec.build_encoders(params)
+        holder.update({k: v for k, v in built.items() if v is not None})
+    if trainer is not None:
+        for k, v in holder.items():
+            setattr(trainer, k, v)
+    return holder
+
+
+def build_family_sampler(params: TrainingParameters, spec: FamilySpec,
+                         holder: dict):
+    """The sampler every family selects the same way:
+
+    1. ``dreambooth_dataset_folder`` → ``DreamboothSampler`` (with R2
+       regularization shards when R2 is configured), encoded on the fly;
+    2. ``compute_features`` (without ``use_calculated_features``) →
+       ``ImageBucketSampler`` over the raw shard source →
+       ``OnTheFlyEncodingSampler`` (``bucket_repeat`` after the encode) →
+       ``FeatureCache`` of ``cache_size // batch_size`` batches;
+    3. otherwise → ``FeatureBucketSampler`` over feature shards.
+
+    Raises when no data source is configured (the JAX package returns
+    None for its validation-only trainers; the port serves through
+    ``make_pipeline``)."""
+    from yat_tpu_torch.data.bins import bin_for_resolution
+    from yat_tpu_torch.data.sampler import (DreamboothSampler,
+                                            ImageBucketSampler)
+    from yat_tpu_torch.train.encode import (FeatureCache,
+                                            OnTheFlyEncodingSampler)
+
+    bins = bin_for_resolution(params.aspect_ratios or spec.default_resolution)
+
+    def on_the_fly(images, repeat=1, cache=False):
+        h = ensure_encoders(params, spec, holder)
+        cb = (caption_length_buckets(spec.max_caption_len)
+              if params.caption_length_bucketing else None)
+        encoded = OnTheFlyEncodingSampler(
+            images, h["encode_images"], h["encode_captions"],
+            spec.max_caption_len,
+            vae_max_batch_size=params.vae_max_batch_size,
+            text_encoder_max_batch_size=params.text_encoder_max_batch_size,
+            caption_buckets=cb, repeat=repeat)
+        if not cache:
+            return encoded
+        return FeatureCache(
+            encoded, cache_size=max(1, params.cache_size // params.batch_size),
+            save_to_disk=params.save_to_disk)
+
+    if params.dreambooth_dataset_folder:
+        reg_source = None
+        if params.r2_endpoint and (params.num_shards or params.r2_tar_files):
+            reg_source = make_remote_source(params, per_host=False)
+        images = DreamboothSampler(
+            params.dreambooth_dataset_folder,
+            params.dreambooth_regularization_folder,
+            params.dreambooth_instance, params.dreambooth_class,
+            params.dreambooth_num_repeats, params.batch_size, bins,
+            num_regularisation_passes=(
+                params.dreambooth_num_regularisation_passes),
+            seed=params.dataset_seed, reg_shard_source=reg_source)
+        return on_the_fly(images)
+
+    if params.compute_features and not params.use_calculated_features:
+        images = ImageBucketSampler(make_image_source(params),
+                                    params.batch_size, bins,
+                                    seed=params.dataset_seed)
+        print(f"[data] raw images decode through {images.decoder}")
+        return on_the_fly(images, repeat=params.bucket_repeat, cache=True)
+
+    sampler = build_feature_sampler(params, spec.max_caption_len)
+    if sampler is None:
+        raise ValueError("no data source: configure local_shard_paths, "
+                         "urls, R2 credentials or a "
+                         "dreambooth_dataset_folder")
+    return sampler
 
 
 def cli_main(make_trainer: Callable[..., object],
              argv: Optional[list] = None):
     """``--config config.yaml [--device cuda|cpu]``: build the trainer on
-    the device (the card unless asked otherwise) and run it; returns the
+    the device (the card unless asked otherwise) and run it, or, under
+    ``extract_features``, run the extraction pass with its encoders
+    (:func:`~yat_tpu_torch.train.extract.run_feature_extraction`, whose
+    extractor the trainer keeps as ``extraction``); returns the
     trainer."""
     p = argparse.ArgumentParser()
     p.add_argument("--config", required=True, type=str)
@@ -456,10 +693,10 @@ def cli_main(make_trainer: Callable[..., object],
                    help="cuda (the default) or cpu")
     args = p.parse_args(argv)
     params = TrainingParameters.read_yaml(args.config)
-    if params.extract_features or params.compute_features:
-        raise NotImplementedError(
-            "feature extraction and on-the-fly encoding are not implemented "
-            "in the PyTorch port yet (ROADMAP queue 1, item 8)")
     trainer = make_trainer(params, device=args.device)
-    trainer.run()
+    if params.extract_features:
+        from yat_tpu_torch.train.extract import run_feature_extraction
+        trainer.extraction = run_feature_extraction(trainer)
+    else:
+        trainer.run()
     return trainer

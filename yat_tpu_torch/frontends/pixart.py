@@ -3,9 +3,10 @@ pipeline.
 
 Counterpart of ``yat_tpu/frontends/pixart.py``: ``make_trainer`` wires the
 training path (LoRA or full fine-tuning, the epsilon-prediction DDPM loss
-with the learned-sigma half sliced off, the preservation term, local
-feature shards, validation when prompts are configured) and
-``make_pipeline`` the serving path, which samples the way the JAX
+with the learned-sigma half sliced off, the preservation term, the data
+path of ``common.build_family_sampler``: Dreambooth folders, raw images
+encoded on the fly by T5 and the KL-VAE, or feature shards; validation
+when prompts are configured) and ``make_pipeline`` the serving path, which samples the way the JAX
 frontend's validation does (20 DDIM steps, CFG 5.0, PAG 2.0, the epsilon
 half of the learned-sigma output, seed 42).  The denoiser loads
 from a diffusers checkpoint (``pretrained_model_path``, or
@@ -30,10 +31,13 @@ import torch
 from yat_tpu_torch.config import TrainingParameters
 from yat_tpu_torch.device import resolve_device
 from yat_tpu_torch.frontends.common import (
+    FamilySpec,
     build_backbone,
-    build_feature_sampler,
+    build_family_sampler,
     build_t5_vae_encoders,
     cli_main,
+    encodes_images,
+    ensure_encoders,
     make_prompt_encoder,
     override_config,
 )
@@ -67,7 +71,7 @@ def make_pipeline(params: TrainingParameters, device=None,
                   weights: Optional[Mapping] = None) -> ValidationPipeline:
     """The PixArt-Sigma serving pipeline: the denoiser (bf16 when
     ``bfloat16`` is set, its parameters stored in bf16 too), the T5 encoder
-    (same) and the fp32 KL-VAE decoder; 20 DDIM steps, CFG 5.0, PAG 2.0,
+    (same) and the fp32 KL-VAE decoder (no encoder half); 20 DDIM steps, CFG 5.0, PAG 2.0,
     ``pred_slice`` = ``in_channels`` for a learned-sigma head, seed 42,
     refiner gating on ``timesteps``.  ``device`` defaults to ``cuda``.  The
     weights come from the pretrained paths, or from JAX parameter trees
@@ -78,8 +82,8 @@ def make_pipeline(params: TrainingParameters, device=None,
     weights = weights or {}
     model = build_denoiser(params, cfg, device, weights.get("transformer"),
                            torch.bfloat16 if params.bfloat16 else None)
-    encode_captions, decode_latents = build_t5_vae_encoders(
-        params, device, cfg.max_caption_len, weights)
+    _, encode_captions, decode_latents = build_t5_vae_encoders(
+        params, device, cfg.max_caption_len, weights, images=False)
     return _pipeline(params, cfg, model, encode_captions, decode_latents,
                      device)
 
@@ -103,18 +107,24 @@ def _pred_slice(cfg: PixArtConfig) -> Optional[int]:
         else None
 
 
-def build_sampler(params: TrainingParameters, cfg: PixArtConfig):
-    """The pre-extracted feature-shard sampler (local shards) at PixArt's
-    300-token caption budget: rungs 128, 256 and 300 under
-    ``caption_length_bucketing``."""
-    if params.dreambooth_dataset_folder:
-        raise NotImplementedError(
-            "Dreambooth sampling is not implemented in the PyTorch port yet "
-            "(ROADMAP queue 1, item 8)")
-    sampler = build_feature_sampler(params, cfg.max_caption_len)
-    if sampler is None:
-        raise ValueError("need local_shard_paths")
-    return sampler
+def family_spec(params: TrainingParameters, cfg: PixArtConfig, device,
+                weights: Optional[Mapping] = None) -> FamilySpec:
+    """PixArt-Sigma's part of the shared sampler selection: the 300-token
+    caption budget (rungs 128, 256 and 300 under
+    ``caption_length_bucketing``), its resolution's bin table, and
+    ``build_t5_vae_encoders`` (the KL-VAE's encoder half only for a run
+    that encodes images)."""
+
+    def encoders(p):
+        ei, ec, dl = build_t5_vae_encoders(p, device, cfg.max_caption_len,
+                                           weights,
+                                           images=encodes_images(p))
+        return {"encode_images": ei, "encode_captions": ec,
+                "decode_latents": dl}
+
+    return FamilySpec(family="pixart", max_caption_len=cfg.max_caption_len,
+                      default_resolution=cfg.resolution,
+                      build_encoders=encoders)
 
 
 def make_trainer(params: TrainingParameters, sampler=None, device=None,
@@ -126,9 +136,10 @@ def make_trainer(params: TrainingParameters, sampler=None, device=None,
     ``low_vram``; loaded from the pretrained paths before any
     quantization), the epsilon-prediction loss on ``DDPMSchedule`` with the
     learned-sigma half sliced off (and the epsilon-form preservation term
-    under ``use_preservation``), the local feature-shard sampler, and with
-    ``validation_prompts`` the T5 encoder (its empty caption feeds
-    unconditional-caption dropout), the KL-VAE decoder and the 20-step
+    under ``use_preservation``), the sampler of
+    ``common.build_family_sampler`` (its encoders, when it builds them, set
+    on the trainer), and with ``validation_prompts`` the encoders (the
+    empty caption feeds unconditional-caption dropout) and the 20-step
     DDIM, CFG 5.0, PAG 2.0 validation pipeline on the live model (on its
     EMA leaves under ``use_ema``; refiner-gated on ``timesteps``).
     ``device`` defaults to ``cuda``; ``weights`` may hold JAX parameter
@@ -144,20 +155,23 @@ def make_trainer(params: TrainingParameters, sampler=None, device=None,
                              learned_sigma=_pred_slice(cfg) is not None)
     pres = (make_preservation_loss(model, schedule, is_flow=False)
             if params.use_preservation else None)
+    holder: dict = {}
+    spec = family_spec(params, cfg, device, weights)
     if sampler is None:
-        sampler = build_sampler(params, cfg)
+        sampler = build_family_sampler(params, spec, holder)
     trainer = Trainer(params, model, loss, sampler=sampler, device=device,
                       preservation_loss=pres)
     trainer.pixart_config = cfg
+    trainer.family_spec = spec
     trainer.schedule = schedule
     if params.validation_prompts:
-        encode_captions, decode_latents = build_t5_vae_encoders(
-            params, device, cfg.max_caption_len, weights)
-        trainer.encode_captions = encode_captions
-        pipeline = _pipeline(params, cfg, model, encode_captions,
-                             decode_latents, device)
+        ensure_encoders(params, spec, holder)
+        pipeline = _pipeline(params, cfg, model, holder["encode_captions"],
+                             holder["decode_latents"], device)
         trainer.validation_pipeline = pipeline
         trainer.validate_fn = pipeline.validate
+    for k, v in holder.items():
+        setattr(trainer, k, v)
     return trainer
 
 

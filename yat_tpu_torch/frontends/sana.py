@@ -2,8 +2,12 @@
 
 Counterpart of ``yat_tpu/frontends/sana.py``: ``make_trainer`` wires the
 training path (LoRA or full fine-tuning, flow-matching loss, the
-preservation term, local feature shards, validation when prompts are
-configured) and ``make_pipeline`` the serving path.  The
+preservation term, the data path that ``common.build_family_sampler``
+selects: Dreambooth folders, raw images encoded on the fly, or feature
+shards, from local paths, urls or R2; validation when prompts are
+configured) and ``make_pipeline`` the serving path; under
+``extract_features`` the CLI runs the extraction pass with the trainer's
+encoders.  The
 denoiser loads from a diffusers checkpoint (``pretrained_model_path``, or
 ``transformer/`` of ``pretrained_pipe_path``, whose ``config.json`` sets
 the architecture), Gemma-2 and the DC-AE from ``text_encoder/`` and
@@ -23,16 +27,19 @@ import torch
 from yat_tpu_torch.config import TrainingParameters
 from yat_tpu_torch.device import resolve_device
 from yat_tpu_torch.frontends.common import (
+    FamilySpec,
     build_backbone,
-    build_feature_sampler,
+    build_family_sampler,
     build_pipe_component,
     cli_main,
+    encodes_images,
+    ensure_encoders,
     find_model_config_json,
+    make_caption_encoder,
+    make_image_encoder,
     make_prompt_encoder,
     make_tiling_decoder,
     override_config,
-    slice_caption_rung,
-    staged,
 )
 from yat_tpu_torch.models.sana import (
     SANA_600M,
@@ -89,23 +96,27 @@ def build_sana_config(params: TrainingParameters) -> SanaConfig:
 
 def build_encoders(params: TrainingParameters, cfg: SanaConfig,
                    device: torch.device,
-                   weights: Optional[Mapping] = None):
-    """Gemma-2 caption encoder and DC-AE decoder as callables.
+                   weights: Optional[Mapping] = None, images: bool = True):
+    """The fp32 DC-AE encoder, the Gemma-2 caption encoder and the fp32
+    DC-AE decoder as callables: ``(encode_images, encode_captions,
+    decode_latents)``; without ``images`` the DC-AE is its decoder alone
+    and ``encode_images`` is None (serving).
 
-    ``encode_captions(captions)`` → list of fp32 ``[L_i, D]`` host arrays
-    (tokenize, trim to the caption rung, encode, mask-compress);
-    ``decode_latents(z)`` → NHWC images (fp32; tiled under ``low_vram``).
-    The weights are the JAX parameter trees under ``"text_encoder"`` and
-    ``"vae"`` of ``weights`` when given (the VAE tree needs only its
-    ``"decoder"`` part), else they load from ``text_encoder/`` and ``vae/``
-    of ``pretrained_pipe_path`` where present, else they are random.
-    Under ``low_vram`` both rest on the host between calls.  The Gemma
-    module rides along as ``encode_captions.module`` (``chip_smoke.py``
-    checks its weights)."""
+    ``encode_images(pixels)`` → latents (``common.make_image_encoder``:
+    uint8 to the device, ``DCAE.encode_mode``); ``encode_captions(captions)``
+    → list of fp32 ``[L_i, D]`` host arrays (tokenize, trim to the caption
+    rung, encode, mask-compress); ``decode_latents(z)`` → NHWC images
+    (fp32; tiled under ``low_vram``).  The first two have ``.dispatch``
+    hooks (launch now, wait later).  The weights are the JAX parameter
+    trees under ``"text_encoder"`` and ``"vae"`` of ``weights`` when given,
+    else they load from ``text_encoder/`` and ``vae/`` of
+    ``pretrained_pipe_path`` where present, else they are random.  Under ``low_vram`` both rest on the host between calls.
+    The modules ride along as ``.module`` of each callable
+    (``chip_smoke.py`` checks their weights)."""
     from yat_tpu_torch.models.convert import convert_gemma2
     from yat_tpu_torch.models.convert_dcae import convert_dcae
     from yat_tpu_torch.models.text_encoders import (
-        GEMMA2_2B, GEMMA_TINY_TEST, Gemma2Encoder, compress_embeddings)
+        GEMMA2_2B, GEMMA_TINY_TEST, Gemma2Encoder)
     from yat_tpu_torch.models.vae import DCAE, DCAE_SANA, DCAE_TINY_TEST
     from yat_tpu_torch.utils.tokenizer import load_tokenizer
 
@@ -123,23 +134,15 @@ def build_encoders(params: TrainingParameters, cfg: SanaConfig,
         weights.get("text_encoder"))
     vae = build_pipe_component(
         params, "vae", lambda sd: convert_dcae(sd, vae_cfg),
-        lambda: DCAE(vae_cfg), device, params.dataset_seed + 2,
-        tree=weights.get("vae"), pick="decoder")
+        lambda: DCAE(vae_cfg, encoder=images), device,
+        params.dataset_seed + 2, tree=weights.get("vae"))
     tokenize = load_tokenizer(params.pretrained_pipe_path,
                               vocab_size=te_cfg.vocab_size,
                               max_length=cfg.max_caption_len)
-
-    @torch.inference_mode()
-    def encode_captions(captions):
-        ids, mask = tokenize(list(captions), max_length=cfg.max_caption_len)
-        ids, mask = slice_caption_rung(ids, mask)
-        with staged(te, device, low):
-            hidden = te(torch.as_tensor(ids, device=device),
-                        torch.as_tensor(mask, device=device))
-        return compress_embeddings(hidden, mask)
-
-    encode_captions.module = te
-    return encode_captions, make_tiling_decoder(vae, device, low)
+    return (make_image_encoder(vae, device, low) if images else None,
+            make_caption_encoder(te, tokenize, cfg.max_caption_len, device,
+                                 low),
+            make_tiling_decoder(vae, device, low))
 
 
 def build_denoiser(params: TrainingParameters, cfg: SanaConfig, device,
@@ -156,7 +159,7 @@ def make_pipeline(params: TrainingParameters, device=None,
                   weights: Optional[Mapping] = None) -> ValidationPipeline:
     """The SANA serving pipeline: SANA denoiser (bf16 when ``bfloat16``
     is set, its parameters stored in bf16 too), Gemma-2 encoder (same), and
-    the fp32 DC-AE decoder; 20 flow-match Euler steps at shift 3.0, CFG 5.0,
+    the fp32 DC-AE decoder (no encoder half); 20 flow-match Euler steps at shift 3.0, CFG 5.0,
     prompt enhancement, seed 42, refiner gating on ``timesteps``.
     ``device`` defaults to ``cuda``.  The weights come from the pretrained
     paths, or from JAX parameter trees under ``"transformer"``,
@@ -166,8 +169,8 @@ def make_pipeline(params: TrainingParameters, device=None,
     weights = weights or {}
     model = build_denoiser(params, cfg, device, weights.get("transformer"),
                            torch.bfloat16 if params.bfloat16 else None)
-    encode_captions, decode_latents = build_encoders(params, cfg, device,
-                                                     weights)
+    _, encode_captions, decode_latents = build_encoders(
+        params, cfg, device, weights, images=False)
     return _pipeline(params, cfg, model, encode_captions, decode_latents,
                      device)
 
@@ -186,16 +189,21 @@ def _pipeline(params, cfg, model, encode_captions, decode_latents, device):
         active_timesteps=params.timesteps or None)
 
 
-def build_sampler(params: TrainingParameters, cfg: SanaConfig):
-    """The pre-extracted feature-shard sampler (local shards)."""
-    if params.dreambooth_dataset_folder:
-        raise NotImplementedError(
-            "Dreambooth sampling is not implemented in the PyTorch port yet "
-            "(ROADMAP queue 1, item 8)")
-    sampler = build_feature_sampler(params, cfg.max_caption_len)
-    if sampler is None:
-        raise ValueError("need local_shard_paths")
-    return sampler
+def family_spec(params: TrainingParameters, cfg: SanaConfig, device,
+                weights: Optional[Mapping] = None) -> FamilySpec:
+    """SANA's part of the shared sampler selection: the caption budget of
+    ``cfg``, its resolution's bin table, and :func:`build_encoders` (the
+    DC-AE's encoder half only for a run that encodes images)."""
+
+    def encoders(p):
+        ei, ec, dl = build_encoders(p, cfg, device, weights,
+                                    images=encodes_images(p))
+        return {"encode_images": ei, "encode_captions": ec,
+                "decode_latents": dl}
+
+    return FamilySpec(family="sana", max_caption_len=cfg.max_caption_len,
+                      default_resolution=cfg.resolution,
+                      build_encoders=encoders)
 
 
 def make_trainer(params: TrainingParameters, sampler=None, device=None,
@@ -207,12 +215,12 @@ def make_trainer(params: TrainingParameters, sampler=None, device=None,
     ``low_vram``; loaded from the pretrained paths before any
     quantization), the flow-matching loss at shift 3.0 (and the
     preservation term under ``use_preservation``), the export's
-    ``config.json`` for softmax-patched blocks or ``qk_norm``, the local
-    feature-shard sampler, and with ``validation_prompts`` the
-    Gemma-2 encoder (its empty caption feeds unconditional-caption
-    dropout), the DC-AE decoder and the 20-step CFG 5.0 validation
-    pipeline on the live model (on its EMA leaves under ``use_ema``;
-    refiner-gated on ``timesteps``).  ``device`` defaults to ``cuda``;
+    ``config.json`` for softmax-patched blocks or ``qk_norm``, the sampler
+    of ``common.build_family_sampler`` (its encoders, when it builds them,
+    set on the trainer), and with ``validation_prompts`` the encoders
+    (the empty caption feeds unconditional-caption dropout) and the
+    20-step CFG 5.0 validation pipeline on the live model (on its EMA
+    leaves under ``use_ema``; refiner-gated on ``timesteps``).  ``device`` defaults to ``cuda``;
     ``weights`` may hold JAX parameter trees as for
     :func:`make_pipeline`."""
     device = resolve_device(device)
@@ -225,11 +233,14 @@ def make_trainer(params: TrainingParameters, sampler=None, device=None,
                                    timestep_list=params.timesteps or None)
     pres = (make_preservation_loss(model, schedule, is_flow=True)
             if params.use_preservation else None)
+    holder: dict = {}
+    spec = family_spec(params, cfg, device, weights)
     if sampler is None:
-        sampler = build_sampler(params, cfg)
+        sampler = build_family_sampler(params, spec, holder)
     trainer = Trainer(params, model, loss, sampler=sampler, device=device,
                       preservation_loss=pres)
     trainer.sana_config = cfg
+    trainer.family_spec = spec
     trainer.schedule = schedule
     if cfg.softmax_self_attn_blocks or cfg.qk_norm:
         # the export records the architecture flags, so a reload through
@@ -241,13 +252,13 @@ def make_trainer(params: TrainingParameters, sampler=None, device=None,
         if cfg.qk_norm:
             trainer.model_config_json["qk_norm"] = cfg.qk_norm
     if params.validation_prompts:
-        encode_captions, decode_latents = build_encoders(params, cfg, device,
-                                                         weights)
-        trainer.encode_captions = encode_captions
-        pipeline = _pipeline(params, cfg, model, encode_captions,
-                             decode_latents, device)
+        ensure_encoders(params, spec, holder)
+        pipeline = _pipeline(params, cfg, model, holder["encode_captions"],
+                             holder["decode_latents"], device)
         trainer.validation_pipeline = pipeline
         trainer.validate_fn = pipeline.validate
+    for k, v in holder.items():
+        setattr(trainer, k, v)
     return trainer
 
 

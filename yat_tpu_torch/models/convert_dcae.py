@@ -4,7 +4,7 @@ flax-layout DCAE tree.
 
 Counterpart of ``yat_tpu/models/convert_dcae.py``; the tree has an
 ``encoder`` and a ``decoder`` half, and the port's ``models/vae.DCAE``
-loads the ``decoder`` half (its encoder comes with the precompute slice).
+loads both.
 
 The converter is **structure-driven** rather than index-driven: checkpoint
 keys are grouped by their ``(down|up)_blocks.{i}.{j}`` prefix, each group is

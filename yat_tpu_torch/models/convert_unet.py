@@ -4,8 +4,8 @@ flax-layout AutoencoderKL tree.
 Counterpart of ``convert_vae_kl`` of ``yat_tpu/models/convert_unet.py``
 and the helpers it calls.  The tree has an ``encoder`` half (with
 ``quant_conv``) and a ``decoder`` half (with ``post_quant_conv``); the
-port's ``models/vae.AutoencoderKL`` loads the ``decoder`` half.  The UNet
-converter comes with the UNet families.
+port's ``models/vae.AutoencoderKL`` loads both.  The UNet converter comes
+with the UNet families.
 """
 
 from __future__ import annotations

@@ -225,17 +225,22 @@ class AdapterDense(nn.Module):
 
 
 class Conv2d(nn.Module):
-    """flax ``nn.Conv`` on NHWC tensors ('SAME' padding, odd kernels): the
-    input is viewed as NCHW only around the convolution.  Weight
-    ``[O, I/groups, kh, kw]``; inputs and parameters cast to ``dtype``."""
+    """flax ``nn.Conv`` on NHWC tensors ('SAME' padding for odd kernels, or
+    ``padding=(lo, hi)`` on both spatial dims as flax's explicit
+    ``((lo, hi), (lo, hi))``; ``stride`` on both): the input is viewed as
+    NCHW only around the convolution.  Weight ``[O, I/groups, kh, kw]``;
+    inputs and parameters cast to ``dtype``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int,
                  groups: int = 1, use_bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, stride: int = 1,
+                 padding: Optional[Tuple[int, int]] = None):
         super().__init__()
         self.dtype = dtype
         self.groups = groups
-        self.padding = kernel // 2
+        self.stride = stride
+        self.pad = padding
+        self.padding = kernel // 2 if padding is None else 0
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels // groups, kernel, kernel))
         self.bias = nn.Parameter(torch.empty(out_channels)) if use_bias else None
@@ -248,9 +253,13 @@ class Conv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = self.bias.to(self.dtype) if self.bias is not None else None
-        y = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2),
-                     self.weight.to(self.dtype), bias,
-                     padding=self.padding, groups=self.groups)
+        x = x.to(self.dtype).permute(0, 3, 1, 2)
+        if self.pad is not None:
+            lo, hi = self.pad
+            x = F.pad(x, (lo, hi, lo, hi))
+        y = F.conv2d(x, self.weight.to(self.dtype), bias,
+                     stride=self.stride, padding=self.padding,
+                     groups=self.groups)
         return y.permute(0, 2, 3, 1)
 
 

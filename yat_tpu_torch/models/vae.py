@@ -1,22 +1,29 @@
-"""Autoencoders, the decode side: SD's AutoencoderKL (8x, PixArt-Sigma) and
-DC-AE (32x, SANA).
+"""Autoencoders: SD's AutoencoderKL (8x, PixArt-Sigma) and DC-AE (32x,
+SANA), both halves (serving builds the decoder alone: ``encoder=False``).
 
 Counterpart of ``yat_tpu/models/vae.py``:
 
-* ``AutoencoderKL``: the SD structure one to one (conv stem, mid block of
-  two resnets around a single-head attention over the latent grid, up
-  stages of resnets with nearest x2 upsampling), flax ``nn.GroupNorm``
-  semantics (32 groups, eps 1e-6, the one-pass variance);
+* ``AutoencoderKL``: the SD structure one to one (conv stem, down stages
+  of resnets with a stride-2 conv padded on the bottom and right, up
+  stages of resnets with nearest x2 upsampling, mid blocks of two resnets
+  around a single-head attention over the latent grid), flax
+  ``nn.GroupNorm`` semantics (32 groups, eps 1e-6, the one-pass variance);
+  ``encode`` gives the mean and the log-variance clipped to [-30, 20],
+  ``encode_mode`` the mean, shifted where the config has a shift, times
+  the scaling factor;
 * DC-AE (weight-compatible with diffusers ``AutoencoderDC``): conv stem,
   ResBlock stages, EfficientViT stages (multiscale ReLU linear attention +
-  gated GLUMBConv, both residual with a trailing channel RMSNorm) and
-  pixel-shuffle upsampling with the channel-duplication shortcut.
+  gated GLUMBConv, both residual with a trailing channel RMSNorm),
+  pixel-unshuffle downsampling with the channel-group-mean shortcut and
+  pixel-shuffle upsampling with the channel-duplication shortcut;
+  ``encode_mode`` is the encoder's output times the scaling factor.
 
-The VAEs always run in fp32; their attentions are plain tensor code, as in
-the JAX package.  Tensors are NHWC at every module boundary.
-``decode_tiled`` decodes in overlapping latent tiles, feathered together
-(``low_vram`` and 2048 px).  The encoders wait for the precompute slice of
-the port (ROADMAP queue 1, item 8).
+The VAEs always run in fp32, with TF32 off on the card (the entry points'
+``device.resolve_device`` turns it off for matmuls and cuDNN's
+convolutions); their attentions are plain tensor code, as in
+the JAX package (no Pallas kernel there, so no kernel of the port here).
+Tensors are NHWC at every module boundary.  ``decode_tiled`` decodes in
+overlapping latent tiles, feathered together (``low_vram`` and 2048 px).
 """
 
 from __future__ import annotations
@@ -123,6 +130,45 @@ class KLVAEConfig:
         return 2 ** (len(self.block_out_channels) - 1)
 
 
+class KLEncoder(nn.Module):
+    def __init__(self, cfg: KLVAEConfig):
+        super().__init__()
+        c = cfg
+        ch = c.block_out_channels
+        self.conv_in = Conv2d(c.in_channels, ch[0], 3)
+        # flax names: down_{i}_resnet_{j}, then down_{i}_downsample
+        self.stages = []
+        ch_in = ch[0]
+        for i, out in enumerate(ch):
+            names = []
+            for j in range(c.layers_per_block):
+                self.add_module(f"down_{i}_resnet_{j}",
+                                ResnetBlock(ch_in, out))
+                names.append(f"down_{i}_resnet_{j}")
+                ch_in = out
+            if i < len(ch) - 1:
+                self.add_module(f"down_{i}_downsample",
+                                Conv2d(out, out, 3, stride=2, padding=(0, 1)))
+                names.append(f"down_{i}_downsample")
+            self.stages.append(names)
+        self.mid_resnet_0 = ResnetBlock(ch[-1], ch[-1])
+        self.mid_attn = AttnBlock(ch[-1])
+        self.mid_resnet_1 = ResnetBlock(ch[-1], ch[-1])
+        self.conv_norm_out = GroupNorm(ch[-1])
+        self.conv_out = Conv2d(ch[-1], 2 * c.latent_channels, 3)
+        self.quant_conv = Conv2d(2 * c.latent_channels,
+                                 2 * c.latent_channels, 1)
+
+    def forward(self, x):
+        h = self.conv_in(x)
+        for names in self.stages:
+            for name in names:
+                h = getattr(self, name)(h)
+        h = self.mid_resnet_1(self.mid_attn(self.mid_resnet_0(h)))
+        h = self.conv_out(F.silu(self.conv_norm_out(h)))
+        return self.quant_conv(h)
+
+
 class KLDecoder(nn.Module):
     def __init__(self, cfg: KLVAEConfig):
         super().__init__()
@@ -163,12 +209,31 @@ class KLDecoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """SD's KL autoencoder, decode side, fp32."""
+    """SD's KL autoencoder, fp32; without ``encoder`` the decode side only
+    (serving).  The decoder comes first, so its weights from a seed do not
+    depend on whether the encoder is built."""
 
-    def __init__(self, cfg: KLVAEConfig = KLVAEConfig()):
+    def __init__(self, cfg: KLVAEConfig = KLVAEConfig(),
+                 encoder: bool = True):
         super().__init__()
         self.cfg = cfg
         self.decoder = KLDecoder(cfg)
+        if encoder:
+            self.encoder = KLEncoder(cfg)
+
+    def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """NHWC images in [-1, 1] → (mean, log-variance clipped to
+        [-30, 20]), fp32."""
+        mean, logvar = self.encoder(x.float()).chunk(2, dim=-1)
+        return mean, logvar.clamp(-30.0, 20.0)
+
+    def encode_mode(self, x: torch.Tensor) -> torch.Tensor:
+        """Deterministic latents: the mean, shifted where the config has a
+        shift, times the scaling factor."""
+        z, _ = self.encode(x)
+        if self.cfg.shift_factor is not None:
+            z = z - self.cfg.shift_factor
+        return z * self.cfg.scaling_factor
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """NHWC latents → NHWC images in about [-1, 1], fp32."""
@@ -319,6 +384,15 @@ class EfficientViTBlock(nn.Module):
         return self.conv_out(self.attn(x))
 
 
+def _pixel_unshuffle(x: torch.Tensor, r: int = 2) -> torch.Tensor:
+    """NHWC pixel-unshuffle with torch's channel-major ordering (output
+    channel k = c*r^2 + i*r + j)."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // r, r, w // r, r, c)      # (b, H, i, W, j, c)
+    x = x.permute(0, 1, 3, 5, 2, 4)                # (b, H, W, c, i, j)
+    return x.reshape(b, h // r, w // r, c * r * r)
+
+
 def _pixel_shuffle(x: torch.Tensor, r: int = 2) -> torch.Tensor:
     """NHWC pixel-shuffle with torch's channel-major ordering (input channel
     k = c*r^2 + i*r + j)."""
@@ -327,6 +401,23 @@ def _pixel_shuffle(x: torch.Tensor, r: int = 2) -> torch.Tensor:
     x = x.reshape(b, h, w, co, r, r)               # (b, h, w, c, i, j)
     x = x.permute(0, 1, 4, 2, 5, 3)                # (b, h, i, w, j, c)
     return x.reshape(b, h * r, w * r, co)
+
+
+class DCDownsample(nn.Module):
+    """conv(in → out/4) → pixel-unshuffle, + the shortcut: the input
+    pixel-unshuffled, averaged over groups of consecutive channels down to
+    ``out``."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.out_channels = out_channels
+        self.conv = Conv2d(in_channels, out_channels // 4, 3)
+
+    def forward(self, x):
+        y = _pixel_unshuffle(self.conv(x), 2)
+        sc = _pixel_unshuffle(x, 2)
+        g = sc.shape[-1] // self.out_channels
+        return y + sc.reshape(*sc.shape[:-1], self.out_channels, g).mean(-1)
 
 
 class DCUpsample(nn.Module):
@@ -341,6 +432,37 @@ class DCUpsample(nn.Module):
         y = _pixel_shuffle(self.conv(x), 2)
         rep = (self.out_channels * 4) // x.shape[-1]
         return y + _pixel_shuffle(x.repeat_interleave(rep, dim=-1), 2)
+
+
+class DCAEEncoder(nn.Module):
+    def __init__(self, cfg: DCAEConfig):
+        super().__init__()
+        c = cfg
+        ch = c.block_out_channels
+        self.conv_in = Conv2d(c.in_channels, ch[0], 3)
+        # flax names: down_{i} before stage i, stage_{i}_block_{j}
+        self.stages = []
+        for i, out in enumerate(ch):
+            names = []
+            if i > 0:
+                self.add_module(f"down_{i}", DCDownsample(ch[i - 1], out))
+                names.append(f"down_{i}")
+            for j in range(c.encoder_layers[i]):
+                blk = (EfficientViTBlock(out, head_dim=c.attention_head_dim,
+                                         scales=c.qkv_multiscales,
+                                         expand=c.glu_expand)
+                       if c.attention_stages[i] else DCResBlock(out))
+                self.add_module(f"stage_{i}_block_{j}", blk)
+                names.append(f"stage_{i}_block_{j}")
+            self.stages.append(names)
+        self.conv_out = Conv2d(ch[-1], c.latent_channels, 3)
+
+    def forward(self, x):
+        h = self.conv_in(x)
+        for names in self.stages:
+            for name in names:
+                h = getattr(self, name)(h)
+        return self.conv_out(h)
 
 
 class DCAEDecoder(nn.Module):
@@ -379,12 +501,21 @@ class DCAEDecoder(nn.Module):
 
 
 class DCAE(nn.Module):
-    """Deterministic 32x autoencoder (no KL), decode side."""
+    """Deterministic 32x autoencoder (no KL); without ``encoder`` the
+    decode side only (serving), the decoder first as in
+    :class:`AutoencoderKL`."""
 
-    def __init__(self, cfg: DCAEConfig = DCAEConfig()):
+    def __init__(self, cfg: DCAEConfig = DCAEConfig(), encoder: bool = True):
         super().__init__()
         self.cfg = cfg
         self.decoder = DCAEDecoder(cfg)
+        if encoder:
+            self.encoder = DCAEEncoder(cfg)
+
+    def encode_mode(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC images in [-1, 1] → latents times the scaling factor,
+        fp32."""
+        return self.encoder(x.float()) * self.cfg.scaling_factor
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """NHWC latents → NHWC images in about [-1, 1], fp32."""

@@ -35,6 +35,11 @@ leaves the cast to the trainer), then stores the parameters that stay
 floating in bf16 under ``bfloat16``; ``int8_w8a8`` sends the 8-bit base
 products through ``ops.quant.w8a8_matmul`` (kernels K5 and K5b).
 
+Batches come from any sampler: feature shards, or raw images encoded on
+the fly (``train/encode.py``), whose ``skip_batches`` makes a resume's
+fast-forward encode-free; Dreambooth's regularization batches scale the
+loss by ``dreambooth_lambda``.
+
 Not ported yet, each raises ``NotImplementedError`` naming its ROADMAP
 item: loading pretrained adapters (item 9) and REPA (item 10).  The
 trainer is single-process (item 12).
@@ -328,9 +333,23 @@ class Trainer:
 
     def _fastforward_data(self, n_batches: int):
         """Skip the ``n_batches`` the checkpointed run consumed: the
-        sampler replays a deterministic stream, so draining it continues
-        on unseen data.  Raises after two passes that yield nothing."""
+        sampler replays a deterministic stream, so skipping continues on
+        unseen data.  The encode path's samplers skip without encoding
+        (``skip_batches``); any other sampler, or one that raises
+        ``SkipUnsupported``, is drained.  A drain raises after two passes
+        that yield nothing."""
         t0 = time.monotonic()
+        skip = getattr(self.sampler, "skip_batches", None)
+        if skip is not None:
+            from yat_tpu_torch.train.encode import SkipUnsupported
+            try:
+                skip(n_batches)
+                print(f"[engine] data fast-forward: skipped {n_batches} "
+                      f"batches (encode-free) in "
+                      f"{time.monotonic() - t0:.1f}s")
+                return iter(self.sampler)
+            except SkipUnsupported:
+                pass
         it = iter(self.sampler)
         done, dry = 0, 0
         while done < n_batches:
