@@ -44,11 +44,13 @@ Phases, each of which fails the run (exit code 1) when it fails:
    host's time a call (the two tensor maps' encoding included);
 4. reference: two-block full-width SANA and PixArt-Sigma denoisers on the
    card against the same modules on the CPU (the plain versions), fp32;
-5. gradient reference: the same two SANA blocks with LoRA (nonzero
-   ``lora_b``), one flow-matching loss and every LoRA gradient on the card
-   (kernels) against the CPU (plain versions), fp32, once the share of the
-   ReLU kinks that fall on different sides of 0 on the two devices is
-   counted and added; every gradient nonzero.  Then two PixArt-Sigma
+5. gradient reference: the same two SANA blocks with each adapter kind
+   (LoRA, LoHa, LoKr, FourierFT, DoRA; every zero-initialised leaf drawn
+   nonzero), one flow-matching loss and every adapter leaf's gradient on
+   the card (kernels) against the CPU (plain versions), fp32, once the
+   share of the ReLU kinks that fall on different sides of 0 on the two
+   devices is counted and added (each kind's own backward of the flipped
+   entries' gradient); every gradient nonzero.  Then two PixArt-Sigma
    blocks with LoRA and one epsilon loss the same way (K6/K6b, K4/K4b,
    K1/K1b; no ReLU, so no kinks).  Then the two SANA blocks with an int8
    base and w8a8 (K5/K5b): the int8 roundings that land on the other side
@@ -102,6 +104,13 @@ Phases, each of which fails the run (exit code 1) when it fails:
    bit; then one more step with remat (``low_vram``) on the same batch and
    draws, whose loss and gradients must equal the step without, and one
    step under ``torch.profiler``;
+7b. adapter kinds: phase 7's configuration with LoHa, LoKr, FourierFT
+   (1000 frequencies) and LoRA with DoRA, 2 steps each through the entry
+   point: finite losses, every leaf changed, the export, phase 7's
+   launches a step; each export reloaded through ``lora_pretrained`` into
+   ``make_pipeline``, whose denoiser equals the live one bit for bit on a
+   fixed input; DoRA under the refiner gate at 0 gives the scale-0 output
+   (``m W / |W|``), not the base's;
 8. PixArt-Sigma XL-2 512px LoRA training through
    ``yat_tpu_torch.frontends.pixart.main`` on a synthetic feature shard
    (batch 8, bf16, rank-32 LoRA on to_q/to_k/to_v/to_out, 6 steps over the
@@ -145,9 +154,15 @@ Phases, each of which fails the run (exit code 1) when it fails:
    validation prompts) encoding on the fly for 6 steps, then from its
    step-3 checkpoint a resume whose ``skip_batches`` runs no encoder, and
    one profiled step with the cache encoding behind it;
-   ``configs/pixart_repa.yaml`` without REPA and with LoRA for LoKr
-   (T5-XXL, the SD KL-VAE encoder, PixArt-Sigma XL-2 on an int8 base with
-   8-bit Lion), encoding on the fly, 2 steps; a 2-step SANA Dreambooth run
+   ``configs/pixart_repa.yaml`` as written but for its files (T5-XXL,
+   the SD KL-VAE encoder, PixArt-Sigma XL-2 random; a random DINOv2
+   ViT-B/14 for the missing checkpoint): LoKr rank 32 on an int8 base with
+   8-bit Lion, REPA at 0.05 after block 4, encoding on the fly, 3 steps,
+   each step's DINO targets ``[8, 256, 768]`` and a finite nonzero
+   alignment term, every LoKr leaf changed, the frozen projector
+   unchanged, DINOv2's device time a batch of 8; SANA with generic REPA
+   on ``blocks_7`` on the fly, 2 steps (the head trains; the hooks launch
+   nothing); a 2-step SANA Dreambooth run
    over an instance and a regularization folder.  Every run's launches
    are checked by step, on the attention branch each step's latent grid
    gives (the non-square buckets' cross-attentions take the XLA branch,
@@ -1434,47 +1449,63 @@ def phase_reference(device):
 # ---------------------------------------------------------------------------
 
 LORA_TARGETS = ["to_q", "to_k", "to_v", "to_out"]
+# the adapter kinds beside LoRA, by the config keys that select them
+ADAPTER_KINDS = {"loha": {"lora_algo": "loha"},
+                 "lokr": {"lora_algo": "lokr"},
+                 "fourierft": {"lora_algo": "fourierft",
+                               "fourierft_n_frequency": "1000"},
+                 "dora": {"lora_algo": "lora", "lora_use_dora": "true"}}
 
 
-def lora_pair(cls, cfg, rank, device):
-    """An fp32 ``cls(cfg)`` on the CPU from seeds, with rank-``rank`` LoRA
-    on ``LORA_TARGETS`` and a nonzero ``lora_b`` (so ``lora_a`` gets
-    gradients too), and its copy on ``device``; returns both and the number
-    of adapted modules."""
+def lora_pair(cls, cfg, rank, device, kind="lora"):
+    """An fp32 ``cls(cfg)`` on the CPU from seeds, with a rank-``rank``
+    adapter of ``kind`` (a key of ``ADAPTER_KINDS``, or LoRA) on
+    ``LORA_TARGETS`` whose zero-initialised leaves (LoRA's ``lora_b``, and
+    the others' ``hada_w2_b``, ``lokr_w2_b``, ``fft_spectrum``) are drawn
+    nonzero (so every leaf gets gradients), and its copy on ``device``;
+    returns both and the number of adapted modules."""
     import copy
 
     import torch
 
     from yat_tpu_torch.adapters.builder import (
-        AdapterSpec, adapted_modules, build_adapter_params)
+        AdapterSpec, adapter_parameters, build_adapter_params)
     from yat_tpu_torch.models.layers import init_params
 
     cpu = cls(cfg, dtype=torch.float32)
     init_params(cpu, torch.Generator().manual_seed(0))
-    n = build_adapter_params(cpu, AdapterSpec("lora", rank=rank, alpha=rank,
-                                              target_modules=LORA_TARGETS),
-                             torch.Generator().manual_seed(1))
+    keys = ADAPTER_KINDS.get(kind, {})
+    spec = AdapterSpec(keys.get("lora_algo", "lora"), rank=rank, alpha=rank,
+                       target_modules=LORA_TARGETS,
+                       use_dora="lora_use_dora" in keys,
+                       n_frequency=int(keys.get("fourierft_n_frequency",
+                                                1000)))
+    n = build_adapter_params(cpu, spec, torch.Generator().manual_seed(1))
     gen = torch.Generator().manual_seed(2)
     with torch.no_grad():
-        for _, m in adapted_modules(cpu):
-            m.lora_b.normal_(0.0, 0.02, generator=gen)
+        for _, p in adapter_parameters(cpu):
+            if not bool((p != 0).any()):
+                p.normal_(0.0, 0.02, generator=gen)
     return cpu, copy.deepcopy(cpu).to(device), n
 
 
-def phase_grad_reference(device):
+def phase_grad_reference(device, width=None,
+                         kinds=("lora",) + tuple(ADAPTER_KINDS)):
+    """Two full-width SANA blocks (block 1 with softmax self-attention)
+    with an adapter of each of ``kinds`` on ``LORA_TARGETS``: one
+    flow-matching loss and every adapter leaf's gradient on the card
+    against the CPU, fp32, within ``GRAD_REF_TOL`` of each leaf's largest
+    entry once the flipped ReLU kinks' share is added.  ``width`` shrinks
+    the blocks for a rehearsal on the CPU."""
     import dataclasses
 
     import torch
 
-    from yat_tpu_torch.adapters.builder import lora_parameters
     from yat_tpu_torch.models.sana import SANA_600M, SanaTransformer2D
     from yat_tpu_torch.ops.schedulers import FlowMatchSchedule
-    from yat_tpu_torch.train.step import loss_and_grads
-    from yat_tpu_torch.train.tasks import make_flow_matching_loss
 
     cfg = dataclasses.replace(SANA_600M, num_layers=2,
-                              softmax_self_attn_blocks=(1,))
-    cpu, gpu, n = lora_pair(SanaTransformer2D, cfg, 8, device)
+                              softmax_self_attn_blocks=(1,), **(width or {}))
     rng = np.random.default_rng(0)
     lat = rng.standard_normal((2, 16, 16, cfg.in_channels), np.float32)
     emb = rng.standard_normal((2, 300, cfg.caption_channels), np.float32)
@@ -1482,6 +1513,21 @@ def phase_grad_reference(device):
     sched = FlowMatchSchedule(shift=3.0)
     ts, sig = sched.training_draw(torch.Generator().manual_seed(3), 2)
     noise = rng.standard_normal(lat.shape, np.float32)
+    for kind in kinds:
+        _grad_reference_case(device, cfg, kind, sched, lat, emb, mask, ts,
+                             sig, noise)
+
+
+def _grad_reference_case(device, cfg, kind, sched, lat, emb, mask, ts, sig,
+                         noise):
+    import torch
+
+    from yat_tpu_torch.adapters.builder import adapter_parameters
+    from yat_tpu_torch.models.sana import SanaTransformer2D
+    from yat_tpu_torch.train.step import loss_and_grads
+    from yat_tpu_torch.train.tasks import make_flow_matching_loss
+
+    cpu, gpu, n = lora_pair(SanaTransformer2D, cfg, 8, device, kind)
     results = []
     for model, dev in ((cpu, torch.device("cpu")), (gpu, device)):
         batch = {"latents": torch.from_numpy(lat).to(dev),
@@ -1489,7 +1535,7 @@ def phase_grad_reference(device):
                  "text_mask": torch.from_numpy(mask).to(dev)}
         draws = {"timesteps": ts.to(dev), "sigmas": sig.to(dev),
                  "noise": torch.from_numpy(noise).to(dev)}
-        leaves = [p for _, p in lora_parameters(model)]
+        leaves = [p for _, p in adapter_parameters(model)]
         seen = {}
         hooks = _relu_input_hooks(model.blocks[0].attn1, seen)
         loss, grads = loss_and_grads(make_flow_matching_loss(model, sched),
@@ -1500,16 +1546,16 @@ def phase_grad_reference(device):
                         {k: {n: t.cpu() for n, t in v.items()}
                          for k, v in seen.items()}))
     (loss_c, grads_c, seen_c), (loss_g, grads_g, seen_g) = results
-    names = [name for name, _ in lora_parameters(cpu)]
+    names = [name for name, _ in adapter_parameters(cpu)]
     loss_err = abs(loss_g - loss_c) / abs(loss_c)
     # ReLU(q) and ReLU(k) of block 0's linear attention pass a gradient only
     # where the pre-activation is > 0.  A pre-activation within rounding of
     # 0 can fall on either side on the two devices; its whole gradient then
     # reaches to_q's (to_k's) leaves on one device only.  Each such flip is
-    # counted, and its share of the leaves' gradients, s (xA)ᵀ Δg for B and
-    # s xᵀ (Δg Bᵀ) for A with Δg the card's minus the CPU's gradient at the
-    # flipped entries, is added to the CPU's gradients; then every entry of
-    # every leaf must agree
+    # counted, and its share of the leaves' gradients (the adapter's own
+    # backward of Δg, the card's minus the CPU's gradient at the flipped
+    # entries) is added to the CPU's gradients; then every entry of every
+    # leaf must agree
     expected, flips = with_flips_share(cpu.blocks[0].attn1, "blocks_0.attn1",
                                        dict(zip(names, grads_c)), seen_c,
                                        seen_g)
@@ -1523,20 +1569,21 @@ def phase_grad_reference(device):
         if not bool((gg != 0).any()):
             zero.append(name)
     for fixed, raw, name, scale in sorted(rows, key=lambda r: -r[1])[:3]:
-        log(f"grad reference:   {name}: max|g| {scale:.3e}; max|dg|/max|g| "
-            f"{raw:.2e} as measured, {fixed:.2e} with the flips' share")
-    log(f"grad reference: 2-block full-width SANA with LoRA on {n} modules "
-        f"({len(names)} leaves), CUDA vs CPU, fp32: loss {loss_g:.6f} vs "
-        f"{loss_c:.6f} (rel {loss_err:.2e}, tol 1e-4); ReLU kinks flipped "
-        f"between the devices in block 0's linear attention: "
+        log(f"grad reference {kind}:   {name}: max|g| {scale:.3e}; "
+            f"max|dg|/max|g| {raw:.2e} as measured, {fixed:.2e} with the "
+            "flips' share")
+    log(f"grad reference {kind}: 2-block full-width SANA with {kind} on {n} "
+        f"modules ({len(names)} leaves), {device.type} vs CPU, fp32: loss "
+        f"{loss_g:.6f} vs {loss_c:.6f} (rel {loss_err:.2e}, tol 1e-4); ReLU "
+        f"kinks flipped between the devices in block 0's linear attention: "
         f"{flips.get('to_q', 0)} of q, {flips.get('to_k', 0)} of k; worst "
         f"leaf max|dg|/max|g| {max(r[1] for r in rows):.2e} as measured, "
         f"{max(r[0] for r in rows):.2e} with the flips' share (tol "
         f"{GRAD_REF_TOL:g}); zero gradients on the card: {len(zero)}")
     if zero:
-        fail(f"LoRA leaves with no gradient on the card: {zero[:4]}")
+        fail(f"{kind} leaves with no gradient on the card: {zero[:4]}")
     if not ok:
-        fail("LoRA gradients on the card disagree with the CPU")
+        fail(f"{kind} gradients on the card disagree with the CPU")
 
 
 def phase_full_ft_grad_reference(device, width=None):
@@ -1641,14 +1688,18 @@ def phase_full_ft_grad_reference(device, width=None):
 
 
 def with_flips_share(attn, path, grads, seen_a, seen_b):
-    """``grads`` (name → the LoRA gradients of run a), in fp64, plus the
-    share of the ReLU kinks of the linear attention ``attn`` (named
+    """``grads`` (name → the adapter gradients of run a), in fp64, plus
+    the share of the ReLU kinks of the linear attention ``attn`` (named
     ``path``) that fall on the other side in run b: for each of to_q and
     to_k, Δg is b's minus a's gradient at the entries whose pre-activation
-    is > 0 in one run only, and A gains ``s xᵀ (Δg Bᵀ)``, B gains
-    ``s (xA)ᵀ Δg``.  Returns those gradients and the flips per
-    projection."""
+    is > 0 in one run only, and each adapter leaf gains the gradient of
+    ``⟨x W'ᵀ, Δg⟩`` with respect to it (``W'`` the layer's adapted
+    weight; for LoRA ``s xᵀ (Δg Bᵀ)`` for A and ``s (xA)ᵀ Δg`` for B).
+    Returns those gradients and the flips per projection."""
     import torch
+    import torch.nn.functional as F
+
+    from yat_tpu_torch.models.layers import adapter_delta
     out = {name: g.detach().double() for name, g in grads.items()}
     flips = {}
     for proj, a_run in seen_a.items():
@@ -1659,9 +1710,18 @@ def with_flips_share(attn, path, grads, seen_a, seen_b):
         dg = dg.reshape(-1, dg.shape[-1])
         x = a_run["x"].double().reshape(-1, a_run["x"].shape[-1])
         m = getattr(attn, proj)
-        a, b = m.lora_a.detach().double(), m.lora_b.detach().double()
-        out[f"{path}.{proj}.lora_a"] += m.lora_scale * x.t() @ (dg @ b.t())
-        out[f"{path}.{proj}.lora_b"] += m.lora_scale * (x @ a).t() @ dg
+        names = [n for n, _ in m.adapter_leaves()]
+        leaves = [p.detach().cpu().double().requires_grad_()
+                  for _, p in m.adapter_leaves()]
+        w = m.base_weight(torch.float64).cpu()
+        if m.adapter_kind == "lora":
+            weff = w + m.lora_scale * (leaves[0] @ leaves[1]).t()
+        else:
+            weff = adapter_delta(m.adapter_kind, leaves, m.lora_scale, w,
+                                 torch.float64, m.fft_indices)
+        share = torch.autograd.grad((F.linear(x, weff) * dg).sum(), leaves)
+        for name, g in zip(names, share):
+            out[f"{path}.{proj}.{name}"] += g
     return out, flips
 
 
@@ -1805,7 +1865,7 @@ def phase_int8_grad_reference(device, width=None):
 
     import torch
 
-    from yat_tpu_torch.adapters.builder import lora_parameters
+    from yat_tpu_torch.adapters.builder import adapter_parameters
     from yat_tpu_torch.kernels.build import launch_counts, reset_launch_counts
     from yat_tpu_torch.models.layers import AdapterDense
     from yat_tpu_torch.models.sana import SANA_600M, SanaTransformer2D
@@ -1840,7 +1900,7 @@ def phase_int8_grad_reference(device, width=None):
                  "text_mask": torch.from_numpy(mask).to(dev)}
         draws = {"timesteps": ts.to(dev), "sigmas": sig.to(dev),
                  "noise": torch.from_numpy(noise).to(dev)}
-        leaves = [p for _, p in lora_parameters(model)]
+        leaves = [p for _, p in adapter_parameters(model)]
         seen = {}
         hooks = _relu_input_hooks(model.blocks[0].attn1, seen)
         reset_launch_counts()
@@ -1856,7 +1916,7 @@ def phase_int8_grad_reference(device, width=None):
                            for k, v in seen.items()}, launch_counts())
     loss_g, grads_g, seen_g, counts = results["card"]
     loss_c, grads_c, seen_c, _ = results["cpu"]
-    names = [name for name, _ in lora_parameters(cpu)]
+    names = [name for name, _ in adapter_parameters(cpu)]
     loss_err = abs(loss_g - loss_c) / abs(loss_c)
     expected, kinks = with_flips_share(cpu.blocks[0].attn1, "blocks_0.attn1",
                                        dict(zip(names, grads_c)), seen_c,
@@ -1914,7 +1974,7 @@ def phase_pixart_grad_reference(device, width=None):
 
     import torch
 
-    from yat_tpu_torch.adapters.builder import lora_parameters
+    from yat_tpu_torch.adapters.builder import adapter_parameters
     from yat_tpu_torch.kernels.build import launch_counts, reset_launch_counts
     from yat_tpu_torch.models.pixart import PIXART_SIGMA_XL2, \
         PixArtTransformer2D
@@ -1942,7 +2002,7 @@ def phase_pixart_grad_reference(device, width=None):
                  "text_mask": torch.from_numpy(mask).to(dev)}
         draws = {"timesteps": ts.to(dev),
                  "noise": torch.from_numpy(noise).to(dev)}
-        leaves = [p for _, p in lora_parameters(model)]
+        leaves = [p for _, p in adapter_parameters(model)]
         reset_launch_counts()
         loss, grads = loss_and_grads(
             make_epsilon_loss(model, sched, learned_sigma=learned_sigma),
@@ -1950,7 +2010,7 @@ def phase_pixart_grad_reference(device, width=None):
         results.append((float(loss), [g.detach().cpu() for g in grads],
                         launch_counts()))
     (loss_c, grads_c, _), (loss_g, grads_g, counts) = results
-    names = [name for name, _ in lora_parameters(cpu)]
+    names = [name for name, _ in adapter_parameters(cpu)]
     loss_err = abs(loss_g - loss_c) / abs(loss_c)
     zero, rows, ok = [], [], loss_err <= 1e-4
     for name, gc, gg in zip(names, grads_c, grads_g):
@@ -2807,11 +2867,75 @@ def drive_entry_point(label, main_fn, device, tmp, cfg):
     return trainer, counts, wall, peak
 
 
+# adapter leaves that start at zero (so any update moves them off it)
+ZERO_INIT_LEAVES = ("lora_b", "hada_w2_b", "lokr_w2_b", "fft_spectrum")
+
+
+@contextlib.contextmanager
+def initial_state():
+    """Every trainer initialised in the block keeps its trainable leaves
+    as they were after ``initialize`` (``initial_leaves``) and the state of
+    its REPA projector, where it has one (``initial_projector``)."""
+    from yat_tpu_torch.train.engine import Trainer
+
+    init = Trainer.initialize
+
+    def keeping(self):
+        init(self)
+        self.initial_leaves = [p.detach().clone()
+                               for p in self.trainable_leaves()]
+        proj = getattr(self.model, "repa_projector", None)
+        self.initial_projector = None if proj is None else {
+            k: v.clone() for k, v in proj.state_dict().items()}
+    Trainer.initialize = keeping
+    try:
+        yield
+    finally:
+        Trainer.initialize = init
+
+
+def exported_array(name, p):
+    """``(key, array)`` the adapter export holds for the trainable leaf
+    ``name`` (``adapters.io._PEFT_NAMES``; a REPA head's kernel in the
+    flax layout)."""
+    from yat_tpu_torch.adapters.io import _PEFT_NAMES
+    dotted, leaf = name.rsplit(".", 1)
+    suffix, transpose = _PEFT_NAMES.get(leaf, (leaf, leaf == "kernel"))
+    arr = p.detach().float().cpu().numpy()
+    return (f"base_model.model.{dotted}.{suffix}",
+            arr.T if transpose and arr.ndim == 2 else arr)
+
+
+def check_trained_leaves(label, trainer):
+    """Every trainable leaf changed by the run (against ``initial_state``'s
+    snapshot; without one, the zero-initialised leaves moved off zero).
+    Returns the snapshot or None."""
+    import torch
+    names, leaves = trainer.trainable_names(), trainer.trainable_leaves()
+    initial = getattr(trainer, "initial_leaves", None)
+    if initial is not None:
+        same = [n for n, p, p0 in zip(names, leaves, initial)
+                if torch.equal(p, p0)]
+        what = "unchanged by the updates"
+    else:
+        same = [n for n, p in zip(names, leaves)
+                if n.rsplit(".", 1)[-1] in ZERO_INIT_LEAVES
+                and not bool((p != 0).any())]
+        what = "still zero after the updates"
+    if same:
+        fail(f"{label}: leaves {what}: {same[:4]}")
+    if initial is not None:
+        log(f"{label}: all {len(leaves)} trainable leaves changed")
+    return initial
+
+
 def check_trained(label, trainer, cfg, n_layers):
-    """Finite losses, the warmup, LoRA on to_q/to_k/to_v/to_out of attn1 and
-    attn2 in every block with every ``lora_b`` moved off zero, and the PEFT
-    export equal to the live leaves."""
-    from yat_tpu_torch.adapters.builder import adapted_modules, lora_parameters
+    """Finite losses, the warmup, an adapter on to_q/to_k/to_v/to_out of
+    attn1 and attn2 in every block with every leaf changed by the updates
+    (without ``initial_state``: the zero-initialised leaves moved off
+    zero), and the PEFT export equal to the live leaves (a REPA head's
+    too)."""
+    from yat_tpu_torch.adapters.builder import adapted_modules
     from yat_tpu_torch.adapters.io import read_safetensors
 
     steps = int(cfg["steps"])
@@ -2824,30 +2948,28 @@ def check_trained(label, trainer, cfg, n_layers):
             math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
             for h in hist):
         fail(f"{label}: expected {steps} finite losses, got {hist}")
-    if hist[0]["lr"] != 0.0 or hist[1]["lr"] <= 0.0:
+    warmup = int(cfg.get("warmup_steps") or 0)
+    if warmup and (hist[0]["lr"] != 0.0 or hist[1]["lr"] <= 0.0):
         fail(f"{label}: warmup should give lr 0 on the first update only")
     adapted = adapted_modules(trainer.model)
     if len(adapted) != 8 * n_layers:
         fail(f"{label}: {len(adapted)} adapted modules, expected "
              f"{8 * n_layers}")
-    zero_b = [".".join(p) for p, m in adapted
-              if not bool((m.lora_b != 0).any())]
-    if zero_b:
-        fail(f"{label}: lora_b still zero after the updates: {zero_b[:4]}")
+    initial = check_trained_leaves(label, trainer)
+    names, leaves = trainer.trainable_names(), trainer.trainable_leaves()
     path = os.path.join(cfg["output_dir"], str(steps),
                         "adapter_model.safetensors")
     tensors, meta = read_safetensors(path)
-    if len(tensors) != 2 * len(adapted) or "yat_meta" not in meta:
+    if len(tensors) != len(leaves) or "yat_meta" not in meta:
         fail(f"{label}: adapter file holds {len(tensors)} tensors, "
-             f"expected {2 * len(adapted)}")
-    for name, p in lora_parameters(trainer.model):
-        dotted, leaf = name.rsplit(".", 1)
-        key = (f"base_model.model.{dotted}."
-               f"{'lora_A' if leaf == 'lora_a' else 'lora_B'}.weight")
-        if not np.array_equal(tensors[key],
-                              p.detach().float().cpu().numpy().T):
+             f"expected {len(leaves)}")
+    for name, p in zip(names, leaves):
+        key, want = exported_array(name, p)
+        if not np.array_equal(tensors[key], want):
             fail(f"{label}: exported {key} differs from the live leaf")
-    log(f"{label}: {len(adapted)} adapted modules; adapter export "
+    log(f"{label}: {len(adapted)} adapted modules "
+        f"({adapted[0][1].adapter_kind}), every leaf "
+        f"{'changed' if initial is not None else 'trained'}; adapter export "
         f"{os.path.basename(path)} holds {len(tensors)} tensors")
 
 
@@ -2886,7 +3008,7 @@ def remat_step(label, trainer, device, card, batch, draws, in_blocks,
     torch.profiler on the card."""
     import torch
 
-    from yat_tpu_torch.adapters.builder import lora_parameters
+    from yat_tpu_torch.adapters.builder import adapter_parameters
     from yat_tpu_torch.kernels.build import launch_counts, reset_launch_counts
     from yat_tpu_torch.train.step import loss_and_grads
 
@@ -2894,7 +3016,7 @@ def remat_step(label, trainer, device, card, batch, draws, in_blocks,
     model = trainer.model
     gen = torch.Generator(device=device).manual_seed(5)
     rung = batch["embeddings"].shape[1]
-    leaves = [p for _, p in lora_parameters(model)]
+    leaves = [p for _, p in adapter_parameters(model)]
     runs = {}
     for remat in (False, True):
         model.gradient_checkpointing = remat
@@ -3196,6 +3318,124 @@ def sana_batch(trainer, device):
 
 
 # ---------------------------------------------------------------------------
+# 7b. the adapter kinds beside LoRA
+# ---------------------------------------------------------------------------
+
+def phase_adapter_kinds(device, card, shard_args=None, cfg_extra=None,
+                        kinds=tuple(ADAPTER_KINDS)):
+    """Phase 7's SANA-0.6B configuration (batch 16, bf16) with LoHa,
+    LoKr, FourierFT (1000 frequencies) and LoRA with DoRA, 2 steps each
+    through the entry point (no warmup, so both steps update): finite
+    losses, every leaf changed, the export equal to the live leaves, the
+    launches per step as phase 7's; the export reloaded through
+    ``lora_pretrained`` into ``make_pipeline``, whose denoiser must equal
+    the live model's bit for bit on one fixed input; for DoRA, the
+    refiner gate at 0 gives the scale-0 output (``m · W / ‖W‖``), not the
+    base's.  Returns the launch counts by kind."""
+    import gc
+
+    import torch
+
+    from yat_tpu_torch.frontends.sana import main as sana_main
+
+    cuda = device.type == "cuda"
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        shard = os.path.join(tmp, "shard-000000.tar")
+        write_train_shard(shard, **(shard_args or {}))
+        for kind in kinds:
+            label = f"{kind} train"
+            cfg = train_config(shard, os.path.join(tmp, f"out-{kind}"),
+                               steps="2", warmup_steps="0",
+                               checkpoint_dir=None,
+                               num_steps_per_validation="100",
+                               **ADAPTER_KINDS[kind], **(cfg_extra or {}))
+            cfg = {k: v for k, v in cfg.items() if v is not None}
+            with initial_state():
+                trainer, counts, wall, peak = drive_entry_point(
+                    label, sana_main, device, tmp, cfg)
+            n_layers = trainer.sana_config.num_layers
+            check_trained(label, trainer, cfg, n_layers)
+            one, _ = sana_step_launches(trainer.sana_config, False)
+            check_launches(label, counts,
+                           {k: 2 * n if cuda else 0 for k, n in one.items()},
+                           lambda k: f"{one[k]} per step x 2 steps")
+            log_step_rate(label, trainer, wall, peak, card)
+            reload_through_lora_pretrained(label, trainer, cfg, device)
+            out[kind] = {k: counts[k] for k in one}
+            del trainer
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+    return out
+
+
+def reload_through_lora_pretrained(label, trainer, cfg, device):
+    """The run's export through ``lora_pretrained`` into ``make_pipeline``:
+    the served denoiser against the live one on one fixed input, bit for
+    bit; for DoRA (its magnitudes scaled by a seeded factor in [0.5, 1.5])
+    the refiner gate at 0 against the adapter at scale 0 (bit for bit) and
+    against the base (different)."""
+    import torch
+
+    from yat_tpu_torch.adapters.builder import adapted_modules
+    from yat_tpu_torch.config import TrainingParameters
+    from yat_tpu_torch.frontends import sana
+    from yat_tpu_torch.models.layers import adapters_off, set_adapter_gate
+
+    path = os.path.join(cfg["output_dir"], cfg["steps"],
+                        "adapter_model.safetensors")
+    params = TrainingParameters.from_dict(dict(cfg, lora_pretrained=path))
+    vp = sana.make_pipeline(params, device)
+    c = trainer.sana_config
+    gen = torch.Generator(device=device).manual_seed(11)
+    args = (torch.randn((2, c.sample_size, c.sample_size, c.in_channels),
+                        generator=gen, device=device).to(torch.bfloat16),
+            torch.randn((2, 300, c.caption_channels), generator=gen,
+                        device=device),
+            torch.tensor([250.0, 750.0], device=device),
+            _caption_mask(2, 300, device))
+    served = vp.model
+    with torch.no_grad():
+        live, got = trainer.model(*args), served(*args)
+        same = torch.equal(live, got)
+        log(f"{label}: the export through lora_pretrained into "
+            f"make_pipeline: denoiser output {tuple(got.shape)} "
+            f"{'equals' if same else 'DIFFERS FROM'} the live model's bit "
+            f"for bit")
+        if not same:
+            fail(f"{label}: the reloaded adapters serve another model "
+                 f"(max |diff| {float((live - got).abs().max()):.3e})")
+        if adapted_modules(served)[0][1].adapter_kind == "dora":
+            # two steps at lr 1e-4 move m by less than a bf16 step of
+            # m / |W|: scale it as a longer run would, so that m W / |W|
+            # and W differ
+            g = torch.Generator(device=device).manual_seed(12)
+            for _, m in adapted_modules(served):
+                m.dora_m.mul_(0.5 + torch.rand(m.dora_m.shape, generator=g,
+                                               device=device))
+            set_adapter_gate(served, 0.0)
+            gated = served(*args)
+            set_adapter_gate(served, None)
+            scales = [(m, m.lora_scale) for _, m in adapted_modules(served)]
+            for m, _ in scales:
+                m.lora_scale = 0.0
+            zero = served(*args)
+            for m, s0 in scales:
+                m.lora_scale = s0
+            with adapters_off(served):
+                base = served(*args)
+            ok = torch.equal(gated, zero) and not torch.equal(gated, base)
+            log(f"{label}: DoRA under the refiner gate at 0: "
+                f"{'equals' if torch.equal(gated, zero) else 'DIFFERS FROM'}"
+                f" the scale-0 output (m W / |W|), max |diff| to the base "
+                f"{float((gated - base).abs().max()):.3e}")
+            if not ok:
+                fail(f"{label}: the gated DoRA layer is not m W / |W|")
+    del vp, served
+
+
+# ---------------------------------------------------------------------------
 # 8. PixArt-Sigma training
 # ---------------------------------------------------------------------------
 
@@ -3247,10 +3487,11 @@ def pixart_caption_lengths(cfg, n, tmp):
 def pixart_train_config(shard, out_dir, **extra):
     """configs/pixart_repa.yaml (batch 8, lr 2e-5, bf16, rank 32, alpha 32,
     to_q/to_k/to_v/to_out) without what needs files (the pretrained
-    pipeline, the DINOv2 checkpoint, validation prompts), without what is
-    not ported (REPA; LoKr becomes lora; on-the-fly encoding, replaced by a
-    feature shard) and without its 8-bit base and optimizer (this cell
-    keeps a bf16 base; phase 9 drives them on SANA), with 2 warmup steps,
+    pipeline, the DINOv2 checkpoint, validation prompts), with LoRA for
+    LoKr and on a feature shard, so without REPA (its DINO tokens come
+    from the on-the-fly encode; phase 12 runs the file as written) and
+    without its 8-bit base and optimizer (this cell keeps a bf16 base;
+    phase 9 drives them on SANA), with 2 warmup steps,
     caption-length buckets and no caption dropout, for ``TRAIN_STEPS``
     steps."""
     return {"local_shard_paths": [shard], "batch_size": "8",
@@ -4126,7 +4367,8 @@ def phase_raw_images(device, card, tiny=None):
                 f"encoder {vae_ms:.2f} ms at {th}x{tw} (fp32), Gemma-2-2B "
                 f"{te_ms:.2f} ms (bf16, {len(caps)} captions at rung "
                 f"{ids.shape[1]})")
-        del trainer, vae, gemma, enc_i, enc_c
+        # the extractor holds the encoders too (Gemma-2-2B, the DC-AE)
+        del trainer, ex, vae, gemma, enc_i, enc_c
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
@@ -4195,6 +4437,9 @@ def phase_raw_images(device, card, tiny=None):
                     "encoding behind it)", one_step, card)
             finally:
                 cache.stop()
+                # the cache holds the run's encoders (Gemma-2-2B, the
+                # DC-AE) on the card: let them go before the next run
+                del cache, it, one_step
             log(f"on the fly [{card}]: a profiled step {wall_ms:.1f} ms, "
                 f"device busy {busy_ms:.1f} ms, idle share "
                 f"{1 - busy_ms / wall_ms:.3f}")
@@ -4211,18 +4456,78 @@ def phase_raw_images(device, card, tiny=None):
         if cuda:
             torch.cuda.empty_cache()
 
-        # (e) PixArt-Sigma XL-2 encoding on the fly
+        # (e) configs/pixart_repa.yaml: PixArt-Sigma XL-2, LoKr on an int8
+        # base, REPA against a random DINOv2 ViT-B/14, encoding on the fly
         cfg = pixart_otf_config(raw, os.path.join(tmp, "out-e"), chunk,
                                 tiny)
-        with recorded_batches() as grids, counted_encoders() as calls:
+        if cuda:
+            log(f"pixart_repa: {torch.cuda.memory_allocated() / 2**30:.2f} "
+                "GiB allocated on the card before the run")
+        with recorded_batches() as grids, counted_encoders() as calls, \
+                recorded_repa_terms() as terms, initial_state():
             trainer, counts, wall, peak = drive_entry_point(
-                "pixart on the fly", pixart_main, device, tmp, cfg)
-        check_fp32_encodes("pixart on the fly", calls, cuda)
-        check_pixart_run("pixart on the fly", trainer, cfg, counts, cuda,
-                         grids)
-        log_step_rate("pixart on the fly", trainer, wall, peak, card)
+                "pixart_repa", pixart_main, device, tmp, cfg)
+        check_fp32_encodes("pixart_repa", calls, cuda)
+        check_pixart_run("pixart_repa", trainer, cfg, counts, cuda, grids)
+        dino = trainer.encode_repa.module
+        n_tok = dino.cfg.grid ** 2
+        check_repa_terms("pixart_repa", terms, int(cfg["steps"]),
+                         (int(cfg["batch_size"]), n_tok, dino.cfg.hidden_dim))
+        check_trained_leaves("pixart_repa", trainer)
+        proj = trainer.model.repa_projector
+        moved = [k for k, v in proj.state_dict().items()
+                 if not torch.equal(v, trainer.initial_projector[k])]
+        log(f"pixart_repa: the projector after block "
+            f"{trainer.pixart_config.repa_depth} "
+            f"({'int8' if proj.fc1.qweight is not None else 'float'} "
+            f"fc1/fc2/fc3) {'unchanged' if not moved else 'CHANGED'} by "
+            "the steps")
+        if moved:
+            fail(f"pixart_repa: the frozen projector changed: {moved[:4]}")
+        log_step_rate("pixart_repa", trainer, wall, peak, card)
+        if cuda:
+            px = torch.as_tensor(first.images[:int(cfg["batch_size"])])
+            from yat_tpu_torch.models.dinov2 import preprocess_for_dino
+            with torch.inference_mode():
+                x = preprocess_for_dino(u8_to_unit(px.to(device)),
+                                        size=dino.cfg.image_size)
+                dino_ms = cuda_ms(lambda: dino(x))
+            log(f"encoders [{card}]: DINOv2 ViT-B/14 (fp32, TF32 off) "
+                f"{dino_ms:.2f} ms a batch of {x.shape[0]} at "
+                f"{x.shape[1]}x{x.shape[2]} ({n_tok} tokens)")
         out["raw_pixart"] = counts
-        del trainer
+        del trainer, dino, proj
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # (g) SANA with generic REPA on blocks_{layers // 4}, on the fly
+        cfg = otf_config(raw, os.path.join(tmp, "out-g"), None, chunk,
+                         batch, tiny)
+        cfg.update(steps="2", use_repa="true", checkpoint_dir=None,
+                   repa_pretrained_model="/models/dinov2_vitb14.pth")
+        cfg = {k: v for k, v in cfg.items() if v is not None}
+        with recorded_batches() as grids, recorded_repa_terms() as terms:
+            trainer, counts, wall, peak = drive_entry_point(
+                "sana repa", sana_main, device, tmp, cfg)
+        check_sana_run("sana repa", trainer, cfg, counts, cuda, grids)
+        dino = trainer.encode_repa.module
+        check_repa_terms("sana repa", terms, 2,
+                         (batch, dino.cfg.grid ** 2, dino.cfg.hidden_dim))
+        from yat_tpu_torch.ops.repa import init_repa_head
+        head = trainer.repa_head
+        init = init_repa_head(trainer.repa_config, head.fc1.in_features,
+                              trainer.params.dataset_seed + 7, device)
+        same = [n for (n, a), b in zip(head.named_parameters(),
+                                       init.parameters())
+                if torch.equal(a, b)]
+        log(f"sana repa: target {list(trainer.repa_config.target_modules)}"
+            f"; the head's leaves {'all changed' if not same else 'UNCHANGED: ' + str(same)}")
+        if same:
+            fail(f"sana repa: head leaves unchanged: {same}")
+        log_step_rate("sana repa", trainer, wall, peak, card)
+        out["raw_sana_repa"] = counts
+        del trainer, dino, head, init
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
@@ -4295,26 +4600,68 @@ def otf_config(raw, out_dir, ckpt, chunk, batch, tiny):
 
 
 def pixart_otf_config(raw, out_dir, chunk, tiny):
-    """configs/pixart_repa.yaml without REPA (item 10), with LoRA in place
-    of LoKr (item 9), without its files (the pretrained pipe, the DINOv2
-    checkpoint), encoding on the fly as the file sets it (chunks of 8),
-    its int8 base and 8-bit Lion kept, for 2 steps (validation every
-    1000 steps, so its prompt builds the encoders and samples nothing)."""
+    """configs/pixart_repa.yaml as written, but for its files: the raw
+    shards stand in for ``/data/raw``, the pretrained pipe is left out
+    (T5-XXL, the KL-VAE and PixArt-Sigma XL-2 random from the seed) and its
+    DINOv2 file ``/models/dinov2_vitb14.pth`` is missing (a random
+    ViT-B/14 at full width, as the file's comment allows); 3 steps
+    (validation every 1000, so its prompt builds the encoders and samples
+    nothing).  LoKr rank 32, alpha 32 on to_q/to_k/to_v/to_out, the int8
+    base, 8-bit Lion, REPA at lambda 0.05 after block 4, batch 8 in
+    chunks of 8, encoding on the fly.  ``tiny`` (the CPU rehearsal) taps
+    block 0 and projects to the tiny DINOv2's 32-wide tokens."""
     extra = {}
     if tiny is not None:
-        extra = {"model_config_overrides": dict(tiny["pixart"]),
+        extra = {"model_config_overrides": dict(
+                     tiny["pixart"], repa_depth="0", repa_target_dim="32"),
                  "aspect_ratio": str(tiny["resolution"])}
     return {"local_shard_paths": raw, "compute_features": "true",
             "vae_max_batch_size": str(chunk),
             "text_encoder_max_batch_size": str(chunk),
             "batch_size": str(tiny["batch"] if tiny else 8),
-            "learning_rate": "2e-5", "steps": "2", "warmup_steps": "1",
+            "learning_rate": "2e-5", "steps": "3",
             "num_steps_per_validation": "1000",
             "validation_prompts": ["a cat wearing a tiny hat"],
-            "bfloat16": "true", "lora_rank": "32", "lora_alpha": "32",
-            "lora_algo": "lora", "lora_target_modules": LORA_TARGETS,
+            "bfloat16": "true", "use_repa": "true", "repa_lambda": "0.05",
+            "repa_pretrained_model": "/models/dinov2_vitb14.pth",
+            "lora_rank": "32", "lora_alpha": "32", "lora_algo": "lokr",
+            "lora_target_modules": LORA_TARGETS,
             "lora_base_model_8bit": "true", "use_adamw_8bit": "true",
             "output_dir": out_dir, "dataset_seed": "0", **extra}
+
+
+@contextlib.contextmanager
+def recorded_repa_terms():
+    """The DINO targets' shape and the alignment term of every REPA loss
+    computed in the block (``(shape, term)``, the term a detached tensor
+    read after the run)."""
+    from yat_tpu_torch.train import tasks
+
+    seen = []
+    align = tasks.repa_alignment_loss
+
+    def recording(proj, target):
+        term = align(proj, target)
+        seen.append((tuple(target.shape), term.detach()))
+        return term
+    tasks.repa_alignment_loss = recording
+    try:
+        yield seen
+    finally:
+        tasks.repa_alignment_loss = align
+
+
+def check_repa_terms(label, seen, steps, shape):
+    """One finite, nonzero REPA term a step, on DINO targets of
+    ``shape``."""
+    terms = [float(t) for _, t in seen]
+    shapes = sorted({s for s, _ in seen})
+    log(f"{label}: REPA targets {shapes}; alignment terms by step "
+        f"{[round(t, 6) for t in terms]}")
+    if len(seen) != steps or shapes != [shape] or not all(
+            math.isfinite(t) and t > 0 for t in terms):
+        fail(f"{label}: expected {steps} finite nonzero REPA terms on "
+             f"targets {shape}, got {list(zip(shapes, terms))}")
 
 
 def check_sana_run(label, trainer, cfg, counts, cuda, grids, steps=None):
@@ -4406,6 +4753,8 @@ def main() -> None:
         counts[f"pretrained_{family}"] = timed(
             f"pretrained {family}", phase_pretrained, device, card, family)
     counts["train"] = timed("train", phase_train, device, card)
+    counts["adapter_kinds"] = timed("adapter kinds", phase_adapter_kinds,
+                                    device, card)
     counts["pixart_train"] = timed("pixart train", phase_pixart_train,
                                    device, card)
     counts["int8_train"] = timed("int8 train", phase_train, device, card,

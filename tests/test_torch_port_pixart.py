@@ -177,19 +177,6 @@ def test_pixart_context_kv_pass_matches_jax():
     torch.testing.assert_close(cached, full)
 
 
-def test_pixart_unported_options_raise():
-    import dataclasses
-
-    from yat_tpu_torch.models.pixart import PIXART_TINY_TEST, \
-        PixArtTransformer2D
-    with pytest.raises(NotImplementedError, match="item 10"):
-        PixArtTransformer2D(dataclasses.replace(PIXART_TINY_TEST,
-                                                resnet_expansion=True))
-    _, _, tm, arrays = _pixart_pair()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tm(*(torch.from_numpy(a) for a in arrays), return_repa=True)
-
-
 @pytest.mark.parametrize("activation", ["gelu_tanh", "silu", "gelu"])
 def test_mlp_matches_jax(activation):
     from yat_tpu.models.layers import MLP as JMLP

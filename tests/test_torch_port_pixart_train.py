@@ -85,10 +85,15 @@ def test_ddpm_training_half_matches_jax(beta):
 
 
 def test_epsilon_loss_refuses_repa():
+    """With REPA on, a batch without DINOv2 tokens (feature shards) raises
+    at the step; the JAX loss drops the term silently (ROADMAP §3)."""
     from yat_tpu_torch.ops.schedulers import DDPMSchedule
     from yat_tpu_torch.train.tasks import make_epsilon_loss
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_epsilon_loss(None, DDPMSchedule(), repa_lambda=0.5)
+    loss = make_epsilon_loss(None, DDPMSchedule(), repa_lambda=0.5)
+    batch = {"latents": torch.zeros(1, 4, 4, 4),
+             "embeddings": torch.zeros(1, 2, 4)}
+    with pytest.raises(ValueError, match="no DINOv2 tokens"):
+        loss(batch, torch.Generator())
 
 
 # ---------------------------------------------------------------------------
@@ -181,7 +186,7 @@ def test_train_step_matches_jax(tiny_setup, accum):
     from yat_tpu.train.state import create_train_state, make_optimizer
     from yat_tpu.train.step import make_train_step as j_make_step
     from yat_tpu.train.tasks import make_epsilon_loss as j_loss
-    from yat_tpu_torch.adapters.builder import lora_parameters
+    from yat_tpu_torch.adapters.builder import adapter_parameters
     from yat_tpu_torch.config import TrainingParameters
     from yat_tpu_torch.ops.schedulers import DDPMSchedule
     from yat_tpu_torch.train.state import Optimizer
@@ -204,7 +209,7 @@ def test_train_step_matches_jax(tiny_setup, accum):
 
     model, n = _port_model(cfg_j, variables, adapters, meta)
     assert n == 8 * cfg_j.num_layers
-    leaves = lora_parameters(model)
+    leaves = adapter_parameters(model)
     opt = Optimizer(TrainingParameters.from_dict(raw),
                     [p for _, p in leaves])
     ema = [p.detach().clone() for _, p in leaves]
@@ -247,7 +252,7 @@ def _loss_and_grads_both(setup, seed=7):
     JAX draws."""
     from yat_tpu.ops.schedulers import DDPMSchedule as JSchedule
     from yat_tpu.train.tasks import make_epsilon_loss as j_loss
-    from yat_tpu_torch.adapters.builder import lora_parameters
+    from yat_tpu_torch.adapters.builder import adapter_parameters
     from yat_tpu_torch.ops.schedulers import DDPMSchedule
     from yat_tpu_torch.train.step import loss_and_grads
     from yat_tpu_torch.train.tasks import make_epsilon_loss
@@ -264,7 +269,7 @@ def _loss_and_grads_both(setup, seed=7):
                    "adapters_meta": meta}, jbatch, rng, deterministic=False)
     jloss, jgrads = jax.value_and_grad(jfn)(adapters)
     model, _ = _port_model(cfg_j, variables, adapters, meta)
-    named = lora_parameters(model)
+    named = adapter_parameters(model)
     task = make_epsilon_loss(model, DDPMSchedule(), learned_sigma=True)
     tbatch = {k: torch.from_numpy(batch[k]) for k in keys}
     draws = _jax_draws(jsched, rng, batch["latents"])
@@ -393,19 +398,15 @@ def test_entry_point_trains_and_exports(tmp_path):
 
 
 @pytest.mark.parametrize("over,exc,match", [
-    pytest.param({"use_repa": "true"}, NotImplementedError, "item 10",
-                 id="over0-NotImplementedError-item 10"),
-    pytest.param({"lora_algo": "lokr"}, NotImplementedError, "lokr",
-                 id="over2-NotImplementedError-lokr"),
-    pytest.param({"lora_use_dora": "true"}, NotImplementedError, "DoRA",
-                 id="over3-NotImplementedError-DoRA"),
+    pytest.param({"use_repa": "true"}, ValueError, "no DINOv2 tokens",
+                 id="use_repa-on-feature-shards"),
     pytest.param({"train_unconditional_prob": "0.1"}, ValueError,
                  "empty-caption", id="over6-ValueError-empty-caption"),
     pytest.param({"pretrained_model_path": "ckpt"}, ValueError,
                  "no denoiser checkpoint was found",
                  id="over7-ValueError-no denoiser checkpoint was found"),
-    pytest.param({"lora_pretrained": "a.safetensors"}, NotImplementedError,
-                 "item 9", id="lora_pretrained-item-9"),
+    pytest.param({"lora_pretrained": "a.safetensors"}, FileNotFoundError,
+                 "a.safetensors", id="lora_pretrained-missing-file"),
 ])
 def test_entry_point_refuses_unported_options(tmp_path, over, exc, match):
     from yat_tpu_torch.frontends.pixart import main

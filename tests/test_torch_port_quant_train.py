@@ -148,7 +148,7 @@ def _one_step_both(monkeypatch, tmp_path, frontend, jmodel, variables,
     from yat_tpu.ops import quant as JQ
     from yat_tpu.train.state import create_train_state, make_optimizer
     from yat_tpu.train.step import make_train_step as j_make_step
-    from yat_tpu_torch.adapters.builder import lora_parameters
+    from yat_tpu_torch.adapters.builder import adapter_parameters
     from yat_tpu_torch.config import TrainingParameters
     from yat_tpu_torch.train.step import loss_and_grads
 
@@ -185,7 +185,7 @@ def _one_step_both(monkeypatch, tmp_path, frontend, jmodel, variables,
     grad_ref = rec.reference(model)
     assert bool(grad_ref) == w8a8
     tap = chip_smoke.W8A8Payloads([model])
-    leaves = lora_parameters(model)
+    leaves = adapter_parameters(model)
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     draws = draws_of(rng_noise, batch["latents"])
     with tap.forcing(grad_ref):

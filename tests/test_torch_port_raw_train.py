@@ -137,13 +137,13 @@ def test_chip_smoke_raw_images_phase_on_cpu():
     """Phase 12 at the tiny size on the CPU: the decoder, the extraction
     through the entry point with signed uploads to the stand-in endpoint,
     training on its shards, the on-the-fly run and its encode-free resume,
-    PixArt-Sigma on the fly and Dreambooth; no kernel launches on the
-    CPU."""
+    ``configs/pixart_repa.yaml`` (LoKr, REPA) and SANA with generic REPA
+    on the fly, and Dreambooth; no kernel launches on the CPU."""
     import chip_smoke
 
     counts = chip_smoke.phase_raw_images(
         torch.device("cpu"), "cpu",
         tiny={"sana": TINY_SANA, "pixart": TINY_PIXART, "resolution": 256,
               "batch": 2, "chunk": 1, "per_bucket": 4})
-    assert set(counts) == {"raw_sana", "raw_pixart"}
+    assert set(counts) == {"raw_sana", "raw_pixart", "raw_sana_repa"}
     assert not any(v for c in counts.values() for v in c.values())

@@ -422,11 +422,11 @@ def test_ema_validation_matches_jax_and_restores_live_leaves(tmp_path):
     tt.initialize()
     meta = jax.tree.map(np.asarray, jt.state.adapters_meta)
     load_flax_adapters(tt.model, jax.tree.map(np.asarray, live), meta)
-    from yat_tpu_torch.adapters.builder import lora_parameters
+    from yat_tpu_torch.adapters.builder import adapter_parameters
     flat_ema = {".".join(str(k.key) for k in path): np.asarray(v)
                 for path, v in jax.tree_util.tree_leaves_with_path(ema)}
     tt.ema = [torch.from_numpy(flat_ema[name].copy())
-              for name, _ in lora_parameters(tt.model)]
+              for name, _ in adapter_parameters(tt.model)]
     before = [q.detach().clone() for q in tt.trainable_leaves()]
     got = tt.validate_fn(tt, x0=torch.from_numpy(_x0((1, 4, 4, 32))))
     assert list(got) == list(want)

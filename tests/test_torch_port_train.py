@@ -107,7 +107,7 @@ def test_train_step_matches_jax(tiny_setup, accum):
     from yat_tpu.train.state import create_train_state, make_optimizer
     from yat_tpu.train.step import make_train_step as j_make_step
     from yat_tpu.train.tasks import make_flow_matching_loss as j_loss
-    from yat_tpu_torch.adapters.builder import lora_parameters
+    from yat_tpu_torch.adapters.builder import adapter_parameters
     from yat_tpu_torch.config import TrainingParameters
     from yat_tpu_torch.ops.schedulers import FlowMatchSchedule
     from yat_tpu_torch.train.state import Optimizer
@@ -128,7 +128,7 @@ def test_train_step_matches_jax(tiny_setup, accum):
     model, n = _port_model(cfg_j, variables, adapters, meta)
     assert n == 2 * 4 * cfg_j.num_layers
     params = TrainingParameters.from_dict(raw)
-    leaves = lora_parameters(model)
+    leaves = adapter_parameters(model)
     opt = Optimizer(params, [p for _, p in leaves])
     ema = [p.detach().clone() for _, p in leaves]
     step = make_train_step(
@@ -173,14 +173,14 @@ def test_train_step_matches_jax(tiny_setup, accum):
 def test_every_lora_leaf_gets_a_gradient(tiny_setup):
     """Gradients reach every LoRA leaf through the three autograd.Functions
     (adaLN, softmax and linear attention) on the CPU path."""
-    from yat_tpu_torch.adapters.builder import lora_parameters
+    from yat_tpu_torch.adapters.builder import adapter_parameters
     from yat_tpu_torch.ops.schedulers import FlowMatchSchedule
     from yat_tpu_torch.train.step import loss_and_grads
     from yat_tpu_torch.train.tasks import make_flow_matching_loss
 
     cfg_j, _, variables, adapters, meta, batch = tiny_setup
     model, _ = _port_model(cfg_j, variables, adapters, meta)
-    leaves = [p for _, p in lora_parameters(model)]
+    leaves = [p for _, p in adapter_parameters(model)]
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     loss, grads = loss_and_grads(
         make_flow_matching_loss(model, FlowMatchSchedule(shift=3.0)),
@@ -205,7 +205,7 @@ def test_grad_reference_accounts_for_flipped_relu_kinks(tiny_setup):
     largest entry (fp32 runs), while the raw gradients of to_q differ by
     more than 1e-3 of it."""
     import chip_smoke
-    from yat_tpu_torch.adapters.builder import lora_parameters
+    from yat_tpu_torch.adapters.builder import adapter_parameters
     from yat_tpu_torch.ops.schedulers import FlowMatchSchedule
     from yat_tpu_torch.train.step import loss_and_grads
     from yat_tpu_torch.train.tasks import make_flow_matching_loss
@@ -213,8 +213,8 @@ def test_grad_reference_accounts_for_flipped_relu_kinks(tiny_setup):
     cfg_j, _, variables, adapters, meta, batch = tiny_setup
     model, _ = _port_model(cfg_j, variables, adapters, meta)
     attn = model.blocks[0].attn1
-    leaves = [p for _, p in lora_parameters(model)]
-    names = [n for n, _ in lora_parameters(model)]
+    leaves = [p for _, p in adapter_parameters(model)]
+    names = [n for n, _ in adapter_parameters(model)]
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     picked = torch.zeros(4 * 64 * 64, dtype=torch.bool)
     picked[[5, 1000, 4000, 9000]] = True
@@ -405,15 +405,13 @@ def test_entry_point_trains_and_exports(tmp_path):
 @pytest.mark.parametrize("over,exc,match", [
     pytest.param({"train_unconditional_prob": "0.5"}, ValueError,
                  "empty-caption", id="over2-ValueError-empty-caption"),
-    pytest.param({"lora_algo": "loha"}, NotImplementedError, "loha",
-                 id="over4-NotImplementedError-loha"),
     pytest.param({"pretrained_model_path": "ckpt"}, ValueError,
                  "no denoiser checkpoint was found",
                  id="over5-ValueError-no denoiser checkpoint was found"),
-    pytest.param({"lora_pretrained": "a.safetensors"}, NotImplementedError,
-                 "item 9", id="lora_pretrained-item-9"),
-    pytest.param({"use_repa": "true"}, NotImplementedError, "item 10",
-                 id="use_repa-item-10"),
+    pytest.param({"lora_pretrained": "a.safetensors"}, FileNotFoundError,
+                 "a.safetensors", id="lora_pretrained-missing-file"),
+    pytest.param({"use_repa": "true"}, ValueError, "no DINOv2 tokens",
+                 id="use_repa-on-feature-shards"),
     pytest.param({"lora_rank": None, "lora_algo": None,
                   "unfreeze_modules": ["blocks_9"]}, ValueError,
                  "matched no parameter", id="unfreeze_modules-matching-none"),

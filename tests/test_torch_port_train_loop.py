@@ -157,7 +157,7 @@ def _run(name, lora, steps=2, explore=0, pres=False, unfreeze=None):
     from yat_tpu.train.state import create_train_state, make_optimizer
     from yat_tpu.train.step import make_train_step as j_make_step
     from yat_tpu.train import tasks as jt
-    from yat_tpu_torch.adapters.builder import lora_parameters
+    from yat_tpu_torch.adapters.builder import adapter_parameters
     from yat_tpu_torch.config import TrainingParameters
     from yat_tpu_torch.train import tasks as tt
     from yat_tpu_torch.train.state import Optimizer, unfreeze_mask
@@ -191,7 +191,7 @@ def _run(name, lora, steps=2, explore=0, pres=False, unfreeze=None):
     model = _port_model(name, cfg_j, variables,
                         *((adapters, meta) if lora else ()))
     if lora:
-        named = lora_parameters(model)
+        named = adapter_parameters(model)
     else:
         for p in model.parameters():
             p.requires_grad_(True)

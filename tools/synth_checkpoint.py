@@ -513,3 +513,97 @@ def sana_config_json(cfg, **extra) -> dict:
         out["qk_norm"] = cfg.qk_norm
     out.update(extra)
     return out
+
+
+# torch.hub dinov2_vitb14: a fused qkv per block, LayerScale ``gamma``s,
+# a ``mask_token``, and the ``pos_embed`` of its 518 px build (37x37 + cls)
+DINOV2_PUBLISHED_GRID = 37
+
+
+def dinov2_state_dict(hidden: int = 768, num_layers: int = 12,
+                      mlp_ratio: float = 4.0, patch_size: int = 14,
+                      grid: int = DINOV2_PUBLISHED_GRID,
+                      seed: int = 0) -> Dict[str, np.ndarray]:
+    """A seeded ``dinov2_vitb14`` state dict in the published keys and
+    shapes (fp32 numpy; write it with :func:`write_bin` as a ``.pth``).
+    ``grid`` sets ``pos_embed`` to ``[1, grid² + 1, hidden]``: the
+    published 37 does not fit a 224 px model (16), which a test of the
+    misfit wants."""
+    d, h = hidden, int(hidden * mlp_ratio)
+    shapes = {"patch_embed.proj.weight": (d, 3, patch_size, patch_size),
+              "patch_embed.proj.bias": (d,), "cls_token": (1, 1, d),
+              "pos_embed": (1, grid * grid + 1, d), "mask_token": (1, d),
+              "norm.weight": (d,), "norm.bias": (d,)}
+    for i in range(num_layers):
+        p = f"blocks.{i}"
+        shapes.update({
+            f"{p}.norm1.weight": (d,), f"{p}.norm1.bias": (d,),
+            f"{p}.attn.qkv.weight": (3 * d, d), f"{p}.attn.qkv.bias": (3 * d,),
+            f"{p}.attn.proj.weight": (d, d), f"{p}.attn.proj.bias": (d,),
+            f"{p}.ls1.gamma": (d,), f"{p}.norm2.weight": (d,),
+            f"{p}.norm2.bias": (d,), f"{p}.mlp.fc1.weight": (h, d),
+            f"{p}.mlp.fc1.bias": (h,), f"{p}.mlp.fc2.weight": (d, h),
+            f"{p}.mlp.fc2.bias": (d,), f"{p}.ls2.gamma": (d,)})
+    out = {}
+    for key, shape in shapes.items():
+        rng = np.random.default_rng([int(seed), zlib.crc32(key.encode())])
+        v = rng.standard_normal(shape, dtype=np.float32)
+        if key.endswith("weight") and len(shape) > 1:
+            v *= np.float32(int(np.prod(shape[1:])) ** -0.5)
+        elif "norm" in key and key.endswith("weight"):
+            v = 1.0 + 0.05 * v
+        elif key.endswith("gamma"):
+            v = 0.1 * v
+        else:
+            v *= np.float32(0.02)
+        out[key] = v.astype(np.float32)
+    return out
+
+
+# a real PEFT file's names for the DiT families (SANA, PixArt-Sigma):
+# (regex over the flax module path, the diffusers module path)
+PEFT_DIT_MODULES: List[Tuple[str, str]] = [
+    (r"^blocks_(\d+)\.(attn\d)\.to_out$", "transformer_blocks.{0}.{1}.to_out.0"),
+    (r"^blocks_(\d+)\.(attn\d)\.(to_[qkv])$", "transformer_blocks.{0}.{1}.{2}"),
+    (r"^blocks_(\d+)\.ff\.fc1$", "transformer_blocks.{0}.ff.net.0.proj"),
+    (r"^blocks_(\d+)\.ff\.fc2$", "transformer_blocks.{0}.ff.net.2"),
+]
+# an adapter leaf's PEFT/LyCORIS suffix, and whether the file holds its
+# transpose (the torch ``[out, in]`` layout)
+PEFT_LEAVES = {
+    "lora_a": ("lora_A.weight", True), "lora_b": ("lora_B.weight", True),
+    "dora_m": ("lora_magnitude_vector.weight", False),
+    "hada_w1_a": ("hada_w1_a", True), "hada_w1_b": ("hada_w1_b", True),
+    "hada_w2_a": ("hada_w2_a", True), "hada_w2_b": ("hada_w2_b", True),
+    "lokr_w1": ("lokr_w1", True), "lokr_w2_a": ("lokr_w2_a", True),
+    "lokr_w2_b": ("lokr_w2_b", True),
+    "fft_spectrum": ("fourierft_spectrum", False),
+}
+
+
+def write_peft_adapters(path: str, leaves: Mapping[str, tuple],
+                        seed: int = 0) -> Dict[str, np.ndarray]:
+    """A PEFT-named adapter file (``base_model.model.{diffusers module
+    path}.{suffix}``, F32) for the leaves ``{"blocks_0.attn1.to_q.lokr_w1":
+    shape in the JAX layout}``, seeded per leaf.  Returns ``{leaf path:
+    value in the JAX layout}``, what a correct load gives each leaf."""
+    tensors, expected = [], {}
+    for name in sorted(leaves):
+        module, leaf = name.rsplit(".", 1)
+        for pat, template in PEFT_DIT_MODULES:
+            m = re.match(pat, module)
+            if m is not None:
+                torch_module = template.format(*m.groups())
+                break
+        else:
+            raise KeyError(f"no PEFT module name for {module}")
+        suffix, transpose = PEFT_LEAVES[leaf]
+        shape = tuple(int(s) for s in leaves[name])
+        rng = np.random.default_rng([int(seed), zlib.crc32(name.encode())])
+        v = (0.1 * rng.standard_normal(shape)).astype(np.float32)
+        expected[name] = v
+        t = np.ascontiguousarray(v.T if transpose and v.ndim == 2 else v)
+        tensors.append((f"base_model.model.{torch_module}.{suffix}", t.shape,
+                        lambda t=t: t))
+    write_safetensors(path, tensors, "F32")
+    return expected

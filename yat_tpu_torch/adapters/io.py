@@ -1,13 +1,16 @@
-"""Adapter export: safetensors with PEFT-compatible naming.
+"""Adapter export and import: safetensors with PEFT-compatible naming.
 
-Counterpart of the export half of ``yat_tpu/adapters/io.py``.  Keys are
+Counterpart of ``yat_tpu/adapters/io.py``.  Export keys are
 
     base_model.model.{dotted.flax.module.path}.lora_A.weight   [r, in]
     base_model.model.{dotted.flax.module.path}.lora_B.weight   [out, r]
 
-(the torch layout), and the header's metadata carries the scales as JSON
-under ``yat_meta``, as the JAX package writes them; its
-``load_adapter_safetensors`` reads the file back.  The safetensors format
+(the torch layout; every kind's leaf is renamed and transposed through
+``_PEFT_NAMES``), and the header's metadata carries the 0-d meta (the
+scales) as JSON under ``yat_meta``, as the JAX package writes them;
+FourierFT's indices are not in the file.  ``load_adapter_safetensors``
+reads the export of either package, bare flax paths, and real PEFT files
+with torch/diffusers module paths (``adapters/peft_paths.py``).  The safetensors format
 is written and read here directly (an 8-byte little-endian header length,
 a JSON header, then the raw little-endian tensors back to back), so the
 port needs no ``safetensors`` package.  Adapter files are written in F32;
@@ -28,6 +31,15 @@ import numpy as np
 _PEFT_NAMES = {
     "lora_a": ("lora_A.weight", True),
     "lora_b": ("lora_B.weight", True),
+    "dora_m": ("lora_magnitude_vector.weight", False),
+    "hada_w1_a": ("hada_w1_a", True),
+    "hada_w1_b": ("hada_w1_b", True),
+    "hada_w2_a": ("hada_w2_a", True),
+    "hada_w2_b": ("hada_w2_b", True),
+    "lokr_w1": ("lokr_w1", True),
+    "lokr_w2_a": ("lokr_w2_a", True),
+    "lokr_w2_b": ("lokr_w2_b", True),
+    "fft_spectrum": ("fourierft_spectrum", False),
 }
 
 # the adapter files hold fp32 tensors only
@@ -132,3 +144,64 @@ def save_adapter_safetensors(path: str, adapters: Dict[str, Any],
                   if np.asarray(v).ndim == 0}
         header = {"yat_meta": json.dumps(scales)}
     write_safetensors(path, tensors, header)
+
+
+def load_adapter_safetensors(path: str, like: Dict[str, Any]
+                             ) -> Dict[str, Any]:
+    """Adapter weights from ``path`` (a file, or a directory holding
+    ``adapter_model.safetensors``) in the structure of ``like`` (the nested
+    dicts of ``adapters.builder.adapter_tree``), fp32.
+
+    A copy of the JAX package's reader.  Three namings are accepted: the
+    export's (flax paths under ``base_model.model.``), bare flax paths,
+    and real PEFT files with torch/diffusers module paths, probed at two
+    UNet level counts.  A candidate is taken only when it is present and
+    its shape (after the transpose ``_PEFT_NAMES`` names) agrees; a leaf
+    with no such candidate raises."""
+    from yat_tpu_torch.adapters.peft_paths import (flax_to_diffusers,
+                                                   num_levels_from_tree)
+    if os.path.isdir(path):
+        path = os.path.join(path, "adapter_model.safetensors")
+    tensors, _ = read_safetensors(path)
+
+    n_levels = num_levels_from_tree([p for p, _ in _flatten(like)])
+    out: Dict[str, Any] = {}
+    for path_keys, leaf in _flatten(like):
+        *module, leaf_name = path_keys
+        suffix, transpose = _PEFT_NAMES.get(leaf_name, (leaf_name, False))
+        dotted = ".".join(module)
+        candidates = [f"base_model.model.{dotted}.{suffix}",
+                      f"{dotted}.{leaf_name}", f"{dotted}.{suffix}"]
+        # the tree undercounts UNet levels when the deepest level has no
+        # adapted module, which would flip the up-block index
+        for nl in (n_levels, n_levels + 1):
+            torch_path = flax_to_diffusers(module, nl)
+            if torch_path is not None:
+                candidates += [f"base_model.model.{torch_path}.{suffix}",
+                               f"{torch_path}.{suffix}"]
+        want = tuple(np.asarray(leaf).shape)
+        arr = mismatch = None
+        for c in candidates:
+            if c not in tensors:
+                continue
+            cand = tensors[c]
+            if transpose and cand.ndim == 2:
+                cand = cand.T
+            if tuple(cand.shape) != want:
+                mismatch = (c, cand.shape)
+                continue
+            arr = cand
+            break
+        if arr is None:
+            if mismatch is not None:
+                raise ValueError(
+                    f"shape mismatch for {dotted}.{leaf_name}: file "
+                    f"{mismatch[0]} has {mismatch[1]} vs expected {want} "
+                    "(no other candidate matched)")
+            raise KeyError(f"adapter file {path} missing weight for "
+                           f"{dotted}.{leaf_name}")
+        node = out
+        for k in path_keys[:-1]:
+            node = node.setdefault(k, {})
+        node[path_keys[-1]] = np.ascontiguousarray(arr, np.float32)
+    return out

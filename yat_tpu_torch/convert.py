@@ -36,9 +36,10 @@ VAE's converted checkpoint is merged against its paths
 (``frontends/common.py``).
 
 ``load_flax_adapters(module, adapters, meta)`` does the same for the JAX
-package's LoRA trees (``adapters``/``adapters_meta`` of its train state):
-each ``{"lora_a", "lora_b"}`` leaf set is attached to the ``AdapterDense``
-at its path, with its scale and dropout rate, and the base is frozen.
+package's adapter trees (``adapters``/``adapters_meta`` of its train
+state): each module's leaf set (LoRA, DoRA, LoHa, LoKr or FourierFT) is
+attached to the ``AdapterDense`` at its path, with its meta, and the base
+is frozen.
 """
 
 from __future__ import annotations
@@ -81,12 +82,15 @@ def _torch_leaf(name: str, arr: np.ndarray):
 
 
 def load_flax_params(module: nn.Module, tree: Mapping,
-                     quant_scales: Optional[Mapping] = None) -> None:
+                     quant_scales: Optional[Mapping] = None,
+                     keep: Tuple[str, ...] = ()) -> None:
     """Copy the flax parameter ``tree`` into ``module`` (in place; each
     parameter keeps its own dtype and device).  An int8 or int4 dense
     ``kernel`` (the JAX package's quantized base) becomes the module's
     int8 ``qweight`` ``[out, in]``, with its ``kernel_scale`` from the same
-    path of ``quant_scales``."""
+    path of ``quant_scales``.  A parameter the tree lacks under a module
+    named in ``keep`` keeps its value (modules with no checkpoint
+    counterpart)."""
     loaded = set()
 
     def walk(mod: nn.Module, node: Mapping, scales: Mapping,
@@ -124,7 +128,8 @@ def load_flax_params(module: nn.Module, tree: Mapping,
 
     walk(module, tree, quant_scales or {}, "")
     missing = [(n, p) for n, p in module.named_parameters()
-               if id(p) not in loaded]
+               if id(p) not in loaded
+               and not set(keep) & set(n.split("."))]
     # only a leaf named ``bias`` (not T5's ``relative_attention_bias``)
     hard = [n for n, _ in missing if n.rsplit(".", 1)[-1] != "bias"]
     if hard:
@@ -193,33 +198,42 @@ def flax_shapes(module: nn.Module) -> Dict[str, Any]:
 
 def load_flax_adapters(module: nn.Module, adapters: Mapping,
                        meta: Mapping) -> int:
-    """Attach the JAX package's LoRA leaves (nested dicts of numpy arrays,
-    ``lora_a`` ``[in, r]``, ``lora_b`` ``[r, out]``) and their
-    ``lora_scale``/``lora_dropout`` to the matching ``AdapterDense`` modules
-    of ``module``, on its device, in fp32; freeze every other parameter.
-    Returns the number of adapted modules."""
+    """Attach the JAX package's adapter leaves (nested dicts of numpy
+    arrays in the JAX layouts: LoRA ``lora_a`` ``[in, r]``/``lora_b``
+    ``[r, out]`` with DoRA's ``dora_m``, LoHa's ``hada_*``, LoKr's
+    ``lokr_*``, FourierFT's ``fft_spectrum``) and their meta
+    (``lora_scale``/``lora_dropout``, ``scale``, ``fft_alpha`` and
+    ``fft_indices``) to the matching ``AdapterDense`` modules of
+    ``module``, on its device, in fp32; freeze every other parameter.  An
+    unknown leaf raises.  Returns the number of adapted modules."""
     from yat_tpu_torch.adapters.builder import freeze_base
-    from yat_tpu_torch.models.layers import AdapterDense
+    from yat_tpu_torch.models.layers import ADAPTER_LEAVES, AdapterDense
 
+    kinds = {frozenset(v): k for k, v in ADAPTER_LEAVES.items()}
     count = 0
 
     def walk(mod: nn.Module, node: Mapping, mnode: Mapping, prefix: str):
         nonlocal count
-        if "lora_a" in node:
+        if any(not isinstance(v, Mapping) for v in node.values()):
             if not isinstance(mod, AdapterDense):
-                raise KeyError(f"{prefix}: LoRA leaves on a "
+                raise KeyError(f"{prefix}: adapter leaves on a "
                                f"{type(mod).__name__}, not an AdapterDense")
-            extra = set(node) - {"lora_a", "lora_b"}
-            if extra:
-                raise NotImplementedError(
-                    f"{prefix}: adapter leaves {sorted(extra)} are not "
-                    "ported (LoRA only)")
+            kind = kinds.get(frozenset(node))
+            if kind is None:
+                raise KeyError(f"{prefix}: adapter leaves {sorted(node)} "
+                               "are no adapter kind's "
+                               f"({sorted(ADAPTER_LEAVES)})")
             dev = mod.base_device
-            mod.attach_lora(
-                torch.tensor(np.asarray(node["lora_a"], np.float32), device=dev),
-                torch.tensor(np.asarray(node["lora_b"], np.float32), device=dev),
-                float(np.asarray(mnode["lora_scale"])),
-                float(np.asarray(mnode.get("lora_dropout", 0.0))))
+            scale = mnode.get("lora_scale", mnode.get(
+                "scale", mnode.get("fft_alpha")))
+            indices = mnode.get("fft_indices")
+            mod.attach_adapter(
+                kind, {k: torch.tensor(np.asarray(v, np.float32), device=dev)
+                       for k, v in node.items()},
+                float(np.asarray(scale)),
+                float(np.asarray(mnode.get("lora_dropout", 0.0))),
+                None if indices is None else torch.tensor(
+                    np.asarray(indices, np.int32), device=dev))
             count += 1
             return
         for key, val in node.items():

@@ -47,6 +47,8 @@ class Batch:
     embeddings: Optional[np.ndarray] = None       # [B, L, D]
     text_mask: Optional[np.ndarray] = None        # [B, L]
     pooled_text: Optional[np.ndarray] = None      # [B, D_pool]
+    repa_features: Optional[np.ndarray] = None    # [B, 256, 768]
+    repa_spatial_dims: Optional[Tuple[int, int]] = None
     is_regularization: bool = False
 
 

@@ -16,9 +16,13 @@ KL-VAE of ``build_t5_vae_encoders``, the shard sources (local paths, then
 (``build_family_sampler``: Dreambooth, then ``compute_features``, then
 feature shards) and the training CLI (``cli_main``, which adds
 ``--device`` to the JAX package's ``--config`` and routes
-``extract_features`` to the extraction pass).  The single-file CompVis
-checkpoints, the PixelDiT hub fetch, CLIP and DINOv2 are not ported
-(ROADMAP queue 1, item 10).
+``extract_features`` to the extraction pass), the frozen DINOv2 encoder
+of REPA's targets (``build_dino_encoder``, which the on-the-fly and
+Dreambooth samplers call on each whole batch under ``use_repa``) and
+the pretrained adapters of ``lora_pretrained`` for serving
+(``attach_pretrained_adapters``).  The single-file CompVis checkpoints,
+the PixelDiT hub fetch and CLIP are not ported (ROADMAP queue 1, item
+10).
 """
 
 from __future__ import annotations
@@ -63,17 +67,25 @@ def slice_caption_rung(ids, mask, multiple: int = 64):
     return ids[:, :rung], mask[:, :rung]
 
 
-def build_module(module_fn, device, tree, seed, dtype=None):
+# modules of the denoisers with no checkpoint counterpart: a pretrained
+# load leaves them at their initialisation
+NEW_CAPABILITY_MODULES = ("repa_projector", "resnet_branch")
+
+
+def build_module(module_fn, device, tree, seed, dtype=None,
+                 keep: tuple = ()):
     """Construct a module on ``device`` (no host copy of its parameters),
     then load the JAX parameter ``tree`` or initialise it from ``seed``;
-    optionally store the parameters in ``dtype``.  Returns it in eval
-    mode."""
+    optionally store the parameters in ``dtype``.  The parameters of the
+    submodules named in ``keep`` that the tree lacks are initialised from
+    ``seed``.  Returns it in eval mode."""
     with torch.device(device):
         module = module_fn()
-    if tree is not None:
-        load_flax_params(module, tree)
-    else:
+    if tree is None or any(k in n.split(".") for n, _ in
+                           module.named_parameters() for k in keep):
         init_params(module, torch.Generator(device=device).manual_seed(seed))
+    if tree is not None:
+        load_flax_params(module, tree, keep=keep)
     if dtype is not None:
         module.to(dtype)
     return module.eval()
@@ -367,7 +379,7 @@ def build_backbone(module_fn, params: TrainingParameters, family: str, cfg,
     tree = load_pretrained_backbone(params, family, cfg)
     try:
         module = build_module(module_fn, device, tree, params.dataset_seed,
-                              dtype)
+                              dtype, keep=NEW_CAPABILITY_MODULES)
     except KeyError as e:
         raise ValueError(f"the {family} checkpoint does not fit the model "
                          f"({e.args[0]}): converter/checkpoint mismatch"
@@ -584,6 +596,85 @@ def encodes_images(params: TrainingParameters) -> bool:
                     and not params.use_calculated_features))
 
 
+def dino_config(params: TrainingParameters):
+    """DINOv2 ViT-B/14, or its tiny test configuration under
+    ``tiny_encoders``."""
+    from yat_tpu_torch.models.dinov2 import DINOV2_TINY_TEST, DINOV2_VITB14
+    tiny = bool(params.model_config_overrides.get("tiny_encoders"))
+    return DINOV2_TINY_TEST if tiny else DINOV2_VITB14
+
+
+def dino_token_dim(params: TrainingParameters) -> int:
+    """The width of the REPA targets (768 for ViT-B/14)."""
+    return dino_config(params).hidden_dim
+
+
+def build_dino_encoder(params: TrainingParameters, device):
+    """``encode_repa(images)``: the frozen DINOv2's ``x_norm_patchtokens``
+    (fp32 ``[B, 256, 768]`` on the host) of a batch of pixels (uint8, or
+    float in [-1, 1]; 224 px antialiased bicubic, ImageNet-normalised) on
+    ``device``.  The weights come from ``repa_pretrained_model`` (a
+    torch.hub ``dinov2_vitb14`` state dict) when that file exists;
+    otherwise they are random from ``dataset_seed + 11`` (the draws differ
+    from the JAX package's) and one line names the missing file.  The
+    callable carries ``grid_hw`` (the token grid) and ``module``."""
+    from yat_tpu_torch.models.convert import load_torch_state_dict, \
+        merge_into
+    from yat_tpu_torch.models.dinov2 import DinoV2, convert_dinov2, \
+        preprocess_for_dino
+
+    cfg = dino_config(params)
+    path = params.repa_pretrained_model
+    tree = None
+    if path and os.path.exists(path):
+        with torch.device("meta"):
+            shapes = flax_shapes(DinoV2(cfg))
+        tree = merge_into(shapes, convert_dinov2(load_torch_state_dict(path),
+                                                 cfg.num_layers))
+        print(f"[repa] DINOv2 weights from {path}")
+    else:
+        print(f"[repa] repa_pretrained_model {path!r} is not a file: the "
+              "REPA targets come from a random DINOv2 (seed "
+              f"{params.dataset_seed + 11})")
+    dino = build_module(lambda: DinoV2(cfg), device, tree,
+                        params.dataset_seed + 11)
+
+    @torch.inference_mode()
+    def encode_repa(images):
+        u8 = torch.as_tensor(pixels_to_u8(images)).to(device)
+        x = preprocess_for_dino(u8_to_unit(u8), size=cfg.image_size)
+        return dino(x).cpu().numpy()
+
+    encode_repa.grid_hw = (cfg.grid, cfg.grid)
+    encode_repa.module = dino
+    return encode_repa
+
+
+def attach_pretrained_adapters(model, params: TrainingParameters,
+                               device) -> int:
+    """``lora_pretrained`` on a serving pipeline's denoiser: the adapters
+    of the configured spec built as the trainer builds them (from
+    ``dataset_seed`` on ``device``), then their leaves read from the file
+    (``adapters.builder.load_pretrained_adapters``).
+    Returns the number of adapted modules (0 without ``lora_pretrained``).
+    """
+    if not params.lora_pretrained:
+        return 0
+    from yat_tpu_torch.adapters.builder import (build_adapter_params,
+                                                load_pretrained_adapters)
+    from yat_tpu_torch.train.engine import adapter_spec_from_params
+    spec = adapter_spec_from_params(params)
+    if spec is None:
+        raise ValueError("lora_pretrained needs the adapter's spec: set "
+                         "lora_rank, lora_algo and lora_target_modules")
+    gen = torch.Generator(device=device).manual_seed(params.dataset_seed)
+    n = build_adapter_params(model, spec, gen,
+                             merged=params.lora_fused_matmul)
+    load_pretrained_adapters(model, params.lora_pretrained)
+    print(f"[adapters] {n} {spec.algo} modules from {params.lora_pretrained}")
+    return n
+
+
 @dataclasses.dataclass
 class FamilySpec:
     """What a model family gives the shared sampler selection: its caption
@@ -595,6 +686,8 @@ class FamilySpec:
     max_caption_len: int
     default_resolution: int
     build_encoders: Callable[[TrainingParameters], dict]
+    # where the DINOv2 encoder of use_repa runs
+    device: object = "cpu"
 
 
 def ensure_encoders(params: TrainingParameters, spec: FamilySpec,
@@ -638,12 +731,15 @@ def build_family_sampler(params: TrainingParameters, spec: FamilySpec,
         h = ensure_encoders(params, spec, holder)
         cb = (caption_length_buckets(spec.max_caption_len)
               if params.caption_length_bucketing else None)
+        if params.use_repa and "encode_repa" not in holder:
+            holder["encode_repa"] = build_dino_encoder(params, spec.device)
         encoded = OnTheFlyEncodingSampler(
             images, h["encode_images"], h["encode_captions"],
             spec.max_caption_len,
             vae_max_batch_size=params.vae_max_batch_size,
             text_encoder_max_batch_size=params.text_encoder_max_batch_size,
-            caption_buckets=cb, repeat=repeat)
+            encode_repa=holder.get("encode_repa"), caption_buckets=cb,
+            repeat=repeat)
         if not cache:
             return encoded
         return FeatureCache(

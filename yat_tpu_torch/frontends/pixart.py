@@ -17,13 +17,21 @@ parameter trees instead (``weights``).
 
     python -m yat_tpu_torch.frontends.pixart --config cfg.yaml [--device cpu]
 
-REPA and LoKr raise, each naming its ROADMAP item.  The quantized base
-(``lora_base_model_8bit``/``_4bit``, ``int8_w8a8``) and Lion with 8-bit
-momentum (``use_adamw_8bit``) run as in the SANA trainer.
+Every adapter kind trains (``lora_algo``), and ``lora_pretrained`` loads
+adapters into training and serving.  ``use_repa`` builds the denoiser
+with its REPA projector after block ``repa_depth`` (4 unless the overrides
+set it) and adds the alignment term against DINOv2's tokens, which the
+on-the-fly sampler encodes.  The projector sits in the base parameters:
+under adapter training it stays frozen at its initialisation (and is
+quantized with the base), as in the JAX package, so the term trains the
+adapters of the blocks up to the tap through a fixed random head.  The
+quantized base (``lora_base_model_8bit``/``_4bit``, ``int8_w8a8``) and
+Lion with 8-bit momentum (``use_adamw_8bit``) run as in the SANA trainer.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping, Optional
 
 import torch
@@ -32,6 +40,7 @@ from yat_tpu_torch.config import TrainingParameters
 from yat_tpu_torch.device import resolve_device
 from yat_tpu_torch.frontends.common import (
     FamilySpec,
+    attach_pretrained_adapters,
     build_backbone,
     build_family_sampler,
     build_t5_vae_encoders,
@@ -44,26 +53,31 @@ from yat_tpu_torch.frontends.common import (
 from yat_tpu_torch.models.pixart import PIXART_SIGMA_XL2, PixArtConfig, \
     PixArtTransformer2D
 from yat_tpu_torch.ops.schedulers import DDPMSchedule
-from yat_tpu_torch.train.engine import Trainer, stored_dtype
+from yat_tpu_torch.train.engine import (Trainer, adapter_spec_from_params,
+                                        stored_dtype)
 from yat_tpu_torch.train.tasks import (make_epsilon_loss,
                                       make_preservation_loss)
 from yat_tpu_torch.train.validation import ValidationPipeline
 
 
 def build_pixart_config(params: TrainingParameters) -> PixArtConfig:
-    if params.use_repa:
-        raise NotImplementedError("REPA is not ported to PyTorch yet "
-                                  "(ROADMAP queue 1, item 10)")
-    return override_config(PIXART_SIGMA_XL2, params.model_config_overrides)
+    """The overridden PixArt-Sigma XL-2 configuration; under ``use_repa``
+    the tap sits after block 4 unless ``repa_depth`` is set."""
+    cfg = override_config(PIXART_SIGMA_XL2, params.model_config_overrides)
+    if params.use_repa and cfg.repa_depth is None:
+        cfg = dataclasses.replace(cfg, repa_depth=4)
+    return cfg
 
 
 def build_denoiser(params: TrainingParameters, cfg: PixArtConfig, device,
                    tree=None, store=None, remat: bool = False):
-    """The PixArt-Sigma denoiser (see ``common.build_backbone``)."""
+    """The PixArt-Sigma denoiser (see ``common.build_backbone``), with its
+    REPA projector under ``use_repa``."""
     dtype = torch.bfloat16 if params.bfloat16 else torch.float32
     return build_backbone(
         lambda: PixArtTransformer2D(cfg, dtype=dtype,
-                                    gradient_checkpointing=remat),
+                                    gradient_checkpointing=remat,
+                                    repa=params.use_repa),
         params, "pixart", cfg, device, tree, store)
 
 
@@ -82,6 +96,7 @@ def make_pipeline(params: TrainingParameters, device=None,
     weights = weights or {}
     model = build_denoiser(params, cfg, device, weights.get("transformer"),
                            torch.bfloat16 if params.bfloat16 else None)
+    attach_pretrained_adapters(model, params, device)
     _, encode_captions, decode_latents = build_t5_vae_encoders(
         params, device, cfg.max_caption_len, weights, images=False)
     return _pipeline(params, cfg, model, encode_captions, decode_latents,
@@ -124,7 +139,7 @@ def family_spec(params: TrainingParameters, cfg: PixArtConfig, device,
 
     return FamilySpec(family="pixart", max_caption_len=cfg.max_caption_len,
                       default_resolution=cfg.resolution,
-                      build_encoders=encoders)
+                      build_encoders=encoders, device=device)
 
 
 def make_trainer(params: TrainingParameters, sampler=None, device=None,
@@ -150,9 +165,14 @@ def make_trainer(params: TrainingParameters, sampler=None, device=None,
     model = build_denoiser(params, cfg, device, weights.get("transformer"),
                            stored_dtype(params), remat=params.low_vram)
     schedule = DDPMSchedule()
-    loss = make_epsilon_loss(model, schedule,
-                             timestep_list=params.timesteps or None,
-                             learned_sigma=_pred_slice(cfg) is not None)
+    loss = make_epsilon_loss(
+        model, schedule, timestep_list=params.timesteps or None,
+        learned_sigma=_pred_slice(cfg) is not None,
+        repa_lambda=params.repa_lambda if params.use_repa else 0.0)
+    if params.use_repa and adapter_spec_from_params(params) is not None:
+        print(f"[repa] the projector after block {cfg.repa_depth} is part "
+              "of the frozen base under adapter training: it stays at its "
+              "initialisation, as in the JAX package")
     pres = (make_preservation_loss(model, schedule, is_flow=False)
             if params.use_preservation else None)
     holder: dict = {}

@@ -16,6 +16,12 @@ random from ``dataset_seed``, as in the JAX frontend.  Tests may pass JAX
 parameter trees instead (``weights``).
 
     python -m yat_tpu_torch.frontends.sana --config cfg.yaml [--device cpu]
+
+Every adapter kind trains, and ``lora_pretrained`` loads adapters into
+training and serving.  ``use_repa`` takes the generic REPA path: the
+outputs of ``repa_target_modules`` (``blocks_{num_layers // 4}`` by
+default) through a projection head from ``dataset_seed + 7`` that trains
+beside the adapters, against DINOv2's tokens of the on-the-fly sampler.
 """
 
 from __future__ import annotations
@@ -28,10 +34,12 @@ from yat_tpu_torch.config import TrainingParameters
 from yat_tpu_torch.device import resolve_device
 from yat_tpu_torch.frontends.common import (
     FamilySpec,
+    attach_pretrained_adapters,
     build_backbone,
     build_family_sampler,
     build_pipe_component,
     cli_main,
+    dino_token_dim,
     encodes_images,
     ensure_encoders,
     find_model_config_json,
@@ -47,6 +55,7 @@ from yat_tpu_torch.models.sana import (
     SanaConfig,
     SanaTransformer2D,
 )
+from yat_tpu_torch.ops.repa import RepaConfig, init_repa_head
 from yat_tpu_torch.ops.schedulers import FlowMatchSchedule
 from yat_tpu_torch.train.engine import Trainer, stored_dtype
 from yat_tpu_torch.train.tasks import (make_flow_matching_loss,
@@ -169,6 +178,7 @@ def make_pipeline(params: TrainingParameters, device=None,
     weights = weights or {}
     model = build_denoiser(params, cfg, device, weights.get("transformer"),
                            torch.bfloat16 if params.bfloat16 else None)
+    attach_pretrained_adapters(model, params, device)
     _, encode_captions, decode_latents = build_encoders(
         params, cfg, device, weights, images=False)
     return _pipeline(params, cfg, model, encode_captions, decode_latents,
@@ -203,7 +213,7 @@ def family_spec(params: TrainingParameters, cfg: SanaConfig, device,
 
     return FamilySpec(family="sana", max_caption_len=cfg.max_caption_len,
                       default_resolution=cfg.resolution,
-                      build_encoders=encoders)
+                      build_encoders=encoders, device=device)
 
 
 def make_trainer(params: TrainingParameters, sampler=None, device=None,
@@ -229,8 +239,20 @@ def make_trainer(params: TrainingParameters, sampler=None, device=None,
     model = build_denoiser(params, cfg, device, weights.get("transformer"),
                            stored_dtype(params), remat=params.low_vram)
     schedule = FlowMatchSchedule(shift=3.0)
-    loss = make_flow_matching_loss(model, schedule,
-                                   timestep_list=params.timesteps or None)
+    # SANA has no in-model REPA tap: use_repa takes the generic path, the
+    # target modules' outputs through a projection head that trains
+    repa_cfg = repa_head = None
+    if params.use_repa:
+        repa_cfg = RepaConfig(
+            target_modules=tuple(params.repa_target_modules or
+                                 (f"blocks_{max(0, cfg.num_layers // 4)}",)),
+            target_shape=dino_token_dim(params))
+        repa_head = init_repa_head(repa_cfg, cfg.hidden_dim,
+                                   params.dataset_seed + 7, device)
+    loss = make_flow_matching_loss(
+        model, schedule, timestep_list=params.timesteps or None,
+        repa_lambda=params.repa_lambda if params.use_repa else 0.0,
+        repa_cfg=repa_cfg, repa_head=repa_head)
     pres = (make_preservation_loss(model, schedule, is_flow=True)
             if params.use_preservation else None)
     holder: dict = {}
@@ -241,6 +263,7 @@ def make_trainer(params: TrainingParameters, sampler=None, device=None,
                       preservation_loss=pres)
     trainer.sana_config = cfg
     trainer.family_spec = spec
+    trainer.repa_head, trainer.repa_config = repa_head, repa_cfg
     trainer.schedule = schedule
     if cfg.softmax_self_attn_blocks or cfg.qk_norm:
         # the export records the architecture flags, so a reload through

@@ -12,6 +12,8 @@ Counterpart of ``yat_tpu/generate.py`` on the PyTorch port:
 The YAML is a training config: ``pretrained_pipe_path`` (a diffusers
 pipeline directory) or ``pretrained_model_path`` decides what weights
 load; without them the modules are random from ``dataset_seed``.
+``lora_pretrained`` (a trained adapter of any kind, or a PEFT file)
+rides on the denoiser, built from the config's ``lora_*`` keys.
 ``--sampler dpm`` selects DPM-Solver++(2M); ``--cache-interval N`` (flow
 families) evaluates the denoiser on every Nth step and extrapolates the
 velocity in between.

@@ -12,16 +12,18 @@ while data stays in the compute dtype.
 
 Parameters are created uninitialised; :func:`init_params` fills them the
 way flax's initialisers do (or ``convert.load_flax_params`` loads them).
-LoRA adapters ride on :class:`AdapterDense` as parameters of their own
-(``adapters/builder.py`` attaches them); the modules that the JAX package
+Adapters (LoRA, DoRA, LoHa, LoKr, FourierFT) ride on :class:`AdapterDense`
+as parameters of their own (``adapters/builder.py`` attaches them); the
+modules that the JAX package
 calls with ``deterministic`` take it too, and pass it to their dense layers
 (it gates LoRA dropout).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -76,22 +78,82 @@ class _LoraMerged(torch.autograd.Function):
         return dx, dw, da, db, None
 
 
+# the trainable leaves of each adapter kind, in the JAX package's leaf
+# names (``yat_tpu/models/layers.py:AdapterDense``)
+ADAPTER_LEAVES = {
+    "lora": ("lora_a", "lora_b"),
+    "dora": ("lora_a", "lora_b", "dora_m"),
+    "loha": ("hada_w1_a", "hada_w1_b", "hada_w2_a", "hada_w2_b"),
+    "lokr": ("lokr_w1", "lokr_w2_a", "lokr_w2_b"),
+    "fourierft": ("fft_spectrum",),
+}
+_ALL_LEAVES = tuple(dict.fromkeys(
+    n for leaves in ADAPTER_LEAVES.values() for n in leaves))
+
+
+def adapter_delta(kind: str, leaves, scale: float, w: torch.Tensor,
+                  dtype: torch.dtype, fft_indices=None) -> torch.Tensor:
+    """The merged weight ``W'`` ``[out, in]`` of a non-LoRA adapter kind
+    over the base weight ``w`` (``[out, in]`` in ``dtype``), with the JAX
+    package's cast order: LoHa's and LoKr's deltas are formed in ``dtype``;
+    DoRA merges in ``dtype``, takes the column norm in fp32 and casts back;
+    FourierFT builds its dense grid and ``ifft2(norm="ortho").real`` in
+    fp32, then casts.  ``scale`` is the float scale (``scale``,
+    ``lora_scale`` or ``fft_alpha``), already gated."""
+    s = _round_scalar(scale, dtype)
+    if kind == "dora":
+        a, b, m = leaves
+        merged = w + s * (a.to(dtype) @ b.to(dtype)).t()
+        m32 = merged.float()
+        norm = torch.linalg.vector_norm(m32, dim=1, keepdim=True)
+        return (m.float()[:, None] * m32 / (norm + 1e-8)).to(dtype)
+    if kind == "loha":
+        w1a, w1b, w2a, w2b = (t.to(dtype) for t in leaves)
+        delta = (w1a @ w1b) * (w2a @ w2b)
+    elif kind == "lokr":
+        w1, w2a, w2b = (t.to(dtype) for t in leaves)
+        delta = torch.kron(w1, w2a @ w2b)
+    elif kind == "fourierft":
+        (spectrum,) = leaves
+        d_out, d_in = w.shape
+        dense = torch.zeros((d_in, d_out), dtype=torch.float32,
+                            device=spectrum.device).index_put(
+            (fft_indices[0].long(), fft_indices[1].long()),
+            spectrum.float())
+        delta = torch.fft.ifft2(dense, norm="ortho").real.to(dtype)
+    else:
+        raise ValueError(f"no merged form for adapter kind {kind!r}")
+    return w + s * delta.t()
+
+
 class AdapterDense(nn.Module):
     """Dense layer ``y = x @ W + b`` in the compute dtype, with an optional
-    LoRA adapter and an optional quantized base (counterpart of
-    ``yat_tpu/models/layers.py:AdapterDense``, LoRA and quantized
-    branches).  ``dtype=None`` computes in the input's dtype.
+    adapter and an optional quantized base (counterpart of
+    ``yat_tpu/models/layers.py:AdapterDense``).  ``dtype=None`` computes in
+    the input's dtype.
 
-    :meth:`attach_lora` adds the trainable leaves ``lora_a`` ``[in, r]`` and
-    ``lora_b`` ``[r, out]`` (the JAX orientation) as parameters, with the
-    scale and dropout rate.  The forward then takes the merged form
-    ``x @ (W + s·A@B)`` (:class:`_LoraMerged`) when ``lora_merged`` is set
-    (the ``lora_fused_matmul`` key), else the chain form
-    ``x@W + s·((x@A)@B)``; with LoRA dropout active (``deterministic``
-    false, a rate above 0 and a ``dropout_seed``) it always takes the chain
-    form, dropping inputs of the adapter branch only.  The mask comes from a
-    ``torch.Generator`` seeded with ``dropout_seed``, so a recomputation
-    under remat draws the same mask.
+    :meth:`attach_adapter` adds the trainable leaves of one adapter kind as
+    parameters, in the JAX package's names and orientations
+    (``ADAPTER_LEAVES``): LoRA ``lora_a`` ``[in, r]``, ``lora_b``
+    ``[r, out]``; DoRA adds the magnitude ``dora_m`` ``[out]``; LoHa
+    ``hada_w1_a``/``hada_w2_a`` ``[in, r]``, ``hada_w1_b``/``hada_w2_b``
+    ``[r, out]``; LoKr ``lokr_w1`` ``[u_in, u_out]``, ``lokr_w2_a``
+    ``[v_in, r]``, ``lokr_w2_b`` ``[r, v_out]``; FourierFT
+    ``fft_spectrum`` ``[n]`` with its ``fft_indices`` ``[2, n]`` (an int32
+    buffer: meta, never trained).  ``lora_scale`` holds the kind's float
+    scale (the JAX meta leaf ``lora_scale``, ``scale`` or ``fft_alpha``),
+    rounded to the compute dtype at use.
+
+    LoRA takes the merged form ``x @ (W + s·A@B)`` (:class:`_LoraMerged`)
+    when ``lora_merged`` is set (the ``lora_fused_matmul`` key), else the
+    chain form ``x@W + s·((x@A)@B)``; with LoRA dropout active
+    (``deterministic`` false, a rate above 0 and a ``dropout_seed``) it
+    always takes the chain form, dropping inputs of the adapter branch
+    only.  The mask comes from a ``torch.Generator`` seeded with
+    ``dropout_seed``, so a recomputation under remat draws the same mask.
+    DoRA, LoHa, LoKr and FourierFT multiply by their merged weight
+    (:func:`adapter_delta`); DoRA has no dropout (the JAX branch ignores
+    the rate).
 
     :meth:`quantize` replaces ``weight`` with the buffers ``qweight`` (an
     int8 ``[out, in]`` payload, -127..127 or, at 4 bits, -7..7) and
@@ -99,15 +161,19 @@ class AdapterDense(nn.Module):
     ``ops.quant.w8a8_matmul`` when ``w8a8`` is set (the trainer sets it from
     ``int8_w8a8``) and the payload has 8 bits, and LoRA takes the chain form
     on top of it, as in the JAX package (a merged ``W + s·A@B`` would need
-    the weight in the compute dtype); otherwise the weight is dequantized
-    to the compute dtype, ``(q * s).to(dtype)``, and the forms above
-    apply.
+    the weight in the compute dtype); every other kind, and every other
+    base, uses the weight dequantized to the compute dtype,
+    ``(q * s).to(dtype)``.
 
-    ``lora_gate`` is the per-step gate of refiner timestep gating
-    (:func:`set_adapter_gate`; the counterpart of the JAX package's
+    Two switches turn the adapter off, with the JAX package's two
+    meanings.  ``lora_gate`` is the per-step gate of refiner timestep
+    gating (:func:`set_adapter_gate`; the counterpart of
     ``gate_adapter_meta``, which multiplies the adapter's scale by a 0/1
-    gate): None or 1 keeps the adapter branch, 0 drops it, so the layer
-    computes exactly what it would without an adapter."""
+    gate): a gate multiplies the scale, and at 0 the branch of every kind
+    but DoRA is skipped (its output is the base's exactly); a DoRA layer at
+    0 computes ``m · W / ‖W‖``.  ``adapter_off`` (:func:`adapters_off`)
+    drops the adapter whatever its kind: the preservation term's base,
+    which the JAX package applies without its adapter trees."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  dtype: Optional[torch.dtype] = None):
@@ -118,15 +184,18 @@ class AdapterDense(nn.Module):
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
         self.register_buffer("qweight", None)
         self.register_buffer("weight_scale", None)
+        self.register_buffer("fft_indices", None)
         self.bits: Optional[int] = None
         self.w8a8 = False
-        self.lora_a: Optional[nn.Parameter] = None
-        self.lora_b: Optional[nn.Parameter] = None
+        self.adapter_kind: Optional[str] = None
+        for name in _ALL_LEAVES:
+            setattr(self, name, None)
         self.lora_scale = 1.0
         self.lora_dropout = 0.0
         self.lora_merged = True
         self.dropout_seed: Optional[int] = None
         self.lora_gate: Optional[float] = None
+        self.adapter_off = False
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         if self.weight is not None:
@@ -172,38 +241,95 @@ class AdapterDense(nn.Module):
             return self.weight.to(dtype)
         return dequantize_kernel(self.qweight, self.weight_scale, dtype)
 
+    def adapter_leaves(self) -> List[Tuple[str, nn.Parameter]]:
+        """The trainable leaves of the attached adapter, by leaf name, in
+        ``ADAPTER_LEAVES`` order (none without an adapter)."""
+        if self.adapter_kind is None:
+            return []
+        return [(n, getattr(self, n)) for n in
+                ADAPTER_LEAVES[self.adapter_kind]]
+
+    def attach_adapter(self, kind: str, leaves: Dict[str, torch.Tensor],
+                       scale: float, dropout: float = 0.0,
+                       fft_indices: Optional[torch.Tensor] = None) -> None:
+        """Add (or replace) the leaves of adapter ``kind`` (a key of
+        ``ADAPTER_LEAVES``; shapes checked against the layer); they train,
+        the base does not.  ``fft_indices`` (``[2, n]``) goes with
+        FourierFT."""
+        if kind not in ADAPTER_LEAVES:
+            raise ValueError(f"unknown adapter kind {kind!r}")
+        names = ADAPTER_LEAVES[kind]
+        if set(leaves) != set(names):
+            raise ValueError(f"{kind} takes the leaves {list(names)}, got "
+                             f"{sorted(leaves)}")
+        d_in, d_out = self.in_features, self.features
+        shapes = {n: tuple(t.shape) for n, t in leaves.items()}
+        if kind in ("lora", "dora"):
+            a, b = shapes["lora_a"], shapes["lora_b"]
+            ok = a[0] == d_in and b[1] == d_out and a[1] == b[0]
+            ok = ok and shapes.get("dora_m", (d_out,)) == (d_out,)
+        elif kind == "loha":
+            r = shapes["hada_w1_a"][1]
+            ok = (shapes["hada_w1_a"] == shapes["hada_w2_a"] == (d_in, r)
+                  and shapes["hada_w1_b"] == shapes["hada_w2_b"] == (r, d_out))
+        elif kind == "lokr":
+            (u_in, u_out), (v_in, r) = shapes["lokr_w1"], shapes["lokr_w2_a"]
+            ok = (u_in * v_in == d_in and shapes["lokr_w2_b"][0] == r
+                  and u_out * shapes["lokr_w2_b"][1] == d_out)
+        else:
+            n = shapes["fft_spectrum"]
+            ok = (fft_indices is not None and len(n) == 1
+                  and tuple(fft_indices.shape) == (2, n[0]))
+        if not ok:
+            raise ValueError(f"{kind} leaves {shapes} do not fit a "
+                             f"[{d_in} -> {d_out}] layer")
+        self.detach_adapter()
+        for name in names:
+            setattr(self, name, nn.Parameter(leaves[name]))
+        self.fft_indices = (fft_indices.to(torch.int32)
+                            if kind == "fourierft" else None)
+        self.adapter_kind = kind
+        self.lora_scale = float(scale)
+        # DoRA keeps the rate as meta (the JAX tree has it) and ignores it
+        self.lora_dropout = (float(dropout) if kind in ("lora", "dora")
+                             else 0.0)
+
+    def detach_adapter(self) -> None:
+        """Drop the adapter: the layer is its base alone again."""
+        for name in _ALL_LEAVES:
+            setattr(self, name, None)
+        self.fft_indices = None
+        self.adapter_kind = None
+
     def attach_lora(self, lora_a: torch.Tensor, lora_b: torch.Tensor,
                     scale: float, dropout: float = 0.0) -> None:
-        """Add (or replace) the LoRA leaves; they train, the base does
-        not."""
-        d_in, d_out = self.in_features, self.features
-        if lora_a.shape[0] != d_in or lora_b.shape[1] != d_out \
-                or lora_a.shape[1] != lora_b.shape[0]:
-            raise ValueError(f"LoRA leaves {tuple(lora_a.shape)} / "
-                             f"{tuple(lora_b.shape)} do not fit a "
-                             f"[{d_in} -> {d_out}] layer")
-        self.lora_a = nn.Parameter(lora_a)
-        self.lora_b = nn.Parameter(lora_b)
-        self.lora_scale = float(scale)
-        self.lora_dropout = float(dropout)
+        """:meth:`attach_adapter` for plain LoRA."""
+        self.attach_adapter("lora", {"lora_a": lora_a, "lora_b": lora_b},
+                            scale, dropout)
 
     def forward(self, x: torch.Tensor, deterministic: bool = True
                 ) -> torch.Tensor:
         dtype = self.dtype or x.dtype
         x = x.to(dtype)
-        # None: the int8 base multiplies through w8a8_matmul (K5/K5b)
-        w = None if self.w8a8 and self.bits == 8 else self.base_weight(dtype)
+        kind = None if self.adapter_off else self.adapter_kind
+        gate = 1.0 if self.lora_gate is None else self.lora_gate
+        if gate == 0.0 and kind != "dora":
+            kind = None
+        # None: the int8 base multiplies through w8a8_matmul (K5/K5b); only
+        # the base alone and chain LoRA take it
+        w8a8 = self.w8a8 and self.bits == 8 and kind in (None, "lora")
+        w = None if w8a8 else self.base_weight(dtype)
 
         def base(t):
             if w is None:
                 return w8a8_matmul(t, self.qweight, self.weight_scale)
             return F.linear(t, w)
-        if self.lora_a is None or self.lora_gate == 0.0:
+        if kind is None:
             y = base(x)
-        else:
+        elif kind == "lora":
             a = self.lora_a.to(dtype)
             b = self.lora_b.to(dtype)
-            s = _round_scalar(self.lora_scale, dtype)
+            s = _round_scalar(self.lora_scale * gate, dtype)
             dropout = (self.lora_dropout > 0.0 and not deterministic
                        and self.dropout_seed is not None)
             if self.lora_merged and not dropout and w is not None:
@@ -219,6 +345,10 @@ class AdapterDense(nn.Module):
                     xa = torch.where(keep, x / _round_scalar(keep_p, dtype),
                                      torch.zeros_like(x))
                 y = base(x) + s * ((xa @ a) @ b)
+        else:
+            y = F.linear(x, adapter_delta(
+                kind, [p for _, p in self.adapter_leaves()],
+                self.lora_scale * gate, w, dtype, self.fft_indices))
         if self.bias is not None:
             y = y + self.bias.to(dtype)
         return y
@@ -584,13 +714,29 @@ def unpatchify(tokens: torch.Tensor, hw: Tuple[int, int], patch_size: int,
 
 
 def set_adapter_gate(module: nn.Module, gate: Optional[float]) -> None:
-    """Gate the adapter branch of every :class:`AdapterDense` in
-    ``module``: 0.0 drops it, 1.0 keeps it, None clears the gate.  The
-    sampler sets it for each step of a refiner-gated ladder and clears it
-    afterwards."""
+    """Gate the adapter of every :class:`AdapterDense` in ``module``: the
+    gate multiplies the adapter's scale (0.0 drops every kind's branch but
+    DoRA's, whose layer then computes ``m · W / ‖W‖``), None clears it.
+    The sampler sets it for each step of a refiner-gated ladder and clears
+    it afterwards."""
     for m in module.modules():
         if isinstance(m, AdapterDense):
             m.lora_gate = gate
+
+
+@contextlib.contextmanager
+def adapters_off(module: nn.Module):
+    """Every :class:`AdapterDense` of ``module`` computes without its
+    adapter inside the block, whatever its kind (the preservation term's
+    base)."""
+    dense = [m for m in module.modules() if isinstance(m, AdapterDense)]
+    for m in dense:
+        m.adapter_off = True
+    try:
+        yield module
+    finally:
+        for m in dense:
+            m.adapter_off = False
 
 
 def init_params(module: nn.Module, gen: torch.Generator) -> None:

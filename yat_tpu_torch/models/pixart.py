@@ -15,6 +15,15 @@ place; K1 (adaLN LayerNorm) runs twice per block and once at the output.
 self-attention of ``pag_applied_layers`` (the middle block by default) is
 the identity map.
 
+REPA: a model built with ``repa=True`` holds the ``RepaProjector`` (fc1
+and fc2 2048 wide, fc3 ``repa_target_dim``, fp32 on fp32 input) and, under
+``return_repa``, returns its projection of the tokens after block
+``repa_depth`` beside the prediction.  ``resnet_expansion`` adds the
+``ResidualConvBranch`` after each block's self-attention: three 3x3 convs
+over the token grid, SiLU after the first two, scaled by a learnable fp32
+``out_alpha``.  Neither has a checkpoint counterpart; a pretrained load
+leaves them at their initialisation (``frontends/common.py``).
+
 In training the backward kernels run too: K6b for the self-attention, K4b
 (K2b's kernel) for the cross-attention at the caption rungs where the JAX
 package folds heads (256 and 300 tokens) and K2/K2b at the 128 rung, K1b
@@ -39,6 +48,7 @@ from yat_tpu_torch.models.layers import (
     AdapterDense,
     Attention,
     CaptionProjection,
+    Conv2d,
     PatchEmbed,
     TimestepEmbedder,
     unpatchify,
@@ -75,6 +85,43 @@ class PixArtConfig:
         return self.sample_size * self.vae_compression
 
 
+class RepaProjector(nn.Module):
+    """The three-layer SiLU projection head of the REPA tap."""
+
+    def __init__(self, in_dim: int, hidden: int = 2048, out_dim: int = 768,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc1 = AdapterDense(in_dim, hidden, dtype=dtype)
+        self.fc2 = AdapterDense(hidden, hidden, dtype=dtype)
+        self.fc3 = AdapterDense(hidden, out_dim, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc3(F.silu(self.fc2(F.silu(self.fc1(x)))))
+
+
+class ResidualConvBranch(nn.Module):
+    """``tokens + out_alpha · conv(silu(conv(silu(conv(grid)))))`` over the
+    ``[B, H, W, D]`` token grid (3x3 'SAME' convs)."""
+
+    def __init__(self, channels: int, alpha_init: float = 0.1,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.alpha_init = alpha_init
+        self.conv_0, self.conv_1, self.conv_2 = (
+            Conv2d(channels, channels, 3, dtype=dtype) for _ in range(3))
+        self.out_alpha = nn.Parameter(torch.empty(()))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        self.out_alpha.data.fill_(self.alpha_init)
+
+    def forward(self, tokens: torch.Tensor, hw: Tuple[int, int]
+                ) -> torch.Tensor:
+        b, n, d = tokens.shape
+        y = tokens.reshape(b, *hw, d)
+        y = self.conv_2(F.silu(self.conv_1(F.silu(self.conv_0(y)))))
+        return tokens + self.out_alpha.to(tokens.dtype) * y.reshape(b, n, d)
+
+
 class PixArtBlock(nn.Module):
     def __init__(self, cfg: PixArtConfig, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
@@ -87,6 +134,9 @@ class PixArtBlock(nn.Module):
                                c.attention_head_dim, dtype=dtype,
                                context_dim=c.hidden_dim)
         self.ff = MLP(c.hidden_dim, mlp_ratio=c.mlp_ratio, dtype=dtype)
+        self.resnet_branch = (ResidualConvBranch(
+            c.hidden_dim, c.resnet_alpha_init, dtype)
+            if c.resnet_expansion else None)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         nn.init.normal_(self.scale_shift_table.data, 0.0,
@@ -94,7 +144,8 @@ class PixArtBlock(nn.Module):
                         generator=gen)
 
     def forward(self, x, cond_emb, text_emb, text_mask, ctx_kv=None,
-                pag_perturbed: bool = False, deterministic: bool = True):
+                pag_perturbed: bool = False, deterministic: bool = True,
+                hw: Optional[Tuple[int, int]] = None):
         mod = self.scale_shift_table[None] + cond_emb          # [B, 6, D]
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = [
             mod[:, i][:, None, :].to(x.dtype) for i in range(6)]
@@ -102,6 +153,8 @@ class PixArtBlock(nn.Module):
         h = adaln_layernorm(x, scale_msa, shift_msa)
         h = self.attn1(h, perturbed=pag_perturbed,
                        deterministic=deterministic)
+        if self.resnet_branch is not None:
+            h = self.resnet_branch(h, hw)
         x = x + gate_msa * h
 
         x = x + self.attn2(x, context=text_emb, mask=text_mask,
@@ -121,14 +174,12 @@ class PixArtTransformer2D(nn.Module):
 
     def __init__(self, cfg: PixArtConfig = PixArtConfig(),
                  dtype: torch.dtype = torch.bfloat16,
-                 gradient_checkpointing: bool = False):
+                 gradient_checkpointing: bool = False, repa: bool = False):
         super().__init__()
         c = cfg
         self.gradient_checkpointing = gradient_checkpointing
-        if c.resnet_expansion:
-            raise NotImplementedError(
-                "resnet_expansion (the conv-residual branch) is not ported "
-                "to PyTorch yet (ROADMAP queue 1, item 10)")
+        if repa and c.repa_depth is None:
+            raise ValueError("a REPA projector needs cfg.repa_depth")
         self.cfg, self.dtype = cfg, dtype
         p = c.patch_size
         self.pos_embed = PatchEmbed(c.in_channels, c.hidden_dim,
@@ -143,6 +194,9 @@ class PixArtTransformer2D(nn.Module):
         self.out_scale_shift_table = nn.Parameter(torch.empty(2, c.hidden_dim))
         self.proj_out = AdapterDense(c.hidden_dim, p * p * c.out_channels,
                                      dtype=dtype)
+        self.repa_projector = (RepaProjector(c.hidden_dim,
+                                             out_dim=c.repa_target_dim)
+                               if repa else None)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         nn.init.normal_(self.out_scale_shift_table.data, 0.0,
@@ -163,10 +217,8 @@ class PixArtTransformer2D(nn.Module):
                 pag: bool = False, cached_ctx_kv: Optional[tuple] = None,
                 return_ctx_kv: bool = False):
         c = self.cfg
-        if return_repa:
-            raise NotImplementedError(
-                "return_repa (the REPA projection tap) is not ported to "
-                "PyTorch yet (ROADMAP queue 1, item 10)")
+        if return_repa and self.repa_projector is None:
+            raise ValueError("return_repa needs a model built with repa=True")
         ctx = self.caption_projection(text_emb.to(self.dtype))
         if return_ctx_kv:
             # per-request context-K/V pass of sampling: the caption
@@ -183,15 +235,18 @@ class PixArtTransformer2D(nn.Module):
 
         perturbed = self.pag_layers(pag)
         remat = self.gradient_checkpointing and torch.is_grad_enabled()
+        repa_proj = None
         for i, blk in enumerate(self.blocks):
             args = (x, cond, ctx, text_mask,
                     cached_ctx_kv[i] if cached_ctx_kv is not None else None,
-                    i in perturbed, deterministic)
+                    i in perturbed, deterministic, (h // p, w // p))
             if remat:
                 x = torch.utils.checkpoint.checkpoint(blk, *args,
                                                       use_reentrant=False)
             else:
                 x = blk(*args)
+            if return_repa and i == c.repa_depth:
+                repa_proj = self.repa_projector(x.float())
 
         # diffusers' top-level (2, D) table, modulated by the raw timestep
         # embedding
@@ -199,7 +254,8 @@ class PixArtTransformer2D(nn.Module):
         shift = out_mod[:, 0][:, None, :].to(x.dtype)
         scale = out_mod[:, 1][:, None, :].to(x.dtype)
         x = self.proj_out(adaln_layernorm(x, scale, shift), deterministic)
-        return unpatchify(x, (h, w), p, c.out_channels)
+        out = unpatchify(x, (h, w), p, c.out_channels)
+        return (out, repa_proj) if return_repa else out
 
 
 PIXART_SIGMA_XL2 = PixArtConfig()

@@ -7,8 +7,10 @@ the device right before training on it.
 * ``OnTheFlyEncodingSampler`` wraps an image sampler with the frontend's
   encoder callables: latents in chunks of ``vae_max_batch_size``, caption
   embeddings in chunks of ``text_encoder_max_batch_size`` (padded to the
-  caption-length rung), each encoded batch yielded ``repeat`` times
-  (``bucket_repeat`` reuses encoded batches, never re-encodes them).
+  caption-length rung), with ``encode_repa`` the DINOv2 tokens of the
+  whole batch (``repa_features``, ``repa_spatial_dims``), each encoded
+  batch yielded ``repeat`` times (``bucket_repeat`` reuses encoded
+  batches, never re-encodes them).
   ``skip_batches`` fast-forwards a resumed run without running an encoder.
 * ``FeatureCache`` is the bounded cache of ``cache_size`` (in batches): a
   daemon thread drains the encoding sampler into a queue so decode and
@@ -48,6 +50,7 @@ class OnTheFlyEncodingSampler:
         max_caption_len: int,
         vae_max_batch_size: Optional[int] = None,
         text_encoder_max_batch_size: Optional[int] = None,
+        encode_repa: Optional[Callable[[np.ndarray], np.ndarray]] = None,
         caption_buckets=None,
         repeat: int = 1,
     ):
@@ -57,6 +60,7 @@ class OnTheFlyEncodingSampler:
         self.max_caption_len = max_caption_len
         self.vae_bs = vae_max_batch_size
         self.te_bs = text_encoder_max_batch_size
+        self.encode_repa = encode_repa
         self.caption_buckets = caption_buckets
         self.repeat = max(1, int(repeat))
         self._resume_iter = None       # set by skip_batches
@@ -74,9 +78,15 @@ class OnTheFlyEncodingSampler:
             embs.extend(self.encode_captions(captions[i:i + tb]))
         padded, mask = pad_embeddings(embs, self.max_caption_len,
                                       length_buckets=self.caption_buckets)
-        return Batch(ratio=batch.ratio, latents=latents, embeddings=padded,
-                     text_mask=mask,
-                     is_regularization=batch.is_regularization)
+        out = Batch(ratio=batch.ratio, latents=latents, embeddings=padded,
+                    text_mask=mask,
+                    is_regularization=batch.is_regularization)
+        if self.encode_repa is not None:
+            # the whole batch at once, as the JAX package encodes it
+            out.repa_features = np.asarray(self.encode_repa(images))
+            out.repa_spatial_dims = getattr(self.encode_repa, "grid_hw",
+                                            (16, 16))
+        return out
 
     def skip_batches(self, n: int) -> None:
         """Advance the image stream past the ``n`` encoded batches a
@@ -145,7 +155,8 @@ class FeatureCache:
     ``cache_dir``)."""
 
     _END = object()
-    _FIELDS = ("latents", "embeddings", "text_mask", "pooled_text")
+    _FIELDS = ("latents", "embeddings", "text_mask", "pooled_text",
+               "repa_features")
 
     def __init__(self, encoded_sampler: Iterable[Batch],
                  cache_size: int = 1000, save_to_disk: bool = False,
@@ -171,6 +182,8 @@ class FeatureCache:
             v = getattr(batch, f)
             if v is not None:
                 arrays[f] = np.asarray(v)
+        if batch.repa_spatial_dims is not None:
+            arrays["repa_spatial_dims"] = np.asarray(batch.repa_spatial_dims)
         np.savez(self._disk_path(self._disk_count), **arrays)
         self._disk_count += 1
 
@@ -178,6 +191,9 @@ class FeatureCache:
         for i in range(self._disk_count):
             with np.load(self._disk_path(i), allow_pickle=False) as z:
                 fields = {f: z[f] for f in self._FIELDS if f in z.files}
+                if "repa_spatial_dims" in z.files:
+                    fields["repa_spatial_dims"] = tuple(
+                        int(x) for x in z["repa_spatial_dims"])
                 yield Batch(ratio=str(z["ratio"]),
                             is_regularization=bool(z["is_regularization"]),
                             **fields)

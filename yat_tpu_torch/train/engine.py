@@ -40,9 +40,15 @@ the fly (``train/encode.py``), whose ``skip_batches`` makes a resume's
 fast-forward encode-free; Dreambooth's regularization batches scale the
 loss by ``dreambooth_lambda``.
 
-Not ported yet, each raises ``NotImplementedError`` naming its ROADMAP
-item: loading pretrained adapters (item 9) and REPA (item 10).  The
-trainer is single-process (item 12).
+Adapters of every kind (LoRA, DoRA, LoHa, LoKr, FourierFT) train, and
+``lora_pretrained`` loads their leaves from a file after they are built
+(``adapters/io.load_adapter_safetensors``: the export of either package,
+bare flax paths or a real PEFT file).  A frontend's generic REPA head
+(``repa_head``, SANA) trains beside the adapters under the name
+``repa_head`` (or beside the parameters under full fine-tuning): the
+optimizer, the EMA, the checkpoint and the export cover it.  The batch
+carries the DINOv2 tokens (``repa_features``) that the on-the-fly
+sampler encodes.  The trainer is single-process (ROADMAP item 12).
 """
 
 from __future__ import annotations
@@ -58,10 +64,11 @@ import torch
 from yat_tpu_torch.adapters.builder import (
     AdapterSpec,
     adapted_modules,
+    adapter_parameters,
     adapter_tree,
     build_adapter_params,
     count_adapter_params,
-    lora_parameters,
+    load_pretrained_adapters,
 )
 from yat_tpu_torch.config import TrainingParameters
 from yat_tpu_torch.convert import flax_named_parameters
@@ -77,11 +84,6 @@ from yat_tpu_torch.utils.logging import MetricLogger
 MAX_CONSECUTIVE_VALIDATION_FAILURES = 3
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not implemented in the PyTorch "
-                               f"port yet (ROADMAP queue 1, item {item})")
-
-
 def adapter_spec_from_params(params: TrainingParameters
                              ) -> Optional[AdapterSpec]:
     if params.lora_rank is None or params.lora_algo in (None, "full"):
@@ -94,6 +96,8 @@ def adapter_spec_from_params(params: TrainingParameters
         target_modules=params.lora_target_modules or (),
         use_dora=params.lora_use_dora,
         use_rslora=params.lora_use_rslora,
+        n_frequency=params.fourierft_n_frequency,
+        fourier_alpha=params.fourierft_alpha,
     )
 
 
@@ -117,21 +121,12 @@ def stored_dtype(params: TrainingParameters) -> Optional[torch.dtype]:
     return None
 
 
-def check_supported(params: TrainingParameters) -> None:
-    """Raise for every option whose path is not ported."""
-    if params.lora_pretrained:
-        raise _not_ported("lora_pretrained (adapter import)", "9")
-    if params.use_repa:
-        raise _not_ported("REPA", "10")
-
-
 class Trainer:
     """Host-side orchestration; frontends wire the model-specific pieces
     (``encode_captions`` and ``validate_fn`` may be attached)."""
 
     def __init__(self, params: TrainingParameters, model, task_loss,
                  sampler=None, device=None, preservation_loss=None):
-        check_supported(params)
         self.params = params
         self.model = model
         self.task_loss = task_loss
@@ -151,6 +146,8 @@ class Trainer:
         self.frozen_base: Optional[Dict[str, torch.Tensor]] = None
         # the export's config.json (architecture flags), set by a frontend
         self.model_config_json: Optional[Dict[str, Any]] = None
+        # the generic REPA projection head (ops/repa.py), set by a frontend
+        self.repa_head: Optional[torch.nn.Module] = None
         self._step_fn = None
         self._profiler = None
         self._empty_raw: Optional[np.ndarray] = None
@@ -220,7 +217,8 @@ class Trainer:
             self.restore_checkpoint()
 
     def _attach_adapters(self, spec: AdapterSpec) -> None:
-        """LoRA from the seeded generator (unless attached already), the
+        """The adapters from the seeded generator (unless attached
+        already), their leaves from ``lora_pretrained`` when set, the
         trainable-parameter line, and the quantized base."""
         params = self.params
         if not adapted_modules(self.model):
@@ -228,8 +226,11 @@ class Trainer:
                 params.dataset_seed)
             build_adapter_params(self.model, spec, gen,
                                  merged=params.lora_fused_matmul)
+        if params.lora_pretrained:
+            load_pretrained_adapters(self.model, params.lora_pretrained)
+            print(f"[engine] adapters loaded from {params.lora_pretrained}")
         n_train = count_adapter_params(self.model)
-        lora = {id(p) for _, p in lora_parameters(self.model)}
+        lora = {id(p) for _, p in adapter_parameters(self.model)}
         n_total = sum(p.numel() for p in self.model.parameters()
                       if id(p) not in lora)
         print(f"trainable params: {n_train:,} || all params: "
@@ -252,14 +253,17 @@ class Trainer:
         return adapter_spec_from_params(self.params) is None
 
     def _trainable(self):
-        if self.full_finetune():
-            return flax_named_parameters(self.model)
-        return lora_parameters(self.model)
+        named = (flax_named_parameters(self.model) if self.full_finetune()
+                 else adapter_parameters(self.model))
+        if self.repa_head is not None:
+            named = named + [(f"repa_head.{n}", p) for n, p in
+                             flax_named_parameters(self.repa_head)]
+        return named
 
     def trainable_leaves(self) -> List[torch.Tensor]:
-        """The trainable leaves (the LoRA parameters, or under full
-        fine-tuning every parameter), in the order of the optimizer's and
-        the EMA's."""
+        """The trainable leaves (the adapter leaves, or under full
+        fine-tuning every parameter; then the REPA head's), in the order of
+        the optimizer's and the EMA's."""
         return [p for _, p in self._trainable()]
 
     def trainable_names(self) -> List[str]:
@@ -273,6 +277,8 @@ class Trainer:
         snapshot."""
         return {"step": self.global_step,
                 "model": self.model.state_dict(),
+                "repa_head": (None if self.repa_head is None
+                              else self.repa_head.state_dict()),
                 "optimizer": self.optimizer.state_dict(),
                 "ema": self.ema, "frozen_base": self.frozen_base}
 
@@ -292,6 +298,9 @@ class Trainer:
                                           batch.embeddings.shape[1])
             out["empty_embeddings"] = torch.as_tensor(padded).to(dev)
             out["empty_text_mask"] = torch.as_tensor(mask).to(dev)
+        if batch.repa_features is not None:
+            out["repa_features"] = torch.as_tensor(batch.repa_features).to(
+                dev, torch.float32)
         if batch.is_regularization and self.params.dreambooth_lambda != 1.0:
             out["loss_scale"] = torch.tensor(self.params.dreambooth_lambda,
                                              dtype=torch.float32, device=dev)
@@ -531,20 +540,24 @@ class Trainer:
         """Weights-only export to ``{output_dir}/{step}``: the adapters as
         ``adapter_model.safetensors`` (PEFT names), or under full
         fine-tuning the model as ``model.safetensors`` (fp32, flat flax
-        keys in the flax layouts); ``config.json`` from
+        keys in the flax layouts), with a REPA head under ``repa_head``; ``config.json`` from
         ``model_config_json`` beside it; then the upload to
         ``output_repo``.  Returns the weights file's path."""
         out = os.path.join(self.params.output_dir, str(self.global_step))
+        head = {}
+        if self.repa_head is not None:
+            from yat_tpu_torch.ops.repa import head_tree
+            head = {"repa_head": head_tree(self.repa_head)}
         if self.full_finetune():
             from yat_tpu_torch.convert import flax_params
             from yat_tpu_torch.train.checkpoint import save_params_only
-            save_params_only(out, flax_params(self.model))
+            save_params_only(out, {**flax_params(self.model), **head})
             path = os.path.join(out, "model.safetensors")
         else:
             from yat_tpu_torch.adapters.io import save_adapter_safetensors
             path = os.path.join(out, "adapter_model.safetensors")
             adapters, meta = adapter_tree(self.model)
-            save_adapter_safetensors(path, adapters, meta)
+            save_adapter_safetensors(path, {**adapters, **head}, meta)
         if self.model_config_json:
             with open(os.path.join(out, "config.json"), "w") as f:
                 json.dump(self.model_config_json, f, indent=2)

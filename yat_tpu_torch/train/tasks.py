@@ -1,7 +1,8 @@
 """Task losses: flow matching, DDPM epsilon prediction, preservation.
 
 Counterparts of ``yat_tpu/train/tasks.py:make_flow_matching_loss``,
-``make_epsilon_loss`` (without REPA) and ``make_preservation_loss``:
+``make_epsilon_loss``, ``repa_alignment_loss`` and
+``make_preservation_loss``:
 
 * flow matching: ``x_t = (1 - s) x + s eps``, target ``eps - x``;
 * epsilon prediction (PixArt-Sigma): ``x_t = sqrt(abar) x +
@@ -13,10 +14,21 @@ Counterparts of ``yat_tpu/train/tasks.py:make_flow_matching_loss``,
   frozen base's on the same noisy input, both deterministic (no LoRA
   dropout), in the flow or the epsilon form, the whole prediction (a
   learned-sigma head's both halves).  With adapters the base is the model
-  with its adapter branches gated off (``AdapterDense.lora_gate`` = 0);
+  without its adapters (``models.layers.adapters_off``: a DoRA layer
+  computes ``W`` there, not the gated ``m · W / ‖W‖``);
   under full fine-tuning it is a snapshot of the initial parameters
   (``base``), run through ``torch.func.functional_call``.  The base's
   prediction is taken without gradients.
+
+* REPA (``repa_lambda > 0``): the loss adds ``repa_lambda`` times the
+  alignment term between the model's features and the batch's DINOv2
+  tokens ``repa_features``.  With ``repa_cfg`` (``ops.repa.RepaConfig``)
+  and ``repa_head`` the features are the target modules' outputs captured
+  during the forward, each projected by the head (SANA's generic path);
+  without, the model's own tap (``return_repa``, PixArt-Sigma's
+  projector).  A batch without ``repa_features`` raises at the step; the
+  JAX package then trains without the term (the feature-shard path, whose
+  extraction writes no DINO tokens).
 
 The task losses take the MSE in fp32 and draw timesteps from the
 logit-normal density (or a fixed ``timestep_list``; the preservation term
@@ -37,16 +49,54 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 
 from yat_tpu_torch.adapters.builder import adapted_modules, set_dropout_seed
-from yat_tpu_torch.models.layers import set_adapter_gate
+from yat_tpu_torch.models.layers import adapters_off
 from yat_tpu_torch.ops.schedulers import DDPMSchedule, FlowMatchSchedule
 
 # (batch, gen, deterministic, draws) -> scalar fp32 loss
 TaskLoss = Callable[..., torch.Tensor]
 
 
+def repa_alignment_loss(proj: torch.Tensor, target: torch.Tensor
+                        ) -> torch.Tensor:
+    """The mean-token MSE between projected features and DINO tokens, in
+    fp32; when the token counts differ (PixArt's 1024 tokens at 512 px
+    against DINO's 256) both sides are mean-pooled over tokens first."""
+    p, t = proj.float(), target.float()
+    if p.shape[1] != t.shape[1]:
+        p, t = p.mean(1), t.mean(1)
+    return ((p - t) ** 2).mean()
+
+
+def _predict(model, args, deterministic: bool, batch, repa_lambda: float,
+             repa_cfg, repa_head):
+    """The model's prediction, and the REPA term (None when REPA is off)."""
+    if repa_lambda <= 0.0:
+        return model(*args, deterministic=deterministic), None
+    if "repa_features" not in batch:
+        raise ValueError(
+            "use_repa is on and this batch carries no DINOv2 tokens "
+            "(repa_features): only the on-the-fly and Dreambooth samplers "
+            "encode them (compute_features); feature shards hold none")
+    target = batch["repa_features"]
+    if repa_cfg is None:
+        pred, proj = model(*args, deterministic=deterministic,
+                           return_repa=True)
+        # a tap past the last block projects nothing (no term)
+        return pred, (None if proj is None
+                      else repa_alignment_loss(proj, target))
+    from yat_tpu_torch.ops.repa import capture_features, generic_repa_loss
+    with capture_features(model, repa_cfg) as feats:
+        pred = model(*args, deterministic=deterministic)
+    return pred, generic_repa_loss(feats, repa_head, target)
+
+
 def make_flow_matching_loss(model, schedule: FlowMatchSchedule,
                             timestep_list: Optional[Sequence[int]] = None,
-                            snr_weighting: bool = False) -> TaskLoss:
+                            snr_weighting: bool = False,
+                            repa_lambda: float = 0.0, repa_cfg=None,
+                            repa_head=None) -> TaskLoss:
+    """``repa_lambda`` with ``repa_cfg`` and ``repa_head`` adds the generic
+    REPA term (SANA); with neither, the model's own tap."""
     timestep_list = tuple(timestep_list) if timestep_list else None
 
     def draw_t(gen: torch.Generator, b: int) -> Dict[str, torch.Tensor]:
@@ -65,14 +115,16 @@ def make_flow_matching_loss(model, schedule: FlowMatchSchedule,
                                     draws["noise"])
         _seed_lora_dropout(model, gen, deterministic)
         x_t = schedule.add_noise(latents, noise.to(latents.dtype), sigmas)
-        pred = model(x_t, batch["embeddings"], timesteps,
-                     batch.get("text_mask"), deterministic=deterministic)
+        pred, repa = _predict(model, (x_t, batch["embeddings"], timesteps,
+                                      batch.get("text_mask")), deterministic,
+                              batch, repa_lambda, repa_cfg, repa_head)
         target = schedule.velocity_target(latents, noise.to(latents.dtype))
         err = (pred.float() - target.float()) ** 2
         if snr_weighting:
             err = err * (sigmas.float() ** -2.0).reshape(
                 b, *([1] * (latents.ndim - 1)))
-        return err.mean()
+        loss = err.mean()
+        return loss if repa is None else loss + repa_lambda * repa
 
     task_loss.draw = _drawer(draw_t)
     return task_loss
@@ -108,15 +160,12 @@ def _seed_lora_dropout(model, gen: torch.Generator,
 def make_epsilon_loss(model, schedule: DDPMSchedule,
                       timestep_list: Optional[Sequence[int]] = None,
                       learned_sigma: bool = False,
-                      repa_lambda: float = 0.0) -> TaskLoss:
+                      repa_lambda: float = 0.0, repa_cfg=None,
+                      repa_head=None) -> TaskLoss:
     """``learned_sigma`` keeps the first ``latents.shape[-1]`` channels of
     the prediction (the PixArt learned-variance head's epsilon half) before
-    the MSE.  REPA raises (ROADMAP queue 1, item 10)."""
-    if repa_lambda > 0.0:
-        raise NotImplementedError(
-            "REPA (the representation-alignment term of the epsilon loss) is "
-            "not implemented in the PyTorch port yet (ROADMAP queue 1, item "
-            "10)")
+    the MSE.  ``repa_lambda`` adds the REPA term through the model's tap
+    (PixArt-Sigma), or the generic path with ``repa_cfg``."""
     timestep_list = tuple(timestep_list) if timestep_list else None
 
     def draw_t(gen: torch.Generator, b: int) -> Dict[str, torch.Tensor]:
@@ -132,12 +181,14 @@ def make_epsilon_loss(model, schedule: DDPMSchedule,
         timesteps, noise = draws["timesteps"], draws["noise"].to(latents.dtype)
         _seed_lora_dropout(model, gen, deterministic)
         x_t = schedule.add_noise(latents, noise, timesteps)
-        pred = model(x_t, batch["embeddings"], timesteps,
-                     batch.get("text_mask"), deterministic=deterministic)
+        pred, repa = _predict(model, (x_t, batch["embeddings"], timesteps,
+                                      batch.get("text_mask")), deterministic,
+                              batch, repa_lambda, repa_cfg, repa_head)
         if learned_sigma:
             pred = pred[..., :latents.shape[-1]]
         target = schedule.target(latents, noise, timesteps)
-        return ((pred.float() - target.float()) ** 2).mean()
+        loss = ((pred.float() - target.float()) ** 2).mean()
+        return loss if repa is None else loss + repa_lambda * repa
 
     task_loss.draw = _drawer(draw_t)
     return task_loss
@@ -150,8 +201,8 @@ PreservationLoss = Callable[..., torch.Tensor]
 def make_preservation_loss(model, schedule, is_flow: bool = True
                            ) -> PreservationLoss:
     """The preservation term ``pres(batch, gen, draws=None, base=None)``:
-    ``base`` is None for adapter training (the base is the model with its
-    adapters gated off) or the frozen snapshot ``{parameter name: tensor}``
+    ``base`` is None for adapter training (the base is the model without
+    its adapters) or the frozen snapshot ``{parameter name: tensor}``
     of full fine-tuning."""
 
     def draw_t(gen: torch.Generator, b: int) -> Dict[str, torch.Tensor]:
@@ -176,11 +227,8 @@ def make_preservation_loss(model, schedule, is_flow: bool = True
                 ref = torch.func.functional_call(
                     model, base, args, {"deterministic": True})
             else:
-                set_adapter_gate(model, 0.0)
-                try:
+                with adapters_off(model):
                     ref = model(*args, deterministic=True)
-                finally:
-                    set_adapter_gate(model, None)
         return ((pred.float() - ref.float()) ** 2).mean()
 
     return pres_loss
