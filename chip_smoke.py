@@ -168,6 +168,26 @@ Phases, each of which fails the run (exit code 1) when it fails:
    gives (the non-square buckets' cross-attentions take the XLA branch,
    as in the JAX package).
 
+13. the UNet families: the kernel phase also holds K6/K6b, K4/K4b and
+   K2/K2b at the UNet's shapes (``UNET_CASES``: SD1.5's head dims 40 and
+   80 at 4096 and 1024 tokens, SDXL's 64; CLIP's 77 keys all kept or
+   partly masked; timed in bf16).  Then SD1.5 512 px (CLIP-L, the UNet,
+   the fp32 KL-VAE decoder; 20 DDIM steps, CFG 5.0) and SDXL 1024 px
+   (CLIP-L and OpenCLIP-G with pooled text and time_ids) served as in
+   phase 6, each attention counted on the branch its shape gives (SD1.5:
+   10 K6, 5 K4, 5 K2 and 12 XLA-branch calls a denoiser call; SDXL 70 K6,
+   10 K4, 60 K2); the full-width SD1.5 UNet's LoRA gradients on the card
+   against the CPU (fp32, 64x64 latent); a synthesized CompVis SD1.5
+   single file (F16) whose UNet loads through ``load_pretrained_backbone``
+   with every parameter checked and the seconds from file to card;
+   ``configs/sd15_single_file_lora.yaml`` as written but for its files
+   (raw JPEGs on the fly, batch 8, 6 steps), which must fit as written;
+   ``configs/sdxl_dreambooth.yaml`` as written but for its files (batch 4
+   at 1024 px, preservation, 3 steps; the peak memory, or the peak where
+   it does not fit), then with ``low_vram``, which must fit; an SDXL
+   extraction pass whose samples carry ``pooled.npy`` ``[1280]``.
+   Launches are checked by step on each step's latent grid.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 package.
@@ -249,7 +269,7 @@ PROMPTS = ["a red fox in fresh snow", "a lighthouse at dusk",
 # largest |difference| of the [0, 1] image of one prompt sampled in a batch
 # of 4 and alone (bf16); an H100 80GB reads about 6.5e-3 for SANA and
 # 2.5e-2 for PixArt-Sigma
-REPEAT_TOL = {"sana": 2e-2, "pixart": 5e-2}
+REPEAT_TOL = {"sana": 2e-2, "pixart": 5e-2, "sd15": 5e-2, "sdxl": 5e-2}
 
 
 def log(msg: str) -> None:
@@ -451,18 +471,28 @@ def _rotations(make, nbytes):
     return [make() for _ in range(max(2, min(16, math.ceil(100e6 / nbytes))))]
 
 
-def time_ms(fn, inputs, iters, hold_cycles=50_000_000):
+def time_ms(fn, inputs, iters, hold_cycles=50_000_000, hold=True):
     """Device milliseconds of one call: CUDA events around ``iters`` calls.
     A spin kernel holds the stream while the host enqueues the calls, so
     they run back to back and the host's cost per launch (Python, checks,
     ctypes) stays out of the time; if the hold ran out before the last
-    call was queued, it doubles and the measurement is repeated."""
+    call was queued, it doubles and the measurement is repeated.  Without
+    ``hold`` the events bracket the calls as the host issues them: for a
+    plain version of many milliseconds whose gigabytes of temporaries make
+    the allocator wait on the device, which no hold survives."""
     import torch
     for args in inputs * 2:
         fn(*args)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if not hold:
+        start.record()
+        for i in range(iters):
+            fn(*inputs[i % len(inputs)])
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
     torch.cuda._sleep(hold_cycles)
     start.record()
     for i in range(iters):
@@ -587,6 +617,49 @@ def layer_norm_bwd_yardstick():
     return call
 
 
+# the UNet's attentions (SD1.5 at 512 px: 8 heads, dims 40 and 80; SDXL at
+# 1024 px: dims 64), each as (label, (b, n_q, n_k, h, d, keep)): serving
+# forwards at the CFG batch of 4 requests (8), the backwards at the
+# training batches (SD1.5 8, SDXL 4); CLIP's 77 keys all kept (the UNet's
+# caption mask) and, for K2/K4/K2b, a partial mask.  Head dims 40 and 64
+# run the kernels' 4-chunk instances (40 padded by 24 zero columns), 80
+# the 5-chunk ones.  Timed in bf16 (TIMED_BF16_CASES)
+_ALL77 = [77] * 8
+_PART77 = [1, 5, 20, 33, 50, 64, 76, 77]
+UNET_CASES = {
+    "flash_attention": (
+        ("sd15-l0", (8, 4096, 4096, 8, 40, None)),
+        ("sd15-l1", (8, 1024, 1024, 8, 80, None)),
+        ("sdxl-l1", (8, 4096, 4096, 10, 64, None)),
+        ("sdxl-l2", (8, 1024, 1024, 20, 64, None))),
+    "dot_product_attention_folded": (
+        ("sd15-l0-cross", (8, 4096, 77, 8, 40, _ALL77)),
+        ("sd15-l0-cross-masked", (8, 4096, 77, 8, 40, _PART77)),
+        ("sdxl-l1-cross", (8, 4096, 77, 10, 64, _ALL77)),
+        ("sdxl-l1-cross-masked", (8, 4096, 77, 10, 64, _PART77))),
+    "dot_product_attention": (
+        ("sd15-l1-cross", (8, 1024, 77, 8, 80, _ALL77)),
+        ("sd15-l1-cross-masked", (8, 1024, 77, 8, 80, _PART77)),
+        ("sdxl-l2-cross", (8, 1024, 77, 20, 64, _ALL77)),
+        ("sdxl-l2-cross-masked", (8, 1024, 77, 20, 64, _PART77))),
+    "flash_attention_bwd": (
+        ("sd15-l0", (8, 4096, 4096, 8, 40, None)),
+        ("sd15-l1", (8, 1024, 1024, 8, 80, None)),
+        ("sdxl-l1", (4, 4096, 4096, 10, 64, None)),
+        ("sdxl-l2", (4, 1024, 1024, 20, 64, None))),
+    "dot_product_attention_folded_bwd": (
+        ("sd15-l0-cross", (8, 4096, 77, 8, 40, _ALL77)),
+        ("sdxl-l1-cross", (4, 4096, 77, 10, 64, _ALL77[:4])),
+        ("sdxl-l1-cross-masked", (4, 4096, 77, 10, 64, _PART77[::2]))),
+    "dot_product_attention_bwd": (
+        ("sd15-l1-cross", (8, 1024, 77, 8, 80, _ALL77)),
+        ("sd15-l1-cross-masked", (8, 1024, 77, 8, 80, _PART77)),
+        ("sdxl-l2-cross", (4, 1024, 77, 20, 64, _ALL77[:4]))),
+}
+TIMED_BF16_CASES = {(name, label) for name, cases in UNET_CASES.items()
+                    for label, _ in cases}
+
+
 def kernel_cases(device):
     """(kernel name, case label, dtype, make_inputs, kernel_fn, plain_fn,
     library_fn, a (fwd+bwd, fwd) pair or None, bytes, flops, info_fn or
@@ -654,7 +727,8 @@ def kernel_cases(device):
                 ("serve-tiles", (8, 256, 512, 16, 72,
                                  [(130, 190), (200, 201), (480, 512),
                                   (500, 512), 0, (64, 128), 512, 0])),
-                ("self-train", (16, 256, 256, 36, 32, None))):
+                ("self-train", (16, 256, 256, 36, 32, None)),
+                *UNET_CASES["dot_product_attention"]):
             def make(b=b, nq=nq, nk=nk, h=h, d=d, keep=keep, dtype=dtype):
                 m = _mask(keep, nk, device) if keep is not None else None
                 return (randn((b, nq, h, d), dtype), randn((b, nk, h, d), dtype),
@@ -683,7 +757,8 @@ def kernel_cases(device):
                 ("long-keys", (2, 128, 4096, 4, 72, [4096, 77])),
                 ("serve-tiles", (8, 1024, 300, 16, 72,
                                  [(64, 128), (70, 80), (256, 300),
-                                  (299, 300), 0, 300, (0, 64), 1]))):
+                                  (299, 300), 0, 300, (0, 64), 1])),
+                *UNET_CASES["dot_product_attention_folded"]):
             def make(b=b, nq=nq, nk=nk, h=h, d=d, keep=keep, dtype=dtype):
                 return (randn((b, nq, h, d), dtype), randn((b, nk, h, d), dtype),
                         randn((b, nk, h, d), dtype), _mask(keep, nk, device))
@@ -708,7 +783,8 @@ def kernel_cases(device):
                                   [(500, 520), (960, 1024), (1023, 1024),
                                    (0, 64)])),
                 ("masked-blocks", (2, 4096, 4096, 16, 72,
-                                   [(1024, 4096), (0, 1100)]))):
+                                   [(1024, 4096), (0, 1100)])),
+                *UNET_CASES["flash_attention"]):
             def make(b=b, nq=nq, nk=nk, h=h, d=d, keep=keep, dtype=dtype):
                 bias = (None if keep is None else A._key_bias(
                     _mask(keep, nk, device), b, A.FLASH_MASK_VALUE))
@@ -793,7 +869,8 @@ def kernel_cases(device):
                                [100 + i for i in range(16)])),
                 ("ragged-300", (4, 100, 300, 16, 72, [1, 37, 150, 300])),
                 ("ragged-16", (2, 64, 16, 2, 32, None)),
-                ("self-train", (16, 256, 256, 36, 32, None))):
+                ("self-train", (16, 256, 256, 36, 32, None)),
+                *UNET_CASES["dot_product_attention_bwd"]):
             def make(b=b, nq=nq, nk=nk, h=h, d=d, keep=keep, dtype=dtype):
                 m = _mask(keep, nk, device) if keep is not None else None
                 return (randn((b, nq, h, d), dtype),
@@ -829,6 +906,23 @@ def kernel_cases(device):
                           (_sdpa_fwd_bwd, _sdpa_fwd),
                           es * b * h * d * (3 * nq + 4 * nk) + 4 * b * nk,
                           10 * b * h * nq * nk * d + 8 * b * h * nq * nk))
+        # K4b at the UNet's folded cross-attentions (UNET_CASES)
+        for label, (b, nq, nk, h, d, keep) in UNET_CASES[
+                "dot_product_attention_folded_bwd"]:
+            def make(b=b, nq=nq, nk=nk, h=h, d=d, keep=keep, dtype=dtype):
+                m = _mask(keep, nk, device)
+                return (randn((b, nq, h, d), dtype),
+                        randn((b, nk, h, d), dtype),
+                        randn((b, nk, h, d), dtype), A._key_bias(m, b),
+                        randn((b, nq, h, d), dtype))
+
+            def kern(q, k, v, bias, g):
+                return A._attention_bwd_cuda(q, k, v, bias, g, folded=True)
+            cases.append(("dot_product_attention_folded_bwd", label, dtype,
+                          make, kern, A.attention_bwd_ref,
+                          (_sdpa_fwd_bwd, _sdpa_fwd),
+                          es * b * h * d * (3 * nq + 4 * nk) + 4 * b * nk,
+                          10 * b * h * nq * nk * d + 8 * b * h * nq * nk))
         # K6b: PixArt-Sigma 512px self-attention q/k/v/o/g [8, 1024, 16,
         # 72]; 1024px, [2, 4096, 16, 72] in four key blocks; a masked flash
         # case at PixArt-1024px's cross-attention shape, q [8, 4096, 16, 72]
@@ -843,7 +937,8 @@ def kernel_cases(device):
                                   [0, 1, 37, 100, 128, 200, 255, 256])),
                 ("blocks-640", (2, 1280, 640, 16, 72, [640, 311])),
                 ("d256", (2, 1024, 384, 2, 256, [384, 100])),
-                ("ragged", (2, 1000, 1000, 16, 72, [1000, 333]))):
+                ("ragged", (2, 1000, 1000, 16, 72, [1000, 333])),
+                *UNET_CASES["flash_attention_bwd"]):
             def make(b=b, nq=nq, nk=nk, h=h, d=d, keep=keep, dtype=dtype):
                 bias = (None if keep is None else A._key_bias(
                     _mask(keep, nk, device), b, A.FLASH_MASK_VALUE))
@@ -1098,12 +1193,16 @@ def phase_kernels(device, names=None, skip_labels=()):
                      "backward without the row term")
         main = label == MAIN_CASE[name] and dtype == torch.bfloat16
         every = (name in TIMED_EVERY_CASE and (name, label) not in NAN_CASES
-                 or (name, label) in TIMED_CASES)
+                 or (name, label) in TIMED_CASES
+                 or ((name, label) in TIMED_BF16_CASES
+                     and dtype == torch.bfloat16))
         if not (main or every):
             continue
         inputs = _rotations(make, nbytes)
         ms = time_ms(kern, inputs, 50)
-        plain_ms = time_ms(plain, inputs, 20)
+        # the UNet cases' plain versions hold gigabytes of fp32 scores
+        plain_ms = time_ms(plain, inputs, 20,
+                           hold=(name, label) not in TIMED_BF16_CASES)
         lib_ms = None
         if isinstance(library, tuple):
             lib_ms = time_ms(library[0], inputs, 50) - time_ms(
@@ -2086,6 +2185,11 @@ def per_step_launches(family, vp):
     """Kernel launches per denoise step of the family's serving path (and
     counts that must stay 0)."""
     cfg = vp.model.cfg
+    if family in ("sd15", "sdxl"):
+        # one CFG call of the UNet at batch 2B: each attention takes the
+        # branch its shape gives (unet_launches); no adaLN, no K3
+        return {**unet_launches(cfg, vp.latent_shape[:2]),
+                "adaln_layernorm": 0, "linear_attention": 0}
     n = cfg.num_layers
     if family == "sana":
         # one CFG call: K1 twice a block and once at the output, K2 for the
@@ -2126,8 +2230,12 @@ def phase_serve(params, device, card, family="sana", px=512, profile=False,
     cfg = vp.model.cfg
     if cuda:
         torch.cuda.synchronize()
-    log(f"serve {family}: built the denoiser ({cfg.hidden_dim}-wide, "
-        f"{cfg.num_layers} blocks), caption encoder and decoder "
+    shape = (f"{cfg.hidden_dim}-wide, {cfg.num_layers} blocks"
+             if hasattr(cfg, "hidden_dim") else
+             f"UNet {cfg.block_out_channels}, {unet_blocks(cfg)} "
+             "transformer blocks")
+    log(f"serve {family}: built the denoiser ({shape}), caption encoder "
+        "and decoder "
         f"{'from ' + params.pretrained_pipe_path if params.pretrained_pipe_path else 'with random weights'}"
         f" in {time.perf_counter() - t0:.1f} s")
     if on_built is not None:
@@ -2456,7 +2564,7 @@ def pipe_entries(family, params):
             ("transformer", PixArtTransformer2D(cfg),
              S.pixart_rules(cfg.patch_size), main, None),
             ("vae", V.AutoencoderKL(V.KLVAE_TINY_TEST if tiny
-                                    else V.KLVAE_SD15),
+                                    else V.KLVAE_SDXL),
              S.VAE_KL_RULES, main, None)]
 
 
@@ -2482,9 +2590,10 @@ def write_pipe(pipe, family, params):
     return rules
 
 
-def check_loaded(label, module, rules):
-    """Every parameter of ``module`` equals its synthesized value after
-    the same casts (a left-out bias: exactly zero)."""
+def check_loaded(label, module, rules, grid="BF16"):
+    """Every parameter of ``module`` equals its synthesized value (on the
+    file's ``grid``) after the same casts (a left-out bias: exactly
+    zero)."""
     import torch
 
     from yat_tpu_torch.convert import flax_params
@@ -2493,7 +2602,7 @@ def check_loaded(label, module, rules):
     bad, n = [], 0
     for path, t in flax_params(module).items():
         _, kind = S.match(path, rules)
-        v = S.leaf_value(SYNTH_SEED, path, tuple(t.shape), kind, "BF16")
+        v = S.leaf_value(SYNTH_SEED, path, tuple(t.shape), kind, grid)
         want = torch.from_numpy(v).to(device=t.device, dtype=t.dtype)
         if not torch.equal(t, want):
             bad.append(path)
@@ -2987,10 +3096,12 @@ def log_step_rate(label, trainer, wall, peak, card):
     checkpoint's copy to the host) and its peak device memory."""
     import statistics
     steps = len(trainer.history)
-    times = trainer._step_times[1:]
+    # a one-step rehearsal has only its first step
+    first = 1 if steps > 1 else 0
+    times = trainer._step_times[first:]
     step_s = sum(times) / len(times)
     log(f"{label} [{card}]: {steps} steps in {wall:.2f} s through the "
-        f"entry point (shard read included); steps 2-{steps}: "
+        f"entry point (shard read included); steps {first + 1}-{steps}: "
         f"{step_s:.4f} s a step (median {statistics.median(times):.4f}), "
         f"{1 / step_s:.3f} steps/s, "
         f"{trainer.params.batch_size / step_s:.2f} images/s; first "
@@ -4717,6 +4828,402 @@ def check_pixart_run(label, trainer, cfg, counts, cuda, grids):
                    lambda k: f"by step, at grids {[g for g, _ in grids]}")
 
 
+# ---------------------------------------------------------------------------
+# 13. the UNet families: SD1.5 and SDXL
+# ---------------------------------------------------------------------------
+
+# an attention branch → the counter of its forward kernel (the XLA branch
+# counts its calls); the backward kernel's counter adds "_bwd"
+UNET_BRANCH_KERNEL = {"native": "dot_product_attention",
+                      "folded": "dot_product_attention_folded",
+                      "flash": "flash_attention", "xla": "attention_xla"}
+UNET_KERNELS = ("flash_attention", "flash_attention_bwd",
+                "dot_product_attention_folded",
+                "dot_product_attention_folded_bwd", "dot_product_attention",
+                "dot_product_attention_bwd", "attention_xla",
+                "adaln_layernorm", "adaln_layernorm_bwd", "linear_attention")
+
+
+def unet_blocks(cfg):
+    """The UNet's transformer blocks (one self- and one cross-attention
+    each): the down levels' attention blocks, the mid block's, the up
+    levels' (one more a level)."""
+    lpb, t = cfg.layers_per_block, cfg.transformer_layers
+    return (2 * lpb + 1) * sum(t) + max(1, t[-1])
+
+
+def unet_launches(cfg, grid, n_ctx=77, passes=(1, 0)):
+    """The kernel launches of ``passes`` = (forwards, backwards) of the
+    UNet on a latent ``grid``: every attention on the branch the JAX gate
+    gives its shape (``models.unet.attention_calls``,
+    ``ops.attention.attention_branch``); every backward of an adapted
+    attention launches its branch's backward kernel (the XLA branch none).
+    """
+    from yat_tpu_torch.models.unet import attention_calls
+    from yat_tpu_torch.ops.attention import attention_branch
+
+    fwd, bwd = passes
+    out = dict.fromkeys(UNET_KERNELS, 0)
+    for _, nq, nk, h, d in attention_calls(cfg, grid[0], grid[1], n_ctx):
+        name = UNET_BRANCH_KERNEL[attention_branch(nq, nk, h, d)]
+        out[name] += fwd
+        if name != "attention_xla":
+            out[name + "_bwd"] += bwd
+    return out
+
+
+def unet_branches(cfg, grid):
+    """``{(kind, branch): calls}`` of one forward on ``grid``."""
+    from yat_tpu_torch.models.unet import attention_calls
+    from yat_tpu_torch.ops.attention import attention_branch
+    out = {}
+    for kind, nq, nk, h, d in attention_calls(cfg, grid[0], grid[1]):
+        key = f"{kind}:{attention_branch(nq, nk, h, d)}"
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def check_unet_run(label, trainer, cfg, counts, cuda, grids, passes):
+    """Finite losses, the adapters and their export (``check_trained``),
+    and the attention kernels' launches of each step on the branches its
+    latent grid gives, times the step's (forwards, backwards)."""
+    model_cfg = trainer.unet_config
+    check_trained(label, trainer, cfg, unet_blocks(model_cfg))
+    steps = int(cfg["steps"])
+    if len(grids) != steps:
+        fail(f"{label}: {len(grids)} batches moved for {steps} steps")
+    want = dict.fromkeys(UNET_KERNELS, 0)
+    for grid, _ in grids:
+        for k, n in unet_launches(model_cfg, grid, passes=passes).items():
+            want[k] += n if cuda else 0
+    log(f"{label}: branches by step: "
+        f"{[(g, unet_branches(model_cfg, g)) for g, _ in grids]}")
+    check_launches(label, counts, want,
+                   lambda k: f"by step at grids {[g for g, _ in grids]}, "
+                   f"{passes[0]} forwards and {passes[1]} backwards a step")
+
+
+def train_unet_runs(label, main_fn, make_cfg, device, card, tmp, passes,
+                    remat_passes=None):
+    """Run an entry point's config as written (``make_cfg(out_dir,
+    **keys)``), its launches checked by step (``passes``: forwards and
+    backwards a step).  With ``remat_passes`` the same config follows with
+    ``low_vram`` (the config's remat switch; the recomputed forwards
+    counted in ``remat_passes``), which must fit, and only then may the
+    run as written not fit: it says so with the peak.  Returns each run's
+    launch counts by its label."""
+    import gc
+
+    import torch
+
+    cuda = device.type == "cuda"
+    out = {}
+    runs = [(label, {}, passes)]
+    if remat_passes is not None:
+        runs.append((f"{label} low_vram", {"low_vram": "true"},
+                     remat_passes))
+    for run_label, keys, run_passes in runs:
+        cfg = make_cfg(os.path.join(tmp, run_label.replace(" ", "_")),
+                       **keys)
+        try:
+            with recorded_batches() as grids:
+                trainer, counts, wall, peak = drive_entry_point(
+                    run_label, main_fn, device, tmp, cfg)
+        except torch.cuda.OutOfMemoryError as e:
+            if keys or remat_passes is None:
+                raise
+            peak = torch.cuda.max_memory_allocated()
+            log(f"{run_label} [{card}]: does not fit as configured: "
+                f"{str(e).splitlines()[0]} (peak {peak / 2**30:.2f} GiB "
+                "before the failed allocation)")
+            TRAIN_PEAKS[run_label] = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        check_unet_run(run_label, trainer, cfg, counts, cuda, grids,
+                       run_passes)
+        log_step_rate(run_label, trainer, wall, peak, card)
+        TRAIN_PEAKS[run_label] = peak
+        out[run_label] = {k: counts[k] for k in UNET_KERNELS}
+        del trainer
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def sd15_train_config(raw, out_dir, **extra):
+    """``configs/sd15_single_file_lora.yaml`` as written but for its files:
+    the seeded raw shards for ``/data/raw``, no single file (the modules
+    random from the seed), 6 steps."""
+    import yaml
+    with open(os.path.join(REPO, "configs", "sd15_single_file_lora.yaml")) \
+            as f:
+        cfg = yaml.safe_load(f)
+    cfg.pop("pretrained_pipe_single_file")
+    cfg.update({"local_shard_paths": list(raw), "steps": str(TRAIN_STEPS),
+                "output_dir": out_dir, "dataset_seed": "0", **extra})
+    return {k: (str(v) if isinstance(v, (int, float, bool)) else v)
+            for k, v in cfg.items()}
+
+
+def phase_sd15_train(device, card, tiny=None):
+    """SD1.5 512 px LoRA training through ``frontends.sd15.main`` as
+    ``configs/sd15_single_file_lora.yaml`` configures it but for its files:
+    raw JPEGs at four buckets encoded on the fly by CLIP-L (captions
+    compressed to 77 tokens) and the KL-VAE, batch 8, rank-8 LoRA, bf16,
+    caption dropout 0.1, 6 steps; the steps/s, the peak memory, and the
+    launches of each step by its latent grid (the non-square buckets'
+    self-attentions at 4032 and 3872 tokens take the XLA branch, which
+    recomputes its N x N scores in the backward).  The config must fit as
+    written.  ``tiny``: the overrides of a rehearsal on the CPU."""
+    from yat_tpu_torch.frontends.sd15 import main as sd15_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        raw, _ = write_raw_shards(tmp, 16 if tiny is None else 2,
+                                  scale=1.0 if tiny is None else 0.4)
+        extra = {} if tiny is None else {
+            "batch_size": "2", "vae_max_batch_size": "2",
+            "text_encoder_max_batch_size": "2", "aspect_ratio": "256",
+            "steps": "2", "model_config_overrides": tiny}
+        return train_unet_runs(
+            "sd15 train", sd15_main,
+            lambda out, **keys: sd15_train_config(raw, out, **extra, **keys),
+            device, card, tmp, (1, 1))
+
+
+def phase_sd15_grad_reference(device, cfg_over=None, side=64):
+    """The full-width SD1.5 UNet (860M parameters, every level) with
+    rank-8 LoRA on ``LORA_TARGETS`` (nonzero ``lora_b``) at a 64x64 latent
+    (512 px) over a 77-token caption: one epsilon loss and every LoRA
+    gradient through the kernels on the card (K6/K6b at head dims 40 and
+    80, K4/K4b at 40, K2/K2b at 80) against the same step through the
+    plain versions on the CPU, fp32: the loss within 1e-4 and the worst
+    leaf's max|dg| within ``GRAD_REF_TOL`` of its largest entry."""
+    import dataclasses
+
+    import torch
+
+    from yat_tpu_torch.adapters.builder import adapter_parameters
+    from yat_tpu_torch.kernels.build import launch_counts, reset_launch_counts
+    from yat_tpu_torch.models.unet import SD15_UNET, UNet2DCondition
+    from yat_tpu_torch.ops.schedulers import DDPMSchedule
+    from yat_tpu_torch.train.step import loss_and_grads
+    from yat_tpu_torch.train.tasks import make_epsilon_loss
+
+    cfg = dataclasses.replace(SD15_UNET, **(cfg_over or {}))
+    t0 = time.perf_counter()
+    cpu, gpu, n = lora_pair(UNet2DCondition, cfg, 8, device)
+    rng = np.random.default_rng(0)
+    lat = rng.standard_normal((1, side, side, cfg.in_channels), np.float32)
+    emb = rng.standard_normal((1, 77, cfg.cross_attention_dim), np.float32)
+    mask = np.ones((1, 77), np.int32)
+    sched = DDPMSchedule()
+    ts = sched.training_draw(torch.Generator().manual_seed(3), 1)
+    noise = rng.standard_normal(lat.shape, np.float32)
+    results = []
+    for model, dev in ((gpu, device), (cpu, torch.device("cpu"))):
+        t1 = time.perf_counter()
+        batch = {"latents": torch.from_numpy(lat).to(dev),
+                 "embeddings": torch.from_numpy(emb).to(dev),
+                 "text_mask": torch.from_numpy(mask).to(dev)}
+        draws = {"timesteps": ts.to(dev),
+                 "noise": torch.from_numpy(noise).to(dev)}
+        leaves = [p for _, p in adapter_parameters(model)]
+        reset_launch_counts()
+        loss, grads = loss_and_grads(make_epsilon_loss(model, sched), leaves,
+                                     batch, torch.Generator(), draws)
+        results.append((float(loss), [g.detach().cpu() for g in grads],
+                        launch_counts(), time.perf_counter() - t1))
+    (loss_g, grads_g, counts, sec_g), (loss_c, grads_c, _, sec_c) = results
+    names = [name for name, _ in adapter_parameters(cpu)]
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    zero, rows, ok = [], [], loss_err <= 1e-4
+    for name, gc, gg in zip(names, grads_c, grads_g):
+        scale = float(gc.abs().max())
+        rel = float((gg - gc).abs().max()) / scale
+        rows.append((rel, name, scale))
+        ok = ok and rel <= GRAD_REF_TOL and bool(torch.isfinite(gg).all())
+        if not bool((gg != 0).any()):
+            zero.append(name)
+    for rel, name, scale in sorted(rows, reverse=True)[:3]:
+        log(f"sd15 grad reference:   {name}: max|g| {scale:.3e}; "
+            f"max|dg|/max|g| {rel:.2e}")
+    want = unet_launches(cfg, (side, side), passes=(1, 1))
+    if device.type != "cuda":
+        want = {k: 0 for k in want}
+    log(f"sd15 grad reference: the SD1.5 UNet {cfg.block_out_channels} with "
+        f"LoRA on {n} modules ({len(names)} leaves) at {side}x{side}, "
+        f"{device.type} ({sec_g:.1f} s) vs CPU ({sec_c:.1f} s), fp32: loss "
+        f"{loss_g:.6f} vs {loss_c:.6f} (rel {loss_err:.2e}, tol 1e-4); "
+        f"worst leaf max|dg|/max|g| {max(r[0] for r in rows):.2e} (tol "
+        f"{GRAD_REF_TOL:g}); zero gradients: {len(zero)}; launches "
+        f"{ {k: counts[k] for k in want if want[k] or counts[k]} }; "
+        f"{time.perf_counter() - t0:.1f} s in all")
+    if zero:
+        fail(f"sd15: LoRA leaves with no gradient: {zero[:4]}")
+    if not ok:
+        fail("sd15: LoRA gradients on the card disagree with the CPU")
+    if any(counts[k] != v for k, v in want.items()):
+        fail(f"sd15 grad reference: launches {counts}, expected {want}")
+
+
+def phase_single_file(device, card, cfg_over=None):
+    """A synthesized CompVis SD1.5 single file (fp16; the published LDM
+    keys of the UNet, the KL-VAE and CLIP-L), its UNet loaded through
+    ``load_pretrained_backbone`` (via ``build_backbone``, the loader's
+    coverage rules: no orphan, no missing leaf): every parameter on the
+    card equal to its synthesized value, and the seconds from file to
+    card.  The single file carries no tokenizer (``load_tokenizer``
+    raises without a pipe directory), so the pipeline is not built."""
+    import dataclasses
+
+    import torch
+
+    from yat_tpu_torch.config import TrainingParameters
+    from yat_tpu_torch.convert import flax_params
+    from yat_tpu_torch.frontends.common import build_backbone
+    from yat_tpu_torch.models.text_encoders import CLIP_L_14, \
+        CLIP_TINY_TEST, CLIPTextModel
+    from yat_tpu_torch.models.unet import SD15_UNET, UNet2DCondition
+    from yat_tpu_torch.models.vae import KLVAE_SD15, KLVAE_TINY_TEST, \
+        AutoencoderKL
+
+    S = synth_module()
+    tiny = cfg_over is not None
+    cfg = dataclasses.replace(SD15_UNET, **(cfg_over or {}))
+    with torch.device("meta"):
+        shapes = [S.leaf_shapes(flax_params(m())) for m in (
+            lambda: UNet2DCondition(cfg),
+            lambda: AutoencoderKL(KLVAE_TINY_TEST if tiny else KLVAE_SD15),
+            lambda: CLIPTextModel(CLIP_TINY_TEST if tiny else CLIP_L_14))]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "v1-5-synth.safetensors")
+        t0 = time.perf_counter()
+        wrote = S.write_compvis_single_file(path, shapes[0], cfg, SYNTH_SEED,
+                                            "F16", shapes[1], shapes[2])
+        log(f"single file: wrote {wrote['tensors']} tensors, "
+            f"{wrote['bytes'] / 2**30:.2f} GiB (F16) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        params = TrainingParameters.from_dict({
+            "batch_size": "1", "learning_rate": "1e-4", "steps": "1",
+            "num_steps_per_validation": "1", "bfloat16": "true",
+            "pretrained_pipe_single_file": path})
+        t0 = time.perf_counter()
+        model = build_backbone(
+            lambda: UNet2DCondition(cfg, dtype=torch.bfloat16), params,
+            "sd15", cfg, device, dtype=torch.bfloat16)
+        sec = time.perf_counter() - t0
+    check_loaded("single file", model,
+                 S.unet_rules(len(cfg.block_out_channels), conv_proj=True),
+                 grid="F16")
+    n = sum(p.numel() for p in model.parameters())
+    log(f"single file [{card}]: the SD1.5 UNet ({n / 1e6:.1f}M parameters) "
+        f"from the CompVis file to {device.type} in {sec:.1f} s "
+        f"(load_seconds {model.load_seconds:.1f} s); every parameter as "
+        "synthesized")
+
+
+def sdxl_dreambooth_config(inst, reg, out_dir, **extra):
+    """``configs/sdxl_dreambooth.yaml`` as written but for its files: the
+    seeded instance and regularization folders, no pretrained pipe (the
+    modules random from the seed), 3 steps."""
+    import yaml
+    with open(os.path.join(REPO, "configs", "sdxl_dreambooth.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg.pop("pretrained_pipe_path")
+    cfg.update({"dreambooth_dataset_folder": inst,
+                "dreambooth_regularization_folder": reg, "steps": "3",
+                "output_dir": out_dir, "dataset_seed": "0", **extra})
+    return {k: (str(v) if isinstance(v, (int, float, bool)) else v)
+            for k, v in cfg.items()}
+
+
+def phase_sdxl_train(device, card, tiny=None):
+    """SDXL 1024 px Dreambooth LoRA through ``frontends.sdxl.main`` as
+    ``configs/sdxl_dreambooth.yaml`` configures it but for its files:
+    seeded instance and class folders, batch 4, rank-16 LoRA, preservation
+    at 0.3 (3 forwards, 2 backwards a step), CLIP-L + OpenCLIP-G and the
+    KL-VAE encoding on the fly, 3 steps: the peak memory (a run that does
+    not fit says so with the number), then the same with ``low_vram`` (the
+    config's remat switch; every spatial transformer and resnet
+    recomputed, 5 forwards a step), each with its launches by step; then a
+    short extraction pass writing ``pooled.npy`` (``[1280]``) beside each
+    sample."""
+    from yat_tpu_torch.frontends.sdxl import main as sdxl_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        size = (1024, 1024) if tiny is None else (256, 256)
+        inst = write_image_folder(os.path.join(tmp, "instance"), 4, size, 1)
+        reg = write_image_folder(os.path.join(tmp, "reg"), 8, size, 2)
+        # a rehearsal takes one step of each run (no warmup to check)
+        extra = {} if tiny is None else {
+            "batch_size": "2", "vae_max_batch_size": "2",
+            "text_encoder_max_batch_size": "2", "aspect_ratio": "256",
+            "steps": "1", "model_config_overrides": tiny}
+        out = train_unet_runs(
+            "sdxl train", sdxl_main,
+            lambda o, **keys: sdxl_dreambooth_config(inst, reg, o, **extra,
+                                                     **keys),
+            device, card, tmp, (3, 2), (5, 2))
+        phase_sdxl_extract(device, card, tmp, tiny)
+    return out
+
+
+def phase_sdxl_extract(device, card, tmp, tiny=None):
+    """SDXL's extraction pass through ``frontends.sdxl.main``
+    (``extract_features``) on 16 seeded JPEGs at four 1024 px buckets,
+    batch 4: each sample's
+    ``pooled.npy`` holds OpenCLIP-G's projected pooled vector, as wide as
+    the UNet's ``addition_embed_dim`` (``[1280]``), finite, beside its
+    latent and its ``[77, 2048]`` caption states."""
+    import io
+    import tarfile
+
+    from yat_tpu_torch.frontends.sdxl import main as sdxl_main
+
+    batch = "4" if tiny is None else "2"
+    raw, _ = write_raw_shards(tmp, int(batch), shards=1, seed=5,
+                              scale=1.6 if tiny is None else 0.4)
+    feats = os.path.join(tmp, "features")
+    cfg = {"local_shard_paths": raw, "batch_size": batch,
+           "vae_max_batch_size": batch, "text_encoder_max_batch_size": batch,
+           "extract_features": "true", "learning_rate": "1e-4",
+           "steps": "1", "num_steps_per_validation": "1",
+           "bfloat16": "true", "aspect_ratio": "1024",
+           "r2_dataset_folder": feats, "dataset_seed": "0"}
+    if tiny is not None:
+        cfg.update(aspect_ratio="256", model_config_overrides=tiny)
+    # CLIP's 77 positions (the tiny test CLIP's 16)
+    n_tok = 77 if tiny is None else 16
+    t0 = time.perf_counter()
+    trainer, _, wall, peak = drive_entry_point("sdxl extract", sdxl_main,
+                                               device, tmp, cfg)
+    pooled_dim = trainer.unet_config.addition_embed_dim
+    n = 0
+    for name in sorted(os.listdir(feats)):
+        with tarfile.open(os.path.join(feats, name)) as tf:
+            members = {m.name: m for m in tf.getmembers()}
+            for key in {m.split(".")[0] for m in members}:
+                pooled, emb = (np.load(io.BytesIO(tf.extractfile(
+                    members[f"{key}.{f}.npy"]).read())) for f in ("pooled",
+                                                                  "emb"))
+                if pooled.shape != (pooled_dim,) or not np.isfinite(
+                        pooled).all():
+                    fail(f"sdxl extract: {key} pooled {pooled.shape}")
+                if emb.shape[0] != n_tok or not np.isfinite(emb).all():
+                    fail(f"sdxl extract: {key} caption states {emb.shape}")
+                n += 1
+    if n != trainer.extraction.written or n == 0:
+        fail(f"sdxl extract: {n} samples with pooled.npy, "
+             f"{trainer.extraction.written} written")
+    log(f"sdxl extract [{card}]: {n} samples with pooled.npy "
+        f"[{pooled_dim}] and caption states [{n_tok}, {emb.shape[1]}] in "
+        f"{wall:.1f} s ({trainer.extraction.images_per_sec:.2f} images/s); "
+        f"peak device memory {peak / 2**30:.2f} GiB; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     import gc
 
@@ -4769,6 +5276,16 @@ def main() -> None:
         cfg_extra=PIXART_PRESERVE_KEYS, label="pixart preserve train",
         remat=False)
     counts.update(timed("raw images", phase_raw_images, device, card))
+    counts["sd15"] = timed("serve sd15", phase_serve, serve_params(), device,
+                           card, family="sd15", profile=True)
+    counts["sdxl"] = timed("serve sdxl", phase_serve, serve_params(), device,
+                           card, family="sdxl", px=1024, profile=True)
+    timed("sd15 grad reference", phase_sd15_grad_reference, device)
+    timed("single file", phase_single_file, device, card)
+    for phase, fn in (("sd15 train", phase_sd15_train),
+                      ("sdxl train", phase_sdxl_train)):
+        for label, c in timed(phase, fn, device, card).items():
+            counts[label.replace(" ", "_")] = c
     log(f"seconds by phase: {seconds}; "
         f"{time.perf_counter() - t_start:.1f} s in all")
 
@@ -4809,8 +5326,10 @@ def main() -> None:
         # K1 launches on every path: its counts on the others beside
         for other in ("pixart", "train", "pixart_train", "int8_train",
                       "full_ft", "explore_train", "pixart_preserve_train",
-                      "raw_sana", "raw_pixart"):
-            if other != run and name in counts[other] \
+                      "raw_sana", "raw_pixart", "sd15", "sdxl",
+                      "sd15_train", "sdxl_train",
+                      "sdxl_train_low_vram"):
+            if other != run and name in counts.get(other, {}) \
                     and counts[other][name]:
                 row[f"launches_{other}"] = counts[other][name]
         row.update({"max_abs_err": k["max_abs_err"], "ms": k["ms"],

@@ -1068,3 +1068,36 @@ def test_card_w8a8_matmul_launches_the_kernels(cuda, dtype, monkeypatch):
             x[:100], TQ.dequantize_kernel(q, ws, dtype)), atol=0, rtol=0)
     with pytest.raises(ValueError, match="not a shape"):
         TQ._w8a8_cuda(x[:100], q, ws)
+
+
+def _unet_cases():
+    import chip_smoke
+    return [(name, label) for name, cases in chip_smoke.UNET_CASES.items()
+            for label, _ in cases]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name,label", _unet_cases())
+def test_card_unet_attention_shapes(cuda, dtype, name, label):
+    """K6/K6b, K4/K4b and K2/K2b at the UNet's shapes (chip_smoke.py's
+    ``UNET_CASES``: SD1.5's head dims 40 and 80, SDXL's 64, over CLIP's 77
+    keys all kept or partly masked): each kernel launches once and holds
+    against its plain version with chip_smoke.py's tolerance."""
+    import chip_smoke
+    case = next(c for c in chip_smoke.kernel_cases(cuda)
+                if c[:3] == (name, label, dtype))
+    _, _, _, make, kern, plain = case[:6]
+    args = make()
+    handle = {"flash_attention": TA.FLASH_ATTENTION,
+              "flash_attention_bwd": TA.FLASH_ATTENTION_BWD,
+              "dot_product_attention": TA.SOFTMAX_ATTENTION,
+              "dot_product_attention_bwd": TA.SOFTMAX_ATTENTION_BWD,
+              "dot_product_attention_folded": TA.SOFTMAX_ATTENTION_FOLDED,
+              "dot_product_attention_folded_bwd":
+                  TA.SOFTMAX_ATTENTION_FOLDED_BWD}[name]
+    before = handle.launches
+    got = kern(*args)
+    torch.cuda.synchronize()
+    assert handle.launches == before + 1
+    assert chip_smoke.compare(name, got, plain(*args))[2]

@@ -392,6 +392,46 @@ def test_attention_xla_matches_jax_nn(dtype, mask_form):
                                **tol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mask_form", [None, "BN"])
+def test_attention_xla_grad_recomputes_its_scores(dtype, mask_form):
+    """Under autograd the XLA branch keeps no [B, H, Nq, Nk] tensor (the
+    plain arithmetic alone keeps several), and its recomputing backward
+    gives autograd's gradients of that arithmetic bit for bit; in fp32 they
+    match jax.vjp of the JAX package's XLA branch."""
+    b, nq, nk, h, d = 3, 20, 36, 2, 8
+    q, k, v = _qkv(b, nq, nk, h, d, seed=9)
+    g = np.random.default_rng(10).standard_normal((b, nq, h, d)).astype(
+        np.float32)
+    mask = None if mask_form is None else (
+        np.arange(nk)[None] < np.array([[0], [7], [36]])).astype(np.int32)
+    td = getattr(torch, dtype)
+    grads, biggest = [], []
+    for fn in (TA.attention_xla, TA._attention_xla):
+        ins = [torch.from_numpy(a).to(td).requires_grad_() for a in (q, k, v)]
+        sizes = []
+
+        def keep(t, sizes=sizes):
+            sizes.append(t.numel())
+            return t
+        with torch.autograd.graph.saved_tensors_hooks(keep, lambda t: t):
+            out = fn(*ins, None if mask is None else torch.from_numpy(mask))
+        out.backward(torch.from_numpy(g).to(td))
+        grads.append([t.grad for t in ins])
+        biggest.append(max(sizes))
+    assert biggest[0] < b * h * nq * nk <= biggest[1]
+    for got, plain in zip(*grads):
+        assert torch.equal(got, plain)
+    if dtype == "float32":
+        jm = None if mask is None else jnp.asarray(mask)
+        _, vjp = jax.vjp(lambda q_, k_, v_: JA.dot_product_attention(
+            q_, k_, v_, mask=jm, implementation="xla"),
+            *(jnp.asarray(a) for a in (q, k, v)))
+        for got, want in zip(grads[0], vjp(jnp.asarray(g))):
+            np.testing.assert_allclose(_np(got), np.asarray(want),
+                                       atol=ATTN_BWD_TOL)
+
+
 # ---------------------------------------------------------------------------
 # K3: ReLU linear attention
 # ---------------------------------------------------------------------------

@@ -205,7 +205,7 @@ def test_build_sampler_batch_cap_and_refused_options():
         build_sampler(_port_params(), "sana", cache_interval=2,
                       sampler="dpm", device="cpu")
     with pytest.raises(ValueError, match="not ported"):
-        build_sampler(_port_params(), "sd15", device="cpu")
+        build_sampler(_port_params(), "flux", device="cpu")
     # low_vram serves one prompt at a time
     s4 = build_sampler(_port_params(low_vram=""), "sana", device="cpu")
     try:

@@ -18,7 +18,9 @@ without its row term is rejected).  The forwards ``fwd`` (K6) and ``k2``
 (K2, K4) also run at masks whose kept keys fill one middle or the last
 64-key tile, with a leading or middle key block of K6 fully masked, at
 and N_q past 128, and must give the same bits when the K and V rows of
-every fully masked tile are NaN: such tiles are never read.
+every fully masked tile are NaN: such tiles are never read.  All four
+also run the UNet's shapes cut to size (``UNET_CASES``: head dims 40, 64
+and 80 over CLIP's 77 keys, all kept or partly masked).
 
 ``k5`` and ``k5b`` (the w8a8 matmul and its backward, one source) run
 with Hopper's mbarriers, TMA tile loads (128-byte swizzle) and wgmma s8
@@ -266,6 +268,14 @@ FWD_CASES = [(2, 200, 300, 1, 72, [(130, 141), (290, 300)]),
              (2, 150, 400, 1, 64, [(128, 400), (0, 130)]),
              (3, 40, 400, 1, 72, [(300, 310), 0, (256, 400)]),
              (1, 130, 200, 1, 40, [(70, 75)])]
+
+
+# the UNet's attention shapes, cut to size: head dims 40 (padded to 64 in
+# 4 chunks of 16), 64 (4 chunks) and 80 (5 chunks) over CLIP's 77 keys
+# (all kept, and a partial mask), and self-attention past one key block
+UNET_CASES = [(2, 136, 77, 2, 40, [77, 20]), (1, 256, 256, 2, 40, None),
+              (2, 72, 77, 3, 80, [77, 5]), (1, 200, 200, 1, 80, [200]),
+              (2, 130, 77, 2, 64, [77, 33]), (1, 256, 256, 1, 64, None)]
 
 
 def check_fwd(which, lib, dtype, case):
@@ -623,7 +633,7 @@ def main(argv):
             continue
         fwd = w in ("fwd", "k2")
         for dtype in (torch.bfloat16, torch.float32):
-            for case in CASES + (FWD_CASES if fwd else []):
+            for case in CASES + UNET_CASES + (FWD_CASES if fwd else []):
                 t0 = time.perf_counter()
                 text = (check_fwd(w, libs[SOURCES[w]], dtype, case)
                         if fwd else check(w, libs[SOURCES[w]], dtype, case))

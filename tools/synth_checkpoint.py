@@ -2,8 +2,9 @@
 
 The repository holds no pretrained weights, so the loaders of both
 packages are tested on files synthesized here: the same keys, shapes and
-dtypes as the published SANA, PixArt-Sigma, Gemma-2, T5, DC-AE and SD
-KL-VAE checkpoints, with seeded values.  Imports numpy only (``torch`` for
+dtypes as the published SANA, PixArt-Sigma, Gemma-2, T5, CLIP, SD1.5/SDXL
+UNet, DC-AE and SD KL-VAE checkpoints (and the CompVis single file of
+SD1.5, :func:`write_compvis_single_file`), with seeded values.  Imports numpy only (``torch`` for
 ``.bin`` files, inside :func:`write_bin`), never JAX or either package, so
 the JAX package's tests, the port's tests and ``chip_smoke.py`` share it.
 
@@ -449,6 +450,213 @@ VAE_KL_RULES: List[Rule] = [
     (r"^(encoder|decoder)\.mid_attn\.to_out\.",
      "{0}.mid_block.attentions.0.to_out.0", "auto"),
 ]
+
+
+# transformers CLIPTextModel (WithProjection: ``text_projection`` outside
+# ``text_model.``)
+CLIP_RULES: List[Rule] = [
+    (r"^token_embedding\.", "text_model.embeddings.token_embedding", "auto"),
+    (r"^position_embedding$", "text_model.embeddings.position_embedding."
+     "weight", "raw"),
+    (r"^layers_(\d+)\.(q_proj|k_proj|v_proj|out_proj)\.",
+     "text_model.encoder.layers.{0}.self_attn.{1}", "auto"),
+    (r"^layers_(\d+)\.(layer_norm\d)\.", "text_model.encoder.layers.{0}.{1}",
+     "auto"),
+    (r"^layers_(\d+)\.(fc\d)\.", "text_model.encoder.layers.{0}.mlp.{1}",
+     "auto"),
+    (r"^final_layer_norm\.", "text_model.final_layer_norm", "auto"),
+    (r"^text_projection\.", "text_projection", "auto"),
+]
+
+_UNET_RESNET = r"(norm1|conv1|time_emb_proj|norm2|conv2|conv_shortcut)"
+
+
+def unet_rules(n_levels: int, conv_proj: bool) -> List[Rule]:
+    """diffusers UNet2DConditionModel: ``up_blocks.{i}`` is the tree's
+    ``up_{n_levels-1-i}``; ``conv_proj``: the spatial transformers'
+    ``proj_in``/``proj_out`` are 1x1 convolutions (SD1.5), else linears
+    (SDXL)."""
+    rules: List[Rule] = [
+        (r"^(conv_in|conv_out|conv_norm_out)\.", "{0}", "auto"),
+        (r"^time_linear_(\d)\.", "time_embedding.linear_{0}", "auto"),
+        (r"^add_linear_(\d)\.", "add_embedding.linear_{0}", "auto"),
+    ]
+
+    def attention(flax, torch_):
+        rules.extend([
+            (rf"^{flax}\.norm\.", torch_ + ".norm", "auto"),
+            (rf"^{flax}\.(proj_in|proj_out)\.kernel$", torch_ + ".{0}",
+             "conv1x1" if conv_proj else "auto"),
+            (rf"^{flax}\.(proj_in|proj_out)\.", torch_ + ".{0}", "auto"),
+            (rf"^{flax}\.transformer_blocks_(\d+)\.(attn\d)\.to_out\.",
+             torch_ + ".transformer_blocks.{0}.{1}.to_out.0", "auto"),
+            (rf"^{flax}\.transformer_blocks_(\d+)\.(attn\d\.to_[qkv]|"
+             r"norm\d)\.", torch_ + ".transformer_blocks.{0}.{1}", "auto"),
+            (rf"^{flax}\.transformer_blocks_(\d+)\.ff\.proj\.",
+             torch_ + ".transformer_blocks.{0}.ff.net.0.proj", "auto"),
+            (rf"^{flax}\.transformer_blocks_(\d+)\.ff\.out\.",
+             torch_ + ".transformer_blocks.{0}.ff.net.2", "auto")])
+
+    rules.append((rf"^down_(\d+)_resnet_(\d+)\.{_UNET_RESNET}\.",
+                  "down_blocks.{0}.resnets.{1}.{2}", "auto"))
+    rules.append((r"^down_(\d+)_downsample\.",
+                  "down_blocks.{0}.downsamplers.0.conv", "auto"))
+    rules.append((rf"^mid_resnet_(\d)\.{_UNET_RESNET}\.",
+                  "mid_block.resnets.{0}.{1}", "auto"))
+    attention("mid_attn", "mid_block.attentions.0")
+    for level in range(n_levels):
+        u = n_levels - 1 - level
+        rules.append((rf"^up_{level}_resnet_(\d+)\.{_UNET_RESNET}\.",
+                      f"up_blocks.{u}.resnets.{{0}}.{{1}}", "auto"))
+        rules.append((rf"^up_{level}_upsample\.",
+                      f"up_blocks.{u}.upsamplers.0.conv", "auto"))
+        for j in range(8):
+            attention(rf"down_{level}_attn_{j}",
+                      f"down_blocks.{level}.attentions.{j}")
+            attention(rf"up_{level}_attn_{j}",
+                      f"up_blocks.{u}.attentions.{j}")
+    return rules
+
+
+# diffusers resnet part → LDM's (the inverse of the CompVis converter's
+# table)
+_LDM_RESNET_PARTS = {"norm1": "in_layers.0", "conv1": "in_layers.2",
+                     "time_emb_proj": "emb_layers.1",
+                     "norm2": "out_layers.0", "conv2": "out_layers.3",
+                     "conv_shortcut": "skip_connection"}
+
+
+def ldm_unet_key(key: str, layers_per_block: int,
+                 transformer_layers: Tuple[int, ...]) -> str:
+    """A diffusers UNet key → its CompVis/LDM name (``input_blocks``,
+    ``middle_block``, ``output_blocks``), as SD1.5's single file holds
+    it."""
+    lpb, n = layers_per_block, len(transformer_layers)
+    fixed = {"conv_in": "input_blocks.0.0",
+             "time_embedding.linear_1": "time_embed.0",
+             "time_embedding.linear_2": "time_embed.2",
+             "add_embedding.linear_1": "label_emb.0.0",
+             "add_embedding.linear_2": "label_emb.0.2",
+             "conv_norm_out": "out.0", "conv_out": "out.2"}
+    head, _, wb = key.rpartition(".")
+    if head in fixed:
+        return f"{fixed[head]}.{wb}"
+
+    def resnet(rest):
+        part, _, tail = rest.partition(".")
+        return f"{_LDM_RESNET_PARTS[part]}.{tail}"
+
+    m = re.match(r"^down_blocks\.(\d+)\.(resnets|attentions)\.(\d+)\.(.*)$",
+                 key)
+    if m:
+        i, kind, j, rest = int(m.group(1)), m.group(2), int(m.group(3)), \
+            m.group(4)
+        k = 1 + i * (lpb + 1) + j
+        return (f"input_blocks.{k}.0.{resnet(rest)}" if kind == "resnets"
+                else f"input_blocks.{k}.1.{rest}")
+    m = re.match(r"^down_blocks\.(\d+)\.downsamplers\.0\.conv\.(.*)$", key)
+    if m:
+        k = 1 + int(m.group(1)) * (lpb + 1) + lpb
+        return f"input_blocks.{k}.0.op.{m.group(2)}"
+    m = re.match(r"^mid_block\.resnets\.(\d)\.(.*)$", key)
+    if m:
+        return f"middle_block.{2 * int(m.group(1))}.{resnet(m.group(2))}"
+    if key.startswith("mid_block.attentions.0."):
+        return "middle_block.1." + key[len("mid_block.attentions.0."):]
+    m = re.match(r"^up_blocks\.(\d+)\.(resnets|attentions)\.(\d+)\.(.*)$",
+                 key)
+    if m:
+        u, kind, j, rest = int(m.group(1)), m.group(2), int(m.group(3)), \
+            m.group(4)
+        k = u * (lpb + 1) + j
+        return (f"output_blocks.{k}.0.{resnet(rest)}" if kind == "resnets"
+                else f"output_blocks.{k}.1.{rest}")
+    m = re.match(r"^up_blocks\.(\d+)\.upsamplers\.0\.conv\.(.*)$", key)
+    if m:
+        u = int(m.group(1))
+        mod = 2 if transformer_layers[n - 1 - u] > 0 else 1
+        return f"output_blocks.{u * (lpb + 1) + lpb}.{mod}.conv.{m.group(2)}"
+    raise KeyError(f"no LDM name for the UNet key {key}")
+
+
+def ldm_vae_key(key: str, n_levels: int) -> Tuple[str, bool]:
+    """A diffusers AutoencoderKL key → ``(its CompVis/LDM name, whether
+    the LDM file holds it as a 1x1 convolution)`` (the mid attention's
+    q/k/v/proj_out)."""
+    nk = key.replace("conv_shortcut", "nin_shortcut")
+    nk = re.sub(r"^encoder\.down_blocks\.(\d+)\.resnets\.(\d+)",
+                r"encoder.down.\1.block.\2", nk)
+    nk = re.sub(r"^encoder\.down_blocks\.(\d+)\.downsamplers\.0\.conv",
+                r"encoder.down.\1.downsample.conv", nk)
+    m = re.match(r"^decoder\.up_blocks\.(\d+)\.(.*)$", nk)
+    if m:
+        rest = re.sub(r"^resnets\.(\d+)", r"block.\1", m.group(2))
+        rest = re.sub(r"^upsamplers\.0\.conv", "upsample.conv", rest)
+        nk = f"decoder.up.{n_levels - 1 - int(m.group(1))}.{rest}"
+    conv = False
+    for side in ("encoder", "decoder"):
+        nk = nk.replace(f"{side}.mid_block.resnets.0", f"{side}.mid.block_1")
+        nk = nk.replace(f"{side}.mid_block.resnets.1", f"{side}.mid.block_2")
+        nk = nk.replace(f"{side}.conv_norm_out", f"{side}.norm_out")
+        a = f"{side}.mid_block.attentions.0."
+        if nk.startswith(a):
+            name, _, wb = nk[len(a):].partition(".")
+            if name == "to_out":
+                name, wb = "proj_out", wb.partition(".")[2]
+            name = {"group_norm": "norm", "to_q": "q", "to_k": "k",
+                    "to_v": "v"}.get(name, name)
+            conv = name in ("q", "k", "v", "proj_out") and wb == "weight"
+            nk = f"{side}.mid.attn_1.{name}.{wb}"
+    return nk, conv
+
+
+def write_compvis_single_file(path: str, unet_shapes: Mapping[str, tuple],
+                              unet_cfg, seed: int, dtype: str = "F16",
+                              vae_shapes: Mapping[str, tuple] = None,
+                              clip_shapes: Mapping[str, tuple] = None
+                              ) -> dict:
+    """A CompVis single file of SD1.5 (``model.diffusion_model.``,
+    ``first_stage_model.``, ``cond_stage_model.transformer.``) streamed to
+    ``path``: the UNet of ``unet_shapes`` (flax paths; ``unet_cfg`` gives
+    its levels, ``layers_per_block``, ``transformer_layers``) and, when
+    given, the KL-VAE and CLIP-L.  Each leaf holds what
+    :func:`write_checkpoint` with the diffusers rules and ``seed`` would
+    write (``expected_values`` of those rules gives it).  Returns
+    ``{"tensors", "bytes"}``."""
+    n = len(unet_cfg.block_out_channels)
+    parts = [(unet_shapes, unet_rules(n, conv_proj=True),
+              lambda k: ("model.diffusion_model." + ldm_unet_key(
+                  k, unet_cfg.layers_per_block,
+                  tuple(unet_cfg.transformer_layers)), False))]
+    if vae_shapes is not None:
+        n_vae = 1 + max(int(m.group(1)) for m in (
+            re.match(r"^decoder\.up_(\d+)_", p) for p in vae_shapes) if m)
+
+        def vae_key(k):
+            nk, conv = ldm_vae_key(k, n_vae)
+            return "first_stage_model." + nk, conv
+        parts.append((vae_shapes, VAE_KL_RULES, vae_key))
+    if clip_shapes is not None:
+        parts.append((clip_shapes, CLIP_RULES, lambda k: (
+            "cond_stage_model.transformer." + k, False)))
+
+    def maker(path_, shape, kind, conv):
+        def make():
+            t = to_torch_layout(leaf_value(seed, path_, shape, kind, dtype),
+                                kind, path_)
+            return t[:, :, None, None] if conv else t
+        return make
+
+    entries = []
+    for shapes, rules, rename in parts:
+        written, _ = plan(shapes, rules)
+        for path_, shape, key, kind in written:
+            ldm, conv = rename(key)
+            tshape = torch_shape(shape, kind, path_)
+            entries.append((ldm, tshape + ((1, 1) if conv else ()),
+                            maker(path_, shape, kind, conv)))
+    nbytes = write_safetensors(path, entries, dtype)
+    return {"tensors": len(entries), "bytes": nbytes}
 
 
 def dcae_rules(cfg) -> List[Rule]:

@@ -11,7 +11,10 @@ encodes images: ``encodes_images``), the ``low_vram`` staging of
 encoder and decoder weights, the tiling decoder, the image encoder (uint8
 pixels cross to the device and are normalised there: ``pixels_to_u8``,
 ``u8_to_unit``), the prompt encoder's padding, the T5 caption encoder and
-KL-VAE of ``build_t5_vae_encoders``, the shard sources (local paths, then
+KL-VAE of ``build_t5_vae_encoders``, the CLIP-L caption encoder (plain
+or with its projection; the captions compressed to CLIP's 77 tokens) and
+KL-VAE of SD1.5 and SDXL (``build_clip_vae_encoders``, with
+``encode_pooled``), the shard sources (local paths, then
 ``urls``, then R2), the sampler selection every family shares
 (``build_family_sampler``: Dreambooth, then ``compute_features``, then
 feature shards) and the training CLI (``cli_main``, which adds
@@ -20,9 +23,18 @@ feature shards) and the training CLI (``cli_main``, which adds
 of REPA's targets (``build_dino_encoder``, which the on-the-fly and
 Dreambooth samplers call on each whole batch under ``use_repa``) and
 the pretrained adapters of ``lora_pretrained`` for serving
-(``attach_pretrained_adapters``).  The single-file CompVis checkpoints,
-the PixelDiT hub fetch and CLIP are not ported (ROADMAP queue 1, item
-10).
+(``attach_pretrained_adapters``).  The denoisers of SANA, PixArt-Sigma,
+SD1.5 and SDXL load from diffusers files, and the UNet, CLIP and VAE of
+SD1.5 and SDXL also from a CompVis single file
+(``pretrained_pipe_single_file``); SD3.5, Flux and PixelDiT (and the
+PixelDiT hub fetch) are not ported (ROADMAP queue 1, item 10).
+
+Two divergences from the JAX package, both repairs: the SDXL VAE (and
+PixArt-Sigma's, whose published pipe ships SDXL's) scales its latents by
+0.13025 (``KLVAE_SDXL``), where the JAX builders always take SD1.5's
+0.18215; and SDXL's first text encoder gives the penultimate layer's
+states (``penultimate``), as diffusers' SDXL pipeline does, where the
+JAX builder gives the final LayerNorm's.
 """
 
 from __future__ import annotations
@@ -92,7 +104,11 @@ def build_module(module_fn, device, tree, seed, dtype=None,
 
 
 # families whose converters are ported; the others wait for ROADMAP item 10
-_PORTED_FAMILIES = ("sana", "pixart")
+_PORTED_FAMILIES = ("sana", "pixart", "sd15", "sdxl")
+# the families whose single-file CompVis checkpoints load
+_SINGLE_FILE_FAMILIES = ("sd15", "sdxl")
+
+
 def _synced_seconds(t0: float, device) -> float:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
@@ -139,11 +155,28 @@ def find_model_config_json(params: TrainingParameters) -> Optional[dict]:
     return None
 
 
+def single_file(params: TrainingParameters) -> Optional[str]:
+    """``pretrained_pipe_single_file`` when it names an existing file."""
+    path = params.pretrained_pipe_single_file
+    return path if path and os.path.exists(path) else None
+
+
+def load_single_file(params: TrainingParameters) -> dict:
+    """The parts of the CompVis single file (``split_compvis_checkpoint``:
+    ``unet``, ``vae``, ``clip``, LDM prefixes stripped).  Each caller
+    reads the file again, as the JAX package does."""
+    from yat_tpu_torch.models.convert import load_torch_state_dict
+    from yat_tpu_torch.models.convert_unet import split_compvis_checkpoint
+    return split_compvis_checkpoint(load_torch_state_dict(single_file(params)))
+
+
 def load_pretrained_backbone(params: TrainingParameters, family: str, cfg):
     """The converted flax-layout tree of the denoiser checkpoint of
-    ``pretrained_model_path`` or ``pretrained_pipe_path/transformer``, or
-    None when no pretrained path is configured.  A full fine-tuning export
-    of either package (``model.safetensors`` with flat flax keys, whose
+    ``pretrained_model_path`` or ``pretrained_pipe_path/transformer``
+    (``unet/``), or, for SD1.5 and SDXL, of the CompVis single file's
+    UNet, or None when no pretrained path is configured.  A full
+    fine-tuning export of either package (``model.safetensors`` with flat
+    flax keys, whose
     ``config.json`` carries the architecture flags) is read as the tree
     itself; the JAX loader converts diffusers keys only.
 
@@ -164,6 +197,19 @@ def load_pretrained_backbone(params: TrainingParameters, family: str, cfg):
     if dirpath is None and params.pretrained_model_path and \
             os.path.isfile(params.pretrained_model_path):
         dirpath = params.pretrained_model_path
+    if dirpath is None and single_file(params) and \
+            family in _SINGLE_FILE_FAMILIES:
+        from yat_tpu_torch.models.convert_unet import (convert_unet,
+                                                       ldm_unet_to_diffusers)
+        parts = load_single_file(params)
+        if parts["unet"]:
+            sd = ldm_unet_to_diffusers(
+                parts["unet"], cfg.block_out_channels,
+                cfg.layers_per_block, cfg.transformer_layers)
+            print(f"[{family}] read the pretrained UNet from "
+                  f"{params.pretrained_pipe_single_file}: {len(sd)} tensors")
+            return convert_unet(sd, cfg.block_out_channels,
+                                cfg.layers_per_block, cfg.transformer_layers)
     if dirpath is None:
         for c in _denoiser_candidates(params):
             if os.path.isdir(c) and any(n.endswith(".index.json")
@@ -194,6 +240,10 @@ def load_pretrained_backbone(params: TrainingParameters, family: str, cfg):
     if family == "sana":
         from yat_tpu_torch.models.convert import convert_sana
         tree = convert_sana(sd, cfg.num_layers)
+    elif family in _SINGLE_FILE_FAMILIES:
+        from yat_tpu_torch.models.convert_unet import convert_unet
+        tree = convert_unet(sd, cfg.block_out_channels,
+                            cfg.layers_per_block, cfg.transformer_layers)
     else:
         from yat_tpu_torch.models.convert_dit import convert_pixart
         tree = convert_pixart(sd, cfg.num_layers)
@@ -390,19 +440,163 @@ def build_backbone(module_fn, params: TrainingParameters, family: str, cfg,
     return module
 
 
-def make_prompt_encoder(encode_captions, max_len: int, device):
+def make_prompt_encoder(encode_captions, max_len: int, device,
+                        encode_pooled=None, time_ids_hw=None):
     """Prompt strings → the conditioning the denoiser consumes: the encoded
     captions padded to ``max_len`` tokens, ``{"embeddings", "text_mask"}``
-    on ``device``.  ``encode.encode_captions`` keeps the caption encoder
-    callable for the measurements of ``chip_smoke.py``."""
+    on ``device``, with ``encode_pooled`` the pooled text
+    (``"pooled_text"``, fp32 ``[B, P]``) and with ``time_ids_hw`` SDXL's
+    ``"time_ids"`` ``[h, w, 0, 0, h, w]`` for every prompt (so the empty
+    prompt of CFG's unconditional half gets both too).
+    ``encode.encode_captions`` keeps the caption encoder callable for the
+    measurements of ``chip_smoke.py``."""
 
     def encode(prompts):
-        padded, mask = pad_embeddings(encode_captions(list(prompts)), max_len)
-        return {"embeddings": torch.as_tensor(padded, device=device),
-                "text_mask": torch.as_tensor(mask, device=device)}
+        prompts = list(prompts)
+        padded, mask = pad_embeddings(encode_captions(prompts), max_len)
+        out = {"embeddings": torch.as_tensor(padded, device=device),
+               "text_mask": torch.as_tensor(mask, device=device)}
+        if encode_pooled is not None:
+            out["pooled_text"] = torch.as_tensor(
+                np.asarray(encode_pooled(prompts), np.float32),
+                device=device)
+        if time_ids_hw is not None:
+            h, w = time_ids_hw
+            out["time_ids"] = torch.tensor([[h, w, 0, 0, h, w]] * len(prompts),
+                                           dtype=torch.float32, device=device)
+        return out
 
     encode.encode_captions = encode_captions
     return encode
+
+
+def make_clip_encoders(te, tokenize, max_len: int, device, low_vram: bool):
+    """``(encode_captions, encode_pooled)`` of a CLIP text model: each
+    caption compressed to CLIP's budget (``compress_caption``), tokenized
+    to ``max_len`` and encoded whole (CLIP consumes every position, so no
+    rung and no mask compression): ``encode_captions`` → list of fp32
+    ``[max_len, D]`` host arrays, ``encode_pooled`` → fp32 ``[B, P]``.
+    Both have ``.dispatch`` hooks (launch now, fetch later) and carry the
+    encoder as ``.module``.  One forward gives both: ``encode_pooled`` of
+    the captions last encoded takes that forward's pooled vector."""
+    from yat_tpu_torch.utils.compress_caption import compress_caption
+
+    # (captions, pooled) of the last forward, swapped whole
+    last = [((), None)]
+
+    @torch.inference_mode()
+    def run(captions):
+        ids, _ = tokenize([compress_caption(c) for c in captions],
+                          max_length=max_len)
+        with staged(te, device, low_vram):
+            hidden, pooled = te(torch.as_tensor(ids, device=device))
+        last[0] = (tuple(captions), pooled)
+        return hidden, pooled
+
+    def dispatch(captions):
+        hidden, _ = run(captions)
+        return lambda: list(hidden.float().cpu().numpy())
+
+    def dispatch_pooled(captions):
+        seen, pooled = last[0]
+        if pooled is None or seen != tuple(captions):
+            _, pooled = run(captions)
+        return lambda: pooled.float().cpu().numpy()
+
+    def encode_captions(captions):
+        return dispatch(captions)()
+
+    def encode_pooled(captions):
+        return dispatch_pooled(captions)()
+
+    encode_captions.dispatch, encode_pooled.dispatch = (dispatch,
+                                                        dispatch_pooled)
+    encode_captions.module = encode_pooled.module = te
+    return encode_captions, encode_pooled
+
+
+def build_clip_text_encoder(params: TrainingParameters, device, cfg, sub: str,
+                            seed: int, tree=None, from_single_file=False):
+    """A CLIP text model of ``cfg`` in fp32 (the JAX builders run CLIP in
+    fp32): from the JAX parameter ``tree`` when given, else from the
+    single file's CLIP part (``from_single_file``), else from
+    ``pretrained_pipe_path/sub``, else random from ``seed``."""
+    from yat_tpu_torch.models.convert import convert_clip_text
+    from yat_tpu_torch.models.text_encoders import CLIPTextModel
+
+    if tree is None and from_single_file and single_file(params):
+        clip = load_single_file(params)["clip"]
+        if clip:
+            tree = convert_clip_text(clip, cfg.num_layers)
+    return build_pipe_component(
+        params, sub, lambda sd: convert_clip_text(sd, cfg.num_layers),
+        lambda: CLIPTextModel(cfg, dtype=torch.float32), device, seed,
+        tree=tree)
+
+
+def build_clip_vae_encoders(params: TrainingParameters, device,
+                            max_caption_len: int = 77,
+                            weights: Optional[Mapping] = None,
+                            images: bool = True,
+                            clip_l_projection: bool = False,
+                            penultimate: bool = False, vae_cfg=None):
+    """The fp32 CLIP-L caption encoder and fp32 KL-VAE of SD1.5 (SDXL's
+    first text encoder and VAE) as callables: ``(encode_images,
+    encode_captions, encode_pooled, decode_latents)``; without ``images``
+    the KL-VAE is its decoder alone and ``encode_images`` is None.
+
+    CLIP-L is plain (``CLIP_L_14``) or with its projection
+    (``clip_l_projection``), its tiny test configuration under
+    ``tiny_encoders``; ``penultimate`` takes the penultimate layer's
+    states.  The KL-VAE is ``vae_cfg`` (SD1.5's by default).  Captions are
+    compressed to CLIP's 77 tokens and encoded whole
+    (:func:`make_clip_encoders`).  The weights are the JAX parameter trees
+    under ``"text_encoder"`` and ``"vae"`` of ``weights`` when given, else
+    they load from the CompVis single file (``pretrained_pipe_single_file``:
+    its CLIP and VAE parts), else from ``pretrained_pipe_path``'s
+    ``text_encoder/`` and ``vae/`` where present, else they are random from
+    ``dataset_seed``.  A single file carries no tokenizer, so it needs
+    ``pretrained_pipe_path`` for one (``load_tokenizer(require=True)``)."""
+    from yat_tpu_torch.models.convert_unet import (convert_vae_compvis,
+                                                   convert_vae_kl)
+    from yat_tpu_torch.models.text_encoders import (
+        CLIP_L_14, CLIP_L_14_PROJ, CLIP_TINY_TEST)
+    from yat_tpu_torch.models.vae import (KLVAE_SD15, KLVAE_TINY_TEST,
+                                          AutoencoderKL)
+    from yat_tpu_torch.utils.tokenizer import load_tokenizer
+
+    tiny = bool(params.model_config_overrides.get("tiny_encoders"))
+    te_cfg = CLIP_TINY_TEST if tiny else (
+        CLIP_L_14_PROJ if clip_l_projection else CLIP_L_14)
+    if penultimate:
+        te_cfg = dataclasses.replace(te_cfg, penultimate=True)
+    vae_cfg = KLVAE_TINY_TEST if tiny else (vae_cfg or KLVAE_SD15)
+    weights = weights or {}
+    low = params.low_vram
+    one_file = single_file(params) is not None
+    te = build_clip_text_encoder(params, device, te_cfg, "text_encoder",
+                                 params.dataset_seed + 1,
+                                 weights.get("text_encoder"), one_file)
+    vae_tree = weights.get("vae")
+    if vae_tree is None and one_file:
+        ldm = load_single_file(params)["vae"]
+        if ldm:
+            vae_tree = convert_vae_compvis(ldm, vae_cfg.block_out_channels,
+                                           vae_cfg.layers_per_block)
+    vae = build_pipe_component(
+        params, "vae", lambda sd: convert_vae_kl(
+            sd, vae_cfg.block_out_channels, vae_cfg.layers_per_block),
+        lambda: AutoencoderKL(vae_cfg, encoder=images), device,
+        params.dataset_seed + 2, tree=vae_tree)
+    ml = min(max_caption_len, te_cfg.max_length)
+    tokenize = load_tokenizer(params.pretrained_pipe_path,
+                              vocab_size=te_cfg.vocab_size, max_length=ml,
+                              require=one_file)
+    encode_captions, encode_pooled = make_clip_encoders(
+        te, tokenize, ml, device, low)
+    return (make_image_encoder(vae, device, low) if images else None,
+            encode_captions, encode_pooled,
+            make_tiling_decoder(vae, device, low))
 
 
 def build_t5_vae_encoders(params: TrainingParameters, device,
@@ -410,8 +604,9 @@ def build_t5_vae_encoders(params: TrainingParameters, device,
                           weights: Optional[Mapping] = None,
                           images: bool = True):
     """The fp32 KL-VAE encoder, the T5 caption encoder and the fp32 KL-VAE
-    decoder of the PixArt-Sigma path as callables (SD's VAE and T5-XXL, or
-    their tiny test configurations under ``tiny_encoders``):
+    decoder of the PixArt-Sigma path as callables (the SDXL VAE, which
+    PixArt-Sigma's published pipe ships, and T5-XXL, or their tiny test
+    configurations under ``tiny_encoders``):
     ``(encode_images, encode_captions, decode_latents)``; without
     ``images`` the KL-VAE is its decoder alone and ``encode_images`` is
     None (serving).
@@ -431,13 +626,14 @@ def build_t5_vae_encoders(params: TrainingParameters, device,
     from yat_tpu_torch.models.text_encoders import (
         T5_TINY_TEST, T5_XXL, T5Encoder)
     from yat_tpu_torch.models.vae import (
-        KLVAE_SD15, KLVAE_TINY_TEST, AutoencoderKL)
+        KLVAE_SDXL, KLVAE_TINY_TEST, AutoencoderKL)
     from yat_tpu_torch.utils.tokenizer import load_tokenizer
 
     tiny = bool(params.model_config_overrides.get("tiny_encoders"))
     dtype = torch.bfloat16 if params.bfloat16 else torch.float32
     te_cfg = T5_TINY_TEST if tiny else T5_XXL
-    vae_cfg = KLVAE_TINY_TEST if tiny else KLVAE_SD15
+    # 0.13025, where the JAX package takes SD1.5's 0.18215 (a fault there)
+    vae_cfg = KLVAE_TINY_TEST if tiny else KLVAE_SDXL
     low = params.low_vram
     weights = weights or {}
     te = build_pipe_component(
@@ -680,7 +876,8 @@ class FamilySpec:
     """What a model family gives the shared sampler selection: its caption
     budget, its default resolution (the bin table), and how to build its
     encoders: ``build_encoders(params)`` → a dict with ``encode_images``,
-    ``encode_captions`` and ``decode_latents``."""
+    ``encode_captions`` and ``decode_latents`` (and ``encode_pooled`` for
+    a family conditioned on pooled text)."""
 
     family: str
     max_caption_len: int
@@ -738,7 +935,8 @@ def build_family_sampler(params: TrainingParameters, spec: FamilySpec,
             spec.max_caption_len,
             vae_max_batch_size=params.vae_max_batch_size,
             text_encoder_max_batch_size=params.text_encoder_max_batch_size,
-            encode_repa=holder.get("encode_repa"), caption_buckets=cb,
+            encode_repa=holder.get("encode_repa"),
+            encode_pooled=h.get("encode_pooled"), caption_buckets=cb,
             repeat=repeat)
         if not cache:
             return encoded

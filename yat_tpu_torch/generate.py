@@ -3,7 +3,7 @@ images for a prompt list, write PNGs.
 
 Counterpart of ``yat_tpu/generate.py`` on the PyTorch port:
 
-    python -m yat_tpu_torch.generate --family sana|pixart \
+    python -m yat_tpu_torch.generate --family sana|pixart|sd15|sdxl \
         --config config.yaml --prompt "a red fox in snow" \
         --prompt "a lighthouse at dusk" --steps 20 --guidance-scale 5.0 \
         [--sampler auto|dpm] [--cache-interval N] --out generated/ \
@@ -15,7 +15,7 @@ load; without them the modules are random from ``dataset_seed``.
 ``lora_pretrained`` (a trained adapter of any kind, or a PEFT file)
 rides on the denoiser, built from the config's ``lora_*`` keys.
 ``--sampler dpm`` selects DPM-Solver++(2M); ``--cache-interval N`` (flow
-families) evaluates the denoiser on every Nth step and extrapolates the
+families: SANA) evaluates the denoiser on every Nth step and extrapolates the
 velocity in between.
 """
 
@@ -30,6 +30,8 @@ import numpy as np
 FAMILIES = {
     "sana": "yat_tpu_torch.frontends.sana",
     "pixart": "yat_tpu_torch.frontends.pixart",
+    "sd15": "yat_tpu_torch.frontends.sd15",
+    "sdxl": "yat_tpu_torch.frontends.sdxl",
 }
 
 

@@ -1,7 +1,7 @@
 """Torch checkpoint → flax-layout parameter tree converters.
 
 Counterpart of ``yat_tpu/models/convert.py`` (the state-dict reader, the
-layout helpers, Gemma-2, T5 and the SANA denoiser).  A checkpoint loads in
+layout helpers, CLIP, Gemma-2, T5 and the SANA denoiser).  A checkpoint loads in
 four steps: :func:`load_torch_state_dict` reads the file into numpy, a
 converter here maps the diffusers/transformers keys onto the JAX package's
 tree (the one key mapping both packages share), the frontend checks the
@@ -101,6 +101,37 @@ def _conv_as_linear(sd, torch_prefix, tree, flax_prefix):
     _set(tree, f"{flax_prefix}.kernel", w[:, :, 0, 0].T)
     if f"{torch_prefix}.bias" in sd:
         _set(tree, f"{flax_prefix}.bias", sd[f"{torch_prefix}.bias"])
+
+
+# ---------------------------------------------------------------------------
+# CLIP text model (transformers CLIPTextModel / CLIPTextModelWithProjection)
+# ---------------------------------------------------------------------------
+
+def convert_clip_text(sd: Dict[str, np.ndarray],
+                      num_layers: int) -> Dict[str, Any]:
+    """transformers CLIP text encoder (``text_model.`` prefixed or bare,
+    as a single-file checkpoint's ``cond_stage_model.transformer`` split
+    gives it) → the CLIPTextModel tree; the bias-free
+    ``text_projection`` of the WithProjection variant where present."""
+    t = "text_model."
+    if not any(k.startswith(t) for k in sd):
+        t = ""
+    tree: dict = {}
+    _embed(sd, f"{t}embeddings.token_embedding", tree, "token_embedding")
+    tree["position_embedding"] = sd[f"{t}embeddings.position_embedding.weight"]
+    for i in range(num_layers):
+        p = f"{t}encoder.layers.{i}"
+        q = f"layers_{i}"
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _linear(sd, f"{p}.self_attn.{name}", tree, f"{q}.{name}")
+        _norm(sd, f"{p}.layer_norm1", tree, f"{q}.layer_norm1")
+        _norm(sd, f"{p}.layer_norm2", tree, f"{q}.layer_norm2")
+        _linear(sd, f"{p}.mlp.fc1", tree, f"{q}.fc1")
+        _linear(sd, f"{p}.mlp.fc2", tree, f"{q}.fc2")
+    _norm(sd, f"{t}final_layer_norm", tree, "final_layer_norm")
+    if "text_projection.weight" in sd:
+        _set(tree, "text_projection.kernel", sd["text_projection.weight"].T)
+    return tree
 
 
 # ---------------------------------------------------------------------------

@@ -446,6 +446,38 @@ class RMSNorm(nn.Module):
         return y
 
 
+class GroupNorm(nn.Module):
+    """GroupNorm on NHWC tensors with the norm dtype policy of
+    ``yat_tpu/models/layers.py:GroupNorm`` (the UNet's): the statistics of
+    each (batch, group) in fp32, the mean subtracted in fp32 (two passes,
+    not ``E[x^2] - E[x]^2``), the normalised data rounded to the input's
+    dtype before the affine, which runs in that dtype.  The VAEs keep flax
+    ``nn.GroupNorm`` (``models/vae.py``)."""
+
+    def __init__(self, channels: int, num_groups: int = 32,
+                 epsilon: float = 1e-5):
+        super().__init__()
+        if channels % num_groups:
+            raise ValueError(f"channels {channels} not divisible by groups "
+                             f"{num_groups}")
+        self.num_groups, self.epsilon = num_groups, epsilon
+        self.scale = nn.Parameter(torch.empty(channels))
+        self.bias = nn.Parameter(torch.empty(channels))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        self.scale.data.fill_(1.0)
+        self.bias.data.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, g = x.shape[0], x.shape[-1], self.num_groups
+        x32 = x.float().reshape(b, -1, g, c // g)
+        mean = x32.mean(dim=(1, 3), keepdim=True)
+        var = (x32 - mean).square().mean(dim=(1, 3), keepdim=True)
+        y = ((x32 - mean) * torch.rsqrt(var + self.epsilon)).to(x.dtype)
+        return (y.reshape(x.shape) * self.scale.to(x.dtype)
+                + self.bias.to(x.dtype))
+
+
 class LayerNorm(nn.Module):
     """LayerNorm: statistics in fp32, data in the input dtype; optionally
     affine-free."""

@@ -1,7 +1,14 @@
-"""Caption encoders: Gemma-2 (SANA) and T5 (PixArt-Sigma).
+"""Caption encoders: CLIP (SD1.5, SDXL), Gemma-2 (SANA) and T5
+(PixArt-Sigma).
 
-Counterpart of the Gemma-2 and T5 parts of
-``yat_tpu/models/text_encoders.py``:
+Counterpart of ``yat_tpu/models/text_encoders.py``:
+
+* the CLIP text transformer (CLIP-L/14, OpenCLIP-G/14): pre-LayerNorm
+  layers with causal attention and a quick-GELU or exact-GELU MLP; the
+  hidden states of the final LayerNorm or of the penultimate layer, and
+  the pooled vector at each sequence's largest token id (the EOT token in
+  CLIP's vocabulary), through the bias-free ``text_projection`` where the
+  configuration has one;
 
 * a decoder-only Gemma-2 whose last hidden state is the caption embedding;
   its attention is plain tensor code with a tanh soft-cap on the logits;
@@ -9,8 +16,9 @@ Counterpart of the Gemma-2 and T5 parts of
   attention with a learned relative-position bias and no ``1/sqrt(d)``
   scale, and a gated-gelu FFN.
 
-Both attentions are plain einsums in the JAX package (no Pallas kernel), so
-they are plain tensor code here too.
+The three attentions are plain einsums or ``jax.nn.dot_product_attention``
+in the JAX package (no Pallas kernel), so they are plain tensor code here
+too.
 """
 
 from __future__ import annotations
@@ -25,7 +33,117 @@ import torch.nn.functional as F
 from torch import nn
 
 from yat_tpu_torch.data.sampler import caption_rung
-from yat_tpu_torch.models.layers import AdapterDense, Embed, RMSNorm
+from yat_tpu_torch.models.layers import AdapterDense, Embed, LayerNorm, \
+    RMSNorm
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    vocab_size: int = 49408
+    hidden_dim: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    mlp_ratio: float = 4.0
+    max_length: int = 77
+    # "quick_gelu" for OpenAI CLIP-L, "gelu" for OpenCLIP-G
+    act: str = "quick_gelu"
+    # the hidden states of the penultimate layer instead of the final LN's
+    penultimate: bool = False
+    # CLIPTextModelWithProjection: the pooled vector through a bias-free
+    # projection of this width
+    projection_dim: Optional[int] = None
+
+
+CLIP_L_14 = CLIPTextConfig()
+CLIP_L_14_PROJ = CLIPTextConfig(projection_dim=768)
+CLIP_G_14 = CLIPTextConfig(hidden_dim=1280, num_layers=32, num_heads=20,
+                           act="gelu", penultimate=True,
+                           projection_dim=1280)
+CLIP_TINY_TEST = CLIPTextConfig(vocab_size=256, hidden_dim=32, num_layers=2,
+                                num_heads=2, max_length=16)
+
+
+class CLIPLayer(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.hidden_dim
+        self.layer_norm1 = LayerNorm(d, epsilon=1e-5)
+        self.q_proj = AdapterDense(d, d, True, dtype)
+        self.k_proj = AdapterDense(d, d, True, dtype)
+        self.v_proj = AdapterDense(d, d, True, dtype)
+        self.out_proj = AdapterDense(d, d, True, dtype)
+        self.layer_norm2 = LayerNorm(d, epsilon=1e-5)
+        self.fc1 = AdapterDense(d, int(d * cfg.mlp_ratio), True, dtype)
+        self.fc2 = AdapterDense(int(d * cfg.mlp_ratio), d, True, dtype)
+
+    def forward(self, x, causal):
+        c = self.cfg
+        b, n, d = x.shape
+        hd = d // c.num_heads
+        h = self.layer_norm1(x)
+        shape = (b, n, c.num_heads, hd)
+        q, k, v = (self.q_proj(h).reshape(shape), self.k_proj(h).reshape(shape),
+                   self.v_proj(h).reshape(shape))
+        # jax.nn.dot_product_attention: fp32 logits scaled by 1/sqrt(d),
+        # the masked logits replaced, softmax, then P.V in the data's dtype
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * hd ** -0.5
+        logits = torch.where(causal, logits,
+                             torch.finfo(torch.float32).min)
+        attn = torch.softmax(logits, -1).to(v.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, n, d)
+        x = x + self.out_proj(out)
+        h = self.fc1(self.layer_norm2(x))
+        if c.act == "quick_gelu":
+            h = h * torch.sigmoid(1.702 * h)
+        else:
+            h = F.gelu(h, approximate="none")
+        return x + self.fc2(h)
+
+
+class CLIPTextModel(nn.Module):
+    """``forward(input_ids [B, L])`` → ``(hidden [B, L, D], pooled [B, P])``:
+    the final LayerNorm's states (or the penultimate layer's, under
+    ``penultimate``) and the final LayerNorm's state at each sequence's
+    largest token id, projected where ``projection_dim`` is set.  The SD
+    and SDXL builders run it in fp32."""
+
+    def __init__(self, cfg: CLIPTextConfig = CLIP_L_14,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.cfg, self.dtype = cfg, dtype
+        self.token_embedding = Embed(cfg.vocab_size, cfg.hidden_dim, dtype)
+        self.position_embedding = nn.Parameter(
+            torch.empty(cfg.max_length, cfg.hidden_dim))
+        self.layers = nn.ModuleList(CLIPLayer(cfg, dtype)
+                                    for _ in range(cfg.num_layers))
+        self.final_layer_norm = LayerNorm(cfg.hidden_dim, epsilon=1e-5)
+        self.text_projection = (
+            AdapterDense(cfg.hidden_dim, cfg.projection_dim, False, dtype)
+            if cfg.projection_dim is not None else None)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        nn.init.normal_(self.position_embedding.data, 0.0, 0.01,
+                        generator=gen)
+
+    def forward(self, input_ids: torch.Tensor):
+        c = self.cfg
+        b, n = input_ids.shape
+        x = self.token_embedding(input_ids) + \
+            self.position_embedding[:n].to(self.dtype)[None]
+        causal = torch.tril(torch.ones((n, n), dtype=torch.bool,
+                                       device=x.device))[None, None]
+        penult = x
+        for i, layer in enumerate(self.layers):
+            if i == c.num_layers - 1:
+                penult = x
+            x = layer(x, causal)
+        final = self.final_layer_norm(x)
+        eot = input_ids.argmax(dim=-1)
+        pooled = final[torch.arange(b, device=x.device), eot]
+        if self.text_projection is not None:
+            pooled = self.text_projection(pooled)
+        return (penult if c.penultimate else final), pooled
 
 
 @dataclasses.dataclass(frozen=True)

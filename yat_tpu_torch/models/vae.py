@@ -244,6 +244,9 @@ class AutoencoderKL(nn.Module):
 
 
 KLVAE_SD15 = KLVAEConfig(scaling_factor=0.18215)
+# SDXL's VAE (also PixArt-Sigma's published pipe): the same structure,
+# latents scaled by 0.13025
+KLVAE_SDXL = KLVAEConfig(scaling_factor=0.13025)
 KLVAE_TINY_TEST = KLVAEConfig(block_out_channels=(32, 32),
                               layers_per_block=1)
 

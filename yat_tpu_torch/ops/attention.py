@@ -256,9 +256,17 @@ def attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in plain tensor code on either device: fp32 logits, masked logits
     replaced by ``FLASH_MASK_VALUE``, fp32 softmax, probabilities rounded to
     k's dtype, fp32 P.V.  ``mask`` is a [B, N_k] keep-mask or
-    [B, 1, 1, N_k]."""
+    [B, 1, 1, N_k].  Under autograd it keeps only its inputs: the backward
+    recomputes this arithmetic and differentiates it (:class:`_XlaAttention`),
+    so no [B, H, N_q, N_k] tensor outlives the call."""
     if q.is_cuda:
         ATTENTION_XLA.launches += 1
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _XlaAttention.apply(q, k, v, mask)
+    return _attention_xla(q, k, v, mask)
+
+
+def _attention_xla(q, k, v, mask):
     acc = acc_dtype(q)
     s = _scores(q, k, None, acc)
     if mask is not None:
@@ -449,6 +457,28 @@ def _flash_attention_bwd_cuda(q, k, v, bias, o, l, m, g):
             *dk.stride()[:3], *dv.stride()[:3], 1.0 / (d ** 0.5),
             dtype_code(q), stream_of(q))
     return dq, dk, dv
+
+
+class _XlaAttention(torch.autograd.Function):
+    """:func:`attention_xla` with its probabilities recomputed in the
+    backward, which is autograd's gradient of the same plain arithmetic."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        ctx.save_for_backward(q, k, v, mask)
+        return _attention_xla(q, k, v, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask = ctx.saved_tensors
+        ins = [t.detach().requires_grad_(need)
+               for t, need in zip((q, k, v), ctx.needs_input_grad)]
+        with torch.enable_grad():
+            o = _attention_xla(*ins, mask)
+        grads = iter(torch.autograd.grad(
+            o, [t for t in ins if t.requires_grad], g))
+        return (*(next(grads) if t.requires_grad else None for t in ins),
+                None)
 
 
 class _SoftmaxAttention(torch.autograd.Function):

@@ -8,7 +8,9 @@ the device right before training on it.
   encoder callables: latents in chunks of ``vae_max_batch_size``, caption
   embeddings in chunks of ``text_encoder_max_batch_size`` (padded to the
   caption-length rung), with ``encode_repa`` the DINOv2 tokens of the
-  whole batch (``repa_features``, ``repa_spatial_dims``), each encoded
+  whole batch (``repa_features``, ``repa_spatial_dims``), with
+  ``encode_pooled`` the pooled text of the batch's captions
+  (``pooled_text``, SDXL), each encoded
   batch yielded ``repeat`` times (``bucket_repeat`` reuses encoded
   batches, never re-encodes them).
   ``skip_batches`` fast-forwards a resumed run without running an encoder.
@@ -51,6 +53,7 @@ class OnTheFlyEncodingSampler:
         vae_max_batch_size: Optional[int] = None,
         text_encoder_max_batch_size: Optional[int] = None,
         encode_repa: Optional[Callable[[np.ndarray], np.ndarray]] = None,
+        encode_pooled: Optional[Callable[[List[str]], np.ndarray]] = None,
         caption_buckets=None,
         repeat: int = 1,
     ):
@@ -61,6 +64,7 @@ class OnTheFlyEncodingSampler:
         self.vae_bs = vae_max_batch_size
         self.te_bs = text_encoder_max_batch_size
         self.encode_repa = encode_repa
+        self.encode_pooled = encode_pooled
         self.caption_buckets = caption_buckets
         self.repeat = max(1, int(repeat))
         self._resume_iter = None       # set by skip_batches
@@ -86,6 +90,9 @@ class OnTheFlyEncodingSampler:
             out.repa_features = np.asarray(self.encode_repa(images))
             out.repa_spatial_dims = getattr(self.encode_repa, "grid_hw",
                                             (16, 16))
+        if self.encode_pooled is not None:
+            out.pooled_text = np.asarray(self.encode_pooled(captions),
+                                         np.float32)
         return out
 
     def skip_batches(self, n: int) -> None:

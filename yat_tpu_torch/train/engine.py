@@ -38,7 +38,9 @@ products through ``ops.quant.w8a8_matmul`` (kernels K5 and K5b).
 Batches come from any sampler: feature shards, or raw images encoded on
 the fly (``train/encode.py``), whose ``skip_batches`` makes a resume's
 fast-forward encode-free; Dreambooth's regularization batches scale the
-loss by ``dreambooth_lambda``.
+loss by ``dreambooth_lambda``; a frontend's ``batch_transform`` adds its
+family's entries to each device batch (SDXL's ``time_ids`` and pooled
+text).
 
 Adapters of every kind (LoRA, DoRA, LoHa, LoKr, FourierFT) train, and
 ``lora_pretrained`` loads their leaves from a file after they are built
@@ -126,8 +128,13 @@ class Trainer:
     (``encode_captions`` and ``validate_fn`` may be attached)."""
 
     def __init__(self, params: TrainingParameters, model, task_loss,
-                 sampler=None, device=None, preservation_loss=None):
+                 sampler=None, device=None, preservation_loss=None,
+                 batch_transform: Optional[Callable] = None):
         self.params = params
+        # batch_transform(batch, out) -> out: a family's extra entries of
+        # the device batch (SDXL's time_ids and pooled text), as host
+        # arrays or tensors
+        self.batch_transform = batch_transform
         self.model = model
         self.task_loss = task_loss
         self.sampler = sampler
@@ -304,6 +311,9 @@ class Trainer:
         if batch.is_regularization and self.params.dreambooth_lambda != 1.0:
             out["loss_scale"] = torch.tensor(self.params.dreambooth_lambda,
                                              dtype=torch.float32, device=dev)
+        if self.batch_transform is not None:
+            out = {k: torch.as_tensor(v).to(dev) for k, v in
+                   self.batch_transform(batch, out).items()}
         return out
 
     # ------------------------------------------------------------------

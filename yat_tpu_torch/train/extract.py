@@ -1,5 +1,6 @@
 """The feature-extraction pass: raw image shards → ``{ratio, latent, emb}``
-feature shards, written locally and uploaded to R2.
+feature shards (with ``pooled`` where the family encodes pooled text),
+written locally and uploaded to R2.
 
 Counterpart of ``yat_tpu/train/extract.py``.  ``FeatureExtractor`` reads
 bucketed image batches from a thread two batches ahead (host decode
@@ -52,8 +53,12 @@ class FeatureExtractor:
         vae_max_batch_size: Optional[int] = None,
         text_encoder_max_batch_size: Optional[int] = None,
         upload_url_fn: Optional[Callable[[str, int], str]] = None,
+        encode_pooled: Optional[Callable[[List[str]], np.ndarray]] = None,
     ):
         self.sampler = sampler
+        # SDXL's pooled text: without it the shards would train on zeroed
+        # pooled vectors
+        self.encode_pooled = encode_pooled
         self.encode_images = encode_images
         self.encode_captions = encode_captions
         self.output_dir = output_dir
@@ -105,32 +110,42 @@ class FeatureExtractor:
 
     # -- the encodes of one batch, launched now, fetched later ------------
     def _dispatch_encode(self, images: np.ndarray, captions: List[str]):
-        """Launch every VAE and caption-encoder chunk of a batch and return
-        a closure that fetches ``(latents, embeddings)``.  Encoders
-        without ``.dispatch`` hooks run at once."""
+        """Launch every VAE and caption-encoder chunk of a batch (and the
+        pooled text's) and return a closure that fetches ``(latents,
+        embeddings, pooled)`` (``pooled`` None without ``encode_pooled``).
+        Encoders without ``.dispatch`` hooks run at once."""
         vb = self.vae_bs or len(images)
         tb = self.te_bs or len(captions)
         img_d = getattr(self.encode_images, "dispatch", None)
         cap_d = getattr(self.encode_captions, "dispatch", None)
-        if img_d is None or cap_d is None:
+        pool = self.encode_pooled
+        pool_d = getattr(pool, "dispatch", None)
+        if img_d is None or cap_d is None or (pool and pool_d is None):
             latents = np.concatenate([
                 np.asarray(self.encode_images(images[i:i + vb]))
                 for i in range(0, len(images), vb)])
             embs: List[np.ndarray] = []
             for i in range(0, len(captions), tb):
                 embs.extend(self.encode_captions(captions[i:i + tb]))
-            return lambda: (latents, embs)
+            pooled = None if pool is None else np.concatenate([
+                np.asarray(pool(captions[i:i + tb]))
+                for i in range(0, len(captions), tb)])
+            return lambda: (latents, embs, pooled)
         lat_fins = [img_d(images[i:i + vb])
                     for i in range(0, len(images), vb)]
         cap_fins = [cap_d(captions[i:i + tb])
                     for i in range(0, len(captions), tb)]
+        pool_fins = [] if pool is None else [
+            pool_d(captions[i:i + tb]) for i in range(0, len(captions), tb)]
 
         def finish():
             latents = np.concatenate([np.asarray(f()) for f in lat_fins])
             embs: List[np.ndarray] = []
             for f in cap_fins:
                 embs.extend(f())
-            return latents, embs
+            pooled = (np.concatenate([np.asarray(f()) for f in pool_fins])
+                      if pool_fins else None)
+            return latents, embs, pooled
 
         return finish
 
@@ -195,15 +210,18 @@ class FeatureExtractor:
                 nonlocal written
                 ratio, finish = pending.popleft()
                 t = time.monotonic()
-                latents, embs = finish()
+                latents, embs, pooled = finish()
                 self._phase_add("device_wait", time.monotonic() - t)
                 t = time.monotonic()
                 for i in range(len(latents)):
-                    w.write({"__key__": f"{written:08d}",
-                             "ratio": str(ratio),
-                             "latent.npy": np.asarray(latents[i],
-                                                      np.float32),
-                             "emb.npy": np.asarray(embs[i], np.float32)})
+                    elem = {"__key__": f"{written:08d}",
+                            "ratio": str(ratio),
+                            "latent.npy": np.asarray(latents[i], np.float32),
+                            "emb.npy": np.asarray(embs[i], np.float32)}
+                    if pooled is not None:
+                        elem["pooled.npy"] = np.asarray(pooled[i],
+                                                        np.float32)
+                    w.write(elem)
                     written += 1
                 self._phase_add("write", time.monotonic() - t)
 
@@ -275,7 +293,8 @@ def run_feature_extraction(trainer) -> FeatureExtractor:
         shard_size=params.r2_upload_shard_size or 1000,
         vae_max_batch_size=params.vae_max_batch_size,
         text_encoder_max_batch_size=params.text_encoder_max_batch_size,
-        upload_url_fn=upload_url_fn)
+        upload_url_fn=upload_url_fn,
+        encode_pooled=getattr(trainer, "encode_pooled", None))
     try:
         ex.written = ex.run()
     finally:

@@ -5,10 +5,12 @@ Counterparts of ``yat_tpu/train/tasks.py:make_flow_matching_loss``,
 ``make_preservation_loss``:
 
 * flow matching: ``x_t = (1 - s) x + s eps``, target ``eps - x``;
-* epsilon prediction (PixArt-Sigma): ``x_t = sqrt(abar) x +
+* epsilon prediction (PixArt-Sigma, SD1.5, SDXL): ``x_t = sqrt(abar) x +
   sqrt(1 - abar) eps`` at integer timesteps, target the schedule's (eps, or
   v), and with a learned-sigma head the prediction sliced to the latent
-  channels before the MSE.
+  channels before the MSE; ``extra_keys`` names the batch entries that go
+  to the model as keyword arguments (SDXL's ``pooled_text`` and
+  ``time_ids``).
 
 * preservation: the MSE between the adapted model's prediction and the
   frozen base's on the same noisy input, both deterministic (no LoRA
@@ -67,11 +69,18 @@ def repa_alignment_loss(proj: torch.Tensor, target: torch.Tensor
     return ((p - t) ** 2).mean()
 
 
+def _model_kwargs(batch, extra_keys: Sequence[str]) -> Dict[str, torch.Tensor]:
+    """The batch's entries of ``extra_keys`` (SDXL's ``pooled_text`` and
+    ``time_ids``) as keyword arguments of the model."""
+    return {k: batch[k] for k in extra_keys if k in batch}
+
+
 def _predict(model, args, deterministic: bool, batch, repa_lambda: float,
-             repa_cfg, repa_head):
+             repa_cfg, repa_head, extra_keys: Sequence[str] = ()):
     """The model's prediction, and the REPA term (None when REPA is off)."""
+    kw = _model_kwargs(batch, extra_keys)
     if repa_lambda <= 0.0:
-        return model(*args, deterministic=deterministic), None
+        return model(*args, deterministic=deterministic, **kw), None
     if "repa_features" not in batch:
         raise ValueError(
             "use_repa is on and this batch carries no DINOv2 tokens "
@@ -80,13 +89,13 @@ def _predict(model, args, deterministic: bool, batch, repa_lambda: float,
     target = batch["repa_features"]
     if repa_cfg is None:
         pred, proj = model(*args, deterministic=deterministic,
-                           return_repa=True)
+                           return_repa=True, **kw)
         # a tap past the last block projects nothing (no term)
         return pred, (None if proj is None
                       else repa_alignment_loss(proj, target))
     from yat_tpu_torch.ops.repa import capture_features, generic_repa_loss
     with capture_features(model, repa_cfg) as feats:
-        pred = model(*args, deterministic=deterministic)
+        pred = model(*args, deterministic=deterministic, **kw)
     return pred, generic_repa_loss(feats, repa_head, target)
 
 
@@ -161,11 +170,14 @@ def make_epsilon_loss(model, schedule: DDPMSchedule,
                       timestep_list: Optional[Sequence[int]] = None,
                       learned_sigma: bool = False,
                       repa_lambda: float = 0.0, repa_cfg=None,
-                      repa_head=None) -> TaskLoss:
+                      repa_head=None,
+                      extra_keys: Sequence[str] = ()) -> TaskLoss:
     """``learned_sigma`` keeps the first ``latents.shape[-1]`` channels of
     the prediction (the PixArt learned-variance head's epsilon half) before
     the MSE.  ``repa_lambda`` adds the REPA term through the model's tap
-    (PixArt-Sigma), or the generic path with ``repa_cfg``."""
+    (PixArt-Sigma), or the generic path with ``repa_cfg`` (SD1.5, SDXL).
+    The batch's entries of ``extra_keys`` (SDXL's ``pooled_text`` and
+    ``time_ids``) go to the model as keyword arguments."""
     timestep_list = tuple(timestep_list) if timestep_list else None
 
     def draw_t(gen: torch.Generator, b: int) -> Dict[str, torch.Tensor]:
@@ -183,7 +195,8 @@ def make_epsilon_loss(model, schedule: DDPMSchedule,
         x_t = schedule.add_noise(latents, noise, timesteps)
         pred, repa = _predict(model, (x_t, batch["embeddings"], timesteps,
                                       batch.get("text_mask")), deterministic,
-                              batch, repa_lambda, repa_cfg, repa_head)
+                              batch, repa_lambda, repa_cfg, repa_head,
+                              extra_keys)
         if learned_sigma:
             pred = pred[..., :latents.shape[-1]]
         target = schedule.target(latents, noise, timesteps)
@@ -198,12 +211,14 @@ def make_epsilon_loss(model, schedule: DDPMSchedule,
 PreservationLoss = Callable[..., torch.Tensor]
 
 
-def make_preservation_loss(model, schedule, is_flow: bool = True
+def make_preservation_loss(model, schedule, is_flow: bool = True,
+                           extra_keys: Sequence[str] = ()
                            ) -> PreservationLoss:
     """The preservation term ``pres(batch, gen, draws=None, base=None)``:
     ``base`` is None for adapter training (the base is the model without
     its adapters) or the frozen snapshot ``{parameter name: tensor}``
-    of full fine-tuning."""
+    of full fine-tuning.  The batch's entries of ``extra_keys`` go to both
+    predictions as keyword arguments."""
 
     def draw_t(gen: torch.Generator, b: int) -> Dict[str, torch.Tensor]:
         if is_flow:
@@ -221,14 +236,14 @@ def make_preservation_loss(model, schedule, is_flow: bool = True
         x_t = schedule.add_noise(latents, noise, draws["sigmas"] if is_flow
                                  else timesteps)
         args = (x_t, batch["embeddings"], timesteps, batch.get("text_mask"))
-        pred = model(*args, deterministic=True)
+        kw = {"deterministic": True, **_model_kwargs(batch, extra_keys)}
+        pred = model(*args, **kw)
         with torch.no_grad():
             if base is not None:
-                ref = torch.func.functional_call(
-                    model, base, args, {"deterministic": True})
+                ref = torch.func.functional_call(model, base, args, kw)
             else:
                 with adapters_off(model):
-                    ref = model(*args, deterministic=True)
+                    ref = model(*args, **kw)
         return ((pred.float() - ref.float()) ** 2).mean()
 
     return pres_loss
