@@ -188,6 +188,25 @@ Phases, each of which fails the run (exit code 1) when it fails:
    extraction pass whose samples carry ``pooled.npy`` ``[1280]``.
    Launches are checked by step on each step's latent grid.
 
+14. SD3.5 (MMDiT): the kernel phase also holds K6 and K6b at the joint
+   attention's ``[B, 4429, 24, 64]`` (34 key blocks of 128 and one of 77,
+   a last query block of 77 rows) and the MMDiT-X attention's
+   ``[B, 4096, 24, 64]``, called directly without a mask (K6 at the CFG
+   batch 8; K6b held at batch 2 and timed at 8), and K1 and K1b at
+   ``[8, 4096, 1536]`` and ``[8, 333, 1536]`` (the generic path), bf16
+   and fp32.  Then SD3.5-medium served at 1024 px as in phase 6 (CLIP-L,
+   OpenCLIP-G and T5-XXL in fp32, the MMDiT in bf16, the 16-channel fp32
+   KL-VAE; 20 Euler steps at shift 3.0, CFG 5.0; 37 K6 and 48 K1 a CFG
+   call, nothing else of the port's) and ``configs/sd35_flow_lokr.yaml``
+   as written but for its files and its mesh (batch 8, LoKr rank 16,
+   EMA, ``low_vram``; 4 steps with the validation at the last): every
+   LoKr leaf a gradient reaches changed and exported, the validation
+   image, the launches by step (each block's forward again in the
+   backward), the step time, the peak and one profiled step.  The
+   modulation layers, which flax initialises to zero, are drawn from the
+   seed (``drawn_modulation``), so the random blocks reach the image and
+   the gradients.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 package.
@@ -269,7 +288,8 @@ PROMPTS = ["a red fox in fresh snow", "a lighthouse at dusk",
 # largest |difference| of the [0, 1] image of one prompt sampled in a batch
 # of 4 and alone (bf16); an H100 80GB reads about 6.5e-3 for SANA and
 # 2.5e-2 for PixArt-Sigma
-REPEAT_TOL = {"sana": 2e-2, "pixart": 5e-2, "sd15": 5e-2, "sdxl": 5e-2}
+REPEAT_TOL = {"sana": 2e-2, "pixart": 5e-2, "sd15": 5e-2, "sdxl": 5e-2,
+              "sd35": 5e-2}
 
 
 def log(msg: str) -> None:
@@ -656,8 +676,34 @@ UNET_CASES = {
         ("sd15-l1-cross-masked", (8, 1024, 77, 8, 80, _PART77)),
         ("sdxl-l2-cross", (4, 1024, 77, 20, 64, _ALL77[:4]))),
 }
-TIMED_BF16_CASES = {(name, label) for name, cases in UNET_CASES.items()
-                    for label, _ in cases}
+# SD3.5-medium at 1024 px (24 heads of 64, width 1536): K6 at the joint
+# attention over 4096 + 333 tokens (34 key blocks of 128 and one of 77,
+# a last query block of 77 rows) and at the MMDiT-X image-only attention
+# over 4096, called directly without a mask, at the CFG batch of 4
+# requests (8); K6b the same shapes, held at batch 2 (its plain version
+# keeps four [B, 24, 4429, 4429] fp32 tensors) and timed at the training
+# batch (SD35_TIMED_BATCH); K1 and K1b at the image and text streams, x
+# [8, 4096, 1536] and [8, 333, 1536] (the generic path: the row in
+# registers and the ring take D = 1152)
+SD35_CASES = {
+    "flash_attention": (("sd35-joint", (8, 4429, 4429, 24, 64, None)),
+                        ("sd35-dual", (8, 4096, 4096, 24, 64, None))),
+    "flash_attention_bwd": (("sd35-joint", (2, 4429, 4429, 24, 64, None)),
+                            ("sd35-dual", (2, 4096, 4096, 24, 64, None))),
+    "adaln_layernorm": (("sd35-image", (8, 4096, 1536)),
+                        ("sd35-text", (8, 333, 1536))),
+    "adaln_layernorm_bwd": (("sd35-image", (8, 4096, 1536)),
+                            ("sd35-text", (8, 333, 1536))),
+}
+SD35_TIMED_BATCH = 8
+# cases timed in bf16 only, their plain versions unheld (gigabytes of fp32
+# scores): the UNet's and SD3.5's attentions
+TIMED_BF16_CASES = {(name, label) for cases in (UNET_CASES, SD35_CASES)
+                    for name, pairs in cases.items() if "adaln" not in name
+                    for label, _ in pairs}
+# cases held at a smaller batch than they are timed at
+TIMED_AT_BATCH = {("flash_attention_bwd", label): SD35_TIMED_BATCH
+                  for label, _ in SD35_CASES["flash_attention_bwd"]}
 
 
 def kernel_cases(device):
@@ -691,7 +737,8 @@ def kernel_cases(device):
                                  ("train", (16, 256, 1152)),
                                  ("ragged", (1, 77, 1152)),
                                  ("pixart-serve", (8, 1024, 1152)),
-                                 ("generic", (4, 77, 1000))):
+                                 ("generic", (4, 77, 1000)),
+                                 *SD35_CASES["adaln_layernorm"]):
             def make(b=b, n=n, d=d, dtype=dtype):
                 return (randn((b, n, d), dtype), randn((b, 1, d), dtype, 0.1),
                         randn((b, 1, d), dtype, 0.1))
@@ -784,7 +831,8 @@ def kernel_cases(device):
                                    (0, 64)])),
                 ("masked-blocks", (2, 4096, 4096, 16, 72,
                                    [(1024, 4096), (0, 1100)])),
-                *UNET_CASES["flash_attention"]):
+                *UNET_CASES["flash_attention"],
+                *SD35_CASES["flash_attention"]):
             def make(b=b, nq=nq, nk=nk, h=h, d=d, keep=keep, dtype=dtype):
                 bias = (None if keep is None else A._key_bias(
                     _mask(keep, nk, device), b, A.FLASH_MASK_VALUE))
@@ -842,7 +890,8 @@ def kernel_cases(device):
                                  ("pixart-train", (8, 1024, 1152)),
                                  ("ragged", (1, 100, 1152)),
                                  ("generic", (4, 77, 1000)),
-                                 ("unaligned", (2, 100, 1152))):
+                                 ("unaligned", (2, 100, 1152)),
+                                 *SD35_CASES["adaln_layernorm_bwd"]):
             def make(b=b, n=n, d=d, dtype=dtype, label=label):
                 wide = d + (label == "unaligned")
                 x = randn((b, n, wide), dtype)[..., wide - d:]
@@ -938,7 +987,8 @@ def kernel_cases(device):
                 ("blocks-640", (2, 1280, 640, 16, 72, [640, 311])),
                 ("d256", (2, 1024, 384, 2, 256, [384, 100])),
                 ("ragged", (2, 1000, 1000, 16, 72, [1000, 333])),
-                *UNET_CASES["flash_attention_bwd"]):
+                *UNET_CASES["flash_attention_bwd"],
+                *SD35_CASES["flash_attention_bwd"]):
             def make(b=b, nq=nq, nk=nk, h=h, d=d, keep=keep, dtype=dtype):
                 bias = (None if keep is None else A._key_bias(
                     _mask(keep, nk, device), b, A.FLASH_MASK_VALUE))
@@ -1199,10 +1249,17 @@ def phase_kernels(device, names=None, skip_labels=()):
         if not (main or every):
             continue
         inputs = _rotations(make, nbytes)
-        ms = time_ms(kern, inputs, 50)
-        # the UNet cases' plain versions hold gigabytes of fp32 scores
+        # the UNet's and SD3.5's plain versions hold gigabytes of fp32
+        # scores: timed unheld, and K6b's SD3.5 ones at the held batch
         plain_ms = time_ms(plain, inputs, 20,
                            hold=(name, label) not in TIMED_BF16_CASES)
+        held_b = args[0].shape[0]
+        timed_b = TIMED_AT_BATCH.get((name, label), held_b)
+        if timed_b != held_b:
+            del inputs
+            nbytes, flops = (x * timed_b // held_b for x in (nbytes, flops))
+            inputs = _rotations(lambda: make(b=timed_b), nbytes)
+        ms = time_ms(kern, inputs, 50)
         lib_ms = None
         if isinstance(library, tuple):
             lib_ms = time_ms(library[0], inputs, 50) - time_ms(
@@ -1230,12 +1287,18 @@ def phase_kernels(device, names=None, skip_labels=()):
                 host = results[name]["host_us"] = w8a8_host_us(kern, inputs)
                 log(f"{name} [{label}, {dt}] host {host:.1f} us a call (the "
                     "stream held)")
+        at = ({} if timed_b == held_b else
+              {"batch": timed_b, "plain_batch": held_b})
         if every:
             results.setdefault(name, {}).setdefault("cases", []).append(
                 {"case": label, "dtype": dt, "path": path, "ms": ms,
                  "plain_ms": plain_ms, "library_ms": lib_ms,
-                 "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err})
-        log(f"{name} [{label}, {dt}] kernel_ms {ms:.4f}  plain_ms "
+                 "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err,
+                 **at})
+        log(f"{name} [{label}, {dt}]"
+            + ("" if not at else f" timed at batch {timed_b} (plain at "
+               f"{held_b}, held there)")
+            + f" kernel_ms {ms:.4f}  plain_ms "
             f"{plain_ms:.4f}  library_ms "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f}'}  bound_ms "
             f"{bound:.4f} ({bound_by}: {nbytes / 1e6:.2f} MB, "
@@ -1556,8 +1619,21 @@ ADAPTER_KINDS = {"loha": {"lora_algo": "loha"},
                  "dora": {"lora_algo": "lora", "lora_use_dora": "true"}}
 
 
-def lora_pair(cls, cfg, rank, device, kind="lora"):
-    """An fp32 ``cls(cfg)`` on the CPU from seeds, with a rank-``rank``
+def seeded_state(cls, cfg):
+    """The parameters of an fp32 ``cls(cfg)`` initialised from seed 0 (a
+    state dict: cases that share the base build it once)."""
+    import torch
+
+    from yat_tpu_torch.models.layers import init_params
+
+    model = cls(cfg, dtype=torch.float32)
+    init_params(model, torch.Generator().manual_seed(0))
+    return model.state_dict()
+
+
+def lora_pair(cls, cfg, rank, device, kind="lora", base=None):
+    """An fp32 ``cls(cfg)`` on the CPU from seeds (``base``: its
+    :func:`seeded_state`, when the caller holds it), with a rank-``rank``
     adapter of ``kind`` (a key of ``ADAPTER_KINDS``, or LoRA) on
     ``LORA_TARGETS`` whose zero-initialised leaves (LoRA's ``lora_b``, and
     the others' ``hada_w2_b``, ``lokr_w2_b``, ``fft_spectrum``) are drawn
@@ -1569,10 +1645,9 @@ def lora_pair(cls, cfg, rank, device, kind="lora"):
 
     from yat_tpu_torch.adapters.builder import (
         AdapterSpec, adapter_parameters, build_adapter_params)
-    from yat_tpu_torch.models.layers import init_params
 
     cpu = cls(cfg, dtype=torch.float32)
-    init_params(cpu, torch.Generator().manual_seed(0))
+    cpu.load_state_dict(seeded_state(cls, cfg) if base is None else base)
     keys = ADAPTER_KINDS.get(kind, {})
     spec = AdapterSpec(keys.get("lora_algo", "lora"), rank=rank, alpha=rank,
                        target_modules=LORA_TARGETS,
@@ -1612,13 +1687,14 @@ def phase_grad_reference(device, width=None,
     sched = FlowMatchSchedule(shift=3.0)
     ts, sig = sched.training_draw(torch.Generator().manual_seed(3), 2)
     noise = rng.standard_normal(lat.shape, np.float32)
+    base = seeded_state(SanaTransformer2D, cfg)
     for kind in kinds:
         _grad_reference_case(device, cfg, kind, sched, lat, emb, mask, ts,
-                             sig, noise)
+                             sig, noise, base)
 
 
 def _grad_reference_case(device, cfg, kind, sched, lat, emb, mask, ts, sig,
-                         noise):
+                         noise, base=None):
     import torch
 
     from yat_tpu_torch.adapters.builder import adapter_parameters
@@ -1626,7 +1702,7 @@ def _grad_reference_case(device, cfg, kind, sched, lat, emb, mask, ts, sig,
     from yat_tpu_torch.train.step import loss_and_grads
     from yat_tpu_torch.train.tasks import make_flow_matching_loss
 
-    cpu, gpu, n = lora_pair(SanaTransformer2D, cfg, 8, device, kind)
+    cpu, gpu, n = lora_pair(SanaTransformer2D, cfg, 8, device, kind, base)
     results = []
     for model, dev in ((cpu, torch.device("cpu")), (gpu, device)):
         batch = {"latents": torch.from_numpy(lat).to(dev),
@@ -2185,6 +2261,13 @@ def per_step_launches(family, vp):
     """Kernel launches per denoise step of the family's serving path (and
     counts that must stay 0)."""
     cfg = vp.model.cfg
+    if family == "sd35":
+        # one CFG call of the MMDiT at batch 2B: K6 for every joint and
+        # MMDiT-X attention, K1 for the second norms and the final one
+        # (models.mmdit.kernel_calls); nothing else of the port's
+        return {**sd35_launches(cfg, vp.latent_shape[:2], (1, 0)),
+                "dot_product_attention": 0,
+                "dot_product_attention_folded": 0, "linear_attention": 0}
     if family in ("sd15", "sdxl"):
         # one CFG call of the UNet at batch 2B: each attention takes the
         # branch its shape gives (unet_launches); no adaLN, no K3
@@ -2400,7 +2483,9 @@ def busy_union(spans):
 
 def profile_run(label, fn, card):
     """``fn()`` under torch.profiler: device time by layer and by kernel,
-    and the share of the wall time the device sat idle."""
+    and the share of the wall time the device sat idle.  Only the device
+    is traced: the host's operator records would slow the host under the
+    profiler (inflating the idle share) and take seconds to collect."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2408,8 +2493,7 @@ def profile_run(label, fn, card):
 
     torch.cuda.synchronize()
     before = launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2599,18 +2683,26 @@ def check_loaded(label, module, rules, grid="BF16"):
     from yat_tpu_torch.convert import flax_params
 
     S = synth_module()
-    bad, n = [], 0
-    for path, t in flax_params(module).items():
+    params = flax_params(module)
+
+    def differs(item):
+        path, t = item
         _, kind = S.match(path, rules)
         v = S.leaf_value(SYNTH_SEED, path, tuple(t.shape), kind, grid)
         want = torch.from_numpy(v).to(device=t.device, dtype=t.dtype)
-        if not torch.equal(t, want):
-            bad.append(path)
-        n += t.numel()
+        return not torch.equal(t, want)
+
+    # the leaves' values are drawn on the host: numpy and the copies
+    # release the GIL, so the leaves run in threads
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        flags = list(pool.map(differs, params.items()))
+    bad = [path for path, bad in zip(params, flags) if bad]
+    n = sum(t.numel() for t in params.values())
     if bad:
         fail(f"{label}: {len(bad)} parameters differ from the checkpoint, "
              f"e.g. {bad[:4]}")
-    log(f"{label}: all {n:,} parameters ({len(flax_params(module))} "
+    log(f"{label}: all {n:,} parameters ({len(params)} "
         "tensors) equal the synthesized values after the same casts")
 
 
@@ -3015,35 +3107,40 @@ def exported_array(name, p):
             arr.T if transpose and arr.ndim == 2 else arr)
 
 
-def check_trained_leaves(label, trainer):
+def check_trained_leaves(label, trainer, dead=()):
     """Every trainable leaf changed by the run (against ``initial_state``'s
-    snapshot; without one, the zero-initialised leaves moved off zero).
+    snapshot; without one, the zero-initialised leaves moved off zero),
+    but those of the modules in ``dead``, which no gradient reaches.
     Returns the snapshot or None."""
     import torch
     names, leaves = trainer.trainable_names(), trainer.trainable_leaves()
+    live = [not n.startswith(tuple(f"{m}." for m in dead)) for n in names]
     initial = getattr(trainer, "initial_leaves", None)
     if initial is not None:
-        same = [n for n, p, p0 in zip(names, leaves, initial)
-                if torch.equal(p, p0)]
+        same = [n for n, p, p0, ok in zip(names, leaves, initial, live)
+                if ok and torch.equal(p, p0)]
         what = "unchanged by the updates"
     else:
-        same = [n for n, p in zip(names, leaves)
-                if n.rsplit(".", 1)[-1] in ZERO_INIT_LEAVES
+        same = [n for n, p, ok in zip(names, leaves, live)
+                if ok and n.rsplit(".", 1)[-1] in ZERO_INIT_LEAVES
                 and not bool((p != 0).any())]
         what = "still zero after the updates"
     if same:
         fail(f"{label}: leaves {what}: {same[:4]}")
     if initial is not None:
-        log(f"{label}: all {len(leaves)} trainable leaves changed")
+        log(f"{label}: all {sum(live)} trainable leaves a gradient reaches "
+            "changed" + (f" ({len(live) - sum(live)} of {list(dead)} get "
+                         "none)" if dead else ""))
     return initial
 
 
-def check_trained(label, trainer, cfg, n_layers):
+def check_trained(label, trainer, cfg, n_layers, n_adapted=None, dead=()):
     """Finite losses, the warmup, an adapter on to_q/to_k/to_v/to_out of
-    attn1 and attn2 in every block with every leaf changed by the updates
-    (without ``initial_state``: the zero-initialised leaves moved off
-    zero), and the PEFT export equal to the live leaves (a REPA head's
-    too)."""
+    attn1 and attn2 in every block (or on ``n_adapted`` modules) with
+    every leaf changed by the updates (without ``initial_state``: the
+    zero-initialised leaves moved off zero; ``dead``: modules no gradient
+    reaches), and the PEFT export equal to the live leaves (a REPA
+    head's too)."""
     from yat_tpu_torch.adapters.builder import adapted_modules
     from yat_tpu_torch.adapters.io import read_safetensors
 
@@ -3061,10 +3158,10 @@ def check_trained(label, trainer, cfg, n_layers):
     if warmup and (hist[0]["lr"] != 0.0 or hist[1]["lr"] <= 0.0):
         fail(f"{label}: warmup should give lr 0 on the first update only")
     adapted = adapted_modules(trainer.model)
-    if len(adapted) != 8 * n_layers:
-        fail(f"{label}: {len(adapted)} adapted modules, expected "
-             f"{8 * n_layers}")
-    initial = check_trained_leaves(label, trainer)
+    want = 8 * n_layers if n_adapted is None else n_adapted
+    if len(adapted) != want:
+        fail(f"{label}: {len(adapted)} adapted modules, expected {want}")
+    initial = check_trained_leaves(label, trainer, dead)
     names, leaves = trainer.trainable_names(), trainer.trainable_leaves()
     path = os.path.join(cfg["output_dir"], str(steps),
                         "adapter_model.safetensors")
@@ -5224,6 +5321,229 @@ def phase_sdxl_extract(device, card, tmp, tiny=None):
         f"{time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# 14. SD3.5 (MMDiT)
+# ---------------------------------------------------------------------------
+
+SD35_KERNELS = ("flash_attention", "flash_attention_bwd", "adaln_layernorm",
+                "adaln_layernorm_bwd", "attention_xla")
+SD35_TRAIN_STEPS = 4
+
+
+def sd35_launches(cfg, grid, passes, remat=False):
+    """The launches of ``passes`` = (forwards, backwards) of the MMDiT on a
+    latent ``grid`` with ``max_caption_len`` caption tokens
+    (``models.mmdit.kernel_calls``): K6 and K1 once a forward, K6b and K1b
+    once a backward; under ``remat`` each block runs its forward again in
+    the backward (every attention, every norm but the final one); the XLA
+    branch never."""
+    from yat_tpu_torch.models.mmdit import kernel_calls
+    calls = kernel_calls(cfg, grid[0], grid[1], cfg.max_caption_len)
+    n_attn = len(calls["flash_attention"])
+    n_norm = len(calls["adaln_layernorm"])
+    fwd, bwd = passes
+    again = bwd if remat else 0
+    return {"flash_attention": n_attn * (fwd + again),
+            "adaln_layernorm": n_norm * fwd + (n_norm - 1) * again,
+            "flash_attention_bwd": n_attn * bwd,
+            "adaln_layernorm_bwd": n_norm * bwd, "attention_xla": 0}
+
+
+def sd35_adapted(cfg):
+    """The MMDiT's projections that ``[to_q, to_k, to_v, to_out]`` adapt:
+    both streams' q/k/v/out (the last block has no text output) and each
+    MMDiT-X block's second attention."""
+    n, dual = cfg.num_layers, len(cfg.dual_attention_layers)
+    return 8 * n - 1 + 4 * dual
+
+
+@contextlib.contextmanager
+def drawn_modulation():
+    """The MMDiT's modulation layers drawn from the seed like its other
+    dense layers (lecun-normal) inside the block, where flax's
+    ``zeros_init`` (the JAX package's, and the port's) leaves every gate
+    at 0: on random weights every block would then add nothing to the
+    image or to the adapters' gradients."""
+    from yat_tpu_torch.models import layers, mmdit
+    zero = mmdit._ZeroDense.reset_parameters
+    mmdit._ZeroDense.reset_parameters = layers.AdapterDense.reset_parameters
+    try:
+        yield
+    finally:
+        mmdit._ZeroDense.reset_parameters = zero
+
+
+def phase_sd35_serve(device, card, params=None, px=1024, window_ms=100.0):
+    """SD3.5-medium served at 1024 px through HTTP (``phase_serve``):
+    CLIP-L, OpenCLIP-G and T5-XXL in fp32, the MMDiT in bf16, the fp32
+    16-channel KL-VAE; 20 Euler steps at shift 3.0, CFG 5.0; the
+    modulation drawn (``drawn_modulation``)."""
+    with drawn_modulation():
+        return phase_serve(params or serve_params(), device, card,
+                           family="sd35", px=px,
+                           profile=device.type == "cuda",
+                           window_ms=window_ms)
+
+
+def write_sd35_shard(path, n, side, cfg, seed=0):
+    """``n`` SD3.5 feature samples: ratio "1.0", latents ``[side, side,
+    in_channels]`` fp32, the joined CLIP/T5 states ``[77 + L, caption_dim]``
+    fp32 with L spread over 64-256 T5 tokens (cut to ``max_caption_len``),
+    ``pooled.npy`` ``[pooled_dim]``."""
+    from yat_tpu_torch.data.tar import TarShardWriter
+    rng = np.random.default_rng(seed)
+    lengths = rng.permutation(np.linspace(64, 256, n).round().astype(int))
+    with TarShardWriter(path) as w:
+        for i, t5 in enumerate(lengths):
+            w.write({"__key__": f"{i:06d}", "ratio": "1.0",
+                     "latent.npy": rng.standard_normal(
+                         (side, side, cfg.in_channels), dtype=np.float32),
+                     "emb.npy": rng.standard_normal(
+                         (min(77 + int(t5), cfg.max_caption_len),
+                          cfg.caption_dim), dtype=np.float32),
+                     "pooled.npy": rng.standard_normal(
+                         (cfg.pooled_dim,), dtype=np.float32)})
+
+
+def sd35_train_config(shard, out_dir, ckpt, **extra):
+    """``configs/sd35_flow_lokr.yaml`` as written but for its files and
+    its mesh: the seeded shard for ``/data/sd35_features``, no pretrained
+    pipe (the modules random from the seed), no ``mesh_shape`` (the port
+    trains on one card), ``checkpoint_dir`` in a temporary directory,
+    ``SD35_TRAIN_STEPS`` steps with validation (and a checkpoint) at the
+    last."""
+    import yaml
+    with open(os.path.join(REPO, "configs", "sd35_flow_lokr.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    for key in ("pretrained_pipe_path", "mesh_shape"):
+        cfg.pop(key)
+    cfg.update({"local_shard_paths": [shard], "checkpoint_dir": ckpt,
+                "steps": str(SD35_TRAIN_STEPS),
+                "num_steps_per_validation": str(SD35_TRAIN_STEPS),
+                "output_dir": out_dir, "dataset_seed": "0", **extra})
+    return {k: (str(v) if isinstance(v, (int, float, bool)) else v)
+            for k, v in cfg.items()}
+
+
+def sd35_batch(trainer, device, side):
+    """A seeded SD3.5 training batch (the longest caption, pooled text)
+    and one set of draws, with their generator."""
+    import torch
+    cfg = trainer.mmdit_config
+    gen = torch.Generator(device=device).manual_seed(5)
+    b = trainer.params.batch_size
+    lat_dtype = torch.bfloat16 if trainer.params.bfloat16 else torch.float32
+    batch = {"latents": torch.randn((b, side, side, cfg.in_channels),
+                                    generator=gen, device=device
+                                    ).to(lat_dtype),
+             "embeddings": torch.randn((b, cfg.max_caption_len,
+                                        cfg.caption_dim), generator=gen,
+                                       device=device),
+             "text_mask": torch.ones((b, cfg.max_caption_len),
+                                     dtype=torch.int32, device=device),
+             "pooled_text": torch.randn((b, cfg.pooled_dim), generator=gen,
+                                        device=device)}
+    ts, sig = trainer.schedule.training_draw(gen, b)
+    draws = {"timesteps": ts, "sigmas": sig,
+             "noise": torch.randn(batch["latents"].shape, generator=gen,
+                                  device=device)}
+    return gen, batch, draws
+
+
+def phase_sd35_train(device, card, tiny=None):
+    """``configs/sd35_flow_lokr.yaml`` through ``frontends.sd35.main`` as
+    written but for its files and mesh (``sd35_train_config``): SD3.5-
+    medium at 1024 px, batch 8, LoKr rank 16 on to_q/to_k/to_v/to_out,
+    EMA, ``low_vram`` (each block recomputed in the backward; T5-XXL,
+    the CLIPs and the VAE on the host between validation calls; the tiled
+    decode), the modulation drawn (``drawn_modulation``), on a seeded
+    feature shard at SD3.5's shapes: finite losses, every LoKr leaf
+    changed and exported, the validation image at the last step, the
+    launches by step (K6 37 and K1 48 a forward, each block's again in
+    the backward, K6b 37 and K1b 48 a backward; the validation's 20 CFG
+    calls), the step time (mean and median), the peak (the run as written
+    fits or fails) and one profiled step."""
+    import torch
+
+    from yat_tpu_torch.config import TrainingParameters
+    from yat_tpu_torch.frontends.sd35 import build_config
+    from yat_tpu_torch.frontends.sd35 import main as sd35_main
+    from yat_tpu_torch.train.validation import ValidationPipeline
+
+    label = "sd35 train"
+    cuda = device.type == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        shard = os.path.join(tmp, "sd35-000000.tar")
+        extra = {} if tiny is None else {
+            "batch_size": "2", "aspect_ratio": "256",
+            "model_config_overrides": tiny}
+        cfg = sd35_train_config(shard, os.path.join(tmp, "out"),
+                                os.path.join(tmp, "ckpt"), **extra)
+        params = TrainingParameters.from_dict(cfg)
+        model_cfg = build_config(params)
+        side = (params.aspect_ratios or 1024) // 8
+        t0 = time.perf_counter()
+        write_sd35_shard(shard, 5 * params.batch_size, side, model_cfg)
+        log(f"{label}: wrote a {os.path.getsize(shard) / 1e6:.1f} MB "
+            f"feature shard in {time.perf_counter() - t0:.1f} s")
+        images = []
+        validate = ValidationPipeline.validate
+
+        def recording(self, trainer, x0=None):
+            out = validate(self, trainer, x0)
+            images.append(out)
+            return out
+        ValidationPipeline.validate = recording
+        try:
+            with drawn_modulation(), initial_state(), \
+                    recorded_batches() as grids:
+                trainer, counts, wall, peak = drive_entry_point(
+                    label, sd35_main, device, tmp, cfg)
+        finally:
+            ValidationPipeline.validate = validate
+        model_cfg = trainer.mmdit_config
+        # the last block's text queries: their rows of the joint
+        # attention feed only the dropped text output, so no gradient
+        # reaches its c_to_q (in the JAX package too)
+        check_trained(label, trainer, cfg, None, sd35_adapted(model_cfg),
+                      dead=(f"blocks_{model_cfg.num_layers - 1}.c_to_q",))
+        steps = int(cfg["steps"])
+        if len(grids) != steps or len(images) != 1:
+            fail(f"{label}: {len(grids)} batches for {steps} steps, "
+                 f"{len(images)} validations (expected 1)")
+        px = side * trainer.decode_latents.module.cfg.compression
+        for tag, img in images[0].items():
+            if img.shape != (px, px, 3) or not np.isfinite(img).all():
+                fail(f"{label}: validation image {tag} {img.shape} not "
+                     f"finite / not {px}x{px}x3")
+        want = dict.fromkeys(SD35_KERNELS, 0)
+        vp = trainer.validation_pipeline
+        runs = [(g, (1, 1), True) for g, _ in grids] + [
+            (vp.latent_shape[:2], (1, 0), False)] * vp.num_steps
+        for grid, passes, remat in runs:
+            for k, n in sd35_launches(model_cfg, grid, passes,
+                                      remat).items():
+                want[k] += n if cuda else 0
+        check_launches(label, counts, want,
+                       lambda k: f"{steps} steps at grids "
+                       f"{sorted(set(g for g, _ in grids))} with remat and "
+                       f"{vp.num_steps} validation CFG calls")
+        log_step_rate(label, trainer, wall, peak, card)
+        TRAIN_PEAKS[label] = peak
+        if cuda:
+            total = torch.cuda.get_device_properties(0).total_memory
+            log(f"{label} [{card}]: as written (batch {params.batch_size}, "
+                f"low_vram) the run fits: peak {peak / 2**30:.2f} GiB of "
+                f"the card's {total / 2**30:.2f} GiB")
+        if cuda:
+            gen, batch, draws = sd35_batch(trainer, device, side)
+            profile_run(f"one {label} step",
+                        lambda: trainer._step_fn(batch, gen, draws), card)
+        out = {k: counts[k] for k in SD35_KERNELS}
+        del trainer
+    return out
+
+
 def main() -> None:
     import gc
 
@@ -5286,6 +5606,9 @@ def main() -> None:
                       ("sdxl train", phase_sdxl_train)):
         for label, c in timed(phase, fn, device, card).items():
             counts[label.replace(" ", "_")] = c
+    counts["sd35"] = timed("serve sd35", phase_sd35_serve, device, card)
+    counts["sd35_train"] = timed("sd35 train", phase_sd35_train, device,
+                                 card)
     log(f"seconds by phase: {seconds}; "
         f"{time.perf_counter() - t_start:.1f} s in all")
 
@@ -5328,7 +5651,7 @@ def main() -> None:
                       "full_ft", "explore_train", "pixart_preserve_train",
                       "raw_sana", "raw_pixart", "sd15", "sdxl",
                       "sd15_train", "sdxl_train",
-                      "sdxl_train_low_vram"):
+                      "sdxl_train_low_vram", "sd35", "sd35_train"):
             if other != run and name in counts.get(other, {}) \
                     and counts[other][name]:
                 row[f"launches_{other}"] = counts[other][name]

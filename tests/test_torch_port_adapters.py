@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from yat_tpu_torch.convert import load_flax_adapters, load_flax_params
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 KINDS = ["lora", "dora", "loha", "lokr", "fourierft"]
 TARGETS = ["to_q", "to_k", "to_v", "to_out"]

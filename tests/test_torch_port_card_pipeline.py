@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from tools import synth_checkpoint as S
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 # elementwise fp32 sampler arithmetic on two devices
 CARD_SAMPLER_TOL = 1e-5

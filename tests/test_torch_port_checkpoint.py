@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from tests.test_torch_port_train import TARGETS, TINY_OVERRIDES, _tiny_shard
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 # hidden 64: the 64 x 64 attention kernels reach the int8 base's
 # 4096-element quantization threshold

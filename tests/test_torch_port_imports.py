@@ -10,6 +10,7 @@ import ast
 from pathlib import Path
 
 import pytest
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "yat_tpu", "safetensors")
@@ -51,6 +52,7 @@ def test_scan_covers_the_package():
             "yat_tpu_torch/data/native.py", "yat_tpu_torch/data/r2.py",
             "yat_tpu_torch/data/generate_shards.py",
             "yat_tpu_torch/train/encode.py", "yat_tpu_torch/train/extract.py",
+            "yat_tpu_torch/models/mmdit.py", "yat_tpu_torch/frontends/sd35.py",
             "chip_smoke.py"} <= names
 
 

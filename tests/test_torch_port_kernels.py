@@ -18,6 +18,7 @@ from yat_tpu_torch.kernels import build as KB
 from yat_tpu_torch.ops import attention as TA
 from yat_tpu_torch.ops import norm as TN
 from yat_tpu_torch.ops import quant as TQ
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 # ---------------------------------------------------------------------------
 # the build route
@@ -153,7 +154,7 @@ def test_chip_smoke_k1_k3_cases_on_cpu():
             assert chip_smoke.compare(name, got, want)[2]
     assert labels == {
         "adaln_layernorm": ["serve", "train", "ragged", "pixart-serve",
-                            "generic"],
+                            "generic", "sd35-image", "sd35-text"],
         "linear_attention": ["serve", "train", "ragged", "ragged-17", "d64",
                              "fp32-state", "nan"]}
 
@@ -180,7 +181,7 @@ def test_chip_smoke_k1b_cases_on_cpu():
         want = plain(x, sc, g)
         assert chip_smoke.compare(name, want, want)[2]
     assert labels == ["train", "pixart-train", "ragged", "generic",
-                      "unaligned"]
+                      "unaligned", "sd35-image", "sd35-text"]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1101,3 +1102,69 @@ def test_card_unet_attention_shapes(cuda, dtype, name, label):
     torch.cuda.synchronize()
     assert handle.launches == before + 1
     assert chip_smoke.compare(name, got, plain(*args))[2]
+
+
+def _sd35_cases():
+    import chip_smoke
+    return [(name, label) for name, cases in chip_smoke.SD35_CASES.items()
+            for label, _ in cases]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name,label", _sd35_cases())
+def test_card_sd35_shapes(cuda, dtype, name, label):
+    """K6/K6b at SD3.5's joint and MMDiT-X attentions (head dim 64, the
+    ragged 4429 tokens: a last query and key block of 77 rows) and K1/K1b
+    at width 1536 (chip_smoke.py's ``SD35_CASES``): one launch each,
+    within chip_smoke.py's tolerance of the plain version."""
+    import chip_smoke
+    case = next(c for c in chip_smoke.kernel_cases(cuda)
+                if c[:3] == (name, label, dtype))
+    _, _, _, make, kern, plain = case[:6]
+    args = make()
+    handle = {"flash_attention": TA.FLASH_ATTENTION,
+              "flash_attention_bwd": TA.FLASH_ATTENTION_BWD,
+              "adaln_layernorm": TN.ADALN,
+              "adaln_layernorm_bwd": TN.ADALN_BWD}[name]
+    before = handle.launches
+    got = kern(*args)
+    torch.cuda.synchronize()
+    assert handle.launches == before + 1
+    assert chip_smoke.compare(name, got, plain(*args))[2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_card_flash_attention_direct_under_remat(cuda, dtype):
+    """``flash_attention`` (the MMDiT's joint attention) through autograd
+    at a ragged length with short last blocks, plain and under
+    ``torch.utils.checkpoint``: K6 launches once (twice under remat, the
+    recomputed forward saving its row statistics again), K6b once, and
+    the gradients are the same bits both ways and hold against the plain
+    backward."""
+    import torch.utils.checkpoint as ckpt
+
+    import chip_smoke
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v, gy = (torch.randn((2, 333, 4, 64), generator=g,
+                               device=cuda).to(dtype) for _ in range(4))
+    grads = []
+    for remat in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = (TA.FLASH_ATTENTION.launches, TA.FLASH_ATTENTION_BWD.launches)
+        out = (ckpt.checkpoint(TA.flash_attention, *leaves,
+                               use_reentrant=False) if remat
+               else TA.flash_attention(*leaves))
+        out.backward(gy)
+        torch.cuda.synchronize()
+        assert (TA.FLASH_ATTENTION.launches - before[0],
+                TA.FLASH_ATTENTION_BWD.launches - before[1]) == (
+                    2 if remat else 1, 1)
+        grads.append([t.grad for t in leaves])
+    for a, c in zip(*grads):
+        assert torch.equal(a, c)
+    o, l, m = TA._flash_attention_cuda(q, k, v, None, residuals=True)
+    want = TA.flash_attention_bwd_ref(q, k, v, None, o, l, m, gy)
+    assert chip_smoke.compare("flash_attention_bwd", tuple(grads[0]),
+                              want)[2]

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from yat_tpu_torch.convert import load_flax_params
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 # fp32 forwards through several layers: float summation order only
 MODEL_TOL = 1e-4

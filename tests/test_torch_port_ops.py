@@ -14,6 +14,7 @@ from yat_tpu.ops import attention as JA
 from yat_tpu.ops import norm as JN
 from yat_tpu_torch.ops import attention as TA
 from yat_tpu_torch.ops import norm as TN
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 # tolerances pinned by the JAX package's own tests (tests/test_norm.py,
 # tests/test_attention.py): fp32 forward

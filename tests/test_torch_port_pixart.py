@@ -13,6 +13,7 @@ import torch
 
 from tests.test_frontends import TINY_DIT, write_shard
 from tests.test_validation_frontends import base
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 # fp32 modules: reduction order only (MODEL_TOL of test_torch_port_models)
 MODEL_TOL = 1e-4

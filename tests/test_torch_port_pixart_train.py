@@ -18,6 +18,7 @@ import torch
 
 from tests.test_torch_port_pixart import TINY_PIXART
 from yat_tpu_torch.convert import load_flax_adapters, load_flax_params
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 # fp32 modules: reduction order only (MODEL_TOL of test_torch_port_models)
 MODEL_TOL = 1e-4

@@ -6,6 +6,7 @@ output, with LoRA (the base: the model with its adapters gated off) and on
 the full fine-tuning snapshot."""
 
 from tests.test_torch_port_train_loop import _check_leaves, _run
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
 def test_full_finetune_steps_match_jax():

@@ -22,6 +22,7 @@ import torch
 
 from tests.test_frontends import TINY_DIT
 from tools import synth_checkpoint as S
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 # fp32 forwards of the same weights: summation order only
 FORWARD_TOL = 2e-5

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from yat_tpu_torch.ops import quant as TQ
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 # the LoRA branch, the dequantized matmul and the optimizer run fp32
 # matmuls and sums in another order on the two sides: each output within

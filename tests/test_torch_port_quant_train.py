@@ -25,6 +25,7 @@ import torch
 import chip_smoke
 from yat_tpu_torch.convert import load_flax_adapters
 from yat_tpu_torch.ops import quant as TQ
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 TARGETS = ["to_q", "to_k", "to_v", "to_out"]
 # loss and grad_norm of one step: fp32 sums in another order

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 cv2 = pytest.importorskip("cv2")
 

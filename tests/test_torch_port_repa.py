@@ -27,6 +27,7 @@ from tests.test_torch_port_adapters import _close, _flat, _nest, _np, \
     _trained
 from yat_tpu_torch.convert import flax_params, load_flax_adapters, \
     load_flax_params
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 import synth_checkpoint  # noqa: E402

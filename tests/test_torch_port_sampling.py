@@ -15,6 +15,7 @@ import torch
 
 from tests.test_frontends import TINY_DIT, write_shard
 from tests.test_validation_frontends import base
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 # fp32 samplers over an analytic denoiser: summation order only
 SAMPLER_TOL = 1e-5

@@ -25,6 +25,7 @@ import tools.synth_checkpoint as S
 from tests.test_torch_port_encode import make_image_shard
 from tests.test_torch_port_unet import numpy_params
 from yat_tpu_torch.convert import flax_params, load_flax_params
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 # fp32 modules: reduction order only
 MODEL_TOL = 2e-5

@@ -9,6 +9,7 @@ configures it, then its extraction pass with ``pooled.npy``."""
 import torch
 
 from tests.test_torch_port_sd import TINY_SDXL
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 # three levels, attention at the deepest only: the tiny VAE's 2x latents

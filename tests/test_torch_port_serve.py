@@ -16,6 +16,7 @@ import torch
 
 from tests.test_frontends import TINY_DIT, write_shard
 from tests.test_validation_frontends import base
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 # the tiny SANA stack of tests/test_serve.py
 TINY_SANA = {**TINY_DIT, "caption_channels": "32",

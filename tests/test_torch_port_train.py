@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from yat_tpu_torch.convert import load_flax_adapters, load_flax_params
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 # fp32 on the CPU: several optimizer steps of summation-order noise.
 # loss and grad_norm agree to 1e-5 relative; the adapters and EMA after

@@ -20,6 +20,7 @@ import torch
 
 from yat_tpu_torch.convert import (flax_named_parameters, load_flax_adapters,
                                    load_flax_params)
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 # fp32 on the CPU, a few optimizer steps of summation-order noise
 # (tests/test_torch_port_train.py): loss and grad_norm to 1e-5 relative,

@@ -18,6 +18,7 @@ import torch
 import tools.synth_checkpoint as S
 from yat_tpu_torch.convert import (flax_params, load_flax_adapters,
                                    load_flax_params)
+from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
 # fp32 modules: reduction order only
 MODEL_TOL = 2e-5

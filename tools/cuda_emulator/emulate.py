@@ -20,7 +20,9 @@ without its row term is rejected).  The forwards ``fwd`` (K6) and ``k2``
 and N_q past 128, and must give the same bits when the K and V rows of
 every fully masked tile are NaN: such tiles are never read.  All four
 also run the UNet's shapes cut to size (``UNET_CASES``: head dims 40, 64
-and 80 over CLIP's 77 keys, all kept or partly masked).
+and 80 over CLIP's 77 keys, all kept or partly masked) and SD3.5's joint
+attention cut to size (``SD35_CASES``: head dim 64, ragged N_q = N_k
+whose last query and key blocks hold 77 rows).
 
 ``k5`` and ``k5b`` (the w8a8 matmul and its backward, one source) run
 with Hopper's mbarriers, TMA tile loads (128-byte swizzle) and wgmma s8
@@ -37,8 +39,9 @@ at N = 256, the ragged N = 100 and 17, N = 600 (each warp's ring of
 stages wrapping), head dims 16, 32, 64 and 20 (4-byte copies), q/k/v as
 views of one fused [B, N, 3, H, D] tensor, and with a NaN in one k entry
 and one q entry (the NaN positions must be the plain version's).  ``k1``
-(the adaLN forward) runs D = 1152 (the row in registers), D = 1000 and an
-unaligned D = 1152 view (the generic loop), at ragged N.  ``k1b`` (its
+(the adaLN forward) runs D = 1152 (the row in registers), D = 1000,
+SD3.5's D = 1536 and an unaligned D = 1152 view (the generic loop), at
+ragged N.  ``k1b`` (its
 backward, one launch whose last block of each batch element adds the
 blocks' column sums) runs the same three layouts, bf16 and fp32, at N =
 256 (each warp's ring wraps), 100 (a last block with fewer rows than
@@ -276,6 +279,11 @@ FWD_CASES = [(2, 200, 300, 1, 72, [(130, 141), (290, 300)]),
 UNET_CASES = [(2, 136, 77, 2, 40, [77, 20]), (1, 256, 256, 2, 40, None),
               (2, 72, 77, 3, 80, [77, 5]), (1, 200, 200, 1, 80, [200]),
               (2, 130, 77, 2, 64, [77, 33]), (1, 256, 256, 1, 64, None)]
+# SD3.5's joint attention cut to size (K6 and K6b called directly, no
+# mask): head dim 64 over N_q = N_k = 2 * 128 + 77, as 4429 = 34 * 128 +
+# 77 leaves a last query block and a last key block of 77 rows; one full
+# block and the short one
+SD35_CASES = [(1, 333, 333, 2, 64, None), (2, 205, 205, 1, 64, None)]
 
 
 def check_fwd(which, lib, dtype, case):
@@ -486,7 +494,8 @@ def check_k3(lib, dtype, round_kv, case, nan=False):
 # another width, and a view whose rows are not 8-byte aligned (the generic
 # loop at D = 1152); ragged N
 K1_CASES = [(2, 37, 1152, "plain"), (1, 5, 1152, "plain"),
-            (1, 77, 1000, "plain"), (2, 9, 1152, "unaligned")]
+            (1, 77, 1000, "plain"), (2, 9, 1152, "unaligned"),
+            (2, 9, 1536, "plain"), (1, 5, 1536, "plain")]
 
 
 def run_k1(lib, x, sc, sh):
@@ -538,7 +547,8 @@ K1B_CASES = [(3, 256, 1152, "plain"), (1, 256, 1152, "plain"),
              (1, 100, 1152, "plain"), (3, 17, 1152, "plain"),
              (1, 17, 1152, "plain"), (3, 100, 1000, "plain"),
              (1, 17, 1000, "plain"), (3, 100, 1152, "unaligned"),
-             (1, 17, 1152, "unaligned")]
+             (1, 17, 1152, "unaligned"), (3, 17, 1536, "plain"),
+             (1, 100, 1536, "plain")]
 
 
 def run_k1b(lib, x, sc, g):
@@ -633,7 +643,8 @@ def main(argv):
             continue
         fwd = w in ("fwd", "k2")
         for dtype in (torch.bfloat16, torch.float32):
-            for case in CASES + UNET_CASES + (FWD_CASES if fwd else []):
+            for case in (CASES + UNET_CASES + SD35_CASES
+                         + (FWD_CASES if fwd else [])):
                 t0 = time.perf_counter()
                 text = (check_fwd(w, libs[SOURCES[w]], dtype, case)
                         if fwd else check(w, libs[SOURCES[w]], dtype, case))

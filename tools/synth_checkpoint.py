@@ -3,7 +3,7 @@
 The repository holds no pretrained weights, so the loaders of both
 packages are tested on files synthesized here: the same keys, shapes and
 dtypes as the published SANA, PixArt-Sigma, Gemma-2, T5, CLIP, SD1.5/SDXL
-UNet, DC-AE and SD KL-VAE checkpoints (and the CompVis single file of
+UNet, SD3.5 MMDiT, DC-AE and SD KL-VAE checkpoints (and the CompVis single file of
 SD1.5, :func:`write_compvis_single_file`), with seeded values.  Imports numpy only (``torch`` for
 ``.bin`` files, inside :func:`write_bin`), never JAX or either package, so
 the JAX package's tests, the port's tests and ``chip_smoke.py`` share it.
@@ -392,6 +392,48 @@ def pixart_rules(patch_size: int = 2) -> List[Rule]:
     ]
 
 
+def sd3_rules(patch_size: int = 2) -> List[Rule]:
+    """diffusers SD3Transformer2DModel (the transformer/ of the SD3.5
+    pipelines): the joint attention's image half under ``attn.to_*``, its
+    text half under ``attn.add_*_proj`` and ``to_add_out``, a dual
+    block's second image attention under ``attn2``.  The published file
+    also holds the ``pos_embed.pos_embed`` table, which neither loader
+    reads; it is not written."""
+    b = "transformer_blocks.{0}"
+    return [
+        (r"^patch_embed\.proj\.kernel$", "pos_embed.proj",
+         f"patch{patch_size}"),
+        (r"^patch_embed\.proj\.bias$", "pos_embed.proj", "auto"),
+        (r"^time_embed\.linear_(\d)\.",
+         "time_text_embed.timestep_embedder.linear_{0}", "auto"),
+        (r"^pool_linear_(\d)\.", "time_text_embed.text_embedder.linear_{0}",
+         "auto"),
+        (r"^context_embedder\.", "context_embedder", "auto"),
+        (r"^blocks_(\d+)\.x_mod\.mod\.", f"{b}.norm1.linear", "auto"),
+        (r"^blocks_(\d+)\.c_mod\.mod\.", f"{b}.norm1_context.linear",
+         "auto"),
+        (r"^blocks_(\d+)\.x_(to_[qkv])\.", f"{b}.attn.{{1}}", "auto"),
+        (r"^blocks_(\d+)\.x_to_out\.", f"{b}.attn.to_out.0", "auto"),
+        (r"^blocks_(\d+)\.c_to_([qkv])\.", f"{b}.attn.add_{{1}}_proj",
+         "auto"),
+        (r"^blocks_(\d+)\.c_to_out\.", f"{b}.attn.to_add_out", "auto"),
+        (r"^blocks_(\d+)\.x_norm_([qk])\.", f"{b}.attn.norm_{{1}}", "auto"),
+        (r"^blocks_(\d+)\.c_norm_([qk])\.", f"{b}.attn.norm_added_{{1}}",
+         "auto"),
+        (r"^blocks_(\d+)\.x2_(to_[qkv])\.", f"{b}.attn2.{{1}}", "auto"),
+        (r"^blocks_(\d+)\.x2_to_out\.", f"{b}.attn2.to_out.0", "auto"),
+        (r"^blocks_(\d+)\.x2_norm_([qk])\.", f"{b}.attn2.norm_{{1}}",
+         "auto"),
+        (r"^blocks_(\d+)\.x_ff\.fc1\.", f"{b}.ff.net.0.proj", "auto"),
+        (r"^blocks_(\d+)\.x_ff\.fc2\.", f"{b}.ff.net.2", "auto"),
+        (r"^blocks_(\d+)\.c_ff\.fc1\.", f"{b}.ff_context.net.0.proj",
+         "auto"),
+        (r"^blocks_(\d+)\.c_ff\.fc2\.", f"{b}.ff_context.net.2", "auto"),
+        (r"^final_mod\.", "norm_out.linear", "auto"),
+        (r"^proj_out\.", "proj_out", "auto"),
+    ]
+
+
 # transformers Gemma2Model (the text_encoder/ of the SANA pipelines)
 GEMMA2_RULES: List[Rule] = [
     (r"^token_embedding\.", "embed_tokens", "auto"),
@@ -426,7 +468,8 @@ T5_RULES: List[Rule] = [
     (r"^final_norm\.", "encoder.final_layer_norm", "auto"),
 ]
 
-# diffusers AutoencoderKL (the vae/ of the SD and PixArt pipelines)
+# diffusers AutoencoderKL (the vae/ of the SD, SD3.5 and PixArt pipelines;
+# the shapes, 4 or 16 latent channels, come from the model's leaves)
 _KL_RESNET = r"(norm1|conv1|norm2|conv2|conv_shortcut)"
 VAE_KL_RULES: List[Rule] = [
     (r"^encoder\.quant_conv\.", "quant_conv", "auto"),

@@ -24,10 +24,10 @@ of REPA's targets (``build_dino_encoder``, which the on-the-fly and
 Dreambooth samplers call on each whole batch under ``use_repa``) and
 the pretrained adapters of ``lora_pretrained`` for serving
 (``attach_pretrained_adapters``).  The denoisers of SANA, PixArt-Sigma,
-SD1.5 and SDXL load from diffusers files, and the UNet, CLIP and VAE of
-SD1.5 and SDXL also from a CompVis single file
-(``pretrained_pipe_single_file``); SD3.5, Flux and PixelDiT (and the
-PixelDiT hub fetch) are not ported (ROADMAP queue 1, item 10).
+SD1.5, SDXL and SD3.5 load from diffusers files, and the UNet, CLIP and
+VAE of SD1.5 and SDXL also from a CompVis single file
+(``pretrained_pipe_single_file``); Flux and PixelDiT (and the PixelDiT
+hub fetch) are not ported (ROADMAP queue 1, items 10b and 10c).
 
 Two divergences from the JAX package, both repairs: the SDXL VAE (and
 PixArt-Sigma's, whose published pipe ships SDXL's) scales its latents by
@@ -104,7 +104,7 @@ def build_module(module_fn, device, tree, seed, dtype=None,
 
 
 # families whose converters are ported; the others wait for ROADMAP item 10
-_PORTED_FAMILIES = ("sana", "pixart", "sd15", "sdxl")
+_PORTED_FAMILIES = ("sana", "pixart", "sd15", "sdxl", "sd35")
 # the families whose single-file CompVis checkpoints load
 _SINGLE_FILE_FAMILIES = ("sd15", "sdxl")
 
@@ -244,6 +244,9 @@ def load_pretrained_backbone(params: TrainingParameters, family: str, cfg):
         from yat_tpu_torch.models.convert_unet import convert_unet
         tree = convert_unet(sd, cfg.block_out_channels,
                             cfg.layers_per_block, cfg.transformer_layers)
+    elif family == "sd35":
+        from yat_tpu_torch.models.convert_dit import convert_sd3_mmdit
+        tree = convert_sd3_mmdit(sd, cfg.num_layers)
     else:
         from yat_tpu_torch.models.convert_dit import convert_pixart
         tree = convert_pixart(sd, cfg.num_layers)
@@ -539,11 +542,14 @@ def build_clip_vae_encoders(params: TrainingParameters, device,
                             weights: Optional[Mapping] = None,
                             images: bool = True,
                             clip_l_projection: bool = False,
-                            penultimate: bool = False, vae_cfg=None):
+                            penultimate: bool = False, vae_cfg=None,
+                            include_vae: bool = True):
     """The fp32 CLIP-L caption encoder and fp32 KL-VAE of SD1.5 (SDXL's
     first text encoder and VAE) as callables: ``(encode_images,
     encode_captions, encode_pooled, decode_latents)``; without ``images``
-    the KL-VAE is its decoder alone and ``encode_images`` is None.
+    the KL-VAE is its decoder alone and ``encode_images`` is None; without
+    ``include_vae`` no VAE is built and both are None (SD3.5 builds its
+    own).
 
     CLIP-L is plain (``CLIP_L_14``) or with its projection
     (``clip_l_projection``), its tiny test configuration under
@@ -577,6 +583,14 @@ def build_clip_vae_encoders(params: TrainingParameters, device,
     te = build_clip_text_encoder(params, device, te_cfg, "text_encoder",
                                  params.dataset_seed + 1,
                                  weights.get("text_encoder"), one_file)
+    ml = min(max_caption_len, te_cfg.max_length)
+    tokenize = load_tokenizer(params.pretrained_pipe_path,
+                              vocab_size=te_cfg.vocab_size, max_length=ml,
+                              require=one_file)
+    encode_captions, encode_pooled = make_clip_encoders(
+        te, tokenize, ml, device, low)
+    if not include_vae:
+        return None, encode_captions, encode_pooled, None
     vae_tree = weights.get("vae")
     if vae_tree is None and one_file:
         ldm = load_single_file(params)["vae"]
@@ -588,12 +602,6 @@ def build_clip_vae_encoders(params: TrainingParameters, device,
             sd, vae_cfg.block_out_channels, vae_cfg.layers_per_block),
         lambda: AutoencoderKL(vae_cfg, encoder=images), device,
         params.dataset_seed + 2, tree=vae_tree)
-    ml = min(max_caption_len, te_cfg.max_length)
-    tokenize = load_tokenizer(params.pretrained_pipe_path,
-                              vocab_size=te_cfg.vocab_size, max_length=ml,
-                              require=one_file)
-    encode_captions, encode_pooled = make_clip_encoders(
-        te, tokenize, ml, device, low)
     return (make_image_encoder(vae, device, low) if images else None,
             encode_captions, encode_pooled,
             make_tiling_decoder(vae, device, low))

@@ -71,10 +71,12 @@ def make_time_ids(bucket_hw, batch_size: int) -> np.ndarray:
 def build_sdxl_encoders(params: TrainingParameters, device,
                         weights: Optional[Mapping] = None,
                         images: bool = True, return_pool_l: bool = False,
-                        clip_l_projection: bool = False):
+                        clip_l_projection: bool = False,
+                        include_vae: bool = True):
     """SDXL's prompt pipeline: ``(encode_images, encode_captions,
     encode_pooled, decode_latents)`` (and CLIP-L's pooled encoder last
-    under ``return_pool_l``, which SD3.5 concatenates with OpenCLIP-G's).
+    under ``return_pool_l``, which SD3.5 concatenates with OpenCLIP-G's;
+    without ``include_vae`` the VAE's two callables are None).
     ``encode_captions`` gives CLIP-L's penultimate states beside
     OpenCLIP-G's, ``[77, 768 + 1280]`` fp32 host arrays; ``encode_pooled``
     OpenCLIP-G's projected pooled vector ``[B, 1280]``.  Both encoders run
@@ -87,7 +89,7 @@ def build_sdxl_encoders(params: TrainingParameters, device,
     enc_img, enc_cap1, enc_pool_l, dec = build_clip_vae_encoders(
         params, device, CLIP_MAX_LEN, weights, images=images,
         clip_l_projection=clip_l_projection, penultimate=True,
-        vae_cfg=KLVAE_SDXL)
+        vae_cfg=KLVAE_SDXL, include_vae=include_vae)
     tiny = bool(params.model_config_overrides.get("tiny_encoders"))
     te2_cfg = (dataclasses.replace(CLIP_TINY_TEST, penultimate=True)
                if tiny else CLIP_G_14)

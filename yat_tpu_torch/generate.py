@@ -3,7 +3,7 @@ images for a prompt list, write PNGs.
 
 Counterpart of ``yat_tpu/generate.py`` on the PyTorch port:
 
-    python -m yat_tpu_torch.generate --family sana|pixart|sd15|sdxl \
+    python -m yat_tpu_torch.generate --family sana|pixart|sd15|sdxl|sd35 \
         --config config.yaml --prompt "a red fox in snow" \
         --prompt "a lighthouse at dusk" --steps 20 --guidance-scale 5.0 \
         [--sampler auto|dpm] [--cache-interval N] --out generated/ \
@@ -32,6 +32,7 @@ FAMILIES = {
     "pixart": "yat_tpu_torch.frontends.pixart",
     "sd15": "yat_tpu_torch.frontends.sd15",
     "sdxl": "yat_tpu_torch.frontends.sdxl",
+    "sd35": "yat_tpu_torch.frontends.sd35",
 }
 
 

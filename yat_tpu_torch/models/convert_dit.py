@@ -1,10 +1,14 @@
-"""PixArt-Sigma checkpoint converter: diffusers PixArtTransformer2DModel →
-the flax-layout PixArtTransformer2D tree.
+"""DiT checkpoint converters: diffusers PixArtTransformer2DModel → the
+flax-layout PixArtTransformer2D tree, and SD3Transformer2DModel → MMDiT.
 
-Counterpart of ``convert_pixart`` of ``yat_tpu/models/convert_dit.py``
-(with its ``_lin_opt``/``_norm_opt`` helpers).  Same layout rules as
-``models/convert.py``; the 2x2 conv patch embed becomes the Dense over
-``p*p*C`` in (h, w, c) patch order.
+Counterparts of ``convert_pixart`` and ``convert_sd3_mmdit`` of
+``yat_tpu/models/convert_dit.py`` (with its ``_lin_opt``/``_norm_opt``
+helpers).  Same layout rules as ``models/convert.py``; the 2x2 conv patch
+embed becomes the Dense over ``p*p*C`` in (h, w, c) patch order.  SD3's
+dual-stream naming maps the attention halves: diffusers ``attn.to_q``
+(image) / ``attn.add_q_proj`` (text) → ``x_to_q`` / ``c_to_q``; the
+checkpoint's ``pos_embed.pos_embed`` buffer is not read (the MMDiT
+computes its table).
 """
 
 from __future__ import annotations
@@ -26,6 +30,17 @@ def _norm_opt(sd, tp, tree, fp):
         _norm(sd, tp, tree, fp)
 
 
+def _conv_patch_embed(sd, tree, flax_prefix):
+    """The conv patch embed (2x2) ``pos_embed.proj`` → the Dense over
+    ``p*p*C`` at ``flax_prefix.proj``: torch conv ``[D, C, p, p]`` →
+    dense ``[(p*p*C), D]`` in (h, w, c) patch order."""
+    w = sd["pos_embed.proj.weight"]
+    d, c, p, _ = w.shape
+    k = np.transpose(w, (2, 3, 1, 0)).reshape(p * p * c, d)
+    _set(tree, f"{flax_prefix}.proj.kernel", np.ascontiguousarray(k))
+    _set(tree, f"{flax_prefix}.proj.bias", sd["pos_embed.proj.bias"])
+
+
 def convert_pixart(sd: Dict[str, np.ndarray],
                    num_layers: int) -> Dict[str, Any]:
     """diffusers PixArtTransformer2DModel → PixArtTransformer2D."""
@@ -33,12 +48,7 @@ def convert_pixart(sd: Dict[str, np.ndarray],
     if "pos_embed.proj.weight" in sd:
         w = sd["pos_embed.proj.weight"]
         if w.ndim == 4:
-            # conv patch embed (2x2) → Dense over p*p*C: torch conv
-            # [D, C, p, p] → dense [(p*p*C), D] in (h, w, c) patch order
-            d, c, p, _ = w.shape
-            k = np.transpose(w, (2, 3, 1, 0)).reshape(p * p * c, d)
-            _set(tree, "pos_embed.proj.kernel", np.ascontiguousarray(k))
-            _set(tree, "pos_embed.proj.bias", sd["pos_embed.proj.bias"])
+            _conv_patch_embed(sd, tree, "pos_embed")
         else:
             _linear(sd, "pos_embed.proj", tree, "pos_embed.proj")
     _linear(sd, "adaln_single.emb.timestep_embedder.linear_1", tree,
@@ -66,5 +76,55 @@ def convert_pixart(sd: Dict[str, np.ndarray],
             _linear(sd, f"{p}.{a}.to_out.0", tree, f"{q}.{a}.to_out")
         _linear(sd, f"{p}.ff.net.0.proj", tree, f"{q}.ff.fc1")
         _linear(sd, f"{p}.ff.net.2", tree, f"{q}.ff.fc2")
+    _lin_opt(sd, "proj_out", tree, "proj_out")
+    return tree
+
+
+def convert_sd3_mmdit(sd: Dict[str, np.ndarray],
+                      num_layers: int) -> Dict[str, Any]:
+    """diffusers SD3Transformer2DModel → MMDiT: the patch embed, the time
+    and pooled-text embedders, the context embedder, each block's
+    ``norm1``/``norm1_context`` modulation, the joint attention's image
+    (``attn.to_*``) and text (``attn.add_*_proj``, ``to_add_out``)
+    halves with their qk norms, a dual block's ``attn2``, both FFNs (the
+    last block has no text output or FFN), ``norm_out`` and
+    ``proj_out``."""
+    tree: dict = {}
+    w = sd.get("pos_embed.proj.weight")
+    if w is not None and w.ndim == 4:
+        _conv_patch_embed(sd, tree, "patch_embed")
+    for src, dst in (("timestep_embedder.linear_1", "time_embed.linear_1"),
+                     ("timestep_embedder.linear_2", "time_embed.linear_2"),
+                     ("text_embedder.linear_1", "pool_linear_1"),
+                     ("text_embedder.linear_2", "pool_linear_2")):
+        _lin_opt(sd, f"time_text_embed.{src}", tree, dst)
+    _lin_opt(sd, "context_embedder", tree, "context_embedder")
+    for i in range(num_layers):
+        p = f"transformer_blocks.{i}"
+        q = f"blocks_{i}"
+        _lin_opt(sd, f"{p}.norm1.linear", tree, f"{q}.x_mod.mod")
+        _lin_opt(sd, f"{p}.norm1_context.linear", tree, f"{q}.c_mod.mod")
+        # the joint attention: image half, then text half
+        for name in ("to_q", "to_k", "to_v"):
+            _lin_opt(sd, f"{p}.attn.{name}", tree, f"{q}.x_{name}")
+        _lin_opt(sd, f"{p}.attn.to_out.0", tree, f"{q}.x_to_out")
+        for src, dst in (("add_q_proj", "c_to_q"), ("add_k_proj", "c_to_k"),
+                         ("add_v_proj", "c_to_v"), ("to_add_out", "c_to_out")):
+            _lin_opt(sd, f"{p}.attn.{src}", tree, f"{q}.{dst}")
+        for src, dst in (("norm_q", "x_norm_q"), ("norm_k", "x_norm_k"),
+                         ("norm_added_q", "c_norm_q"),
+                         ("norm_added_k", "c_norm_k")):
+            _norm_opt(sd, f"{p}.attn.{src}", tree, f"{q}.{dst}")
+        # a dual block's (MMDiT-X) second image self-attention
+        for name in ("to_q", "to_k", "to_v"):
+            _lin_opt(sd, f"{p}.attn2.{name}", tree, f"{q}.x2_{name}")
+        _lin_opt(sd, f"{p}.attn2.to_out.0", tree, f"{q}.x2_to_out")
+        for src, dst in (("norm_q", "x2_norm_q"), ("norm_k", "x2_norm_k")):
+            _norm_opt(sd, f"{p}.attn2.{src}", tree, f"{q}.{dst}")
+        _lin_opt(sd, f"{p}.ff.net.0.proj", tree, f"{q}.x_ff.fc1")
+        _lin_opt(sd, f"{p}.ff.net.2", tree, f"{q}.x_ff.fc2")
+        _lin_opt(sd, f"{p}.ff_context.net.0.proj", tree, f"{q}.c_ff.fc1")
+        _lin_opt(sd, f"{p}.ff_context.net.2", tree, f"{q}.c_ff.fc2")
+    _lin_opt(sd, "norm_out.linear", tree, "final_mod")
     _lin_opt(sd, "proj_out", tree, "proj_out")
     return tree

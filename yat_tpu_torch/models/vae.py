@@ -247,6 +247,9 @@ KLVAE_SD15 = KLVAEConfig(scaling_factor=0.18215)
 # SDXL's VAE (also PixArt-Sigma's published pipe): the same structure,
 # latents scaled by 0.13025
 KLVAE_SDXL = KLVAEConfig(scaling_factor=0.13025)
+# SD3.5's VAE: 16 latent channels, shifted then scaled
+KLVAE_SD35 = KLVAEConfig(latent_channels=16, scaling_factor=1.5305,
+                         shift_factor=0.0609)
 KLVAE_TINY_TEST = KLVAEConfig(block_out_channels=(32, 32),
                               layers_per_block=1)
 

@@ -24,7 +24,9 @@ differently, and each keeps its own rounding:
   exp-sum, and kernel K6b backward (``csrc/flash_attention_bwd.cu``,
   replacing the library's ``_flash_attention_bwd_dkv`` and ``_dq``); the
   plain versions :func:`flash_attention_ref` and
-  :func:`flash_attention_bwd_ref`;
+  :func:`flash_attention_bwd_ref`.  :func:`flash_attention` calls these
+  two kernels directly, without the gate or a mask, at any lengths (the
+  MMDiT's joint attention);
 * ``"xla"``, every other shape: :func:`attention_xla`, plain tensor code
   with the rounding of ``jax.nn.dot_product_attention``.  It stands for no
   TPU kernel; it counts its calls on CUDA tensors, so a run on the card
@@ -552,13 +554,32 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if branch == "xla":
         return attention_xla(q, k, v, mask)
     if branch == "flash":
-        residuals = torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v))
-        return _FlashAttention.apply(q, k, v,
-                                     _key_bias(mask, b, FLASH_MASK_VALUE),
-                                     residuals)
+        return _flash(q, k, v, _key_bias(mask, b, FLASH_MASK_VALUE))
     return _SoftmaxAttention.apply(q, k, v, _key_bias(mask, b),
                                    branch == "folded")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Unmasked softmax attention on K6 (forward, keeping its rows' max and
+    exp-sum under autograd) and K6b (backward), called directly: q
+    ``[B, N_q, H, D]``, k/v ``[B, N_k, H, D]``, any lengths (the last key
+    and query blocks may be short), no gate.  The MMDiT's joint attention
+    runs here where the JAX package calls ``jax.nn.dot_product_attention``
+    (its plain arithmetic would build ``[B, H, N_q, N_k]`` fp32 scores).
+    A CPU tensor takes :func:`flash_attention_ref` and
+    :func:`flash_attention_bwd_ref`."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
+    return _flash(q, k, v, None)
+
+
+def _flash(q, k, v, bias):
+    """K6/K6b under autograd; the forward keeps its rows' max and exp-sum
+    only when a backward will follow."""
+    residuals = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    return _FlashAttention.apply(q, k, v, bias, residuals)
 
 
 def linear_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -123,6 +123,36 @@ def stored_dtype(params: TrainingParameters) -> Optional[torch.dtype]:
     return None
 
 
+# the axes of the JAX package's device mesh (``yat_tpu/parallel/mesh.py``)
+MESH_AXES = ("dp", "fsdp", "tp", "sp")
+_SAID = set()
+
+
+def check_mesh_shape(mesh_shape: Optional[Dict[str, int]],
+                     devices: int = 1) -> None:
+    """Raise when ``mesh_shape`` asks for more devices than the trainer
+    uses (one: the port is single-process until ROADMAP item 12), as the
+    JAX package's ``create_mesh`` does when its mesh outgrows the devices.
+    No key, or a mesh of one, trains as before."""
+    if not mesh_shape:
+        return
+    need = 1
+    for ax in MESH_AXES:
+        need *= int(mesh_shape.get(ax, 1))
+    if need > devices:
+        raise ValueError(
+            f"mesh_shape {dict(mesh_shape)} needs {need} devices; the "
+            f"PyTorch port trains on {devices} (distribution is ROADMAP "
+            "item 12): drop mesh_shape or set it to 1 device")
+
+
+def say_once(key: str, msg: str) -> None:
+    """Print ``msg`` the first time ``key`` is seen in this process."""
+    if key not in _SAID:
+        _SAID.add(key)
+        print(msg)
+
+
 class Trainer:
     """Host-side orchestration; frontends wire the model-specific pieces
     (``encode_captions`` and ``validate_fn`` may be attached)."""
@@ -140,6 +170,11 @@ class Trainer:
         self.sampler = sampler
         self.preservation_loss = preservation_loss
         self.device = resolve_device(device)
+        check_mesh_shape(params.mesh_shape)
+        if params.compilation_cache_dir:
+            say_once("compilation_cache_dir", "[engine] compilation_cache_dir "
+                     f"{params.compilation_cache_dir!r} is not read: it is "
+                     "an XLA cache and the PyTorch port compiles no XLA")
         # validate_fn(trainer) -> {tag: image}, attached by a frontend
         self.validate_fn: Optional[Callable[["Trainer"], Dict]] = None
         # the ValidationPipeline behind validate_fn, attached by a frontend

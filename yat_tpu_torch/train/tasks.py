@@ -103,9 +103,12 @@ def make_flow_matching_loss(model, schedule: FlowMatchSchedule,
                             timestep_list: Optional[Sequence[int]] = None,
                             snr_weighting: bool = False,
                             repa_lambda: float = 0.0, repa_cfg=None,
-                            repa_head=None) -> TaskLoss:
+                            repa_head=None,
+                            extra_keys: Sequence[str] = ()) -> TaskLoss:
     """``repa_lambda`` with ``repa_cfg`` and ``repa_head`` adds the generic
-    REPA term (SANA); with neither, the model's own tap."""
+    REPA term (SANA, SD3.5); with neither, the model's own tap.  The
+    batch's entries of ``extra_keys`` (SD3.5's ``pooled_text``) go to the
+    model as keyword arguments."""
     timestep_list = tuple(timestep_list) if timestep_list else None
 
     def draw_t(gen: torch.Generator, b: int) -> Dict[str, torch.Tensor]:
@@ -126,7 +129,8 @@ def make_flow_matching_loss(model, schedule: FlowMatchSchedule,
         x_t = schedule.add_noise(latents, noise.to(latents.dtype), sigmas)
         pred, repa = _predict(model, (x_t, batch["embeddings"], timesteps,
                                       batch.get("text_mask")), deterministic,
-                              batch, repa_lambda, repa_cfg, repa_head)
+                              batch, repa_lambda, repa_cfg, repa_head,
+                              extra_keys)
         target = schedule.velocity_target(latents, noise.to(latents.dtype))
         err = (pred.float() - target.float()) ** 2
         if snr_weighting:
