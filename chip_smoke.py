@@ -72,7 +72,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
    20 DDIM steps with CFG 5.0 and PAG 2.0, fp32 SD KL-VAE decoder): K6 runs
    its self-attention, K2's kernel its cross-attention in K4's place, and
    the XLA attention branch must not run;
-6b. pretrained: SANA-0.6B 512px served from a seeded synthetic diffusers
+6b. pretrained: SANA-0.6B 512px (14 of its 28 blocks, ``DEPTH_CUTS``)
+   served from a seeded synthetic diffusers
    pipe directory in a temporary directory (``tools/synth_checkpoint.py``:
    ``transformer/`` with the full key space and its ``config.json``,
    ``text_encoder/`` Gemma-2-2B, ``vae/`` the DC-AE f32c32 with both
@@ -94,7 +95,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
    stays random (its encoder file is about 9.5 GB in bf16; its loader is
    held against the JAX package on the CPU).  The hash tokenizer stands
    in for the pipe's (the card's machine has no ``transformers``);
-7. train: SANA-0.6B 512px LoRA training through the port's entry point
+7. train: SANA-0.6B 512px LoRA training (14 of its 28 blocks, as in
+   phases 7b-12: ``DEPTH_CUTS``) through the port's entry point
    ``yat_tpu_torch.frontends.sana.main`` on a synthetic feature shard
    (batch 16, bf16, rank-8 LoRA on to_q/to_k/to_v/to_out, AdamW with
    warmup, EMA, caption-length buckets), 6 steps; checks the losses, the
@@ -111,7 +113,7 @@ Phases, each of which fails the run (exit code 1) when it fails:
    ``make_pipeline``, whose denoiser equals the live one bit for bit on a
    fixed input; DoRA under the refiner gate at 0 gives the scale-0 output
    (``m W / |W|``), not the base's;
-8. PixArt-Sigma XL-2 512px LoRA training through
+8. PixArt-Sigma XL-2 512px (14 of 28 blocks) LoRA training through
    ``yat_tpu_torch.frontends.pixart.main`` on a synthetic feature shard
    (batch 8, bf16, rank-32 LoRA on to_q/to_k/to_v/to_out, 6 steps over the
    caption rungs 128 and 256/300): the same checks, with the launches per
@@ -125,10 +127,11 @@ Phases, each of which fails the run (exit code 1) when it fails:
    the int8 base's bytes and the peak memory beside phase 7's, the int8
    payloads and Lion's through the checkpoint's save and restore;
 10. full fine-tune: ``configs/sana_softmax_patch.yaml`` through the entry
-   point (SANA-0.6B with softmax self-attention in blocks 12-15, only
+   point (SANA-0.6B cut to 16 blocks, ``DEPTH_CUTS``, with softmax
+   self-attention in blocks 12-15, only
    those unfrozen, batch 16, bf16 compute over fp32 leaves, EMA, lr 1e-5),
    16 steps with checkpoints at 8 and 16 and the profiler window of steps
-   10-14: 57 K1b, 32 K2/K2b, 24 K3 launches a step, every leaf outside
+   10-14: 33 K1b, 20 K2/K2b, 12 K3 launches a step, every leaf outside
    blocks 12-15 bit-unchanged, the export and its ``config.json``, one
    checkpoint's bytes and seconds, the save and restore bit for bit; then
    the step-16 checkpoint removed (a run killed between its writes) and a
@@ -140,7 +143,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
    8's) with ``use_preservation``, 2 steps (3 forwards, 2 backwards);
 12. raw images: which decoder runs (the native libjpeg decoder where it
    builds, else cv2; printed with the reason) on 64 seeded JPEGs at four
-   512px buckets in two local ``{jpg, txt}`` shards, and the host's decode
+   512px buckets in two local ``{jpg, txt}`` shards (SANA-0.6B and
+   PixArt-Sigma XL-2 at 14 of 28 blocks), and the host's decode
    and resize of a batch of 16; ``configs/sana_extract_features.yaml``
    through ``yat_tpu_torch.frontends.sana.main`` without its R2 account
    (a stand-in S3 endpoint on 127.0.0.1, served from a thread here, checks
@@ -154,8 +158,9 @@ Phases, each of which fails the run (exit code 1) when it fails:
    validation prompts) encoding on the fly for 6 steps, then from its
    step-3 checkpoint a resume whose ``skip_batches`` runs no encoder, and
    one profiled step with the cache encoding behind it;
-   ``configs/pixart_repa.yaml`` as written but for its files (T5-XXL,
-   the SD KL-VAE encoder, PixArt-Sigma XL-2 random; a random DINOv2
+   ``configs/pixart_repa.yaml`` as written but for its files and depth
+   (T5-XXL, the SD KL-VAE encoder, PixArt-Sigma XL-2 at 14 blocks random;
+   a random DINOv2
    ViT-B/14 for the missing checkpoint): LoKr rank 32 on an int8 base with
    8-bit Lion, REPA at 0.05 after block 4, encoding on the fly, 3 steps,
    each step's DINO targets ``[8, 256, 768]`` and a finite nonzero
@@ -194,10 +199,11 @@ Phases, each of which fails the run (exit code 1) when it fails:
    ``[B, 4096, 24, 64]``, called directly without a mask (K6 at the CFG
    batch 8; K6b held at batch 2 and timed at 8), and K1 and K1b at
    ``[8, 4096, 1536]`` and ``[8, 333, 1536]`` (the generic path), bf16
-   and fp32.  Then SD3.5-medium served at 1024 px as in phase 6 (CLIP-L,
-   OpenCLIP-G and T5-XXL in fp32, the MMDiT in bf16, the 16-channel fp32
-   KL-VAE; 20 Euler steps at shift 3.0, CFG 5.0; 37 K6 and 48 K1 a CFG
-   call, nothing else of the port's) and ``configs/sd35_flow_lokr.yaml``
+   and fp32.  Then SD3.5-medium at its first 15 blocks (``DEPTH_CUTS``)
+   served at 1024 px as in phase 6 (CLIP-L, OpenCLIP-G and T5-XXL in
+   fp32, the MMDiT in bf16, the 16-channel fp32 KL-VAE; 20 Euler steps at
+   shift 3.0, CFG 5.0; 28 K6 and 30 K1 a CFG call at 15 blocks, nothing
+   else of the port's) and ``configs/sd35_flow_lokr.yaml``
    as written but for its files and its mesh (batch 8, LoKr rank 16,
    EMA, ``low_vram``; 4 steps with the validation at the last): every
    LoKr leaf a gradient reaches changed and exported, the validation
@@ -206,6 +212,28 @@ Phases, each of which fails the run (exit code 1) when it fails:
    modulation layers, which flax initialises to zero, are drawn from the
    seed (``drawn_modulation``), so the random blocks reach the image and
    the gradients.
+
+15. Flux-2 Klein: the kernel phase also holds K6 and K6b at the joint
+   attention's ``[B, 4608, 24, 128]`` (head dim 128 over 4096 image and
+   512 caption tokens; K6 held at batch 2 and timed at the CFG batch 8,
+   K6b held at 2 and timed at the training batch 4), K1 at ``[8, 4096,
+   3072]``, ``[8, 512, 3072]`` and ``[8, 4608, 3072]`` and K1b at
+   ``[4, 4096, 3072]`` and ``[4, 512, 3072]`` (the generic path), bf16 and
+   fp32.  Then Flux-2 Klein served at 1024 px as in phase 6 (Gemma-2-2B
+   and the 16-channel KL-VAE in fp32, the transformer in bf16 with
+   ``text_dim`` 2304; 20 Euler steps with the dynamic shift, CFG 7.0 and
+   the guidance embedding at 7.0; 24 K6 and 49 K1 a CFG call, nothing else
+   of the port's) and ``configs/flux_klein_lora.yaml`` as written but for
+   its files, its mesh and ``text_dim``: raw JPEGs in the config's two R2
+   shards served by the stand-in S3 endpoint (signed GETs), encoded on the
+   fly, batch 4 at 1024 px, LoRA rank 16 on the 64 projections of the
+   double blocks, 3 steps with the validation at the last; every LoRA
+   leaf changed and exported, the validation image, the launches by step
+   (24 K6, 49 K1, 24 K6b, 47 K1b), the step time and the peak (a run
+   that does not fit fails the phase); then one step split into its
+   batch's encode and its denoiser step, each timed and profiled alone,
+   with each part's memory above what the run keeps resident.  The
+   modulation is drawn from the seed as for SD3.5.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -289,11 +317,42 @@ PROMPTS = ["a red fox in fresh snow", "a lighthouse at dusk",
 # of 4 and alone (bf16); an H100 80GB reads about 6.5e-3 for SANA and
 # 2.5e-2 for PixArt-Sigma
 REPEAT_TOL = {"sana": 2e-2, "pixart": 5e-2, "sd15": 5e-2, "sdxl": 5e-2,
-              "sd35": 5e-2}
+              "sd35": 5e-2, "flux": 5e-2}
+
+
+# depth cuts of earlier paths that pay for the Flux phases inside the run's
+# time (PERF.md section 4): the blocks of a denoiser, never its width
+DEPTH_CUTS = {
+    # SANA-0.6B and PixArt-Sigma XL-2 served from synthesized files: 28 of
+    # their 28 blocks cut to 14
+    "pretrained": {"num_layers": "14"},
+    # configs/sana_softmax_patch.yaml: SANA-0.6B's 28 blocks cut to 16, so
+    # its softmax blocks 12-15 (the only ones unfrozen) are the last four
+    "full_ft": {"num_layers": "16"},
+    # SD3.5-medium's 24 blocks cut to its first 15: blocks 0-12 MMDiT-X,
+    # 13 a plain MMDiT block and 14 the published last block (no second
+    # attention, no text output), so every kind of block still runs
+    "sd35": {"num_layers": "15"},
+    # the SANA-0.6B and PixArt-Sigma XL-2 training runs (phases 7-9, 11
+    # and 12, so phase 12's on-the-fly rate compares with phase 7's at one
+    # depth): 14 of 28 blocks
+    "train": {"num_layers": "14"},
+}
+
+
+def depth_cut(key, **extra):
+    """The configuration keys of a depth cut (``DEPTH_CUTS[key]``) with
+    ``extra`` keys beside them."""
+    return {"model_config_overrides": dict(DEPTH_CUTS[key]), **extra}
+
+
+# the run's clock, which every log line carries
+_T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    print(f"[chip_smoke {time.perf_counter() - _T0:7.1f}s] {msg}",
+          flush=True)
 
 
 def fail(msg: str) -> None:
@@ -696,14 +755,38 @@ SD35_CASES = {
                             ("sd35-text", (8, 333, 1536))),
 }
 SD35_TIMED_BATCH = 8
+# Flux-2 Klein at 1024 px (24 heads of 128, width 3072): K6 at the joint
+# attention over 4096 image and 512 caption tokens (36 blocks of 128, the
+# forward's key sub-step halved to 16 at this head dim), the same in every
+# double and single block, timed at the CFG batch of 4 requests (8) and
+# held at batch 2 (its plain version's fp32 scores are 16 GiB at 8); K6b
+# held at 2 and timed at the training batch (4); K1 at the image stream,
+# the caption stream and the single blocks' whole sequence, x
+# [8, 4096, 3072], [8, 512, 3072] and [8, 4608, 3072]; K1b at the
+# training batch's image and caption streams (the generic path)
+FLUX_CASES = {
+    "flash_attention": (("flux-joint", (2, 4608, 4608, 24, 128, None)),),
+    "flash_attention_bwd": (("flux-joint", (2, 4608, 4608, 24, 128,
+                                            None)),),
+    "adaln_layernorm": (("flux-image", (8, 4096, 3072)),
+                        ("flux-text", (8, 512, 3072)),
+                        ("flux-single", (8, 4608, 3072))),
+    "adaln_layernorm_bwd": (("flux-image", (4, 4096, 3072)),
+                            ("flux-text", (4, 512, 3072))),
+}
+FLUX_TIMED_BATCH = {"flash_attention": 8, "flash_attention_bwd": 4}
 # cases timed in bf16 only, their plain versions unheld (gigabytes of fp32
-# scores): the UNet's and SD3.5's attentions
-TIMED_BF16_CASES = {(name, label) for cases in (UNET_CASES, SD35_CASES)
+# scores): the UNet's, SD3.5's and Flux's attentions
+TIMED_BF16_CASES = {(name, label)
+                    for cases in (UNET_CASES, SD35_CASES, FLUX_CASES)
                     for name, pairs in cases.items() if "adaln" not in name
                     for label, _ in pairs}
 # cases held at a smaller batch than they are timed at
 TIMED_AT_BATCH = {("flash_attention_bwd", label): SD35_TIMED_BATCH
                   for label, _ in SD35_CASES["flash_attention_bwd"]}
+TIMED_AT_BATCH.update({(name, label): FLUX_TIMED_BATCH[name]
+                       for name in FLUX_TIMED_BATCH
+                       for label, _ in FLUX_CASES[name]})
 
 
 def kernel_cases(device):
@@ -738,7 +821,8 @@ def kernel_cases(device):
                                  ("ragged", (1, 77, 1152)),
                                  ("pixart-serve", (8, 1024, 1152)),
                                  ("generic", (4, 77, 1000)),
-                                 *SD35_CASES["adaln_layernorm"]):
+                                 *SD35_CASES["adaln_layernorm"],
+                                 *FLUX_CASES["adaln_layernorm"]):
             def make(b=b, n=n, d=d, dtype=dtype):
                 return (randn((b, n, d), dtype), randn((b, 1, d), dtype, 0.1),
                         randn((b, 1, d), dtype, 0.1))
@@ -832,7 +916,8 @@ def kernel_cases(device):
                 ("masked-blocks", (2, 4096, 4096, 16, 72,
                                    [(1024, 4096), (0, 1100)])),
                 *UNET_CASES["flash_attention"],
-                *SD35_CASES["flash_attention"]):
+                *SD35_CASES["flash_attention"],
+                *FLUX_CASES["flash_attention"]):
             def make(b=b, nq=nq, nk=nk, h=h, d=d, keep=keep, dtype=dtype):
                 bias = (None if keep is None else A._key_bias(
                     _mask(keep, nk, device), b, A.FLASH_MASK_VALUE))
@@ -891,7 +976,8 @@ def kernel_cases(device):
                                  ("ragged", (1, 100, 1152)),
                                  ("generic", (4, 77, 1000)),
                                  ("unaligned", (2, 100, 1152)),
-                                 *SD35_CASES["adaln_layernorm_bwd"]):
+                                 *SD35_CASES["adaln_layernorm_bwd"],
+                                 *FLUX_CASES["adaln_layernorm_bwd"]):
             def make(b=b, n=n, d=d, dtype=dtype, label=label):
                 wide = d + (label == "unaligned")
                 x = randn((b, n, wide), dtype)[..., wide - d:]
@@ -988,7 +1074,8 @@ def kernel_cases(device):
                 ("d256", (2, 1024, 384, 2, 256, [384, 100])),
                 ("ragged", (2, 1000, 1000, 16, 72, [1000, 333])),
                 *UNET_CASES["flash_attention_bwd"],
-                *SD35_CASES["flash_attention_bwd"]):
+                *SD35_CASES["flash_attention_bwd"],
+                *FLUX_CASES["flash_attention_bwd"]):
             def make(b=b, nq=nq, nk=nk, h=h, d=d, keep=keep, dtype=dtype):
                 bias = (None if keep is None else A._key_bias(
                     _mask(keep, nk, device), b, A.FLASH_MASK_VALUE))
@@ -1249,10 +1336,12 @@ def phase_kernels(device, names=None, skip_labels=()):
         if not (main or every):
             continue
         inputs = _rotations(make, nbytes)
-        # the UNet's and SD3.5's plain versions hold gigabytes of fp32
-        # scores: timed unheld, and K6b's SD3.5 ones at the held batch
-        plain_ms = time_ms(plain, inputs, 20,
-                           hold=(name, label) not in TIMED_BF16_CASES)
+        # the UNet's, SD3.5's and Flux's plain versions hold gigabytes of
+        # fp32 scores and take 25-125 ms a call: timed unheld over 5
+        # calls, and those held at a smaller batch (K6b's SD3.5 ones,
+        # Flux's K6 and K6b) at that batch
+        big = (name, label) in TIMED_BF16_CASES
+        plain_ms = time_ms(plain, inputs, 5 if big else 20, hold=not big)
         held_b = args[0].shape[0]
         timed_b = TIMED_AT_BATCH.get((name, label), held_b)
         if timed_b != held_b:
@@ -2261,6 +2350,14 @@ def per_step_launches(family, vp):
     """Kernel launches per denoise step of the family's serving path (and
     counts that must stay 0)."""
     cfg = vp.model.cfg
+    if family == "flux":
+        # one CFG call of the transformer at batch 2B over 512 caption
+        # tokens: K6 for every block's attention, K1 for every norm
+        # (models.flux.kernel_calls); nothing else of the port's
+        from yat_tpu_torch.frontends.flux import FLUX_CAPTION_LEN
+        return {**flux_launches(cfg, vp.grid_hw, FLUX_CAPTION_LEN, (1, 0)),
+                "dot_product_attention": 0,
+                "dot_product_attention_folded": 0, "linear_attention": 0}
     if family == "sd35":
         # one CFG call of the MMDiT at batch 2B: K6 for every joint and
         # MMDiT-X attention, K1 for the second norms and the final one
@@ -2313,7 +2410,10 @@ def phase_serve(params, device, card, family="sana", px=512, profile=False,
     cfg = vp.model.cfg
     if cuda:
         torch.cuda.synchronize()
-    shape = (f"{cfg.hidden_dim}-wide, {cfg.num_layers} blocks"
+    blocks = getattr(cfg, "num_layers", None) or (
+        getattr(cfg, "num_double_blocks", 0)
+        + getattr(cfg, "num_single_blocks", 0))
+    shape = (f"{cfg.hidden_dim}-wide, {blocks} blocks"
              if hasattr(cfg, "hidden_dim") else
              f"UNet {cfg.block_out_channels}, {unet_blocks(cfg)} "
              "transformer blocks")
@@ -2364,7 +2464,7 @@ def phase_serve(params, device, card, family="sana", px=512, profile=False,
         peak = torch.cuda.max_memory_allocated() if cuda else 0
         batches = sampler.stats["batches"] - batches0
         if profile:
-            profile_batch(vp, card)
+            profile_batch(vp, card, PROFILE_STEPS.get(family))
         if after is not None:
             after(vp)
     finally:
@@ -2466,9 +2566,23 @@ def trace_shortfall(families, calls):
     return out
 
 
-def profile_batch(vp, card):
-    """One batch of 4 prompts under torch.profiler."""
-    profile_run("batch of 4", lambda: vp(PROMPTS), card)
+# denoise steps of the profiled serving batch of the 1024 px families,
+# whose batches of 4 take 7-21 s at 20 steps: 5 of the 20 (the encoders'
+# and the decoder's share of the trace then weighs 4x more); the others
+# are profiled at the pipeline's own ladder
+PROFILE_STEPS = {"sdxl": 5, "sd35": 5, "flux": 5}
+
+
+def profile_batch(vp, card, steps=None):
+    """One batch of 4 prompts under torch.profiler, at ``steps`` denoise
+    steps when given (the pipeline's own otherwise)."""
+    full = vp.num_steps
+    vp.num_steps = steps or full
+    try:
+        profile_run(f"batch of 4 ({vp.num_steps} of {full} steps)",
+                    lambda: vp(PROMPTS), card)
+    finally:
+        vp.num_steps = full
 
 
 def busy_union(spans):
@@ -3849,15 +3963,16 @@ def full_ft_config(shard, tmp, **extra):
     """configs/sana_softmax_patch.yaml without what needs files (the
     validation prompt; the shard is synthetic), for ``FULL_FT_STEPS``
     steps with the validation (export and checkpoint) cadence cut from
-    1000 to 8, and ``checkpoint_dir`` and ``profile_dir`` beside the
-    shard."""
+    1000 to 8, SANA-0.6B cut to 16 blocks (``DEPTH_CUTS``), and
+    ``checkpoint_dir`` and ``profile_dir`` beside the shard."""
     return {"local_shard_paths": [shard], "batch_size": "16",
             "learning_rate": "1e-5", "steps": str(FULL_FT_STEPS),
             "num_steps_per_validation": "8", "validation_prompts": [],
             "bfloat16": "true", "use_ema": "true",
             "model_config_overrides": {
                 "preset": "600M", "softmax_self_attn_blocks": [12, 13, 14,
-                                                               15]},
+                                                               15],
+                **DEPTH_CUTS["full_ft"]},
             "unfreeze_modules": [f"blocks_{i}" for i in (12, 13, 14, 15)],
             "warmup_compile": "true", "caption_length_bucketing": "true",
             "checkpoint_dir": os.path.join(tmp, "ckpt"),
@@ -4140,9 +4255,10 @@ def write_image_folder(path, n, size, seed, caption=None):
 
 class StandInS3:
     """An S3 endpoint on 127.0.0.1, served from a thread of this process:
-    each PUT's presigned query must carry the SigV4 signature that the
-    credentials give for its method, bucket, key, date and expiry (else
-    403); accepted bodies are stored under ``root/<key>``."""
+    each PUT's and GET's presigned query must carry the SigV4 signature
+    that the credentials give for its method, bucket, key, date and expiry
+    (else 403); accepted PUT bodies are stored under ``root/<key>``, and a
+    GET serves ``root/<key>`` (404 where there is none)."""
 
     def __init__(self, root, access_key, secret_key, bucket):
         import http.server
@@ -4151,29 +4267,52 @@ class StandInS3:
         from yat_tpu_torch.data.r2 import R2Client
 
         self.root, self.bucket = root, bucket
-        self.stored, self.rejected = [], 0
+        self.stored, self.served, self.rejected = [], [], 0
         outer = self
 
         class Handler(http.server.BaseHTTPRequestHandler):
-            def do_PUT(self):
+            def _signed(self, method):
+                """The request's key parts, or None when its signature is
+                not the one the credentials give."""
                 url = urllib.parse.urlsplit(self.path)
                 q = dict(urllib.parse.parse_qsl(url.query))
                 parts = [urllib.parse.unquote(p)
                          for p in url.path.lstrip("/").split("/")]
-                body = self.rfile.read(int(self.headers["Content-Length"]))
-                ok = False
                 if parts[0] == outer.bucket and "X-Amz-Date" in q:
                     when = datetime.datetime.strptime(
                         q["X-Amz-Date"], "%Y%m%dT%H%M%SZ").replace(
                         tzinfo=datetime.timezone.utc)
                     want = R2Client(access_key, secret_key, outer.url).presign(
-                        "PUT", outer.bucket, "/".join(parts[1:]),
+                        method, outer.bucket, "/".join(parts[1:]),
                         int(q.get("X-Amz-Expires", 0)), now=when)
-                    ok = want == f"{outer.url}{self.path}"
-                if not ok:
-                    outer.rejected += 1
-                    self.send_response(403)
+                    if want == f"{outer.url}{self.path}":
+                        return parts
+                outer.rejected += 1
+                self.send_response(403)
+                self.end_headers()
+                return None
+
+            def do_GET(self):
+                parts = self._signed("GET")
+                if parts is None:
+                    return
+                src = os.path.join(outer.root, *parts[1:])
+                if not os.path.isfile(src):
+                    self.send_response(404)
                     self.end_headers()
+                    return
+                with open(src, "rb") as f:
+                    body = f.read()
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+                outer.served.append(("/".join(parts[1:]), len(body)))
+
+            def do_PUT(self):
+                body = self.rfile.read(int(self.headers["Content-Length"]))
+                parts = self._signed("PUT")
+                if parts is None:
                     return
                 dest = os.path.join(outer.root, *parts[1:])
                 os.makedirs(os.path.dirname(dest), exist_ok=True)
@@ -4364,10 +4503,11 @@ def decode_ms(datas, th, tw, decoder, reps=3):
 
 
 def raw_train_keys(tiny):
-    """The SANA model keys of phase 12's runs: none at full width (SANA-0.6B
-    512px); the tiny model, encoders and 256px bins for the rehearsal."""
+    """The SANA model keys of phase 12's runs: SANA-0.6B 512px at 14 of its
+    28 blocks (``DEPTH_CUTS``); the tiny model, encoders and 256px bins for
+    the rehearsal."""
     if tiny is None:
-        return {}
+        return depth_cut("train")
     return {"model_config_overrides": dict(tiny["sana"]),
             "aspect_ratio": str(tiny["resolution"])}
 
@@ -4816,9 +4956,10 @@ def pixart_otf_config(raw, out_dir, chunk, tiny):
     (validation every 1000, so its prompt builds the encoders and samples
     nothing).  LoKr rank 32, alpha 32 on to_q/to_k/to_v/to_out, the int8
     base, 8-bit Lion, REPA at lambda 0.05 after block 4, batch 8 in
-    chunks of 8, encoding on the fly.  ``tiny`` (the CPU rehearsal) taps
-    block 0 and projects to the tiny DINOv2's 32-wide tokens."""
-    extra = {}
+    chunks of 8, encoding on the fly; PixArt-Sigma XL-2 at 14 of its 28
+    blocks (``DEPTH_CUTS``).  ``tiny`` (the CPU rehearsal) taps block 0 and
+    projects to the tiny DINOv2's 32-wide tokens."""
+    extra = depth_cut("train")
     if tiny is not None:
         extra = {"model_config_overrides": dict(
                      tiny["pixart"], repa_depth="0", repa_target_dim="32"),
@@ -5353,33 +5494,35 @@ def sd35_adapted(cfg):
     """The MMDiT's projections that ``[to_q, to_k, to_v, to_out]`` adapt:
     both streams' q/k/v/out (the last block has no text output) and each
     MMDiT-X block's second attention."""
-    n, dual = cfg.num_layers, len(cfg.dual_attention_layers)
+    n = cfg.num_layers
+    dual = sum(i < n for i in cfg.dual_attention_layers)
     return 8 * n - 1 + 4 * dual
 
 
 @contextlib.contextmanager
 def drawn_modulation():
-    """The MMDiT's modulation layers drawn from the seed like its other
-    dense layers (lecun-normal) inside the block, where flax's
-    ``zeros_init`` (the JAX package's, and the port's) leaves every gate
-    at 0: on random weights every block would then add nothing to the
-    image or to the adapters' gradients."""
-    from yat_tpu_torch.models import layers, mmdit
-    zero = mmdit._ZeroDense.reset_parameters
-    mmdit._ZeroDense.reset_parameters = layers.AdapterDense.reset_parameters
+    """The modulation layers of the MMDiT and of Flux drawn from the seed
+    like their other dense layers (lecun-normal) inside the block, where
+    flax's ``zeros_init`` (the JAX package's, and the port's) leaves every
+    gate at 0: on random weights every block would then add nothing to
+    the image or to the adapters' gradients."""
+    from yat_tpu_torch.models import layers
+    zero = layers.ZeroDense.reset_parameters
+    layers.ZeroDense.reset_parameters = layers.AdapterDense.reset_parameters
     try:
         yield
     finally:
-        mmdit._ZeroDense.reset_parameters = zero
+        layers.ZeroDense.reset_parameters = zero
 
 
 def phase_sd35_serve(device, card, params=None, px=1024, window_ms=100.0):
     """SD3.5-medium served at 1024 px through HTTP (``phase_serve``):
-    CLIP-L, OpenCLIP-G and T5-XXL in fp32, the MMDiT in bf16, the fp32
-    16-channel KL-VAE; 20 Euler steps at shift 3.0, CFG 5.0; the
-    modulation drawn (``drawn_modulation``)."""
+    CLIP-L, OpenCLIP-G and T5-XXL in fp32, the MMDiT in bf16 at its first
+    15 blocks (``DEPTH_CUTS``), the fp32 16-channel KL-VAE; 20 Euler steps
+    at shift 3.0, CFG 5.0; the modulation drawn (``drawn_modulation``)."""
     with drawn_modulation():
-        return phase_serve(params or serve_params(), device, card,
+        return phase_serve(params or serve_params(
+            model_config_overrides=dict(DEPTH_CUTS["sd35"])), device, card,
                            family="sd35", px=px,
                            profile=device.type == "cuda",
                            window_ms=window_ms)
@@ -5453,15 +5596,16 @@ def sd35_batch(trainer, device, side):
 def phase_sd35_train(device, card, tiny=None):
     """``configs/sd35_flow_lokr.yaml`` through ``frontends.sd35.main`` as
     written but for its files and mesh (``sd35_train_config``): SD3.5-
-    medium at 1024 px, batch 8, LoKr rank 16 on to_q/to_k/to_v/to_out,
+    medium at its first 15 blocks (``DEPTH_CUTS``) at 1024 px, batch 8,
+    LoKr rank 16 on to_q/to_k/to_v/to_out,
     EMA, ``low_vram`` (each block recomputed in the backward; T5-XXL,
     the CLIPs and the VAE on the host between validation calls; the tiled
     decode), the modulation drawn (``drawn_modulation``), on a seeded
     feature shard at SD3.5's shapes: finite losses, every LoKr leaf
     changed and exported, the validation image at the last step, the
-    launches by step (K6 37 and K1 48 a forward, each block's again in
-    the backward, K6b 37 and K1b 48 a backward; the validation's 20 CFG
-    calls), the step time (mean and median), the peak (the run as written
+    launches by step (K6 37 and K1 48 a forward at full depth, 28 and 30
+    at 15 blocks, each block's again in the backward, K6b and K1b once a
+    backward; the validation's 20 CFG calls), the step time (mean and median), the peak (the run as written
     fits or fails) and one profiled step."""
     import torch
 
@@ -5474,9 +5618,9 @@ def phase_sd35_train(device, card, tiny=None):
     cuda = device.type == "cuda"
     with tempfile.TemporaryDirectory() as tmp:
         shard = os.path.join(tmp, "sd35-000000.tar")
-        extra = {} if tiny is None else {
-            "batch_size": "2", "aspect_ratio": "256",
-            "model_config_overrides": tiny}
+        extra = {"model_config_overrides": dict(DEPTH_CUTS["sd35"])} \
+            if tiny is None else {"batch_size": "2", "aspect_ratio": "256",
+                                  "model_config_overrides": tiny}
         cfg = sd35_train_config(shard, os.path.join(tmp, "out"),
                                 os.path.join(tmp, "ckpt"), **extra)
         params = TrainingParameters.from_dict(cfg)
@@ -5544,6 +5688,263 @@ def phase_sd35_train(device, card, tiny=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 15. Flux-2 Klein
+# ---------------------------------------------------------------------------
+
+FLUX_KERNELS = SD35_KERNELS
+FLUX_TRAIN_STEPS = 3
+# the width of the caption encoder the config pairs with (Gemma-2-2B), where
+# the preset holds 4096: the JAX package fails on the config as written
+FLUX_OVERRIDES = {"text_dim": "2304"}
+
+
+def flux_launches(cfg, grid, n_txt, passes):
+    """The launches of ``passes`` = (forwards, backwards) of the Flux
+    transformer, without remat, on a token ``grid`` with ``n_txt`` caption
+    tokens (``models.flux.kernel_calls``): K6 and K1 once a forward, K6b
+    once a backward, K1b once a backward but for double block 0's two
+    first norms, whose inputs are all frozen under adapters (the embedders
+    and the modulation are no targets); the XLA branch never."""
+    from yat_tpu_torch.models.flux import kernel_calls
+    calls = kernel_calls(cfg, grid[0], grid[1], n_txt)
+    n_attn = len(calls["flash_attention"])
+    n_norm = len(calls["adaln_layernorm"])
+    fwd, bwd = passes
+    return {"flash_attention": n_attn * fwd,
+            "adaln_layernorm": n_norm * fwd,
+            "flash_attention_bwd": n_attn * bwd,
+            "adaln_layernorm_bwd": (n_norm - 2) * bwd, "attention_xla": 0}
+
+
+def flux_adapted(cfg):
+    """The projections ``[to_q, to_k, to_v, to_out]`` adapt: both streams'
+    q/k/v/out in every double block; the single blocks' fused ``linear1``
+    and ``linear2`` match no target (in both packages)."""
+    return 8 * cfg.num_double_blocks
+
+
+def phase_flux_serve(device, card, params=None, px=1024, window_ms=100.0):
+    """Flux-2 Klein served at 1024 px through HTTP (``phase_serve``):
+    Gemma-2-2B and the 16-channel KL-VAE in fp32, the transformer in bf16
+    (``text_dim`` 2304, Gemma-2-2B's width); 20 Euler steps with the
+    dynamic shift, CFG 7.0 and the guidance embedding at 7.0, 4096 + 512
+    tokens; the modulation drawn (``drawn_modulation``)."""
+    with drawn_modulation():
+        return phase_serve(
+            params or serve_params(model_config_overrides=dict(
+                FLUX_OVERRIDES)), device, card, family="flux", px=px,
+            profile=device.type == "cuda", window_ms=window_ms)
+
+
+def flux_train_config(s3_url, out_dir, **extra):
+    """``configs/flux_klein_lora.yaml`` as written but for its files, its
+    mesh and ``text_dim``: the stand-in S3 endpoint for its R2 account's
+    (the config's keys, bucket and shard names kept), no pretrained pipe
+    (the modules random from the seed), no ``mesh_shape`` (the port trains
+    on one card), ``text_dim`` 2304 (``FLUX_OVERRIDES``),
+    ``FLUX_TRAIN_STEPS`` steps with validation at the last."""
+    import yaml
+    with open(os.path.join(REPO, "configs", "flux_klein_lora.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    for key in ("pretrained_pipe_path", "mesh_shape"):
+        cfg.pop(key)
+    cfg.update({"r2_endpoint": s3_url, "steps": str(FLUX_TRAIN_STEPS),
+                "num_steps_per_validation": str(FLUX_TRAIN_STEPS),
+                "model_config_overrides": dict(FLUX_OVERRIDES),
+                "output_dir": out_dir, "dataset_seed": "0", **extra})
+    return {k: (str(v) if isinstance(v, (int, float, bool)) else v)
+            for k, v in cfg.items()}
+
+
+def flux_encode_and_step(label, trainer, device, card, run_peak):
+    """One training step with its batch's encode in front of it, as the
+    run does both on one device (the feature cache's thread encodes the
+    next batches while a step runs): 4 seeded images at the square bucket
+    (the run's largest token grid) and their captions through the run's on-the-fly encoder (Gemma-2-2B
+    and the KL-VAE encoder in fp32), then the step.  Each part is timed
+    alone (the host synchronised) and, on the card, profiled alone, so the
+    step time the run reports splits into the encode and the denoiser
+    step.  On the card each part's memory above what the run keeps
+    resident is read too: resident + encode + step is the most the run
+    can hold when the cache's encode meets a step's peak, whatever the
+    thread's timing (the reason the run's peak moves between runs whose
+    batches and losses are the same)."""
+    import torch
+
+    from yat_tpu_torch.data.sampler import Batch
+    from yat_tpu_torch.train.encode import OnTheFlyEncodingSampler
+
+    cuda = device.type == "cuda"
+    enc = getattr(trainer.sampler, "sampler", trainer.sampler)
+    if not isinstance(enc, OnTheFlyEncodingSampler):
+        fail(f"{label}: the run's sampler {type(enc).__name__} does not "
+             "encode on the fly")
+    key = "1.0"
+    h, w = (int(d) for d in enc.image_sampler.aspect_ratios[key])
+    b = trainer.params.batch_size
+    rng = np.random.default_rng(5)
+    raw = Batch(ratio=key, captions=[f"a photograph of object {i} on a "
+                                     "wooden table" for i in range(b)],
+                images=rng.integers(0, 256, (b, h, w, 3), np.uint8))
+    gen = torch.Generator(device=device).manual_seed(5)
+    held = {}
+
+    def encode():
+        held["encoded"] = enc._encode_batch(raw)
+
+    def step():
+        trainer._step_fn(trainer._device_batch(held.pop("encoded")), gen)
+
+    ms, extra = {}, {}
+    if cuda:
+        torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() if cuda else 0
+    for part, fn in (("encode", encode), ("denoiser step", step)):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+            ms[part] = profile_run(
+                f"one {label} step's {part} ({b} images at {h}x{w})", fn,
+                card)[0]
+            extra[part] = torch.cuda.max_memory_allocated() - resident
+        else:
+            t0 = time.perf_counter()
+            fn()
+            ms[part] = (time.perf_counter() - t0) * 1e3
+    log(f"{label} [{card}]: one step's encode {ms['encode']:.1f} ms and "
+        f"denoiser step {ms['denoiser step']:.1f} ms at {h}x{w}"
+        f"{' (profiler on)' if cuda else ''}, "
+        f"{sum(ms.values()):.1f} ms together")
+    if cuda:
+        total = torch.cuda.get_device_properties(0).total_memory
+        worst = resident + sum(extra.values())
+        log(f"{label} [{card}]: resident {resident / 2**30:.2f} GiB, the "
+            f"encode {extra['encode'] / 2**30:.2f} GiB above it, the step "
+            f"{extra['denoiser step'] / 2**30:.2f} GiB; both at once "
+            f"{worst / 2**30:.2f} GiB of the card's {total / 2**30:.2f} GiB "
+            f"(the run's peak {run_peak / 2**30:.2f} GiB)")
+    return ms
+
+
+def phase_flux_train(device, card, tiny=None):
+    """``configs/flux_klein_lora.yaml`` through ``frontends.flux.main`` as
+    written but for its files, mesh and ``text_dim``
+    (``flux_train_config``): Flux-2 Klein at 1024 px, batch 4, LoRA rank
+    16 / alpha 16 on to_q/to_k/to_v/to_out (64 projections), bf16, no
+    remat, raw JPEGs at four 1024 px buckets in the config's two R2
+    shards, fetched through presigned GETs from a stand-in S3 endpoint on
+    127.0.0.1 and encoded on the fly (Gemma-2-2B and the KL-VAE in fp32),
+    the modulation drawn (``drawn_modulation``), ``FLUX_TRAIN_STEPS`` steps
+    with validation at the last: finite losses, every LoRA leaf changed and
+    exported, the validation image, the launches by step (24 K6, 49 K1, 24
+    K6b and 47 K1b a step; 24 K6 and 49 K1 for each of the validation's 20
+    CFG calls), the step time and the peak; then one step split into its
+    encode and its denoiser step (``flux_encode_and_step``).  A run that
+    does not fit in the card's memory fails the phase."""
+    import gc
+
+    import torch
+
+    from yat_tpu_torch.frontends.flux import main as flux_main
+    from yat_tpu_torch.train.validation import ValidationPipeline
+
+    label = "flux train"
+    cuda = device.type == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        written = flux_train_config("", "")
+        keys = (written["r2_access_key"], written["r2_secret_key"],
+                written["r2_bucket_name"])
+        names = written["r2_tar_files"]
+        t0 = time.perf_counter()
+        raw, sizes = write_raw_shards(tmp, 4 if tiny is None else 2,
+                                      scale=2.0 if tiny is None else 0.5,
+                                      shards=len(names))
+        root = os.path.join(tmp, "s3")
+        os.makedirs(root)
+        for path, name in zip(raw, names):
+            os.replace(path, os.path.join(root, name))
+        log(f"{label}: wrote {len(sizes)} JPEGs at sources "
+            f"{sorted(set(sizes))} into the config's shards {names} "
+            f"({sum(os.path.getsize(os.path.join(root, n)) for n in names) / 1e6:.1f}"
+            f" MB) in {time.perf_counter() - t0:.1f} s")
+        extra = {} if tiny is None else {
+            "batch_size": "2", "vae_max_batch_size": "2",
+            "text_encoder_max_batch_size": "2", "aspect_ratio": "256",
+            "model_config_overrides": tiny}
+        images = []
+        validate = ValidationPipeline.validate
+
+        def recording(self, trainer, x0=None):
+            got = validate(self, trainer, x0)
+            images.append(got)
+            return got
+        ValidationPipeline.validate = recording
+        try:
+            with StandInS3(root, *keys) as s3, working_dir(tmp), \
+                    drawn_modulation(), initial_state():
+                cfg = flux_train_config(s3.url, os.path.join(tmp, "out"),
+                                        **extra)
+                with recorded_batches() as grids:
+                    trainer, counts, wall, peak = drive_entry_point(
+                        label, flux_main, device, tmp, cfg)
+                out = {label: check_flux_run(label, trainer, cfg, counts,
+                                             cuda, grids, images, s3, names,
+                                             wall, peak, card)}
+                flux_encode_and_step(label, trainer, device, card, peak)
+        finally:
+            ValidationPipeline.validate = validate
+        del trainer
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def check_flux_run(label, trainer, cfg, counts, cuda, grids, images, s3,
+                   names, wall, peak, card):
+    """The checks of one Flux training run (``phase_flux_train``)."""
+    import torch
+
+    model_cfg = trainer.flux_config
+    check_trained(label, trainer, cfg, None, flux_adapted(model_cfg))
+    steps = int(cfg["steps"])
+    if len(grids) != steps or len(images) != 1:
+        fail(f"{label}: {len(grids)} batches for {steps} steps, "
+             f"{len(images)} validations (expected 1)")
+    fetched = sorted({k for k, _ in s3.served})
+    if s3.rejected or not fetched or not set(fetched) <= set(names):
+        fail(f"{label}: the stand-in endpoint served {fetched} of {names} "
+             f"and rejected {s3.rejected} requests")
+    log(f"{label}: {len(s3.served)} signed GETs of the shards {fetched}, "
+        "none rejected")
+    vp = trainer.validation_pipeline
+    px = vp.grid_hw[0] * 2 * trainer.decode_latents.module.cfg.compression
+    for tag, img in images[0].items():
+        if img.shape != (px, px, 3) or not np.isfinite(img).all():
+            fail(f"{label}: validation image {tag} {img.shape} not "
+                 f"finite / not {px}x{px}x3")
+    from yat_tpu_torch.frontends.flux import FLUX_CAPTION_LEN
+    want = dict.fromkeys(FLUX_KERNELS, 0)
+    runs = [((h // 2, w // 2), rung, (1, 1)) for (h, w), rung in grids]
+    runs += [(vp.grid_hw, FLUX_CAPTION_LEN, (1, 0))] * vp.num_steps
+    for grid, rung, passes in runs:
+        for k, n in flux_launches(model_cfg, grid, rung, passes).items():
+            want[k] += n if cuda else 0
+    check_launches(label, counts, want,
+                   lambda k: f"{steps} steps at latent grids "
+                   f"{sorted(set(g for g, _ in grids))} and {vp.num_steps} "
+                   "validation CFG calls")
+    log_step_rate(label, trainer, wall, peak, card)
+    TRAIN_PEAKS[label] = peak
+    if cuda:
+        total = torch.cuda.get_device_properties(0).total_memory
+        log(f"{label} [{card}]: batch {trainer.params.batch_size} at "
+            f"{trainer.params.aspect_ratios or 1024} px, as written: fits, "
+            f"peak {peak / 2**30:.2f} GiB of the card's "
+            f"{total / 2**30:.2f} GiB")
+    return {k: counts[k] for k in FLUX_KERNELS}
+
+
 def main() -> None:
     import gc
 
@@ -5578,23 +5979,29 @@ def main() -> None:
                                profile=True)
     for family in ("sana", "pixart"):
         counts[f"pretrained_{family}"] = timed(
-            f"pretrained {family}", phase_pretrained, device, card, family)
-    counts["train"] = timed("train", phase_train, device, card)
+            f"pretrained {family}", phase_pretrained, device, card, family,
+            extra={"model_config_overrides": dict(DEPTH_CUTS["pretrained"])})
+    counts["train"] = timed("train", phase_train, device, card,
+                            cfg_extra=depth_cut("train"))
     counts["adapter_kinds"] = timed("adapter kinds", phase_adapter_kinds,
-                                    device, card)
+                                    device, card,
+                                    cfg_extra=depth_cut("train"))
     counts["pixart_train"] = timed("pixart train", phase_pixart_train,
-                                   device, card)
+                                   device, card,
+                                   cfg_extra=depth_cut("train"))
     counts["int8_train"] = timed("int8 train", phase_train, device, card,
-                                 cfg_extra=INT8_KEYS, label="int8 train")
+                                 cfg_extra=depth_cut("train", **INT8_KEYS),
+                                 label="int8 train")
     counts["full_ft"] = timed("full fine-tune", phase_full_finetune, device,
                               card)
     counts["explore_train"] = timed(
         "explore+preserve train", phase_train, device, card,
-        cfg_extra=EXPLORE_KEYS, label="explore+preserve train", remat=False)
+        cfg_extra=depth_cut("train", **EXPLORE_KEYS),
+        label="explore+preserve train", remat=False)
     counts["pixart_preserve_train"] = timed(
         "pixart preserve train", phase_pixart_train, device, card,
-        cfg_extra=PIXART_PRESERVE_KEYS, label="pixart preserve train",
-        remat=False)
+        cfg_extra=depth_cut("train", **PIXART_PRESERVE_KEYS),
+        label="pixart preserve train", remat=False)
     counts.update(timed("raw images", phase_raw_images, device, card))
     counts["sd15"] = timed("serve sd15", phase_serve, serve_params(), device,
                            card, family="sd15", profile=True)
@@ -5609,6 +6016,10 @@ def main() -> None:
     counts["sd35"] = timed("serve sd35", phase_sd35_serve, device, card)
     counts["sd35_train"] = timed("sd35 train", phase_sd35_train, device,
                                  card)
+    counts["flux"] = timed("serve flux", phase_flux_serve, device, card)
+    for label, c in timed("flux train", phase_flux_train, device,
+                          card).items():
+        counts[label.replace(" ", "_")] = c
     log(f"seconds by phase: {seconds}; "
         f"{time.perf_counter() - t_start:.1f} s in all")
 
@@ -5651,7 +6062,8 @@ def main() -> None:
                       "full_ft", "explore_train", "pixart_preserve_train",
                       "raw_sana", "raw_pixart", "sd15", "sdxl",
                       "sd15_train", "sdxl_train",
-                      "sdxl_train_low_vram", "sd35", "sd35_train"):
+                      "sdxl_train_low_vram", "sd35", "sd35_train", "flux",
+                      "flux_train"):
             if other != run and name in counts.get(other, {}) \
                     and counts[other][name]:
                 row[f"launches_{other}"] = counts[other][name]

@@ -53,6 +53,7 @@ def test_scan_covers_the_package():
             "yat_tpu_torch/data/generate_shards.py",
             "yat_tpu_torch/train/encode.py", "yat_tpu_torch/train/extract.py",
             "yat_tpu_torch/models/mmdit.py", "yat_tpu_torch/frontends/sd35.py",
+            "yat_tpu_torch/models/flux.py", "yat_tpu_torch/frontends/flux.py",
             "chip_smoke.py"} <= names
 
 

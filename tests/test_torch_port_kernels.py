@@ -154,7 +154,8 @@ def test_chip_smoke_k1_k3_cases_on_cpu():
             assert chip_smoke.compare(name, got, want)[2]
     assert labels == {
         "adaln_layernorm": ["serve", "train", "ragged", "pixart-serve",
-                            "generic", "sd35-image", "sd35-text"],
+                            "generic", "sd35-image", "sd35-text",
+                            "flux-image", "flux-text", "flux-single"],
         "linear_attention": ["serve", "train", "ragged", "ragged-17", "d64",
                              "fp32-state", "nan"]}
 
@@ -181,7 +182,8 @@ def test_chip_smoke_k1b_cases_on_cpu():
         want = plain(x, sc, g)
         assert chip_smoke.compare(name, want, want)[2]
     assert labels == ["train", "pixart-train", "ragged", "generic",
-                      "unaligned", "sd35-image", "sd35-text"]
+                      "unaligned", "sd35-image", "sd35-text", "flux-image",
+                      "flux-text"]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1118,6 +1120,36 @@ def test_card_sd35_shapes(cuda, dtype, name, label):
     ragged 4429 tokens: a last query and key block of 77 rows) and K1/K1b
     at width 1536 (chip_smoke.py's ``SD35_CASES``): one launch each,
     within chip_smoke.py's tolerance of the plain version."""
+    import chip_smoke
+    case = next(c for c in chip_smoke.kernel_cases(cuda)
+                if c[:3] == (name, label, dtype))
+    _, _, _, make, kern, plain = case[:6]
+    args = make()
+    handle = {"flash_attention": TA.FLASH_ATTENTION,
+              "flash_attention_bwd": TA.FLASH_ATTENTION_BWD,
+              "adaln_layernorm": TN.ADALN,
+              "adaln_layernorm_bwd": TN.ADALN_BWD}[name]
+    before = handle.launches
+    got = kern(*args)
+    torch.cuda.synchronize()
+    assert handle.launches == before + 1
+    assert chip_smoke.compare(name, got, plain(*args))[2]
+
+
+def _flux_cases():
+    import chip_smoke
+    return [(name, label) for name, cases in chip_smoke.FLUX_CASES.items()
+            for label, _ in cases]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name,label", _flux_cases())
+def test_card_flux_shapes(cuda, dtype, name, label):
+    """K6/K6b at Flux-2 Klein's attention (head dim 128 over 4096 + 512
+    tokens, at the held batch 2) and K1/K1b at width 3072 (chip_smoke.py's
+    ``FLUX_CASES``): one launch each, within chip_smoke.py's tolerance of
+    the plain version."""
     import chip_smoke
     case = next(c for c in chip_smoke.kernel_cases(cuda)
                 if c[:3] == (name, label, dtype))

@@ -510,7 +510,7 @@ def test_other_families_name_their_roadmap_item(tmp_path):
     params = TrainingParameters.from_dict(_raw(
         "sana", pretrained_model_path=str(tmp_path)))
     with pytest.raises(NotImplementedError, match="item 10"):
-        load_pretrained_backbone(params, "flux", None)
+        load_pretrained_backbone(params, "pixeldit", None)
 
 
 # ---------------------------------------------------------------------------

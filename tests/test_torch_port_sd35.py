@@ -648,3 +648,30 @@ def test_chip_smoke_sd35_launch_model():
                 "lora_target_modules", "validation_prompts", "bfloat16"):
         want = shipped[key]
         assert cfg[key] == (want if isinstance(want, list) else str(want))
+
+
+def test_chip_smoke_sd35_depth_cut_keeps_every_block_kind():
+    """The smoke's SD3.5 depth cut removes blocks only: the cut model still
+    holds MMDiT-X blocks, a plain MMDiT block and the published last block
+    (no second attention, no text output), and its launches are the full
+    model's less the blocks cut."""
+    import chip_smoke
+    from yat_tpu_torch.config import TrainingParameters
+    from yat_tpu_torch.frontends.sd35 import build_config
+    from yat_tpu_torch.models.mmdit import MMDiT, SD35_MEDIUM
+
+    cfg = build_config(TrainingParameters.from_dict(
+        chip_smoke.sd35_train_config("a.tar", "out", "ckpt",
+                                     **chip_smoke.depth_cut("sd35"))))
+    assert dataclasses.replace(cfg, num_layers=SD35_MEDIUM.num_layers) == \
+        SD35_MEDIUM
+    with torch.device("meta"):
+        blocks = MMDiT(cfg).blocks
+    kinds = [(b.dual, b.last) for b in blocks]
+    assert (True, False) in kinds and (False, False) in kinds
+    assert kinds[-1] == (False, True)
+    assert chip_smoke.sd35_launches(cfg, (128, 128), (1, 0)) == {
+        "flash_attention": 28, "adaln_layernorm": 30,
+        "flash_attention_bwd": 0, "adaln_layernorm_bwd": 0,
+        "attention_xla": 0}
+    assert chip_smoke.sd35_adapted(cfg) == 8 * 15 - 1 + 4 * 13

@@ -461,7 +461,7 @@ def test_pretrained_unet_loads_from_pipe_dir_and_single_file(tmp_path):
     for path, t in flax_params(m).items():
         np.testing.assert_array_equal(t.numpy(), want[path])
     with pytest.raises(NotImplementedError, match="item 10"):
-        load_pretrained_backbone(p1, "flux", None)
+        load_pretrained_backbone(p1, "pixeldit", None)
 
 
 # ---------------------------------------------------------------------------

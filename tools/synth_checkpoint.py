@@ -3,7 +3,7 @@
 The repository holds no pretrained weights, so the loaders of both
 packages are tested on files synthesized here: the same keys, shapes and
 dtypes as the published SANA, PixArt-Sigma, Gemma-2, T5, CLIP, SD1.5/SDXL
-UNet, SD3.5 MMDiT, DC-AE and SD KL-VAE checkpoints (and the CompVis single file of
+UNet, SD3.5 MMDiT, Flux transformer, DC-AE and SD KL-VAE checkpoints (and the CompVis single file of
 SD1.5, :func:`write_compvis_single_file`), with seeded values.  Imports numpy only (``torch`` for
 ``.bin`` files, inside :func:`write_bin`), never JAX or either package, so
 the JAX package's tests, the port's tests and ``chip_smoke.py`` share it.
@@ -24,6 +24,10 @@ provably covers the whole model.  A rule is ``(regex, template, kind)``;
   ``[d, c, p, p]`` convolution, in (h, w, c) patch order;
 * ``norm1``: Gemma's RMSNorm, stored as ``scale - 1``;
 * ``raw``: ``template`` is the whole key, the leaf as it is;
+* ``split{w0},{w1},...``: one flax leaf stored as several torch tensors
+  (``template`` holds their keys, ``|``-separated), the leaf's output axis
+  cut in the ratio of the weights (Flux's fused ``linear1`` from
+  ``to_q``, ``to_k``, ``to_v`` and ``proj_mlp``);
 * ``drop``: not in the checkpoint (a torch layer without that bias); the
   loader must set it to zero.
 
@@ -129,13 +133,42 @@ def match(path: str, rules: Iterable[Rule]):
             return template.format(*m.groups()), kind
         leaf = path.rsplit(".", 1)[-1]
         suffix = "bias" if leaf == "bias" else "weight"
-        return f"{template.format(*m.groups())}.{suffix}", kind
+        return "|".join(f"{t}.{suffix}" for t in
+                        template.format(*m.groups()).split("|")), kind
     raise KeyError(f"no synthesis rule for model leaf {path}")
+
+
+def _split(kind: str):
+    """``(whole kind, piece index or None)`` of a rule kind: a written
+    piece of a ``split`` leaf carries ``@{index}``."""
+    base, _, j = kind.partition("@")
+    return base, (int(j) if j else None)
+
+
+def split_sizes(kind: str, total: int) -> List[int]:
+    """The pieces' sizes along the output axis of a ``split`` leaf."""
+    w = [float(x) for x in _split(kind)[0][len("split"):].split(",")]
+    sizes = [int(round(total * x / sum(w))) for x in w]
+    sizes[-1] = total - sum(sizes[:-1])
+    return sizes
+
+
+def _piece(t: np.ndarray, kind: str) -> np.ndarray:
+    """The ``@j`` piece of a ``split`` leaf's torch tensor (rows of a
+    weight, entries of a bias)."""
+    j = _split(kind)[1]
+    sizes = split_sizes(kind, t.shape[0])
+    a = sum(sizes[:j])
+    return np.ascontiguousarray(t[a:a + sizes[j]])
 
 
 def torch_shape(shape: tuple, kind: str, path: str) -> tuple:
     """The checkpoint tensor's shape of a flax-layout leaf."""
     shape = tuple(int(s) for s in shape)
+    base, j = _split(kind)
+    if j is not None:
+        whole = torch_shape(shape, base, path)
+        return (split_sizes(kind, whole[0])[j],) + whole[1:]
     if kind in ("raw", "norm1") or not path.endswith(".kernel"):
         return shape
     if len(shape) == 2 and kind == "conv1x1":
@@ -237,6 +270,9 @@ def plan(shapes: Mapping[str, tuple], rules: List[Rule]):
         key, kind = match(path, rules)
         if key is None:
             dropped.append(path)
+        elif "|" in key:
+            written += [(path, tuple(shapes[path]), k, f"{kind}@{j}")
+                        for j, k in enumerate(key.split("|"))]
         else:
             written.append((path, tuple(shapes[path]), key, kind))
     keys = [w[2] for w in written]
@@ -253,8 +289,10 @@ def synth(shapes: Mapping[str, tuple], rules: List[Rule], seed: int,
     written, dropped = plan(shapes, rules)
     sd, expected = {}, {}
     for path, shape, key, kind in written:
-        v = leaf_value(seed, path, shape, kind, dtype)
-        sd[key] = to_torch_layout(v, kind, path)
+        base, j = _split(kind)
+        v = leaf_value(seed, path, shape, base, dtype)
+        t = to_torch_layout(v, base, path)
+        sd[key] = t if j is None else _piece(t, kind)
         expected[path] = v
     for path in dropped:
         expected[path] = np.zeros(shapes[path], np.float32)
@@ -314,8 +352,13 @@ def write_checkpoint(dirpath: str, shapes: Mapping[str, tuple],
     grid = grid or dtype
 
     def maker(path, shape, kind):
-        return lambda: to_torch_layout(
-            leaf_value(seed, path, shape, kind, grid), kind, path)
+        base, j = _split(kind)
+
+        def make():
+            t = to_torch_layout(leaf_value(seed, path, shape, base, grid),
+                                base, path)
+            return t if j is None else _piece(t, kind)
+        return make
 
     entries = [(key, torch_shape(shape, kind, path),
                 maker(path, shape, kind))
@@ -429,6 +472,49 @@ def sd3_rules(patch_size: int = 2) -> List[Rule]:
         (r"^blocks_(\d+)\.c_ff\.fc1\.", f"{b}.ff_context.net.0.proj",
          "auto"),
         (r"^blocks_(\d+)\.c_ff\.fc2\.", f"{b}.ff_context.net.2", "auto"),
+        (r"^final_mod\.", "norm_out.linear", "auto"),
+        (r"^proj_out\.", "proj_out", "auto"),
+    ]
+
+
+def flux_rules(mlp_ratio: float = 4.0) -> List[Rule]:
+    """diffusers FluxTransformer2DModel (the transformer/ of the Flux
+    pipelines): a double block's image half under ``attn.to_*`` and ``ff``,
+    its caption half under ``attn.add_*_proj``, ``to_add_out`` and
+    ``ff_context``; a single block's fused ``linear1`` as ``attn.to_q``,
+    ``attn.to_k``, ``attn.to_v`` and ``proj_mlp`` (the MLP ``mlp_ratio``
+    times as wide), its ``linear2`` as ``proj_out``."""
+    d, s = "transformer_blocks.{0}", "single_transformer_blocks.{0}"
+    fused = "|".join(f"{s}.{t}" for t in ("attn.to_q", "attn.to_k",
+                                          "attn.to_v", "proj_mlp"))
+    return [
+        (r"^img_in\.", "x_embedder", "auto"),
+        (r"^txt_in\.", "context_embedder", "auto"),
+        (r"^time_embed\.linear_(\d)\.",
+         "time_text_embed.timestep_embedder.linear_{0}", "auto"),
+        (r"^guidance_embed\.linear_(\d)\.",
+         "time_text_embed.guidance_embedder.linear_{0}", "auto"),
+        (r"^double_(\d+)\.img_mod\.lin\.", f"{d}.norm1.linear", "auto"),
+        (r"^double_(\d+)\.txt_mod\.lin\.", f"{d}.norm1_context.linear",
+         "auto"),
+        (r"^double_(\d+)\.img_(to_[qkv])\.", f"{d}.attn.{{1}}", "auto"),
+        (r"^double_(\d+)\.img_to_out\.", f"{d}.attn.to_out.0", "auto"),
+        (r"^double_(\d+)\.txt_to_([qkv])\.", f"{d}.attn.add_{{1}}_proj",
+         "auto"),
+        (r"^double_(\d+)\.txt_to_out\.", f"{d}.attn.to_add_out", "auto"),
+        (r"^double_(\d+)\.img_norm_([qk])\.", f"{d}.attn.norm_{{1}}",
+         "auto"),
+        (r"^double_(\d+)\.txt_norm_([qk])\.", f"{d}.attn.norm_added_{{1}}",
+         "auto"),
+        (r"^double_(\d+)\.img_ff_1\.", f"{d}.ff.net.0.proj", "auto"),
+        (r"^double_(\d+)\.img_ff_2\.", f"{d}.ff.net.2", "auto"),
+        (r"^double_(\d+)\.txt_ff_1\.", f"{d}.ff_context.net.0.proj",
+         "auto"),
+        (r"^double_(\d+)\.txt_ff_2\.", f"{d}.ff_context.net.2", "auto"),
+        (r"^single_(\d+)\.mod\.lin\.", f"{s}.norm.linear", "auto"),
+        (r"^single_(\d+)\.linear1\.", fused, f"split1,1,1,{mlp_ratio:g}"),
+        (r"^single_(\d+)\.linear2\.", f"{s}.proj_out", "auto"),
+        (r"^single_(\d+)\.norm_([qk])\.", f"{s}.attn.norm_{{1}}", "auto"),
         (r"^final_mod\.", "norm_out.linear", "auto"),
         (r"^proj_out\.", "proj_out", "auto"),
     ]

@@ -24,10 +24,10 @@ of REPA's targets (``build_dino_encoder``, which the on-the-fly and
 Dreambooth samplers call on each whole batch under ``use_repa``) and
 the pretrained adapters of ``lora_pretrained`` for serving
 (``attach_pretrained_adapters``).  The denoisers of SANA, PixArt-Sigma,
-SD1.5, SDXL and SD3.5 load from diffusers files, and the UNet, CLIP and
-VAE of SD1.5 and SDXL also from a CompVis single file
-(``pretrained_pipe_single_file``); Flux and PixelDiT (and the PixelDiT
-hub fetch) are not ported (ROADMAP queue 1, items 10b and 10c).
+SD1.5, SDXL, SD3.5 and Flux load from diffusers files, and the UNet, CLIP
+and VAE of SD1.5 and SDXL also from a CompVis single file
+(``pretrained_pipe_single_file``); PixelDiT (and its hub fetch) is not
+ported (ROADMAP queue 1, item 10c).
 
 Two divergences from the JAX package, both repairs: the SDXL VAE (and
 PixArt-Sigma's, whose published pipe ships SDXL's) scales its latents by
@@ -104,7 +104,7 @@ def build_module(module_fn, device, tree, seed, dtype=None,
 
 
 # families whose converters are ported; the others wait for ROADMAP item 10
-_PORTED_FAMILIES = ("sana", "pixart", "sd15", "sdxl", "sd35")
+_PORTED_FAMILIES = ("sana", "pixart", "sd15", "sdxl", "sd35", "flux")
 # the families whose single-file CompVis checkpoints load
 _SINGLE_FILE_FAMILIES = ("sd15", "sdxl")
 
@@ -247,6 +247,9 @@ def load_pretrained_backbone(params: TrainingParameters, family: str, cfg):
     elif family == "sd35":
         from yat_tpu_torch.models.convert_dit import convert_sd3_mmdit
         tree = convert_sd3_mmdit(sd, cfg.num_layers)
+    elif family == "flux":
+        from yat_tpu_torch.models.convert_dit import convert_flux
+        tree = convert_flux(sd, cfg.num_double_blocks, cfg.num_single_blocks)
     else:
         from yat_tpu_torch.models.convert_dit import convert_pixart
         tree = convert_pixart(sd, cfg.num_layers)

@@ -3,7 +3,7 @@ images for a prompt list, write PNGs.
 
 Counterpart of ``yat_tpu/generate.py`` on the PyTorch port:
 
-    python -m yat_tpu_torch.generate --family sana|pixart|sd15|sdxl|sd35 \
+    python -m yat_tpu_torch.generate --family sana|pixart|sd15|sdxl|sd35|flux \
         --config config.yaml --prompt "a red fox in snow" \
         --prompt "a lighthouse at dusk" --steps 20 --guidance-scale 5.0 \
         [--sampler auto|dpm] [--cache-interval N] --out generated/ \
@@ -15,8 +15,9 @@ load; without them the modules are random from ``dataset_seed``.
 ``lora_pretrained`` (a trained adapter of any kind, or a PEFT file)
 rides on the denoiser, built from the config's ``lora_*`` keys.
 ``--sampler dpm`` selects DPM-Solver++(2M); ``--cache-interval N`` (flow
-families: SANA) evaluates the denoiser on every Nth step and extrapolates the
-velocity in between.
+families: SANA, SD3.5, Flux) evaluates the denoiser on every Nth step and
+extrapolates the velocity in between.  Flux samples with its own guidance embedding
+beside true CFG and has no DPM ladder (``--sampler dpm`` raises).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ FAMILIES = {
     "sd15": "yat_tpu_torch.frontends.sd15",
     "sdxl": "yat_tpu_torch.frontends.sdxl",
     "sd35": "yat_tpu_torch.frontends.sd35",
+    "flux": "yat_tpu_torch.frontends.flux",
 }
 
 
@@ -138,7 +140,7 @@ def main(argv: Optional[list] = None) -> None:
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--sampler", default=None, choices=("auto", "dpm"),
                    help="auto: the family's ladder (flow-match Euler, "
-                        "DDIM); dpm: DPM-Solver++(2M)")
+                        "DDIM); dpm: DPM-Solver++(2M) (not flux)")
     p.add_argument("--cache-interval", type=int, default=None,
                    help="flow families: evaluate the denoiser every Nth "
                         "step and extrapolate the velocity in between")

@@ -1,14 +1,18 @@
 """DiT checkpoint converters: diffusers PixArtTransformer2DModel → the
-flax-layout PixArtTransformer2D tree, and SD3Transformer2DModel → MMDiT.
+flax-layout PixArtTransformer2D tree, SD3Transformer2DModel → MMDiT and
+FluxTransformer2DModel → FluxTransformer.
 
-Counterparts of ``convert_pixart`` and ``convert_sd3_mmdit`` of
+Counterparts of ``convert_pixart``, ``convert_sd3_mmdit`` and
+``convert_flux`` of
 ``yat_tpu/models/convert_dit.py`` (with its ``_lin_opt``/``_norm_opt``
 helpers).  Same layout rules as ``models/convert.py``; the 2x2 conv patch
 embed becomes the Dense over ``p*p*C`` in (h, w, c) patch order.  SD3's
 dual-stream naming maps the attention halves: diffusers ``attn.to_q``
 (image) / ``attn.add_q_proj`` (text) → ``x_to_q`` / ``c_to_q``; the
 checkpoint's ``pos_embed.pos_embed`` buffer is not read (the MMDiT
-computes its table).
+computes its table).  Flux's single blocks keep ``attn.to_q/to_k/to_v``
+and ``proj_mlp`` apart in the file; the model's ``linear1`` is their
+concatenation along the output axis, in that order.
 """
 
 from __future__ import annotations
@@ -125,6 +129,62 @@ def convert_sd3_mmdit(sd: Dict[str, np.ndarray],
         _lin_opt(sd, f"{p}.ff.net.2", tree, f"{q}.x_ff.fc2")
         _lin_opt(sd, f"{p}.ff_context.net.0.proj", tree, f"{q}.c_ff.fc1")
         _lin_opt(sd, f"{p}.ff_context.net.2", tree, f"{q}.c_ff.fc2")
+    _lin_opt(sd, "norm_out.linear", tree, "final_mod")
+    _lin_opt(sd, "proj_out", tree, "proj_out")
+    return tree
+
+
+def convert_flux(sd: Dict[str, np.ndarray], num_double: int,
+                 num_single: int) -> Dict[str, Any]:
+    """diffusers FluxTransformer2DModel → FluxTransformer: the image and
+    caption embedders, the timestep and guidance embedders, each double
+    block's ``norm1``/``norm1_context`` modulation, the joint attention's
+    image (``attn.to_*``) and caption (``attn.add_*_proj``,
+    ``to_add_out``) halves with their qk norms and both FFNs; each single
+    block's modulation, ``linear1`` fused from ``to_q``, ``to_k``,
+    ``to_v`` and ``proj_mlp``, ``proj_out`` as ``linear2`` and its qk
+    norms; ``norm_out.linear`` (diffusers' (scale, shift) order, as the
+    model reads it) and ``proj_out``."""
+    tree: dict = {}
+    _lin_opt(sd, "x_embedder", tree, "img_in")
+    _lin_opt(sd, "context_embedder", tree, "txt_in")
+    for src, dst in (("timestep_embedder", "time_embed"),
+                     ("guidance_embedder", "guidance_embed")):
+        for j in (1, 2):
+            _lin_opt(sd, f"time_text_embed.{src}.linear_{j}", tree,
+                     f"{dst}.linear_{j}")
+    for i in range(num_double):
+        p, q = f"transformer_blocks.{i}", f"double_{i}"
+        _lin_opt(sd, f"{p}.norm1.linear", tree, f"{q}.img_mod.lin")
+        _lin_opt(sd, f"{p}.norm1_context.linear", tree, f"{q}.txt_mod.lin")
+        for name in ("to_q", "to_k", "to_v"):
+            _lin_opt(sd, f"{p}.attn.{name}", tree, f"{q}.img_{name}")
+        _lin_opt(sd, f"{p}.attn.to_out.0", tree, f"{q}.img_to_out")
+        for src, dst in (("add_q_proj", "txt_to_q"),
+                         ("add_k_proj", "txt_to_k"),
+                         ("add_v_proj", "txt_to_v"),
+                         ("to_add_out", "txt_to_out")):
+            _lin_opt(sd, f"{p}.attn.{src}", tree, f"{q}.{dst}")
+        for src, dst in (("norm_q", "img_norm_q"), ("norm_k", "img_norm_k"),
+                         ("norm_added_q", "txt_norm_q"),
+                         ("norm_added_k", "txt_norm_k")):
+            _norm_opt(sd, f"{p}.attn.{src}", tree, f"{q}.{dst}")
+        for src, tag in (("ff", "img"), ("ff_context", "txt")):
+            _lin_opt(sd, f"{p}.{src}.net.0.proj", tree, f"{q}.{tag}_ff_1")
+            _lin_opt(sd, f"{p}.{src}.net.2", tree, f"{q}.{tag}_ff_2")
+    for i in range(num_single):
+        p, q = f"single_transformer_blocks.{i}", f"single_{i}"
+        _lin_opt(sd, f"{p}.norm.linear", tree, f"{q}.mod.lin")
+        if f"{p}.proj_mlp.weight" in sd:
+            parts = [f"{p}.attn.to_q", f"{p}.attn.to_k", f"{p}.attn.to_v",
+                     f"{p}.proj_mlp"]
+            w = np.concatenate([sd[f"{t}.weight"] for t in parts], 0)
+            _set(tree, f"{q}.linear1.kernel", np.ascontiguousarray(w.T))
+            _set(tree, f"{q}.linear1.bias", np.concatenate(
+                [sd[f"{t}.bias"] for t in parts], 0))
+        _lin_opt(sd, f"{p}.proj_out", tree, f"{q}.linear2")
+        _norm_opt(sd, f"{p}.attn.norm_q", tree, f"{q}.norm_q")
+        _norm_opt(sd, f"{p}.attn.norm_k", tree, f"{q}.norm_k")
     _lin_opt(sd, "norm_out.linear", tree, "final_mod")
     _lin_opt(sd, "proj_out", tree, "proj_out")
     return tree

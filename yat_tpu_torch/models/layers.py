@@ -354,6 +354,17 @@ class AdapterDense(nn.Module):
         return y
 
 
+class ZeroDense(AdapterDense):
+    """A dense layer whose random initialisation is zero (flax
+    ``zeros_init``), as the JAX package's modulation layers are (the
+    MMDiT's and Flux's)."""
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        self.weight.data.zero_()
+        if self.bias is not None:
+            self.bias.data.zero_()
+
+
 class Conv2d(nn.Module):
     """flax ``nn.Conv`` on NHWC tensors ('SAME' padding for odd kernels, or
     ``padding=(lo, hi)`` on both spatial dims as flax's explicit

@@ -58,6 +58,7 @@ from yat_tpu_torch.models.layers import (
     PatchEmbed,
     RMSNorm,
     TimestepEmbedder,
+    ZeroDense,
     unpatchify,
 )
 from yat_tpu_torch.ops.attention import flash_attention
@@ -124,23 +125,13 @@ def pos_embed_2d(h: int, w: int, dim: int, max_size: int = 192,
     return torch.from_numpy(table.astype(np.float32))
 
 
-class _ZeroDense(AdapterDense):
-    """A dense layer whose random initialisation is zero (flax
-    ``zeros_init``), as the JAX package's modulation layers are."""
-
-    def reset_parameters(self, gen: torch.Generator) -> None:
-        self.weight.data.zero_()
-        if self.bias is not None:
-            self.bias.data.zero_()
-
-
 class StreamModulation(nn.Module):
     """AdaLN-zero: conditioning → ``n_mods`` chunks ``[B, 1, D]`` (fp32)."""
 
     def __init__(self, hidden_dim: int, n_mods: int = 6):
         super().__init__()
         self.n_mods = n_mods
-        self.mod = _ZeroDense(hidden_dim, n_mods * hidden_dim,
+        self.mod = ZeroDense(hidden_dim, n_mods * hidden_dim,
                               dtype=torch.float32)
 
     def forward(self, cond: torch.Tensor) -> List[torch.Tensor]:
@@ -261,7 +252,7 @@ class MMDiT(nn.Module):
             MMDiTBlock(c, last=(i == c.num_layers - 1),
                        dual=(i in c.dual_attention_layers), dtype=dtype)
             for i in range(c.num_layers))
-        self.final_mod = _ZeroDense(d, 2 * d, dtype=torch.float32)
+        self.final_mod = ZeroDense(d, 2 * d, dtype=torch.float32)
         self.proj_out = AdapterDense(d, p * p * c.out_channels, dtype=dtype)
         # the position table by (grid, device), made once
         self._pos: Dict[tuple, torch.Tensor] = {}

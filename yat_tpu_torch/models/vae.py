@@ -250,6 +250,9 @@ KLVAE_SDXL = KLVAEConfig(scaling_factor=0.13025)
 # SD3.5's VAE: 16 latent channels, shifted then scaled
 KLVAE_SD35 = KLVAEConfig(latent_channels=16, scaling_factor=1.5305,
                          shift_factor=0.0609)
+# the Flux-2 Klein VAE: 16 channels, its own scale and shift
+KLVAE_FLUX = KLVAEConfig(latent_channels=16, scaling_factor=0.3611,
+                         shift_factor=0.1159)
 KLVAE_TINY_TEST = KLVAEConfig(block_out_channels=(32, 32),
                               layers_per_block=1)
 

@@ -11,6 +11,9 @@ into one model call, and ``make_pag_cfg_denoiser`` adds one perturbed call
 of the conditional branch.  Every sampler takes ``x0=`` in place of its
 seeded draw.
 
+``sample_flux`` is Flux's token-space Euler ladder (guidance embedding
+and true CFG) on the same flow-match machinery.
+
 Refiner timestep gating: with ``active_timesteps`` a sampler calls
 ``set_gate(timestep_gate(t, active_timesteps))`` before each step's model
 call and ``set_gate(None)`` when the ladder ends; the pipeline's
@@ -154,6 +157,53 @@ def sample_flow_match_cached(
                 v = v1 + (v1 - v2) / denom * (sigma - s1)
             x = schedule.euler_step(x, v.to(x.dtype), sigma, sigma_next)
     return x
+
+
+def sample_flux(model, schedule: FlowMatchSchedule,
+                grid_hw: Tuple[int, int], text_emb: torch.Tensor,
+                uncond_emb: Optional[torch.Tensor] = None,
+                guidance_scale: float = 7.0, num_steps: int = 20,
+                seed: int = 42, cache_interval: int = 1,
+                device: Optional[torch.device] = None,
+                x0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-space Euler sampling of the Flux family
+    (``yat_tpu/ops/sampling.py:sample_flux``): packed ``[B, h*w, C]``
+    tokens with rotary ids, the sigma ladder shifted by the token count
+    (``mu_for_seq_len``) under dynamic shifting, the model fed ``t / 1000``
+    with the guidance embedding at ``guidance_scale``, and with
+    ``uncond_emb`` true CFG by batch doubling (the guidance tiled).  The
+    seeded noise is one draw tiled over the batch; ``x0`` replaces it;
+    ``cache_interval > 1`` takes :func:`sample_flow_match_cached`."""
+    from yat_tpu_torch.models.flux import latent_ids
+    gh, gw = grid_hw
+    device = device if device is not None else text_emb.device
+    ids = latent_ids(gh, gw, device)
+    batch = text_emb.shape[0]
+    mu = (schedule.mu_for_seq_len(gh * gw)
+          if schedule.use_dynamic_shifting else None)
+    n = schedule.num_train_timesteps
+    g = torch.full((batch,), guidance_scale, dtype=torch.float32,
+                   device=device)
+    cfg = uncond_emb is not None and guidance_scale > 1.0
+    if cfg:
+        emb2, g2 = torch.cat([uncond_emb, text_emb], 0), torch.cat([g, g], 0)
+
+    def denoise(x, t):
+        t = t / n
+        if not cfg:
+            return model(x, text_emb, t, ids, guidance=g)
+        pred = model(torch.cat([x, x], 0), emb2, torch.cat([t, t], 0), ids,
+                     guidance=g2)
+        un, co = pred.chunk(2, dim=0)
+        return un + guidance_scale * (co - un)
+
+    shape = (batch, gh * gw, model.cfg.in_channels)
+    if cache_interval > 1:
+        return sample_flow_match_cached(denoise, shape, schedule, num_steps,
+                                        seed, mu, device, x0,
+                                        cache_interval=cache_interval)
+    return sample_flow_match(denoise, shape, schedule, num_steps, seed, mu,
+                             device, x0)
 
 
 def _initial_noise(seed, latent_shape, device, x0):

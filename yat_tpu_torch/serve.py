@@ -8,7 +8,7 @@ them as one CFG-batched sampling run.  Sampling settings are
 server-global.
 
     python -m yat_tpu_torch.serve --config config.yaml \
-        --family sana|pixart|sd15|sdxl|sd35 \
+        --family sana|pixart|sd15|sdxl|sd35|flux \
         --port 8000 --max-batch 4 --batch-window-ms 50 \
         [--sampler auto|dpm] [--cache-interval N] [--device cuda]
 
@@ -277,7 +277,8 @@ def main(argv: Optional[list] = None) -> None:
     p.add_argument("--guidance-scale", type=float, default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--sampler", default=None, choices=("auto", "dpm"),
-                   help="auto: the family's ladder; dpm: DPM-Solver++(2M)")
+                   help="auto: the family's ladder; dpm: DPM-Solver++(2M) "
+                        "(not flux)")
     p.add_argument("--cache-interval", type=int, default=None,
                    help="flow families: evaluate the denoiser every Nth "
                         "step and extrapolate the velocity in between")

@@ -4,7 +4,9 @@ Counterparts of ``yat_tpu/train/tasks.py:make_flow_matching_loss``,
 ``make_epsilon_loss``, ``repa_alignment_loss`` and
 ``make_preservation_loss``:
 
-* flow matching: ``x_t = (1 - s) x + s eps``, target ``eps - x``;
+* flow matching: ``x_t = (1 - s) x + s eps``, target ``eps - x``; Flux's
+  form (``make_flux_loss``) on 2x2-patchified, packed latents with the
+  dynamic shift of the token count;
 * epsilon prediction (PixArt-Sigma, SD1.5, SDXL): ``x_t = sqrt(abar) x +
   sqrt(1 - abar) eps`` at integer timesteps, target the schedule's (eps, or
   v), and with a learned-sigma head the prediction sliced to the latent
@@ -140,6 +142,69 @@ def make_flow_matching_loss(model, schedule: FlowMatchSchedule,
         return loss if repa is None else loss + repa_lambda * repa
 
     task_loss.draw = _drawer(draw_t)
+    return task_loss
+
+
+def make_flux_loss(model, schedule: FlowMatchSchedule,
+                   timestep_list: Optional[Sequence[int]] = None,
+                   bn_mean: Optional[torch.Tensor] = None,
+                   bn_var: Optional[torch.Tensor] = None) -> TaskLoss:
+    """The Flux-2 Klein loss (``yat_tpu/train/tasks.py:make_flux_loss``):
+    latents whose channels differ from the model's ``in_channels`` (VAE
+    output ``[B, H, W, 16]``) are patchified 2x2 (and standardized with
+    ``bn_mean``/``bn_var`` when given; the frontend gives none), packed
+    into tokens with rotary ids, noised in packed space at timesteps drawn
+    with the dynamic shift ``mu_for_seq_len(h*w)``, denoised at ``t /
+    1000``, and the velocity's MSE taken in unpacked space in fp32.  The
+    draws are the tokens' (``noise`` ``[B, h*w, C]``)."""
+    from yat_tpu_torch.models.flux import (latent_ids, pack_latents,
+                                           patchify_latents,
+                                           standardize_latents)
+    timestep_list = tuple(timestep_list) if timestep_list else None
+
+    def tokens_of(batch):
+        latents = batch["latents"]
+        x = latents
+        if latents.shape[-1] != model.cfg.in_channels:
+            x = patchify_latents(latents)
+            if bn_mean is not None:
+                x = standardize_latents(x, bn_mean, bn_var)
+        return pack_latents(x), x.shape[1], x.shape[2]
+
+    def draw_for(gh: int, gw: int):
+        mu = (schedule.mu_for_seq_len(gh * gw)
+              if schedule.use_dynamic_shifting else None)
+
+        def draw_t(gen: torch.Generator, b: int) -> Dict[str, torch.Tensor]:
+            timesteps, sigmas = schedule.training_draw(
+                gen, b, timestep_list=timestep_list, mu=mu)
+            return {"timesteps": timesteps, "sigmas": sigmas}
+        return draw_t
+
+    def task_loss(batch: Dict[str, torch.Tensor], gen: torch.Generator,
+                  deterministic: bool = True,
+                  draws: Optional[Dict[str, torch.Tensor]] = None
+                  ) -> torch.Tensor:
+        tokens, gh, gw = tokens_of(batch)
+        draws = _complete(draws, tokens, gen, draw_for(gh, gw))
+        timesteps, sigmas = draws["timesteps"], draws["sigmas"]
+        noise = draws["noise"].to(tokens.dtype)
+        _seed_lora_dropout(model, gen, deterministic)
+        x_t = schedule.add_noise(tokens, noise, sigmas)
+        pred = model(x_t, batch["embeddings"],
+                     timesteps / schedule.num_train_timesteps,
+                     latent_ids(gh, gw, tokens.device),
+                     deterministic=deterministic)
+        target = schedule.velocity_target(tokens, noise)
+        # the JAX loss compares unpacked [B, h, w, C] arrays: the same
+        # elements, so the same mean
+        return ((pred.float() - target.float()) ** 2).mean()
+
+    def draw(batch, gen):
+        tokens, gh, gw = tokens_of(batch)
+        return _complete(None, tokens, gen, draw_for(gh, gw))
+
+    task_loss.draw = draw
     return task_loss
 
 

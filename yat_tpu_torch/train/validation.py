@@ -238,6 +238,12 @@ class ValidationPipeline:
                 raise RuntimeError("the live trainable leaves were not "
                                    "restored after the EMA validation")
 
+    @staticmethod
+    def to_unit(img: np.ndarray) -> np.ndarray:
+        """An image in [0, 1]: a signed one (decoded, in [-1, 1]) maps
+        through ``(x + 1) / 2``."""
+        return np.clip((img + 1) / 2 if img.min() < -0.01 else img, 0, 1)
+
     @torch.inference_mode()
     def __call__(self, prompts: List[str],
                  x0: Optional[torch.Tensor] = None) -> Dict[str, np.ndarray]:
@@ -265,9 +271,7 @@ class ValidationPipeline:
                     lat = latents[j].float().cpu().numpy()
                     img = lat[..., :3]
                     img = (img - img.min()) / (img.max() - img.min() + 1e-8)
-                img = np.clip((img + 1) / 2 if img.min() < -0.01 else img,
-                              0, 1)
-                images[f"validation/{start + j}/{prompt}"] = img
+                images[f"validation/{start + j}/{prompt}"] = self.to_unit(img)
         return images
 
 
