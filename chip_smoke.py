@@ -72,7 +72,7 @@ Phases, each of which fails the run (exit code 1) when it fails:
    20 DDIM steps with CFG 5.0 and PAG 2.0, fp32 SD KL-VAE decoder): K6 runs
    its self-attention, K2's kernel its cross-attention in K4's place, and
    the XLA attention branch must not run;
-6b. pretrained: SANA-0.6B 512px (14 of its 28 blocks, ``DEPTH_CUTS``)
+6b. pretrained: SANA-0.6B 512px (8 of its 28 blocks, ``DEPTH_CUTS``)
    served from a seeded synthetic diffusers
    pipe directory in a temporary directory (``tools/synth_checkpoint.py``:
    ``transformer/`` with the full key space and its ``config.json``,
@@ -95,7 +95,7 @@ Phases, each of which fails the run (exit code 1) when it fails:
    stays random (its encoder file is about 9.5 GB in bf16; its loader is
    held against the JAX package on the CPU).  The hash tokenizer stands
    in for the pipe's (the card's machine has no ``transformers``);
-7. train: SANA-0.6B 512px LoRA training (14 of its 28 blocks, as in
+7. train: SANA-0.6B 512px LoRA training (8 of its 28 blocks, as in
    phases 7b-12: ``DEPTH_CUTS``) through the port's entry point
    ``yat_tpu_torch.frontends.sana.main`` on a synthetic feature shard
    (batch 16, bf16, rank-8 LoRA on to_q/to_k/to_v/to_out, AdamW with
@@ -113,7 +113,7 @@ Phases, each of which fails the run (exit code 1) when it fails:
    ``make_pipeline``, whose denoiser equals the live one bit for bit on a
    fixed input; DoRA under the refiner gate at 0 gives the scale-0 output
    (``m W / |W|``), not the base's;
-8. PixArt-Sigma XL-2 512px (14 of 28 blocks) LoRA training through
+8. PixArt-Sigma XL-2 512px (8 of 28 blocks) LoRA training through
    ``yat_tpu_torch.frontends.pixart.main`` on a synthetic feature shard
    (batch 8, bf16, rank-32 LoRA on to_q/to_k/to_v/to_out, 6 steps over the
    caption rungs 128 and 256/300): the same checks, with the launches per
@@ -144,7 +144,7 @@ Phases, each of which fails the run (exit code 1) when it fails:
 12. raw images: which decoder runs (the native libjpeg decoder where it
    builds, else cv2; printed with the reason) on 64 seeded JPEGs at four
    512px buckets in two local ``{jpg, txt}`` shards (SANA-0.6B and
-   PixArt-Sigma XL-2 at 14 of 28 blocks), and the host's decode
+   PixArt-Sigma XL-2 at 8 of 28 blocks), and the host's decode
    and resize of a batch of 16; ``configs/sana_extract_features.yaml``
    through ``yat_tpu_torch.frontends.sana.main`` without its R2 account
    (a stand-in S3 endpoint on 127.0.0.1, served from a thread here, checks
@@ -159,7 +159,7 @@ Phases, each of which fails the run (exit code 1) when it fails:
    step-3 checkpoint a resume whose ``skip_batches`` runs no encoder, and
    one profiled step with the cache encoding behind it;
    ``configs/pixart_repa.yaml`` as written but for its files and depth
-   (T5-XXL, the SD KL-VAE encoder, PixArt-Sigma XL-2 at 14 blocks random;
+   (T5-XXL, the SD KL-VAE encoder, PixArt-Sigma XL-2 at 8 blocks random;
    a random DINOv2
    ViT-B/14 for the missing checkpoint): LoKr rank 32 on an int8 base with
    8-bit Lion, REPA at 0.05 after block 4, encoding on the fly, 3 steps,
@@ -222,18 +222,40 @@ Phases, each of which fails the run (exit code 1) when it fails:
    fp32.  Then Flux-2 Klein served at 1024 px as in phase 6 (Gemma-2-2B
    and the 16-channel KL-VAE in fp32, the transformer in bf16 with
    ``text_dim`` 2304; 20 Euler steps with the dynamic shift, CFG 7.0 and
-   the guidance embedding at 7.0; 24 K6 and 49 K1 a CFG call, nothing else
+   the guidance embedding at 7.0; at 4 double and 8 single blocks
+   (``DEPTH_CUTS``) 12 K6 and 25 K1 a CFG call, nothing else
    of the port's) and ``configs/flux_klein_lora.yaml`` as written but for
    its files, its mesh and ``text_dim``: raw JPEGs in the config's two R2
    shards served by the stand-in S3 endpoint (signed GETs), encoded on the
-   fly, batch 4 at 1024 px, LoRA rank 16 on the 64 projections of the
+   fly, batch 4 at 1024 px, LoRA rank 16 on the 32 projections of the
    double blocks, 3 steps with the validation at the last; every LoRA
    leaf changed and exported, the validation image, the launches by step
-   (24 K6, 49 K1, 24 K6b, 47 K1b), the step time and the peak (a run
+   (12 K6, 25 K1, 12 K6b, 23 K1b), the step time and the peak (a run
    that does not fit fails the phase); then one step split into its
    batch's encode and its denoiser step, each timed and profiled alone,
    with each part's memory above what the run keeps resident.  The
    modulation is drawn from the seed as for SD3.5.
+
+16. PixelDiT: the kernel phase also holds K6/K6b at the patch stage's
+   ``[B, 1024, 16, 64]`` (through the gate) and at the pixel stage's
+   ``[B, 16384, 4, 64]`` and ``[B, 15552, 4, 64]`` (called directly; a
+   last block of 64 rows; held at batch 2, timed at 8 and 4), K4/K4b over
+   the 300-token caption padded to 384 keys with the caption masks, and
+   K1/K1b at ``[B, 1024, 1024]`` and ``[B, 16384, 256]``, bf16 and fp32.
+   Then PixelDiT served at 512 px at full width and depth as in phase 6
+   (Gemma-2-2B in bf16 at 300 tokens, no VAE; DPM-Solver++(2M) in flow
+   form, 20 steps, CFG 4.0; 28 K6, 24 K4 and 56 K1 a CFG call, nothing
+   else of the port's; the modulation drawn), the LoRA gradients of 2 + 1
+   full-width blocks on a 4-bit base at 512 px against the CPU, and
+   ``configs/pixeldit_repa.yaml`` as written but for its files: a
+   synthesized BF16 ``.pth`` in DiT naming (every base value checked
+   after the run), raw JPEGs at the square and the 864x288 bucket (15552
+   pixel tokens, no multiple of 128; its patch stage on the XLA branch),
+   REPA against a random DINOv2, 3 steps with a validation: the launches
+   by step, the REPA term by step and the leaves it reaches (blocks
+   0-12), the step time, the peak, one step split into encode and
+   denoiser step, and the pixel stage's attention at 864x288 on the
+   gate's XLA branch beside K6/K6b at the training batch.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -315,17 +337,23 @@ PROMPTS = ["a red fox in fresh snow", "a lighthouse at dusk",
            "a bowl of ramen on a wooden table", "a city street in the rain"]
 # largest |difference| of the [0, 1] image of one prompt sampled in a batch
 # of 4 and alone (bf16); an H100 80GB reads about 6.5e-3 for SANA and
-# 2.5e-2 for PixArt-Sigma
+# 2.5e-2 for PixArt-Sigma.  PixelDiT's sample is the image itself, with no
+# decoder after the sampler: its batch-size roundings, carried through 28
+# blocks with drawn modulation and CFG 4.0 over 20 DPM steps, read
+# 2.127e-1 on an H100 80GB in bf16, the same bits in two calls, and
+# 2.3e-5 with the run in fp32 (TF32 off), where the GEMMs round alike at
+# both batch sizes
 REPEAT_TOL = {"sana": 2e-2, "pixart": 5e-2, "sd15": 5e-2, "sdxl": 5e-2,
-              "sd35": 5e-2, "flux": 5e-2}
+              "sd35": 5e-2, "flux": 5e-2, "pixeldit": 0.5}
 
 
-# depth cuts of earlier paths that pay for the Flux phases inside the run's
-# time (PERF.md section 4): the blocks of a denoiser, never its width
+# depth cuts of earlier paths that pay for the Flux and PixelDiT phases
+# inside the run's time (PERF.md section 4): the blocks of a denoiser,
+# never its width
 DEPTH_CUTS = {
     # SANA-0.6B and PixArt-Sigma XL-2 served from synthesized files: 28 of
-    # their 28 blocks cut to 14
-    "pretrained": {"num_layers": "14"},
+    # their 28 blocks cut to 8
+    "pretrained": {"num_layers": "8"},
     # configs/sana_softmax_patch.yaml: SANA-0.6B's 28 blocks cut to 16, so
     # its softmax blocks 12-15 (the only ones unfrozen) are the last four
     "full_ft": {"num_layers": "16"},
@@ -335,8 +363,12 @@ DEPTH_CUTS = {
     "sd35": {"num_layers": "15"},
     # the SANA-0.6B and PixArt-Sigma XL-2 training runs (phases 7-9, 11
     # and 12, so phase 12's on-the-fly rate compares with phase 7's at one
-    # depth): 14 of 28 blocks
-    "train": {"num_layers": "14"},
+    # depth): 8 of 28 blocks, so that phase 12's PixArt-Sigma REPA tap
+    # after block 4 and SANA's generic REPA on blocks_7 still run
+    "train": {"num_layers": "8"},
+    # Flux-2 Klein's 8 double and 16 single blocks cut to 4 and 8 (both
+    # kinds still run), served and trained
+    "flux": {"num_double_blocks": "4", "num_single_blocks": "8"},
 }
 
 
@@ -775,10 +807,44 @@ FLUX_CASES = {
                             ("flux-text", (4, 512, 3072))),
 }
 FLUX_TIMED_BATCH = {"flash_attention": 8, "flash_attention_bwd": 4}
+# PixelDiT at 512 px (patch stage: width 1024, 16 heads of 64, 1024 tokens;
+# pixel stage: width 256, 4 heads of 64, 16384 tokens): K6 at the patch
+# stage's self-attention at the CFG batch of 4 requests (8), and K6b at
+# the training batch (4); K6 and K6b at the pixel stage's self-attention,
+# called directly without a mask, over 16384 tokens and over the 15552 of
+# the 864x288 bucket (121 blocks of 128 and a last one of 64), held at
+# batch 2 (the plain version's fp32 scores are 8 GiB there, its backward
+# keeps five such tensors) and timed at 8 (K6) and 4 (K6b); K4 (K2's kernel, folded: the native backward's blocks
+# would take 15 MiB at width 1024) and K4b at the cross-attention over
+# the 300-token caption padded to 384 keys, with the caption masks of the
+# CFG batch (the unconditional half keeps one key) and a full caption
+# (keys up to the padding inside the last 128-key tile); K1 and K1b at both
+# widths, x [8, 1024, 1024] and [8, 16384, 256] (training: batch 4)
+_CAPTIONS = [1, 1, 1, 1, 9, 15, 131, 300]
+PIXELDIT_CASES = {
+    "flash_attention": (
+        ("pixeldit-patch", (8, 1024, 1024, 16, 64, None)),
+        ("pixeldit-pixel", (2, 16384, 16384, 4, 64, None)),
+        ("pixeldit-pixel-15552", (2, 15552, 15552, 4, 64, None))),
+    "flash_attention_bwd": (
+        ("pixeldit-patch", (4, 1024, 1024, 16, 64, None)),
+        ("pixeldit-pixel", (2, 16384, 16384, 4, 64, None)),
+        ("pixeldit-pixel-15552", (2, 15552, 15552, 4, 64, None))),
+    "dot_product_attention_folded": (
+        ("pixeldit-cross", (8, 1024, 300, 16, 64, _CAPTIONS)),),
+    "dot_product_attention_folded_bwd": (
+        ("pixeldit-cross", (4, 1024, 300, 16, 64, _CAPTIONS[4:])),),
+    "adaln_layernorm": (("pixeldit-patch", (8, 1024, 1024)),
+                        ("pixeldit-pixel", (8, 16384, 256))),
+    "adaln_layernorm_bwd": (("pixeldit-patch", (4, 1024, 1024)),
+                            ("pixeldit-pixel", (4, 16384, 256))),
+}
+PIXELDIT_TIMED_BATCH = {"flash_attention": 8, "flash_attention_bwd": 4}
 # cases timed in bf16 only, their plain versions unheld (gigabytes of fp32
-# scores): the UNet's, SD3.5's and Flux's attentions
+# scores): the UNet's, SD3.5's, Flux's and PixelDiT's attentions
 TIMED_BF16_CASES = {(name, label)
-                    for cases in (UNET_CASES, SD35_CASES, FLUX_CASES)
+                    for cases in (UNET_CASES, SD35_CASES, FLUX_CASES,
+                                  PIXELDIT_CASES)
                     for name, pairs in cases.items() if "adaln" not in name
                     for label, _ in pairs}
 # cases held at a smaller batch than they are timed at
@@ -787,6 +853,10 @@ TIMED_AT_BATCH = {("flash_attention_bwd", label): SD35_TIMED_BATCH
 TIMED_AT_BATCH.update({(name, label): FLUX_TIMED_BATCH[name]
                        for name in FLUX_TIMED_BATCH
                        for label, _ in FLUX_CASES[name]})
+TIMED_AT_BATCH.update({(name, label): PIXELDIT_TIMED_BATCH[name]
+                       for name in PIXELDIT_TIMED_BATCH
+                       for label, _ in PIXELDIT_CASES[name]
+                       if label.startswith("pixeldit-pixel")})
 
 
 def kernel_cases(device):
@@ -822,7 +892,8 @@ def kernel_cases(device):
                                  ("pixart-serve", (8, 1024, 1152)),
                                  ("generic", (4, 77, 1000)),
                                  *SD35_CASES["adaln_layernorm"],
-                                 *FLUX_CASES["adaln_layernorm"]):
+                                 *FLUX_CASES["adaln_layernorm"],
+                                 *PIXELDIT_CASES["adaln_layernorm"]):
             def make(b=b, n=n, d=d, dtype=dtype):
                 return (randn((b, n, d), dtype), randn((b, 1, d), dtype, 0.1),
                         randn((b, 1, d), dtype, 0.1))
@@ -889,7 +960,8 @@ def kernel_cases(device):
                 ("serve-tiles", (8, 1024, 300, 16, 72,
                                  [(64, 128), (70, 80), (256, 300),
                                   (299, 300), 0, 300, (0, 64), 1])),
-                *UNET_CASES["dot_product_attention_folded"]):
+                *UNET_CASES["dot_product_attention_folded"],
+                *PIXELDIT_CASES["dot_product_attention_folded"]):
             def make(b=b, nq=nq, nk=nk, h=h, d=d, keep=keep, dtype=dtype):
                 return (randn((b, nq, h, d), dtype), randn((b, nk, h, d), dtype),
                         randn((b, nk, h, d), dtype), _mask(keep, nk, device))
@@ -917,7 +989,8 @@ def kernel_cases(device):
                                    [(1024, 4096), (0, 1100)])),
                 *UNET_CASES["flash_attention"],
                 *SD35_CASES["flash_attention"],
-                *FLUX_CASES["flash_attention"]):
+                *FLUX_CASES["flash_attention"],
+                *PIXELDIT_CASES["flash_attention"]):
             def make(b=b, nq=nq, nk=nk, h=h, d=d, keep=keep, dtype=dtype):
                 bias = (None if keep is None else A._key_bias(
                     _mask(keep, nk, device), b, A.FLASH_MASK_VALUE))
@@ -977,7 +1050,8 @@ def kernel_cases(device):
                                  ("generic", (4, 77, 1000)),
                                  ("unaligned", (2, 100, 1152)),
                                  *SD35_CASES["adaln_layernorm_bwd"],
-                                 *FLUX_CASES["adaln_layernorm_bwd"]):
+                                 *FLUX_CASES["adaln_layernorm_bwd"],
+                                 *PIXELDIT_CASES["adaln_layernorm_bwd"]):
             def make(b=b, n=n, d=d, dtype=dtype, label=label):
                 wide = d + (label == "unaligned")
                 x = randn((b, n, wide), dtype)[..., wide - d:]
@@ -1041,9 +1115,11 @@ def kernel_cases(device):
                           (_sdpa_fwd_bwd, _sdpa_fwd),
                           es * b * h * d * (3 * nq + 4 * nk) + 4 * b * nk,
                           10 * b * h * nq * nk * d + 8 * b * h * nq * nk))
-        # K4b at the UNet's folded cross-attentions (UNET_CASES)
-        for label, (b, nq, nk, h, d, keep) in UNET_CASES[
-                "dot_product_attention_folded_bwd"]:
+        # K4b at the UNet's and PixelDiT's folded cross-attentions
+        # (UNET_CASES, PIXELDIT_CASES)
+        for label, (b, nq, nk, h, d, keep) in (
+                *UNET_CASES["dot_product_attention_folded_bwd"],
+                *PIXELDIT_CASES["dot_product_attention_folded_bwd"]):
             def make(b=b, nq=nq, nk=nk, h=h, d=d, keep=keep, dtype=dtype):
                 m = _mask(keep, nk, device)
                 return (randn((b, nq, h, d), dtype),
@@ -1075,7 +1151,8 @@ def kernel_cases(device):
                 ("ragged", (2, 1000, 1000, 16, 72, [1000, 333])),
                 *UNET_CASES["flash_attention_bwd"],
                 *SD35_CASES["flash_attention_bwd"],
-                *FLUX_CASES["flash_attention_bwd"]):
+                *FLUX_CASES["flash_attention_bwd"],
+                *PIXELDIT_CASES["flash_attention_bwd"]):
             def make(b=b, nq=nq, nk=nk, h=h, d=d, keep=keep, dtype=dtype):
                 bias = (None if keep is None else A._key_bias(
                     _mask(keep, nk, device), b, A.FLASH_MASK_VALUE))
@@ -2350,6 +2427,14 @@ def per_step_launches(family, vp):
     """Kernel launches per denoise step of the family's serving path (and
     counts that must stay 0)."""
     cfg = vp.model.cfg
+    if family == "pixeldit":
+        # one CFG call at batch 2B over the 300-token caption: each patch
+        # block's attentions on the branch the gate gives them, each pixel
+        # block's self-attention on K6 directly, K1 for every block norm
+        # (models.pixeldit.kernel_calls); no K3
+        side = vp.latent_shape[0] // cfg.patch_size
+        return {**pixeldit_launches(cfg, (side, side), cfg.max_caption_len,
+                                    (1, 0)), "linear_attention": 0}
     if family == "flux":
         # one CFG call of the transformer at batch 2B over 512 caption
         # tokens: K6 for every block's attention, K1 for every norm
@@ -2566,11 +2651,12 @@ def trace_shortfall(families, calls):
     return out
 
 
-# denoise steps of the profiled serving batch of the 1024 px families,
-# whose batches of 4 take 7-21 s at 20 steps: 5 of the 20 (the encoders'
+# denoise steps of the profiled serving batch of the 1024 px families
+# and of PixelDiT (16384 pixel tokens), whose batches of 4 take seconds at
+# 20 steps: 5 of the 20 (the encoders'
 # and the decoder's share of the trace then weighs 4x more); the others
 # are profiled at the pipeline's own ladder
-PROFILE_STEPS = {"sdxl": 5, "sd35": 5, "flux": 5}
+PROFILE_STEPS = {"sdxl": 5, "sd35": 5, "flux": 5, "pixeldit": 5}
 
 
 def profile_batch(vp, card, steps=None):
@@ -4214,22 +4300,23 @@ def raw_image(rng, h, w):
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def write_raw_shards(tmp, per_bucket, scale=1.0, shards=2, seed=0):
-    """``per_bucket`` JPEG samples at each of ``RAW_SOURCES`` (times
+def write_raw_shards(tmp, per_bucket, scale=1.0, shards=2, seed=0,
+                     sources=RAW_SOURCES):
+    """``per_bucket`` JPEG samples at each of ``sources`` (times
     ``scale``), interleaved, with captions of 8-240 words, over ``shards``
     local ``{jpg, txt}`` shards.  Returns the paths and each sample's
     source size."""
     from yat_tpu_torch.data.tar import TarShardWriter
 
     rng = np.random.default_rng(seed)
-    n = per_bucket * len(RAW_SOURCES)
+    n = per_bucket * len(sources)
     words = rng.permutation(np.linspace(8, 240, n).round().astype(int))
     paths = [os.path.join(tmp, f"raw-{i:06d}.tar") for i in range(shards)]
     sizes = []
     writers = [TarShardWriter(p) for p in paths]
     try:
         for i in range(n):
-            h, w = (int(d * scale) for d in RAW_SOURCES[i % len(RAW_SOURCES)])
+            h, w = (int(d * scale) for d in sources[i % len(sources)])
             sizes.append((h, w))
             writers[i * shards // n].write({
                 "__key__": f"{i:06d}",
@@ -4503,7 +4590,7 @@ def decode_ms(datas, th, tw, decoder, reps=3):
 
 
 def raw_train_keys(tiny):
-    """The SANA model keys of phase 12's runs: SANA-0.6B 512px at 14 of its
+    """The SANA model keys of phase 12's runs: SANA-0.6B 512px at 8 of its
     28 blocks (``DEPTH_CUTS``); the tiny model, encoders and 256px bins for
     the rehearsal."""
     if tiny is None:
@@ -4956,7 +5043,7 @@ def pixart_otf_config(raw, out_dir, chunk, tiny):
     (validation every 1000, so its prompt builds the encoders and samples
     nothing).  LoKr rank 32, alpha 32 on to_q/to_k/to_v/to_out, the int8
     base, 8-bit Lion, REPA at lambda 0.05 after block 4, batch 8 in
-    chunks of 8, encoding on the fly; PixArt-Sigma XL-2 at 14 of its 28
+    chunks of 8, encoding on the fly; PixArt-Sigma XL-2 at 8 of its 28
     blocks (``DEPTH_CUTS``).  ``tiny`` (the CPU rehearsal) taps block 0 and
     projects to the tiny DINOv2's 32-wide tokens."""
     extra = depth_cut("train")
@@ -5697,6 +5784,8 @@ FLUX_TRAIN_STEPS = 3
 # the width of the caption encoder the config pairs with (Gemma-2-2B), where
 # the preset holds 4096: the JAX package fails on the config as written
 FLUX_OVERRIDES = {"text_dim": "2304"}
+# the overrides of the Flux phases: the caption width and the depth cut
+FLUX_PHASE_OVERRIDES = {**FLUX_OVERRIDES, **DEPTH_CUTS["flux"]}
 
 
 def flux_launches(cfg, grid, n_txt, passes):
@@ -5733,7 +5822,7 @@ def phase_flux_serve(device, card, params=None, px=1024, window_ms=100.0):
     with drawn_modulation():
         return phase_serve(
             params or serve_params(model_config_overrides=dict(
-                FLUX_OVERRIDES)), device, card, family="flux", px=px,
+                FLUX_PHASE_OVERRIDES)), device, card, family="flux", px=px,
             profile=device.type == "cuda", window_ms=window_ms)
 
 
@@ -5742,7 +5831,8 @@ def flux_train_config(s3_url, out_dir, **extra):
     mesh and ``text_dim``: the stand-in S3 endpoint for its R2 account's
     (the config's keys, bucket and shard names kept), no pretrained pipe
     (the modules random from the seed), no ``mesh_shape`` (the port trains
-    on one card), ``text_dim`` 2304 (``FLUX_OVERRIDES``),
+    on one card), ``text_dim`` 2304 (``FLUX_OVERRIDES``) and the depth
+    cut (``DEPTH_CUTS``),
     ``FLUX_TRAIN_STEPS`` steps with validation at the last."""
     import yaml
     with open(os.path.join(REPO, "configs", "flux_klein_lora.yaml")) as f:
@@ -5751,18 +5841,20 @@ def flux_train_config(s3_url, out_dir, **extra):
         cfg.pop(key)
     cfg.update({"r2_endpoint": s3_url, "steps": str(FLUX_TRAIN_STEPS),
                 "num_steps_per_validation": str(FLUX_TRAIN_STEPS),
-                "model_config_overrides": dict(FLUX_OVERRIDES),
+                "model_config_overrides": dict(FLUX_PHASE_OVERRIDES),
                 "output_dir": out_dir, "dataset_seed": "0", **extra})
     return {k: (str(v) if isinstance(v, (int, float, bool)) else v)
             for k, v in cfg.items()}
 
 
-def flux_encode_and_step(label, trainer, device, card, run_peak):
+def encode_and_step(label, trainer, device, card, run_peak):
     """One training step with its batch's encode in front of it, as the
     run does both on one device (the feature cache's thread encodes the
-    next batches while a step runs): 4 seeded images at the square bucket
-    (the run's largest token grid) and their captions through the run's on-the-fly encoder (Gemma-2-2B
-    and the KL-VAE encoder in fp32), then the step.  Each part is timed
+    next batches while a step runs): a batch of seeded images at the
+    square bucket (the run's largest token grid) and their captions
+    through the run's on-the-fly encoder (Flux: Gemma-2-2B and the KL-VAE
+    encoder in fp32; PixelDiT: Gemma-2-2B, the identity and DINOv2), then
+    the step.  Each part is timed
     alone (the host synchronised) and, on the card, profiled alone, so the
     step time the run reports splits into the encode and the denoiser
     step.  On the card each part's memory above what the run keeps
@@ -5830,16 +5922,17 @@ def phase_flux_train(device, card, tiny=None):
     """``configs/flux_klein_lora.yaml`` through ``frontends.flux.main`` as
     written but for its files, mesh and ``text_dim``
     (``flux_train_config``): Flux-2 Klein at 1024 px, batch 4, LoRA rank
-    16 / alpha 16 on to_q/to_k/to_v/to_out (64 projections), bf16, no
+    16 / alpha 16 on to_q/to_k/to_v/to_out (32 projections at the depth
+    cut, ``DEPTH_CUTS``), bf16, no
     remat, raw JPEGs at four 1024 px buckets in the config's two R2
     shards, fetched through presigned GETs from a stand-in S3 endpoint on
     127.0.0.1 and encoded on the fly (Gemma-2-2B and the KL-VAE in fp32),
     the modulation drawn (``drawn_modulation``), ``FLUX_TRAIN_STEPS`` steps
     with validation at the last: finite losses, every LoRA leaf changed and
-    exported, the validation image, the launches by step (24 K6, 49 K1, 24
-    K6b and 47 K1b a step; 24 K6 and 49 K1 for each of the validation's 20
+    exported, the validation image, the launches by step (12 K6, 25 K1, 12
+    K6b and 23 K1b a step; 12 K6 and 25 K1 for each of the validation's 20
     CFG calls), the step time and the peak; then one step split into its
-    encode and its denoiser step (``flux_encode_and_step``).  A run that
+    encode and its denoiser step (``encode_and_step``).  A run that
     does not fit in the card's memory fails the phase."""
     import gc
 
@@ -5890,7 +5983,7 @@ def phase_flux_train(device, card, tiny=None):
                 out = {label: check_flux_run(label, trainer, cfg, counts,
                                              cuda, grids, images, s3, names,
                                              wall, peak, card)}
-                flux_encode_and_step(label, trainer, device, card, peak)
+                encode_and_step(label, trainer, device, card, peak)
         finally:
             ValidationPipeline.validate = validate
         del trainer
@@ -5943,6 +6036,481 @@ def check_flux_run(label, trainer, cfg, counts, cuda, grids, images, s3,
             f"peak {peak / 2**30:.2f} GiB of the card's "
             f"{total / 2**30:.2f} GiB")
     return {k: counts[k] for k in FLUX_KERNELS}
+
+
+# ---------------------------------------------------------------------------
+# 16. PixelDiT
+# ---------------------------------------------------------------------------
+
+PIXELDIT_KERNELS = PIXART_TRAIN_KERNELS
+PIXELDIT_TRAIN_STEPS = 3
+# the training run's raw sources at 512 px: the square bucket (512x512,
+# 32x32 patch tokens, 16384 pixel tokens) and the 3.0 bucket (864x288:
+# 18x54 patch tokens, whose attentions the gate sends to the XLA branch,
+# and 15552 pixel tokens, no multiple of 128)
+PIXELDIT_SOURCES = ((640, 640), (1080, 360))
+
+
+def pixel_tokens(cfg, hw):
+    """PixelDiT's pixel-stage tokens on an image of ``hw`` pixels."""
+    return hw[0] // cfg.patch_size * (hw[1] // cfg.patch_size) * cfg.ratio ** 2
+
+
+def pixeldit_launches(cfg, grid, n_txt, passes):
+    """The launches of ``passes`` = (forwards, backwards) of PixelDiT, without
+    remat, on a ``grid`` of patch tokens with ``n_txt`` caption keys
+    (``models.pixeldit.kernel_calls``): each patch block's self- and
+    cross-attention on the kernel of the branch the gate gives its sizes
+    (``ops.attention.attention_branch``; the XLA branch counts its
+    forwards and launches no backward kernel), each pixel block's
+    self-attention on K6 and K6b directly, K1 once a forward and K1b once a
+    backward but for block 0's first norm, whose inputs are all frozen
+    under adapters (the patch embed and the modulation are no targets)."""
+    from yat_tpu_torch.models.pixeldit import kernel_calls
+    from yat_tpu_torch.ops.attention import attention_branch
+
+    calls = kernel_calls(cfg, grid[0], grid[1], n_txt)
+    fwd, bwd = passes
+    out = dict.fromkeys(PIXELDIT_KERNELS, 0)
+    for _, nq, nk, h, d in calls["dot_product_attention"]:
+        f, b = BRANCH_KERNELS[attention_branch(nq, nk, h, d)]
+        out[f] += fwd
+        if b:
+            out[b] += bwd
+    n_px = len(calls["flash_attention"])
+    n_norm = len(calls["adaln_layernorm"])
+    out["flash_attention"] += n_px * fwd
+    out["flash_attention_bwd"] += n_px * bwd
+    out["adaln_layernorm"] += n_norm * fwd
+    out["adaln_layernorm_bwd"] += (n_norm - 1) * bwd
+    return out
+
+
+def pixeldit_adapted(cfg):
+    """The projections ``[to_q, to_k, to_v, to_out]`` adapt: a patch
+    block's self- and cross-attention, a pixel block's self-attention."""
+    return 8 * cfg.num_layers + 4 * cfg.num_pixel_layers
+
+
+def phase_pixeldit_serve(device, card, params=None, px=512,
+                         window_ms=100.0):
+    """PixelDiT served at 512 px through HTTP (``phase_serve``): the
+    denoiser at full width and depth in bf16 (24 patch blocks at width
+    1024, 4 pixel blocks at width 256 over 16384 pixel tokens), Gemma-2-2B
+    in bf16 at 300 tokens, no VAE (the sample is the image);
+    DPM-Solver++(2M) in flow form, 20 steps, CFG 4.0; the modulation
+    drawn (``drawn_modulation``)."""
+    with drawn_modulation():
+        return phase_serve(params or serve_params(aspect_ratio=str(px)),
+                           device, card, family="pixeldit", px=px,
+                           profile=device.type == "cuda",
+                           window_ms=window_ms)
+
+
+def phase_pixeldit_grad_reference(device, cfg_over=None, side=512):
+    """PixelDiT at full width cut to 2 patch blocks (the REPA tap after
+    block 1) and 1 pixel block, with rank-8 LoRA on ``LORA_TARGETS``
+    (nonzero ``lora_b``) over a 4-bit base quantized once, at ``side`` px
+    (512: 1024 patch tokens, 16384 pixel tokens) over a 300-token caption
+    of which 120 are kept: one flow-matching loss with the REPA term at
+    0.1 and every LoRA gradient through the kernels on the card (K6/K6b
+    through the gate and directly, K4/K4b, K1/K1b) against the same step
+    through the plain versions on the CPU, fp32: the loss within 1e-4 and
+    the worst leaf's max|dg| within ``GRAD_REF_TOL`` of its largest
+    entry.  The modulation is drawn (``drawn_modulation``)."""
+    import dataclasses
+    import functools
+
+    import torch
+
+    from yat_tpu_torch.adapters.builder import adapter_parameters
+    from yat_tpu_torch.frontends.pixeldit import REPA_LOSS_WEIGHT
+    from yat_tpu_torch.kernels.build import launch_counts, reset_launch_counts
+    from yat_tpu_torch.models.layers import AdapterDense
+    from yat_tpu_torch.models.pixeldit import PIXELDIT_BASE, PixelDiT
+    from yat_tpu_torch.ops.quant import quantize_params
+    from yat_tpu_torch.ops.schedulers import FlowMatchSchedule
+    from yat_tpu_torch.train.step import loss_and_grads
+    from yat_tpu_torch.train.tasks import make_flow_matching_loss
+
+    label = "pixeldit grad reference"
+    cfg = dataclasses.replace(PIXELDIT_BASE, num_layers=2,
+                              num_pixel_layers=1, repa_depth=1,
+                              **(cfg_over or {}))
+    t0 = time.perf_counter()
+    with drawn_modulation():
+        cpu, gpu, n = lora_pair(functools.partial(PixelDiT, repa=True), cfg,
+                                8, device)
+    quantize_params(cpu, 4)
+    on_device = dict(gpu.named_modules())
+    for name, m in cpu.named_modules():
+        if isinstance(m, AdapterDense) and m.qweight is not None:
+            on_device[name].set_quantized(m.qweight, m.weight_scale, 4)
+    rng = np.random.default_rng(0)
+    n_txt, grid = cfg.max_caption_len, side // cfg.patch_size
+    tokens = grid ** 2
+    pixels = rng.uniform(-1, 1, (1, side, side, 3)).astype(np.float32)
+    emb = rng.standard_normal((1, n_txt, cfg.caption_channels), np.float32)
+    mask = (np.arange(n_txt) < min(120, n_txt)).astype(np.int32)[None]
+    dino = rng.standard_normal((1, 256, cfg.repa_target_dim), np.float32)
+    sched = FlowMatchSchedule(shift=1.0)
+    ts, sig = sched.training_draw(torch.Generator().manual_seed(3), 1)
+    noise = rng.standard_normal(pixels.shape, np.float32)
+    results = []
+    for model, dev in ((gpu, device), (cpu, torch.device("cpu"))):
+        t1 = time.perf_counter()
+        batch = {"latents": torch.from_numpy(pixels).to(dev),
+                 "embeddings": torch.from_numpy(emb).to(dev),
+                 "text_mask": torch.from_numpy(mask).to(dev),
+                 "repa_features": torch.from_numpy(dino).to(dev)}
+        draws = {"timesteps": ts.to(dev), "sigmas": sig.to(dev),
+                 "noise": torch.from_numpy(noise).to(dev)}
+        leaves = [p for _, p in adapter_parameters(model)]
+        reset_launch_counts()
+        loss, grads = loss_and_grads(
+            make_flow_matching_loss(model, sched,
+                                    repa_lambda=REPA_LOSS_WEIGHT),
+            leaves, batch, torch.Generator(), draws)
+        results.append((float(loss), [g.detach().cpu() for g in grads],
+                        launch_counts(), time.perf_counter() - t1))
+    (loss_g, grads_g, counts, sec_g), (loss_c, grads_c, _, sec_c) = results
+    names = [name for name, _ in adapter_parameters(cpu)]
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    zero, rows, ok = [], [], loss_err <= 1e-4
+    for name, gc, gg in zip(names, grads_c, grads_g):
+        scale = float(gc.abs().max())
+        rel = float((gg - gc).abs().max()) / scale
+        rows.append((rel, name, scale))
+        ok = ok and rel <= GRAD_REF_TOL and bool(torch.isfinite(gg).all())
+        if not bool((gg != 0).any()):
+            zero.append(name)
+    for rel, name, scale in sorted(rows, reverse=True)[:3]:
+        log(f"{label}:   {name}: max|g| {scale:.3e}; max|dg|/max|g| "
+            f"{rel:.2e}")
+    want = pixeldit_launches(cfg, (grid, grid), n_txt, (1, 1))
+    if device.type != "cuda":
+        want = {k: 0 for k in want}
+    log(f"{label}: PixelDiT at width {cfg.hidden_dim}/{cfg.pixel_hidden_dim}"
+        f", {cfg.num_layers} + {cfg.num_pixel_layers} blocks, 4-bit base, "
+        f"LoRA on {n} modules ({len(names)} leaves) at {side} px ({tokens} "
+        f"patch, {tokens * cfg.ratio ** 2} pixel tokens), {device.type} "
+        f"({sec_g:.1f} s)"
+        f" vs CPU ({sec_c:.1f} s), fp32: loss {loss_g:.6f} vs {loss_c:.6f} "
+        f"(rel {loss_err:.2e}, tol 1e-4); worst leaf max|dg|/max|g| "
+        f"{max(r[0] for r in rows):.2e} (tol {GRAD_REF_TOL:g}); zero "
+        f"gradients: {len(zero)}; launches "
+        f"{ {k: counts[k] for k in want if want[k] or counts[k]} }; "
+        f"{time.perf_counter() - t0:.1f} s in all")
+    if zero:
+        fail(f"{label}: LoRA leaves with no gradient: {zero[:4]}")
+    if not ok:
+        fail(f"{label}: LoRA gradients on the card disagree with the CPU")
+    if any(counts[k] != v for k, v in want.items()):
+        fail(f"{label}: launches {counts}, expected {want}")
+
+
+def pixeldit_train_config(shards, ckpt, out_dir, **extra):
+    """``configs/pixeldit_repa.yaml`` as written but for its files and the
+    run's length: the raw shards written here for its
+    ``local_shard_paths``, the synthesized ``.pth`` for its
+    ``pretrained_model_path``, ``PIXELDIT_TRAIN_STEPS`` steps with the
+    validation at the last; no ``repa_pretrained_model`` is configured, so
+    DINOv2 is random from the seed."""
+    import yaml
+    with open(os.path.join(REPO, "configs", "pixeldit_repa.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update({"local_shard_paths": list(shards),
+                "pretrained_model_path": ckpt,
+                "steps": str(PIXELDIT_TRAIN_STEPS),
+                "num_steps_per_validation": str(PIXELDIT_TRAIN_STEPS),
+                "output_dir": out_dir, "dataset_seed": "0", **extra})
+    return {k: (str(v) if isinstance(v, (int, float, bool)) else v)
+            for k, v in cfg.items()}
+
+
+def write_pixeldit_pth(path, cfg):
+    """A seeded PixelDiT ``.pth`` of ``cfg`` in DiT naming
+    (``synth_checkpoint.pixeldit_rules``; BF16 values and storage; no REPA
+    projector, as a published file has none).  Returns the rules."""
+    import torch
+
+    from yat_tpu_torch.convert import flax_params
+    from yat_tpu_torch.models.pixeldit import PixelDiT
+
+    S = synth_module()
+    with torch.device("meta"):
+        shapes = {k: tuple(v.shape) for k, v in flax_params(
+            PixelDiT(cfg, dtype=torch.float32)).items()}
+    rules = S.pixeldit_rules(cfg.patch_size)
+    t0 = time.perf_counter()
+    info = S.write_pth(path, shapes, rules, SYNTH_SEED, "BF16")
+    log(f"pixeldit train: synthesized {path}: {info['tensors']} tensors, "
+        f"{info['bytes'] / 1e9:.2f} GB (BF16) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return rules
+
+
+def check_pixeldit_load(label, model, rules):
+    """Every base parameter of the trained ``model`` equals its value in
+    the synthesized file after the same casts (the quantized weights:
+    their 4-bit payload and scale equal the quantization of that value);
+    the REPA projector and the adapters are not in the file."""
+    import torch
+
+    from yat_tpu_torch.models.layers import AdapterDense
+    from yat_tpu_torch.ops.quant import quantize_kernel
+
+    S = synth_module()
+    entries = []
+    for name, m in model.named_modules():
+        for pname, t in m.named_parameters(recurse=False):
+            if pname in ("weight", "bias"):     # not the adapters' leaves
+                entries.append((f"{name}.{pname}", t))
+        if isinstance(m, AdapterDense) and m.qweight is not None:
+            entries.append((f"{name}.weight", m))
+    checked, bad, n = 0, [], 0
+    for tname, t in entries:
+        path = tname.replace(".weight", ".kernel")
+        try:
+            _, kind = S.match(path, rules)
+        except KeyError:
+            continue                    # the projector, the adapters
+        if isinstance(t, AdapterDense):
+            v = S.leaf_value(SYNTH_SEED, path, (t.in_features, t.features),
+                             kind, "BF16")
+            q, scale = quantize_kernel(torch.from_numpy(
+                np.ascontiguousarray(v.T)).to(t.qweight.device), t.bits)
+            same = torch.equal(q, t.qweight) and torch.equal(
+                scale, t.weight_scale)
+            n += q.numel()
+        else:
+            flax = t.T if t.ndim == 2 and path.endswith(".kernel") else t
+            v = S.leaf_value(SYNTH_SEED, path, tuple(flax.shape), kind,
+                             "BF16")
+            same = torch.equal(flax, torch.from_numpy(v).to(
+                device=t.device, dtype=t.dtype))
+            n += t.numel()
+        checked += 1
+        if not same:
+            bad.append(path)
+    if bad or not checked:
+        fail(f"{label}: {len(bad)} base tensors differ from the .pth, e.g. "
+             f"{bad[:4]}")
+    log(f"{label}: all {n:,} base values ({checked} tensors, the 4-bit "
+        "payloads and scales among them) are the .pth's after the same "
+        "casts and quantization")
+
+
+def check_repa_reach(label, trainer, device):
+    """The REPA term's gradient on one image at 4x4 patch tokens reaches
+    the LoRA leaves of blocks 0 to ``repa_depth`` and no other."""
+    import torch
+
+    from yat_tpu_torch.frontends.common import dino_config
+    from yat_tpu_torch.train.tasks import repa_alignment_loss
+
+    cfg = trainer.pixeldit_config
+    dino = dino_config(trainer.params)
+    gen = torch.Generator(device=device).manual_seed(9)
+    side = 4 * cfg.patch_size
+    x = torch.rand((1, side, side, 3), generator=gen, device=device) * 2 - 1
+    emb = torch.randn((1, cfg.max_caption_len, cfg.caption_channels),
+                      generator=gen, device=device)
+    mask = torch.ones((1, cfg.max_caption_len), dtype=torch.int32,
+                      device=device)
+    target = torch.randn((1, dino.grid ** 2, dino.hidden_dim),
+                         generator=gen, device=device)
+    _, proj = trainer.model(x, emb, torch.full((1,), 500.0, device=device),
+                            mask, return_repa=True)
+    names, leaves = trainer.trainable_names(), trainer.trainable_leaves()
+    grads = torch.autograd.grad(repa_alignment_loss(proj, target), leaves,
+                                allow_unused=True)
+    reached = {n for n, g in zip(names, grads)
+               if g is not None and bool((g != 0).any())}
+    want = {n for n in names if n.startswith("blocks_")
+            and int(n.split(".")[0].split("_")[1]) <= cfg.repa_depth}
+    log(f"{label}: the REPA term's gradient reaches {len(reached)} LoRA "
+        f"leaves (blocks 0-{cfg.repa_depth}: {len(want)}) of {len(names)}")
+    if reached != want:
+        fail(f"{label}: the REPA term reaches {sorted(reached ^ want)[:4]} "
+             "against blocks 0 to the tap")
+
+
+def xla_probe(label, device, n, batch, heads=4, head_dim=64):
+    """The pixel stage's self-attention at ``n`` tokens (no multiple of
+    128) on the gate's XLA branch, as the JAX model's gate takes it, and on
+    K6/K6b as the port calls it: one bf16 forward and backward each at
+    ``batch``, the peak device memory above what the run holds resident,
+    or the allocation that did not fit."""
+    import torch
+
+    from yat_tpu_torch.ops.attention import attention_xla, flash_attention
+
+    gen = torch.Generator(device=device).manual_seed(4)
+    total = torch.cuda.get_device_properties(0).total_memory
+    for name, fn in (("the XLA branch", attention_xla),
+                     ("K6/K6b", flash_attention)):
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        q, k, v, g = (torch.randn((batch, n, heads, head_dim), generator=gen,
+                                  device=device).to(torch.bfloat16)
+                      for _ in range(4))
+        for t in (q, k, v):
+            t.requires_grad_()
+        t0 = time.perf_counter()
+        try:
+            fn(q, k, v).backward(g)
+            torch.cuda.synchronize()
+            log(f"{label}: {name} at [{batch}, {n}, {heads}, {head_dim}] "
+                f"forward and backward: fits, peak "
+                f"{(torch.cuda.max_memory_allocated() - resident) / 2**30:.2f}"
+                f" GiB above the resident {resident / 2**30:.2f} GiB "
+                f"({time.perf_counter() - t0:.3f} s)")
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"{label}: {name} at [{batch}, {n}, {heads}, {head_dim}] "
+                f"forward and backward: does not fit in the card's "
+                f"{total / 2**30:.2f} GiB beside the resident "
+                f"{resident / 2**30:.2f} GiB (peak before the failure "
+                f"{(torch.cuda.max_memory_allocated() - resident) / 2**30:.2f}"
+                f" GiB): {str(e).splitlines()[0]}")
+        del q, k, v, g
+        torch.cuda.empty_cache()
+
+
+def phase_pixeldit_train(device, card, tiny=None):
+    """``configs/pixeldit_repa.yaml`` through ``frontends.pixeldit.main``
+    as written but for its files and length (``pixeldit_train_config``):
+    PixelDiT at full width and depth from a synthesized BF16 ``.pth`` in
+    DiT naming (the REPA projector drawn from the seed), rank-8 LoRA on
+    to_q/to_k/to_v/to_out (208 projections) over a 4-bit base, bf16,
+    REPA at 0.1 through the projector after block 12 against a random
+    DINOv2 ViT-B/14 (no file), batch 4 of raw JPEGs at the square and the
+    864x288 bucket of 512 px encoded on the fly (the identity, Gemma-2-2B
+    at 300 tokens), ``PIXELDIT_TRAIN_STEPS`` steps with the DPM CFG 4.0
+    validation at the last: every parameter loaded from the file, finite
+    losses, one REPA term a step, every LoRA leaf changed and exported,
+    the REPA term reaching the leaves of blocks 0-12 alone, the validation
+    image, the launches by step on the branch each bucket gives (K6 and K4
+    at the square bucket's patch stage, the XLA branch at 864x288's, K6/K6b
+    directly for every pixel stage), the step time, the peak and whether
+    the step fits; then one step split into its encode and its denoiser
+    step, each profiled (``encode_and_step``), and the pixel stage's
+    attention at the 864x288 bucket on the gate's XLA branch beside K6/K6b
+    at the training batch (``xla_probe``)."""
+    import gc
+
+    import torch
+
+    from yat_tpu_torch.config import TrainingParameters
+    from yat_tpu_torch.frontends import pixeldit
+    from yat_tpu_torch.train.validation import ValidationPipeline
+
+    label = "pixeldit train"
+    cuda = device.type == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        raw, sizes = write_raw_shards(
+            tmp, 4 if tiny is None else 2, scale=1.0 if tiny is None
+            else 0.5, shards=1, sources=PIXELDIT_SOURCES)
+        log(f"{label}: wrote {len(sizes)} JPEGs at sources "
+            f"{sorted(set(sizes))} in {time.perf_counter() - t0:.1f} s")
+        extra = {} if tiny is None else {
+            "batch_size": "2", "vae_max_batch_size": "2",
+            "text_encoder_max_batch_size": "2", "aspect_ratio": "256",
+            "model_config_overrides": tiny}
+        ckpt = os.path.join(tmp, "checkpoint.pth")
+        cfg = pixeldit_train_config(raw, ckpt, os.path.join(tmp, "out"),
+                                    **extra)
+        rules = write_pixeldit_pth(ckpt, pixeldit.build_config(
+            TrainingParameters.from_dict(cfg)))
+        images = []
+        validate = ValidationPipeline.validate
+
+        def recording(self, trainer, x0=None):
+            got = validate(self, trainer, x0)
+            images.append(got)
+            return got
+        ValidationPipeline.validate = recording
+        try:
+            with working_dir(tmp), initial_state(), \
+                    recorded_repa_terms() as terms:
+                with recorded_batches() as grids:
+                    trainer, counts, wall, peak = drive_entry_point(
+                        label, pixeldit.main, device, tmp, cfg)
+                out = {label: check_pixeldit_run(
+                    label, trainer, cfg, counts, cuda, grids, images, terms,
+                    wall, peak, card)}
+                check_pixeldit_load(label, trainer.model, rules)
+                check_repa_reach(label, trainer, device)
+                encode_and_step(label, trainer, device, card, peak)
+                if cuda:
+                    xla_probe(label, device, min(
+                        n for n in (pixel_tokens(trainer.pixeldit_config, g)
+                                    for g, _ in grids) if n % 128),
+                        trainer.params.batch_size)
+        finally:
+            ValidationPipeline.validate = validate
+        del trainer
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def check_pixeldit_run(label, trainer, cfg, counts, cuda, grids, images,
+                       terms, wall, peak, card):
+    """The checks of one PixelDiT training run (``phase_pixeldit_train``)."""
+    import torch
+
+    from yat_tpu_torch.frontends.common import dino_config
+
+    model_cfg = trainer.pixeldit_config
+    check_trained(label, trainer, cfg, None, pixeldit_adapted(model_cfg))
+    steps = int(cfg["steps"])
+    if len(grids) != steps or len(images) != 1:
+        fail(f"{label}: {len(grids)} batches for {steps} steps, "
+             f"{len(images)} validations (expected 1)")
+    p = model_cfg.patch_size
+    px_tokens = {g: pixel_tokens(model_cfg, g) for g, _ in grids}
+    square = [g for g in px_tokens if g[0] == g[1]]
+    ragged = [g for g, n in px_tokens.items() if n % 128]
+    log(f"{label}: buckets by step {[g for g, _ in grids]}; pixel tokens "
+        f"{px_tokens}")
+    if not square or not ragged:
+        fail(f"{label}: the run met the buckets {sorted(px_tokens)}: "
+             "expected the square one and one whose pixel-token count is "
+             "no multiple of 128")
+    dino = dino_config(trainer.params)
+    check_repa_terms(label, terms, steps, (trainer.params.batch_size,
+                                           dino.grid ** 2, dino.hidden_dim))
+    vp = trainer.validation_pipeline
+    res = vp.latent_shape[0]
+    for tag, img in images[0].items():
+        if img.shape != (res, res, 3) or not np.isfinite(img).all():
+            fail(f"{label}: validation image {tag} {img.shape} not "
+                 f"finite / not {res}x{res}x3")
+    want = dict.fromkeys(PIXELDIT_KERNELS, 0)
+    side = res // p
+    runs = [((h // p, w // p), rung, (1, 1)) for (h, w), rung in grids]
+    runs += [((side, side), model_cfg.max_caption_len, (1, 0))] \
+        * vp.num_steps
+    for grid, rung, passes in runs:
+        for k, n in pixeldit_launches(model_cfg, grid, rung,
+                                      passes).items():
+            want[k] += n if cuda else 0
+    check_launches(label, counts, want,
+                   lambda k: f"{steps} steps at buckets "
+                   f"{sorted(set(g for g, _ in grids))} and {vp.num_steps} "
+                   "validation CFG calls")
+    log_step_rate(label, trainer, wall, peak, card)
+    TRAIN_PEAKS[label] = peak
+    if cuda:
+        total = torch.cuda.get_device_properties(0).total_memory
+        log(f"{label} [{card}]: batch {trainer.params.batch_size} at "
+            f"{trainer.params.aspect_ratios} px, as written: fits, peak "
+            f"{peak / 2**30:.2f} GiB of the card's {total / 2**30:.2f} GiB")
+    return {k: counts[k] for k in PIXELDIT_KERNELS}
 
 
 def main() -> None:
@@ -6020,6 +6588,12 @@ def main() -> None:
     for label, c in timed("flux train", phase_flux_train, device,
                           card).items():
         counts[label.replace(" ", "_")] = c
+    counts["pixeldit"] = timed("serve pixeldit", phase_pixeldit_serve,
+                               device, card)
+    timed("pixeldit grad reference", phase_pixeldit_grad_reference, device)
+    for label, c in timed("pixeldit train", phase_pixeldit_train, device,
+                          card).items():
+        counts[label.replace(" ", "_")] = c
     log(f"seconds by phase: {seconds}; "
         f"{time.perf_counter() - t_start:.1f} s in all")
 
@@ -6063,7 +6637,7 @@ def main() -> None:
                       "raw_sana", "raw_pixart", "sd15", "sdxl",
                       "sd15_train", "sdxl_train",
                       "sdxl_train_low_vram", "sd35", "sd35_train", "flux",
-                      "flux_train"):
+                      "flux_train", "pixeldit", "pixeldit_train"):
             if other != run and name in counts.get(other, {}) \
                     and counts[other][name]:
                 row[f"launches_{other}"] = counts[other][name]

@@ -5,6 +5,7 @@ shards from the same raw shard, each package reading the other's; the
 entry point uploading to a signed endpoint).  The training runs on raw
 images are in ``test_torch_port_raw_train.py``."""
 
+import contextlib
 import os
 
 import jax
@@ -43,13 +44,13 @@ def _tree(variables):
     return jax.tree.map(np.asarray, variables["params"])
 
 
-@pytest.fixture
-def jit_flax_init(monkeypatch):
+@contextlib.contextmanager
+def jitted_flax_init():
     """flax ``init`` under one ``jax.jit`` a module (cached by module)
-    instead of op by op.  The JAX package's encoder builders init eagerly,
-    which compiles every op on its own: about 20 s of CPU for the tiny
-    DC-AE and Gemma, against about 8 s jitted.  Both packages get the
-    jitted weights (within 6e-8 of the eager ones)."""
+    instead of op by op, inside the block.  The JAX package's encoder
+    builders init eagerly, which compiles every op on its own: about 20 s
+    of CPU for the tiny DC-AE and Gemma, against about 8 s jitted.  Both
+    packages get the jitted weights (within 6e-8 of the eager ones)."""
     import flax.linen as nn
 
     eager = nn.Module.init
@@ -59,7 +60,18 @@ def jit_flax_init(monkeypatch):
         if kw:
             return eager(self, rngs, *args, **kw)
         return jitted(self, rngs, *args)
-    monkeypatch.setattr(nn.Module, "init", init)
+    nn.Module.init = init
+    try:
+        yield
+    finally:
+        nn.Module.init = eager
+
+
+@pytest.fixture
+def jit_flax_init():
+    """:func:`jitted_flax_init` for one test."""
+    with jitted_flax_init():
+        yield
 
 
 def make_image_shard(path, n=8, hw=(256, 256), seed=0, wide=True):

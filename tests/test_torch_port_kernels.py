@@ -155,7 +155,8 @@ def test_chip_smoke_k1_k3_cases_on_cpu():
     assert labels == {
         "adaln_layernorm": ["serve", "train", "ragged", "pixart-serve",
                             "generic", "sd35-image", "sd35-text",
-                            "flux-image", "flux-text", "flux-single"],
+                            "flux-image", "flux-text", "flux-single",
+                            "pixeldit-patch", "pixeldit-pixel"],
         "linear_attention": ["serve", "train", "ragged", "ragged-17", "d64",
                              "fp32-state", "nan"]}
 
@@ -183,7 +184,7 @@ def test_chip_smoke_k1b_cases_on_cpu():
         assert chip_smoke.compare(name, want, want)[2]
     assert labels == ["train", "pixart-train", "ragged", "generic",
                       "unaligned", "sd35-image", "sd35-text", "flux-image",
-                      "flux-text"]
+                      "flux-text", "pixeldit-patch", "pixeldit-pixel"]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1157,6 +1158,41 @@ def test_card_flux_shapes(cuda, dtype, name, label):
     args = make()
     handle = {"flash_attention": TA.FLASH_ATTENTION,
               "flash_attention_bwd": TA.FLASH_ATTENTION_BWD,
+              "adaln_layernorm": TN.ADALN,
+              "adaln_layernorm_bwd": TN.ADALN_BWD}[name]
+    before = handle.launches
+    got = kern(*args)
+    torch.cuda.synchronize()
+    assert handle.launches == before + 1
+    assert chip_smoke.compare(name, got, plain(*args))[2]
+
+
+def _pixeldit_cases():
+    import chip_smoke
+    return [(name, label) for name, cases in chip_smoke.PIXELDIT_CASES.items()
+            for label, _ in cases]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name,label", _pixeldit_cases())
+def test_card_pixeldit_shapes(cuda, dtype, name, label):
+    """K6/K6b at PixelDiT's patch stage (16 heads of 64 over 1024 tokens)
+    and pixel stage (4 heads of 64 over 16384 and 15552 tokens, called
+    directly, at the held batch 2), K4/K4b over the 300-token caption
+    padded to 384 keys with the caption masks, and K1/K1b at widths 1024
+    and 256 (chip_smoke.py's ``PIXELDIT_CASES``): one launch each, within
+    chip_smoke.py's tolerance of the plain version."""
+    import chip_smoke
+    case = next(c for c in chip_smoke.kernel_cases(cuda)
+                if c[:3] == (name, label, dtype))
+    _, _, _, make, kern, plain = case[:6]
+    args = make()
+    handle = {"flash_attention": TA.FLASH_ATTENTION,
+              "flash_attention_bwd": TA.FLASH_ATTENTION_BWD,
+              "dot_product_attention_folded": TA.SOFTMAX_ATTENTION_FOLDED,
+              "dot_product_attention_folded_bwd":
+                  TA.SOFTMAX_ATTENTION_FOLDED_BWD,
               "adaln_layernorm": TN.ADALN,
               "adaln_layernorm_bwd": TN.ADALN_BWD}[name]
     before = handle.launches

@@ -132,10 +132,11 @@ def _setup(sample_size=8, hidden=None, layers=None, seed=0):
         "empty_text_mask": (np.arange(cap)[None] < 2).astype(np.int32),
     }
     model = PixArtTransformer2D(cfg=cfg, dtype=jnp.float32)
-    variables = model.init(jax.random.PRNGKey(1),
-                           jnp.asarray(batch["latents"]),
-                           jnp.asarray(batch["embeddings"]),
-                           jnp.zeros((b,)), jnp.asarray(mask))
+    # one compiled init (eager flax compiles op by op)
+    variables = jax.jit(model.init)(jax.random.PRNGKey(1),
+                                    jnp.asarray(batch["latents"]),
+                                    jnp.asarray(batch["embeddings"]),
+                                    jnp.zeros((b,)), jnp.asarray(mask))
     variables = {"params": jax.tree_util.tree_map_with_path(
         lambda path, a: a + 0.05 * jax.random.normal(
             jax.random.PRNGKey(len(str(path))), a.shape)

@@ -504,13 +504,24 @@ def test_loader_refusals_match_jax(tmp_path, case):
 
 
 def test_other_families_name_their_roadmap_item(tmp_path):
+    """Every family of the JAX package loads now: PixelDiT reads a
+    synthesized raw ``.pth`` named by ``pretrained_model_path`` into the
+    tree of every leaf; a family that no package has raises, naming
+    it."""
+    from tests.test_torch_port_pixeldit import write_tiny_checkpoint
+    from tools.synth_checkpoint import leaf_shapes
     from yat_tpu_torch.config import TrainingParameters
     from yat_tpu_torch.frontends.common import load_pretrained_backbone
+    from yat_tpu_torch.models.pixeldit import PIXELDIT_TINY_TEST
 
+    path = str(tmp_path / "checkpoint.pth")
+    shapes, _ = write_tiny_checkpoint(path)
     params = TrainingParameters.from_dict(_raw(
-        "sana", pretrained_model_path=str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        load_pretrained_backbone(params, "pixeldit", None)
+        "sana", pretrained_model_path=path))
+    tree = load_pretrained_backbone(params, "pixeldit", PIXELDIT_TINY_TEST)
+    assert leaf_shapes(tree) == shapes
+    with pytest.raises(ValueError, match="unknown model family 'dit-xl'"):
+        load_pretrained_backbone(params, "dit-xl", None)
 
 
 # ---------------------------------------------------------------------------

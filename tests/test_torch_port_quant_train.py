@@ -121,10 +121,11 @@ def _sana_setup():
                                                np.float32),
              "text_mask": mask}
     model = SanaTransformer2D(cfg=cfg, dtype=jnp.float32)
-    variables = model.init(jax.random.PRNGKey(1),
-                           jnp.asarray(batch["latents"]),
-                           jnp.asarray(batch["embeddings"]),
-                           jnp.zeros((b,)), jnp.asarray(mask))
+    # one compiled init (eager flax compiles op by op)
+    variables = jax.jit(model.init)(jax.random.PRNGKey(1),
+                                    jnp.asarray(batch["latents"]),
+                                    jnp.asarray(batch["embeddings"]),
+                                    jnp.zeros((b,)), jnp.asarray(mask))
     adapters, meta = build_adapter_params(
         variables, AdapterSpec("lora", rank=4, alpha=8,
                                target_modules=TARGETS),
@@ -339,10 +340,11 @@ def _pixart_w8a8_setup(cap):
                                                np.float32),
              "text_mask": mask}
     model = PixArtTransformer2D(cfg=cfg, dtype=jnp.float32)
-    variables = model.init(jax.random.PRNGKey(1),
-                           jnp.asarray(batch["latents"]),
-                           jnp.asarray(batch["embeddings"]),
-                           jnp.zeros((b,)), jnp.asarray(mask))
+    # one compiled init (eager flax compiles op by op)
+    variables = jax.jit(model.init)(jax.random.PRNGKey(1),
+                                    jnp.asarray(batch["latents"]),
+                                    jnp.asarray(batch["embeddings"]),
+                                    jnp.zeros((b,)), jnp.asarray(mask))
     # nonzero modulation tables, so every LoRA leaf gets a gradient
     variables = {"params": jax.tree_util.tree_map_with_path(
         lambda path, a: a + 0.05 * jax.random.normal(

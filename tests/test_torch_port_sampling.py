@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from tests.test_frontends import TINY_DIT, write_shard
+from tests.test_torch_port_encode import jitted_flax_init
 from tests.test_validation_frontends import base
 from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
@@ -297,13 +298,15 @@ def sana_pair(tmp_path_factory):
     shard = write_shard(tmp / "s.tar", (4, 4, 32), 32)
     p = base(tmp, shard, model_config_overrides=TINY_SANA, timesteps=[1000],
              **_lora_over())
-    trainer = make_trainer(p)
-    trainer.initialize()
+    # the JAX package's flax inits under one jit each
+    with jitted_flax_init():
+        trainer = make_trainer(p)
+        trainer.initialize()
+        encoders = _encoder_weights("sana", p.dataset_seed)
     adapters = _random_lora_b(trainer, 5)
     trainer.state = trainer.state.replace(adapters=adapters)
     weights = {"transformer": jax.tree.map(
-        np.asarray, trainer.state.params), **_encoder_weights("sana",
-                                                             p.dataset_seed)}
+        np.asarray, trainer.state.params), **encoders}
     vp = make_pipeline(TrainingParameters.from_dict(_port_raw(
         "sana", dict(timesteps=[1000]))), "cpu", weights)
     n = load_flax_adapters(vp.model, jax.tree.map(np.asarray, adapters),
@@ -365,15 +368,17 @@ def test_pixart_pipeline_dpm_with_pag_matches_jax(tmp_path):
 
     shard = write_shard(tmp_path / "s.tar", (8, 8, 4), 32)
     p = base(tmp_path, shard, model_config_overrides=TINY_PIXART)
-    trainer = make_trainer(p)
-    trainer.initialize()
+    # the JAX package's flax inits under one jit each
+    with jitted_flax_init():
+        trainer = make_trainer(p)
+        trainer.initialize()
+        encoders = _encoder_weights("pixart", p.dataset_seed)
     jvp = trainer.validate_fn
     jvp.num_steps = 4
     j_sampler(jvp, "dpm")
     want = jvp(trainer)
     weights = {"transformer": jax.tree.map(
-        np.asarray, trainer.state.variables()["params"]),
-        **_encoder_weights("pixart", p.dataset_seed)}
+        np.asarray, trainer.state.variables()["params"]), **encoders}
     vp = make_pipeline(TrainingParameters.from_dict(_port_raw("pixart", {})),
                        "cpu", weights)
     vp.num_steps = 4
@@ -403,16 +408,19 @@ def test_ema_validation_matches_jax_and_restores_live_leaves(tmp_path):
     shard = write_shard(tmp_path / "s.tar", (4, 4, 32), 32)
     over = dict(use_ema="", **_lora_over())
     p = base(tmp_path, shard, model_config_overrides=TINY_SANA, **over)
-    jt = j_make_trainer(p)
-    jt.validate_fn.num_steps = 2
-    jt.initialize()
+    # the JAX package's flax inits under one jit each
+    with jitted_flax_init():
+        jt = j_make_trainer(p)
+        jt.validate_fn.num_steps = 2
+        jt.initialize()
+        encoders = _encoder_weights("sana", p.dataset_seed)
     live = _random_lora_b(jt, 6)
     ema = _random_lora_b(jt, 7)
     jt.state = jt.state.replace(adapters=live, ema=ema)
     want = jt.validate_fn(jt)
 
     weights = {"transformer": jax.tree.map(np.asarray, jt.state.params),
-               **_encoder_weights("sana", p.dataset_seed)}
+               **encoders}
     raw = _port_raw("sana", dict(
         over, local_shard_paths=[shard],
         validation_prompts=list(p.validation_prompts),

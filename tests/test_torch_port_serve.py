@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from tests.test_frontends import TINY_DIT, write_shard
+from tests.test_torch_port_encode import jit_flax_init  # noqa: F401
 from tests.test_validation_frontends import base
 from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
@@ -43,11 +44,12 @@ def _port_pipeline(**over):
     return vp
 
 
-def test_pipeline_matches_jax_validation(tmp_path):
+def test_pipeline_matches_jax_validation(tmp_path, jit_flax_init):
     """JAX: the tiny SANA trainer of tests/test_serve.py and its
     validate_fn.  Port: make_pipeline on the trainer's transformer weights
     and the encoder weights the JAX frontend initialises from
-    PRNGKey(dataset_seed), with JAX's seed_noise(42) injected as x0."""
+    PRNGKey(dataset_seed), with JAX's seed_noise(42) injected as x0.  The
+    JAX package's flax inits run under one jit (``jit_flax_init``)."""
     from yat_tpu.frontends.sana import make_trainer
     from yat_tpu.models.text_encoders import GEMMA_TINY_TEST, Gemma2Encoder
     from yat_tpu.models.vae import DCAE, DCAE_TINY_TEST
@@ -205,8 +207,15 @@ def test_build_sampler_batch_cap_and_refused_options():
     with pytest.raises(ValueError, match="requires a flow-match family"):
         build_sampler(_port_params(), "sana", cache_interval=2,
                       sampler="dpm", device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        build_sampler(_port_params(), "pixeldit", device="cpu")
+    with pytest.raises(ValueError, match="unknown model family 'dit-xl'"):
+        build_sampler(_port_params(), "dit-xl", device="cpu")
+    # PixelDiT serves (its tiny configuration at 32 px, 2 DPM steps)
+    from tests.test_torch_port_pixeldit import _serve_params
+    s5 = build_sampler(_serve_params(), "pixeldit", device="cpu", steps=2)
+    try:
+        assert s5.submit("a red fox", timeout=300).shape == (32, 32, 3)
+    finally:
+        s5.stop()
     # low_vram serves one prompt at a time
     s4 = build_sampler(_port_params(low_vram=""), "sana", device="cpu")
     try:

@@ -69,10 +69,11 @@ def tiny_setup():
         "empty_text_mask": (np.arange(cap)[None] < 3).astype(np.int32),
     }
     model = SanaTransformer2D(cfg=cfg, dtype=jnp.float32)
-    variables = model.init(jax.random.PRNGKey(1),
-                           jnp.asarray(batch["latents"]),
-                           jnp.asarray(batch["embeddings"]),
-                           jnp.zeros((b,)), jnp.asarray(mask))
+    # one compiled init (eager flax compiles op by op)
+    variables = jax.jit(model.init)(jax.random.PRNGKey(1),
+                                    jnp.asarray(batch["latents"]),
+                                    jnp.asarray(batch["embeddings"]),
+                                    jnp.zeros((b,)), jnp.asarray(mask))
     adapters, meta = build_adapter_params(
         variables, AdapterSpec("lora", rank=4, alpha=8,
                                target_modules=TARGETS),

@@ -81,10 +81,11 @@ def _family(name: str):
         "embeddings": rng.standard_normal((b, cap, cfg.caption_channels),
                                           np.float32),
         "text_mask": mask}
-    variables = model.init(jax.random.PRNGKey(1),
-                           jnp.asarray(batch["latents"]),
-                           jnp.asarray(batch["embeddings"]),
-                           jnp.zeros((b,)), jnp.asarray(mask))
+    # one compiled init (eager flax compiles op by op)
+    variables = jax.jit(model.init)(jax.random.PRNGKey(1),
+                                    jnp.asarray(batch["latents"]),
+                                    jnp.asarray(batch["embeddings"]),
+                                    jnp.zeros((b,)), jnp.asarray(mask))
     variables = {"params": jax.tree_util.tree_map_with_path(
         lambda path, a: a + 0.05 * jax.random.normal(
             jax.random.PRNGKey(len(str(path))), a.shape)

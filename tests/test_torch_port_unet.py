@@ -434,7 +434,8 @@ def test_pretrained_unet_loads_from_pipe_dir_and_single_file(tmp_path):
     """``load_pretrained_backbone`` for sd15 from ``unet/`` of a pipe
     directory and from a CompVis single file: the same tree, every
     parameter of the UNet built by the frontend equal to its synthesized
-    value; flux still names its ROADMAP item."""
+    value; PixelDiT loads from a raw ``.pth`` beside them and a family
+    that no package has raises."""
     from yat_tpu_torch.config import TrainingParameters
     from yat_tpu_torch.frontends.common import (build_backbone,
                                                 load_pretrained_backbone)
@@ -460,8 +461,16 @@ def test_pretrained_unet_loads_from_pipe_dir_and_single_file(tmp_path):
     want = dict(S.expected_values(us, S.unet_rules(2, True), 0, "BF16"))
     for path, t in flax_params(m).items():
         np.testing.assert_array_equal(t.numpy(), want[path])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        load_pretrained_backbone(p1, "pixeldit", None)
+    from tests.test_torch_port_pixeldit import write_tiny_checkpoint
+    from yat_tpu_torch.models.pixeldit import PIXELDIT_TINY_TEST
+    pth = str(tmp_path / "pixeldit.pth")
+    shapes, _ = write_tiny_checkpoint(pth)
+    p3 = TrainingParameters.from_dict({**base,
+                                       "pretrained_model_path": pth})
+    assert S.leaf_shapes(load_pretrained_backbone(
+        p3, "pixeldit", PIXELDIT_TINY_TEST)) == shapes
+    with pytest.raises(ValueError, match="unknown model family"):
+        load_pretrained_backbone(p1, "dit-xl", None)
 
 
 # ---------------------------------------------------------------------------

@@ -22,8 +22,10 @@ every fully masked tile are NaN: such tiles are never read.  All four
 also run the UNet's shapes cut to size (``UNET_CASES``: head dims 40, 64
 and 80 over CLIP's 77 keys, all kept or partly masked) and SD3.5's joint
 attention cut to size (``SD35_CASES``: head dim 64, ragged N_q = N_k
-whose last query and key blocks hold 77 rows) and Flux's (``FLUX_CASES``:
-head dim 128, N_q = N_k with a last block of 64 rows, and whole blocks).
+whose last query and key blocks hold 77 rows), Flux's (``FLUX_CASES``:
+head dim 128, N_q = N_k with a last block of 64 rows, and whole blocks)
+and PixelDiT's (``PIXELDIT_CASES``: 4 heads of 64 with a last block of 64
+rows, and 300 caption keys at head dim 64).
 
 ``k5`` and ``k5b`` (the w8a8 matmul and its backward, one source) run
 with Hopper's mbarriers, TMA tile loads (128-byte swizzle) and wgmma s8
@@ -41,8 +43,8 @@ stages wrapping), head dims 16, 32, 64 and 20 (4-byte copies), q/k/v as
 views of one fused [B, N, 3, H, D] tensor, and with a NaN in one k entry
 and one q entry (the NaN positions must be the plain version's).  ``k1``
 (the adaLN forward) runs D = 1152 (the row in registers), D = 1000,
-SD3.5's D = 1536, Flux's D = 3072 and an unaligned D = 1152 view (the
-generic loop), at
+SD3.5's D = 1536, Flux's D = 3072, PixelDiT's D = 1024 and 256 and an
+unaligned D = 1152 view (the generic loop), at
 ragged N.  ``k1b`` (its
 backward, one launch whose last block of each batch element adds the
 blocks' column sums) runs the same three layouts, bf16 and fp32, at N =
@@ -292,6 +294,12 @@ SD35_CASES = [(1, 333, 333, 2, 64, None), (2, 205, 205, 1, 64, None)]
 # caption rung leave a last query and key block of 64 rows, and over
 # 2 * 128, as 4608 = 36 * 128 fills every block
 FLUX_CASES = [(1, 320, 320, 2, 128, None), (2, 256, 256, 1, 128, None)]
+# PixelDiT's attentions cut to size: the pixel stage's self-attention (K6
+# and K6b called directly, no mask) in 4 heads of 64 over N_q = N_k =
+# 2 * 128 + 64, as the 15552 pixel tokens of its 864x288 bucket leave a
+# last query and key block of 64 rows; the patch stage's cross-attention
+# (K4/K4b) at head dim 64 over the 300-token caption, all kept or 9 kept
+PIXELDIT_CASES = [(1, 320, 320, 4, 64, None), (2, 136, 300, 2, 64, [300, 9])]
 
 
 def check_fwd(which, lib, dtype, case):
@@ -504,7 +512,8 @@ def check_k3(lib, dtype, round_kv, case, nan=False):
 K1_CASES = [(2, 37, 1152, "plain"), (1, 5, 1152, "plain"),
             (1, 77, 1000, "plain"), (2, 9, 1152, "unaligned"),
             (2, 9, 1536, "plain"), (1, 5, 1536, "plain"),
-            (2, 9, 3072, "plain"), (1, 5, 3072, "plain")]
+            (2, 9, 3072, "plain"), (1, 5, 3072, "plain"),
+            (2, 9, 1024, "plain"), (1, 5, 256, "plain")]
 
 
 def run_k1(lib, x, sc, sh):
@@ -558,7 +567,8 @@ K1B_CASES = [(3, 256, 1152, "plain"), (1, 256, 1152, "plain"),
              (1, 17, 1000, "plain"), (3, 100, 1152, "unaligned"),
              (1, 17, 1152, "unaligned"), (3, 17, 1536, "plain"),
              (1, 100, 1536, "plain"), (3, 17, 3072, "plain"),
-             (1, 100, 3072, "plain")]
+             (1, 100, 3072, "plain"), (3, 17, 1024, "plain"),
+             (1, 100, 256, "plain")]
 
 
 def run_k1b(lib, x, sc, g):
@@ -654,7 +664,7 @@ def main(argv):
         fwd = w in ("fwd", "k2")
         for dtype in (torch.bfloat16, torch.float32):
             for case in (CASES + UNET_CASES + SD35_CASES + FLUX_CASES
-                         + (FWD_CASES if fwd else [])):
+                         + PIXELDIT_CASES + (FWD_CASES if fwd else [])):
                 t0 = time.perf_counter()
                 text = (check_fwd(w, libs[SOURCES[w]], dtype, case)
                         if fwd else check(w, libs[SOURCES[w]], dtype, case))

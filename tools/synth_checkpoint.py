@@ -4,7 +4,8 @@ The repository holds no pretrained weights, so the loaders of both
 packages are tested on files synthesized here: the same keys, shapes and
 dtypes as the published SANA, PixArt-Sigma, Gemma-2, T5, CLIP, SD1.5/SDXL
 UNet, SD3.5 MMDiT, Flux transformer, DC-AE and SD KL-VAE checkpoints (and the CompVis single file of
-SD1.5, :func:`write_compvis_single_file`), with seeded values.  Imports numpy only (``torch`` for
+SD1.5, :func:`write_compvis_single_file`, and PixelDiT's raw ``.pth`` in
+DiT naming, :func:`write_pth`), with seeded values.  Imports numpy only (``torch`` for
 ``.bin`` files, inside :func:`write_bin`), never JAX or either package, so
 the JAX package's tests, the port's tests and ``chip_smoke.py`` share it.
 
@@ -28,6 +29,10 @@ provably covers the whole model.  A rule is ``(regex, template, kind)``;
   (``template`` holds their keys, ``|``-separated), the leaf's output axis
   cut in the ratio of the weights (Flux's fused ``linear1`` from
   ``to_q``, ``to_k``, ``to_v`` and ``proj_mlp``);
+* ``fused{j}/{n}``: the leaf is the ``j``-th of ``n`` equal parts, along
+  the output axis, of one torch tensor that several leaves share (a DiT's
+  fused ``attn.qkv`` from ``to_q``, ``to_k`` and ``to_v``), each part in
+  the ``auto`` layout;
 * ``drop``: not in the checkpoint (a torch layer without that bias); the
   loader must set it to zero.
 
@@ -162,6 +167,19 @@ def _piece(t: np.ndarray, kind: str) -> np.ndarray:
     return np.ascontiguousarray(t[a:a + sizes[j]])
 
 
+def _fused(kind: str):
+    """``(j, n)`` of a ``fused{j}/{n}`` kind, else None."""
+    m = re.fullmatch(r"fused(\d+)/(\d+)", kind)
+    return (int(m.group(1)), int(m.group(2))) if m else None
+
+
+def _fuse(parts: List[Tuple[str, np.ndarray]]) -> np.ndarray:
+    """The shared torch tensor of ``[(fused kind, part)]``, parts in their
+    order along the output axis."""
+    return np.concatenate([t for _, t in sorted(
+        parts, key=lambda kp: _fused(kp[0])[0])], 0)
+
+
 def torch_shape(shape: tuple, kind: str, path: str) -> tuple:
     """The checkpoint tensor's shape of a flax-layout leaf."""
     shape = tuple(int(s) for s in shape)
@@ -233,6 +251,8 @@ def leaf_value(seed: int, path: str, shape: tuple, kind: str,
     shape = tuple(int(s) for s in shape)
     if kind == "drop":
         return np.zeros(shape, np.float32)
+    if _fused(kind):
+        kind = "auto"
     leaf = path.rsplit(".", 1)[-1]
     add = 0.0
     if leaf == "kernel":
@@ -276,8 +296,12 @@ def plan(shapes: Mapping[str, tuple], rules: List[Rule]):
         else:
             written.append((path, tuple(shapes[path]), key, kind))
     keys = [w[2] for w in written]
-    if len(set(keys)) != len(keys):
-        raise ValueError("two model leaves map onto one checkpoint key")
+    for key in set(keys):
+        kinds = [w[3] for w in written if w[2] == key]
+        parts = sorted(_fused(k) or (0, 1) for k in kinds)
+        if parts != [(j, len(kinds)) for j in range(len(kinds))]:
+            raise ValueError(f"model leaves {kinds} map onto one checkpoint "
+                             f"key {key}")
     return written, dropped
 
 
@@ -287,13 +311,18 @@ def synth(shapes: Mapping[str, tuple], rules: List[Rule], seed: int,
     ``dtype``'s grid, torch layout) and ``{flax path: value}`` that a
     correct load gives every leaf (zeros for the dropped ones)."""
     written, dropped = plan(shapes, rules)
-    sd, expected = {}, {}
+    sd, expected, fused = {}, {}, {}
     for path, shape, key, kind in written:
         base, j = _split(kind)
         v = leaf_value(seed, path, shape, base, dtype)
+        expected[path] = v
+        if _fused(kind):
+            fused.setdefault(key, []).append((kind, to_torch_layout(
+                v, "auto", path)))
+            continue
         t = to_torch_layout(v, base, path)
         sd[key] = t if j is None else _piece(t, kind)
-        expected[path] = v
+    sd.update({key: _fuse(parts) for key, parts in fused.items()})
     for path in dropped:
         expected[path] = np.zeros(shapes[path], np.float32)
     return sd, expected
@@ -360,9 +389,20 @@ def write_checkpoint(dirpath: str, shapes: Mapping[str, tuple],
             return t if j is None else _piece(t, kind)
         return make
 
-    entries = [(key, torch_shape(shape, kind, path),
-                maker(path, shape, kind))
-               for path, shape, key, kind in written]
+    entries, fused = [], {}
+    for path, shape, key, kind in written:
+        if _fused(kind):
+            fused.setdefault(key, []).append((kind, path, shape))
+        else:
+            entries.append((key, torch_shape(shape, kind, path),
+                            maker(path, shape, kind)))
+    for key, parts in fused.items():
+        def make(parts=parts):
+            return _fuse([(k, to_torch_layout(
+                leaf_value(seed, path, shape, "auto", grid), "auto", path))
+                for k, path, shape in parts])
+        first = torch_shape(parts[0][2], "auto", parts[0][1])
+        entries.append((key, (first[0] * len(parts),) + first[1:], make))
     os.makedirs(dirpath, exist_ok=True)
     nbytes = write_safetensors(os.path.join(dirpath, name), entries, dtype)
     if config is not None:
@@ -371,12 +411,30 @@ def write_checkpoint(dirpath: str, shapes: Mapping[str, tuple],
     return {"tensors": len(entries), "bytes": nbytes, "dropped": dropped}
 
 
-def write_bin(path: str, state_dict: Mapping[str, np.ndarray]) -> None:
-    """A ``.bin`` checkpoint (``torch.save`` of fp32 tensors)."""
+def write_bin(path: str, state_dict: Mapping[str, np.ndarray],
+              dtype: str = "F32") -> None:
+    """A ``.bin`` (or ``.pth``) checkpoint: ``torch.save`` of the tensors
+    in fp32, or stored as ``dtype`` (``"BF16"``, ``"F16"``: the values
+    must lie on its grid)."""
     import torch
+    torch_dtype = {"F32": torch.float32, "F16": torch.float16,
+                   "BF16": torch.bfloat16}[dtype]
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    torch.save({k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v, np.float32)
+                                    ).to(torch_dtype)
                 for k, v in state_dict.items()}, path)
+
+
+def write_pth(path: str, shapes: Mapping[str, tuple], rules: List[Rule],
+              seed: int, dtype: str = "F32") -> dict:
+    """Synthesize a model's checkpoint as one ``torch.save`` file (a raw
+    ``.pth``, as PixelDiT ships) with :func:`synth`'s values on
+    ``dtype``'s grid, stored in ``dtype``.  Returns ``{"tensors",
+    "bytes", "dropped"}``."""
+    sd, _ = synth(shapes, rules, seed, dtype)
+    write_bin(path, sd, dtype)
+    return {"tensors": len(sd), "bytes": os.path.getsize(path),
+            "dropped": plan(shapes, rules)[1]}
 
 
 # ---------------------------------------------------------------------------
@@ -517,6 +575,39 @@ def flux_rules(mlp_ratio: float = 4.0) -> List[Rule]:
         (r"^single_(\d+)\.norm_([qk])\.", f"{s}.attn.norm_{{1}}", "auto"),
         (r"^final_mod\.", "norm_out.linear", "auto"),
         (r"^proj_out\.", "proj_out", "auto"),
+    ]
+
+
+def pixeldit_rules(patch_size: int = 16) -> List[Rule]:
+    """A PixelDiT checkpoint in the DiT naming of its text-to-image code
+    (``convert_pixeldit``): the ``x_embedder.proj`` patch convolution,
+    ``t_embedder.mlp.0/.2``, ``cap_embedder.1``, ``token_expand`` and
+    ``pixel_time_proj``; in each block (``blocks.{i}``, then
+    ``pixel_blocks.{i}``) the fused ``attn.qkv``, ``attn.proj``,
+    ``cross_attn.q_linear``, the fused ``cross_attn.kv_linear``,
+    ``cross_attn.proj``, ``adaLN_modulation.1`` and ``mlp.fc1/fc2``;
+    ``final_layer.linear``.  The REPA projector has no key: a model with
+    one takes it from its seed."""
+    b = r"^(blocks|pixel_blocks)_(\d+)\."
+    qkv = [(b + rf"attn\.to_{n}\.", "{0}.{1}.attn.qkv", f"fused{j}/3")
+           for j, n in enumerate("qkv")]
+    kv = [(b + rf"cross_attn\.to_{n}\.", "{0}.{1}.cross_attn.kv_linear",
+           f"fused{j}/2") for j, n in enumerate("kv")]
+    return [
+        (r"^patch_embed\.proj\.kernel$", "x_embedder.proj",
+         f"patch{patch_size}"),
+        (r"^patch_embed\.proj\.bias$", "x_embedder.proj", "auto"),
+        (r"^time_embed\.linear_1\.", "t_embedder.mlp.0", "auto"),
+        (r"^time_embed\.linear_2\.", "t_embedder.mlp.2", "auto"),
+        (r"^caption_projection\.", "cap_embedder.1", "auto"),
+        (r"^(token_expand|pixel_time_proj)\.", "{0}", "auto"),
+        *qkv, *kv,
+        (b + r"attn\.to_out\.", "{0}.{1}.attn.proj", "auto"),
+        (b + r"cross_attn\.to_q\.", "{0}.{1}.cross_attn.q_linear", "auto"),
+        (b + r"cross_attn\.to_out\.", "{0}.{1}.cross_attn.proj", "auto"),
+        (b + r"mod\.", "{0}.{1}.adaLN_modulation.1", "auto"),
+        (b + r"ff\.(fc\d)\.", "{0}.{1}.mlp.{2}", "auto"),
+        (r"^proj_out\.", "final_layer.linear", "auto"),
     ]
 
 

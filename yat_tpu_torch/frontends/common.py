@@ -24,10 +24,13 @@ of REPA's targets (``build_dino_encoder``, which the on-the-fly and
 Dreambooth samplers call on each whole batch under ``use_repa``) and
 the pretrained adapters of ``lora_pretrained`` for serving
 (``attach_pretrained_adapters``).  The denoisers of SANA, PixArt-Sigma,
-SD1.5, SDXL, SD3.5 and Flux load from diffusers files, and the UNet, CLIP
+SD1.5, SDXL, SD3.5 and Flux load from diffusers files, the UNet, CLIP
 and VAE of SD1.5 and SDXL also from a CompVis single file
-(``pretrained_pipe_single_file``); PixelDiT (and its hub fetch) is not
-ported (ROADMAP queue 1, item 10c).
+(``pretrained_pipe_single_file``), and PixelDiT from a raw ``.pth`` or
+``.safetensors`` file in DiT naming, or from a hub repo id
+(``org/name``), whose ``model.pth`` ``hf_hub_fetch`` downloads into
+``./checkpoints`` once (the library is optional; nothing is fetched when
+the file is there).
 
 Two divergences from the JAX package, both repairs: the SDXL VAE (and
 PixArt-Sigma's, whose published pipe ships SDXL's) scales its latents by
@@ -103,8 +106,10 @@ def build_module(module_fn, device, tree, seed, dtype=None,
     return module.eval()
 
 
-# families whose converters are ported; the others wait for ROADMAP item 10
-_PORTED_FAMILIES = ("sana", "pixart", "sd15", "sdxl", "sd35", "flux")
+# the families whose denoiser checkpoints load (every family of the JAX
+# package)
+_PORTED_FAMILIES = ("sana", "pixart", "sd15", "sdxl", "sd35", "flux",
+                    "pixeldit")
 # the families whose single-file CompVis checkpoints load
 _SINGLE_FILE_FAMILIES = ("sd15", "sdxl")
 
@@ -188,15 +193,18 @@ def load_pretrained_backbone(params: TrainingParameters, family: str, cfg):
     if not pretrained_requested(params):
         return None
     if family not in _PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"pretrained {family} checkpoints are not ported to PyTorch yet "
-            "(ROADMAP queue 1, item 10)")
+        raise ValueError(f"unknown model family {family!r}")
     from yat_tpu_torch.models.convert import load_torch_state_dict
 
     dirpath = _find_denoiser_dir(params)
     if dirpath is None and params.pretrained_model_path and \
             os.path.isfile(params.pretrained_model_path):
+        # a raw checkpoint file (PixelDiT's .pth)
         dirpath = params.pretrained_model_path
+    if dirpath is None and family == "pixeldit" and \
+            looks_like_hub_repo(params.pretrained_model_path or ""):
+        # PixelDiT ships as one .pth in a hub repo
+        dirpath = hf_hub_fetch(params.pretrained_model_path)
     if dirpath is None and single_file(params) and \
             family in _SINGLE_FILE_FAMILIES:
         from yat_tpu_torch.models.convert_unet import (convert_unet,
@@ -250,12 +258,51 @@ def load_pretrained_backbone(params: TrainingParameters, family: str, cfg):
     elif family == "flux":
         from yat_tpu_torch.models.convert_dit import convert_flux
         tree = convert_flux(sd, cfg.num_double_blocks, cfg.num_single_blocks)
+    elif family == "pixeldit":
+        from yat_tpu_torch.models.convert_dit import convert_pixeldit
+        tree = convert_pixeldit(sd, cfg.num_layers, cfg.num_pixel_layers)
     else:
         from yat_tpu_torch.models.convert_dit import convert_pixart
         tree = convert_pixart(sd, cfg.num_layers)
     print(f"[{family}] read the pretrained backbone from {dirpath}: "
           f"{len(sd)} tensors")
     return tree
+
+
+def hf_hub_fetch(repo_id: str, filename: str = "model.pth",
+                 local_dir: str = "./checkpoints") -> str:
+    """The path of ``filename`` of the hub repo ``repo_id``, downloaded
+    into ``local_dir`` with ``huggingface_hub.hf_hub_download`` unless it
+    is there already.  A missing library or a failed download raises a
+    ``ValueError`` that names where to put the file, never a random
+    backbone.  One process: the JAX package's barrier, which makes the
+    other processes wait for process 0's download, comes with
+    multi-process training (ROADMAP queue 1, item 12)."""
+    target = os.path.join(local_dir, filename)
+    if os.path.exists(target):
+        return target
+    try:
+        from huggingface_hub import hf_hub_download
+    except ImportError as e:
+        raise ValueError(
+            f"pretrained_model_path={repo_id!r} is not a local file and "
+            "huggingface_hub is unavailable to download it — place the "
+            f"checkpoint at {target!r}") from e
+    try:
+        return hf_hub_download(repo_id=repo_id, filename=filename,
+                               local_dir=local_dir)
+    except Exception as e:  # noqa: BLE001 — any failure names the file
+        raise ValueError(
+            f"failed to download {filename!r} from hub repo {repo_id!r} — "
+            f"place the checkpoint at {target!r} or point "
+            "pretrained_model_path at a local file") from e
+
+
+def looks_like_hub_repo(path: str) -> bool:
+    """An ``org/name`` repo id: nothing that exists locally, one slash."""
+    import re
+    return (not os.path.exists(path)
+            and re.fullmatch(r"[\w.\-]+/[\w.\-]+", path) is not None)
 
 
 def load_pipe_component(params: TrainingParameters, sub: str, convert):
@@ -814,6 +861,21 @@ def dino_config(params: TrainingParameters):
 def dino_token_dim(params: TrainingParameters) -> int:
     """The width of the REPA targets (768 for ViT-B/14)."""
     return dino_config(params).hidden_dim
+
+
+def dino_num_tokens(params: TrainingParameters) -> int:
+    """The patch-token count of the REPA targets (256 for ViT-B/14 at
+    224 px)."""
+    return dino_config(params).grid ** 2
+
+
+def repa_warmup_fields(params: TrainingParameters) -> dict:
+    """The REPA targets' shape for a trainer's ``warmup_spec``
+    (``repa_tokens``, ``repa_dim``), or nothing without ``use_repa``."""
+    if not params.use_repa:
+        return {}
+    return {"repa_tokens": dino_num_tokens(params),
+            "repa_dim": dino_token_dim(params)}
 
 
 def build_dino_encoder(params: TrainingParameters, device):

@@ -122,36 +122,51 @@ def build_encoders(params: TrainingParameters, cfg: SanaConfig,
     ``pretrained_pipe_path`` where present, else they are random.  Under ``low_vram`` both rest on the host between calls.
     The modules ride along as ``.module`` of each callable
     (``chip_smoke.py`` checks their weights)."""
-    from yat_tpu_torch.models.convert import convert_gemma2
     from yat_tpu_torch.models.convert_dcae import convert_dcae
-    from yat_tpu_torch.models.text_encoders import (
-        GEMMA2_2B, GEMMA_TINY_TEST, Gemma2Encoder)
     from yat_tpu_torch.models.vae import DCAE, DCAE_SANA, DCAE_TINY_TEST
-    from yat_tpu_torch.utils.tokenizer import load_tokenizer
 
     weights = weights or {}
     tiny = bool(params.model_config_overrides.get("tiny_encoders"))
-    dtype = torch.bfloat16 if params.bfloat16 else torch.float32
-    te_cfg = GEMMA_TINY_TEST if tiny else GEMMA2_2B
     vae_cfg = DCAE_TINY_TEST if tiny else DCAE_SANA
     low = params.low_vram
+    encode_captions = build_caption_encoder(params, device,
+                                            cfg.max_caption_len, weights)
+    vae = build_pipe_component(
+        params, "vae", lambda sd: convert_dcae(sd, vae_cfg),
+        lambda: DCAE(vae_cfg, encoder=images), device,
+        params.dataset_seed + 2, tree=weights.get("vae"))
+    return (make_image_encoder(vae, device, low) if images else None,
+            encode_captions, make_tiling_decoder(vae, device, low))
+
+
+def build_caption_encoder(params: TrainingParameters, device, max_len: int,
+                          weights: Optional[Mapping] = None):
+    """SANA's Gemma-2 caption encoder (Gemma-2-2B, or its tiny test
+    configuration under ``tiny_encoders``; bf16 under ``bfloat16``) as
+    ``encode_captions`` on captions of up to ``max_len`` tokens
+    (``common.make_caption_encoder``); its weights from the JAX tree under
+    ``"text_encoder"`` of ``weights``, else ``text_encoder/`` of
+    ``pretrained_pipe_path`` where present, else random from
+    ``dataset_seed + 1``.  PixelDiT's captions go through it too."""
+    from yat_tpu_torch.models.convert import convert_gemma2
+    from yat_tpu_torch.models.text_encoders import (
+        GEMMA2_2B, GEMMA_TINY_TEST, Gemma2Encoder)
+    from yat_tpu_torch.utils.tokenizer import load_tokenizer
+
+    tiny = bool(params.model_config_overrides.get("tiny_encoders"))
+    dtype = torch.bfloat16 if params.bfloat16 else torch.float32
+    te_cfg = GEMMA_TINY_TEST if tiny else GEMMA2_2B
     te = build_pipe_component(
         params, "text_encoder",
         lambda sd: convert_gemma2(sd, te_cfg.num_layers),
         lambda: Gemma2Encoder(te_cfg, dtype=dtype), device,
         params.dataset_seed + 1, dtype if params.bfloat16 else None,
-        weights.get("text_encoder"))
-    vae = build_pipe_component(
-        params, "vae", lambda sd: convert_dcae(sd, vae_cfg),
-        lambda: DCAE(vae_cfg, encoder=images), device,
-        params.dataset_seed + 2, tree=weights.get("vae"))
+        (weights or {}).get("text_encoder"))
     tokenize = load_tokenizer(params.pretrained_pipe_path,
                               vocab_size=te_cfg.vocab_size,
-                              max_length=cfg.max_caption_len)
-    return (make_image_encoder(vae, device, low) if images else None,
-            make_caption_encoder(te, tokenize, cfg.max_caption_len, device,
-                                 low),
-            make_tiling_decoder(vae, device, low))
+                              max_length=max_len)
+    return make_caption_encoder(te, tokenize, max_len, device,
+                                params.low_vram)
 
 
 def build_denoiser(params: TrainingParameters, cfg: SanaConfig, device,

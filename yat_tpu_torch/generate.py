@@ -3,7 +3,8 @@ images for a prompt list, write PNGs.
 
 Counterpart of ``yat_tpu/generate.py`` on the PyTorch port:
 
-    python -m yat_tpu_torch.generate --family sana|pixart|sd15|sdxl|sd35|flux \
+    python -m yat_tpu_torch.generate \
+        --family sana|pixart|sd15|sdxl|sd35|flux|pixeldit \
         --config config.yaml --prompt "a red fox in snow" \
         --prompt "a lighthouse at dusk" --steps 20 --guidance-scale 5.0 \
         [--sampler auto|dpm] [--cache-interval N] --out generated/ \
@@ -17,7 +18,8 @@ rides on the denoiser, built from the config's ``lora_*`` keys.
 ``--sampler dpm`` selects DPM-Solver++(2M); ``--cache-interval N`` (flow
 families: SANA, SD3.5, Flux) evaluates the denoiser on every Nth step and
 extrapolates the velocity in between.  Flux samples with its own guidance embedding
-beside true CFG and has no DPM ladder (``--sampler dpm`` raises).
+beside true CFG and has no DPM ladder (``--sampler dpm`` raises);
+PixelDiT samples DPM-Solver++(2M) by default and its sample is the image.
 """
 
 from __future__ import annotations
@@ -35,13 +37,14 @@ FAMILIES = {
     "sdxl": "yat_tpu_torch.frontends.sdxl",
     "sd35": "yat_tpu_torch.frontends.sd35",
     "flux": "yat_tpu_torch.frontends.flux",
+    "pixeldit": "yat_tpu_torch.frontends.pixeldit",
 }
 
 
 def family_module(family: str):
     if family not in FAMILIES:
-        raise ValueError(f"family {family!r} is not ported to PyTorch yet; "
-                         f"available: {sorted(FAMILIES)}")
+        raise ValueError(f"unknown model family {family!r}; available: "
+                         f"{sorted(FAMILIES)}")
     return importlib.import_module(FAMILIES[family])
 
 

@@ -1,9 +1,10 @@
 """DiT checkpoint converters: diffusers PixArtTransformer2DModel → the
-flax-layout PixArtTransformer2D tree, SD3Transformer2DModel → MMDiT and
-FluxTransformer2DModel → FluxTransformer.
+flax-layout PixArtTransformer2D tree, SD3Transformer2DModel → MMDiT,
+FluxTransformer2DModel → FluxTransformer and a DiT-named PixelDiT
+checkpoint → PixelDiT.
 
-Counterparts of ``convert_pixart``, ``convert_sd3_mmdit`` and
-``convert_flux`` of
+Counterparts of ``convert_pixart``, ``convert_sd3_mmdit``,
+``convert_flux`` and ``convert_pixeldit`` of
 ``yat_tpu/models/convert_dit.py`` (with its ``_lin_opt``/``_norm_opt``
 helpers).  Same layout rules as ``models/convert.py``; the 2x2 conv patch
 embed becomes the Dense over ``p*p*C`` in (h, w, c) patch order.  SD3's
@@ -12,7 +13,10 @@ dual-stream naming maps the attention halves: diffusers ``attn.to_q``
 checkpoint's ``pos_embed.pos_embed`` buffer is not read (the MMDiT
 computes its table).  Flux's single blocks keep ``attn.to_q/to_k/to_v``
 and ``proj_mlp`` apart in the file; the model's ``linear1`` is their
-concatenation along the output axis, in that order.
+concatenation along the output axis, in that order.  PixelDiT's file
+(the DiT naming its text-to-image code derives from) fuses the
+self-attention's ``attn.qkv`` and the cross-attention's
+``cross_attn.kv_linear``; each is cut along its output axis.
 """
 
 from __future__ import annotations
@@ -187,4 +191,74 @@ def convert_flux(sd: Dict[str, np.ndarray], num_double: int,
         _norm_opt(sd, f"{p}.attn.norm_k", tree, f"{q}.norm_k")
     _lin_opt(sd, "norm_out.linear", tree, "final_mod")
     _lin_opt(sd, "proj_out", tree, "proj_out")
+    return tree
+
+
+def convert_pixeldit(sd: Dict[str, np.ndarray], num_layers: int,
+                     num_pixel_layers: int) -> Dict[str, Any]:
+    """A DiT-named PixelDiT checkpoint → PixelDiT: the conv (or dense)
+    ``x_embedder.proj`` patch embed, ``t_embedder.mlp.0/.2``, the caption
+    embedder (``cap_embedder.1``, ``y_embedder.proj`` or
+    ``caption_projection``), ``token_expand``, ``pixel_time_proj``; each
+    block (``blocks.{i}``, then ``pixel_blocks.{i}``) with the fused
+    ``attn.qkv`` (or ``attn.to_q/to_k/to_v``) cut in three, ``attn.proj``
+    (or ``attn.to_out.0``), PixArt-style ``cross_attn.q_linear``, the fused
+    ``cross_attn.kv_linear`` cut in two and ``cross_attn.proj``,
+    ``adaLN_modulation.1`` and ``mlp.fc1/fc2``; ``final_layer.linear``
+    as ``proj_out``."""
+    tree: dict = {}
+    w = sd.get("x_embedder.proj.weight")
+    if w is not None:
+        if w.ndim == 4:
+            d, c, p, _ = w.shape
+            k = np.transpose(w, (2, 3, 1, 0)).reshape(p * p * c, d)
+            _set(tree, "patch_embed.proj.kernel", np.ascontiguousarray(k))
+            _set(tree, "patch_embed.proj.bias", sd["x_embedder.proj.bias"])
+        else:
+            _linear(sd, "x_embedder.proj", tree, "patch_embed.proj")
+    _lin_opt(sd, "t_embedder.mlp.0", tree, "time_embed.linear_1")
+    _lin_opt(sd, "t_embedder.mlp.2", tree, "time_embed.linear_2")
+    for src in ("cap_embedder.1", "y_embedder.proj", "caption_projection"):
+        if f"{src}.weight" in sd:
+            _lin_opt(sd, src, tree, "caption_projection")
+            break
+    _lin_opt(sd, "token_expand", tree, "token_expand")
+    _lin_opt(sd, "pixel_time_proj", tree, "pixel_time_proj")
+
+    def fused(src, dst, names):
+        """``src`` cut along its output axis into ``dst.{name}``."""
+        weight, bias = sd[f"{src}.weight"], sd.get(f"{src}.bias")
+        n = weight.shape[0] // len(names)
+        for j, name in enumerate(names):
+            _set(tree, f"{dst}.{name}.kernel",
+                 np.ascontiguousarray(weight[j * n:(j + 1) * n].T))
+            if bias is not None:
+                _set(tree, f"{dst}.{name}.bias", bias[j * n:(j + 1) * n])
+
+    def block(p: str, q: str):
+        if f"{p}.attn.qkv.weight" in sd:
+            fused(f"{p}.attn.qkv", f"{q}.attn", ("to_q", "to_k", "to_v"))
+        else:
+            for name in ("to_q", "to_k", "to_v"):
+                _lin_opt(sd, f"{p}.attn.{name}", tree, f"{q}.attn.{name}")
+        for src in (f"{p}.attn.proj", f"{p}.attn.to_out.0"):
+            if f"{src}.weight" in sd:
+                _lin_opt(sd, src, tree, f"{q}.attn.to_out")
+                break
+        if f"{p}.cross_attn.q_linear.weight" in sd:
+            _lin_opt(sd, f"{p}.cross_attn.q_linear", tree,
+                     f"{q}.cross_attn.to_q")
+            fused(f"{p}.cross_attn.kv_linear", f"{q}.cross_attn",
+                  ("to_k", "to_v"))
+            _lin_opt(sd, f"{p}.cross_attn.proj", tree,
+                     f"{q}.cross_attn.to_out")
+        _lin_opt(sd, f"{p}.adaLN_modulation.1", tree, f"{q}.mod")
+        _lin_opt(sd, f"{p}.mlp.fc1", tree, f"{q}.ff.fc1")
+        _lin_opt(sd, f"{p}.mlp.fc2", tree, f"{q}.ff.fc2")
+
+    for i in range(num_layers):
+        block(f"blocks.{i}", f"blocks_{i}")
+    for i in range(num_pixel_layers):
+        block(f"pixel_blocks.{i}", f"pixel_blocks_{i}")
+    _lin_opt(sd, "final_layer.linear", tree, "proj_out")
     return tree

@@ -29,7 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from yat_tpu_torch.ops.attention import dot_product_attention, linear_attention
+from yat_tpu_torch.ops.attention import (dot_product_attention,
+                                         flash_attention, linear_attention)
 from yat_tpu_torch.ops.quant import (
     dequantize_kernel,
     quantize_kernel,
@@ -582,16 +583,20 @@ class Attention(nn.Module):
     head-split) K/V of the context; ``cached_kv`` replaces their
     computation (the per-request caption K/V cache of sampling);
     ``perturbed=True`` is the identity attention map of perturbed-attention
-    guidance: each query takes its own position's V."""
+    guidance: each query takes its own position's V.  Built with
+    ``flash=True`` it calls ``ops.attention.flash_attention`` (K6/K6b)
+    directly, without the gate, at any length and without a mask
+    (PixelDiT's pixel-stage self-attention)."""
 
     def __init__(self, query_dim: int, num_heads: int, head_dim: int,
                  out_features: Optional[int] = None,
                  qk_norm: Optional[str] = None, use_bias: bool = True,
                  out_bias: bool = True, dtype: Optional[torch.dtype] = None,
-                 context_dim: Optional[int] = None):
+                 context_dim: Optional[int] = None, flash: bool = False):
         super().__init__()
         inner = num_heads * head_dim
         self.num_heads, self.head_dim, self.qk_norm = num_heads, head_dim, qk_norm
+        self.flash = flash
         kv_dim = context_dim or query_dim
         self.to_q = AdapterDense(query_dim, inner, use_bias, dtype)
         self.to_k = AdapterDense(kv_dim, inner, use_bias, dtype)
@@ -634,7 +639,13 @@ class Attention(nn.Module):
             q = q.reshape(b, nq, self.num_heads, self.head_dim)
             if self.qk_norm in ("rms", "rms_norm"):
                 q = self.norm_q(q)
-            y = dot_product_attention(q, k, v, mask=mask)
+            if self.flash:
+                if mask is not None:
+                    raise ValueError("flash attention is called without a "
+                                     "mask")
+                y = flash_attention(q, k, v)
+            else:
+                y = dot_product_attention(q, k, v, mask=mask)
         return self.to_out(y.reshape(b, nq, self.num_heads * self.head_dim),
                            deterministic)
 

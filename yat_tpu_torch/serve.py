@@ -8,7 +8,7 @@ them as one CFG-batched sampling run.  Sampling settings are
 server-global.
 
     python -m yat_tpu_torch.serve --config config.yaml \
-        --family sana|pixart|sd15|sdxl|sd35|flux \
+        --family sana|pixart|sd15|sdxl|sd35|flux|pixeldit \
         --port 8000 --max-batch 4 --batch-window-ms 50 \
         [--sampler auto|dpm] [--cache-interval N] [--device cuda]
 
