@@ -199,10 +199,11 @@ Phases, each of which fails the run (exit code 1) when it fails:
    ``[B, 4096, 24, 64]``, called directly without a mask (K6 at the CFG
    batch 8; K6b held at batch 2 and timed at 8), and K1 and K1b at
    ``[8, 4096, 1536]`` and ``[8, 333, 1536]`` (the generic path), bf16
-   and fp32.  Then SD3.5-medium at its first 15 blocks (``DEPTH_CUTS``)
+   and fp32.  Then SD3.5-medium cut to 4 blocks (``DEPTH_CUTS``: two
+   MMDiT-X blocks, a plain one and the last)
    served at 1024 px as in phase 6 (CLIP-L, OpenCLIP-G and T5-XXL in
    fp32, the MMDiT in bf16, the 16-channel fp32 KL-VAE; 20 Euler steps at
-   shift 3.0, CFG 5.0; 28 K6 and 30 K1 a CFG call at 15 blocks, nothing
+   shift 3.0, CFG 5.0; 6 K6 and 8 K1 a CFG call at 4 blocks, nothing
    else of the port's) and ``configs/sd35_flow_lokr.yaml``
    as written but for its files and its mesh (batch 8, LoKr rank 16,
    EMA, ``low_vram``; 4 steps with the validation at the last): every
@@ -222,15 +223,15 @@ Phases, each of which fails the run (exit code 1) when it fails:
    fp32.  Then Flux-2 Klein served at 1024 px as in phase 6 (Gemma-2-2B
    and the 16-channel KL-VAE in fp32, the transformer in bf16 with
    ``text_dim`` 2304; 20 Euler steps with the dynamic shift, CFG 7.0 and
-   the guidance embedding at 7.0; at 4 double and 8 single blocks
-   (``DEPTH_CUTS``) 12 K6 and 25 K1 a CFG call, nothing else
+   the guidance embedding at 7.0; at 2 double and 4 single blocks
+   (``DEPTH_CUTS``) 6 K6 and 13 K1 a CFG call, nothing else
    of the port's) and ``configs/flux_klein_lora.yaml`` as written but for
    its files, its mesh and ``text_dim``: raw JPEGs in the config's two R2
    shards served by the stand-in S3 endpoint (signed GETs), encoded on the
    fly, batch 4 at 1024 px, LoRA rank 16 on the 32 projections of the
    double blocks, 3 steps with the validation at the last; every LoRA
    leaf changed and exported, the validation image, the launches by step
-   (12 K6, 25 K1, 12 K6b, 23 K1b), the step time and the peak (a run
+   (6 K6, 13 K1, 6 K6b, 11 K1b), the step time and the peak (a run
    that does not fit fails the phase); then one step split into its
    batch's encode and its denoiser step, each timed and profiled alone,
    with each part's memory above what the run keeps resident.  The
@@ -242,9 +243,10 @@ Phases, each of which fails the run (exit code 1) when it fails:
    last block of 64 rows; held at batch 2, timed at 8 and 4), K4/K4b over
    the 300-token caption padded to 384 keys with the caption masks, and
    K1/K1b at ``[B, 1024, 1024]`` and ``[B, 16384, 256]``, bf16 and fp32.
-   Then PixelDiT served at 512 px at full width and depth as in phase 6
-   (Gemma-2-2B in bf16 at 300 tokens, no VAE; DPM-Solver++(2M) in flow
-   form, 20 steps, CFG 4.0; 28 K6, 24 K4 and 56 K1 a CFG call, nothing
+   Then PixelDiT served at 512 px at full width as in phase 6, its 24
+   patch and 4 pixel blocks cut to 14 and 2 (``DEPTH_CUTS``; Gemma-2-2B in
+   bf16 at 300 tokens, no VAE; DPM-Solver++(2M) in flow form, 20 steps,
+   CFG 4.0; 16 K6, 14 K4 and 32 K1 a CFG call at the cut, nothing
    else of the port's; the modulation drawn), the LoRA gradients of 2 + 1
    full-width blocks on a 4-bit base at 512 px against the CPU, and
    ``configs/pixeldit_repa.yaml`` as written but for its files: a
@@ -256,6 +258,23 @@ Phases, each of which fails the run (exit code 1) when it fails:
    0-12), the step time, the peak, one step split into encode and
    denoiser step, and the pixel stage's attention at 864x288 on the
    gate's XLA branch beside K6/K6b at the training batch.
+
+17. Training across processes (after phase 7): ``configs/sana_512_lora.yaml``
+   as written but for its files, its mesh and the training depth cut,
+   3 steps with the validation and the checkpoint at the last, trained by
+   two processes of ``frontends.sana.main`` under
+   ``torch.distributed.run`` (this script's ``--mp-train`` mode), which
+   share the card over gloo, first at ``{dp: 2}`` and then at
+   ``{fsdp: 2}``, each process reading its own shard (its caption
+   lengths over the rungs 128/256/384) through ``WindowedBucketSync``:
+   the backend line, both processes' adapters and EMA bit-equal, the
+   launches of each process's steps (K1 17, K1b 16, K2/K2b/K3 8 a step at
+   8 blocks) and of its validation, one export and one checkpoint, both
+   by rank 0, the checkpoint restored, one step's averaged gradients
+   bit-equal to the one-process mean of the halves and within one bf16
+   step of the one-process step on the whole 2 x 16 rows, the step time,
+   the gradient all-reduce's milliseconds, the peak per process and, at
+   ``{fsdp: 2}``, each process's resident frozen base against the whole.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -347,9 +366,9 @@ REPEAT_TOL = {"sana": 2e-2, "pixart": 5e-2, "sd15": 5e-2, "sdxl": 5e-2,
               "sd35": 5e-2, "flux": 5e-2, "pixeldit": 0.5}
 
 
-# depth cuts of earlier paths that pay for the Flux and PixelDiT phases
-# inside the run's time (PERF.md section 4): the blocks of a denoiser,
-# never its width
+# depth cuts of earlier paths that pay for the Flux, PixelDiT and
+# multi-process phases inside the run's time (PERF.md section 4): the
+# blocks of a denoiser, never its width
 DEPTH_CUTS = {
     # SANA-0.6B and PixArt-Sigma XL-2 served from synthesized files: 28 of
     # their 28 blocks cut to 8
@@ -357,18 +376,22 @@ DEPTH_CUTS = {
     # configs/sana_softmax_patch.yaml: SANA-0.6B's 28 blocks cut to 16, so
     # its softmax blocks 12-15 (the only ones unfrozen) are the last four
     "full_ft": {"num_layers": "16"},
-    # SD3.5-medium's 24 blocks cut to its first 15: blocks 0-12 MMDiT-X,
-    # 13 a plain MMDiT block and 14 the published last block (no second
+    # SD3.5-medium's 24 blocks cut to 4: blocks 0-1 MMDiT-X (of its 0-12),
+    # 2 a plain MMDiT block and 3 the published last block (no second
     # attention, no text output), so every kind of block still runs
-    "sd35": {"num_layers": "15"},
+    "sd35": {"num_layers": "4", "dual_attention_layers": [0, 1]},
     # the SANA-0.6B and PixArt-Sigma XL-2 training runs (phases 7-9, 11
     # and 12, so phase 12's on-the-fly rate compares with phase 7's at one
     # depth): 8 of 28 blocks, so that phase 12's PixArt-Sigma REPA tap
     # after block 4 and SANA's generic REPA on blocks_7 still run
     "train": {"num_layers": "8"},
-    # Flux-2 Klein's 8 double and 16 single blocks cut to 4 and 8 (both
+    # Flux-2 Klein's 8 double and 16 single blocks cut to 2 and 4 (both
     # kinds still run), served and trained
-    "flux": {"num_double_blocks": "4", "num_single_blocks": "8"},
+    "flux": {"num_double_blocks": "2", "num_single_blocks": "4"},
+    # PixelDiT's 24 patch and 4 pixel blocks cut to 14 and 2, served and
+    # trained: the REPA projector still taps block 12, and block 13 is
+    # one it must not reach
+    "pixeldit": {"num_layers": "14", "num_pixel_layers": "2"},
 }
 
 
@@ -5604,8 +5627,8 @@ def drawn_modulation():
 
 def phase_sd35_serve(device, card, params=None, px=1024, window_ms=100.0):
     """SD3.5-medium served at 1024 px through HTTP (``phase_serve``):
-    CLIP-L, OpenCLIP-G and T5-XXL in fp32, the MMDiT in bf16 at its first
-    15 blocks (``DEPTH_CUTS``), the fp32 16-channel KL-VAE; 20 Euler steps
+    CLIP-L, OpenCLIP-G and T5-XXL in fp32, the MMDiT in bf16 cut to 4
+    blocks (``DEPTH_CUTS``), the fp32 16-channel KL-VAE; 20 Euler steps
     at shift 3.0, CFG 5.0; the modulation drawn (``drawn_modulation``)."""
     with drawn_modulation():
         return phase_serve(params or serve_params(
@@ -5683,15 +5706,15 @@ def sd35_batch(trainer, device, side):
 def phase_sd35_train(device, card, tiny=None):
     """``configs/sd35_flow_lokr.yaml`` through ``frontends.sd35.main`` as
     written but for its files and mesh (``sd35_train_config``): SD3.5-
-    medium at its first 15 blocks (``DEPTH_CUTS``) at 1024 px, batch 8,
+    medium cut to 4 blocks (``DEPTH_CUTS``) at 1024 px, batch 8,
     LoKr rank 16 on to_q/to_k/to_v/to_out,
     EMA, ``low_vram`` (each block recomputed in the backward; T5-XXL,
     the CLIPs and the VAE on the host between validation calls; the tiled
     decode), the modulation drawn (``drawn_modulation``), on a seeded
     feature shard at SD3.5's shapes: finite losses, every LoKr leaf
     changed and exported, the validation image at the last step, the
-    launches by step (K6 37 and K1 48 a forward at full depth, 28 and 30
-    at 15 blocks, each block's again in the backward, K6b and K1b once a
+    launches by step (K6 37 and K1 48 a forward at full depth, 6 and 8
+    at 4 blocks, each block's again in the backward, K6b and K1b once a
     backward; the validation's 20 CFG calls), the step time (mean and median), the peak (the run as written
     fits or fails) and one profiled step."""
     import torch
@@ -5929,9 +5952,9 @@ def phase_flux_train(device, card, tiny=None):
     127.0.0.1 and encoded on the fly (Gemma-2-2B and the KL-VAE in fp32),
     the modulation drawn (``drawn_modulation``), ``FLUX_TRAIN_STEPS`` steps
     with validation at the last: finite losses, every LoRA leaf changed and
-    exported, the validation image, the launches by step (12 K6, 25 K1, 12
-    K6b and 23 K1b a step; 12 K6 and 25 K1 for each of the validation's 20
-    CFG calls), the step time and the peak; then one step split into its
+    exported, the validation image, the launches by step (6 K6, 13 K1, 6
+    K6b and 11 K1b a step at the cut; 6 K6 and 13 K1 for each of the
+    validation's 20 CFG calls), the step time and the peak; then one step split into its
     encode and its denoiser step (``encode_and_step``).  A run that
     does not fit in the card's memory fails the phase."""
     import gc
@@ -6095,13 +6118,16 @@ def pixeldit_adapted(cfg):
 def phase_pixeldit_serve(device, card, params=None, px=512,
                          window_ms=100.0):
     """PixelDiT served at 512 px through HTTP (``phase_serve``): the
-    denoiser at full width and depth in bf16 (24 patch blocks at width
+    denoiser at full width in bf16, cut to 14 of its 24 patch blocks and
+    2 of its 4 pixel blocks (``DEPTH_CUTS``; patch blocks at width
     1024, 4 pixel blocks at width 256 over 16384 pixel tokens), Gemma-2-2B
     in bf16 at 300 tokens, no VAE (the sample is the image);
     DPM-Solver++(2M) in flow form, 20 steps, CFG 4.0; the modulation
     drawn (``drawn_modulation``)."""
     with drawn_modulation():
-        return phase_serve(params or serve_params(aspect_ratio=str(px)),
+        return phase_serve(params or serve_params(
+            aspect_ratio=str(px),
+            model_config_overrides=dict(DEPTH_CUTS["pixeldit"])),
                            device, card, family="pixeldit", px=px,
                            profile=device.type == "cuda",
                            window_ms=window_ms)
@@ -6381,9 +6407,11 @@ def xla_probe(label, device, n, batch, heads=4, head_dim=64):
 def phase_pixeldit_train(device, card, tiny=None):
     """``configs/pixeldit_repa.yaml`` through ``frontends.pixeldit.main``
     as written but for its files and length (``pixeldit_train_config``):
-    PixelDiT at full width and depth from a synthesized BF16 ``.pth`` in
+    PixelDiT at full width, cut to 14 patch and 2 pixel blocks
+    (``DEPTH_CUTS``), from a synthesized BF16 ``.pth`` in
     DiT naming (the REPA projector drawn from the seed), rank-8 LoRA on
-    to_q/to_k/to_v/to_out (208 projections) over a 4-bit base, bf16,
+    to_q/to_k/to_v/to_out (120 projections at the cut) over a 4-bit
+    base, bf16,
     REPA at 0.1 through the projector after block 12 against a random
     DINOv2 ViT-B/14 (no file), batch 4 of raw JPEGs at the square and the
     864x288 bucket of 512 px encoded on the fly (the identity, Gemma-2-2B
@@ -6415,7 +6443,7 @@ def phase_pixeldit_train(device, card, tiny=None):
             else 0.5, shards=1, sources=PIXELDIT_SOURCES)
         log(f"{label}: wrote {len(sizes)} JPEGs at sources "
             f"{sorted(set(sizes))} in {time.perf_counter() - t0:.1f} s")
-        extra = {} if tiny is None else {
+        extra = depth_cut("pixeldit") if tiny is None else {
             "batch_size": "2", "vae_max_batch_size": "2",
             "text_encoder_max_batch_size": "2", "aspect_ratio": "256",
             "model_config_overrides": tiny}
@@ -6513,6 +6541,395 @@ def check_pixeldit_run(label, trainer, cfg, counts, cuda, grids, images,
     return {k: counts[k] for k in PIXELDIT_KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# 17. training across processes (torchrun, two processes on the card)
+# ---------------------------------------------------------------------------
+
+MP_WORLD = 2
+MP_STEPS = 3
+# the meshes of the phase: the card is one, so two processes share it
+MP_MESHES = {"dp": {"dp": MP_WORLD}, "fsdp": {"fsdp": MP_WORLD}}
+# the two processes' step against the one-process mean of the same halves:
+# bit-equal.  Against the one-process step on the concatenated 2 x 16 rows,
+# in bf16: the whole gradient within one bf16 step (2^-7) of its norm, each
+# leaf's and the loss within the bf16 forward tolerance (2e-2).  A batch
+# of another size rounds otherwise in bf16: on an H100 80GB a leaf whose
+# adapter B is still near 0 reads 1.7e-2 (its norm is small), and the
+# one-process step on the same rows in another order is logged beside it
+MP_GRAD_RTOL, MP_LEAF_RTOL, MP_LOSS_RTOL = 2.0 ** -7, 2e-2, 2e-2
+
+
+def mp_train_config(shards, tmp, label, mesh, cfg_extra=None):
+    """``configs/sana_512_lora.yaml`` as written but for its files
+    (``shards``, no pretrained paths: the modules are random from the
+    seed), its ``mesh_shape`` (``mesh``: one card holds the two
+    processes), the training depth cut and ``MP_STEPS`` steps with the
+    validation and the checkpoint at the last."""
+    import yaml
+    with open(os.path.join(REPO, "configs", "sana_512_lora.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    for key in ("pretrained_pipe_path", "pretrained_model_path"):
+        cfg.pop(key)
+    cfg.update({"local_shard_paths": shards, "mesh_shape": dict(mesh),
+                "steps": MP_STEPS, "num_steps_per_validation": MP_STEPS,
+                "checkpoint_dir": os.path.join(tmp, f"ckpt-{label}"),
+                "output_dir": os.path.join(tmp, f"out-{label}"),
+                **depth_cut("train")})
+    for k, v in (cfg_extra or {}).items():
+        if k == "model_config_overrides":
+            cfg[k] = {**cfg[k], **v}
+        else:
+            cfg[k] = v
+    return cfg
+
+
+def _digest(tensors):
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mp_same_step(trainer, rank, world):
+    """This process's rows of a seeded global batch of ``world`` x
+    ``batch_size`` rows at the longest caption rung, and one set of global
+    draws: the gradients and loss averaged over the processes (the step's
+    path); on process 0 (every sharded leaf whole) the one-process mean of
+    the processes' halves, which must be bit-equal, and the one-process
+    step on the whole batch.  Returns process 0's comparison."""
+    import torch
+
+    from yat_tpu_torch.parallel.multihost import barrier
+    from yat_tpu_torch.train.step import loss_and_grads
+
+    dev = trainer.device
+    b = trainer.params.batch_size
+    cfg = trainer.sana_config
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n, rung = world * b, cfg.max_caption_len
+    lat_dtype = torch.bfloat16 if trainer.params.bfloat16 else torch.float32
+    batch = {"latents": torch.randn(
+                 (n, cfg.sample_size, cfg.sample_size, cfg.in_channels),
+                 generator=gen, device=dev).to(lat_dtype),
+             "embeddings": torch.randn((n, rung, cfg.caption_channels),
+                                       generator=gen, device=dev),
+             "text_mask": _caption_mask(n, rung, dev)}
+    ts, sig = trainer.schedule.training_draw(gen, n)
+    draws = {"timesteps": ts, "sigmas": sig,
+             "noise": torch.randn(batch["latents"].shape, generator=gen,
+                                  device=dev)}
+    leaves = trainer.trainable_leaves()
+
+    def half(r):
+        rows = slice(r * b, (r + 1) * b)
+        loss, grads = loss_and_grads(
+            trainer.task_loss, leaves,
+            {k: v[rows] for k, v in batch.items()}, gen,
+            {k: v[rows] for k, v in draws.items()})
+        return grads + [loss.float().reshape(1)]
+
+    synced = half(rank)
+    trainer.grad_sync.mean_(synced)
+    out = {}
+    with trainer.whole():
+        if rank == 0:
+            halves = [half(r) for r in range(world)]
+            mean = [sum(h[i] for h in halves) / world
+                    for i in range(len(synced))]
+            exact = all(torch.equal(a, m) for a, m in zip(synced, mean))
+            loss1, grads1 = loss_and_grads(trainer.task_loss, leaves, batch,
+                                           gen, draws)
+            # the same rows, the second half first: the one-process step's
+            # own bf16 spread
+            order = torch.cat([torch.arange(b, n), torch.arange(b)]).to(dev)
+            _, grads2 = loss_and_grads(
+                trainer.task_loss, leaves,
+                {k: v[order] for k, v in batch.items()}, gen,
+                {k: v[order] for k, v in draws.items()})
+
+            def errors(got, want):
+                leaf = max(float((g.float() - w.float()).norm() / w.norm())
+                           for g, w in zip(got, want))
+                diff = sum(float((g.float() - w.float()).square().sum())
+                           for g, w in zip(got, want))
+                whole = sum(float(w.float().square().sum()) for w in want)
+                return (diff / whole) ** 0.5, leaf
+
+            out = {"rows": b, "loss": float(synced[-1][0]),
+                   "loss_one": float(loss1), "exact": exact,
+                   "whole_err": errors(synced, grads1)[0],
+                   "leaf_err": errors(synced, grads1)[1],
+                   "reordered": errors(grads2, grads1)}
+    barrier()
+    return out
+
+
+def mp_train_worker(out_dir, device, cfg_paths):
+    """One torchrun process of the phase: each config through the SANA
+    entry point, its launch counts set to 0 just before and read just
+    after (those inside validation apart), then the checks that need the
+    live trainer; ``{out_dir}/{label}-rank{rank}.json`` holds what it
+    saw."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from yat_tpu_torch.frontends.sana import main as train_main
+    from yat_tpu_torch.kernels.build import launch_counts, reset_launch_counts
+    from yat_tpu_torch.parallel.mesh import frozen_bytes
+    from yat_tpu_torch.parallel.multihost import barrier
+    from yat_tpu_torch.train import checkpoint as ckpt_mod
+    from yat_tpu_torch.train import engine, validation
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    cuda = device == "cuda"
+    writes = {}
+    save, export = ckpt_mod.save_train_state, engine.Trainer._write_export
+    validate = validation.ValidationPipeline.validate
+    val_counts = {}
+
+    def counted_save(*a, **k):
+        writes["checkpoint"] += 1
+        return save(*a, **k)
+
+    def counted_export(self, *a, **k):
+        writes["export"] += 1
+        return export(self, *a, **k)
+
+    def counted_validate(self, trainer, *a, **k):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        out = validate(self, trainer, *a, **k)
+        val_counts["_seconds"] = time.perf_counter() - t0
+        for name, c in launch_counts().items():
+            val_counts[name] = val_counts.get(name, 0) + c - before[name]
+        val_counts["_calls"] = val_counts.get("_calls", 0) + 1
+        val_counts["_steps"] = self.num_steps
+        return out
+
+    # observation only: which process writes, what validation launches
+    ckpt_mod.save_train_state = counted_save
+    engine.Trainer._write_export = counted_export
+    validation.ValidationPipeline.validate = counted_validate
+    for cfg_path in cfg_paths:
+        label = os.path.splitext(os.path.basename(cfg_path))[0]
+        writes.update(checkpoint=0, export=0)
+        val_counts.clear()
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        # main path: the entry point, as torchrun's processes run it
+        t0 = time.perf_counter()
+        trainer = train_main(["--config", cfg_path, "--device", device])
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        leaves, ema = trainer.trainable_leaves(), trainer.ema
+        rec = {"rank": rank, "world": world, "wall": wall, "peak": peak,
+               "backend": torch.distributed.get_backend(),
+               "device": str(trainer.device), "counts": counts,
+               "validation_counts": dict(val_counts), "writes": dict(writes),
+               "history": trainer.history, "step_times": trainer._step_times,
+               "allreduce_ms": trainer.grad_sync.ms,
+               "allreduce_bytes": sum(p.numel() * 4 for p in leaves) + 4,
+               "digest": _digest(leaves), "ema_digest": _digest(ema),
+               "resident": frozen_bytes(trainer.model),
+               "sharded": trainer.sharded is not None,
+               "n_layers": trainer.sana_config.num_layers,
+               "adapted": len(leaves)}
+        with trainer.whole():
+            rec["whole"] = frozen_bytes(trainer.model)
+        barrier()
+        rec["exports"] = sorted(os.listdir(trainer.params.output_dir))
+        rec["checkpoints"] = sorted(os.listdir(trainer.params.checkpoint_dir))
+        # the checkpoint restores: the state moved off, then restored
+        kept = [t.detach().clone() for t in leaves + ema]
+        with torch.no_grad():
+            for t in leaves + ema:
+                t.add_(1.0)
+        trainer.global_step = 0
+        trainer.restore_checkpoint()
+        rec["restored"] = (trainer.global_step == MP_STEPS and all(
+            torch.equal(a, b) for a, b in zip(leaves + ema, kept)))
+        rec["same_step"] = mp_same_step(trainer, rank, world)
+        with open(os.path.join(out_dir, f"{label}-rank{rank}.json"),
+                  "w") as f:
+            json.dump(rec, f)
+        del trainer
+        if cuda:
+            torch.cuda.empty_cache()
+        barrier()
+    torch.distributed.destroy_process_group()
+
+
+def check_mp_run(label, recs, out, cuda, card):
+    """The phase's checks on what the processes of one config saw."""
+    import statistics
+
+    from yat_tpu_torch.models.sana import SanaConfig
+
+    r0 = recs[0]
+    if any(r["backend"] != "gloo" for r in recs) or \
+            out.count("backend gloo (processes share a card)"
+                      if cuda else "backend gloo (the CPU)") != MP_WORLD:
+        fail(f"{label}: the processes should share the card over gloo "
+             f"({[r['backend'] for r in recs]})")
+    for what in ("digest", "ema_digest"):
+        if len({r[what] for r in recs}) != 1:
+            fail(f"{label}: the processes' {what[:-7] or 'leaves'} differ "
+                 "after the run")
+    if not all(r["restored"] for r in recs):
+        fail(f"{label}: the checkpoint did not restore on every process")
+    n_layers = r0["n_layers"]
+    if r0["adapted"] != 2 * 8 * n_layers:
+        fail(f"{label}: {r0['adapted']} adapter leaves")
+    hist = r0["history"]
+    if len(hist) != MP_STEPS or any(r["history"] != hist for r in recs) \
+            or not all(math.isfinite(h["loss"]) for h in hist):
+        fail(f"{label}: the processes' logged steps differ or are not "
+             f"finite: {[r['history'] for r in recs]}")
+    for h in hist:
+        log(f"{label}: step {h['step']} caption rung {h['caption_len']} "
+            f"global loss {h['loss']:.6f} grad_norm {h['grad_norm']:.4f} "
+            f"lr {h['lr']:.3g}")
+    if [r["writes"] for r in recs] != [{"checkpoint": 1, "export": 1}] + [
+            {"checkpoint": 0, "export": 0}] * (MP_WORLD - 1) or \
+            r0["exports"] != [str(MP_STEPS)] or \
+            r0["checkpoints"] != [f"{MP_STEPS}.pt"]:
+        fail(f"{label}: expected one export and one checkpoint, both by "
+             f"rank 0: writes {[r['writes'] for r in recs]}, exports "
+             f"{r0['exports']}, checkpoints {r0['checkpoints']}")
+    same = r0["same_step"]
+    rows = same["rows"]
+    log(f"{label}: one step on {MP_WORLD} x {rows} rows: the averaged "
+        f"gradients and loss {'bit-equal' if same['exact'] else 'NOT equal'}"
+        f" to the one-process mean of the halves; against the one-process "
+        f"step on their {MP_WORLD * rows} rows: loss {same['loss']:.6f} vs "
+        f"{same['loss_one']:.6f}, the gradient off by "
+        f"{same['whole_err']:.3e} of its norm (tol {MP_GRAD_RTOL:.3e}), "
+        f"the worst leaf by {same['leaf_err']:.3e} (tol {MP_LEAF_RTOL}); "
+        f"the one-process step on its rows reordered: "
+        f"{same['reordered'][0]:.3e} and {same['reordered'][1]:.3e}")
+    if not same["exact"] or same["whole_err"] > MP_GRAD_RTOL or \
+            same["leaf_err"] > MP_LEAF_RTOL or \
+            abs(same["loss"] - same["loss_one"]) > \
+            MP_LOSS_RTOL * abs(same["loss_one"]):
+        fail(f"{label}: the processes' step differs from the one-process "
+             "step")
+    one, _ = sana_step_launches(SanaConfig(num_layers=n_layers), False)
+    per_step = scale_launches(one, (1, 1))
+    for r in recs:
+        val = r["validation_counts"]
+        per_call = {"adaln_layernorm": 2 * n_layers + 1,
+                    "dot_product_attention": n_layers,
+                    "linear_attention": n_layers}
+        for name, n in per_step.items():
+            got = r["counts"][name] - val.get(name, 0)
+            want = n * MP_STEPS if cuda else 0
+            log(f"{label}: rank {r['rank']}: {name} launches {got} in the "
+                f"steps (expected {n} per step x {MP_STEPS}), "
+                f"{val.get(name, 0)} in validation")
+            if got != want:
+                fail(f"{label}: rank {r['rank']}: {name}: {got} launches "
+                     f"in the steps, expected {want}")
+            if name in per_call and val.get(name, 0) != (
+                    per_call[name] * val["_steps"] * val["_calls"]
+                    if cuda else 0):
+                fail(f"{label}: rank {r['rank']}: {name}: {val.get(name)} "
+                     f"launches in validation")
+        times = r["step_times"][1:]
+        ar = r["allreduce_ms"]
+        log(f"{label} [{card}]: rank {r['rank']} on {r['device']}: "
+            f"{MP_STEPS} steps in {r['wall']:.2f} s through the entry "
+            f"point (first step {r['step_times'][0]:.2f} s with the data's "
+            f"first window, validation {val.get('_seconds', 0):.2f} s); "
+            f"steps 2-{MP_STEPS} {statistics.mean(times):.4f} s a "
+            f"step ({MP_WORLD * rows / statistics.mean(times):.2f} "
+            "images/s "
+            f"of the global batch); the gradient all-reduce "
+            f"({r['allreduce_bytes']} bytes) median "
+            f"{statistics.median(ar):.3f} ms over {len(ar)} calls; peak "
+            f"device memory {r['peak'] / 2**30:.2f} GiB; frozen base "
+            f"resident {r['resident'] / 2**20:.1f} MiB of "
+            f"{r['whole'] / 2**20:.1f} MiB whole")
+    return r0["counts"]
+
+
+def phase_multiprocess_train(device, card, shard_args=None, cfg_extra=None,
+                             timeout=600):
+    """``configs/sana_512_lora.yaml`` trained by two processes of the SANA
+    entry point under ``torch.distributed.run`` (``mp_train_worker``),
+    first at ``{dp: 2}``, then at ``{fsdp: 2}``, each process reading its
+    own shard (the config's two paths split between them) with its own
+    caption lengths over the rungs 128/256/300.  Returns the launch
+    counts of the ``{dp: 2}`` run's rank 0."""
+    import yaml
+
+    cuda = device.type == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        shards = [os.path.join(tmp, f"shard-{r:06d}.tar")
+                  for r in range(MP_WORLD)]
+        t0 = time.perf_counter()
+        for r, path in enumerate(shards):
+            write_train_shard(path, seed=10 + r,
+                              **{"lengths": ((60, 300), (110, 290))[r],
+                                 **(shard_args or {})})
+        log(f"multiprocess train: wrote {MP_WORLD} feature shards in "
+            f"{time.perf_counter() - t0:.1f} s")
+        cfg_paths = []
+        for label, mesh in MP_MESHES.items():
+            path = os.path.join(tmp, f"mp-{label}.yaml")
+            with open(path, "w") as f:
+                yaml.safe_dump(mp_train_config(shards, tmp, label, mesh,
+                                               cfg_extra), f)
+            cfg_paths.append(path)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", str(MP_WORLD), os.path.abspath(__file__),
+               "--mp-train", tmp, device.type, *cfg_paths]
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=timeout, cwd=tmp)
+        except subprocess.TimeoutExpired as e:
+            fail(f"multiprocess train: the processes outlived {timeout} s:"
+                 f"\n{(e.stdout or '')[-3000:]}")
+        out = proc.stdout + proc.stderr
+        for line in proc.stdout.splitlines():
+            if line.startswith(("[dist]", "[engine] fsdp", "[engine] step")):
+                log(f"multiprocess train: {line}")
+        if proc.returncode != 0:
+            fail(f"multiprocess train: torchrun exited {proc.returncode}:\n"
+                 f"{out[-4000:]}")
+        log(f"multiprocess train: torchrun ran both configs in "
+            f"{time.perf_counter() - t0:.1f} s")
+        counts = None
+        for label in MP_MESHES:
+            recs = []
+            for r in range(MP_WORLD):
+                with open(os.path.join(tmp, f"mp-{label}-rank{r}.json")) as f:
+                    recs.append(json.load(f))
+            c = check_mp_run(f"multiprocess train {{{label}: 2}}", recs, out,
+                             cuda, card)
+            counts = counts or c
+        dp, fs = (json.load(open(os.path.join(tmp, f"mp-{k}-rank0.json")))
+                  for k in ("dp", "fsdp"))
+        if not fs["sharded"] or dp["sharded"] or not \
+                fs["resident"] < 0.6 * dp["resident"]:
+            fail(f"multiprocess train: {{fsdp: 2}} should hold about half "
+                 f"the frozen base ({fs['resident']} of {dp['resident']})")
+        if fs["digest"] != dp["digest"]:
+            log("multiprocess train: the {fsdp: 2} run's leaves differ "
+                "from the {dp: 2} run's in their bits")
+        log(f"multiprocess train [{card}]: resident frozen base per "
+            f"process {fs['resident'] / 2**20:.1f} MiB at {{fsdp: 2}} "
+            f"against {dp['resident'] / 2**20:.1f} MiB at {{dp: 2}} (one "
+            "process holds as much)")
+    return counts
+
+
 def main() -> None:
     import gc
 
@@ -6551,6 +6968,8 @@ def main() -> None:
             extra={"model_config_overrides": dict(DEPTH_CUTS["pretrained"])})
     counts["train"] = timed("train", phase_train, device, card,
                             cfg_extra=depth_cut("train"))
+    counts["mp_train"] = timed("multiprocess train",
+                               phase_multiprocess_train, device, card)
     counts["adapter_kinds"] = timed("adapter kinds", phase_adapter_kinds,
                                     device, card,
                                     cfg_extra=depth_cut("train"))
@@ -6632,7 +7051,8 @@ def main() -> None:
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": counts[run][name]}
         # K1 launches on every path: its counts on the others beside
-        for other in ("pixart", "train", "pixart_train", "int8_train",
+        for other in ("pixart", "train", "mp_train", "pixart_train",
+                      "int8_train",
                       "full_ft", "explore_train", "pixart_preserve_train",
                       "raw_sana", "raw_pixart", "sd15", "sdxl",
                       "sd15_train", "sdxl_train",
@@ -6663,4 +7083,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mp-train"]:
+        mp_train_worker(sys.argv[2], sys.argv[3], sys.argv[4:])
+    else:
+        main()

@@ -685,8 +685,8 @@ def test_chip_smoke_flux_phases_on_cpu(tmp_path, monkeypatch, small_vae):
 def test_chip_smoke_flux_config_cuts():
     """The train phase's config is the shipped one but for its files (the
     R2 endpoint; its keys, bucket and shard names kept), its pretrained
-    pipe, its mesh, ``text_dim``, the run's length and the depth cut (4
-    double and 8 single blocks: both kinds run)."""
+    pipe, its mesh, ``text_dim``, the run's length and the depth cut (2
+    double and 4 single blocks: both kinds run)."""
     import chip_smoke
 
     with open(f"{chip_smoke.REPO}/configs/flux_klein_lora.yaml") as f:
@@ -695,8 +695,8 @@ def test_chip_smoke_flux_config_cuts():
     assert "pretrained_pipe_path" not in cfg and "mesh_shape" not in cfg
     assert cfg["r2_endpoint"] == "http://127.0.0.1:1"
     assert cfg["model_config_overrides"] == {
-        "text_dim": "2304", "num_double_blocks": "4",
-        "num_single_blocks": "8"}
+        "text_dim": "2304", "num_double_blocks": "2",
+        "num_single_blocks": "4"}
     assert cfg["steps"] == cfg["num_steps_per_validation"] == "3"
     for key in ("r2_access_key", "r2_secret_key", "r2_bucket_name",
                 "r2_tar_files", "compute_features", "vae_max_batch_size",

@@ -1,6 +1,7 @@
 """PyTorch port, import boundary: no module of ``yat_tpu_torch/`` and not
-``chip_smoke.py`` (nor ``tools/synth_checkpoint.py``, which it imports)
-imports JAX, flax, optax, the JAX package or ``safetensors`` (the card's
+``chip_smoke.py`` (nor ``tools/synth_checkpoint.py``, which it imports, nor
+the multi-process tests' worker and their file, which the card's machine
+collects) imports JAX, flax, optax, the JAX package or ``safetensors`` (the card's
 machine has none; the port reads the format itself).  A static scan of
 the source (the test process itself has JAX loaded, so ``sys.modules``
 says nothing).  The native decoder's library is built inside the port's
@@ -15,7 +16,9 @@ from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "yat_tpu", "safetensors")
 SOURCES = sorted((ROOT / "yat_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "synth_checkpoint.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "synth_checkpoint.py",
+    ROOT / "tests" / "torch_mp_worker.py",
+    ROOT / "tests" / "test_torch_port_multiprocess.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -47,7 +50,9 @@ def test_scan_covers_the_package():
             "yat_tpu_torch/train/checkpoint.py",
             "yat_tpu_torch/data/tar.py", "yat_tpu_torch/data/sampler.py",
             "yat_tpu_torch/utils/logging.py",
-            "yat_tpu_torch/parallel/multihost.py", "yat_tpu_torch/ops/quant.py",
+            "yat_tpu_torch/parallel/multihost.py",
+            "yat_tpu_torch/parallel/mesh.py", "tests/torch_mp_worker.py",
+            "tests/test_torch_port_multiprocess.py", "yat_tpu_torch/ops/quant.py",
             "yat_tpu_torch/ops/opt8bit.py", "yat_tpu_torch/data/bins.py",
             "yat_tpu_torch/data/native.py", "yat_tpu_torch/data/r2.py",
             "yat_tpu_torch/data/generate_shards.py",

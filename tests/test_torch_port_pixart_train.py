@@ -427,10 +427,19 @@ def test_entry_point_runs_ported_options(tmp_path, monkeypatch, capsys, key):
     10-14), full fine-tuning (no adapter spec) of every parameter, stored
     in fp32 under ``bfloat16`` (cast at use), exported as
     ``model.safetensors``, and ``compute_features`` (raw JPEG shards
-    encoded on the fly by the tiny KL-VAE and T5)."""
+    encoded on the fly by the tiny KL-VAE and T5; the VAE with a third
+    level, compression 4, so the 256 px bins' latents are 64x64, where the
+    two-level VAE's 128x128 grid makes its mid-block attention 16384
+    tokens long on the CPU)."""
+    import dataclasses
+
     from yat_tpu_torch.frontends import pixart
+    from yat_tpu_torch.models import vae
     from tests.test_torch_port_encode import make_image_shard
 
+    if key == "compute_features":
+        monkeypatch.setattr(vae, "KLVAE_TINY_TEST", dataclasses.replace(
+            vae.KLVAE_TINY_TEST, block_out_channels=(32, 32, 32)))
     calls = []
     if key == "use_preservation":
         make = pixart.make_preservation_loss

@@ -764,12 +764,20 @@ def test_chip_smoke_pixeldit_phases_on_cpu(tmp_path, monkeypatch):
 
 def test_chip_smoke_pixeldit_config_cuts():
     """The train phase's config is the shipped one but for its files (the
-    raw shards, the synthesized ``.pth``) and the run's length."""
+    raw shards, the synthesized ``.pth``), the run's length and the depth
+    cut (14 patch and 2 pixel blocks: the REPA projector still taps block
+    12, block 13 lies past it)."""
     import chip_smoke
+    from yat_tpu_torch.config import TrainingParameters
+    from yat_tpu_torch.frontends.pixeldit import build_config
 
     with open(f"{chip_smoke.REPO}/configs/pixeldit_repa.yaml") as f:
         shipped = yaml.safe_load(f)
-    cfg = chip_smoke.pixeldit_train_config(["a.tar"], "w.pth", "out")
+    cfg = chip_smoke.pixeldit_train_config(
+        ["a.tar"], "w.pth", "out", **chip_smoke.depth_cut("pixeldit"))
+    model_cfg = build_config(TrainingParameters.from_dict(cfg))
+    assert (model_cfg.num_layers, model_cfg.num_pixel_layers) == (14, 2)
+    assert model_cfg.repa_depth == 12
     assert cfg["local_shard_paths"] == ["a.tar"]
     assert cfg["pretrained_model_path"] == "w.pth"
     assert cfg["steps"] == cfg["num_steps_per_validation"] == "3"

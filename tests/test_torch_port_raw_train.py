@@ -134,13 +134,22 @@ def test_compute_features_entry_point_matches_jax_trainer(tmp_path,
 # chip_smoke.py's raw-image phase, rehearsed at the tiny size
 # ---------------------------------------------------------------------------
 
-def test_chip_smoke_raw_images_phase_on_cpu():
+def test_chip_smoke_raw_images_phase_on_cpu(monkeypatch):
     """Phase 12 at the tiny size on the CPU: the decoder, the extraction
     through the entry point with signed uploads to the stand-in endpoint,
     training on its shards, the on-the-fly run and its encode-free resume,
     ``configs/pixart_repa.yaml`` (LoKr, REPA) and SANA with generic REPA
-    on the fly, and Dreambooth; no kernel launches on the CPU."""
+    on the fly, and Dreambooth; no kernel launches on the CPU.  The tiny
+    KL-VAE takes a third level (compression 4): PixArt's 256 px images
+    then give 64x64 latents, where the two-level VAE's 128x128 grid makes
+    its mid-block attention 16384 tokens long on the CPU."""
+    import dataclasses
+
     import chip_smoke
+    from yat_tpu_torch.models import vae
+
+    monkeypatch.setattr(vae, "KLVAE_TINY_TEST", dataclasses.replace(
+        vae.KLVAE_TINY_TEST, block_out_channels=(32, 32, 32)))
 
     counts = chip_smoke.phase_raw_images(
         torch.device("cpu"), "cpu",

@@ -488,8 +488,18 @@ def test_entry_point_trains_on_the_fly_with_repa(tmp_path, monkeypatch,
     (the configured file is missing, as in ``configs/pixart_repa.yaml``):
     every batch carries the DINO tokens, the loss is finite, the REPA term
     moves it, and the trainable leaves change (SANA's head too; PixArt's
-    projector does not)."""
+    projector does not).  PixArt's tiny KL-VAE takes a third level
+    (compression 4): the 256 px images' latents are 64x64, where the
+    two-level VAE's 128x128 grid makes its mid-block attention 16384
+    tokens long on the CPU."""
+    import dataclasses
+
     import yaml
+
+    from yat_tpu_torch.models import vae
+
+    monkeypatch.setattr(vae, "KLVAE_TINY_TEST", dataclasses.replace(
+        vae.KLVAE_TINY_TEST, block_out_channels=(32, 32, 32)))
 
     from tests.test_torch_port_encode import TINY_PIXART, TINY_SANA, \
         make_image_shard

@@ -502,11 +502,14 @@ def test_decode_tiled_matches_jax(family):
         jvae, tvae = JV.DCAE(cfg=JV.DCAE_TINY_TEST), TV.DCAE(
             TV.DCAE_TINY_TEST)
         lat = (1, 10, 14, 32)
-    v = jvae.init(jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 3)))
+    # the init and each tile shape's decode compiled once (the JAX
+    # function's documented decode_fn), not op by op
+    v = jax.jit(jvae.init)(jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 3)))
     load_flax_params(tvae, jax.tree.map(np.asarray, v["params"]))
     z = np.random.default_rng(0).standard_normal(lat).astype(np.float32)
-    want = JV.decode_tiled(jvae, v, jnp.asarray(z), tile_latent=6,
-                           overlap=2)
+    want = JV.decode_tiled(
+        jvae, v, jnp.asarray(z), tile_latent=6, overlap=2,
+        decode_fn=jax.jit(lambda v, t: jvae.apply(v, t, method=jvae.decode)))
     with torch.no_grad():
         got = TV.decode_tiled(tvae, torch.from_numpy(z), tile_latent=6,
                               overlap=2)

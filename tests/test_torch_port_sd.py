@@ -466,14 +466,22 @@ def test_sdxl_trainer_refuses_a_pooled_dim_off_the_unet():
         make_trainer(_params({**TINY_SDXL, "pooled_dim": "16"}), device="cpu")
 
 
-def test_sd15_entry_point_trains_on_the_fly(tmp_path):
+def test_sd15_entry_point_trains_on_the_fly(tmp_path, monkeypatch):
     """``python -m yat_tpu_torch.frontends.sd15`` with ``compute_features``
     on raw JPEGs: CLIP-L on the compressed captions (77 tokens, every
     position kept) and the KL-VAE encode on the fly, 2 LoRA steps (three
-    levels, attention at the deepest only, so the tiny VAE's 128x128
-    latents stay cheap on the CPU), with REPA on ``mid_attn`` through the
-    generic path (the tiny DINOv2's tokens, a head that trains)."""
+    UNet levels, attention at the deepest only, and a third level of the
+    tiny VAE, so its 64x64 latents stay cheap on the CPU where the
+    two-level VAE's 128x128 grid makes its mid-block attention 16384
+    tokens long), with REPA on ``mid_attn`` through the generic path (the
+    tiny DINOv2's tokens, a head that trains)."""
+    import dataclasses
+
     from yat_tpu_torch.frontends.sd15 import main
+    from yat_tpu_torch.models import vae
+
+    monkeypatch.setattr(vae, "KLVAE_TINY_TEST", dataclasses.replace(
+        vae.KLVAE_TINY_TEST, block_out_channels=(32, 32, 32)))
 
     shard = make_image_shard(tmp_path / "raw.tar", n=4, hw=(256, 256),
                              wide=False)

@@ -663,7 +663,10 @@ def test_chip_smoke_sd35_depth_cut_keeps_every_block_kind():
     cfg = build_config(TrainingParameters.from_dict(
         chip_smoke.sd35_train_config("a.tar", "out", "ckpt",
                                      **chip_smoke.depth_cut("sd35"))))
-    assert dataclasses.replace(cfg, num_layers=SD35_MEDIUM.num_layers) == \
+    assert cfg.num_layers == 4 and cfg.dual_attention_layers == (0, 1)
+    assert dataclasses.replace(
+        cfg, num_layers=SD35_MEDIUM.num_layers,
+        dual_attention_layers=SD35_MEDIUM.dual_attention_layers) == \
         SD35_MEDIUM
     with torch.device("meta"):
         blocks = MMDiT(cfg).blocks
@@ -671,7 +674,7 @@ def test_chip_smoke_sd35_depth_cut_keeps_every_block_kind():
     assert (True, False) in kinds and (False, False) in kinds
     assert kinds[-1] == (False, True)
     assert chip_smoke.sd35_launches(cfg, (128, 128), (1, 0)) == {
-        "flash_attention": 28, "adaln_layernorm": 30,
+        "flash_attention": 6, "adaln_layernorm": 8,
         "flash_attention_bwd": 0, "adaln_layernorm_bwd": 0,
         "attention_xla": 0}
-    assert chip_smoke.sd35_adapted(cfg) == 8 * 15 - 1 + 4 * 13
+    assert chip_smoke.sd35_adapted(cfg) == 8 * 4 - 1 + 4 * 2

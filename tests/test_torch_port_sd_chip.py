@@ -85,12 +85,20 @@ def test_chip_smoke_sd15_train_config_is_the_shipped_one(tmp_path):
         assert cfg[key] == (want if isinstance(want, list) else str(want))
 
 
-def test_chip_smoke_sdxl_train_phase_on_cpu():
+def test_chip_smoke_sdxl_train_phase_on_cpu(monkeypatch):
     """The SDXL phase: Dreambooth with preservation as configured, then
     with ``low_vram`` (one step each at the tiny size), each with its
-    launch checks, then the extraction pass with ``pooled.npy``."""
-    import chip_smoke
+    launch checks, then the extraction pass with ``pooled.npy``.  The tiny
+    VAE takes a third level (compression 4): the 256 px images' latents
+    are 64x64, where the two-level VAE's 128x128 grid makes its mid-block
+    attention 16384 tokens long on the CPU."""
+    import dataclasses
 
+    import chip_smoke
+    from yat_tpu_torch.models import vae
+
+    monkeypatch.setattr(vae, "KLVAE_TINY_TEST", dataclasses.replace(
+        vae.KLVAE_TINY_TEST, block_out_channels=(32, 32, 32)))
     out = chip_smoke.phase_sdxl_train(CPU, "cpu", tiny=RAW_SDXL)
     assert set(out) == {"sdxl train", "sdxl train low_vram"}
     assert not any(v for c in out.values() for v in c.values())

@@ -140,6 +140,20 @@ def load_flax_params(module: nn.Module, tree: Mapping,
             p.zero_()
 
 
+def flax_module_path(name: str, lists) -> List[str]:
+    """The flax path (a list of names) of the submodule at the dotted
+    torch ``name``: an index into one of the ``nn.ModuleList`` names in
+    ``lists`` joins its list's name (``blocks.3`` → ``blocks_3``)."""
+    parts = name.split(".") if name else []
+    path: List[str] = []
+    for i, part in enumerate(parts):
+        if part.isdigit() and ".".join(parts[:i]) in lists:
+            path[-1] = f"{path[-1]}_{part}"
+        else:
+            path.append(part)
+    return path
+
+
 def _flax_entries(module: nn.Module):
     """(dotted flax path, parameter, the parameter viewed in the flax
     layout) for every parameter of ``module``, in ``named_parameters``
@@ -150,12 +164,7 @@ def _flax_entries(module: nn.Module):
              if isinstance(m, nn.ModuleList)}
     for name, p in module.named_parameters():
         parts = name.split(".")
-        path = []
-        for i, part in enumerate(parts[:-1]):
-            if part.isdigit() and ".".join(parts[:i]) in lists:
-                path[-1] = f"{path[-1]}_{part}"
-            else:
-                path.append(part)
+        path = flax_module_path(".".join(parts[:-1]), lists)
         owner = module.get_submodule(".".join(parts[:-1]))
         leaf, t = parts[-1], p.detach()
         if leaf == "weight":

@@ -15,8 +15,9 @@ same shards and seed, without importing it:
 * ``DreamboothSampler``: instance and regularization passes in turn;
 * the caption padding helpers.
 
-Single process: the multi-host bucket sync hook is not ported (ROADMAP
-queue 1, item 12); the remote sources take ``process_index`` 0.
+Across processes ``FeatureBucketSampler`` takes the JAX sampler's
+``sync_hook`` (``parallel.multihost.WindowedBucketSync``), and the remote
+sources take the process index.
 """
 
 from __future__ import annotations
@@ -275,6 +276,12 @@ def _chw_to_hwc(x: np.ndarray, from_torch: bool) -> np.ndarray:
     return x
 
 
+def bucket_key(ratio: str, rung: Optional[int] = None) -> str:
+    """The lockstep key of an aspect bucket, and of its caption rung under
+    caption-length bucketing (``"1.0"``, ``"1.0|256"``)."""
+    return ratio if rung is None else f"{ratio}|{rung}"
+
+
 class FeatureBucketSampler:
     """Pre-extracted feature shards → batches of one aspect bucket.
 
@@ -282,13 +289,25 @@ class FeatureBucketSampler:
     through a bounded shuffle buffer into per-key buckets, and buckets drain
     in sorted key order the moment one holds ``batch_size`` items; partial
     buckets carry over to the next pass.  Each drained batch is yielded
-    ``bucket_repeat`` times."""
+    ``bucket_repeat`` times.
+
+    ``sync_hook`` (across processes, ``WindowedBucketSync``) is called with
+    the bucket counts once per ingested sample; a bucket drains only when
+    the hook's ``min_counts`` (the minimum over the processes) reach
+    ``batch_size``, keys outside the hook's canonical ``keys`` are held
+    (with a warning printed once), and the hook's ``on_drain`` follows each
+    emit, so every process emits the same sequence of buckets.  With a
+    hook and ``caption_buckets`` a sample's key also holds its caption rung
+    (:func:`bucket_key`; the smallest rung covering its caption), so a
+    batch's caption length is the same on every process; the JAX sampler
+    keys on the aspect bucket alone there, and its processes can pad one
+    batch to different lengths."""
 
     def __init__(self, shard_source, batch_size: int, max_caption_len: int,
                  shuffle_buffer: int = 1000, seed: int = 0,
                  latent_dtype=np.float32,
                  caption_buckets: Optional[Sequence[int]] = None,
-                 bucket_repeat: int = 1):
+                 bucket_repeat: int = 1, sync_hook=None):
         self.source = shard_source
         self.batch_size = batch_size
         self.max_caption_len = max_caption_len
@@ -298,8 +317,19 @@ class FeatureBucketSampler:
         self.latent_dtype = latent_dtype
         self.caption_buckets = caption_buckets
         self.bucket_repeat = max(1, int(bucket_repeat))
+        self.sync_hook = sync_hook
+        self._warned_keys: set = set()
         self._raw_image_drops = 0
         self._ingested_any = False
+
+    def _key(self, ratio: str, emb) -> str:
+        if self.sync_hook is None or not self.caption_buckets:
+            return ratio
+        e = np.asarray(emb)
+        n = min(e.shape[-2], self.max_caption_len)
+        rung = next((r for r in sorted(self.caption_buckets) if r >= n),
+                    self.max_caption_len)
+        return bucket_key(ratio, rung)
 
     def _emit(self, key: str) -> Batch:
         items = [self.buckets[key].popleft() for _ in range(self.batch_size)]
@@ -319,8 +349,8 @@ class FeatureBucketSampler:
                     "consistent encoder pipeline")
             pooled = np.stack([np.asarray(p, np.float32).reshape(-1)
                                for _, _, p, _ in items])
-        return Batch(ratio=key, latents=latents, embeddings=embs,
-                     text_mask=mask, pooled_text=pooled)
+        return Batch(ratio=key.split("|")[0], latents=latents,
+                     embeddings=embs, text_mask=mask, pooled_text=pooled)
 
     def __iter__(self) -> Iterator[Batch]:
         buf: List[Tuple[str, Any, Any, Any, bool]] = []
@@ -350,7 +380,8 @@ class FeatureBucketSampler:
                                 "shards")
                     continue
                 self._ingested_any = True
-                buf.append((str(elem["ratio"]), latent, emb, pooled, from_pt))
+                buf.append((self._key(str(elem["ratio"]), emb), latent, emb,
+                            pooled, from_pt))
                 if len(buf) < self.shuffle_buffer:
                     continue
                 idx = self.rng.randrange(len(buf))
@@ -368,10 +399,28 @@ class FeatureBucketSampler:
                 from_pt: bool = False) -> Iterator[Batch]:
         self.buckets.setdefault(key, deque()).append(
             (latent, emb, pooled, from_pt))
+        hook = self.sync_hook
+        if hook is not None:
+            hook({k: len(v) for k, v in self.buckets.items()})
         ready = sorted(k for k, v in self.buckets.items()
                        if len(v) >= self.batch_size)
+        if hook is not None and ready and hook.min_counts:
+            kept = []
+            for k in ready:
+                if k not in hook.keys:
+                    if k not in self._warned_keys:
+                        self._warned_keys.add(k)
+                        print(f"[sampler] bucket key {k!r} is not in the "
+                              "canonical sync table — holding it (shard "
+                              "ratio keys vs bin table mismatch?)")
+                    continue
+                if hook.min_counts.get(k, 0) >= self.batch_size:
+                    kept.append(k)
+            ready = kept
         for k in ready:
             batch = self._emit(k)
+            if hook is not None:
+                hook.on_drain(k, self.batch_size)
             for _ in range(self.bucket_repeat):
                 yield batch
 

@@ -7,6 +7,12 @@ for matmuls and for cuDNN's convolutions (PyTorch leaves it on for the
 convolutions by default), so the fp32 VAE encoders and decoders compute
 as the JAX package's do.  The flags are process-wide: threads such as
 the feature cache's share them.
+
+Under more than one process (``torch.distributed``, one process a card)
+``cuda`` names this process's card, ``cuda:{LOCAL_RANK}``; where
+processes share cards (more local processes than cards) it is
+``cuda:{LOCAL_RANK % cards}``, so ``cuda:0`` when they share one.  The
+card becomes the process's current device.
 """
 
 from __future__ import annotations
@@ -30,4 +36,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
                 "--device cpu) to run the port on the CPU explicitly")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        from yat_tpu_torch.parallel.multihost import local_rank, process_count
+        if dev.index is None and process_count() > 1:
+            dev = torch.device("cuda",
+                               local_rank() % torch.cuda.device_count())
+        if dev.index is not None:
+            torch.cuda.set_device(dev)
     return dev

@@ -32,6 +32,12 @@ and VAE of SD1.5 and SDXL also from a CompVis single file
 ``./checkpoints`` once (the library is optional; nothing is fetched when
 the file is there).
 
+Across processes (``torchrun``; ``cli_main`` brings the process group up
+when torchrun's environment names more than one process, where the JAX
+``cli_main`` never initialises its distributed runtime) the shard lists
+are split by process, the feature sampler takes ``WindowedBucketSync``,
+and process 0 alone fetches from the hub while the others wait for it.
+
 Two divergences from the JAX package, both repairs: the SDXL VAE (and
 PixArt-Sigma's, whose published pipe ships SDXL's) scales its latents by
 0.13025 (``KLVAE_SDXL``), where the JAX builders always take SD1.5's
@@ -66,7 +72,10 @@ from yat_tpu_torch.data.sampler import (
     pad_embeddings,
 )
 from yat_tpu_torch.models.layers import init_params
-from yat_tpu_torch.parallel.multihost import host_seed
+from yat_tpu_torch.parallel.multihost import (broadcast_from_main,
+                                              host_seed,
+                                              initialize_distributed,
+                                              process_count, process_index)
 
 
 def slice_caption_rung(ids, mask, multiple: int = 64):
@@ -275,10 +284,27 @@ def hf_hub_fetch(repo_id: str, filename: str = "model.pth",
     into ``local_dir`` with ``huggingface_hub.hf_hub_download`` unless it
     is there already.  A missing library or a failed download raises a
     ``ValueError`` that names where to put the file, never a random
-    backbone.  One process: the JAX package's barrier, which makes the
-    other processes wait for process 0's download, comes with
-    multi-process training (ROADMAP queue 1, item 12)."""
+    backbone.  Across processes process 0 fetches and the others wait for
+    it (``broadcast_from_main``, which also carries its failure to
+    them)."""
     target = os.path.join(local_dir, filename)
+    error = None
+    if process_index() == 0:
+        try:
+            target = _hub_download(repo_id, filename, local_dir, target)
+        except ValueError as e:
+            error = e
+    failed = broadcast_from_main(np.asarray([error is not None], np.int32))
+    if error is not None:
+        raise error
+    if failed[0]:
+        raise ValueError(f"process 0 failed to fetch {filename!r} from hub "
+                         f"repo {repo_id!r}; place it at {target!r}")
+    return target
+
+
+def _hub_download(repo_id: str, filename: str, local_dir: str,
+                  target: str) -> str:
     if os.path.exists(target):
         return target
     try:
@@ -752,16 +778,18 @@ def override_config(cfg, overrides: dict, mirror_out_channels: bool = False):
     return dataclasses.replace(cfg, **typed)
 
 
-def shard_range_for_host(num_shards: int, process_index: int = 0,
-                         process_count: int = 1) -> range:
-    """The shards of one process: an even split, the last process taking
-    the remainder; every shard when there are fewer shards than
-    processes.  The port runs one process (ROADMAP queue 1, item 12)."""
-    if num_shards < process_count:
+def shard_range_for_host(num_shards: int, index: Optional[int] = None,
+                         count: Optional[int] = None) -> range:
+    """The shards of process ``index`` of ``count`` (default: this one):
+    an even split, the last process taking the remainder; every shard
+    when there are fewer shards than processes."""
+    index = process_index() if index is None else index
+    count = process_count() if count is None else count
+    if num_shards < count:
         return range(0, num_shards)
-    per = num_shards // process_count
-    begin = process_index * per
-    end = num_shards if process_index == process_count - 1 else begin + per
+    per = num_shards // count
+    begin = index * per
+    end = num_shards if index == count - 1 else begin + per
     return range(begin, end)
 
 
@@ -787,14 +815,24 @@ def make_remote_source(params: TrainingParameters, per_host: bool = True,
         params.r2_dataset_folder or "",
         params.r2_access_key, params.r2_secret_key,
         params.r2_endpoint, params.r2_bucket_name,
-        seed=params.dataset_seed, one_pass=one_pass)
+        seed=params.dataset_seed, process_index=process_index(),
+        one_pass=one_pass)
+
+
+def local_paths(params: TrainingParameters) -> list:
+    """This process's ``local_shard_paths``: its range of the list when
+    there are at least as many paths as processes, else every path."""
+    paths = list(params.local_shard_paths)
+    if process_count() > 1 and len(paths) >= process_count():
+        paths = [paths[i] for i in shard_range_for_host(len(paths))]
+    return paths
 
 
 def make_local_source(params: TrainingParameters) -> LocalShardSource:
-    """The local shard source of process 0 (one process: every path), its
+    """The local shard source of this process (:func:`local_paths`), its
     shuffle seeded with ``host_seed(dataset_seed)`` as in the JAX
     package."""
-    return LocalShardSource(list(params.local_shard_paths),
+    return LocalShardSource(local_paths(params),
                             seed=host_seed(params.dataset_seed))
 
 
@@ -805,11 +843,13 @@ def make_shard_source(params: TrainingParameters, one_pass: bool = False):
     ends; otherwise the sources cycle."""
     if params.local_shard_paths:
         if one_pass:
-            return list(params.local_shard_paths)
+            return local_paths(params)
         return make_local_source(params)
     if params.urls:
         return UrlShardSource(params.urls, seed=params.dataset_seed,
-                              probs=params.url_probs, one_pass=one_pass)
+                              probs=params.url_probs,
+                              process_index=process_index(),
+                              one_pass=one_pass)
     if params.r2_endpoint:
         return make_remote_source(params, one_pass=one_pass)
     return None
@@ -828,18 +868,30 @@ def make_image_source(params: TrainingParameters, one_pass: bool = False):
     return source
 
 
-def build_feature_sampler(params: TrainingParameters, max_caption_len: int):
+def build_feature_sampler(params: TrainingParameters, max_caption_len: int,
+                          resolution: int = 512):
     """The pre-extracted feature-shard sampler over the configured source
-    (:func:`make_shard_source`); None when no data source is
-    configured."""
+    (:func:`make_shard_source`); None when no data source is configured.
+    Across processes it takes ``WindowedBucketSync`` over the canonical
+    keys: the aspect bins of ``aspect_ratios`` (or ``resolution``), each
+    with every caption rung under ``caption_length_bucketing``."""
     source = make_shard_source(params)
     if source is None:
         return None
     cb = (caption_length_buckets(max_caption_len)
           if params.caption_length_bucketing else None)
+    sync_hook = None
+    if process_count() > 1:
+        from yat_tpu_torch.data.bins import bin_for_resolution
+        from yat_tpu_torch.data.sampler import bucket_key
+        from yat_tpu_torch.parallel.multihost import WindowedBucketSync
+        bins = sorted(bin_for_resolution(params.aspect_ratios or resolution))
+        sync_hook = WindowedBucketSync(
+            [bucket_key(b, r) for b in bins for r in (cb or (None,))])
     return FeatureBucketSampler(source, params.batch_size, max_caption_len,
                                 seed=params.dataset_seed, caption_buckets=cb,
-                                bucket_repeat=params.bucket_repeat)
+                                bucket_repeat=params.bucket_repeat,
+                                sync_hook=sync_hook)
 
 
 def encodes_images(params: TrainingParameters) -> bool:
@@ -1038,7 +1090,8 @@ def build_family_sampler(params: TrainingParameters, spec: FamilySpec,
         print(f"[data] raw images decode through {images.decoder}")
         return on_the_fly(images, repeat=params.bucket_repeat, cache=True)
 
-    sampler = build_feature_sampler(params, spec.max_caption_len)
+    sampler = build_feature_sampler(params, spec.max_caption_len,
+                                    spec.default_resolution)
     if sampler is None:
         raise ValueError("no data source: configure local_shard_paths, "
                          "urls, R2 credentials or a "
@@ -1053,12 +1106,17 @@ def cli_main(make_trainer: Callable[..., object],
     ``extract_features``, run the extraction pass with its encoders
     (:func:`~yat_tpu_torch.train.extract.run_feature_extraction`, whose
     extractor the trainer keeps as ``extraction``); returns the
-    trainer."""
+    trainer.  Under ``torchrun`` with more than one process the process
+    group comes up first (``parallel.multihost.initialize_distributed``;
+    one process a card)."""
     p = argparse.ArgumentParser()
     p.add_argument("--config", required=True, type=str)
     p.add_argument("--device", default=None,
                    help="cuda (the default) or cpu")
     args = p.parse_args(argv)
+    if int(os.environ.get("WORLD_SIZE", 1)) > 1:
+        initialize_distributed(
+            device_type=torch.device(args.device or "cuda").type)
     params = TrainingParameters.read_yaml(args.config)
     trainer = make_trainer(params, device=args.device)
     if params.extract_features:

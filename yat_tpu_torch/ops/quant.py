@@ -14,7 +14,9 @@ embeddings, norms and convolutions stay in floating point, as there.
 
 :func:`w8a8_matmul` runs through a ``torch.autograd.Function``.  Where
 :func:`w8a8_branch` admits the shape (the gate ``_pallas_w8a8_ok`` of the
-JAX package without its backend and device-count test):
+JAX package without its backend test; its device-count test is the
+process count: a step over more than one process takes the dequantized
+matmul, as the JAX step over more than one device does):
 
 * on a CUDA tensor its forward launches kernel K5 (``csrc/w8a8_matmul.cu``,
   replacing the TPU kernel ``_i8_fwd_kernel``) and its backward kernel K5b
@@ -122,10 +124,12 @@ def dequantize_params(module: nn.Module, dtype=torch.bfloat16) -> int:
 
 def w8a8_branch(t: int, k: int, n: int) -> bool:
     """The int8 kernels take ``[t, k] x [k -> n]`` when every dimension is
-    a multiple of 128 and k, n are at most 6144 (``_pallas_w8a8_ok``); the
-    other shapes take the dequantized matmul."""
+    a multiple of 128, k, n are at most 6144 and the run has one process
+    (``_pallas_w8a8_ok``); the other shapes, and every step over more
+    than one process, take the dequantized matmul."""
+    from yat_tpu_torch.parallel.multihost import process_count
     return (t % TILE == 0 and k % TILE == 0 and n % TILE == 0
-            and k <= MAX_DIM and n <= MAX_DIM)
+            and k <= MAX_DIM and n <= MAX_DIM and process_count() == 1)
 
 
 def row_quantize(x32: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,1 +1,2 @@
-"""Process-level helpers of the port (single process for now)."""
+"""Training across processes: the data axes of ``mesh_shape``
+(``mesh.py``) and the coordination of the processes (``multihost.py``)."""

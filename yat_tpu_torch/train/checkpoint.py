@@ -22,6 +22,10 @@ payloads and block scales, the EMA copies and the frozen snapshot).
   directory that does not exist, or holds no step, restores as
   ``(None, 0)``.  LoRA dropout is configuration, not state: a checkpoint
   saved at one rate resumes at another.
+* Across processes the trainer gathers the sharded leaves on every
+  process and calls :func:`save_train_state` on process 0 alone; every
+  process restores, after process 0's writes have landed, and keeps its
+  own slice (``train/engine.py``).  The writer thread runs no collective.
 * :func:`save_params_only` / :func:`load_params_only`: the weights-only
   export of full fine-tuning, ``model.safetensors`` with flat dotted flax
   keys (the JAX package's ``load_params_only`` reads it).

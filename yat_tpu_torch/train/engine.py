@@ -50,11 +50,25 @@ bare flax paths or a real PEFT file).  A frontend's generic REPA head
 ``repa_head`` (or beside the parameters under full fine-tuning): the
 optimizer, the EMA, the checkpoint and the export cover it.  The batch
 carries the DINOv2 tokens (``repa_features``) that the on-the-fly
-sampler encodes.  The trainer is single-process (ROADMAP item 12).
+sampler encodes.
+
+Across processes (``torchrun``, one process a card; ``mesh_shape`` over
+``dp`` and ``fsdp``, ``parallel/mesh.py``) every process takes
+``batch_size`` rows of its own and the step averages the gradients and
+the loss over the processes, so a run over N processes takes the JAX
+step over a global batch of N × ``batch_size`` rows; under ``fsdp`` the
+frozen base is sharded (``mesh.ShardedBase``).  Process 0 alone logs,
+makes ``output_dir``, writes the exports, ``config.json``, the
+checkpoints and the hub upload; the gathers before them, validation and
+the restore are collective (every process enters them), and a validation
+failure then propagates instead of being counted, since the other
+processes would wait in its collectives.  The images/s lines count the
+global batch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -78,6 +92,10 @@ from yat_tpu_torch.data.sampler import pad_embeddings
 from yat_tpu_torch.device import resolve_device
 from yat_tpu_torch.models.layers import AdapterDense
 from yat_tpu_torch.ops.quant import quantize_params
+from yat_tpu_torch.parallel.mesh import (GradSync, create_mesh,
+                                         frozen_bytes, shard_frozen_base)
+from yat_tpu_torch.parallel.multihost import (barrier, host_seed,
+                                              process_count, process_index)
 from yat_tpu_torch.train.state import Optimizer, unfreeze_mask
 from yat_tpu_torch.train.step import make_train_step
 from yat_tpu_torch.utils.logging import MetricLogger
@@ -123,27 +141,7 @@ def stored_dtype(params: TrainingParameters) -> Optional[torch.dtype]:
     return None
 
 
-# the axes of the JAX package's device mesh (``yat_tpu/parallel/mesh.py``)
-MESH_AXES = ("dp", "fsdp", "tp", "sp")
 _SAID = set()
-
-
-def check_mesh_shape(mesh_shape: Optional[Dict[str, int]],
-                     devices: int = 1) -> None:
-    """Raise when ``mesh_shape`` asks for more devices than the trainer
-    uses (one: the port is single-process until ROADMAP item 12), as the
-    JAX package's ``create_mesh`` does when its mesh outgrows the devices.
-    No key, or a mesh of one, trains as before."""
-    if not mesh_shape:
-        return
-    need = 1
-    for ax in MESH_AXES:
-        need *= int(mesh_shape.get(ax, 1))
-    if need > devices:
-        raise ValueError(
-            f"mesh_shape {dict(mesh_shape)} needs {need} devices; the "
-            f"PyTorch port trains on {devices} (distribution is ROADMAP "
-            "item 12): drop mesh_shape or set it to 1 device")
 
 
 def say_once(key: str, msg: str) -> None:
@@ -170,7 +168,12 @@ class Trainer:
         self.sampler = sampler
         self.preservation_loss = preservation_loss
         self.device = resolve_device(device)
-        check_mesh_shape(params.mesh_shape)
+        # the dp x fsdp grid of the processes (None for one process)
+        self.mesh = create_mesh(params.mesh_shape, self.device.type)
+        self.rank, self.world = process_index(), process_count()
+        # the frozen base sharded over fsdp, and the gradients' average
+        self.sharded = None
+        self.grad_sync: Optional[GradSync] = None
         if params.compilation_cache_dir:
             say_once("compilation_cache_dir", "[engine] compilation_cache_dir "
                      f"{params.compilation_cache_dir!r} is not read: it is "
@@ -191,6 +194,7 @@ class Trainer:
         # the generic REPA projection head (ops/repa.py), set by a frontend
         self.repa_head: Optional[torch.nn.Module] = None
         self._step_fn = None
+        self._shared_gen: Optional[torch.Generator] = None
         self._profiler = None
         self._empty_raw: Optional[np.ndarray] = None
         self._validation_failures = 0
@@ -202,8 +206,9 @@ class Trainer:
     # ------------------------------------------------------------------
     def initialize(self) -> None:
         params = self.params
-        self.logger = MetricLogger(logdir="runs")
-        os.makedirs(params.output_dir, exist_ok=True)
+        self.logger = MetricLogger(logdir="runs", enabled=self.rank == 0)
+        if self.rank == 0:
+            os.makedirs(params.output_dir, exist_ok=True)
 
         spec = adapter_spec_from_params(params)
         if spec is not None:
@@ -227,6 +232,13 @@ class Trainer:
                   "update")
         leaves = self.trainable_leaves()
         self.optimizer = Optimizer(params, leaves, mask)
+        if self.world > 1:
+            self.grad_sync = GradSync()
+            self.sharded = shard_frozen_base(self.model, self.mesh)
+            if self.sharded is not None:
+                print(f"[engine] fsdp: rank {self.rank} holds "
+                      f"{frozen_bytes(self.model)} bytes of the frozen "
+                      "base", flush=True)
         self.ema = ([p.detach().clone() for p in leaves] if params.use_ema
                     else None)
         if (params.use_preservation and self.preservation_loss is not None
@@ -241,7 +253,7 @@ class Trainer:
             preservation_ratio=(params.preservation_ratio
                                 if params.use_preservation else 0.0),
             preservation_loss=self.preservation_loss,
-            frozen_base=self.frozen_base)
+            frozen_base=self.frozen_base, grad_sync=self.grad_sync)
 
         # empty-caption embedding for unconditional-caption dropout: encode
         # '' once, pad per batch
@@ -369,9 +381,14 @@ class Trainer:
             print("[engine] warmup_compile: eager PyTorch has no programs to "
                   "compile ahead of the first step; nothing to warm")
         # the start step seeds the generator, so a resumed run draws fresh
-        # noise instead of replaying what the checkpointed run consumed
+        # noise instead of replaying what the checkpointed run consumed;
+        # across processes each draws its own rows' noise, and the shared
+        # generator the draws that must agree
+        seed = params.dataset_seed + 1 + self.global_step
         gen = torch.Generator(device=self.device).manual_seed(
-            params.dataset_seed + 1 + self.global_step)
+            host_seed(seed) if self.world > 1 else seed)
+        self._shared_gen = (torch.Generator(device=self.device)
+                            .manual_seed(seed) if self.world > 1 else None)
         sampler_iter = None
         if self.global_step > 0 and params.resume_data_fastforward:
             sampler_iter = self._fastforward_data(
@@ -502,7 +519,9 @@ class Trainer:
             self._profile_window()
             lr = self.optimizer.lr
             device_batch = self._device_batch(batch)
-            metrics = self._step_fn(device_batch, gen)
+            shared = ({} if self._shared_gen is None
+                      else {"shared_gen": self._shared_gen})
+            metrics = self._step_fn(device_batch, gen, **shared)
             micro += 1
             if micro % accum != 0:
                 continue
@@ -519,7 +538,8 @@ class Trainer:
             t_last = now
             if self.global_step == 1 or self.global_step % 50 == 0:
                 recent = self._step_times[-50:]
-                ips = params.batch_size * accum * len(recent) / sum(recent)
+                ips = (params.batch_size * accum * self.world
+                       * len(recent) / sum(recent))
                 print(f"[engine] step {self.global_step}/{params.steps} "
                       f"loss={float(metrics['loss']):.4f} "
                       f"({ips:.2f} imgs/s)", flush=True)
@@ -538,8 +558,10 @@ class Trainer:
             from yat_tpu_torch.train.checkpoint import wait_for_checkpoints
             wait_for_checkpoints(params.checkpoint_dir)
         dt = time.monotonic() - t_start
-        # this run's steps only (a resumed run starts past 0)
-        n_images = (self.global_step - first_step) * params.batch_size * accum
+        # this run's steps only (a resumed run starts past 0), every
+        # process's rows
+        n_images = ((self.global_step - first_step) * params.batch_size
+                    * accum * self.world)
         if dt > 0:
             print(f"[engine] {self.global_step - first_step} steps, "
                   f"{n_images / dt:.2f} images/sec")
@@ -557,7 +579,14 @@ class Trainer:
             self.logger.add_scalar("train/lr", rec["lr"], step)
 
     def _validate_and_save(self) -> None:
-        if not self.params.dual_gpu and self.validate_fn is not None:
+        if (not self.params.dual_gpu and self.validate_fn is not None
+                and self.world > 1):
+            # collective: a failure on one process would leave the others
+            # waiting in its collectives, so it propagates everywhere
+            images = self.validate_fn(self)
+            for tag, img in (images or {}).items():
+                self.logger.add_image(tag, img, self.global_step)
+        elif not self.params.dual_gpu and self.validate_fn is not None:
             try:
                 images = self.validate_fn(self)
                 for tag, img in (images or {}).items():
@@ -581,14 +610,31 @@ class Trainer:
             self.save_checkpoint()
 
     # ------------------------------------------------------------------
+    def whole(self, write_back: bool = False):
+        """A context in which every sharded leaf of the model is whole
+        (collective; nothing to do without ``fsdp``)."""
+        if self.sharded is None:
+            return contextlib.nullcontext()
+        return self.sharded.gathered(write_back)
+
     def save_model(self) -> str:
         """Weights-only export to ``{output_dir}/{step}``: the adapters as
         ``adapter_model.safetensors`` (PEFT names), or under full
         fine-tuning the model as ``model.safetensors`` (fp32, flat flax
-        keys in the flax layouts), with a REPA head under ``repa_head``; ``config.json`` from
-        ``model_config_json`` beside it; then the upload to
-        ``output_repo``.  Returns the weights file's path."""
+        keys in the flax layouts), with a REPA head under ``repa_head``;
+        ``config.json`` from ``model_config_json`` beside it; then the
+        upload to ``output_repo``.  Collective: every process enters, the
+        sharded leaves are gathered, and process 0 writes.  Returns the
+        weights file's path."""
         out = os.path.join(self.params.output_dir, str(self.global_step))
+        path = os.path.join(out, "model.safetensors" if self.full_finetune()
+                            else "adapter_model.safetensors")
+        with self.whole():
+            if self.rank == 0:
+                self._write_export(out, path)
+        return path
+
+    def _write_export(self, out: str, path: str) -> None:
         head = {}
         if self.repa_head is not None:
             from yat_tpu_torch.ops.repa import head_tree
@@ -597,10 +643,8 @@ class Trainer:
             from yat_tpu_torch.convert import flax_params
             from yat_tpu_torch.train.checkpoint import save_params_only
             save_params_only(out, {**flax_params(self.model), **head})
-            path = os.path.join(out, "model.safetensors")
         else:
             from yat_tpu_torch.adapters.io import save_adapter_safetensors
-            path = os.path.join(out, "adapter_model.safetensors")
             adapters, meta = adapter_tree(self.model)
             save_adapter_safetensors(path, {**adapters, **head}, meta)
         if self.model_config_json:
@@ -608,7 +652,6 @@ class Trainer:
                 json.dump(self.model_config_json, f, indent=2)
         if self.params.output_repo:
             self._push_to_hub(out)
-        return path
 
     def _push_to_hub(self, folder: str) -> None:
         """Upload the export to the ``output_repo`` hub repository under
@@ -626,17 +669,28 @@ class Trainer:
     def save_checkpoint(self) -> None:
         """The whole train state as step ``global_step`` of
         ``checkpoint_dir`` (copied to the host now, written in the
-        background)."""
+        background).  Collective: the sharded leaves are gathered on every
+        process, and process 0 writes the whole state."""
         from yat_tpu_torch.train.checkpoint import save_train_state
-        save_train_state(self.params.checkpoint_dir, self.train_state(),
-                         self.global_step)
+        with self.whole():
+            if self.rank == 0:
+                save_train_state(self.params.checkpoint_dir,
+                                 self.train_state(), self.global_step)
 
     def restore_checkpoint(self) -> None:
         """The latest step of ``checkpoint_dir`` into the live state, in
-        place; nothing when the directory holds none."""
-        from yat_tpu_torch.train.checkpoint import restore_train_state
-        restored, step = restore_train_state(self.params.checkpoint_dir,
-                                             self.train_state())
+        place; nothing when the directory holds none.  Collective: every
+        process reads the file once process 0's writes have landed, and
+        keeps its own slice of the sharded leaves."""
+        from yat_tpu_torch.train.checkpoint import (restore_train_state,
+                                                    wait_for_checkpoints)
+        if self.world > 1:
+            if self.rank == 0:
+                wait_for_checkpoints(self.params.checkpoint_dir)
+            barrier()
+        with self.whole(write_back=True):
+            restored, step = restore_train_state(self.params.checkpoint_dir,
+                                                 self.train_state())
         if restored is None:
             return
         self.global_step = step

@@ -8,7 +8,8 @@ overlaps the device), launches every VAE and caption-encoder chunk of a
 batch through the encoders' ``.dispatch`` hooks (up to 3 batches in
 flight on the device's stream; the host waits only when it copies a
 batch's results back), writes the samples through ``ShardWriter`` as
-``shard-%06d.tar``, and uploads each finished shard on a pool of 2
+``shard-%06d.tar`` (``shard-p{rank}-%06d.tar`` across processes, so
+that the processes' uploads never collide), and uploads each finished shard on a pool of 2
 threads with at most 4 uploads pending (a shard uploaded is removed
 locally).  It
 keeps the wall seconds of each phase (``phase_ms``: ``decode`` on the
@@ -36,6 +37,7 @@ import numpy as np
 
 from yat_tpu_torch.data.sampler import Batch
 from yat_tpu_torch.data.tar import ShardWriter
+from yat_tpu_torch.parallel.multihost import process_count, process_index
 
 
 class FeatureExtractor:
@@ -202,7 +204,9 @@ class FeatureExtractor:
         written = 0
         pending: deque = deque()
         t0 = time.monotonic()
-        with ShardWriter(os.path.join(self.output_dir, self.SHARD_PATTERN),
+        pattern = (self.SHARD_PATTERN if process_count() == 1 else
+                   f"shard-p{process_index()}-%06d.tar")
+        with ShardWriter(os.path.join(self.output_dir, pattern),
                          maxcount=self.shard_size,
                          on_shard_complete=self._on_shard_complete) as w:
 

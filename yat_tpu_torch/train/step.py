@@ -17,6 +17,17 @@ device: the candidates' draws are stacked and indexed by the argmin.  A
 step with N candidates and the preservation term runs 1 + N + 2 forwards
 (N no-grad, the base's no-grad) and 2 backwards.
 
+Across processes (``grad_sync``, a ``parallel.mesh.GradSync``), each
+process takes its own rows: the gradients and the loss are averaged over
+the processes before the norm, the clip and the update, so ``loss`` and
+``grad_norm`` are the global batch's, as in the JAX step over a sharded
+batch (under accumulation, each micro-step's).  The draws made once per
+step agree on every process: the caption dropout's ``use`` comes from
+``shared_gen`` (seeded alike everywhere), and exploration takes the
+argmin of the candidates' losses averaged over the processes; the
+per-sample draws (timesteps, noise, LoRA dropout) come from each
+process's own ``gen``.
+
 ``draws`` (optional) fixes the step's random choices: ``uncond`` (bool),
 ``timesteps``, ``sigmas`` and ``noise`` for the loss, ``preservation``
 (the same keys) for the preservation term, and ``candidates`` (a list of N
@@ -79,9 +90,10 @@ def _pick(values: List, idx: torch.Tensor):
 
 @torch.no_grad()
 def explore(task_loss, batch: Dict[str, torch.Tensor], gen: torch.Generator,
-            n: int, candidates: Optional[List[Dict]] = None):
+            n: int, candidates: Optional[List[Dict]] = None, grad_sync=None):
     """Best-of-``n`` draws: ``(chosen draws, the candidates' losses, the
-    argmin)``; the candidates come from ``task_loss.draw`` unless given."""
+    argmin)``; the candidates come from ``task_loss.draw`` unless given.
+    With ``grad_sync`` the losses are the means over the processes."""
     if candidates is None:
         candidates = [task_loss.draw(batch, gen) for _ in range(n)]
     if len(candidates) != n:
@@ -89,6 +101,8 @@ def explore(task_loss, batch: Dict[str, torch.Tensor], gen: torch.Generator,
                          f"exploration_steps={n}")
     losses = torch.stack([task_loss(batch, gen, deterministic=True, draws=c)
                           for c in candidates])
+    if grad_sync is not None:
+        grad_sync.mean_([losses])
     idx = torch.argmin(losses)
     return _pick(candidates, idx), losses, idx
 
@@ -99,31 +113,41 @@ def make_train_step(*, task_loss, optimizer: Optimizer,
                     exploration_steps: Optional[int] = None,
                     preservation_ratio: float = 0.0,
                     preservation_loss=None,
-                    frozen_base: Optional[Dict[str, torch.Tensor]] = None):
-    """``step(batch, gen, draws=None) -> {"loss", "grad_norm"}``; updates
-    the optimizer's leaves and ``ema`` in place.  ``frozen_base`` is the
-    preservation term's base under full fine-tuning (None: the model with
-    its adapters gated off)."""
+                    frozen_base: Optional[Dict[str, torch.Tensor]] = None,
+                    grad_sync=None):
+    """``step(batch, gen, draws=None, shared_gen=None) -> {"loss",
+    "grad_norm"}``; updates the optimizer's leaves and ``ema`` in place.
+    ``frozen_base`` is the preservation term's base under full fine-tuning
+    (None: the model with its adapters gated off); ``grad_sync`` averages
+    over the processes, and ``shared_gen`` (default ``gen``) draws the
+    caption dropout."""
     leaves = optimizer.leaves
     preservation = ((preservation_ratio, preservation_loss, frozen_base)
                     if preservation_ratio > 0.0
                     and preservation_loss is not None else None)
 
     def step(batch: Dict[str, torch.Tensor], gen: torch.Generator,
-             draws: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+             draws: Optional[Dict] = None,
+             shared_gen: Optional[torch.Generator] = None
+             ) -> Dict[str, torch.Tensor]:
         draws = dict(draws or {})
         if uncond_prob > 0.0 and "empty_embeddings" in batch:
             use = draws.get("uncond")
             if use is None:
-                use = torch.rand((), generator=gen,
-                                 device=gen.device) < uncond_prob
+                g = shared_gen if shared_gen is not None else gen
+                use = torch.rand((), generator=g,
+                                 device=g.device) < uncond_prob
             batch = apply_uncond_dropout(batch, use)
         if exploration_steps:
             chosen, _, _ = explore(task_loss, batch, gen, exploration_steps,
-                                   draws.pop("candidates", None))
+                                   draws.pop("candidates", None), grad_sync)
             draws.update(chosen)
         loss, grads = loss_and_grads(task_loss, leaves, batch, gen, draws,
                                      preservation)
+        if grad_sync is not None:
+            loss = loss.float().reshape(1)
+            grad_sync.mean_(grads + [loss])
+            loss = loss[0]
         grad_norm = global_norm(grads)
         synced = optimizer.update(grads)
         if ema is not None and synced:
