@@ -87,9 +87,9 @@ Phases, each of which fails the run (exit code 1) when it fails:
    latency and the denoiser's device time; refiner gating with a random
    nonzero LoRA (no active step: the latents of the pipeline without
    LoRA, every step active: those of the ungated LoRA pipeline, bit for
-   bit); one ``low_vram`` batch (encoder and decoder weights on the host
-   after it, one prompt at a time, device memory at rest and peak beside
-   the normal batch's).  Then PixArt-Sigma XL-2 the same way with
+   bit); one ``low_vram`` batch of 2 prompts (encoder and decoder weights
+   on the host after it, one prompt at a time, device memory at rest and
+   peak beside the normal batch's).  Then PixArt-Sigma XL-2 the same way with
    ``transformer/`` and ``vae/`` (the SD KL-VAE) from files and DDIM and
    DPM batches (2 denoiser calls a step under PAG; K1, K4, K6); T5-XXL
    stays random (its encoder file is about 9.5 GB in bf16; its loader is
@@ -262,19 +262,28 @@ Phases, each of which fails the run (exit code 1) when it fails:
 17. Training across processes (after phase 7): ``configs/sana_512_lora.yaml``
    as written but for its files, its mesh and the training depth cut,
    3 steps with the validation and the checkpoint at the last, trained by
-   two processes of ``frontends.sana.main`` under
+   four processes of ``frontends.sana.main`` under
    ``torch.distributed.run`` (this script's ``--mp-train`` mode), which
-   share the card over gloo, first at ``{dp: 2}`` and then at
-   ``{fsdp: 2}``, each process reading its own shard (its caption
+   share the card over gloo, first at ``{fsdp: 2, tp: 2}`` and then at
+   ``{dp: 2, sp: 2}``, each data index reading its own shard (its caption
    lengths over the rungs 128/256/384) through ``WindowedBucketSync``:
-   the backend line, both processes' adapters and EMA bit-equal, the
-   launches of each process's steps (K1 17, K1b 16, K2/K2b/K3 8 a step at
-   8 blocks) and of its validation, one export and one checkpoint, both
-   by rank 0, the checkpoint restored, one step's averaged gradients
-   bit-equal to the one-process mean of the halves and within one bf16
-   step of the one-process step on the whole 2 x 16 rows, the step time,
-   the gradient all-reduce's milliseconds, the peak per process and, at
-   ``{fsdp: 2}``, each process's resident frozen base against the whole.
+   the backend line, every process's adapters and EMA bit-equal, the
+   launches of each process's steps (K1 17, K1b 16, K2/K2b 8 a step at 8
+   blocks, and K3 8 at ``tp``, 18 heads, or K3s and K3a 8 each at ``sp``,
+   128 tokens) and of its validation (4 of the sampler's 20 steps), one
+   export and one checkpoint, both by rank 0, the checkpoint restored,
+   one step's reduced gradients against a one-process copy's step on
+   2 x 4 rows, in fp32 (a copy split as the trainer's model) and
+   in bf16 (the trainer's own), the step time, the
+   gradient all-reduce's milliseconds, the tp/sp collectives' calls,
+   bytes and milliseconds a step, the peak per process and each process's
+   resident frozen base; then ``context_parallel_attention`` and
+   ``ring_attention`` at q/k/v [2, 4096, 8, 64] over the four processes
+   against one-process SDPA; then PixArt-Sigma's LoRA config at ``{sp:
+   2}`` (4 blocks) by two processes of its entry point, 2 steps: equal
+   states, one export, one step's reduced gradients against the
+   one-process step as above, the launches by the whole token count's
+   branches (K6/K6b over the gathered keys, K4/K4b for the captions).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -317,13 +326,17 @@ TOL = {
                  "dot_product_attention": (2e-2, 2e-2),
                  "dot_product_attention_folded": (2e-2, 2e-2),
                  "flash_attention": (2e-2, 2e-2),
-                 "linear_attention": (2e-2, 2e-2)},
+                 "linear_attention": (2e-2, 2e-2),
+                 "linear_attention_apply": (2e-2, 2e-2)},
     # fp32: reduction order only
     "float32": {"adaln_layernorm": (1e-5, 1e-5),
                 "dot_product_attention": (1e-4, 1e-4),
                 "dot_product_attention_folded": (1e-4, 1e-4),
                 "flash_attention": (1e-4, 1e-4),
-                "linear_attention": (1e-4, 1e-4)},
+                "linear_attention": (1e-4, 1e-4),
+                # K3s's output is the fp32 state whatever the input's type
+                "linear_attention_state": (1e-4, 1e-4),
+                "linear_attention_apply": (1e-4, 1e-4)},
 }
 # backward kernels, each output against the plain backward.  bf16: rtol
 # 2^-7 is one bf16 step of the element itself, where the stored result
@@ -335,6 +348,12 @@ TOL["bfloat16"].update({"adaln_layernorm_bwd": (None, 2.0 ** -7),
                         "dot_product_attention_bwd": (None, 2.0 ** -7),
                         "dot_product_attention_folded_bwd": (None, 2.0 ** -7),
                         "flash_attention_bwd": (None, 2.0 ** -7)})
+# K1b's dscale and dshift in fp32 are sums over a batch row's N tokens,
+# which the kernel adds in another order than the plain version: N
+# roundings of up to half an fp32 unit (2^-24) of the sum, a random walk
+# of sqrt(N) of them at the largest sum's scale.  Their atol is the larger
+# of fp32's 1e-4 and 2^-24 sqrt(N) max|plain|
+FP32_SUM_ULP = 2.0 ** -24
 TOL["float32"].update({"adaln_layernorm_bwd": (1e-4, 1e-4),
                        "dot_product_attention_bwd": (2e-4, 2e-4),
                        "dot_product_attention_folded_bwd": (2e-4, 2e-4),
@@ -347,6 +366,8 @@ GRAD_REF_TOL = 1e-4
 MAIN_CASE = {"adaln_layernorm": "serve", "dot_product_attention": "serve",
              "dot_product_attention_folded": "serve",
              "flash_attention": "serve", "linear_attention": "serve",
+             "linear_attention_state": "sp-train",
+             "linear_attention_apply": "sp-train",
              "adaln_layernorm_bwd": "train",
              "dot_product_attention_bwd": "train-512",
              "dot_product_attention_folded_bwd": "train-300",
@@ -385,6 +406,9 @@ DEPTH_CUTS = {
     # depth): 8 of 28 blocks, so that phase 12's PixArt-Sigma REPA tap
     # after block 4 and SANA's generic REPA on blocks_7 still run
     "train": {"num_layers": "8"},
+    # PixArt-Sigma XL-2's token-sharded run of phase 17 (two processes
+    # at {sp: 2}): 4 of 28 blocks, each block the same sp path
+    "mp_pixart": {"num_layers": "4"},
     # Flux-2 Klein's 8 double and 16 single blocks cut to 2 and 4 (both
     # kinds still run), served and trained
     "flux": {"num_double_blocks": "2", "num_single_blocks": "4"},
@@ -649,18 +673,26 @@ def compare(name, got, want):
     import torch
     if not isinstance(got, tuple):
         got, want = (got,), (want,)
-    atol, rtol = TOL[str(want[0].dtype).replace("torch.", "")][name]
+    dtype = str(want[0].dtype).replace("torch.", "")
+    atol, rtol = TOL[dtype][name]
+    # K1b's fp32 token sums (FP32_SUM_ULP): outputs 1 and 2 of x [B, N, D]
+    sums = (FP32_SUM_ULP * want[0].shape[1] ** 0.5
+            if name == "adaln_layernorm_bwd" and dtype == "float32" else None)
     err_max, used, ok = 0.0, 0.0, True
-    for a, b in zip(got, want):
+    for i, (a, b) in enumerate(zip(got, want)):
         g, w = a.float(), b.float()
         err = (g - w).abs()
         limit = (BWD_BF16_ATOL_SHARE * float(w.abs().max()) if atol is None
-                 else atol) + rtol * w.abs()
+                 else max(atol, sums * float(w.abs().max()))
+                 if sums is not None and i > 0 else atol) + rtol * w.abs()
         ok = ok and bool(torch.isfinite(g).all())
         err_max = max(err_max, float(err.max()))
         used = max(used, float((err / limit.clamp_min(1e-30)).max()))
     text = (f"atol {BWD_BF16_ATOL_SHARE:g} x max|plain|" if atol is None
-            else f"atol {atol:g}") + f", rtol {rtol:g}"
+            else f"atol {atol:g}" + (
+                "" if sums is None else
+                f" (the sums' the larger with {sums:.3g} x max|plain|)")
+            ) + f", rtol {rtol:g}"
     return err_max, used, ok and used <= 1.0, text
 
 
@@ -870,6 +902,12 @@ TIMED_BF16_CASES = {(name, label)
                                   PIXELDIT_CASES)
                     for name, pairs in cases.items() if "adaln" not in name
                     for label, _ in pairs}
+# one process's shapes under tp and sp: K2 at 8 of 16 heads and at 128 of
+# 256 queries, K6 and K6b at 512 of PixArt-Sigma's 1024 queries
+TIMED_BF16_CASES |= {("dot_product_attention", "tp-cross"),
+                     ("dot_product_attention", "sp-cross"),
+                     ("flash_attention", "sp-self"),
+                     ("flash_attention_bwd", "sp-self")}
 # cases held at a smaller batch than they are timed at
 TIMED_AT_BATCH = {("flash_attention_bwd", label): SD35_TIMED_BATCH
                   for label, _ in SD35_CASES["flash_attention_bwd"]}
@@ -938,8 +976,10 @@ def kernel_cases(device):
         # SM); at the serving shape, kept keys in one middle or the last
         # 64-key tile only, or none (the tile walk of the forward body);
         # the self-attention of SANA's softmax-patched blocks in training,
-        # q/k/v [16, 256, 36, 32], no key bias.  The ragged shapes lie
-        # outside the short-sequence gate, so they reach the kernel through
+        # q/k/v [16, 256, 36, 32], no key bias; the training cross-attention
+        # of one process at {tp: 2} (8 of the 16 heads) and at {sp: 2} (128
+        # of the 256 queries).  The ragged shapes lie outside the
+        # short-sequence gate, so they reach the kernel through
         # implementation="vmem"
         for label, (b, nq, nk, h, d, keep) in (
                 ("serve", (8, 256, 512, 16, 72,
@@ -953,10 +993,15 @@ def kernel_cases(device):
                                  [(130, 190), (200, 201), (480, 512),
                                   (500, 512), 0, (64, 128), 512, 0])),
                 ("self-train", (16, 256, 256, 36, 32, None)),
+                ("tp-cross", (16, 256, 512, 8, 72,
+                              [100 + 400 * i // 15 for i in range(16)])),
+                ("sp-cross", (16, 128, 512, 16, 72,
+                              [100 + 400 * i // 15 for i in range(16)])),
                 *UNET_CASES["dot_product_attention"]):
             def make(b=b, nq=nq, nk=nk, h=h, d=d, keep=keep, dtype=dtype):
                 m = _mask(keep, nk, device) if keep is not None else None
-                return (randn((b, nq, h, d), dtype), randn((b, nk, h, d), dtype),
+                return (randn((b, nq, h, d), dtype),
+                        randn((b, nk, h, d), dtype),
                         randn((b, nk, h, d), dtype), m)
 
             def plain(q, k, v, m):
@@ -999,7 +1044,9 @@ def kernel_cases(device):
         # masks keeping 0-1024 of 1024 keys (0: a fully masked row); a
         # ragged N_k = 1000 in eight key blocks of 128; kept keys in one
         # middle or the last tile only; 1024px with the first (or the
-        # second) of the four key blocks fully masked
+        # second) of the four key blocks fully masked; one process's
+        # queries of PixArt-Sigma's self-attention at {sp: 2}, 512 of them
+        # over the 1024 gathered keys
         for label, (b, nq, nk, h, d, keep) in (
                 ("serve", (8, 1024, 1024, 16, 72, None)),
                 ("1024px", (2, 4096, 4096, 16, 72, None)),
@@ -1010,6 +1057,7 @@ def kernel_cases(device):
                                    (0, 64)])),
                 ("masked-blocks", (2, 4096, 4096, 16, 72,
                                    [(1024, 4096), (0, 1100)])),
+                ("sp-self", (8, 512, 1024, 16, 72, None)),
                 *UNET_CASES["flash_attention"],
                 *SD35_CASES["flash_attention"],
                 *FLUX_CASES["flash_attention"],
@@ -1017,7 +1065,8 @@ def kernel_cases(device):
             def make(b=b, nq=nq, nk=nk, h=h, d=d, keep=keep, dtype=dtype):
                 bias = (None if keep is None else A._key_bias(
                     _mask(keep, nk, device), b, A.FLASH_MASK_VALUE))
-                return (randn((b, nq, h, d), dtype), randn((b, nk, h, d), dtype),
+                return (randn((b, nq, h, d), dtype),
+                        randn((b, nk, h, d), dtype),
                         randn((b, nk, h, d), dtype), bias)
             cases.append(("flash_attention", label, dtype, make,
                           A._flash_attention_cuda, A.flash_attention_ref,
@@ -1037,7 +1086,8 @@ def kernel_cases(device):
                 ("ragged-17", (2, 17, 36, 32), "auto"),
                 ("d64", (8, 256, 18, 64), "auto"),
                 ("fp32-state", (8, 256, 36, 32), "pallas"),
-                ("nan", (8, 256, 36, 32), "auto")):
+                ("nan", (8, 256, 36, 32), "auto"),
+                ("tp-train", (16, 256, 18, 32), "auto")):
             def make(b=b, n=n, h=h, d=d, dtype=dtype, label=label):
                 q, k, v = (randn((b, n, h, d), dtype) for _ in range(3))
                 if label == "nan":
@@ -1060,6 +1110,40 @@ def kernel_cases(device):
                           b * h * (4 * n * d * d + 4 * n * d),
                           info if hasattr(A, "linear_attention_launch_info")
                           else None))
+        # K3s and K3a, K3's two products for token-sharded blocks: one
+        # process's tokens of a SANA-0.6B training step at {sp: 2}, k/v and
+        # q [16, 128, 36, 32]; ragged: N = 17 at head dim 64 (two state
+        # columns a lane).  K3s reads k and v and writes the fp32 state
+        # [B, H, D, D] and key sum; K3a reads q and the state (rounded to
+        # the storage type: round_kv at the whole 256 tokens) and writes o
+        for label, (b, n, h, d) in (("sp-train", (16, 128, 36, 32)),
+                                    ("ragged-17", (2, 17, 4, 64))):
+            state_bytes = 4 * b * h * (d * d + d)
+
+            def make_kv(b=b, n=n, h=h, d=d, dtype=dtype):
+                return (randn((b, n, h, d), dtype),
+                        randn((b, n, h, d), dtype))
+            cases.append(("linear_attention_state", label, dtype, make_kv,
+                          A.linear_attention_state,
+                          A.linear_attention_state_ref, None,
+                          es * 2 * b * n * h * d + state_bytes,
+                          b * h * n * (2 * d * d + d)))
+
+            def make_q(b=b, n=n, h=h, d=d, dtype=dtype):
+                kv, ksum = A.linear_attention_state_ref(
+                    randn((b, n, h, d), dtype),
+                    randn((b, n, h, d), dtype))
+                return randn((b, n, h, d), dtype), kv, ksum
+
+            def apply(q, kv, ksum):
+                return A.linear_attention_apply(q, kv, ksum, 1e-15, True)
+
+            def apply_ref(q, kv, ksum):
+                return A.linear_attention_apply_ref(q, kv, ksum, 1e-15, True)
+            cases.append(("linear_attention_apply", label, dtype, make_q,
+                          apply, apply_ref, None,
+                          es * 2 * b * n * h * d + state_bytes,
+                          b * h * n * (2 * d * d + 3 * d)))
         # K1b: SANA's training shape x, g [16, 256, 1152], scale
         # [16, 1152]; PixArt-Sigma's [8, 1024, 1152]; ragged: one batch
         # element, N = 100; the generic loop at D = 1000 and on a D = 1152
@@ -1163,7 +1247,8 @@ def kernel_cases(device):
         # over k/v [8, 256, 16, 72] keeping 0-256 keys (0: a fully masked
         # row); shapes the flash gate admits with several key blocks (N_k =
         # 640: five; head dim 256: three); a ragged N = 1000, called
-        # directly.  o, l and m come from K6's plain version
+        # directly; one process's queries at PixArt-Sigma's {sp: 2}, 512
+        # over 1024 keys.  o, l and m come from K6's plain version
         for label, (b, nq, nk, h, d, keep) in (
                 ("train", (8, 1024, 1024, 16, 72, None)),
                 ("1024px", (2, 4096, 4096, 16, 72, None)),
@@ -1172,6 +1257,7 @@ def kernel_cases(device):
                 ("blocks-640", (2, 1280, 640, 16, 72, [640, 311])),
                 ("d256", (2, 1024, 384, 2, 256, [384, 100])),
                 ("ragged", (2, 1000, 1000, 16, 72, [1000, 333])),
+                ("sp-self", (8, 512, 1024, 16, 72, None)),
                 *UNET_CASES["flash_attention_bwd"],
                 *SD35_CASES["flash_attention_bwd"],
                 *FLUX_CASES["flash_attention_bwd"],
@@ -1351,7 +1437,8 @@ WRONG_BWD = {
 # kernels timed at every case of the kernel phase, both dtypes, beside
 # their main case
 TIMED_EVERY_CASE = ("adaln_layernorm", "linear_attention",
-                    "adaln_layernorm_bwd")
+                    "adaln_layernorm_bwd", "linear_attention_state",
+                    "linear_attention_apply")
 # other cases timed in both dtypes and reported under their kernel's
 # "cases": K2 and K2b at the softmax-patched SANA blocks' self-attention
 TIMED_CASES = {("dot_product_attention", "self-train"),
@@ -1370,6 +1457,33 @@ def launch_text(info):
             f"{info['local_bytes']} local (spill) bytes a thread, "
             f"{info['shared_bytes']} shared bytes, {info['blocks_per_sm']} "
             "blocks per SM")
+
+
+# K1b's fp32 cases are held on this many draws, each against fp64 too
+K1B_FP32_DRAWS = 4
+
+
+def k1b_fp32_draws(name, label, make, kern, plain, args, got, want):
+    """K1b's fp32 case ``label`` held on ``K1B_FP32_DRAWS`` draws (the
+    first is the case's own, ``args``), and on each the token sums of the
+    kernel and of the plain version against the plain version in fp64:
+    the kernel's error is of the same kind as the plain version's, the
+    order of the sums."""
+    for draw in range(K1B_FP32_DRAWS):
+        if draw:
+            args = make()
+            got, want = kern(*args), plain(*args)
+        err, used, ok, tol = compare(name, got, want)
+        exact = plain(*(t.double() for t in args))
+        off = [max(float((o[i].double() - exact[i]).abs().max())
+                   for i in (1, 2)) for o in (got, want)]
+        log(f"{name} [{label}, float32] draw {draw}: max_abs_err "
+            f"{err:.3e}, {used:.3f} of the allowance ({tol}) "
+            f"{'ok' if ok else 'MISMATCH'}; the token sums off fp64 by "
+            f"{off[0]:.3e} (kernel) and {off[1]:.3e} (plain)")
+        if not ok:
+            fail(f"{name} [{label}, float32] draw {draw} disagrees with its "
+                 "plain version")
 
 
 def phase_kernels(device, names=None, skip_labels=()):
@@ -1406,6 +1520,8 @@ def phase_kernels(device, names=None, skip_labels=()):
                 + (f"; {path}" if path else ""))
         if not ok:
             fail(f"{name} [{label}, {dt}] disagrees with its plain version")
+        if name == "adaln_layernorm_bwd" and dtype == torch.float32:
+            k1b_fp32_draws(name, label, make, kern, plain, args, got, want)
         if FWD_SKIP.get(name) and dtype == torch.bfloat16 \
                 and args[3] is not None:
             # the tile walk: NaN in the K and V rows of every fully masked
@@ -3067,11 +3183,16 @@ def gating_invariants(vp):
         "== ungated LoRA, bit for bit")
 
 
+# the prompts of the low_vram batch: two of PROMPTS (each moves the
+# caption encoder's weights to the card and back, seconds a prompt)
+LOW_VRAM_PROMPTS = PROMPTS[:2]
+
+
 def low_vram_batch(family, params, device, card, peak_normal):
-    """One ``low_vram`` batch of 4 from the same pipe directory: the
-    caption encoder's and decoder's weights rest on the host, the prompts
-    go one at a time, the decoder tiles; the device's memory at rest and
-    its peak beside the normal batch's."""
+    """One ``low_vram`` batch of ``LOW_VRAM_PROMPTS`` from the same pipe
+    directory: the caption encoder's and decoder's weights rest on the
+    host, the prompts go one at a time, the decoder tiles; the device's
+    memory at rest and its peak beside the normal batch's."""
     import torch
 
     from yat_tpu_torch.frontends.sana import make_pipeline
@@ -3095,7 +3216,7 @@ def low_vram_batch(family, params, device, card, peak_normal):
         torch.cuda.reset_peak_memory_stats()
     rest = torch.cuda.memory_allocated() if cuda else 0
     t0 = time.perf_counter()
-    images = vp(PROMPTS)
+    images = vp(LOW_VRAM_PROMPTS)
     if cuda:
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -3105,13 +3226,14 @@ def low_vram_batch(family, params, device, card, peak_normal):
         if where != {"cpu"}:
             fail(f"low_vram: the {name}'s parameters sit on {where} after "
                  "the batch")
-    if batches != [1] * len(PROMPTS):
+    if batches != [1] * len(LOW_VRAM_PROMPTS):
         fail(f"low_vram: sampling runs of batch {batches}, expected one "
              "prompt at a time")
-    if len(images) != len(PROMPTS) or not all(
+    if len(images) != len(LOW_VRAM_PROMPTS) or not all(
             np.isfinite(i).all() for i in images.values()):
         fail("low_vram: images missing or not finite")
-    log(f"low_vram {family} [{card}]: batch of 4 (one prompt at a time) in "
+    log(f"low_vram {family} [{card}]: batch of {len(LOW_VRAM_PROMPTS)} (one "
+        f"prompt at a time) in "
         f"{dt:.3f} s; device memory at rest {rest / 2**30:.2f} GiB, peak "
         f"{peak / 2**30:.2f} GiB (normal batch's peak "
         f"{peak_normal / 2**30:.2f} GiB); the caption encoder's and "
@@ -6542,27 +6664,48 @@ def check_pixeldit_run(label, trainer, cfg, counts, cuda, grids, images,
 
 
 # ---------------------------------------------------------------------------
-# 17. training across processes (torchrun, two processes on the card)
+# 17. training across processes (torchrun, four processes on the card)
 # ---------------------------------------------------------------------------
 
-MP_WORLD = 2
+MP_WORLD = 4
 MP_STEPS = 3
-# the meshes of the phase: the card is one, so two processes share it
-MP_MESHES = {"dp": {"dp": MP_WORLD}, "fsdp": {"fsdp": MP_WORLD}}
-# the two processes' step against the one-process mean of the same halves:
-# bit-equal.  Against the one-process step on the concatenated 2 x 16 rows,
-# in bf16: the whole gradient within one bf16 step (2^-7) of its norm, each
-# leaf's and the loss within the bf16 forward tolerance (2e-2).  A batch
-# of another size rounds otherwise in bf16: on an H100 80GB a leaf whose
-# adapter B is still near 0 reads 1.7e-2 (its norm is small), and the
-# one-process step on the same rows in another order is logged beside it
-MP_GRAD_RTOL, MP_LEAF_RTOL, MP_LOSS_RTOL = 2.0 ** -7, 2e-2, 2e-2
+# the meshes of the phase: the card is one, so the four processes share it;
+# each mesh has two data indices (the rows), its tp or sp peers the same
+MP_MESHES = {"fsdp-tp": {"fsdp": 2, "tp": 2}, "dp-sp": {"dp": 2, "sp": 2}}
+MP_DATA = 2
+# PixArt-Sigma's token-sharded step: two processes at {sp: 2}
+PIXART_SP_WORLD = 2
+PIXART_SP_STEPS = 2
+# validation in the SANA runs: 4 of the sampler's 20 steps (each step is
+# the same collective path), the CFG calls' launches counted as before
+MP_VAL_STEPS = 4
+# the processes' step against a one-process copy's on the whole global
+# batch, for each run.  fp32 (TF32 off), a copy split as the trainer's
+# model is: the split's own arithmetic, summation order only; the whole
+# gradient within 1e-4 of its norm and each leaf within 1e-3.  bf16, the
+# trainer's own step: the whole gradient within one bf16 step (2^-7) of
+# the one-process bf16 step's norm, the loss within the bf16 forward
+# tolerance (2e-2), and each leaf no further from the one-process fp32
+# step than twice the one-process bf16 step's worst leaf is: bf16 alone
+# moves the leaves whose B is still near 0 (small gradients) by 3.5e-2 of
+# their norm on one process (an H100 80GB at 4 rows a data index)
+MP_FP32_GRAD_RTOL, MP_FP32_LEAF_RTOL = 1e-4, 1e-3
+MP_GRAD_RTOL, MP_LOSS_RTOL, MP_BF16_LEAF_FACTOR = 2.0 ** -7, 2e-2, 2.0
+# the rows of each data index in that step (the fp32 copies' activations
+# of four processes at the runs' 16 rows would not fit beside the
+# trainers on the one card)
+MP_SAME_ROWS = 4
+# the ring and the all-reduce form of context-parallel attention at
+# q/k/v [2, 4096, 8, 64] fp32 (the keys and values over the four
+# processes) against one-process attention
+CP_SHAPE = (2, 4096, 8, 64)
+CP_TOL = 1e-4
 
 
 def mp_train_config(shards, tmp, label, mesh, cfg_extra=None):
     """``configs/sana_512_lora.yaml`` as written but for its files
     (``shards``, no pretrained paths: the modules are random from the
-    seed), its ``mesh_shape`` (``mesh``: one card holds the two
+    seed), its ``mesh_shape`` (``mesh``: one card holds the four
     processes), the training depth cut and ``MP_STEPS`` steps with the
     validation and the checkpoint at the last."""
     import yaml
@@ -6591,23 +6734,69 @@ def _digest(tensors):
     return h.hexdigest()
 
 
-def mp_same_step(trainer, rank, world):
-    """This process's rows of a seeded global batch of ``world`` x
-    ``batch_size`` rows at the longest caption rung, and one set of global
-    draws: the gradients and loss averaged over the processes (the step's
-    path); on process 0 (every sharded leaf whole) the one-process mean of
-    the processes' halves, which must be bit-equal, and the one-process
-    step on the whole batch.  Returns process 0's comparison."""
+def _model_copy(trainer, state, fp32, split):
+    """A copy of the trainer's model from ``state`` (its whole leaves),
+    computing in fp32 or in the trainer's dtype, split over the trainer's
+    mesh as the trainer's model is (``split``: collective) or whole on
+    this process: (its loss, its trainable leaves, its GradSync or
+    None)."""
+    import dataclasses
+
     import torch
 
-    from yat_tpu_torch.parallel.multihost import barrier
+    from yat_tpu_torch.adapters.builder import (adapter_parameters,
+                                                build_adapter_params)
+    from yat_tpu_torch.parallel.tensor import parallelize
+    from yat_tpu_torch.train.engine import adapter_spec_from_params
+    from yat_tpu_torch.train.tasks import (make_epsilon_loss,
+                                           make_flow_matching_loss)
+
+    params = trainer.params
+    if fp32:
+        params = dataclasses.replace(params, bfloat16=False)
+    pixart = hasattr(trainer, "pixart_config")
+    if pixart:
+        from yat_tpu_torch.frontends import pixart as front
+        ref = front.build_denoiser(params, trainer.pixart_config,
+                                   trainer.device)
+    else:
+        from yat_tpu_torch.frontends import sana as front
+        ref = front.build_denoiser(params, trainer.sana_config,
+                                   trainer.device)
+    build_adapter_params(ref, adapter_spec_from_params(params),
+                         torch.Generator(device=trainer.device).manual_seed(0),
+                         merged=params.lora_fused_matmul)
+    ref.load_state_dict(state)
+    if pixart:
+        task = make_epsilon_loss(ref, trainer.schedule, learned_sigma=(
+            front._pred_slice(trainer.pixart_config) is not None))
+    else:
+        task = make_flow_matching_loss(ref, trainer.schedule)
+    leaves = [p for _, p in adapter_parameters(ref)]
+    sync = parallelize(ref, trainer.mesh, leaves)[3] if split else None
+    return task, leaves, sync
+
+
+def mp_same_step(trainer):
+    """One seeded global batch (``MP_SAME_ROWS`` rows for each data
+    index, at the longest caption rung) and one set of global draws.  Each
+    process takes its data index's rows, and its gradients and loss are
+    reduced over the mesh (the step's path): the trainer's own (bf16),
+    then an fp32 copy split as the trainer's model is.  On process 0,
+    one-process copies (bf16 and fp32) take the step on the whole batch.
+    Returns process 0's comparison (collective)."""
+    import torch
+
+    from yat_tpu_torch.parallel.multihost import barrier, process_index
     from yat_tpu_torch.train.step import loss_and_grads
 
     dev = trainer.device
-    b = trainer.params.batch_size
-    cfg = trainer.sana_config
+    b = MP_SAME_ROWS
+    pixart = hasattr(trainer, "pixart_config")
+    cfg = trainer.pixart_config if pixart else trainer.sana_config
+    data = trainer.mesh.data_count
     gen = torch.Generator(device=dev).manual_seed(5)
-    n, rung = world * b, cfg.max_caption_len
+    n, rung = data * b, cfg.max_caption_len
     lat_dtype = torch.bfloat16 if trainer.params.bfloat16 else torch.float32
     batch = {"latents": torch.randn(
                  (n, cfg.sample_size, cfg.sample_size, cfg.in_channels),
@@ -6615,67 +6804,153 @@ def mp_same_step(trainer, rank, world):
              "embeddings": torch.randn((n, rung, cfg.caption_channels),
                                        generator=gen, device=dev),
              "text_mask": _caption_mask(n, rung, dev)}
-    ts, sig = trainer.schedule.training_draw(gen, n)
-    draws = {"timesteps": ts, "sigmas": sig,
-             "noise": torch.randn(batch["latents"].shape, generator=gen,
-                                  device=dev)}
-    leaves = trainer.trainable_leaves()
+    drawn = trainer.schedule.training_draw(gen, n)
+    draws = ({"timesteps": drawn[0], "sigmas": drawn[1]}
+             if isinstance(drawn, tuple) else {"timesteps": drawn})
+    draws["noise"] = torch.randn(batch["latents"].shape, generator=gen,
+                                 device=dev)
+    mine = slice(trainer.mesh.data_rank * b, (trainer.mesh.data_rank + 1) * b)
 
-    def half(r):
-        rows = slice(r * b, (r + 1) * b)
+    def step(task, leaves, sync, rows):
         loss, grads = loss_and_grads(
-            trainer.task_loss, leaves,
-            {k: v[rows] for k, v in batch.items()}, gen,
+            task, leaves, {k: v[rows] for k, v in batch.items()}, gen,
             {k: v[rows] for k, v in draws.items()})
-        return grads + [loss.float().reshape(1)]
+        loss = loss.float().reshape(1)
+        if sync is not None:
+            sync.reduce_grads_(grads, loss)
+        return grads, float(loss[0])
 
-    synced = half(rank)
-    trainer.grad_sync.mean_(synced)
-    out = {}
+    def errors(got, want):
+        leaf = max(float((g.float() - w.float()).norm() / w.float().norm())
+                   for g, w in zip(got, want))
+        diff = sum(float((g.float() - w.float()).square().sum())
+                   for g, w in zip(got, want))
+        whole = sum(float(w.float().square().sum()) for w in want)
+        return (diff / whole) ** 0.5, leaf
+
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        # the run's cached blocks back to the card for the copies
+        torch.cuda.empty_cache()
     with trainer.whole():
-        if rank == 0:
-            halves = [half(r) for r in range(world)]
-            mean = [sum(h[i] for h in halves) / world
-                    for i in range(len(synced))]
-            exact = all(torch.equal(a, m) for a, m in zip(synced, mean))
-            loss1, grads1 = loss_and_grads(trainer.task_loss, leaves, batch,
-                                           gen, draws)
-            # the same rows, the second half first: the one-process step's
-            # own bf16 spread
-            order = torch.cat([torch.arange(b, n), torch.arange(b)]).to(dev)
-            _, grads2 = loss_and_grads(
-                trainer.task_loss, leaves,
-                {k: v[order] for k, v in batch.items()}, gen,
-                {k: v[order] for k, v in draws.items()})
-
-            def errors(got, want):
-                leaf = max(float((g.float() - w.float()).norm() / w.norm())
-                           for g, w in zip(got, want))
-                diff = sum(float((g.float() - w.float()).square().sum())
-                           for g, w in zip(got, want))
-                whole = sum(float(w.float().square().sum()) for w in want)
-                return (diff / whole) ** 0.5, leaf
-
-            out = {"rows": b, "loss": float(synced[-1][0]),
-                   "loss_one": float(loss1), "exact": exact,
-                   "whole_err": errors(synced, grads1)[0],
-                   "leaf_err": errors(synced, grads1)[1],
-                   "reordered": errors(grads2, grads1)}
+        state = {k: v.detach().clone()
+                 for k, v in trainer.model.state_dict().items()}
+    g16, l16 = step(trainer.task_loss, trainer.trainable_leaves(),
+                    trainer.grad_sync, mine)
+    g32, l32 = step(*_model_copy(trainer, state, True, True), mine)
+    out = {}
+    if process_index() == 0:
+        one16, lone16 = step(*_model_copy(trainer, state, False, False),
+                             slice(None))
+        one32, lone32 = step(*_model_copy(trainer, state, True, False),
+                             slice(None))
+        out = {"rows": b, "data": data,
+               "loss": [l16, lone16, l32, lone32],
+               "bf16": errors(g16, one16), "fp32": errors(g32, one32),
+               "bf16_fp32": errors(g16, one32),
+               "one_bf16_fp32": errors(one16, one32),
+               "seconds": time.perf_counter() - t0}
+    del state, g16, g32
     barrier()
     return out
 
 
+def check_same_step(label, same):
+    """The processes' step against the one-process step on the same
+    global batch (``mp_same_step``), in fp32 and in bf16."""
+    l16, lone16, l32, lone32 = same["loss"]
+    bf16_leaf = MP_BF16_LEAF_FACTOR * same["one_bf16_fp32"][1]
+    log(f"{label}: one step on {same['data']} x {same['rows']} rows, the "
+        f"processes' reduced gradients against the one-process step on all "
+        f"of them ({same['seconds']:.1f} s): fp32 (a copy split as the "
+        f"trainer's model, TF32 off) the gradient off by "
+        f"{same['fp32'][0]:.3e} of its norm (tol {MP_FP32_GRAD_RTOL:g}), the "
+        f"worst leaf by {same['fp32'][1]:.3e} (tol {MP_FP32_LEAF_RTOL:g}), "
+        f"loss {l32:.6f} vs {lone32:.6f}; bf16 (the trainer's) "
+        f"{same['bf16'][0]:.3e} (tol {MP_GRAD_RTOL:.3e}), the worst leaf "
+        f"{same['bf16'][1]:.3e}, loss {l16:.6f} vs {lone16:.6f}; against the "
+        f"one-process fp32 step: the trainer's bf16 worst leaf "
+        f"{same['bf16_fp32'][1]:.3e} (tol {bf16_leaf:.3e}, "
+        f"{MP_BF16_LEAF_FACTOR:g} x the one-process bf16 step's "
+        f"{same['one_bf16_fp32'][1]:.3e}; its "
+        f"whole gradient {same['one_bf16_fp32'][0]:.3e})")
+    if same["fp32"][0] > MP_FP32_GRAD_RTOL or \
+            same["fp32"][1] > MP_FP32_LEAF_RTOL or \
+            abs(l32 - lone32) > MP_FP32_GRAD_RTOL * abs(lone32) or \
+            same["bf16"][0] > MP_GRAD_RTOL or \
+            same["bf16_fp32"][1] > bf16_leaf or \
+            abs(l16 - lone16) > MP_LOSS_RTOL * abs(lone16):
+        fail(f"{label}: the processes' step differs from the one-process "
+             "step")
+
+
+def mp_context_parallel(rank, world, device):
+    """``context_parallel_attention`` (the queries whole) and
+    ``ring_attention`` (the queries sharded) at ``CP_SHAPE`` over the
+    processes, each with its key and value shard, against one-process
+    attention (SDPA, fp32) on process 0; device ms a call."""
+    import torch
+    import torch.nn.functional as F
+
+    from yat_tpu_torch.ops.context_parallel import (
+        context_parallel_attention, ring_attention)
+    from yat_tpu_torch.parallel.multihost import barrier
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    q, k, v = (torch.randn(CP_SHAPE, generator=gen, device=device)
+               for _ in range(3))
+    part = CP_SHAPE[1] // world
+    mine = slice(rank * part, (rank + 1) * part)
+    ks, vs = k[:, mine].contiguous(), v[:, mine].contiguous()
+    rec = {}
+    for name, fn, qq in (("context_parallel", context_parallel_attention, q),
+                         ("ring", ring_attention, q[:, mine].contiguous())):
+        out = fn(qq, ks, vs, None)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn(qq, ks, vs, None)
+        torch.cuda.synchronize(device)
+        rec[name] = {"ms": (time.perf_counter() - t0) / 3 * 1e3,
+                     "out": out}
+    barrier()
+    res = {}
+    if rank == 0:
+        want = F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2),
+            v.transpose(1, 2)).transpose(1, 2)
+        for name, r in rec.items():
+            w = want if name == "context_parallel" else want[:, mine]
+            res[name] = {"ms": r["ms"],
+                         "max_abs_err": float((r["out"] - w).abs().max())}
+    else:
+        res = {name: {"ms": r["ms"]} for name, r in rec.items()}
+    barrier()
+    return res
+
+
+def _family_main(cfg_path):
+    """The entry point of the config's family (PixArt's files are named
+    ``mp-pixart-*``)."""
+    if os.path.basename(cfg_path).startswith("mp-pixart"):
+        from yat_tpu_torch.frontends.pixart import main
+    else:
+        from yat_tpu_torch.frontends.sana import main
+    return main
+
+
 def mp_train_worker(out_dir, device, cfg_paths):
-    """One torchrun process of the phase: each config through the SANA
-    entry point, its launch counts set to 0 just before and read just
-    after (those inside validation apart), then the checks that need the
-    live trainer; ``{out_dir}/{label}-rank{rank}.json`` holds what it
-    saw."""
+    """One torchrun process of the phase: each config through its
+    family's entry point, its launch counts set to 0 just before and read
+    just after (those inside validation apart), then the checks that need
+    the live trainer; ``{out_dir}/{label}-rank{rank}.json`` holds what it
+    saw.  The SANA processes then run the context-parallel attentions
+    (``context-rank{rank}.json``)."""
     import torch
 
     sys.path.insert(0, REPO)
-    from yat_tpu_torch.frontends.sana import main as train_main
     from yat_tpu_torch.kernels.build import launch_counts, reset_launch_counts
+    from yat_tpu_torch.parallel import tensor as tensor_mod
     from yat_tpu_torch.parallel.mesh import frozen_bytes
     from yat_tpu_torch.parallel.multihost import barrier
     from yat_tpu_torch.train import checkpoint as ckpt_mod
@@ -6697,6 +6972,7 @@ def mp_train_worker(out_dir, device, cfg_paths):
         return export(self, *a, **k)
 
     def counted_validate(self, trainer, *a, **k):
+        self.num_steps = MP_VAL_STEPS
         before = launch_counts()
         t0 = time.perf_counter()
         out = validate(self, trainer, *a, **k)
@@ -6707,18 +6983,24 @@ def mp_train_worker(out_dir, device, cfg_paths):
         val_counts["_steps"] = self.num_steps
         return out
 
-    # observation only: which process writes, what validation launches
+    # which process writes and what validation launches (observed), and
+    # validation's sampler cut to MP_VAL_STEPS steps
     ckpt_mod.save_train_state = counted_save
     engine.Trainer._write_export = counted_export
     validation.ValidationPipeline.validate = counted_validate
+    sana = False
     for cfg_path in cfg_paths:
         label = os.path.splitext(os.path.basename(cfg_path))[0]
+        train_main = _family_main(cfg_path)
+        pixart = label.startswith("mp-pixart")
+        sana = sana or not pixart
         writes.update(checkpoint=0, export=0)
         val_counts.clear()
         if cuda:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
+        tensor_mod.COLLECTIVES.update(calls=0, seconds=0.0, bytes=0)
         # main path: the entry point, as torchrun's processes run it
         t0 = time.perf_counter()
         trainer = train_main(["--config", cfg_path, "--device", device])
@@ -6726,35 +7008,40 @@ def mp_train_worker(out_dir, device, cfg_paths):
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launch_counts()
+        collectives = dict(tensor_mod.COLLECTIVES)
         peak = torch.cuda.max_memory_allocated() if cuda else 0
-        leaves, ema = trainer.trainable_leaves(), trainer.ema
+        leaves, ema = trainer.trainable_leaves(), trainer.ema or []
+        cfg_model = trainer.pixart_config if pixart else trainer.sana_config
         rec = {"rank": rank, "world": world, "wall": wall, "peak": peak,
                "backend": torch.distributed.get_backend(),
                "device": str(trainer.device), "counts": counts,
                "validation_counts": dict(val_counts), "writes": dict(writes),
                "history": trainer.history, "step_times": trainer._step_times,
-               "allreduce_ms": trainer.grad_sync.ms,
+               "allreduce_ms": list(trainer.grad_sync.ms),
                "allreduce_bytes": sum(p.numel() * 4 for p in leaves) + 4,
+               "collectives": collectives, "mesh": str(trainer.mesh),
                "digest": _digest(leaves), "ema_digest": _digest(ema),
                "resident": frozen_bytes(trainer.model),
                "sharded": trainer.sharded is not None,
-               "n_layers": trainer.sana_config.num_layers,
-               "adapted": len(leaves)}
+               "n_layers": cfg_model.num_layers, "adapted": len(leaves),
+               "batch": trainer.params.batch_size}
         with trainer.whole():
             rec["whole"] = frozen_bytes(trainer.model)
         barrier()
         rec["exports"] = sorted(os.listdir(trainer.params.output_dir))
-        rec["checkpoints"] = sorted(os.listdir(trainer.params.checkpoint_dir))
-        # the checkpoint restores: the state moved off, then restored
-        kept = [t.detach().clone() for t in leaves + ema]
-        with torch.no_grad():
-            for t in leaves + ema:
-                t.add_(1.0)
-        trainer.global_step = 0
-        trainer.restore_checkpoint()
-        rec["restored"] = (trainer.global_step == MP_STEPS and all(
-            torch.equal(a, b) for a, b in zip(leaves + ema, kept)))
-        rec["same_step"] = mp_same_step(trainer, rank, world)
+        if not pixart:
+            rec["checkpoints"] = sorted(
+                os.listdir(trainer.params.checkpoint_dir))
+            # the checkpoint restores: the state moved off, then restored
+            kept = [t.detach().clone() for t in leaves + ema]
+            with torch.no_grad():
+                for t in leaves + ema:
+                    t.add_(1.0)
+            trainer.global_step = 0
+            trainer.restore_checkpoint()
+            rec["restored"] = (trainer.global_step == MP_STEPS and all(
+                torch.equal(a, b) for a, b in zip(leaves + ema, kept)))
+        rec["same_step"] = mp_same_step(trainer)
         with open(os.path.join(out_dir, f"{label}-rank{rank}.json"),
                   "w") as f:
             json.dump(rec, f)
@@ -6762,19 +7049,41 @@ def mp_train_worker(out_dir, device, cfg_paths):
         if cuda:
             torch.cuda.empty_cache()
         barrier()
+    if sana and cuda:
+        res = mp_context_parallel(rank, world, torch.device("cuda", 0))
+        with open(os.path.join(out_dir, f"context-rank{rank}.json"),
+                  "w") as f:
+            json.dump(res, f)
     torch.distributed.destroy_process_group()
 
 
-def check_mp_run(label, recs, out, cuda, card):
-    """The phase's checks on what the processes of one config saw."""
-    import statistics
-
+def mp_expected_launches(label, n_layers, sp):
+    """(per step, per validation CFG call) launches of one process: as one
+    process's at 8 blocks (tp keeps every launch, on fewer heads), but
+    under ``sp`` K3's two halves (K3s, K3a) in place of K3."""
     from yat_tpu_torch.models.sana import SanaConfig
+    one, _ = sana_step_launches(SanaConfig(num_layers=n_layers), False)
+    per_step = scale_launches(one, (1, 1))
+    per_call = {"adaln_layernorm": 2 * n_layers + 1,
+                "dot_product_attention": n_layers,
+                "linear_attention": n_layers}
+    for want in (per_step, per_call):
+        want["linear_attention_state"] = want["linear_attention_apply"] = 0
+        if sp:
+            want["linear_attention_state"] = want["linear_attention"]
+            want["linear_attention_apply"] = want["linear_attention"]
+            want["linear_attention"] = 0
+    return per_step, per_call
+
+
+def check_mp_run(label, recs, out, cuda, card, sp):
+    """The phase's checks on what the processes of one SANA config saw."""
+    import statistics
 
     r0 = recs[0]
     if any(r["backend"] != "gloo" for r in recs) or \
             out.count("backend gloo (processes share a card)"
-                      if cuda else "backend gloo (the CPU)") != MP_WORLD:
+                      if cuda else "backend gloo (the CPU)") < MP_WORLD:
         fail(f"{label}: the processes should share the card over gloo "
              f"({[r['backend'] for r in recs]})")
     for what in ("digest", "ema_digest"):
@@ -6796,36 +7105,17 @@ def check_mp_run(label, recs, out, cuda, card):
             f"global loss {h['loss']:.6f} grad_norm {h['grad_norm']:.4f} "
             f"lr {h['lr']:.3g}")
     if [r["writes"] for r in recs] != [{"checkpoint": 1, "export": 1}] + [
-            {"checkpoint": 0, "export": 0}] * (MP_WORLD - 1) or \
+            {"checkpoint": 0, "export": 0}] * (len(recs) - 1) or \
             r0["exports"] != [str(MP_STEPS)] or \
             r0["checkpoints"] != [f"{MP_STEPS}.pt"]:
         fail(f"{label}: expected one export and one checkpoint, both by "
              f"rank 0: writes {[r['writes'] for r in recs]}, exports "
              f"{r0['exports']}, checkpoints {r0['checkpoints']}")
-    same = r0["same_step"]
-    rows = same["rows"]
-    log(f"{label}: one step on {MP_WORLD} x {rows} rows: the averaged "
-        f"gradients and loss {'bit-equal' if same['exact'] else 'NOT equal'}"
-        f" to the one-process mean of the halves; against the one-process "
-        f"step on their {MP_WORLD * rows} rows: loss {same['loss']:.6f} vs "
-        f"{same['loss_one']:.6f}, the gradient off by "
-        f"{same['whole_err']:.3e} of its norm (tol {MP_GRAD_RTOL:.3e}), "
-        f"the worst leaf by {same['leaf_err']:.3e} (tol {MP_LEAF_RTOL}); "
-        f"the one-process step on its rows reordered: "
-        f"{same['reordered'][0]:.3e} and {same['reordered'][1]:.3e}")
-    if not same["exact"] or same["whole_err"] > MP_GRAD_RTOL or \
-            same["leaf_err"] > MP_LEAF_RTOL or \
-            abs(same["loss"] - same["loss_one"]) > \
-            MP_LOSS_RTOL * abs(same["loss_one"]):
-        fail(f"{label}: the processes' step differs from the one-process "
-             "step")
-    one, _ = sana_step_launches(SanaConfig(num_layers=n_layers), False)
-    per_step = scale_launches(one, (1, 1))
+    check_same_step(label, r0["same_step"])
+    rows = r0["batch"]
+    per_step, per_call = mp_expected_launches(label, n_layers, sp)
     for r in recs:
         val = r["validation_counts"]
-        per_call = {"adaln_layernorm": 2 * n_layers + 1,
-                    "dot_product_attention": n_layers,
-                    "linear_attention": n_layers}
         for name, n in per_step.items():
             got = r["counts"][name] - val.get(name, 0)
             want = n * MP_STEPS if cuda else 0
@@ -6841,43 +7131,104 @@ def check_mp_run(label, recs, out, cuda, card):
                 fail(f"{label}: rank {r['rank']}: {name}: {val.get(name)} "
                      f"launches in validation")
         times = r["step_times"][1:]
-        ar = r["allreduce_ms"]
-        log(f"{label} [{card}]: rank {r['rank']} on {r['device']}: "
-            f"{MP_STEPS} steps in {r['wall']:.2f} s through the entry "
+        ar, col = r["allreduce_ms"], r["collectives"]
+        log(f"{label} [{card}]: rank {r['rank']} on {r['device']} ({r['mesh']})"
+            f": {MP_STEPS} steps in {r['wall']:.2f} s through the entry "
             f"point (first step {r['step_times'][0]:.2f} s with the data's "
             f"first window, validation {val.get('_seconds', 0):.2f} s); "
             f"steps 2-{MP_STEPS} {statistics.mean(times):.4f} s a "
-            f"step ({MP_WORLD * rows / statistics.mean(times):.2f} "
-            "images/s "
-            f"of the global batch); the gradient all-reduce "
+            f"step ({MP_DATA * rows / statistics.mean(times):.2f} "
+            "images/s of the global batch); the gradient all-reduce "
             f"({r['allreduce_bytes']} bytes) median "
-            f"{statistics.median(ar):.3f} ms over {len(ar)} calls; peak "
-            f"device memory {r['peak'] / 2**30:.2f} GiB; frozen base "
-            f"resident {r['resident'] / 2**20:.1f} MiB of "
-            f"{r['whole'] / 2**20:.1f} MiB whole")
+            f"{statistics.median(ar):.3f} ms over {len(ar)} calls; the tp/sp "
+            f"collectives {col['calls']} calls, {col['bytes'] / 1e6:.1f} MB, "
+            f"{col['seconds'] * 1e3 / MP_STEPS:.1f} ms a step (host clock, "
+            f"validation's included); peak device memory "
+            f"{r['peak'] / 2**30:.2f} GiB; frozen base resident "
+            f"{r['resident'] / 2**20:.1f} MiB of {r['whole'] / 2**20:.1f} "
+            "MiB whole")
+    return r0["counts"]
+
+
+def check_pixart_sp_run(label, recs, cuda, card):
+    """The PixArt-Sigma ``{sp: 2}`` run's checks: equal states, finite
+    logged steps, one export by rank 0, the processes' step against the
+    one-process step (``check_same_step``), and each process's launches a
+    step (the attention branches of the whole token count, K6/K6b for the
+    self-attention over the gathered keys)."""
+    import statistics
+
+    from yat_tpu_torch.models.pixart import PixArtConfig
+    r0 = recs[0]
+    for what in ("digest", "ema_digest"):
+        if len({r[what] for r in recs}) != 1:
+            fail(f"{label}: the processes' {what[:-7] or 'leaves'} differ")
+    hist = r0["history"]
+    if len(hist) != PIXART_SP_STEPS or any(r["history"] != hist
+                                           for r in recs) or \
+            not all(math.isfinite(h["loss"]) for h in hist):
+        fail(f"{label}: the logged steps differ or are not finite")
+    if [r["writes"]["export"] for r in recs] != [1, 0]:
+        fail(f"{label}: expected one export, by rank 0")
+    check_same_step(label, r0["same_step"])
+    cfg = PixArtConfig(num_layers=r0["n_layers"])
+    want = dict.fromkeys(PIXART_TRAIN_KERNELS, 0)
+    for h in hist:
+        for name, n in pixart_step_launches(cfg, h["caption_len"]).items():
+            want[name] += n
+    for r in recs:
+        for name, n in want.items():
+            got = r["counts"][name] - r["validation_counts"].get(name, 0)
+            if got != (n if cuda else 0):
+                fail(f"{label}: rank {r['rank']}: {name}: {got} launches, "
+                     f"expected {n}")
+        times = r["step_times"][1:] or r["step_times"]
+        col = r["collectives"]
+        log(f"{label} [{card}]: rank {r['rank']}: steps {[h['caption_len'] for h in hist]} "
+            f"rungs, losses {[round(h['loss'], 6) for h in hist]}, "
+            f"{statistics.mean(times):.4f} s a step after the first; "
+            f"launches {dict((k, r['counts'][k]) for k in want if want[k])}"
+            f"; the sp collectives {col['calls']} calls, "
+            f"{col['bytes'] / 1e6:.1f} MB, {col['seconds'] * 1e3 / len(hist):.1f}"
+            f" ms a step; peak {r['peak'] / 2**30:.2f} GiB")
     return r0["counts"]
 
 
 def phase_multiprocess_train(device, card, shard_args=None, cfg_extra=None,
-                             timeout=600):
-    """``configs/sana_512_lora.yaml`` trained by two processes of the SANA
+                             timeout=600, pixart_shard=None,
+                             pixart_extra=None):
+    """``configs/sana_512_lora.yaml`` trained by four processes of the SANA
     entry point under ``torch.distributed.run`` (``mp_train_worker``),
-    first at ``{dp: 2}``, then at ``{fsdp: 2}``, each process reading its
-    own shard (the config's two paths split between them) with its own
-    caption lengths over the rungs 128/256/300.  Returns the launch
-    counts of the ``{dp: 2}`` run's rank 0."""
+    first at ``{fsdp: 2, tp: 2}``, then at ``{dp: 2, sp: 2}``, each data
+    index reading its own shard (the config's two paths split between
+    them) with its own caption lengths over the rungs 128/256/300; then
+    the context-parallel attentions over the four; then PixArt-Sigma's
+    LoRA config at ``{sp: 2}`` by two processes of its entry point.
+    Returns the launch counts of rank 0 of each run, by label."""
     import yaml
 
     cuda = device.type == "cuda"
+    out_counts = {}
     with tempfile.TemporaryDirectory() as tmp:
         shards = [os.path.join(tmp, f"shard-{r:06d}.tar")
-                  for r in range(MP_WORLD)]
+                  for r in range(MP_DATA)]
         t0 = time.perf_counter()
         for r, path in enumerate(shards):
             write_train_shard(path, seed=10 + r,
                               **{"lengths": ((60, 300), (110, 290))[r],
                                  **(shard_args or {})})
-        log(f"multiprocess train: wrote {MP_WORLD} feature shards in "
+        pix_shard = os.path.join(tmp, "pixart-000000.tar")
+        pix_cfg = {k: v for k, v in pixart_train_config(
+            pix_shard, os.path.join(tmp, "out-pixart"),
+            steps=str(PIXART_SP_STEPS), mesh_shape={"sp": PIXART_SP_WORLD},
+            **{**depth_cut("mp_pixart"), **(pixart_extra or {})}).items()
+            if v is not None}
+        # 12 PixArt-Sigma 512px samples, T5-XXL captions of 129-300
+        # tokens (the rungs 256 and 300: K4/K4b for the cross-attention)
+        pix = {"n": 12, "latent": (64, 64, 4), "dim": 4096,
+               "lengths": (129, 300), **(pixart_shard or {})}
+        write_train_shard(pix_shard, seed=30, **pix)
+        log(f"multiprocess train: wrote {MP_DATA + 1} feature shards in "
             f"{time.perf_counter() - t0:.1f} s")
         cfg_paths = []
         for label, mesh in MP_MESHES.items():
@@ -6886,48 +7237,73 @@ def phase_multiprocess_train(device, card, shard_args=None, cfg_extra=None,
                 yaml.safe_dump(mp_train_config(shards, tmp, label, mesh,
                                                cfg_extra), f)
             cfg_paths.append(path)
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-               "--nproc_per_node", str(MP_WORLD), os.path.abspath(__file__),
-               "--mp-train", tmp, device.type, *cfg_paths]
-        t0 = time.perf_counter()
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True,
-                                  timeout=timeout, cwd=tmp)
-        except subprocess.TimeoutExpired as e:
-            fail(f"multiprocess train: the processes outlived {timeout} s:"
-                 f"\n{(e.stdout or '')[-3000:]}")
-        out = proc.stdout + proc.stderr
-        for line in proc.stdout.splitlines():
-            if line.startswith(("[dist]", "[engine] fsdp", "[engine] step")):
-                log(f"multiprocess train: {line}")
-        if proc.returncode != 0:
-            fail(f"multiprocess train: torchrun exited {proc.returncode}:\n"
-                 f"{out[-4000:]}")
-        log(f"multiprocess train: torchrun ran both configs in "
-            f"{time.perf_counter() - t0:.1f} s")
-        counts = None
-        for label in MP_MESHES:
-            recs = []
-            for r in range(MP_WORLD):
-                with open(os.path.join(tmp, f"mp-{label}-rank{r}.json")) as f:
-                    recs.append(json.load(f))
-            c = check_mp_run(f"multiprocess train {{{label}: 2}}", recs, out,
-                             cuda, card)
-            counts = counts or c
-        dp, fs = (json.load(open(os.path.join(tmp, f"mp-{k}-rank0.json")))
-                  for k in ("dp", "fsdp"))
-        if not fs["sharded"] or dp["sharded"] or not \
-                fs["resident"] < 0.6 * dp["resident"]:
-            fail(f"multiprocess train: {{fsdp: 2}} should hold about half "
-                 f"the frozen base ({fs['resident']} of {dp['resident']})")
-        if fs["digest"] != dp["digest"]:
-            log("multiprocess train: the {fsdp: 2} run's leaves differ "
-                "from the {dp: 2} run's in their bits")
+        pix_path = os.path.join(tmp, "mp-pixart-sp.yaml")
+        with open(pix_path, "w") as f:
+            yaml.safe_dump(pix_cfg, f)
+        outs = []
+        for world, paths in ((MP_WORLD, cfg_paths),
+                             (PIXART_SP_WORLD, [pix_path])):
+            cmd = [sys.executable, "-m", "torch.distributed.run",
+                   "--standalone", "--nproc_per_node", str(world),
+                   os.path.abspath(__file__), "--mp-train", tmp,
+                   device.type, *paths]
+            t0 = time.perf_counter()
+            try:
+                proc = subprocess.run(cmd, capture_output=True, text=True,
+                                      timeout=timeout, cwd=tmp)
+            except subprocess.TimeoutExpired as e:
+                fail(f"multiprocess train: the processes outlived {timeout}"
+                     f" s:\n{(e.stdout or '')[-3000:]}")
+            out = proc.stdout + proc.stderr
+            for line in proc.stdout.splitlines():
+                if line.startswith(("[dist]", "[engine] mesh",
+                                    "[engine] step")):
+                    log(f"multiprocess train: {line}")
+            if proc.returncode != 0:
+                fail(f"multiprocess train: torchrun exited "
+                     f"{proc.returncode}:\n{out[-4000:]}")
+            log(f"multiprocess train: torchrun ran {len(paths)} config(s) "
+                f"over {world} processes in "
+                f"{time.perf_counter() - t0:.1f} s")
+            outs.append(out)
+
+        def recs_of(label, world):
+            return [json.load(open(os.path.join(tmp,
+                                                f"mp-{label}-rank{r}.json")))
+                    for r in range(world)]
+        for label, mesh in MP_MESHES.items():
+            out_counts[label] = check_mp_run(
+                f"multiprocess train {mesh}", recs_of(label, MP_WORLD),
+                outs[0], cuda, card, sp="sp" in mesh)
+        ft, dsp = (recs_of(k, MP_WORLD)[0] for k in MP_MESHES)
+        # fsdp halves every leaf of two dimensions and more, tp the split
+        # layers' again; the 1-D leaves and the modulation stay whole
+        if not ft["sharded"] or dsp["sharded"] or not \
+                ft["resident"] < 0.35 * dsp["resident"]:
+            fail(f"multiprocess train: {{fsdp: 2, tp: 2}} should hold about "
+                 f"a quarter of the frozen base "
+                 f"({ft['resident']} of {dsp['resident']})")
         log(f"multiprocess train [{card}]: resident frozen base per "
-            f"process {fs['resident'] / 2**20:.1f} MiB at {{fsdp: 2}} "
-            f"against {dp['resident'] / 2**20:.1f} MiB at {{dp: 2}} (one "
-            "process holds as much)")
-    return counts
+            f"process {ft['resident'] / 2**20:.1f} MiB at {{fsdp: 2, tp: 2}} "
+            f"against {dsp['resident'] / 2**20:.1f} MiB at {{dp: 2, sp: 2}} "
+            "(one process holds as much)")
+        out_counts["pixart-sp"] = check_pixart_sp_run(
+            f"multiprocess train pixart {{sp: {PIXART_SP_WORLD}}}",
+            recs_of("pixart-sp", PIXART_SP_WORLD), cuda, card)
+        if cuda:
+            cp = [json.load(open(os.path.join(tmp, f"context-rank{r}.json")))
+                  for r in range(MP_WORLD)]
+            for name in ("context_parallel", "ring"):
+                err = cp[0][name]["max_abs_err"]
+                ms = [round(c[name]["ms"], 3) for c in cp]
+                log(f"multiprocess train [{card}]: {name} attention at "
+                    f"{list(CP_SHAPE)} fp32 over {MP_WORLD} processes: "
+                    f"max_abs_err {err:.3e} against one-process SDPA (tol "
+                    f"{CP_TOL}), {ms} ms a call by process (host clock)")
+                if not err <= CP_TOL:
+                    fail(f"multiprocess train: {name} attention disagrees "
+                         "with one-process attention")
+    return out_counts
 
 
 def main() -> None:
@@ -6968,8 +7344,10 @@ def main() -> None:
             extra={"model_config_overrides": dict(DEPTH_CUTS["pretrained"])})
     counts["train"] = timed("train", phase_train, device, card,
                             cfg_extra=depth_cut("train"))
-    counts["mp_train"] = timed("multiprocess train",
-                               phase_multiprocess_train, device, card)
+    mp = timed("multiprocess train", phase_multiprocess_train, device, card)
+    counts["mp_train"] = mp["fsdp-tp"]
+    counts["mp_train_sp"] = mp["dp-sp"]
+    counts["pixart_sp"] = mp["pixart-sp"]
     counts["adapter_kinds"] = timed("adapter kinds", phase_adapter_kinds,
                                     device, card,
                                     cfg_extra=depth_cut("train"))
@@ -7037,6 +7415,14 @@ def main() -> None:
                 "yat_tpu/ops/attention.py:122", "pixart_train"),
             "linear_attention": ("yat_tpu_torch/csrc/linear_attention.cu",
                                  "yat_tpu/ops/attention.py:424", "sana"),
+            # K3's halves for token-sharded blocks: phase 17's {dp: 2,
+            # sp: 2} run
+            "linear_attention_state": (
+                "yat_tpu_torch/csrc/linear_attention.cu",
+                "yat_tpu/ops/attention.py:424", "mp_train_sp"),
+            "linear_attention_apply": (
+                "yat_tpu_torch/csrc/linear_attention.cu",
+                "yat_tpu/ops/attention.py:424", "mp_train_sp"),
             "dot_product_attention_folded": (
                 "yat_tpu_torch/csrc/softmax_attention.cu",
                 "yat_tpu/ops/attention.py:186", "pixart"),
@@ -7051,7 +7437,8 @@ def main() -> None:
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": counts[run][name]}
         # K1 launches on every path: its counts on the others beside
-        for other in ("pixart", "train", "mp_train", "pixart_train",
+        for other in ("pixart", "train", "mp_train", "mp_train_sp",
+                      "pixart_sp", "pixart_train",
                       "int8_train",
                       "full_ft", "explore_train", "pixart_preserve_train",
                       "raw_sana", "raw_pixart", "sd15", "sdxl",

@@ -13,6 +13,7 @@
 * ``w8a8_branch`` under a world of 2 takes the dequantized matmul.
 """
 
+import concurrent.futures
 import dataclasses
 import json
 
@@ -22,7 +23,8 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_port_multiprocess import launch, results
+from tests.test_torch_port_multiprocess import (launch_in_background,
+                                                results)
 from tests.test_torch_port_train import LEAF_TOL, METRIC_RTOL, TARGETS
 from tests.torch_threads import torch_threads  # noqa: F401 (autouse)
 
@@ -77,10 +79,33 @@ def sana_lora():
     return cfg, model, variables, adapters, meta, batch
 
 
+def _jax_draws(batch):
+    """The draws the JAX step makes from its keys over ``STEPS`` steps
+    (step.py:95-96, tasks.py:88-91): the caption dropout, the timesteps
+    and sigmas, the noise."""
+    from yat_tpu.ops.schedulers import FlowMatchSchedule
+    sched = FlowMatchSchedule(shift=3.0)
+    b = batch["latents"].shape[0]
+    rng = jax.random.PRNGKey(42)
+    draws = {}
+    for i in range(STEPS):
+        rng, sub = jax.random.split(rng)
+        rng_drop, rng_noise = jax.random.split(sub)
+        draws[f"draw/{i}/uncond"] = np.asarray(
+            jax.random.bernoulli(rng_drop, 0.5))
+        k_t, k_n, _ = jax.random.split(rng_noise, 3)
+        ts, sig = sched.training_draw(k_t, b)
+        draws[f"draw/{i}/timesteps"] = np.asarray(ts)
+        draws[f"draw/{i}/sigmas"] = np.asarray(sig)
+        draws[f"draw/{i}/noise"] = np.asarray(jax.random.normal(
+            k_n, batch["latents"].shape, jnp.float32))
+    return draws
+
+
 def _jax_run(setup, mesh_shape, raw):
     """The JAX step over the global batch on ``mesh_shape`` (the state and
-    the batch placed as the JAX trainer places them), with the draws it
-    makes, for ``STEPS`` steps."""
+    the batch placed as the JAX trainer places them) for ``STEPS`` steps
+    from the keys of :func:`_jax_draws`: its metrics and state."""
     from yat_tpu.config import TrainingParameters as JParams
     from yat_tpu.ops.schedulers import FlowMatchSchedule
     from yat_tpu.parallel.mesh import batch_sharding, create_mesh, shard_pytree
@@ -101,30 +126,18 @@ def _jax_run(setup, mesh_shape, raw):
     placed = {k: jax.device_put(v, batch_sharding(mesh))
               if k in ("latents", "embeddings", "text_mask")
               else jnp.asarray(v) for k, v in batch.items()}
-    b = batch["latents"].shape[0]
     rng = jax.random.PRNGKey(42)
-    draws, metrics = {}, []
+    metrics = []
     with mesh:
-        for i in range(STEPS):
+        for _ in range(STEPS):
             rng, sub = jax.random.split(rng)
-            # the draws the JAX step makes from its key (step.py:95-96,
-            # tasks.py:88-91)
-            rng_drop, rng_noise = jax.random.split(sub)
-            draws[f"draw/{i}/uncond"] = np.asarray(
-                jax.random.bernoulli(rng_drop, 0.5))
-            k_t, k_n, _ = jax.random.split(rng_noise, 3)
-            ts, sig = sched.training_draw(k_t, b)
-            draws[f"draw/{i}/timesteps"] = np.asarray(ts)
-            draws[f"draw/{i}/sigmas"] = np.asarray(sig)
-            draws[f"draw/{i}/noise"] = np.asarray(jax.random.normal(
-                k_n, batch["latents"].shape, jnp.float32))
             state, m = step(state, placed, sub)
             metrics.append([float(m["loss"]), float(m["grad_norm"])])
     want = {"leaf/" + k.replace("/", "."): v for k, v in
             _flat(jax.device_get(state.adapters))}
     want.update({"ema/" + k.replace("/", "."): v for k, v in
                  _flat(jax.device_get(state.ema))})
-    return draws, np.asarray(metrics), want
+    return np.asarray(metrics), want
 
 
 CASES = {"dp2-adamw": ({"dp": 2}, "adamw"),
@@ -134,30 +147,37 @@ CASES = {"dp2-adamw": ({"dp": 2}, "adamw"),
 
 @pytest.fixture(scope="module")
 def parity_runs(sana_lora, tmp_path_factory):
-    """Every case's JAX run, then the port's 2 processes over all cases in
-    one launch: {case: (JAX draws, metrics, state; each process's
+    """Every case's file, the port's 2 processes over all cases in one
+    launch (on a thread), and meanwhile every case's JAX run (on threads
+    of their own): {case: (JAX draws, metrics, state; each process's
     results)}."""
     cfg, _, variables, adapters, meta, batch = sana_lora
     tmp = tmp_path_factory.mktemp("parity")
-    jax_side = {}
+    draws = _jax_draws(batch)
+    raws = {}
     for case, (mesh_shape, optim) in CASES.items():
-        raw = {"batch_size": "2", "learning_rate": "1e-2", "steps": "3",
-               "num_steps_per_validation": "100", "validation_prompts": [],
-               "warmup_steps": "2", "weight_decay": "0.01", "use_ema": "",
-               "train_unconditional_prob": "0.5",
-               "use_adamw_8bit": str(optim == "lion8bit").lower()}
-        draws, metrics, want = _jax_run(sana_lora, mesh_shape, raw)
-        jax_side[case] = draws, metrics, want
+        raws[case] = {"batch_size": "2", "learning_rate": "1e-2",
+                      "steps": "3", "num_steps_per_validation": "100",
+                      "validation_prompts": [], "warmup_steps": "2",
+                      "weight_decay": "0.01", "use_ema": "",
+                      "train_unconditional_prob": "0.5",
+                      "use_adamw_8bit": str(optim == "lion8bit").lower()}
         port_mesh = {k: v for k, v in mesh_shape.items() if v > 1}
         spec = {"config": dataclasses.asdict(cfg), "mesh": port_mesh,
-                "raw": raw, "rows": 2, "steps": STEPS}
+                "raw": raws[case], "rows": 2, "steps": STEPS}
         np.savez(tmp / f"step_parity-{case}.npz", spec=json.dumps(spec),
                  **{f"params/{k}": v for k, v in
                     _flat(variables["params"])},
                  **{f"adapters/{k}": v for k, v in _flat(adapters)},
                  **{f"meta/{k}": v for k, v in _flat(meta)},
                  **{f"batch/{k}": v for k, v in batch.items()}, **draws)
-    launch("step_parity", 2, tmp, timeout=240)
+    join = launch_in_background("step_parity", 2, tmp, timeout=240)
+    with concurrent.futures.ThreadPoolExecutor(len(CASES)) as pool:
+        runs = {case: pool.submit(_jax_run, sana_lora, mesh_shape,
+                                  raws[case])
+                for case, (mesh_shape, _) in CASES.items()}
+        jax_side = {case: (draws, *f.result()) for case, f in runs.items()}
+    join()
     return {case: (*jax_side[case],
                    results(tmp, case, 2, scenario="step_parity"))
             for case in CASES}

@@ -51,7 +51,9 @@ def test_scan_covers_the_package():
             "yat_tpu_torch/data/tar.py", "yat_tpu_torch/data/sampler.py",
             "yat_tpu_torch/utils/logging.py",
             "yat_tpu_torch/parallel/multihost.py",
-            "yat_tpu_torch/parallel/mesh.py", "tests/torch_mp_worker.py",
+            "yat_tpu_torch/parallel/mesh.py",
+            "yat_tpu_torch/parallel/tensor.py",
+            "yat_tpu_torch/ops/context_parallel.py", "tests/torch_mp_worker.py",
             "tests/test_torch_port_multiprocess.py", "yat_tpu_torch/ops/quant.py",
             "yat_tpu_torch/ops/opt8bit.py", "yat_tpu_torch/data/bins.py",
             "yat_tpu_torch/data/native.py", "yat_tpu_torch/data/r2.py",

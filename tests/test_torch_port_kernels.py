@@ -158,7 +158,7 @@ def test_chip_smoke_k1_k3_cases_on_cpu():
                             "flux-image", "flux-text", "flux-single",
                             "pixeldit-patch", "pixeldit-pixel"],
         "linear_attention": ["serve", "train", "ragged", "ragged-17", "d64",
-                             "fp32-state", "nan"]}
+                             "fp32-state", "nan", "tp-train"]}
 
 
 def _k1b_cases(dtype):
@@ -204,6 +204,27 @@ def test_k1b_tolerance_rejects_a_backward_without_m2(dtype):
         assert chip_smoke.compare(name, step, want)[2]
         wrong, _ = chip_smoke.WRONG_BWD[name]
         assert not chip_smoke.compare(name, wrong(*args), want)[2]
+
+
+def test_k1b_fp32_token_sum_tolerance():
+    """K1b's fp32 dscale/dshift allowance (``FP32_SUM_ULP``) at PixArt-
+    and PixelDiT-sized token counts: the sums taken exactly (fp64, then
+    rounded) pass; the sums missing one token fail."""
+    import chip_smoke
+    name = "adaln_layernorm_bwd"
+    for case in _k1b_cases(torch.float32):
+        if case[1] not in ("pixart-train", "pixeldit-pixel"):
+            continue
+        x, sc, g = case[3]()
+        want = case[5](x, sc, g)
+        exact = case[5](x.double(), sc.double(), g.double())
+        assert chip_smoke.compare(
+            name, (want[0], *(t.float() for t in exact[1:])), want)[2]
+        short = case[5](x[:, 1:], sc, g[:, 1:])
+        assert not chip_smoke.compare(
+            name, (want[0], short[1], want[2]), want)[2]
+        assert not chip_smoke.compare(
+            name, (want[0], want[1], short[2]), want)[2]
 
 
 def test_k1b_yardstick_is_layer_norm_backward():

@@ -20,6 +20,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -62,6 +63,28 @@ def launch(scenarios, world, tmp_path, timeout=150):
     return outs
 
 
+def launch_in_background(scenarios, world, tmp, timeout=300):
+    """:func:`launch` on a thread (a test's JAX references compile
+    meanwhile); the returned ``join()`` gives its outputs or raises its
+    failure."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = launch(scenarios, world, tmp, timeout)
+        except BaseException as e:  # noqa: BLE001 — re-raised at join
+            box["error"] = e
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def join():
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        return box["out"]
+    return join
+
+
 def results(tmp_path, name, world, scenario=None):
     """What each process wrote as ``name`` in ``scenario``'s directory."""
     d = tmp_path / (scenario or name)
@@ -69,33 +92,44 @@ def results(tmp_path, name, world, scenario=None):
 
 
 @pytest.fixture(scope="module")
-def pair(tmp_path_factory):
-    """The 2-process scenarios, one launch: the fsdp checkpoint, the
-    collective validation and export, then the bucket sync's timeout
-    (last: it abandons a collective)."""
-    tmp = tmp_path_factory.mktemp("pair")
-    return tmp, launch("checkpoint,save_validate,timeout", 2, tmp)
+def launches(tmp_path_factory):
+    """Both worlds' launches, started together on threads: {world: (its
+    directory, the join of its launch)}.  2 processes: lockstep, the fsdp
+    checkpoint, the collective validation and export, then the bucket
+    sync's timeout (last: it abandons a collective); 4 processes:
+    lockstep, then the trainer's rehearsal at {dp: 2, fsdp: 2}."""
+    out = {}
+    for world, scenarios, timeout in (
+            (2, "lockstep,checkpoint,save_validate,timeout", 150),
+            (4, "lockstep,rehearsal", 300)):
+        tmp = tmp_path_factory.mktemp(f"world{world}")
+        out[world] = tmp, launch_in_background(scenarios, world, tmp,
+                                               timeout)
+    return out
 
 
 @pytest.fixture(scope="module")
-def quad(tmp_path_factory):
-    """The 4-process scenarios, one launch: lockstep, then the trainer's
-    rehearsal at {dp: 2, fsdp: 2}."""
-    tmp = tmp_path_factory.mktemp("quad")
-    return tmp, launch("lockstep,rehearsal", 4, tmp, timeout=300)
+def pair(launches):
+    """The 2-process launch's directory and outputs."""
+    tmp, join = launches[2]
+    return tmp, join()
+
+
+@pytest.fixture(scope="module")
+def quad(launches):
+    """The 4-process launch's directory and outputs."""
+    tmp, join = launches[4]
+    return tmp, join()
 
 
 @pytest.mark.parametrize("world", [2, 4])
-def test_bucket_lockstep(tmp_path, world, request):
+def test_bucket_lockstep(world, request):
     """Processes reading different shards (one with a key outside the bin
     table, the rungs 128/256/300 in different mixes) emit the same 12
     batches: same bucket, same caption length, full batches; a rung that
     only some processes fill is never drained; the unknown key is held
     with one warning on the process that has it."""
-    if world == 4:
-        tmp, outs = request.getfixturevalue("quad")
-    else:
-        tmp, outs = tmp_path, launch("lockstep", world, tmp_path)
+    tmp, outs = request.getfixturevalue("quad" if world == 4 else "pair")
     res = results(tmp, "lockstep", world)
     seqs = [json.loads(str(r["seq"])) for r in res]
     assert all(s == seqs[0] for s in seqs)
@@ -185,16 +219,16 @@ def test_trainer_run_dp2_fsdp2_with_resume(quad):
 
 
 def test_mesh_checks_at_the_shipped_sizes():
-    """The shipped configs' meshes are accepted at their world sizes;
-    ``tp``/``sp`` name ROADMAP item 12b; another size names both
-    numbers."""
+    """The shipped configs' meshes are accepted at their world sizes, as
+    the four axes; ``tp`` and ``sp`` are accepted beside ``dp``; another
+    size names both numbers."""
     import yaml
 
     from yat_tpu_torch.parallel.mesh import mesh_dims
     repo = os.path.dirname(os.path.dirname(WORKER))
-    want = {"sana_512_lora": (8, {"dp": 8, "fsdp": 1}),
-            "sd35_flow_lokr": (8, {"dp": 2, "fsdp": 4}),
-            "flux_klein_lora": (8, {"dp": 2, "fsdp": 4})}
+    want = {"sana_512_lora": (8, {"dp": 8, "fsdp": 1, "tp": 1, "sp": 1}),
+            "sd35_flow_lokr": (8, {"dp": 2, "fsdp": 4, "tp": 1, "sp": 1}),
+            "flux_klein_lora": (8, {"dp": 2, "fsdp": 4, "tp": 1, "sp": 1})}
     for name, (world, dims) in want.items():
         with open(os.path.join(repo, "configs", f"{name}.yaml")) as f:
             shape = yaml.safe_load(f)["mesh_shape"]
@@ -202,20 +236,21 @@ def test_mesh_checks_at_the_shipped_sizes():
         with pytest.raises(ValueError, match=rf"needs {world} devices.*"
                            r"has 2 processes"):
             mesh_dims(shape, 2)
-    assert mesh_dims(None, 3) == {"dp": 3, "fsdp": 1}
+    assert mesh_dims(None, 3) == {"dp": 3, "fsdp": 1, "tp": 1, "sp": 1}
     for ax in ("tp", "sp"):
-        with pytest.raises(ValueError, match="ROADMAP item 12b"):
-            mesh_dims({"dp": 2, ax: 2}, 4)
+        assert mesh_dims({"dp": 2, ax: 2}, 4) == {
+            "dp": 2, "fsdp": 1, "tp": 1, "sp": 1, ax: 2}
 
 
 def test_chip_smoke_multiprocess_phase_on_cpu(tmp_path, monkeypatch):
     """``chip_smoke.phase_multiprocess_train`` rehearsed at the tiny SANA
-    (tiny encoders, one validation prompt): two processes of the entry
-    point under ``torch.distributed.run`` at ``{dp: 2}`` then
-    ``{fsdp: 2}``, every check of the phase (backend, equal states, one
-    writer, the restore, the same step bit-equal to the mean of the halves
-    and within bf16 of the whole batch, launches 0 on the CPU, half the
-    frozen base resident)."""
+    (tiny encoders, one validation prompt) and the tiny PixArt: four
+    processes of the SANA entry point under ``torch.distributed.run`` at
+    ``{fsdp: 2, tp: 2}`` then ``{dp: 2, sp: 2}``, two of PixArt's at
+    ``{sp: 2}``, every check of the phase (backend, equal states, one
+    writer, the restore, each run's reduced step against the one-process
+    step on the whole batch in fp32 and in bf16, launches 0 on the CPU, a
+    quarter of the split frozen base resident)."""
     import torch
 
     import chip_smoke
@@ -227,10 +262,18 @@ def test_chip_smoke_multiprocess_phase_on_cpu(tmp_path, monkeypatch):
             "max_caption_len": "8", "mlp_ratio": "1.0", "in_channels": "32",
             "out_channels": "32", "sample_size": "4",
             "vae_compression": "4", "tiny_encoders": "1"}
+    pixart = {"hidden_dim": "32", "num_layers": "1",
+              "num_attention_heads": "2", "attention_head_dim": "16",
+              "caption_channels": "16", "max_caption_len": "8",
+              "mlp_ratio": "1.0", "sample_size": "8"}
     counts = chip_smoke.phase_multiprocess_train(
         torch.device("cpu"), "cpu",
         shard_args={"n": 24, "latent": (4, 4, 32), "dim": 32,
                     "lengths": (3, 8)},
         cfg_extra={"model_config_overrides": tiny, "batch_size": 2,
-                   "validation_prompts": ["a fox"]}, timeout=200)
-    assert counts and not any(counts.values())
+                   "validation_prompts": ["a fox"]}, timeout=240,
+        pixart_shard={"n": 12, "latent": (8, 8, 4), "dim": 16,
+                      "lengths": (3, 8)},
+        pixart_extra={"model_config_overrides": pixart, "batch_size": "2"})
+    assert set(counts) == {"fsdp-tp", "dp-sp", "pixart-sp"}
+    assert not any(any(c.values()) for c in counts.values())

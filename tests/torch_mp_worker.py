@@ -295,81 +295,230 @@ def run_rehearsal(rank, tmp):
     np.savez(os.path.join(tmp, f"rehearsal-{rank}.npz"), **out)
 
 
-def run_step_parity(rank, tmp):
-    """The port's step on this process's half of the global batch, with
-    the draws the JAX step made for these rows, for each case the test
-    wrote beside the scenario's directory (``step_parity-CASE.npz``: at
-    {dp: 2} or {fsdp: 2}, with AdamW or Lion with 8-bit momentum)."""
+def _cases(tmp, prefix):
+    """The case files ``PREFIX-CASE.npz`` that the test wrote beside the
+    scenario's directory."""
     root = os.path.dirname(tmp)
-    for path in sorted(os.listdir(root)):
-        if path.startswith("step_parity-") and path.endswith(".npz"):
-            _step_parity_case(rank, tmp, os.path.join(root, path))
+    return [os.path.join(root, p) for p in sorted(os.listdir(root))
+            if p.startswith(prefix + "-") and p.endswith(".npz")]
+
+
+def run_step_parity(rank, tmp):
+    """The port's step on this process's rows of the global batch (those
+    of its data index: ``tp`` and ``sp`` peers take the same), with the
+    draws the JAX step made for these rows, for each case the test wrote
+    beside the scenario's directory (``step_parity-CASE.npz``: SANA or
+    PixArt LoRA at {dp: 2} or {fsdp: 2} with AdamW or Lion with 8-bit
+    momentum, or on a mesh with ``tp`` and ``sp``)."""
+    for case in _cases(tmp, "step_parity"):
+        _step_parity_case(rank, tmp, case)
+
+
+def _tree(data, prefix):
+    out = {}
+    for key in data.files:
+        if key.startswith(prefix):
+            node = out
+            *path, leaf = key[len(prefix):].split("/")
+            for k in path:
+                node = node.setdefault(k, {})
+            node[leaf] = data[key]
+    return out
+
+
+def _config(cls, raw):
+    """``cls`` from the JSON of a JAX config (lists back to tuples)."""
+    return cls(**{k: tuple(v) if isinstance(v, list) else v
+                  for k, v in raw.items()})
+
+
+def _parallel(model, spec, head=None):
+    """The mesh of ``spec`` over ``model``: its tp split, its sp group,
+    the frozen base's fsdp shards; (mesh, the leaves' GradSync maker).
+    ``head`` (a REPA head) runs on tokens gathered whole, as the engine's
+    does."""
+    from yat_tpu_torch.parallel.mesh import create_mesh
+    from yat_tpu_torch.parallel.tensor import parallelize
+    mesh = create_mesh(spec["mesh"], "cpu")
+
+    def grad_sync(leaves):
+        tensor, _, sharded, sync = parallelize(
+            model, mesh, leaves, (getattr(model, "repa_projector", None),
+                                  head))
+        assert (sharded is not None) == ("fsdp" in spec["mesh"])
+        assert (tensor is not None) == ("tp" in spec["mesh"])
+        return sync
+    return mesh, grad_sync
 
 
 def _step_parity_case(rank, tmp, case):
     from yat_tpu_torch.config import TrainingParameters
     from yat_tpu_torch.convert import load_flax_adapters, load_flax_params
     from yat_tpu_torch.adapters.builder import adapter_parameters
-    from yat_tpu_torch.models.sana import SanaConfig, SanaTransformer2D
-    from yat_tpu_torch.ops.schedulers import FlowMatchSchedule
-    from yat_tpu_torch.parallel.mesh import (GradSync, create_mesh,
-                                             shard_frozen_base)
     from yat_tpu_torch.train.state import Optimizer
     from yat_tpu_torch.train.step import make_train_step
-    from yat_tpu_torch.train.tasks import make_flow_matching_loss
 
     data = np.load(case)
     spec = json.loads(str(data["spec"]))
-
-    def tree(prefix):
-        out = {}
-        for key in data.files:
-            if key.startswith(prefix):
-                node = out
-                *path, leaf = key[len(prefix):].split("/")
-                for k in path:
-                    node = node.setdefault(k, {})
-                node[leaf] = data[key]
-        return out
-
-    cfg = SanaConfig(**spec["config"])
-    model = SanaTransformer2D(cfg, dtype=torch.float32)
-    load_flax_params(model, tree("params/"))
-    load_flax_adapters(model, tree("adapters/"), tree("meta/"))
-    mesh = create_mesh(spec["mesh"], "cpu")
-    sharded = shard_frozen_base(model, mesh)
-    assert (sharded is not None) == ("fsdp" in spec["mesh"])
+    head = None
+    if spec.get("family", "sana") == "pixart":
+        from yat_tpu_torch.models.pixart import (PixArtConfig,
+                                                 PixArtTransformer2D)
+        from yat_tpu_torch.ops.schedulers import DDPMSchedule
+        from yat_tpu_torch.train.tasks import make_epsilon_loss
+        model = PixArtTransformer2D(_config(PixArtConfig, spec["config"]),
+                                    dtype=torch.float32)
+        task = make_epsilon_loss(model, DDPMSchedule(), learned_sigma=True)
+    else:
+        from yat_tpu_torch.models.sana import SanaConfig, SanaTransformer2D
+        from yat_tpu_torch.ops.schedulers import FlowMatchSchedule
+        from yat_tpu_torch.train.tasks import make_flow_matching_loss
+        model = SanaTransformer2D(_config(SanaConfig, spec["config"]),
+                                  dtype=torch.float32)
+        repa = None
+        if "repa" in spec:
+            # the generic REPA term, its head training beside the adapters
+            from yat_tpu_torch.ops.repa import RepaConfig, init_repa_head
+            targets, target, hidden, weight = spec["repa"]
+            repa = RepaConfig(tuple(targets), target, hidden)
+            head = init_repa_head(repa, model.cfg.hidden_dim, 0)
+            load_flax_params(head, _tree(data, "head/"))
+        task = make_flow_matching_loss(
+            model, FlowMatchSchedule(shift=3.0),
+            repa_lambda=spec["repa"][3] if repa else 0.0, repa_cfg=repa,
+            repa_head=head)
+    load_flax_params(model, _tree(data, "params/"))
+    load_flax_adapters(model, _tree(data, "adapters/"), _tree(data, "meta/"))
+    mesh, grad_sync = _parallel(model, spec, head)
     params = TrainingParameters.from_dict(spec["raw"])
     leaves = adapter_parameters(model)
+    if head is not None:
+        from yat_tpu_torch.convert import flax_named_parameters
+        leaves = leaves + [(f"repa_head.{n}", p)
+                           for n, p in flax_named_parameters(head)]
     opt = Optimizer(params, [p for _, p in leaves])
     ema = [p.detach().clone() for _, p in leaves]
     step = make_train_step(
-        task_loss=make_flow_matching_loss(model, FlowMatchSchedule(shift=3.0)),
-        optimizer=opt, ema=ema, ema_decay=0.999, uncond_prob=0.5,
-        grad_sync=GradSync())
-    rows = slice(rank * spec["rows"], (rank + 1) * spec["rows"])
+        task_loss=task, optimizer=opt, ema=ema, ema_decay=0.999,
+        uncond_prob=0.5, grad_sync=grad_sync([p for _, p in leaves]))
+    at = mesh.data_rank * spec["rows"]
+    rows = slice(at, at + spec["rows"])
     batch = {k[len("batch/"):]: torch.from_numpy(data[k]) for k in data.files
              if k.startswith("batch/")}
-    for k in ("latents", "embeddings", "text_mask"):
-        batch[k] = batch[k][rows]
+    for k in ("latents", "embeddings", "text_mask", "repa_features"):
+        if k in batch:
+            batch[k] = batch[k][rows]
     metrics = []
     for i in range(spec["steps"]):
         draws = {"uncond": bool(data[f"draw/{i}/uncond"])}
         for k in ("timesteps", "sigmas", "noise"):
-            draws[k] = torch.from_numpy(data[f"draw/{i}/{k}"][rows])
+            if f"draw/{i}/{k}" in data.files:
+                draws[k] = torch.from_numpy(data[f"draw/{i}/{k}"][rows])
         m = step(batch, torch.Generator().manual_seed(0), draws)
         metrics.append([float(m["loss"]), float(m["grad_norm"])])
     out = {"metrics": np.asarray(metrics)}
     for (name, p), e in zip(leaves, ema):
-        out[f"leaf/{name}"] = p.detach().numpy()
-        out[f"ema/{name}"] = e.numpy()
+        # the head's kernels in the flax layout, as the adapters are
+        flip = name.startswith("repa_head.") and name.endswith("kernel")
+        out[f"leaf/{name}"] = (p.detach().t() if flip else p.detach()).numpy()
+        out[f"ema/{name}"] = (e.t() if flip else e).numpy()
     name = os.path.basename(case)[len("step_parity-"):-len(".npz")]
     np.savez(os.path.join(tmp, f"{name}-{rank}.npz"), **out)
 
 
+def run_tp_grads(rank, tmp):
+    """Full fine-tuning of the tiny SDXL UNet, MMDiT-X or Flux on a
+    ``tp`` mesh: the loss and every parameter's gradient, reduced over the
+    processes, on the JAX loss's draws (``tp_grads-CASE.npz``)."""
+    import dataclasses  # noqa: F401 (configs)
+
+    from yat_tpu_torch.convert import flax_named_parameters, load_flax_params
+    from yat_tpu_torch.train.step import loss_and_grads
+    for case in _cases(tmp, "tp_grads"):
+        data = np.load(case)
+        spec = json.loads(str(data["spec"]))
+        family = spec["family"]
+        if family == "sdxl":
+            from yat_tpu_torch.models.unet import UNet2DCondition, UNetConfig
+            from yat_tpu_torch.ops.schedulers import DDPMSchedule
+            from yat_tpu_torch.train.tasks import make_epsilon_loss
+            model = UNet2DCondition(_config(UNetConfig, spec["config"]),
+                                    dtype=torch.float32)
+            make = lambda m: make_epsilon_loss(  # noqa: E731
+                m, DDPMSchedule(), extra_keys=("pooled_text", "time_ids"))
+        elif family == "mmdit":
+            from yat_tpu_torch.models.mmdit import MMDiT, MMDiTConfig
+            from yat_tpu_torch.ops.schedulers import FlowMatchSchedule
+            from yat_tpu_torch.train.tasks import make_flow_matching_loss
+            model = MMDiT(_config(MMDiTConfig, spec["config"]),
+                          dtype=torch.float32)
+            make = lambda m: make_flow_matching_loss(  # noqa: E731
+                m, FlowMatchSchedule(shift=3.0), extra_keys=("pooled_text",))
+        else:
+            from yat_tpu_torch.models.flux import FluxConfig, FluxTransformer
+            from yat_tpu_torch.ops.schedulers import FlowMatchSchedule
+            from yat_tpu_torch.train.tasks import make_flux_loss
+            model = FluxTransformer(_config(FluxConfig, spec["config"]),
+                                    dtype=torch.float32)
+            make = lambda m: make_flux_loss(  # noqa: E731
+                m, FlowMatchSchedule(shift=3.0))
+        load_flax_params(model, _tree(data, "params/"))
+        for p in model.parameters():
+            p.requires_grad_(True)
+        named = flax_named_parameters(model)
+        _, grad_sync = _parallel(model, spec)
+        sync = grad_sync([p for _, p in named])
+        batch = {k[len("batch/"):]: torch.from_numpy(data[k])
+                 for k in data.files if k.startswith("batch/")}
+        draws = {k[len("draw/"):]: torch.from_numpy(data[k])
+                 for k in data.files if k.startswith("draw/")}
+        loss, grads = loss_and_grads(make(model), [p for _, p in named],
+                                     batch, torch.Generator(), draws)
+        loss = loss.float().reshape(1)
+        sync.reduce_grads_(grads, loss)
+        name = os.path.basename(case)[len("tp_grads-"):-len(".npz")]
+        # each gradient in its parameter's flax layout
+        flax = {n: (g.t() if n.endswith("kernel") and g.ndim == 2 else
+                    g.permute(2, 3, 1, 0) if n.endswith("kernel") else g)
+                for (n, _), g in zip(named, grads)}
+        np.savez(os.path.join(tmp, f"{name}-{rank}.npz"), loss=loss.numpy(),
+                 **{f"grad/{n}": g.numpy() for n, g in flax.items()})
+
+
+def run_context_parallel(rank, tmp):
+    """``context_parallel_attention`` and ``ring_attention`` over the
+    processes on the test's q/k/v (``context_parallel.npz``): this
+    process's key and value shard, the queries whole or its shard; the
+    outputs and the gradients of ``sum(out ** 2)``."""
+    from yat_tpu_torch.ops.context_parallel import (
+        context_parallel_attention, ring_attention)
+    data = np.load(os.path.join(os.path.dirname(tmp),
+                                "context_parallel.npz"))
+    world = process_count()
+    q, k, v = (torch.from_numpy(data[n]) for n in ("q", "k", "v"))
+    kv = slice(rank * (k.shape[1] // world),
+               (rank + 1) * (k.shape[1] // world))
+    qs = slice(rank * (q.shape[1] // world),
+               (rank + 1) * (q.shape[1] // world))
+    out = {}
+    for name, fn, rows in (("cp", context_parallel_attention, slice(None)),
+                           ("ring", ring_attention, slice(None)),
+                           ("ring_sharded", ring_attention, qs)):
+        qq = q[:, rows].clone().requires_grad_()
+        kk, vv = (t[:, kv].clone().requires_grad_() for t in (k, v))
+        o = fn(qq, kk, vv, None)
+        dq, dk, dv = torch.autograd.grad((o ** 2).sum(), (qq, kk, vv))
+        out.update({f"{name}/out": o.detach().numpy(),
+                    f"{name}/dq": dq.numpy(), f"{name}/dk": dk.numpy(),
+                    f"{name}/dv": dv.numpy()})
+    np.savez(os.path.join(tmp, f"context_parallel-{rank}.npz"), **out)
+
+
 SCENARIOS = {"lockstep": run_lockstep, "timeout": run_timeout,
              "checkpoint": run_checkpoint, "save_validate": run_save_validate,
-             "rehearsal": run_rehearsal, "step_parity": run_step_parity}
+             "rehearsal": run_rehearsal, "step_parity": run_step_parity,
+             "tp_grads": run_tp_grads,
+             "context_parallel": run_context_parallel}
 
 
 def main():

@@ -659,3 +659,171 @@ extern "C" int yat_linear_attention_info(
                v_sb, v_sn, v_sh, o_sb, o_sn, o_sh, eps, round_kv, dtype,
                nullptr, static_cast<long long*>(info));
 }
+
+// ---------------------------------------------------------------------------
+// K3s and K3a: K3 split into its two products, for token-sharded blocks
+// (sequence parallelism).  Each process holds a slice of the tokens; the
+// state of its slice is summed over the processes before the second
+// product, as GSPMD reduces the JAX einsum branch's fp32 partial state
+// before kv.astype(q.dtype) (yat_tpu/ops/attention.py:494-498).
+//   K3s: kv = relu(k)^T v [B, H, D, D] and ksum = sum_n relu(k) [B, H, D],
+//        fp32, contiguous;
+//   K3a: o = relu(q) . round(kv) / (relu(q) . ksum + eps), with round_kv
+//        rounding the state to the storage type first.
+// Both run on the CUDA cores in fp32, one block of eight warps a (head,
+// batch element) for K3s and a (64-row group, head, batch element) for
+// K3a; every sum runs in a fixed order (two launches give the same bits).
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kStateRows = 32;              // rows of k and v a stage
+constexpr int kStateEntries = kMaxD * kMaxD / kThreads;   // per thread
+constexpr int kApplyRows = 64;              // rows of q a block
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+linear_attention_state(const T* k, const T* v, float* kv, float* ksum,
+                       Strides ks, Strides vs, int n, int d) {
+  __shared__ float sk[kStateRows][kMaxD];
+  __shared__ float sv[kStateRows][kMaxD];
+  const int h = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
+  const T* kp = k + b * ks.b + h * ks.h;
+  const T* vp = v + b * vs.b + h * vs.h;
+  float acc[kStateEntries];
+#pragma unroll
+  for (int u = 0; u < kStateEntries; ++u) acc[u] = 0.f;
+  float sacc = 0.f;
+  for (int n0 = 0; n0 < n; n0 += kStateRows) {
+    const int rows = min(kStateRows, n - n0);
+    for (int i = t; i < rows * d; i += kThreads) {
+      const int r = i / d, c = i % d;
+      sk[r][c] = relu1(yat::to_f<T>(kp[(n0 + r) * ks.n + c]));
+      sv[r][c] = yat::to_f<T>(vp[(n0 + r) * vs.n + c]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < kStateEntries; ++u) {
+      const int e = t + kThreads * u;
+      if (e < d * d) {
+        const int i = e / d, j = e % d;
+        float a = acc[u];
+        for (int r = 0; r < rows; ++r) a = fmaf(sk[r][i], sv[r][j], a);
+        acc[u] = a;
+      }
+    }
+    if (t < d)
+      for (int r = 0; r < rows; ++r) sacc += sk[r][t];
+    __syncthreads();
+  }
+  const long long head = static_cast<long long>(b) * gridDim.x + h;
+#pragma unroll
+  for (int u = 0; u < kStateEntries; ++u) {
+    const int e = t + kThreads * u;
+    if (e < d * d) kv[head * d * d + e] = acc[u];
+  }
+  if (t < d) ksum[head * d + t] = sacc;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+linear_attention_apply(const T* q, const float* kv, const float* ksum, T* o,
+                       Strides qs, Strides os, int n, int d, float eps,
+                       int round_kv) {
+  __shared__ float skv[kMaxD * kMaxD];
+  __shared__ float ss[kMaxD];
+  __shared__ float sq[kWarps][kMaxD];
+  const int h = blockIdx.y, b = blockIdx.z, t = threadIdx.x;
+  const int w = t / 32, lane = t % 32;
+  const long long head = static_cast<long long>(b) * gridDim.y + h;
+  for (int e = t; e < d * d; e += kThreads) {
+    const float x = kv[head * d * d + e];
+    skv[e] = round_kv ? yat::rnd<T>(x) : x;
+  }
+  if (t < d) ss[t] = ksum[head * d + t];
+  __syncthreads();
+  const T* qp = q + b * qs.b + h * qs.h;
+  T* op = o + b * os.b + h * os.h;
+  const int end = min(n, (blockIdx.x + 1) * kApplyRows);
+  for (int row = blockIdx.x * kApplyRows + w; row < end; row += kWarps) {
+    for (int c = lane; c < d; c += 32)
+      sq[w][c] = relu1(yat::to_f<T>(qp[row * qs.n + c]));
+    __syncwarp();
+    float den = 0.f;
+    for (int i = 0; i < d; ++i) den = fmaf(sq[w][i], ss[i], den);
+    for (int j = lane; j < d; j += 32) {
+      float num = 0.f;
+      for (int i = 0; i < d; ++i) num = fmaf(sq[w][i], skv[i * d + j], num);
+      op[row * os.n + j] = yat::from_f<T>(num / (den + eps));
+    }
+    __syncwarp();
+  }
+}
+
+template <typename T>
+cudaError_t state_launch(const void* k, const void* v, float* kv,
+                         float* ksum, int b, int n, int h, int d, Strides ks,
+                         Strides vs, cudaStream_t st) {
+  linear_attention_state<T><<<dim3(h, b), kThreads, 0, st>>>(
+      static_cast<const T*>(k), static_cast<const T*>(v), kv, ksum, ks, vs,
+      n, d);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t apply_launch(const void* q, const float* kv, const float* ksum,
+                         void* out, int b, int n, int h, int d, Strides qs,
+                         Strides os, float eps, int round_kv,
+                         cudaStream_t st) {
+  const int groups = (n + kApplyRows - 1) / kApplyRows;
+  linear_attention_apply<T><<<dim3(groups, h, b), kThreads, 0, st>>>(
+      static_cast<const T*>(q), kv, ksum, static_cast<T*>(out), qs, os, n, d,
+      eps, round_kv);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// K3s: k/v [B, N, H, D] with strides (b, n, h, 1) -> kv [B, H, D, D] and
+// ksum [B, H, D], fp32 and contiguous.  N may be 0 (zeros).
+extern "C" int yat_linear_attention_state(
+    const void* k, const void* v, void* kv, void* ksum, int b, int n, int h,
+    int d, long long k_sb, long long k_sn, long long k_sh, long long v_sb,
+    long long v_sn, long long v_sh, int dtype, void* stream) {
+  if (d > kMaxD || d < 1 || n < 0 || b < 1 || h < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Strides ks{k_sb, k_sn, k_sh}, vs{v_sb, v_sn, v_sh};
+  float* kvf = static_cast<float*>(kv);
+  float* ksf = static_cast<float*>(ksum);
+  if (dtype == yat::kFloat32)
+    return static_cast<int>(
+        state_launch<float>(k, v, kvf, ksf, b, n, h, d, ks, vs, s));
+  if (dtype == yat::kBFloat16)
+    return static_cast<int>(
+        state_launch<bf16>(k, v, kvf, ksf, b, n, h, d, ks, vs, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K3a: q/out [B, N, H, D] with strides (b, n, h, 1), kv [B, H, D, D] and
+// ksum [B, H, D] fp32 contiguous; round_kv: 1 to round the state to the
+// storage type before the product.
+extern "C" int yat_linear_attention_apply(
+    const void* q, const void* kv, const void* ksum, void* out, int b, int n,
+    int h, int d, long long q_sb, long long q_sn, long long q_sh,
+    long long o_sb, long long o_sn, long long o_sh, float eps, int round_kv,
+    int dtype, void* stream) {
+  if (d > kMaxD || d < 1 || n < 1 || b < 1 || h < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Strides qs{q_sb, q_sn, q_sh}, os{o_sb, o_sn, o_sh};
+  const float* kvf = static_cast<const float*>(kv);
+  const float* ksf = static_cast<const float*>(ksum);
+  if (dtype == yat::kFloat32)
+    return static_cast<int>(apply_launch<float>(q, kvf, ksf, out, b, n, h, d,
+                                                 qs, os, eps, round_kv, s));
+  if (dtype == yat::kBFloat16)
+    return static_cast<int>(apply_launch<bf16>(q, kvf, ksf, out, b, n, h, d,
+                                               qs, os, eps, round_kv, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}

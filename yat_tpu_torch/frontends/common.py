@@ -73,6 +73,7 @@ from yat_tpu_torch.data.sampler import (
 )
 from yat_tpu_torch.models.layers import init_params
 from yat_tpu_torch.parallel.multihost import (broadcast_from_main,
+                                              data_count, data_index,
                                               host_seed,
                                               initialize_distributed,
                                               process_count, process_index)
@@ -780,11 +781,12 @@ def override_config(cfg, overrides: dict, mirror_out_channels: bool = False):
 
 def shard_range_for_host(num_shards: int, index: Optional[int] = None,
                          count: Optional[int] = None) -> range:
-    """The shards of process ``index`` of ``count`` (default: this one):
-    an even split, the last process taking the remainder; every shard
-    when there are fewer shards than processes."""
-    index = process_index() if index is None else index
-    count = process_count() if count is None else count
+    """The shards of data index ``index`` of ``count`` (default: this
+    process's, ``multihost.data_index``): an even split, the last taking
+    the remainder; every shard when there are fewer shards than data
+    indices."""
+    index = data_index() if index is None else index
+    count = data_count() if count is None else count
     if num_shards < count:
         return range(0, num_shards)
     per = num_shards // count
@@ -815,15 +817,25 @@ def make_remote_source(params: TrainingParameters, per_host: bool = True,
         params.r2_dataset_folder or "",
         params.r2_access_key, params.r2_secret_key,
         params.r2_endpoint, params.r2_bucket_name,
-        seed=params.dataset_seed, process_index=process_index(),
-        one_pass=one_pass)
+        seed=params.dataset_seed, process_index=data_index(),
+        local_temp_dir=download_dir(), one_pass=one_pass)
+
+
+def download_dir() -> str:
+    """The sources' download directory: ``temp``, one of its own for each
+    process where ``tp``/``sp`` peers share a data index (their files
+    would take the same names)."""
+    if process_count() == data_count():
+        return "temp"
+    return os.path.join("temp", f"rank{process_index()}")
 
 
 def local_paths(params: TrainingParameters) -> list:
-    """This process's ``local_shard_paths``: its range of the list when
-    there are at least as many paths as processes, else every path."""
+    """This process's ``local_shard_paths``: its data index's range of the
+    list when there are at least as many paths as data indices, else every
+    path."""
     paths = list(params.local_shard_paths)
-    if process_count() > 1 and len(paths) >= process_count():
+    if data_count() > 1 and len(paths) >= data_count():
         paths = [paths[i] for i in shard_range_for_host(len(paths))]
     return paths
 
@@ -848,7 +860,8 @@ def make_shard_source(params: TrainingParameters, one_pass: bool = False):
     if params.urls:
         return UrlShardSource(params.urls, seed=params.dataset_seed,
                               probs=params.url_probs,
-                              process_index=process_index(),
+                              process_index=data_index(),
+                              local_temp_dir=download_dir(),
                               one_pass=one_pass)
     if params.r2_endpoint:
         return make_remote_source(params, one_pass=one_pass)

@@ -41,7 +41,8 @@ import torch.utils.checkpoint
 from torch import nn
 
 from yat_tpu_torch.models.layers import (AdapterDense, RMSNorm,
-                                         TimestepEmbedder, ZeroDense)
+                                         TimestepEmbedder, ZeroDense,
+                                         pair_joint_heads)
 from yat_tpu_torch.ops.attention import flash_attention
 from yat_tpu_torch.ops.norm import adaln_layernorm
 
@@ -155,8 +156,10 @@ class Modulation(nn.Module):
 
 
 def _heads(t: torch.Tensor, cfg: FluxConfig) -> torch.Tensor:
+    """[B, N, H·D] → [B, N, H, D] (H: this process's heads under a tp
+    pair)."""
     b, n, _ = t.shape
-    return t.reshape(b, n, cfg.num_heads, cfg.hidden_dim // cfg.num_heads)
+    return t.reshape(b, n, -1, cfg.hidden_dim // cfg.num_heads)
 
 
 class FluxDoubleBlock(nn.Module):
@@ -177,6 +180,18 @@ class FluxDoubleBlock(nn.Module):
             setattr(self, f"{tag}_norm_k", RMSNorm(hd))
             setattr(self, f"{tag}_ff_1", AdapterDense(d, mlp, dtype=dtype))
             setattr(self, f"{tag}_ff_2", AdapterDense(mlp, d, dtype=dtype))
+
+    def tensor_parallel(self, size: int, rank: int) -> None:
+        """Both streams' attention on this process's heads (the joint
+        attention needs the same heads in both) when the tp rule split
+        them all."""
+        c = self.cfg
+        tags = ("img", "txt")
+        pair_joint_heads(
+            [getattr(self, f"{t}_to_{n}") for t in tags for n in "qkv"],
+            [getattr(self, f"{t}_to_out") for t in tags],
+            [getattr(self, f"{t}_norm_{n}") for t in tags for n in "qk"],
+            c.num_heads, c.hidden_dim // c.num_heads, size, rank)
 
     def _qkv(self, h, tag, det):
         q, k, v = (_heads(getattr(self, f"{tag}_to_{n}")(h, det), self.cfg)
@@ -199,7 +214,7 @@ class FluxDoubleBlock(nn.Module):
         q = apply_rope_pairs(torch.cat([qt, qi], 1), cos, sin)
         k = apply_rope_pairs(torch.cat([kt, ki], 1), cos, sin)
         attn = flash_attention(q, k, torch.cat([vt, vi], 1))
-        attn = attn.reshape(img.shape[0], attn.shape[1], c.hidden_dim)
+        attn = attn.reshape(img.shape[0], attn.shape[1], -1)
         a_txt, a_img = attn[:, :n_txt], attn[:, n_txt:]
 
         img = img + i_g1.to(dt) * self.img_to_out(a_img, det)

@@ -30,11 +30,21 @@ import torch.nn.functional as F
 from torch import nn
 
 from yat_tpu_torch.ops.attention import (dot_product_attention,
-                                         flash_attention, linear_attention)
+                                         flash_attention, linear_attention,
+                                         linear_attention_sharded)
 from yat_tpu_torch.ops.quant import (
     dequantize_kernel,
     quantize_kernel,
     w8a8_matmul,
+)
+from yat_tpu_torch.parallel.tensor import (
+    all_reduce_sum,
+    contiguous_chunk,
+    copy_to_group,
+    depthwise_conv3x3_sharded,
+    gather_along,
+    pair,
+    reduce_from_group,
 )
 
 # flax's truncated-normal variance scaling divides by this so the kept
@@ -93,20 +103,33 @@ _ALL_LEAVES = tuple(dict.fromkeys(
 
 
 def adapter_delta(kind: str, leaves, scale: float, w: torch.Tensor,
-                  dtype: torch.dtype, fft_indices=None) -> torch.Tensor:
+                  dtype: torch.dtype, fft_indices=None, tp=None
+                  ) -> torch.Tensor:
     """The merged weight ``W'`` ``[out, in]`` of a non-LoRA adapter kind
     over the base weight ``w`` (``[out, in]`` in ``dtype``), with the JAX
     package's cast order: LoHa's and LoKr's deltas are formed in ``dtype``;
     DoRA merges in ``dtype``, takes the column norm in fp32 and casts back;
     FourierFT builds its dense grid and ``ifft2(norm="ortho").real`` in
     fp32, then casts.  ``scale`` is the float scale (``scale``,
-    ``lora_scale`` or ``fft_alpha``), already gated."""
+    ``lora_scale`` or ``fft_alpha``), already gated.
+
+    Under ``tp`` (a ``parallel.tensor.TPShard``) ``w`` is this process's
+    slice and so is the result: the deltas are sliced alike, and a
+    row-parallel DoRA layer sums its columns' squares over ``tp``."""
     s = _round_scalar(scale, dtype)
     if kind == "dora":
         a, b, m = leaves
+        if tp is not None and tp.role == "col":
+            b, m = tp.take(b, 1), tp.take(m, 0)
+        elif tp is not None:
+            a = tp.take(a, 0)
         merged = w + s * (a.to(dtype) @ b.to(dtype)).t()
         m32 = merged.float()
-        norm = torch.linalg.vector_norm(m32, dim=1, keepdim=True)
+        if tp is not None and tp.role == "row":
+            norm = all_reduce_sum(m32.square().sum(1, keepdim=True),
+                                  tp.group).sqrt()
+        else:
+            norm = torch.linalg.vector_norm(m32, dim=1, keepdim=True)
         return (m.float()[:, None] * m32 / (norm + 1e-8)).to(dtype)
     if kind == "loha":
         w1a, w1b, w2a, w2b = (t.to(dtype) for t in leaves)
@@ -117,6 +140,10 @@ def adapter_delta(kind: str, leaves, scale: float, w: torch.Tensor,
     elif kind == "fourierft":
         (spectrum,) = leaves
         d_out, d_in = w.shape
+        if tp is not None and tp.role == "col":
+            d_out = tp.full
+        elif tp is not None:
+            d_in = tp.full
         dense = torch.zeros((d_in, d_out), dtype=torch.float32,
                             device=spectrum.device).index_put(
             (fft_indices[0].long(), fft_indices[1].long()),
@@ -124,7 +151,10 @@ def adapter_delta(kind: str, leaves, scale: float, w: torch.Tensor,
         delta = torch.fft.ifft2(dense, norm="ortho").real.to(dtype)
     else:
         raise ValueError(f"no merged form for adapter kind {kind!r}")
-    return w + s * delta.t()
+    delta = delta.t()
+    if tp is not None:
+        delta = tp.take(delta, 0 if tp.role == "col" else 1)
+    return w + s * delta
 
 
 class AdapterDense(nn.Module):
@@ -197,6 +227,8 @@ class AdapterDense(nn.Module):
         self.dropout_seed: Optional[int] = None
         self.lora_gate: Optional[float] = None
         self.adapter_off = False
+        # the tensor-parallel split (parallel.tensor.TPShard), or None
+        self.tp = None
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         if self.weight is not None:
@@ -308,10 +340,48 @@ class AdapterDense(nn.Module):
         self.attach_adapter("lora", {"lora_a": lora_a, "lora_b": lora_b},
                             scale, dropout)
 
+    def tp_sliced_leaves(self) -> List[Tuple[str, int]]:
+        """(name, torch dimension) of the frozen leaves that ``tp`` slices
+        (the base weight or its quantized payload and, column-parallel,
+        the per-output-channel scales and a frozen bias)."""
+        tp = self.tp
+        col = tp.role == "col"
+        out = []
+        if self.weight is not None and not self.weight.requires_grad:
+            out.append(("weight", 0 if col else 1))
+        if self.qweight is not None:
+            out.append(("qweight", 0 if col else 1))
+            if col:
+                out.append(("weight_scale", 0))
+        if col and self.bias is not None and not self.bias.requires_grad:
+            out.append(("bias", 0))
+        return out
+
+    def shard_tp_base(self) -> None:
+        """Keep only this process's ``tp`` slice of the frozen leaves
+        (named in ``tp.sliced``; a trainable leaf stays whole and is sliced
+        at use)."""
+        self.tp.sliced = {name for name, _ in self.tp_sliced_leaves()}
+        for name, dim in self.tp_sliced_leaves():
+            part = self.tp.take(getattr(self, name).detach(), dim).contiguous()
+            if name in self._parameters:
+                self._parameters[name] = nn.Parameter(part,
+                                                      requires_grad=False)
+            else:
+                self._buffers[name] = part
+
     def forward(self, x: torch.Tensor, deterministic: bool = True
                 ) -> torch.Tensor:
         dtype = self.dtype or x.dtype
         x = x.to(dtype)
+        tp = self.tp
+        col = tp is not None and tp.role == "col"
+        if tp is not None and (col or tp.lone):
+            # a whole input: its gradient is summed over tp; a lone
+            # row-parallel layer takes its slice of it
+            x = copy_to_group(x, tp.group)
+            if not col:
+                x = tp.take(x, -1)
         kind = None if self.adapter_off else self.adapter_kind
         gate = 1.0 if self.lora_gate is None else self.lora_gate
         if gate == 0.0 and kind != "dora":
@@ -320,6 +390,9 @@ class AdapterDense(nn.Module):
         # the base alone and chain LoRA take it
         w8a8 = self.w8a8 and self.bits == 8 and kind in (None, "lora")
         w = None if w8a8 else self.base_weight(dtype)
+        if tp is not None and w is not None and not (
+                {"weight", "qweight"} & tp.sliced):
+            w = tp.take(w, 0 if col else 1)
 
         def base(t):
             if w is None:
@@ -330,6 +403,10 @@ class AdapterDense(nn.Module):
         elif kind == "lora":
             a = self.lora_a.to(dtype)
             b = self.lora_b.to(dtype)
+            if col:
+                b = tp.take(b, 1)
+            elif tp is not None:
+                a = tp.take(a, 0)
             s = _round_scalar(self.lora_scale * gate, dtype)
             dropout = (self.lora_dropout > 0.0 and not deterministic
                        and self.dropout_seed is not None)
@@ -341,17 +418,25 @@ class AdapterDense(nn.Module):
                     keep_p = 1.0 - self.lora_dropout
                     gen = torch.Generator(device=x.device).manual_seed(
                         self.dropout_seed)
-                    keep = torch.rand(x.shape, generator=gen,
-                                      device=x.device) < keep_p
+                    # the mask of the whole input, then this slice's
+                    keep = torch.rand((*x.shape[:-1], self.in_features),
+                                      generator=gen, device=x.device) < keep_p
+                    if tp is not None and not col:
+                        keep = tp.take(keep, -1)
                     xa = torch.where(keep, x / _round_scalar(keep_p, dtype),
                                      torch.zeros_like(x))
                 y = base(x) + s * ((xa @ a) @ b)
         else:
             y = F.linear(x, adapter_delta(
                 kind, [p for _, p in self.adapter_leaves()],
-                self.lora_scale * gate, w, dtype, self.fft_indices))
+                self.lora_scale * gate, w, dtype, self.fft_indices, tp))
+        if tp is not None and not col:
+            y = reduce_from_group(y, tp.group)
         if self.bias is not None:
-            y = y + self.bias.to(dtype)
+            y = y + (tp.take(self.bias, 0) if col and "bias" not in tp.sliced
+                     else self.bias).to(dtype)
+        if col and tp.lone:
+            y = gather_along(y, -1, tp.group)
         return y
 
 
@@ -393,15 +478,24 @@ class Conv2d(nn.Module):
         if self.bias is not None:
             self.bias.data.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = self.bias.to(self.dtype) if self.bias is not None else None
+    def forward(self, x: torch.Tensor,
+                channels: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``channels`` (a depthwise conv only): the input holds these
+        channels alone, and their filters run."""
+        weight, bias, groups = self.weight, self.bias, self.groups
+        if channels is not None:
+            weight = weight.index_select(0, channels.to(weight.device))
+            if bias is not None:
+                bias = bias.index_select(0, channels.to(bias.device))
+            groups = len(channels)
+        bias = bias.to(self.dtype) if bias is not None else None
         x = x.to(self.dtype).permute(0, 3, 1, 2)
         if self.pad is not None:
             lo, hi = self.pad
             x = F.pad(x, (lo, hi, lo, hi))
-        y = F.conv2d(x, self.weight.to(self.dtype), bias,
+        y = F.conv2d(x, weight.to(self.dtype), bias,
                      stride=self.stride, padding=self.padding,
-                     groups=self.groups)
+                     groups=groups)
         return y.permute(0, 2, 3, 1)
 
 
@@ -423,6 +517,14 @@ class Embed(nn.Module):
         return y.to(self.dtype) if self.dtype is not None else y
 
 
+def _pair_elementwise(first: "AdapterDense", second: "AdapterDense",
+                      size: int, rank: int) -> None:
+    """Pair two dense layers with only elementwise work between them
+    (``first``'s output is ``second``'s input), when both are split."""
+    if first.features % size == 0:
+        pair(first, second, contiguous_chunk(first.features, size, rank))
+
+
 class CaptionProjection(nn.Module):
     """linear_1 → gelu(tanh) → linear_2 (diffusers
     PixArtAlphaTextProjection layout)."""
@@ -432,6 +534,9 @@ class CaptionProjection(nn.Module):
         super().__init__()
         self.linear_1 = AdapterDense(in_features, hidden_dim, dtype=dtype)
         self.linear_2 = AdapterDense(hidden_dim, hidden_dim, dtype=dtype)
+
+    def tensor_parallel(self, size: int, rank: int) -> None:
+        _pair_elementwise(self.linear_1, self.linear_2, size, rank)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.linear_2(F.gelu(self.linear_1(x), approximate="tanh"))
@@ -443,7 +548,12 @@ class RMSNorm(nn.Module):
     def __init__(self, dim: int, epsilon: float = 1e-6, use_scale: bool = True):
         super().__init__()
         self.epsilon = epsilon
+        self.dim = dim
         self.scale = nn.Parameter(torch.empty(dim)) if use_scale else None
+        # inside a tensor-parallel pair (a TPShard): the norm of this
+        # process's heads; over the whole inner dim (rms_norm_across_heads)
+        # its sum of squares is summed over tp
+        self.tp_local = None
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         if self.scale is not None:
@@ -451,10 +561,18 @@ class RMSNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
-        var = (x32 * x32).mean(-1, keepdim=True)
+        tp = self.tp_local
+        scale = self.scale
+        if tp is not None and self.dim == tp.full:
+            # across heads: x holds this process's heads
+            var = all_reduce_sum((x32 * x32).sum(-1, keepdim=True),
+                                 tp.group) / self.dim
+            scale = tp.take(scale, 0) if scale is not None else None
+        else:
+            var = (x32 * x32).mean(-1, keepdim=True)
         y = x * torch.rsqrt(var + self.epsilon).to(x.dtype)
-        if self.scale is not None:
-            y = y * self.scale.to(x.dtype)
+        if scale is not None:
+            y = y * scale.to(x.dtype)
         return y
 
 
@@ -549,6 +667,9 @@ class TimestepEmbedder(nn.Module):
         self.linear_1 = AdapterDense(freq_dim, hidden_dim, dtype=dtype)
         self.linear_2 = AdapterDense(hidden_dim, hidden_dim, dtype=dtype)
 
+    def tensor_parallel(self, size: int, rank: int) -> None:
+        _pair_elementwise(self.linear_1, self.linear_2, size, rank)
+
     def forward(self, timesteps: torch.Tensor) -> torch.Tensor:
         emb = sinusoidal_timestep_embedding(timesteps, self.freq_dim)
         return self.linear_2(F.silu(self.linear_1(emb)))
@@ -572,6 +693,36 @@ def _qk_norm_modules(qk_norm, num_heads, head_dim):
         return None, None
     dim = head_dim if qk_norm in ("rms", "rms_norm") else num_heads * head_dim
     return RMSNorm(dim, epsilon=1e-5), RMSNorm(dim, epsilon=1e-5)
+
+
+def pair_joint_heads(cols, rows, norms, num_heads: int, head_dim: int,
+                     size: int, rank: int) -> bool:
+    """Put the q/k/v layers ``cols`` and the output layers ``rows`` of one
+    (joint) attention on this process's heads, the same heads in every
+    stream, when all of them are split and ``size`` divides the heads; the
+    per-head ``norms`` then see these heads only (their scales' gradients
+    become parts).  False, changing nothing, otherwise."""
+    if num_heads % size or any(getattr(m, "tp", None) is None
+                               or m.tp.role != "col" for m in cols) or any(
+            getattr(m, "tp", None) is None or m.tp.role != "row"
+            for m in rows):
+        return False
+    idx = contiguous_chunk(num_heads * head_dim, size, rank)
+    for m in list(cols) + list(rows):
+        m.tp.idx, m.tp.lone = idx, False
+    for norm in norms:
+        norm.tp_local = cols[0].tp
+    return True
+
+
+def _pair_heads(module, cols, row, num_heads: int, head_dim: int,
+                size: int, rank: int) -> None:
+    """:func:`pair_joint_heads` for one attention module (``module``'s
+    ``norm_q``/``norm_k``), which then computes its local heads."""
+    norms = [n for n in (getattr(module, "norm_q", None),
+                         getattr(module, "norm_k", None)) if n is not None]
+    if pair_joint_heads(cols, [row], norms, num_heads, head_dim, size, rank):
+        module.local_heads = num_heads // size
 
 
 class Attention(nn.Module):
@@ -604,6 +755,12 @@ class Attention(nn.Module):
         self.norm_q, self.norm_k = _qk_norm_modules(qk_norm, num_heads, head_dim)
         self.to_out = AdapterDense(inner, out_features or query_dim, out_bias,
                                    dtype)
+        # the heads this process computes (fewer under a tp pair)
+        self.local_heads = num_heads
+
+    def tensor_parallel(self, size: int, rank: int) -> None:
+        _pair_heads(self, (self.to_q, self.to_k, self.to_v), self.to_out,
+                    self.num_heads, self.head_dim, size, rank)
 
     def project_kv(self, context: torch.Tensor, deterministic: bool = True):
         k = self.to_k(context, deterministic)
@@ -611,8 +768,8 @@ class Attention(nn.Module):
         if self.qk_norm == "rms_norm_across_heads":
             k = self.norm_k(k)
         b, nk = k.shape[0], k.shape[1]
-        k = k.reshape(b, nk, self.num_heads, self.head_dim)
-        v = v.reshape(b, nk, self.num_heads, self.head_dim)
+        k = k.reshape(b, nk, self.local_heads, self.head_dim)
+        v = v.reshape(b, nk, self.local_heads, self.head_dim)
         if self.qk_norm in ("rms", "rms_norm"):
             k = self.norm_k(k)
         return k, v
@@ -620,12 +777,19 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None, *,
                 cached_kv: Optional[tuple] = None, return_kv: bool = False,
-                perturbed: bool = False, deterministic: bool = True):
+                perturbed: bool = False, deterministic: bool = True,
+                sp=None):
+        """``sp`` (a ``parallel.tensor.SequenceParallel``; token-sharded
+        ``x``): this process's queries, against the keys and values of
+        every process's tokens in self-attention.  A slice of the queries
+        or of the heads takes the kernel branch of the whole attention."""
         if cached_kv is not None and not return_kv:
             k, v = cached_kv
         else:
             k, v = self.project_kv(x if context is None else context,
                                    deterministic)
+            if sp is not None and context is None and not perturbed:
+                k, v = sp.gather_kv(k), sp.gather_kv(v)
         if return_kv:
             return k, v
         b, nq = x.shape[0], x.shape[1]
@@ -636,7 +800,7 @@ class Attention(nn.Module):
             q = self.to_q(x, deterministic)
             if self.qk_norm == "rms_norm_across_heads":
                 q = self.norm_q(q)
-            q = q.reshape(b, nq, self.num_heads, self.head_dim)
+            q = q.reshape(b, nq, self.local_heads, self.head_dim)
             if self.qk_norm in ("rms", "rms_norm"):
                 q = self.norm_q(q)
             if self.flash:
@@ -645,8 +809,12 @@ class Attention(nn.Module):
                                      "mask")
                 y = flash_attention(q, k, v)
             else:
-                y = dot_product_attention(q, k, v, mask=mask)
-        return self.to_out(y.reshape(b, nq, self.num_heads * self.head_dim),
+                whole = None
+                if sp is not None or self.local_heads != self.num_heads:
+                    whole = (nq * (sp.size if sp is not None else 1),
+                             self.num_heads)
+                y = dot_product_attention(q, k, v, mask=mask, whole=whole)
+        return self.to_out(y.reshape(b, nq, self.local_heads * self.head_dim),
                            deterministic)
 
 
@@ -666,21 +834,31 @@ class LiteLinearAttention(nn.Module):
         self.to_v = AdapterDense(dim, inner, False, dtype)
         self.norm_q, self.norm_k = _qk_norm_modules(qk_norm, num_heads, head_dim)
         self.to_out = AdapterDense(inner, dim, True, dtype)
+        self.local_heads = num_heads
 
-    def forward(self, x: torch.Tensor, deterministic: bool = True
-                ) -> torch.Tensor:
+    def tensor_parallel(self, size: int, rank: int) -> None:
+        _pair_heads(self, (self.to_q, self.to_k, self.to_v), self.to_out,
+                    self.num_heads, self.head_dim, size, rank)
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                sp=None) -> torch.Tensor:
+        """``sp`` (token-sharded ``x``): the state summed over the ``sp``
+        group between K3s and K3a."""
         b, n, _ = x.shape
         q, k, v = (self.to_q(x, deterministic), self.to_k(x, deterministic),
                    self.to_v(x, deterministic))
         if self.qk_norm == "rms_norm_across_heads":
             q, k = self.norm_q(q), self.norm_k(k)
-        shape = (b, n, self.num_heads, self.head_dim)
+        shape = (b, n, self.local_heads, self.head_dim)
         q, k, v = q.reshape(shape), k.reshape(shape), v.reshape(shape)
         if self.qk_norm in ("rms", "rms_norm"):
             q, k = self.norm_q(q), self.norm_k(k)
-        y = linear_attention(q, k, v, eps=self.eps).to(x.dtype)
-        return self.to_out(y.reshape(b, n, self.num_heads * self.head_dim),
-                           deterministic)
+        if sp is not None:
+            y = linear_attention_sharded(q, k, v, sp.group, eps=self.eps)
+        else:
+            y = linear_attention(q, k, v, eps=self.eps)
+        return self.to_out(y.to(x.dtype).reshape(
+            b, n, self.local_heads * self.head_dim), deterministic)
 
 
 class GLUMBConv(nn.Module):
@@ -696,15 +874,48 @@ class GLUMBConv(nn.Module):
         self.conv_depth = Conv2d(hidden * 2, hidden * 2, 3, groups=hidden * 2,
                                  dtype=dtype or torch.float32)
         self.conv_point = AdapterDense(hidden, dim, False, dtype)
+        # the hidden channels this process computes (fewer under a tp
+        # pair) and their indices into [y | gate]
+        self.local_hidden = hidden
+        self.channels: Optional[torch.Tensor] = None
+
+    def tensor_parallel(self, size: int, rank: int) -> None:
+        """A pair on matching ranges of ``y`` and ``gate``: a contiguous
+        split of ``conv_inverted``'s ``[y | gate]`` output would give one
+        process all of ``y`` and the other all of ``gate``."""
+        if self.hidden % size:
+            return
+        part = contiguous_chunk(self.hidden, size, rank)
+        both = torch.cat([part, self.hidden + part])
+        if pair(self.conv_inverted, self.conv_point, both, part):
+            self.local_hidden = self.hidden // size
+            self.channels = both
+            self.conv_depth.tp_local = both
 
     def forward(self, x: torch.Tensor, hw: Tuple[int, int],
-                deterministic: bool = True) -> torch.Tensor:
+                deterministic: bool = True, sp=None) -> torch.Tensor:
+        """``sp`` (token-sharded ``x``): the depthwise conv takes its
+        neighbours' tokens (``parallel.tensor.depthwise_conv3x3_sharded``)."""
         b, n, _ = x.shape
+        c = 2 * self.local_hidden
         y = F.silu(self.conv_inverted(x, deterministic))
-        y = self.conv_depth(y.reshape(b, hw[0], hw[1], self.hidden * 2))
+        if sp is not None:
+            conv = self.conv_depth
+            weight, bias = conv.weight, conv.bias
+            if self.channels is not None:
+                weight = weight.index_select(0, self.channels.to(x.device))
+                bias = (bias.index_select(0, self.channels.to(x.device))
+                        if bias is not None else None)
+            y = depthwise_conv3x3_sharded(
+                y.to(conv.dtype), weight.to(conv.dtype),
+                bias.to(conv.dtype) if bias is not None else None, hw, sp)
+            y = y.reshape(b, n, c)
+        else:
+            y = self.conv_depth(y.reshape(b, hw[0], hw[1], c), self.channels)
         y, gate = y.chunk(2, dim=-1)
         y = y * F.silu(gate)
-        return self.conv_point(y.reshape(b, n, self.hidden), deterministic)
+        return self.conv_point(y.reshape(b, n, self.local_hidden),
+                               deterministic)
 
 
 _ACTIVATIONS = {
@@ -728,6 +939,9 @@ class MLP(nn.Module):
         self.activation = activation
         self.fc1 = AdapterDense(dim, hidden, dtype=dtype)
         self.fc2 = AdapterDense(hidden, dim, dtype=dtype)
+
+    def tensor_parallel(self, size: int, rank: int) -> None:
+        _pair_elementwise(self.fc1, self.fc2, size, rank)
 
     def forward(self, x: torch.Tensor, deterministic: bool = True
                 ) -> torch.Tensor:

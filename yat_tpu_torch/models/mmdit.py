@@ -59,6 +59,7 @@ from yat_tpu_torch.models.layers import (
     RMSNorm,
     TimestepEmbedder,
     ZeroDense,
+    pair_joint_heads,
     unpatchify,
 )
 from yat_tpu_torch.ops.attention import flash_attention
@@ -170,6 +171,20 @@ class MMDiTBlock(nn.Module):
             self.c_to_out = AdapterDense(d, d, dtype=dtype)
             self.c_ff = MLP(d, mlp_ratio=c.mlp_ratio, dtype=dtype)
 
+    def tensor_parallel(self, size: int, rank: int) -> None:
+        """Every stream's attention on this process's heads (the joint
+        attention needs the same heads in both) when the tp rule split
+        them all."""
+        c = self.cfg
+        tags = ("x", "c") + (("x2",) if self.dual else ())
+        cols = [getattr(self, f"{t}_to_{n}") for t in tags for n in "qkv"]
+        rows = [getattr(self, f"{t}_to_out") for t in tags
+                if hasattr(self, f"{t}_to_out")]
+        norms = [getattr(self, f"{t}_norm_{n}") for t in tags for n in "qk"
+                 if hasattr(self, f"{t}_norm_{n}")]
+        pair_joint_heads(cols, rows, norms, c.num_heads,
+                         c.hidden_dim // c.num_heads, size, rank)
+
     def _qkv(self, h, tag, det):
         c = self.cfg
         b, n, _ = h.shape
@@ -177,7 +192,8 @@ class MMDiTBlock(nn.Module):
         out = []
         for name in ("q", "k", "v"):
             t = getattr(self, f"{tag}_to_{name}")(h, det)
-            t = t.reshape(b, n, c.num_heads, hd)
+            # this process's heads under a tp pair
+            t = t.reshape(b, n, -1, hd)
             if c.qk_norm == "rms" and name != "v":
                 t = getattr(self, f"{tag}_norm_{name}")(t)
             out.append(t)
@@ -202,7 +218,7 @@ class MMDiTBlock(nn.Module):
         # joint attention over the [text; image] concatenation
         attn = flash_attention(torch.cat([qc, qx], 1), torch.cat([kc, kx], 1),
                                torch.cat([vc, vx], 1))
-        attn = attn.reshape(b, attn.shape[1], c.hidden_dim)
+        attn = attn.reshape(b, attn.shape[1], -1)
         attn_c, attn_x = attn[:, :n_c], attn[:, n_c:]
 
         x = x + sx_gate.to(dt) * self.x_to_out(attn_x, det)
@@ -211,7 +227,7 @@ class MMDiTBlock(nn.Module):
             s2_shift, s2_scale, s2_gate = mods_x[6:]
             hx2 = nx * (1 + s2_scale.to(dt)) + s2_shift.to(dt)
             a2 = flash_attention(*self._qkv(hx2, "x2", det))
-            a2 = a2.reshape(b, a2.shape[1], c.hidden_dim)
+            a2 = a2.reshape(b, a2.shape[1], -1)
             x = x + s2_gate.to(dt) * self.x2_to_out(a2, det)
         hx = adaln_layernorm(x, mx_scale, mx_shift)
         x = x + mx_gate.to(dt) * self.x_ff(hx, det)

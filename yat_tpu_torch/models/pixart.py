@@ -145,20 +145,29 @@ class PixArtBlock(nn.Module):
 
     def forward(self, x, cond_emb, text_emb, text_mask, ctx_kv=None,
                 pag_perturbed: bool = False, deterministic: bool = True,
-                hw: Optional[Tuple[int, int]] = None):
+                hw: Optional[Tuple[int, int]] = None, sp=None):
+        """``sp`` (a ``parallel.tensor.SequenceParallel``): ``x`` holds
+        this process's slice of the grid's tokens; self-attention gathers
+        every process's keys and values, the residual conv branch every
+        process's tokens."""
         mod = self.scale_shift_table[None] + cond_emb          # [B, 6, D]
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = [
             mod[:, i][:, None, :].to(x.dtype) for i in range(6)]
 
         h = adaln_layernorm(x, scale_msa, shift_msa)
         h = self.attn1(h, perturbed=pag_perturbed,
-                       deterministic=deterministic)
-        if self.resnet_branch is not None:
+                       deterministic=deterministic, sp=sp)
+        if self.resnet_branch is not None and sp is not None:
+            n = h.shape[1]
+            first, end = sp.bounds(n)
+            h = self.resnet_branch(sp.gather_kv(h), hw)[:, first:end]
+        elif self.resnet_branch is not None:
             h = self.resnet_branch(h, hw)
         x = x + gate_msa * h
 
         x = x + self.attn2(x, context=text_emb, mask=text_mask,
-                           cached_kv=ctx_kv, deterministic=deterministic)
+                           cached_kv=ctx_kv, deterministic=deterministic,
+                           sp=sp)
 
         h = adaln_layernorm(x, scale_mlp, shift_mlp)
         return x + gate_mlp * self.ff(h, deterministic)
@@ -197,6 +206,8 @@ class PixArtTransformer2D(nn.Module):
         self.repa_projector = (RepaProjector(c.hidden_dim,
                                              out_dim=c.repa_target_dim)
                                if repa else None)
+        # the sp group (parallel.tensor.SequenceParallel), or None
+        self.sequence_parallel = None
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         nn.init.normal_(self.out_scale_shift_table.data, 0.0,
@@ -230,6 +241,12 @@ class PixArtTransformer2D(nn.Module):
         b, h, w, _ = latents.shape
         p = c.patch_size
         x = self.pos_embed(latents.to(self.dtype))
+        # under sp, this process's slice of the tokens (the JAX
+        # constrain_tokens, pixart.py:195-198)
+        n, sp = x.shape[1], self.sequence_parallel
+        if sp is not None:
+            x = sp.shard(x)
+            sp = sp if x.shape[1] != n else None
         t_emb = self.time_embed(timesteps)
         cond = self.time_proj(F.silu(t_emb)).reshape(b, 6, c.hidden_dim)
 
@@ -239,14 +256,15 @@ class PixArtTransformer2D(nn.Module):
         for i, blk in enumerate(self.blocks):
             args = (x, cond, ctx, text_mask,
                     cached_ctx_kv[i] if cached_ctx_kv is not None else None,
-                    i in perturbed, deterministic, (h // p, w // p))
+                    i in perturbed, deterministic, (h // p, w // p), sp)
             if remat:
                 x = torch.utils.checkpoint.checkpoint(blk, *args,
                                                       use_reentrant=False)
             else:
                 x = blk(*args)
             if return_repa and i == c.repa_depth:
-                repa_proj = self.repa_projector(x.float())
+                repa_proj = self.repa_projector(
+                    (x if sp is None else sp.gather(x, n)).float())
 
         # diffusers' top-level (2, D) table, modulated by the raw timestep
         # embedding
@@ -254,6 +272,8 @@ class PixArtTransformer2D(nn.Module):
         shift = out_mod[:, 0][:, None, :].to(x.dtype)
         scale = out_mod[:, 1][:, None, :].to(x.dtype)
         x = self.proj_out(adaln_layernorm(x, scale, shift), deterministic)
+        if sp is not None:
+            x = sp.gather(x, n)
         out = unpatchify(x, (h, w), p, c.out_channels)
         return (out, repa_proj) if return_repa else out
 

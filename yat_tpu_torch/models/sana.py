@@ -98,22 +98,25 @@ class SanaBlock(nn.Module):
                         generator=gen)
 
     def forward(self, x, cond_emb, text_emb, text_mask, hw: Tuple[int, int],
-                ctx_kv=None, deterministic: bool = True):
+                ctx_kv=None, deterministic: bool = True, sp=None):
+        """``sp`` (a ``parallel.tensor.SequenceParallel``): ``x`` holds
+        this process's slice of the grid's tokens."""
         mod = self.scale_shift_table[None] + cond_emb          # [B, 6, D]
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = [
             mod[:, i][:, None, :].to(x.dtype) for i in range(6)]
 
         # 1) self-attention: linear by default, softmax for listed blocks
         h = adaln_layernorm(x, scale_msa, shift_msa)
-        x = x + gate_msa * self.attn1(h, deterministic=deterministic)
+        x = x + gate_msa * self.attn1(h, deterministic=deterministic, sp=sp)
 
         # 2) softmax cross-attention on the caption tokens
         x = x + self.attn2(x, context=text_emb, mask=text_mask,
-                           cached_kv=ctx_kv, deterministic=deterministic)
+                           cached_kv=ctx_kv, deterministic=deterministic,
+                           sp=sp)
 
         # 3) gated conv FFN
         h = adaln_layernorm(x, scale_mlp, shift_mlp)
-        return x + gate_mlp * self.ff(h, hw, deterministic)
+        return x + gate_mlp * self.ff(h, hw, deterministic, sp)
 
 
 class SanaTransformer2D(nn.Module):
@@ -147,6 +150,8 @@ class SanaTransformer2D(nn.Module):
         self.out_scale_shift_table = nn.Parameter(torch.empty(2, c.hidden_dim))
         self.proj_out = AdapterDense(c.hidden_dim, p * p * c.out_channels,
                                      dtype=dtype)
+        # the sp group (parallel.tensor.SequenceParallel), or None
+        self.sequence_parallel = None
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         nn.init.normal_(self.out_scale_shift_table.data, 0.0,
@@ -171,6 +176,12 @@ class SanaTransformer2D(nn.Module):
         p = c.patch_size
         grid_hw = (h // p, w // p)
         x = self.patch_embed(latents.to(self.dtype))
+        # under sp, this process's slice of the tokens (the JAX
+        # constrain_tokens, sana.py:171-175)
+        n, sp = x.shape[1], self.sequence_parallel
+        if sp is not None:
+            x = sp.shard(x)
+            sp = sp if x.shape[1] != n else None
 
         # timestep conditioning → 6-way modulation shared by all blocks
         t_emb = self.time_embed(timesteps)
@@ -180,7 +191,7 @@ class SanaTransformer2D(nn.Module):
         for i, blk in enumerate(self.blocks):
             args = (x, cond, ctx, text_mask, grid_hw,
                     cached_ctx_kv[i] if cached_ctx_kv is not None else None,
-                    deterministic)
+                    deterministic, sp)
             if remat:
                 x = torch.utils.checkpoint.checkpoint(blk, *args,
                                                       use_reentrant=False)
@@ -192,6 +203,8 @@ class SanaTransformer2D(nn.Module):
         shift = out_mod[:, 0][:, None, :].to(x.dtype)
         scale = out_mod[:, 1][:, None, :].to(x.dtype)
         x = self.proj_out(adaln_layernorm(x, scale, shift), deterministic)
+        if sp is not None:
+            x = sp.gather(x, n)
         return unpatchify(x, (h, w), p, c.out_channels)
 
 

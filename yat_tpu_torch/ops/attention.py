@@ -88,6 +88,15 @@ FLASH_ATTENTION_BWD = CudaKernel(
 LINEAR_ATTENTION = CudaKernel(
     "linear_attention", "linear_attention.cu", "yat_linear_attention_fwd",
     [_P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 12 + [_F, _I, _I, _P])
+# K3 split in two for token-sharded blocks: the state (K3s) and the apply
+# (K3a) launches
+LINEAR_ATTENTION_STATE = CudaKernel(
+    "linear_attention_state", "linear_attention.cu",
+    "yat_linear_attention_state", [_P] * 4 + [_I] * 4 + [_L] * 6 + [_I, _P])
+LINEAR_ATTENTION_APPLY = CudaKernel(
+    "linear_attention_apply", "linear_attention.cu",
+    "yat_linear_attention_apply",
+    [_P] * 4 + [_I] * 4 + [_L] * 6 + [_F, _I, _I, _P])
 ATTENTION_XLA = LaunchCounter("attention_xla")
 
 # shared memory one block may use on the H100 (232,448 bytes)
@@ -534,9 +543,13 @@ class _FlashAttention(torch.autograd.Function):
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           mask: Optional[torch.Tensor] = None,
-                          implementation: str = "auto") -> torch.Tensor:
+                          implementation: str = "auto",
+                          whole: Optional[tuple] = None) -> torch.Tensor:
     """q,k,v: [B, N, H, D]; mask: [B, N_k] keep-mask or [B,1,1,N_k] bool.
-    The branch is :func:`attention_branch`'s."""
+    The branch is :func:`attention_branch`'s; ``whole`` ``(N_q, H)``: this
+    call holds a slice of the queries (``sp``) or of the heads (``tp``) of
+    an attention of that size, whose branch it takes (the JAX package
+    chooses on the whole shapes under GSPMD)."""
     if implementation not in ("auto", "xla", "vmem", "flash"):
         raise ValueError(
             f"unknown attention implementation {implementation!r}; expected "
@@ -550,6 +563,8 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"dot_product_attention runs on cuda or cpu, got {q.device}")
     b, n_q, h, d = q.shape
+    if whole is not None:
+        n_q, h = whole
     branch = attention_branch(n_q, k.shape[1], h, d, implementation)
     if branch == "xla":
         return attention_xla(q, k, v, mask)
@@ -582,24 +597,44 @@ def _flash(q, k, v, bias):
     return _FlashAttention.apply(q, k, v, bias, residuals)
 
 
+def linear_attention_state_ref(k: torch.Tensor, v: torch.Tensor):
+    """K3s's plain version, the first half of :func:`linear_attention_ref`:
+    ``(relu(k)^T v`` ``[B, H, D, D]``, ``sum_n relu(k)`` ``[B, H, D])`` in
+    the accumulation dtype (fp32 for fp32 and bf16)."""
+    acc = acc_dtype(k)
+    kf = torch.relu(k.to(acc))
+    kv = torch.einsum("bnhd,bnhe->bhde", kf, v.to(acc))
+    return kv, kf.sum(1)
+
+
+def linear_attention_apply_ref(q: torch.Tensor, kv: torch.Tensor,
+                               ksum: torch.Tensor, eps: float = 1e-15,
+                               round_kv: bool = False) -> torch.Tensor:
+    """K3a's plain version, the second half of :func:`linear_attention_ref`:
+    ``relu(q) . kv / (relu(q) . ksum + eps)`` in the accumulation dtype,
+    the state rounded to q's dtype first with ``round_kv``, the output in
+    q's dtype."""
+    acc = acc_dtype(q)
+    qf = torch.relu(q.to(acc))
+    if round_kv:
+        kv = kv.to(q.dtype).to(acc)
+    num = torch.einsum("bnhd,bhde->bnhe", qf, kv)
+    den = torch.einsum("bnhd,bhd->bnh", qf, ksum)[..., None]
+    return (num / (den + eps)).to(q.dtype)
+
+
 def linear_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          eps: float = 1e-15,
                          round_kv: bool = False) -> torch.Tensor:
     """Plain version, fp32 throughout (the math of
-    ``yat_tpu/ops/attention.py:_reference_linatt`` on [B, N, H, D]).  With
-    ``round_kv`` the [D, D] state is rounded to q's dtype before the second
-    product, as the JAX einsum branch does (``attention.py:493-502``); the
-    key sum and the denominator stay fp32."""
-    acc = acc_dtype(q)
-    qf = torch.relu(q.to(acc))
-    kf = torch.relu(k.to(acc))
-    kv = torch.einsum("bnhd,bnhe->bhde", kf, v.to(acc))
-    if round_kv:
-        kv = kv.to(q.dtype).to(acc)
-    ksum = kf.sum(1)                                    # [B, H, D]
-    num = torch.einsum("bnhd,bhde->bnhe", qf, kv)
-    den = torch.einsum("bnhd,bhd->bnh", qf, ksum)[..., None]
-    return (num / (den + eps)).to(q.dtype)
+    ``yat_tpu/ops/attention.py:_reference_linatt`` on [B, N, H, D]): the
+    state (:func:`linear_attention_state_ref`), then its product with the
+    queries (:func:`linear_attention_apply_ref`).  With ``round_kv`` the
+    [D, D] state is rounded to q's dtype before the second product, as the
+    JAX einsum branch does (``attention.py:493-502``); the key sum and the
+    denominator stay fp32."""
+    kv, ksum = linear_attention_state_ref(k, v)
+    return linear_attention_apply_ref(q, kv, ksum, eps, round_kv)
 
 
 def _linear_attention_args(q, k, v, out, eps, round_kv):
@@ -680,6 +715,115 @@ class _LinearAttention(torch.autograd.Function):
             out = linear_attention_ref(q, k, v, ctx.eps, ctx.round_kv)
             dq, dk, dv = torch.autograd.grad(out.to(g.dtype), (q, k, v), g)
         return dq, dk, dv, None, None
+
+
+def linear_attention_state(k: torch.Tensor, v: torch.Tensor):
+    """K3s: ``(kv [B, H, D, D], ksum [B, H, D])``, fp32, of k/v ``[B, N,
+    H, D]`` (the plain version on a CPU tensor)."""
+    if k.device.type == "cpu":
+        return linear_attention_state_ref(k, v)
+    _check_cuda("linear_attention_state", (k, v))
+    if k.shape != v.shape:
+        raise ValueError("linear_attention_state takes k, v of one shape")
+    b, n, h, d = k.shape
+    kv = torch.empty((b, h, d, d), dtype=torch.float32, device=k.device)
+    ksum = torch.empty((b, h, d), dtype=torch.float32, device=k.device)
+    with torch.cuda.device(k.device):
+        LINEAR_ATTENTION_STATE.launch(
+            k.data_ptr(), v.data_ptr(), kv.data_ptr(), ksum.data_ptr(), b, n,
+            h, d, *k.stride()[:3], *v.stride()[:3], dtype_code(k),
+            stream_of(k))
+    return kv, ksum
+
+
+def linear_attention_apply(q: torch.Tensor, kv: torch.Tensor,
+                           ksum: torch.Tensor, eps: float = 1e-15,
+                           round_kv: bool = False) -> torch.Tensor:
+    """K3a: ``relu(q) . kv / (relu(q) . ksum + eps)`` for q ``[B, N, H,
+    D]`` and an fp32 state (the plain version on a CPU tensor)."""
+    if q.device.type == "cpu":
+        return linear_attention_apply_ref(q, kv, ksum, eps, round_kv)
+    _check_cuda("linear_attention_apply", (q,))
+    b, n, h, d = q.shape
+    if kv.shape != (b, h, d, d) or ksum.shape != (b, h, d) or \
+            kv.dtype != torch.float32 or ksum.dtype != torch.float32 or \
+            kv.device != q.device or ksum.device != q.device:
+        raise ValueError(f"linear_attention_apply takes an fp32 state "
+                         f"[{b}, {h}, {d}, {d}] and key sum [{b}, {h}, {d}] "
+                         f"on {q.device}, got {tuple(kv.shape)} {kv.dtype} "
+                         f"and {tuple(ksum.shape)} {ksum.dtype}")
+    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    kv, ksum = kv.contiguous(), ksum.contiguous()
+    with torch.cuda.device(q.device):
+        LINEAR_ATTENTION_APPLY.launch(
+            q.data_ptr(), kv.data_ptr(), ksum.data_ptr(), out.data_ptr(), b,
+            n, h, d, *q.stride()[:3], *out.stride()[:3], float(eps),
+            int(round_kv), dtype_code(q), stream_of(q))
+    return out
+
+
+class _LinearAttentionState(torch.autograd.Function):
+    """K3s forward; the backward recomputes the plain state under
+    autograd."""
+
+    @staticmethod
+    def forward(ctx, k, v):
+        ctx.save_for_backward(k, v)
+        return linear_attention_state(k, v)
+
+    @staticmethod
+    def backward(ctx, g_kv, g_ksum):
+        k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            kv, ksum = linear_attention_state_ref(k, v)
+            dk, dv = torch.autograd.grad((kv, ksum), (k, v), (g_kv, g_ksum))
+        return dk, dv
+
+
+class _LinearAttentionApply(torch.autograd.Function):
+    """K3a forward; the backward recomputes the plain apply under
+    autograd, with the same ``round_kv``."""
+
+    @staticmethod
+    def forward(ctx, q, kv, ksum, eps, round_kv):
+        ctx.eps, ctx.round_kv = eps, round_kv
+        ctx.save_for_backward(q, kv, ksum)
+        return linear_attention_apply(q, kv, ksum, eps, round_kv)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, kv, ksum = (t.detach().requires_grad_()
+                       for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = linear_attention_apply_ref(q, kv, ksum, ctx.eps,
+                                             ctx.round_kv)
+            dq, dkv, dksum = torch.autograd.grad(out.to(g.dtype),
+                                                 (q, kv, ksum), g)
+        return dq, dkv, dksum, None, None
+
+
+def linear_attention_sharded(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, group, eps: float = 1e-15,
+                             implementation: str = "auto") -> torch.Tensor:
+    """:func:`linear_attention` of a token slice: q/k/v ``[B, N/P, H, D]``
+    hold this process's tokens of the ``P`` processes of ``group``.  The
+    state of the slice (K3s), summed in fp32 over the group (its gradient
+    summed back), then rounded as the JAX einsum branch rounds the whole
+    state (``round_kv`` at the whole length ``N``), then the apply (K3a).
+    A CUDA tensor launches K3s and K3a, never K3."""
+    from yat_tpu_torch.parallel.tensor import all_reduce_sum
+    import torch.distributed as dist
+    if implementation not in ("auto", "xla", "pallas"):
+        raise ValueError(f"unknown linear-attention implementation "
+                         f"{implementation!r}; expected 'auto', 'xla', or "
+                         "'pallas'")
+    n = q.shape[1] * dist.get_world_size(group)
+    round_kv = kv_rounding(n, q.shape[3], implementation)
+    kv, ksum = _LinearAttentionState.apply(k, v)
+    kv, ksum = all_reduce_sum(kv, group), all_reduce_sum(ksum, group)
+    return _LinearAttentionApply.apply(q, kv, ksum, eps, round_kv)
 
 
 def kv_rounding(n: int, d: int, implementation: str = "auto") -> bool:

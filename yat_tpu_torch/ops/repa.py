@@ -97,13 +97,18 @@ def capture_features(model: nn.Module, cfg: RepaConfig
                      ) -> Iterator[List[torch.Tensor]]:
     """Inside the block, every forward of a target module appends its
     outputs (as ``[B, N, C]`` tokens) to the yielded list; after it, the
-    list holds them in sorted path order and the hooks are gone."""
+    list holds them in sorted path order and the hooks are gone.  Under
+    ``sp`` (a model whose forward sliced its tokens) each output is
+    gathered whole, as the JAX term sees the whole token grid."""
     records: List[Tuple[Tuple[str, ...], int, torch.Tensor]] = []
     feats: List[torch.Tensor] = []
     handles = []
+    sp = getattr(model, "sequence_parallel", None)
     for path, m in _matching(model, cfg.target_modules):
         def hook(_mod, _args, out, _path=path):
             for t in _tokens(out):
+                if sp is not None and sp.sharded:
+                    t = sp.gather(t, t.shape[1] * sp.size)
                 records.append((_path, len(records), t))
         handles.append(m.register_forward_hook(hook))
     try:

@@ -1,68 +1,78 @@
-"""The data axes of ``mesh_shape`` over ``torch.distributed``.
+"""The axes of ``mesh_shape`` over ``torch.distributed``.
 
-Counterpart of ``yat_tpu/parallel/mesh.py`` for the data axes.  One
-process drives one card; the processes form a ``dp`` × ``fsdp`` grid
-(:func:`create_mesh`, a ``DeviceMesh``):
+Counterpart of ``yat_tpu/parallel/mesh.py``.  One process drives one
+card; the processes form a ``dp`` × ``fsdp`` × ``tp`` × ``sp`` grid
+(:class:`ProcessMesh`, a four-axis ``DeviceMesh`` in the JAX package's
+axis order, so process ``r`` sits where device ``r`` sits in the JAX
+mesh):
 
-* every process takes ``batch_size`` rows of its own, so the global batch
-  is ``process_count() * batch_size`` rows, sharded over both axes as
-  ``batch_sharding`` shards it in the JAX package;
+* the batch shards over ``dp`` × ``fsdp`` only: every process takes
+  ``batch_size`` rows at its data rank (:attr:`ProcessMesh.data_rank`),
+  so the global batch is ``data_count * batch_size`` rows, and ``tp`` and
+  ``sp`` peers see the same rows;
 * the trainable leaves (adapters, the REPA head, every parameter under
   full fine-tuning), their optimizer state and the EMA are replicated;
-  their gradients are averaged over every process before the clip and
-  the update (:class:`GradSync`), so each process applies the global
-  batch's update to identical leaves;
+  their gradients are reduced over every process before the clip and the
+  update (:class:`GradSync`), so each process applies the global batch's
+  update to identical leaves;
+* ``tp`` splits the dense layers that the rule below matches, and ``sp``
+  the tokens of SANA's and PixArt's blocks (``parallel/tensor.py``);
 * the frozen base is sharded over ``fsdp`` (:class:`ShardedBase`): each
-  process keeps one slice of every leaf the rule below shards, and a
-  module's leaves are all-gathered when its forward starts and dropped
-  when it ends (again in the backward's recomputation under remat).  A
-  gathered leaf that autograd saves for the backward lives until the
-  backward has used it.
+  process keeps one slice of every leaf the rule below shards (of its
+  ``tp`` slice, where ``tp`` split the leaf), and a module's leaves are
+  all-gathered within the ``fsdp`` group when its forward starts and
+  dropped when it ends (again in the backward's recomputation under
+  remat).  A gathered leaf that autograd saves for the backward lives
+  until the backward has used it.
 
-The sharding rule (:func:`shard_dim`) is the JAX package's
-``param_sharding_rules`` for the ``fsdp`` axis: 1-D leaves and the adaLN
-modulation layers stay replicated, every other leaf is sharded on its
-largest dimension that ``fsdp`` divides (in the flax layout).  It differs
-from the JAX rule in one place: the JAX rule looks at the leaf's module
-name alone, so Flux's ``lin`` under ``img_mod``, ``txt_mod`` and ``mod``
-escapes it; here a ``lin`` under a modulation module is replicated too.
+The sharding rules are the JAX package's ``param_sharding_rules``.
+:func:`tp_dim`: a 2-D kernel whose module name matches ``_TP_COL`` is
+split on its output dimension, one matching ``_TP_ROW`` on its input
+dimension, where ``tp`` divides it; modulation layers stay replicated.
+:func:`shard_dim`: 1-D leaves and the adaLN modulation layers stay
+replicated, every other leaf is sharded over ``fsdp`` on its largest
+dimension that ``tp`` left free and ``fsdp`` divides (in the flax layout).
+They differ from the JAX rules in one place: the JAX rules look at the
+leaf's module name alone, so Flux's ``lin`` under ``img_mod``,
+``txt_mod`` and ``mod`` escapes them; here a ``lin`` under a modulation
+module is replicated too.
 
-``tp`` and ``sp`` (tensor and sequence parallelism) are ROADMAP item 12b:
-a mesh that asks for them raises, and so does a grid whose size is not
-the number of processes (the JAX ``create_mesh`` takes a subset of the
-devices; the port refuses).
+A grid whose size is not the number of processes raises (the JAX
+``create_mesh`` takes a subset of the devices; the port refuses).
 """
 
 from __future__ import annotations
 
 import contextlib
+import re
 import time
 from typing import Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
 
-from yat_tpu_torch.parallel.multihost import process_count
+from yat_tpu_torch.parallel.multihost import (process_count, process_index,
+                                              set_data_axes)
 
 MESH_AXES = ("dp", "fsdp", "tp", "sp")
 DATA_AXES = ("dp", "fsdp")
 
+# the JAX package's tp rule (yat_tpu/parallel/mesh.py:_TP_COL, _TP_ROW)
+_TP_COL = re.compile(r"(to_q|to_k|to_v|fc1|linear_1|conv_inverted|qkv)$")
+_TP_ROW = re.compile(r"(to_out|fc2|linear_2|conv_point|proj_out)$")
+
 
 def mesh_dims(mesh_shape: Optional[Dict[str, int]],
               world: int) -> Dict[str, int]:
-    """``{"dp": a, "fsdp": b}`` of ``mesh_shape`` at ``world`` processes
-    (no mesh: every process on ``dp``).  ``tp`` or ``sp`` above 1, or a
-    grid of another size than ``world``, raises."""
+    """``{"dp", "fsdp", "tp", "sp"}`` of ``mesh_shape`` at ``world``
+    processes (no mesh: every process on ``dp``).  A grid of another size
+    than ``world`` raises."""
     if not mesh_shape:
-        return {"dp": world, "fsdp": 1}
+        return {"dp": world, "fsdp": 1, "tp": 1, "sp": 1}
     shape = {ax: int(mesh_shape.get(ax, 1)) for ax in MESH_AXES}
-    for ax in ("tp", "sp"):
-        if shape[ax] > 1:
-            raise ValueError(
-                f"mesh_shape {dict(mesh_shape)}: the {ax!r} axis (tensor "
-                "and sequence parallelism) is not ported to PyTorch yet "
-                "(ROADMAP item 12b); use dp and fsdp")
-    need = shape["dp"] * shape["fsdp"]
+    need = 1
+    for ax in MESH_AXES:
+        need *= shape[ax]
     if need != world:
         raise ValueError(
             f"mesh_shape {dict(mesh_shape)} needs {need} devices, one "
@@ -70,20 +80,56 @@ def mesh_dims(mesh_shape: Optional[Dict[str, int]],
             f"{'es' if world != 1 else ''}: launch {need} with torchrun "
             f"--nproc_per_node {need} or set mesh_shape to {world} "
             "(ROADMAP item 12)")
-    return {"dp": shape["dp"], "fsdp": shape["fsdp"]}
+    return shape
+
+
+class ProcessMesh:
+    """The processes' ``dp`` × ``fsdp`` × ``tp`` × ``sp`` grid: its
+    ``DeviceMesh`` (one process group an axis), each axis's size, group
+    and this process's coordinate, and the data rank and count (the
+    ``dp`` × ``fsdp`` coordinate, by which a process picks its rows)."""
+
+    def __init__(self, dims: Dict[str, int], device_type: str = "cpu"):
+        from torch.distributed.device_mesh import init_device_mesh
+        self.dims = dict(dims)
+        self.device_mesh = init_device_mesh(
+            device_type, tuple(dims[ax] for ax in MESH_AXES),
+            mesh_dim_names=MESH_AXES)
+        r, self.coords = process_index(), {}
+        for ax in reversed(MESH_AXES):
+            r, self.coords[ax] = divmod(r, dims[ax])
+        set_data_axes(self.data_rank, self.data_count)
+
+    def size(self, ax: str) -> int:
+        return self.dims[ax]
+
+    def group(self, ax: str):
+        return self.device_mesh.get_group(ax)
+
+    def rank(self, ax: str) -> int:
+        return self.coords[ax]
+
+    @property
+    def data_rank(self) -> int:
+        return self.coords["dp"] * self.dims["fsdp"] + self.coords["fsdp"]
+
+    @property
+    def data_count(self) -> int:
+        return self.dims["dp"] * self.dims["fsdp"]
+
+    def __str__(self) -> str:
+        return " x ".join(f"{ax} {self.dims[ax]}" for ax in MESH_AXES)
 
 
 def create_mesh(mesh_shape: Optional[Dict[str, int]] = None,
-                device_type: str = "cpu"):
-    """The ``DeviceMesh`` over ``("dp", "fsdp")`` of this run's processes,
-    or None for one process (:func:`mesh_dims` checks the shape)."""
+                device_type: str = "cpu") -> Optional[ProcessMesh]:
+    """The :class:`ProcessMesh` of this run's processes, or None for one
+    process (:func:`mesh_dims` checks the shape)."""
     world = process_count()
     dims = mesh_dims(mesh_shape, world)
     if world == 1:
         return None
-    from torch.distributed.device_mesh import init_device_mesh
-    return init_device_mesh(device_type, (dims["dp"], dims["fsdp"]),
-                            mesh_dim_names=DATA_AXES)
+    return ProcessMesh(dims, device_type)
 
 
 def is_modulation(names: Sequence[str]) -> bool:
@@ -98,14 +144,32 @@ def is_modulation(names: Sequence[str]) -> bool:
         mods[-2] == "mod" or mods[-2].endswith("_mod"))
 
 
-def shard_dim(names: Sequence[str], shape: Sequence[int],
-              fsdp: int) -> Optional[int]:
+def tp_dim(names: Sequence[str], shape: Sequence[int],
+           tp: int) -> Optional[int]:
     """The dimension (flax layout) of the leaf at flax path ``names`` that
-    ``fsdp`` shards, or None where it stays replicated."""
+    ``tp`` splits: 1 (output) for a 2-D kernel of a column-parallel
+    module, 0 (input) for a row-parallel one, where ``tp`` divides it;
+    None elsewhere."""
+    if tp <= 1 or len(shape) != 2 or is_modulation(names):
+        return None
+    module = names[-2] if len(names) >= 2 else ""
+    if _TP_COL.search(module) and shape[1] % tp == 0:
+        return 1
+    if _TP_ROW.search(module) and shape[0] % tp == 0:
+        return 0
+    return None
+
+
+def shard_dim(names: Sequence[str], shape: Sequence[int],
+              fsdp: int, tp: int = 1) -> Optional[int]:
+    """The dimension (flax layout) of the leaf at flax path ``names`` that
+    ``fsdp`` shards (its largest one that :func:`tp_dim` left free and
+    ``fsdp`` divides), or None where it stays replicated."""
     if fsdp <= 1 or len(shape) < 2 or is_modulation(names):
         return None
+    taken = tp_dim(names, shape, tp)
     for i in sorted(range(len(shape)), key=lambda i: -shape[i]):
-        if shape[i] % fsdp == 0:
+        if i != taken and shape[i] % fsdp == 0:
             return i
     return None
 
@@ -122,20 +186,38 @@ def frozen_bytes(model: nn.Module) -> int:
 
 
 class GradSync:
-    """Averages tensors over the processes of ``group`` (None: the
-    default group), one all-reduce per dtype; each call's milliseconds
-    (the device synchronised around it on a card) are kept in ``ms``."""
+    """Reduces tensors over the processes of ``group`` (None: the default
+    group), one all-reduce per dtype; each call's milliseconds (the device
+    synchronised around it on a card) are kept in ``ms``.
 
-    def __init__(self, group=None):
+    :meth:`mean_` averages values every ``tp``/``sp`` peer holds whole.
+    :meth:`reduce_grads_` turns each process's gradients into the global
+    batch's: a leaf in ``tp_partial`` holds a part on each ``tp`` peer
+    (summed), any other the whole (averaged); under ``sp`` each peer holds
+    its tokens' part (summed) when the forward of ``sequence`` (the
+    model's ``tensor.SequenceParallel``) sliced them, else the whole
+    (averaged), and a leaf in ``sp_whole`` (used only on tokens gathered
+    whole) always the whole; then the mean over the ``dp`` × ``fsdp``
+    rows."""
+
+    def __init__(self, group=None, mesh: Optional[ProcessMesh] = None,
+                 tp_partial: Optional[Sequence[bool]] = None,
+                 sequence=None, sp_whole: Optional[Sequence[bool]] = None):
         import torch.distributed as dist
         self.group = group
         self.size = dist.get_world_size(group)
+        self.tp = mesh.size("tp") if mesh is not None else 1
+        self.sp = mesh.size("sp") if mesh is not None else 1
+        self.tp_partial = list(tp_partial) if tp_partial is not None else None
+        self.sequence = sequence
+        self.sp_whole = list(sp_whole) if sp_whole is not None else None
         self.ms: List[float] = []
 
     @torch.no_grad()
-    def mean_(self, tensors: Sequence[torch.Tensor]) -> None:
-        """Each tensor replaced, in place, by its mean over the
-        processes."""
+    def mean_(self, tensors: Sequence[torch.Tensor],
+              scales: Optional[Sequence[float]] = None) -> None:
+        """Each tensor replaced, in place, by its mean over the processes
+        (each first multiplied by its entry of ``scales``, when given)."""
         import torch.distributed as dist
         from torch._utils import (_flatten_dense_tensors,
                                   _unflatten_dense_tensors)
@@ -144,6 +226,10 @@ class GradSync:
         if cuda:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
+        if scales is not None:
+            for t, s in zip(tensors, scales):
+                if s != 1.0:
+                    t.mul_(s)
         by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
         for t in tensors:
             by_dtype.setdefault(t.dtype, []).append(t)
@@ -156,6 +242,19 @@ class GradSync:
         if cuda:
             torch.cuda.synchronize()
         self.ms.append((time.perf_counter() - t0) * 1e3)
+
+    def reduce_grads_(self, grads: Sequence[torch.Tensor],
+                      loss: torch.Tensor) -> None:
+        """``grads`` and ``loss`` (a whole value on every ``tp``/``sp``
+        peer) reduced in place to the global batch's."""
+        sharded = self.sequence is not None and self.sequence.sharded
+        split = self.tp * self.sp
+        partial = self.tp_partial or [False] * len(grads)
+        whole = self.sp_whole or [False] * len(grads)
+        scales = [split / ((1 if p else self.tp)
+                           * (1 if sharded and not w else self.sp))
+                  for p, w in zip(partial, whole)]
+        self.mean_(list(grads) + [loss], scales + [1.0])
 
 
 def _flax_layout(module: nn.Module, name: str, t: torch.Tensor):
@@ -204,7 +303,14 @@ class ShardedBase:
             for n, t, is_param in leaves:
                 leaf, dims = _flax_layout(m, n, t)
                 names = flax_module_path(mname, lists) + [leaf]
-                fd = shard_dim(names, [t.shape[d] for d in dims], fsdp)
+                shape = [t.shape[d] for d in dims]
+                tp = getattr(m, "tp", None)
+                if tp is not None and leaf == "kernel":
+                    # the tp rule on the whole leaf: the split dimension
+                    # holds this process's part
+                    shape[1 if tp.role == "col" else 0] = tp.full
+                fd = shard_dim(names, shape, fsdp,
+                               tp.size if tp is not None else 1)
                 if fd is None:
                     continue
                 td = dims[fd]
@@ -278,7 +384,7 @@ class ShardedBase:
 def shard_frozen_base(model: nn.Module, mesh) -> Optional[ShardedBase]:
     """:class:`ShardedBase` of ``model`` over ``mesh``'s ``fsdp`` axis, or
     None when that axis has one process."""
-    if mesh is None or mesh["fsdp"].size() <= 1:
+    if mesh is None or mesh.size("fsdp") <= 1:
         return None
-    return ShardedBase(model, mesh.get_group("fsdp"), mesh["fsdp"].size())
+    return ShardedBase(model, mesh.group("fsdp"), mesh.size("fsdp"))
 

@@ -14,6 +14,12 @@ card; ``torchrun --nproc_per_node N`` launches them.
   interleave with the step's collectives on one communicator.
 * :func:`process_index` / :func:`process_count`: the rank and the world
   size (0 and 1 without a process group).
+* :func:`data_index` / :func:`data_count`: the ``dp`` × ``fsdp``
+  coordinate of this process and the number of such coordinates (the
+  rank and the world size until a mesh with ``tp`` or ``sp`` sets them,
+  :func:`set_data_axes`).  Every reader that picks rows (shard lists,
+  the sampler's shuffle, extraction names, the noise seed) takes them, so
+  ``tp`` and ``sp`` peers read the same rows.
 * :func:`host_seed`: per-process seeds derived from the global seed.
 * :func:`broadcast_from_main`: a small host value from process 0.
 * :class:`WindowedBucketSync`: the amortised bucket reconciliation of the
@@ -34,6 +40,8 @@ import torch
 DEFAULT_TIMEOUT_S = 1800.0
 
 _HOST_GROUP = None
+# (data index, data count) set by the mesh, or None: the rank and world
+_DATA_AXES = None
 
 
 def _dist():
@@ -52,6 +60,27 @@ def process_index() -> int:
 
 def process_count() -> int:
     return _dist().get_world_size() if is_distributed() else 1
+
+
+def set_data_axes(index: Optional[int], count: Optional[int] = None) -> None:
+    """This process's ``dp`` × ``fsdp`` coordinate and their number (None:
+    back to the rank and the world size)."""
+    global _DATA_AXES
+    _DATA_AXES = None if index is None else (int(index), int(count))
+
+
+def data_index() -> int:
+    return _DATA_AXES[0] if _DATA_AXES is not None else process_index()
+
+
+def data_count() -> int:
+    return _DATA_AXES[1] if _DATA_AXES is not None else process_count()
+
+
+def data_peer_rank() -> int:
+    """This process's rank among the processes of its data coordinate (0
+    for the one that writes what that coordinate produces)."""
+    return process_index() % max(1, process_count() // data_count())
 
 
 def local_rank() -> int:
@@ -134,10 +163,10 @@ def barrier() -> None:
 
 
 def host_seed(global_seed: int, process_index: Optional[int] = None) -> int:
-    """Decorrelated per-process seed of the shard shuffle (the process
-    index defaults to this process's)."""
-    pi = (process_index if process_index is not None
-          else _dist().get_rank() if is_distributed() else 0)
+    """Decorrelated per-process seed of the shard shuffle and the noise
+    (the index defaults to this process's data index, so ``tp`` and
+    ``sp`` peers draw alike)."""
+    pi = process_index if process_index is not None else data_index()
     return int(np.random.SeedSequence([global_seed, pi]).generate_state(1)[0])
 
 

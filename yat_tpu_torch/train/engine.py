@@ -53,11 +53,13 @@ carries the DINOv2 tokens (``repa_features``) that the on-the-fly
 sampler encodes.
 
 Across processes (``torchrun``, one process a card; ``mesh_shape`` over
-``dp`` and ``fsdp``, ``parallel/mesh.py``) every process takes
-``batch_size`` rows of its own and the step averages the gradients and
-the loss over the processes, so a run over N processes takes the JAX
-step over a global batch of N × ``batch_size`` rows; under ``fsdp`` the
-frozen base is sharded (``mesh.ShardedBase``).  Process 0 alone logs,
+``dp``, ``fsdp``, ``tp`` and ``sp``, ``parallel/mesh.py``) every process
+takes ``batch_size`` rows at its data index (``tp`` and ``sp`` peers the
+same rows) and the step reduces the gradients and the loss over the
+processes, so a run takes the JAX step over a global batch of
+``dp * fsdp * batch_size`` rows; ``tp`` splits the rule's dense layers and
+``sp`` SANA's and PixArt's tokens (``parallel/tensor.py``); under
+``fsdp`` the frozen base is sharded (``mesh.ShardedBase``).  Process 0 alone logs,
 makes ``output_dir``, writes the exports, ``config.json``, the
 checkpoints and the hub upload; the gathers before them, validation and
 the restore are collective (every process enters them), and a validation
@@ -92,8 +94,8 @@ from yat_tpu_torch.data.sampler import pad_embeddings
 from yat_tpu_torch.device import resolve_device
 from yat_tpu_torch.models.layers import AdapterDense
 from yat_tpu_torch.ops.quant import quantize_params
-from yat_tpu_torch.parallel.mesh import (GradSync, create_mesh,
-                                         frozen_bytes, shard_frozen_base)
+from yat_tpu_torch.parallel.mesh import GradSync, create_mesh, frozen_bytes
+from yat_tpu_torch.parallel.tensor import parallelize
 from yat_tpu_torch.parallel.multihost import (barrier, host_seed,
                                               process_count, process_index)
 from yat_tpu_torch.train.state import Optimizer, unfreeze_mask
@@ -168,10 +170,13 @@ class Trainer:
         self.sampler = sampler
         self.preservation_loss = preservation_loss
         self.device = resolve_device(device)
-        # the dp x fsdp grid of the processes (None for one process)
+        # the dp x fsdp x tp x sp grid of the processes (None for one)
         self.mesh = create_mesh(params.mesh_shape, self.device.type)
         self.rank, self.world = process_index(), process_count()
-        # the frozen base sharded over fsdp, and the gradients' average
+        # the tp split, the sp group, the frozen base sharded over fsdp,
+        # and the gradients' reduction
+        self.tensor = None
+        self.sequence = None
         self.sharded = None
         self.grad_sync: Optional[GradSync] = None
         if params.compilation_cache_dir:
@@ -233,12 +238,14 @@ class Trainer:
         leaves = self.trainable_leaves()
         self.optimizer = Optimizer(params, leaves, mask)
         if self.world > 1:
-            self.grad_sync = GradSync()
-            self.sharded = shard_frozen_base(self.model, self.mesh)
-            if self.sharded is not None:
-                print(f"[engine] fsdp: rank {self.rank} holds "
-                      f"{frozen_bytes(self.model)} bytes of the frozen "
-                      "base", flush=True)
+            self.tensor, self.sequence, self.sharded, self.grad_sync = \
+                parallelize(self.model, self.mesh, leaves, (
+                    getattr(self.model, "repa_projector", None),
+                    self.repa_head))
+            print(f"[engine] mesh {self.mesh}: rank {self.rank} (data "
+                  f"index {self.mesh.data_rank} of {self.mesh.data_count}) "
+                  f"holds {frozen_bytes(self.model)} bytes of the frozen "
+                  "base", flush=True)
         self.ema = ([p.detach().clone() for p in leaves] if params.use_ema
                     else None)
         if (params.use_preservation and self.preservation_loss is not None
@@ -610,12 +617,17 @@ class Trainer:
             self.save_checkpoint()
 
     # ------------------------------------------------------------------
+    @contextlib.contextmanager
     def whole(self, write_back: bool = False):
-        """A context in which every sharded leaf of the model is whole
-        (collective; nothing to do without ``fsdp``)."""
-        if self.sharded is None:
-            return contextlib.nullcontext()
-        return self.sharded.gathered(write_back)
+        """A context in which every sharded leaf of the model is whole:
+        gathered over ``fsdp``, then over ``tp`` (collective; nothing to
+        do without either)."""
+        with contextlib.ExitStack() as stack:
+            if self.sharded is not None:
+                stack.enter_context(self.sharded.gathered(write_back))
+            if self.tensor is not None:
+                stack.enter_context(self.tensor.gathered(write_back))
+            yield
 
     def save_model(self) -> str:
         """Weights-only export to ``{output_dir}/{step}``: the adapters as

@@ -37,7 +37,8 @@ import numpy as np
 
 from yat_tpu_torch.data.sampler import Batch
 from yat_tpu_torch.data.tar import ShardWriter
-from yat_tpu_torch.parallel.multihost import process_count, process_index
+from yat_tpu_torch.parallel.multihost import (data_count, data_index,
+                                              data_peer_rank)
 
 
 class FeatureExtractor:
@@ -200,12 +201,17 @@ class FeatureExtractor:
     def run(self) -> int:
         """Extract until the sampler ends; returns the number of samples
         written."""
+        if data_peer_rank() > 0:
+            # a tp/sp peer of a data index that another process extracts
+            print(f"[extract] data index {data_index()}: its first process "
+                  "extracts; nothing written here", flush=True)
+            return 0
         os.makedirs(self.output_dir, exist_ok=True)
         written = 0
         pending: deque = deque()
         t0 = time.monotonic()
-        pattern = (self.SHARD_PATTERN if process_count() == 1 else
-                   f"shard-p{process_index()}-%06d.tar")
+        pattern = (self.SHARD_PATTERN if data_count() == 1 else
+                   f"shard-p{data_index()}-%06d.tar")
         with ShardWriter(os.path.join(self.output_dir, pattern),
                          maxcount=self.shard_size,
                          on_shard_complete=self._on_shard_complete) as w:

@@ -18,9 +18,11 @@ step with N candidates and the preservation term runs 1 + N + 2 forwards
 (N no-grad, the base's no-grad) and 2 backwards.
 
 Across processes (``grad_sync``, a ``parallel.mesh.GradSync``), each
-process takes its own rows: the gradients and the loss are averaged over
-the processes before the norm, the clip and the update, so ``loss`` and
-``grad_norm`` are the global batch's, as in the JAX step over a sharded
+process takes its own rows (``tp`` and ``sp`` peers the same ones): the
+gradients and the loss are reduced over the processes before the norm,
+the clip and the update (a leaf's parts summed over ``tp`` and ``sp``,
+its whole copies averaged, then the mean over the rows' processes), so
+``loss`` and ``grad_norm`` are the global batch's, as in the JAX step over a sharded
 batch (under accumulation, each micro-step's).  The draws made once per
 step agree on every process: the caption dropout's ``use`` comes from
 ``shared_gen`` (seeded alike everywhere), and exploration takes the
@@ -146,7 +148,7 @@ def make_train_step(*, task_loss, optimizer: Optimizer,
                                      preservation)
         if grad_sync is not None:
             loss = loss.float().reshape(1)
-            grad_sync.mean_(grads + [loss])
+            grad_sync.reduce_grads_(grads, loss)
             loss = loss[0]
         grad_norm = global_norm(grads)
         synced = optimizer.update(grads)
