@@ -12,8 +12,9 @@ Phases, each of which fails the run (exit code 1) when it fails:
    prints ptxas's registers and spills by kernel, and the registers,
    shared bytes and blocks per SM of the bf16 launches of K6 and K2 (the
    forwards), of K6b and K2b, of K5's and K5b's quantize and GEMM at
-   every w8a8 case with the GEMM grid the launcher chooses, and of K3's
-   (tensor-core and CUDA-core paths, each padded head dim), K1's (the row
+   every w8a8 case with the GEMM grid the launcher chooses, and of K3's,
+   K3s's and K3a's (tensor-core and CUDA-core paths, each padded head
+   dim), K1's (the row
    in registers, the generic loop) and K1b's (the ring, the generic loop)
    launches;
 3. kernels: holds each kernel (K1, K2, K3, K4 through K2's kernel and K6
@@ -25,14 +26,18 @@ Phases, each of which fails the run (exit code 1) when it fails:
    PixArt-Sigma's training shapes, ragged, at another width and on a view
    off the vectors, a backward without its xhat * m2 term rejected; K3
    also at head dim 64, at N = 17, with an fp32 state, and with NaN
-   inputs, whose NaN outputs must fall where the plain version's do), in
-   bf16 and fp32, naming the path each K1, K1b and K3 launch took, and
+   inputs, whose NaN outputs must fall where the plain version's do; K3s
+   and K3a, K3's halves for token-sharded blocks, at one process's
+   ``{sp: 2}`` tokens and at N = 17, each giving the same bits twice and
+   K3's bits in turn), in bf16 and fp32, naming the path each K1, K1b,
+   K3, K3s and K3a launch took, and
    times the kernel, the plain version and (where one exists) one PyTorch
    call computing the same function (and the kernel's multiple of it and
    of the bound; for K1b LayerNorm's fused backward on the same bytes with
    one weight shared across the batch), beside the least time the card
    could take (for the masked forwards, counting the kept keys only), at
-   the main path's shape and, for K1, K1b and K3, at every case (K1b also
+   the main path's shape and, for K1, K1b and K3 (K3s, K3a), at every
+   case (K1b also
    the host's time a call), K2 and K2b also at the self-attention of
    SANA's softmax-patched blocks in training (q/k/v ``[16,256,36,32]``,
    no key bias); K5 and K5b
@@ -255,9 +260,12 @@ Phases, each of which fails the run (exit code 1) when it fails:
    pixel tokens, no multiple of 128; its patch stage on the XLA branch),
    REPA against a random DINOv2, 3 steps with a validation: the launches
    by step, the REPA term by step and the leaves it reaches (blocks
-   0-12), the step time, the peak, one step split into encode and
-   denoiser step, and the pixel stage's attention at 864x288 on the
-   gate's XLA branch beside K6/K6b at the training batch.
+   0-12), the step time, the peak, the 4-bit base's resident bytes
+   (packed two values a byte: half the payload's values) and one packed
+   layer's dequantized weight against its values unpacked on the host,
+   one step split into encode and denoiser step, and the pixel stage's
+   attention at 864x288 on the gate's XLA branch beside K6/K6b at the
+   training batch.
 
 17. Training across processes (after phase 7): ``configs/sana_512_lora.yaml``
    as written but for its files, its mesh and the training depth cut,
@@ -279,7 +287,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
    bytes and milliseconds a step, the peak per process and each process's
    resident frozen base; then ``context_parallel_attention`` and
    ``ring_attention`` at q/k/v [2, 4096, 8, 64] over the four processes
-   against one-process SDPA; then PixArt-Sigma's LoRA config at ``{sp:
+   against one-process SDPA, forward and backward (dq, dk, dv at the
+   fp32 VJP tolerance); then PixArt-Sigma's LoRA config at ``{sp:
    2}`` (4 blocks) by two processes of its entry point, 2 steps: equal
    states, one export, one step's reduced gradients against the
    one-process step as above, the launches by the whole token count's
@@ -587,6 +596,9 @@ def log_bwd_launch_info():
 # K3's launches reported by the build phase: (dtype, implementation, head
 # dim); "auto" below N = 4096 rounds the state (bf16: the tensor cores),
 # "pallas" keeps it in fp32 (the CUDA cores)
+# K3s's and K3a's kernel cases: (label, (B, N, H, D))
+K3_SPLIT_CASES = (("sp-train", (16, 128, 36, 32)),
+                  ("ragged-17", (2, 17, 4, 64)))
 K3_INFO = [(dt, impl, d) for dt in ("bfloat16", "float32")
            for impl in ("auto", "pallas") for d in (16, 32, 48, 64)
            if dt == "bfloat16" or impl == "auto"]
@@ -596,10 +608,10 @@ K1_INFO = [(dt, d) for dt in ("bfloat16", "float32") for d in (1152, 1000)]
 
 
 def log_k1_k3_launch_info():
-    """The path, registers, spills, shared bytes and blocks per SM of K3's
-    launches (each dtype, state and padded head dim), K1's and K1b's (the
-    width of the register and ring paths, and another), with 16-byte
-    aligned rows."""
+    """The path, registers, spills, shared bytes and blocks per SM of K3's,
+    K3s's and K3a's launches (each dtype, state and padded head dim), K1's
+    and K1b's (the width of the register and ring paths, and another), with
+    16-byte aligned rows."""
     import torch
 
     from yat_tpu_torch.ops import attention as A
@@ -607,8 +619,14 @@ def log_k1_k3_launch_info():
     dev = torch.device("cuda", 0)
     for dt, impl, d in K3_INFO:
         q = torch.zeros((1, 16, 1, d), dtype=getattr(torch, dt), device=dev)
+        round_kv = A.kv_rounding(16, d, impl)
         log(f"  linear_attention {dt} {impl} D={d}: "
             + launch_text(A.linear_attention_launch_info(q, q, q, impl)))
+        if impl == "auto":
+            log(f"  linear_attention_state {dt} D={d}: "
+                + launch_text(A.linear_attention_state_launch_info(q, q)))
+        log(f"  linear_attention_apply {dt} {impl} D={d}: "
+            + launch_text(A.linear_attention_apply_launch_info(q, round_kv)))
     for dt, d in K1_INFO:
         x = torch.zeros((1, 8, d), dtype=getattr(torch, dt), device=dev)
         m = torch.zeros((1, 1, d), dtype=x.dtype, device=dev)
@@ -1112,22 +1130,24 @@ def kernel_cases(device):
                           else None))
         # K3s and K3a, K3's two products for token-sharded blocks: one
         # process's tokens of a SANA-0.6B training step at {sp: 2}, k/v and
-        # q [16, 128, 36, 32]; ragged: N = 17 at head dim 64 (two state
-        # columns a lane).  K3s reads k and v and writes the fp32 state
-        # [B, H, D, D] and key sum; K3a reads q and the state (rounded to
-        # the storage type: round_kv at the whole 256 tokens) and writes o
-        for label, (b, n, h, d) in (("sp-train", (16, 128, 36, 32)),
-                                    ("ragged-17", (2, 17, 4, 64))):
+        # q [16, 128, 36, 32]; ragged: N = 17 at head dim 64.  K3s reads k
+        # and v and writes the fp32 state [B, H, D, D] and key sum; K3a
+        # reads q and the state (rounded to the storage type: round_kv at
+        # the whole 256 tokens, as the main path passes it; bf16 then takes
+        # the tensor cores, as K3s always does) and writes o
+        for label, (b, n, h, d) in K3_SPLIT_CASES:
             state_bytes = 4 * b * h * (d * d + d)
 
             def make_kv(b=b, n=n, h=h, d=d, dtype=dtype):
                 return (randn((b, n, h, d), dtype),
                         randn((b, n, h, d), dtype))
+
             cases.append(("linear_attention_state", label, dtype, make_kv,
                           A.linear_attention_state,
                           A.linear_attention_state_ref, None,
                           es * 2 * b * n * h * d + state_bytes,
-                          b * h * n * (2 * d * d + d)))
+                          b * h * n * (2 * d * d + d),
+                          A.linear_attention_state_launch_info))
 
             def make_q(b=b, n=n, h=h, d=d, dtype=dtype):
                 kv, ksum = A.linear_attention_state_ref(
@@ -1140,10 +1160,13 @@ def kernel_cases(device):
 
             def apply_ref(q, kv, ksum):
                 return A.linear_attention_apply_ref(q, kv, ksum, 1e-15, True)
+
+            def apply_info(q, kv, ksum):
+                return A.linear_attention_apply_launch_info(q, True)
             cases.append(("linear_attention_apply", label, dtype, make_q,
                           apply, apply_ref, None,
                           es * 2 * b * n * h * d + state_bytes,
-                          b * h * n * (2 * d * d + 3 * d)))
+                          b * h * n * (2 * d * d + 3 * d), apply_info))
         # K1b: SANA's training shape x, g [16, 256, 1152], scale
         # [16, 1152]; PixArt-Sigma's [8, 1024, 1152]; ragged: one batch
         # element, N = 100; the generic loop at D = 1000 and on a D = 1152
@@ -1610,7 +1633,40 @@ def phase_kernels(device, names=None, skip_labels=()):
             f"{flops / 1e9:.3f} GFLOP)  kernel/bound {ms / bound:.2f}x"
             + ("" if lib_ms is None else
                f"  kernel/library {ms / lib_ms:.2f}x"))
+    if names is None or "linear_attention_state" in names:
+        check_k3_split_bits(device)
     return results
+
+
+def check_k3_split_bits(device):
+    """K3s and K3a at their kernel cases, bf16 and fp32 with the rounded
+    state: two launches of each give the same bits, and K3a on K3s's state
+    gives K3's bits on the same q, k, v (one process's state is K3's first
+    half)."""
+    import torch
+
+    from yat_tpu_torch.ops import attention as A
+    gen = torch.Generator(device=device).manual_seed(5)
+    for label, shape in K3_SPLIT_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn(shape, generator=gen, device=device)
+                       .to(dtype) for _ in range(3))
+            states = [A.linear_attention_state(k, v) for _ in range(2)]
+            outs = [A.linear_attention_apply(q, *states[0], 1e-15, True)
+                    for _ in range(2)]
+            whole = A.linear_attention(q, k, v)
+            same = all(torch.equal(_bits(x), _bits(y))
+                       for x, y in zip([*states[0], outs[0]],
+                                       [*states[1], outs[1]]))
+            as_k3 = torch.equal(_bits(outs[0]), _bits(whole))
+            dt = str(dtype).replace("torch.", "")
+            log(f"K3s/K3a [{label}, {dt}] two launches: "
+                + ("same bits" if same else "NOT REPRODUCIBLE")
+                + "; K3s then K3a: " + ("K3's bits" if as_k3 else
+                                        "NOT K3's BITS"))
+            if not (same and as_k3):
+                fail(f"K3s/K3a [{label}, {dt}]: launches differ or the "
+                     "split is not K3")
 
 
 # K5/K5b cases, [T, K] x [K -> N]: SANA-0.6B's attention projections on the
@@ -6293,7 +6349,8 @@ def phase_pixeldit_grad_reference(device, cfg_over=None, side=512):
     on_device = dict(gpu.named_modules())
     for name, m in cpu.named_modules():
         if isinstance(m, AdapterDense) and m.qweight is not None:
-            on_device[name].set_quantized(m.qweight, m.weight_scale, 4)
+            on_device[name].set_quantized(m.payload_values(), m.weight_scale,
+                                          4)
     rng = np.random.default_rng(0)
     n_txt, grid = cfg.max_caption_len, side // cfg.patch_size
     tokens = grid ** 2
@@ -6428,7 +6485,7 @@ def check_pixeldit_load(label, model, rules):
                              kind, "BF16")
             q, scale = quantize_kernel(torch.from_numpy(
                 np.ascontiguousarray(v.T)).to(t.qweight.device), t.bits)
-            same = torch.equal(q, t.qweight) and torch.equal(
+            same = torch.equal(q, t.payload_values()) and torch.equal(
                 scale, t.weight_scale)
             n += q.numel()
         else:
@@ -6447,6 +6504,49 @@ def check_pixeldit_load(label, model, rules):
     log(f"{label}: all {n:,} base values ({checked} tensors, the 4-bit "
         "payloads and scales among them) are the .pth's after the same "
         "casts and quantization")
+
+
+def log_4bit_base(label, trainer, card):
+    """The 4-bit base packed two values a byte: the resident frozen base
+    (``frozen_bytes``) beside what it held at one value a byte, the
+    payloads' bytes at half the values' count, and one packed layer's
+    ``base_weight`` on the card bit-equal to the rescale of its values
+    unpacked on the host (numpy nibbles)."""
+    import torch
+
+    from yat_tpu_torch.models.layers import AdapterDense
+    from yat_tpu_torch.parallel.mesh import frozen_bytes
+    dense = [m for m in trainer.model.modules()
+             if isinstance(m, AdapterDense) and m.bits == 4]
+    packed = sum(m.qweight.numel() for m in dense)
+    values = sum(m.features * m.in_features for m in dense)
+    resident = frozen_bytes(trainer.model)
+    unpacked = resident + values - packed
+    log(f"{label} [{card}]: {len(dense)} 4-bit layers, payloads "
+        f"{packed / 2**20:.2f} MiB for {values / 2**20:.2f} Mi values "
+        f"({packed / values:.3f} a value); resident frozen base "
+        f"{resident / 2**20:.2f} MiB (one value a byte: "
+        f"{unpacked / 2**20:.2f} MiB)")
+    if not dense or any(m.qweight.dtype != torch.uint8 for m in dense):
+        fail(f"{label}: no 4-bit layer, or a 4-bit payload not packed two "
+             "values a byte")
+    if 2 * packed != values:
+        fail(f"{label}: the 4-bit payloads hold {packed} bytes for {values} "
+             "values, not half")
+    m = max(dense, key=lambda m: m.qweight.numel())
+    p = m.qweight.cpu().numpy()
+    nib = np.stack([p & 15, p >> 4], -1).astype(np.int8)
+    vals = np.where(nib > 7, nib - 16, nib).reshape(p.shape[0], -1)
+    vals = torch.from_numpy(vals[:, :m.in_features].copy())
+    want = (vals.to(m.qweight.device).float()
+            * m.weight_scale[:, None].float()).to(torch.bfloat16)
+    if not torch.equal(m.base_weight(torch.bfloat16), want):
+        fail(f"{label}: a packed layer's base_weight differs from its "
+             "unpacked values' rescale")
+    log(f"{label} [{card}]: a packed layer [{m.in_features} -> "
+        f"{m.features}] (uint8 {list(m.qweight.shape)}): base_weight on "
+        f"the {'card' if m.qweight.is_cuda else 'host'} bit-equal to its "
+        "values unpacked on the host and rescaled")
 
 
 def check_repa_reach(label, trainer, device):
@@ -6592,6 +6692,7 @@ def phase_pixeldit_train(device, card, tiny=None):
                     label, trainer, cfg, counts, cuda, grids, images, terms,
                     wall, peak, card)}
                 check_pixeldit_load(label, trainer.model, rules)
+                log_4bit_base(label, trainer, card)
                 check_repa_reach(label, trainer, device)
                 encode_and_step(label, trainer, device, card, peak)
                 if cuda:
@@ -6697,7 +6798,8 @@ MP_GRAD_RTOL, MP_LOSS_RTOL, MP_BF16_LEAF_FACTOR = 2.0 ** -7, 2e-2, 2.0
 MP_SAME_ROWS = 4
 # the ring and the all-reduce form of context-parallel attention at
 # q/k/v [2, 4096, 8, 64] fp32 (the keys and values over the four
-# processes) against one-process attention
+# processes) against one-process attention, forward (CP_TOL) and backward
+# (compare's "flash_attention_bwd" fp32 tolerance, 2e-4)
 CP_SHAPE = (2, 4096, 8, 64)
 CP_TOL = 1e-4
 
@@ -6888,7 +6990,11 @@ def mp_context_parallel(rank, world, device):
     """``context_parallel_attention`` (the queries whole) and
     ``ring_attention`` (the queries sharded) at ``CP_SHAPE`` over the
     processes, each with its key and value shard, against one-process
-    attention (SDPA, fp32) on process 0; device ms a call."""
+    attention (SDPA, fp32) on every process: the forward, and the backward
+    of one seeded output gradient (dq, dk and dv of this process's inputs
+    against its slice of SDPA's autograd, at the fp32 VJP tolerance of
+    ``compare("flash_attention_bwd", ...)``); ms a call, the forward's on
+    the host's clock, the backward's from CUDA events."""
     import torch
     import torch.nn.functional as F
 
@@ -6897,34 +7003,52 @@ def mp_context_parallel(rank, world, device):
     from yat_tpu_torch.parallel.multihost import barrier
 
     gen = torch.Generator(device=device).manual_seed(3)
-    q, k, v = (torch.randn(CP_SHAPE, generator=gen, device=device)
-               for _ in range(3))
+    q, k, v, g = (torch.randn(CP_SHAPE, generator=gen, device=device)
+                  for _ in range(4))
     part = CP_SHAPE[1] // world
     mine = slice(rank * part, (rank + 1) * part)
     ks, vs = k[:, mine].contiguous(), v[:, mine].contiguous()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     rec = {}
-    for name, fn, qq in (("context_parallel", context_parallel_attention, q),
-                         ("ring", ring_attention, q[:, mine].contiguous())):
+    for name, fn, qq, gg in (
+            ("context_parallel", context_parallel_attention, q, g),
+            ("ring", ring_attention, q[:, mine].contiguous(),
+             g[:, mine].contiguous())):
         out = fn(qq, ks, vs, None)
         torch.cuda.synchronize(device)
         t0 = time.perf_counter()
         for _ in range(3):
             fn(qq, ks, vs, None)
         torch.cuda.synchronize(device)
-        rec[name] = {"ms": (time.perf_counter() - t0) / 3 * 1e3,
-                     "out": out}
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        leaves = [t.clone().requires_grad_() for t in (qq, ks, vs)]
+        bwd_ms = []
+        for _ in range(3):
+            o = fn(*leaves, None)
+            torch.cuda.synchronize(device)
+            start.record()
+            grads = torch.autograd.grad(o, leaves, gg)
+            end.record()
+            torch.cuda.synchronize(device)
+            bwd_ms.append(start.elapsed_time(end))
+        rec[name] = {"ms": ms, "bwd_ms": min(bwd_ms), "out": out,
+                     "grads": grads}
     barrier()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = F.scaled_dot_product_attention(
+        *(t.transpose(1, 2) for t in leaves)).transpose(1, 2)
+    dq, dk, dv = torch.autograd.grad(want, leaves, g)
     res = {}
-    if rank == 0:
-        want = F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2),
-            v.transpose(1, 2)).transpose(1, 2)
-        for name, r in rec.items():
-            w = want if name == "context_parallel" else want[:, mine]
-            res[name] = {"ms": r["ms"],
-                         "max_abs_err": float((r["out"] - w).abs().max())}
-    else:
-        res = {name: {"ms": r["ms"]} for name, r in rec.items()}
+    for name, r in rec.items():
+        w = (want if name == "context_parallel" else want[:, mine]).detach()
+        wq = dq if name == "context_parallel" else dq[:, mine]
+        err, used, ok, tol = compare("flash_attention_bwd", r["grads"],
+                                     (wq, dk[:, mine], dv[:, mine]))
+        res[name] = {"ms": r["ms"], "bwd_ms": r["bwd_ms"],
+                     "max_abs_err": float((r["out"] - w).abs().max()),
+                     "bwd_max_abs_err": err, "bwd_used": used,
+                     "bwd_ok": ok, "bwd_tol": tol}
     barrier()
     return res
 
@@ -7202,7 +7326,8 @@ def phase_multiprocess_train(device, card, shard_args=None, cfg_extra=None,
     first at ``{fsdp: 2, tp: 2}``, then at ``{dp: 2, sp: 2}``, each data
     index reading its own shard (the config's two paths split between
     them) with its own caption lengths over the rungs 128/256/300; then
-    the context-parallel attentions over the four; then PixArt-Sigma's
+    the context-parallel attentions over the four, forward and backward;
+    then PixArt-Sigma's
     LoRA config at ``{sp: 2}`` by two processes of its entry point.
     Returns the launch counts of rank 0 of each run, by label."""
     import yaml
@@ -7294,15 +7419,30 @@ def phase_multiprocess_train(device, card, shard_args=None, cfg_extra=None,
             cp = [json.load(open(os.path.join(tmp, f"context-rank{r}.json")))
                   for r in range(MP_WORLD)]
             for name in ("context_parallel", "ring"):
-                err = cp[0][name]["max_abs_err"]
-                ms = [round(c[name]["ms"], 3) for c in cp]
+                by = [c[name] for c in cp]
+
+                def each(key, fmt, by=by):
+                    return "[" + ", ".join(format(r[key], fmt)
+                                           for r in by) + "]"
                 log(f"multiprocess train [{card}]: {name} attention at "
-                    f"{list(CP_SHAPE)} fp32 over {MP_WORLD} processes: "
-                    f"max_abs_err {err:.3e} against one-process SDPA (tol "
-                    f"{CP_TOL}), {ms} ms a call by process (host clock)")
-                if not err <= CP_TOL:
-                    fail(f"multiprocess train: {name} attention disagrees "
-                         "with one-process attention")
+                    f"{list(CP_SHAPE)} fp32 over {MP_WORLD} processes, by "
+                    f"process: max_abs_err {each('max_abs_err', '.3e')} "
+                    f"against one-process SDPA (tol {CP_TOL}), "
+                    f"{each('ms', '.3f')} ms a call (host clock); backward "
+                    f"dq/dk/dv max_abs_err {each('bwd_max_abs_err', '.3e')}, "
+                    f"{each('bwd_used', '.3f')} of the allowance "
+                    f"({by[0]['bwd_tol']}) against SDPA's autograd "
+                    + ("ok" if all(r["bwd_ok"] for r in by) else "MISMATCH")
+                    + f", {each('bwd_ms', '.3f')} ms a call (CUDA events)")
+                for rank, r in enumerate(by):
+                    if not r["max_abs_err"] <= CP_TOL:
+                        fail(f"multiprocess train: {name} attention on "
+                             f"process {rank} disagrees with one-process "
+                             "attention")
+                    if not r["bwd_ok"]:
+                        fail(f"multiprocess train: {name} attention's "
+                             f"backward on process {rank} disagrees with "
+                             "SDPA's")
     return out_counts
 
 

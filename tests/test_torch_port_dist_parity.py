@@ -1,7 +1,8 @@
 """PyTorch port across processes against the JAX package on the CPU.
 
 * The JAX SANA LoRA step on a ``{dp: 2}`` and on a ``{dp: 1, fsdp: 2}``
-  mesh of the conftest's virtual CPU devices, at a global batch of 4,
+  mesh of the conftest's virtual CPU devices (also on a 4-bit base, whose
+  packed payloads fsdp shards), at a global batch of 4,
   against the port's step in 2 gloo processes (``tests/torch_mp_worker.py``
   ``step_parity``), each on its half of the rows with the JAX step's draws
   for them: the loss, ``grad_norm``, the adapters and the EMA after three
@@ -102,10 +103,12 @@ def _jax_draws(batch):
     return draws
 
 
-def _jax_run(setup, mesh_shape, raw):
+def _jax_run(setup, mesh_shape, raw, bits=None):
     """The JAX step over the global batch on ``mesh_shape`` (the state and
-    the batch placed as the JAX trainer places them) for ``STEPS`` steps
-    from the keys of :func:`_jax_draws`: its metrics and state."""
+    the batch placed as the JAX trainer places them; the base quantized to
+    ``bits`` when given) for ``STEPS`` steps from the keys of
+    :func:`_jax_draws`: its metrics and state."""
+    from yat_tpu.ops.quant import quantize_params
     from yat_tpu.config import TrainingParameters as JParams
     from yat_tpu.ops.schedulers import FlowMatchSchedule
     from yat_tpu.parallel.mesh import batch_sharding, create_mesh, shard_pytree
@@ -116,9 +119,12 @@ def _jax_run(setup, mesh_shape, raw):
     cfg, model, variables, adapters, meta, batch = setup
     mesh = create_mesh(mesh_shape, jax.devices()[:2])
     tx = make_optimizer(JParams.from_dict({**raw, "urls": []}))
+    params, scales = variables["params"], None
+    if bits:
+        params, scales = quantize_params(params, bits=bits)
     state = shard_pytree(create_train_state(
-        variables["params"], tx, adapters=adapters, adapters_meta=meta,
-        use_ema=True), mesh)
+        params, tx, adapters=adapters, adapters_meta=meta, use_ema=True,
+        quant_scales=scales), mesh)
     sched = FlowMatchSchedule(shift=3.0)
     step = make_train_step(task_loss=make_flow_matching_loss(model, sched),
                            tx=tx, ema_decay=0.999, use_ema=True,
@@ -140,9 +146,12 @@ def _jax_run(setup, mesh_shape, raw):
     return np.asarray(metrics), want
 
 
-CASES = {"dp2-adamw": ({"dp": 2}, "adamw"),
-         "fsdp2-adamw": ({"dp": 1, "fsdp": 2}, "adamw"),
-         "fsdp2-lion8bit": ({"dp": 1, "fsdp": 2}, "lion8bit")}
+# case: (mesh, optimizer, base bits); at 4 bits the payloads of the
+# 64-wide layers are packed and fsdp cuts their inputs in whole bytes
+CASES = {"dp2-adamw": ({"dp": 2}, "adamw", None),
+         "fsdp2-adamw": ({"dp": 1, "fsdp": 2}, "adamw", None),
+         "fsdp2-lion8bit": ({"dp": 1, "fsdp": 2}, "lion8bit", None),
+         "fsdp2-4bit": ({"dp": 1, "fsdp": 2}, "adamw", 4)}
 
 
 @pytest.fixture(scope="module")
@@ -155,7 +164,7 @@ def parity_runs(sana_lora, tmp_path_factory):
     tmp = tmp_path_factory.mktemp("parity")
     draws = _jax_draws(batch)
     raws = {}
-    for case, (mesh_shape, optim) in CASES.items():
+    for case, (mesh_shape, optim, bits) in CASES.items():
         raws[case] = {"batch_size": "2", "learning_rate": "1e-2",
                       "steps": "3", "num_steps_per_validation": "100",
                       "validation_prompts": [], "warmup_steps": "2",
@@ -164,7 +173,7 @@ def parity_runs(sana_lora, tmp_path_factory):
                       "use_adamw_8bit": str(optim == "lion8bit").lower()}
         port_mesh = {k: v for k, v in mesh_shape.items() if v > 1}
         spec = {"config": dataclasses.asdict(cfg), "mesh": port_mesh,
-                "raw": raws[case], "rows": 2, "steps": STEPS}
+                "raw": raws[case], "rows": 2, "steps": STEPS, "bits": bits}
         np.savez(tmp / f"step_parity-{case}.npz", spec=json.dumps(spec),
                  **{f"params/{k}": v for k, v in
                     _flat(variables["params"])},
@@ -174,8 +183,8 @@ def parity_runs(sana_lora, tmp_path_factory):
     join = launch_in_background("step_parity", 2, tmp, timeout=240)
     with concurrent.futures.ThreadPoolExecutor(len(CASES)) as pool:
         runs = {case: pool.submit(_jax_run, sana_lora, mesh_shape,
-                                  raws[case])
-                for case, (mesh_shape, _) in CASES.items()}
+                                  raws[case], bits)
+                for case, (mesh_shape, _, bits) in CASES.items()}
         jax_side = {case: (draws, *f.result()) for case, f in runs.items()}
     join()
     return {case: (*jax_side[case],
@@ -194,7 +203,10 @@ def test_two_process_step_matches_jax_mesh_step(parity_runs, case):
     uncond = {bool(draws[f"draw/{i}/uncond"]) for i in range(STEPS)}
     for r in res:
         np.testing.assert_allclose(r["metrics"], metrics, rtol=METRIC_RTOL)
-        assert set(r) - {"metrics"} == set(want)
+        assert set(r) - {"metrics", "packed"} == set(want)
+        # a 4-bit base: the tiny SANA's 64-wide layers packed
+        assert ("packed" in r) == (CASES[case][2] == 4)
+        assert r.get("packed", 1) > 0
         for k, v in want.items():
             np.testing.assert_allclose(r[k], v, atol=LEAF_TOL, rtol=LEAF_TOL,
                                        err_msg=k)

@@ -469,7 +469,7 @@ def test_repa_lora_step_on_4bit_base_matches_jax(tmp_path, monkeypatch):
     trainer.initialize()
     proj = trainer.model.repa_projector
     assert proj.fc1.qweight is not None and \
-        int(proj.fc1.qweight.abs().max()) <= 7
+        int(proj.fc1.payload_values().abs().max()) <= 7
     assert trainer.model.blocks_0.attn.to_q.qweight is not None
     jsched = JS(shift=1.0)
 
@@ -492,7 +492,7 @@ def test_repa_lora_step_on_4bit_base_matches_jax(tmp_path, monkeypatch):
         layer, s = modules[path[:-len(".kernel")]], np.asarray(
             _get(scales, path[:-len("kernel")] + "kernel_scale"))
         want_q = torch.from_numpy(q.astype(np.int8).T.copy())
-        flips += int((layer.qweight != want_q).sum())
+        flips += int((layer.payload_values() != want_q).sum())
         n_quantized += 1
         layer.set_quantized(want_q, torch.from_numpy(s), 4)
     assert n_quantized == sum(m.qweight is not None

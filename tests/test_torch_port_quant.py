@@ -1,6 +1,8 @@
 """PyTorch port, the quantized base and the 8-bit optimizer on the CPU:
 ``yat_tpu_torch/ops/quant.py`` (quantization, the w8a8 gate, the plain
-versions of K5 and K5b), the quantized branch of ``AdapterDense``,
+versions of K5 and K5b; the 4-bit payload packed two values a byte, its
+``tp`` slices, ``fsdp`` chunks, resident bytes and old-layout
+checkpoints), the quantized branch of ``AdapterDense``,
 ``convert.load_flax_params`` on a quantized tree, and Lion with 8-bit
 momentum (``ops/opt8bit.py`` through ``train/state.py:Optimizer``), each
 against the JAX package on the same numpy inputs.  The Pallas kernels run
@@ -64,6 +66,186 @@ def test_quantize_kernel_matches_jax(bits):
     from yat_tpu.ops.quant import dequantize_kernel as jd
     np.testing.assert_array_equal(back.numpy(),
                                   np.asarray(jd(qj, sj, jnp.float32)).T)
+
+
+# --- the 4-bit base packed two values a byte ------------------------------
+
+def _int4(shape, seed):
+    """4-bit values -7..7 as int8, every value at both nibble positions."""
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        -7, 8, shape).astype(np.int8))
+
+
+@pytest.mark.parametrize("n", [30, 31])
+def test_pack_int4_round_trips_every_value(n):
+    """``pack_int4``/``unpack_int4`` at an even and an odd length: every
+    value -7..7 in either nibble comes back; the layout is column 2j in
+    byte j's low nibble and 2j + 1 in its high one, two's complement, an
+    odd length's last high nibble 0."""
+    q = ((torch.arange(15)[:, None] + torch.arange(n)[None]) % 15 - 7).to(
+        torch.int8)
+    p = TQ.pack_int4(q)
+    assert p.dtype == torch.uint8 and tuple(p.shape) == (15, (n + 1) // 2)
+    assert torch.equal(TQ.unpack_int4(p, n), q)
+    assert set(q[:, 0::2].flatten().tolist()) == set(range(-7, 8)) == set(
+        q[:, 1::2].flatten().tolist())
+    assert TQ.pack_int4(torch.tensor([[-1, 3, -7]], dtype=torch.int8)
+                        ).tolist() == [[0x3F, 0x09]]
+    if n % 2:
+        assert not bool((p[:, -1] >> 4).any())
+
+
+@pytest.mark.parametrize("k", [64, 37])
+def test_adapter_dense_4bit_base_is_packed_and_matches_jax(k):
+    """A 4-bit ``AdapterDense`` holds its payload packed, uint8
+    ``[out, ceil(in / 2)]``, and its output is bit-equal to the JAX
+    ``AdapterDense`` on the same int4 kernel (values, power-of-two scales
+    and small-integer inputs make every product and sum exact, so the two
+    sides' summation orders cannot differ); ``base_weight`` and
+    ``dequantize_params`` give the floats of the unpacked values, as the
+    payload held one value a byte gave them."""
+    from yat_tpu.models import layers as JL
+    from yat_tpu_torch.models.layers import AdapterDense
+    rng = np.random.default_rng(5)
+    n = 24
+    q = _int4((n, k), 6)
+    s = (2.0 ** rng.integers(-4, 1, n)).astype(np.float32)
+    bias = rng.integers(-3, 4, n).astype(np.float32)
+    x = rng.integers(-4, 5, (2, 5, k)).astype(np.float32)
+    yj = JL.AdapterDense(n, dtype=jnp.float32).apply(
+        {"params": {"kernel": jnp.asarray(q.numpy().T, jnp.int4),
+                    "bias": jnp.asarray(bias)},
+         "quant_scales": {"kernel_scale": jnp.asarray(s)}}, jnp.asarray(x))
+    m = AdapterDense(k, n, dtype=torch.float32)
+    m.set_quantized(q, torch.from_numpy(s), 4)
+    m.bias.data = torch.from_numpy(bias)
+    assert m.weight is None and m.qweight.dtype == torch.uint8
+    assert tuple(m.qweight.shape) == (n, (k + 1) // 2)
+    assert torch.equal(m.payload_values(), q)
+    y = m(torch.from_numpy(x))
+    np.testing.assert_array_equal(y.detach().numpy(), np.asarray(yj))
+    want = TQ.dequantize_kernel(q, torch.from_numpy(s), torch.bfloat16)
+    assert torch.equal(m.base_weight(torch.bfloat16), want)
+    holder = torch.nn.Sequential(m)
+    assert TQ.dequantize_params(holder, torch.bfloat16) == 1
+    assert m.qweight is None and torch.equal(m.weight, want)
+
+
+def test_tp_slices_a_packed_payload_at_whole_bytes():
+    """``tp``'s slices of a packed payload are the packing of the values'
+    slice: a row-parallel layer's inputs at per-head indices (whole
+    bytes), a column-parallel one's outputs; the peers' bytes gather back
+    into the whole payload (``packed_order``); indices that split a byte
+    raise, naming the layer and the indices."""
+    from yat_tpu_torch.models.layers import AdapterDense
+    from yat_tpu_torch.parallel.tensor import TPShard
+    k, n = 16, 8
+    q = _int4((n, k), 7)
+    s = torch.rand(n) + 0.5
+    heads = [torch.tensor([4, 5, 6, 7, 12, 13, 14, 15]),
+             torch.tensor([0, 1, 2, 3, 8, 9, 10, 11])]
+    for role, idx, dim in (("row", heads[0], 1),
+                           ("col", torch.tensor([1, 2, 5, 6]), 0)):
+        m = AdapterDense(k, n, dtype=torch.float32)
+        m.set_quantized(q, s, 4)
+        m.tp = TPShard(None, 2, 0, role, k if role == "row" else n, idx,
+                       name="blocks.0.attn.to_out")
+        m.shard_tp_base()
+        part = q.index_select(dim, idx)
+        assert torch.equal(m.qweight, TQ.pack_int4(part)), role
+        assert torch.equal(m.payload_values(), part), role
+        assert torch.equal(m.base_weight(torch.float32),
+                           TQ.dequantize_kernel(
+                               part, s if role == "row" else s[idx],
+                               torch.float32)), role
+    packed = TQ.pack_int4(q)
+    shards = [TPShard(None, 2, r, "row", k, idx) for r, idx in
+              enumerate(heads)]
+    shards[0].order = torch.argsort(torch.cat(heads))
+    gathered = torch.cat([t.take(packed, 1, True) for t in shards], 1)
+    assert torch.equal(gathered.index_select(1, shards[0].packed_order()),
+                       packed)
+    m = AdapterDense(k, n, dtype=torch.float32)
+    m.set_quantized(q, s, 4)
+    m.tp = TPShard(None, 2, 0, "row", k, torch.tensor([1, 2, 3, 4, 5, 6,
+                                                        7, 8]),
+                   name="blocks.0.attn.to_out")
+    with pytest.raises(ValueError, match=r"blocks\.0\.attn\.to_out at "
+                       r"input indices that split a byte \(\[1, 2, 3"):
+        m.shard_tp_base()
+
+
+def test_fsdp_shards_a_packed_payload_in_whole_bytes(monkeypatch):
+    """``ShardedBase`` decides on the 4-bit payload's unpacked flax shape
+    ``[in, out]``: fsdp 2 takes its 16 inputs, 4 bytes a process; the
+    chunks gather back into the whole payload and the layer computes what
+    the unsharded one does; 6 inputs do not make whole bytes for 2
+    processes and raise, naming the leaf."""
+    import torch.distributed as dist
+    from torch import nn
+
+    from yat_tpu_torch.models.layers import AdapterDense
+    from yat_tpu_torch.parallel.mesh import ShardedBase
+    q, s = _int4((8, 16), 8), torch.rand(8) + 0.5
+
+    def model(k, n, values):
+        root = nn.Module()
+        root.proj = AdapterDense(k, n, dtype=torch.float32)
+        root.proj.set_quantized(values, s[:n], 4)
+        root.proj.bias.data.zero_()
+        return root
+    whole = model(16, 8, q)
+    x = torch.randn(3, 16)
+    want = whole.proj(x)
+    models, bases = [], []
+    for rank in (0, 1):
+        monkeypatch.setattr(dist, "get_rank", lambda group=None, r=rank: r)
+        models.append(model(16, 8, q))
+        bases.append(ShardedBase(models[-1], None, 2))
+        assert bases[-1].owned[models[-1].proj] == [("qweight", 1, False)]
+    parts = [m.proj.qweight for m in models]
+    assert all(tuple(p.shape) == (8, 4) for p in parts)
+    monkeypatch.setattr(bases[0], "_gather",
+                        lambda part, dim: torch.cat(parts, dim))
+    with bases[0].gathered():
+        assert torch.equal(models[0].proj.qweight, TQ.pack_int4(q))
+    assert models[0].proj.qweight is parts[0]
+    assert torch.equal(models[0].proj(x), want)
+    with pytest.raises(ValueError, match="proj/kernel along its 6 inputs"):
+        ShardedBase(model(6, 4, q[:4, :6]), None, 2)
+
+
+def test_frozen_bytes_count_the_packed_payload():
+    """``frozen_bytes`` of a 4-bit base is half that of the same layer's
+    8-bit payload (one value a byte)."""
+    from yat_tpu_torch.models.layers import AdapterDense
+    from yat_tpu_torch.parallel.mesh import frozen_bytes
+    held = {}
+    for bits in (8, 4):
+        m = AdapterDense(64, 32, dtype=torch.float32)
+        m.reset_parameters(torch.Generator().manual_seed(0))
+        m.quantize(bits)
+        held[bits] = frozen_bytes(m)
+    assert held == {8: 64 * 32, 4: 64 * 32 // 2}
+
+
+def test_an_unpacked_4bit_checkpoint_names_its_layout(tmp_path):
+    """Restoring a checkpoint whose 4-bit base holds one value a byte
+    (int8 ``[out, in]``, the layout before packing) raises a message that
+    names both layouts, not a bare shape error."""
+    from yat_tpu_torch.models.layers import AdapterDense
+    from yat_tpu_torch.train.checkpoint import restore_train_state
+    m = AdapterDense(16, 8, dtype=torch.float32)
+    m.reset_parameters(torch.Generator().manual_seed(0))
+    m.quantize(4)
+    old = {k: v.clone() for k, v in m.state_dict().items()}
+    old["qweight"] = m.payload_values().clone()
+    torch.save({"step": 3, "model": old}, tmp_path / "3.pt")
+    with pytest.raises(ValueError, match=r"model/qweight: .*unpacked layout "
+                       r"\(int8 \(8, 16\).*two values a byte \(uint8 "
+                       r"\(8, 8\)"):
+        restore_train_state(str(tmp_path), {"step": 0,
+                                            "model": m.state_dict()})
 
 
 def _row_inputs(t, c, seed=1):
@@ -217,25 +399,33 @@ TINY_W8A8 = dict(hidden_dim=128, num_layers=2, num_attention_heads=4,
                  sample_size=8, mlp_ratio=2.5)
 
 
+@pytest.fixture(scope="module")
+def w8a8_sana_params():
+    """The JAX SANA's parameters at ``TINY_W8A8`` (numpy), its init under
+    one jit (an eager flax init compiles op by op)."""
+    from yat_tpu.models.sana import SanaConfig as JConfig
+    from yat_tpu.models.sana import SanaTransformer2D as JSana
+    variables = jax.jit(JSana(cfg=JConfig(**TINY_W8A8),
+                              dtype=jnp.float32).init)(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8, 8, 4)),
+        jnp.zeros((1, 64, 128)), jnp.zeros((1,)),
+        jnp.ones((1, 64), jnp.int32))
+    return jax.tree.map(np.asarray, variables["params"])
+
+
 @pytest.mark.parametrize("min_size", [4096, 256])
-def test_quantize_params_and_convert_match_jax(min_size):
+def test_quantize_params_and_convert_match_jax(w8a8_sana_params, min_size):
     """``quantize_params`` quantizes the same dense kernels as the JAX
     package's (only ``AdapterDense`` weights, never the scale-shift tables,
     which reach 768 elements here and so pass ``min_size`` 256), with equal
     payloads and scales; ``load_flax_params`` carries the JAX quantized tree
     (int8 kernels plus ``quant_scales``) into the same buffers."""
-    from yat_tpu.models.sana import SanaConfig as JConfig
-    from yat_tpu.models.sana import SanaTransformer2D as JSana
     from yat_tpu.ops.quant import quantize_params as jqp
     from yat_tpu_torch.convert import load_flax_params
     from yat_tpu_torch.models.layers import AdapterDense
     from yat_tpu_torch.models.sana import SanaConfig, SanaTransformer2D
 
-    cfg = JConfig(**TINY_W8A8)
-    variables = JSana(cfg=cfg, dtype=jnp.float32).init(
-        jax.random.PRNGKey(0), jnp.zeros((1, 8, 8, 4)),
-        jnp.zeros((1, 64, 128)), jnp.zeros((1,)), jnp.ones((1, 64), jnp.int32))
-    params = jax.tree.map(np.asarray, variables["params"])
+    params = w8a8_sana_params
     qparams, scales = jqp(params, bits=8, min_size=min_size)
 
     def paths(tree, prefix=()):

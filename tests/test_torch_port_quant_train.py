@@ -310,8 +310,8 @@ def test_pixart_int8_base_lion_step_matches_jax(monkeypatch, tmp_path, bits):
              if isinstance(m, AdapterDense)]
     quantized = [m for m in dense if m.qweight is not None]
     assert quantized and {m.bits for m in quantized} == {bits}
-    assert max(int(m.qweight.abs().max()) for m in quantized) == 2 ** (
-        bits - 1) - 1
+    assert max(int(m.payload_values().abs().max())
+               for m in quantized) == 2 ** (bits - 1) - 1
     assert not any(m.w8a8 for m in dense)
 
 

@@ -3,7 +3,8 @@ on the same meshes of the conftest's virtual CPU devices.
 
 * The SANA LoRA step (the tiny SANA at one block with
   ``rms_norm_across_heads``, LoRA on every layer the ``tp`` rule splits,
-  global batch 4) over three steps on ``{tp: 2}``, ``{sp: 2}``,
+  global batch 4) over three steps on ``{tp: 2}`` (also on a 4-bit base,
+  its packed payloads sliced at whole bytes), ``{sp: 2}``,
   ``{fsdp: 2, tp: 2}`` and ``{tp: 2, sp: 2}``: the JAX step on the mesh
   (``constrain_tokens`` active) against the port's step in 2 or 4 gloo
   processes (``tests/torch_mp_worker.py`` ``step_parity``), each on its
@@ -102,9 +103,13 @@ def _jax_run(setup, mesh_shape, family, steps):
     cfg, model, variables, adapters, meta, batch = setup
     mesh = create_mesh(mesh_shape, jax.devices()[:_size(mesh_shape)])
     tx = make_optimizer(JParams.from_dict({**RAW, "urls": []}))
+    params, scales = variables["params"], None
+    if family.endswith("-4bit"):
+        from yat_tpu.ops.quant import quantize_params
+        params, scales = quantize_params(params, bits=4)
     state = shard_pytree(create_train_state(
-        variables["params"], tx, adapters=adapters, adapters_meta=meta,
-        use_ema=True), mesh)
+        params, tx, adapters=adapters, adapters_meta=meta, use_ema=True,
+        quant_scales=scales), mesh)
     if family == "pixart":
         task = make_epsilon_loss(model, DDPMSchedule(), learned_sigma=True)
     elif family == "sana-repa":
@@ -222,9 +227,12 @@ def _with_grid(setup, hw):
         (lat.shape[0], *hw, lat.shape[-1])).astype(np.float32)})
 
 
-# case: (mesh, family, grid or None, steps)
+# case: (mesh, family, grid or None, steps); "sana-4bit" quantizes the
+# base to 4 bits first (the 64-wide layers packed; tp slices the
+# row-parallel to_out's payload at whole bytes)
 CASES = {
     "tp2": ({"tp": 2}, "sana", None, STEPS),
+    "tp2-4bit": ({"tp": 2}, "sana-4bit", None, STEPS),
     "sp2": ({"sp": 2}, "sana", None, STEPS),
     "fsdp2-tp2": ({"fsdp": 2, "tp": 2}, "sana", None, STEPS),
     "tp2-sp2": ({"tp": 2, "sp": 2}, "sana", None, STEPS),
@@ -243,7 +251,8 @@ def _write_step_case(tmp, case, setup, mesh, family, steps):
     rows = batch["latents"].shape[0] // (mesh.get("dp", 1)
                                          * mesh.get("fsdp", 1))
     spec = {"config": dataclasses.asdict(cfg), "mesh": mesh, "raw": RAW,
-            "rows": rows, "steps": steps, "family": family.split("-")[0]}
+            "rows": rows, "steps": steps, "family": family.split("-")[0],
+            "bits": 4 if family.endswith("-4bit") else None}
     adapters = dict(adapters)
     head = adapters.pop("repa_head", None)
     if head is not None:
@@ -424,8 +433,8 @@ def runs(sana_lora, sana_repa, pixart_lora, tmp_path_factory):
     setups = {}
     draws = {}
     for case, (mesh, family, grid, steps) in CASES.items():
-        setup = {"sana": sana_lora, "sana-repa": sana_repa,
-                 "pixart": pixart_lora}[family]
+        setup = {"sana": sana_lora, "sana-4bit": sana_lora,
+                 "sana-repa": sana_repa, "pixart": pixart_lora}[family]
         if grid is not None:
             setup = _with_grid(setup, grid)
         setups[case] = setup
@@ -468,7 +477,10 @@ def test_step_matches_jax_mesh_step(runs, case):
     assert bool(constrained) == ("sp" in mesh and grid != (3, 3))
     for r in res:
         np.testing.assert_allclose(r["metrics"], metrics, rtol=METRIC_RTOL)
-        assert set(r) - {"metrics"} == set(want)
+        assert set(r) - {"metrics", "packed"} == set(want)
+        # a 4-bit base: the tiny SANA's 64-wide layers packed
+        assert ("packed" in r) == CASES[case][1].endswith("-4bit")
+        assert r.get("packed", 1) > 0
         for k, v in want.items():
             np.testing.assert_allclose(r[k], v, atol=LEAF_TOL, rtol=LEAF_TOL,
                                        err_msg=k)

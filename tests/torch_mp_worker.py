@@ -309,7 +309,9 @@ def run_step_parity(rank, tmp):
     draws the JAX step made for these rows, for each case the test wrote
     beside the scenario's directory (``step_parity-CASE.npz``: SANA or
     PixArt LoRA at {dp: 2} or {fsdp: 2} with AdamW or Lion with 8-bit
-    momentum, or on a mesh with ``tp`` and ``sp``)."""
+    momentum, or on a mesh with ``tp`` and ``sp``; a ``bits`` key
+    quantizes the base first, and the result counts its packed 4-bit
+    layers)."""
     for case in _cases(tmp, "step_parity"):
         _step_parity_case(rank, tmp, case)
 
@@ -389,6 +391,16 @@ def _step_parity_case(rank, tmp, case):
             repa_head=head)
     load_flax_params(model, _tree(data, "params/"))
     load_flax_adapters(model, _tree(data, "adapters/"), _tree(data, "meta/"))
+    packed = 0
+    if spec.get("bits"):
+        # the quantized base, as Trainer.initialize makes it before the
+        # split
+        from yat_tpu_torch.models.layers import AdapterDense
+        from yat_tpu_torch.ops.quant import quantize_params
+        quantize_params(model, spec["bits"])
+        packed = sum(isinstance(m, AdapterDense) and m.qweight is not None
+                     and m.qweight.dtype == torch.uint8
+                     for m in model.modules())
     mesh, grad_sync = _parallel(model, spec, head)
     params = TrainingParameters.from_dict(spec["raw"])
     leaves = adapter_parameters(model)
@@ -417,6 +429,8 @@ def _step_parity_case(rank, tmp, case):
         m = step(batch, torch.Generator().manual_seed(0), draws)
         metrics.append([float(m["loss"]), float(m["grad_norm"])])
     out = {"metrics": np.asarray(metrics)}
+    if spec.get("bits"):
+        out["packed"] = np.asarray(packed)
     for (name, p), e in zip(leaves, ema):
         # the head's kernels in the flax layout, as the adapters are
         flip = name.startswith("repa_head.") and name.endswith("kernel")

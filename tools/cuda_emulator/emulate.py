@@ -4,7 +4,7 @@ the host CPU, to check fragment maps, masks, descriptors and ring stages
 of a kernel before its first call on the card.
 
     python3 tools/cuda_emulator/emulate.py [fwd] [k2] [k6b] [k2b] [k5] [k5b]
-                                           [k3] [k1] [k1b]
+                                           [k3] [k3s] [k3a] [k1] [k1b]
 
 The sources of ``yat_tpu_torch/csrc`` are copied to ``_build/`` beside this
 file with the inline-asm helpers of ``attention_tiles.cuh`` (ldmatrix,
@@ -41,7 +41,18 @@ tensor-core path), bf16 with an fp32 state and fp32 (the CUDA-core path)
 at N = 256, the ragged N = 100 and 17, N = 600 (each warp's ring of
 stages wrapping), head dims 16, 32, 64 and 20 (4-byte copies), q/k/v as
 views of one fused [B, N, 3, H, D] tensor, and with a NaN in one k entry
-and one q entry (the NaN positions must be the plain version's).  ``k1``
+and one q entry (the NaN positions must be the plain version's).  ``k3s``
+and ``k3a`` (K3's halves for token-sharded blocks, K3s the fp32 state
+and key sum, K3a the apply on a given state) run ``chip_smoke.py``'s two
+cases ([16, 128, 36, 32] and N = 17 at head dim 64; a minute or two
+each, the first on 576 blocks), a fused view at head dim 20 and N = 600
+at head dim 48, on the same three paths and fp32 with the state
+rounded, each against its plain half with ``chip_smoke.py``'s tolerance,
+twice for the same bits and on its path (the tensor cores for K3s on
+bf16 and for K3a on bf16 with ``round_kv``); then K3a on K3s's state must
+give K3's bits where K3 runs the same halves (bf16 with ``round_kv``, and
+fp32).
+``k1``
 (the adaLN forward) runs D = 1152 (the row in registers), D = 1000,
 SD3.5's D = 1536, Flux's D = 3072, PixelDiT's D = 1024 and 256 and an
 unaligned D = 1152 view (the generic loop), at
@@ -82,7 +93,8 @@ from yat_tpu_torch.ops import attention as A  # noqa: E402
 SOURCES = {"fwd": "flash_attention", "k2": "softmax_attention",
            "k6b": "flash_attention_bwd", "k2b": "softmax_attention_bwd",
            "k5": "w8a8_matmul", "k5b": "w8a8_matmul",
-           "k3": "linear_attention", "k1": "adaln", "k1b": "adaln"}
+           "k3": "linear_attention", "k3s": "linear_attention",
+           "k3a": "linear_attention", "k1": "adaln", "k1b": "adaln"}
 ASM = {"ldsm_x4": "emu_ldsm(r, p, false);",
        "ldsm_x4_t": "emu_ldsm(r, p, true);",
        "mma_bf16": "emu_mma(c, a, b0, b1);",
@@ -506,6 +518,99 @@ def check_k3(lib, dtype, round_kv, case, nan=False):
     return text
 
 
+# K3s and K3a: chip_smoke.py's two cases (one process's tokens of a SANA
+# training step at {sp: 2}; N = 17 at head dim 64, two state columns a
+# lane on the CUDA cores), plus a fused q/k/v view at an odd head dim (4-byte
+# copies) and N = 600 (the rings wrap); bf16 with a rounded state (the
+# tensor cores), bf16 and fp32 with an fp32 state and fp32 rounded (the CUDA
+# cores)
+K3S_CASES = [(16, 128, 36, 32, "plain"), (2, 17, 4, 64, "plain"),
+             (2, 40, 2, 20, "fused"), (1, 600, 1, 48, "plain")]
+K3S_MODES = K3_MODES + [(torch.float32, True)]
+
+
+def run_k3s(lib, k, v):
+    """One K3s call: ((kv, ksum), [path, copy bytes, ...])."""
+    b, n, h, d = k.shape
+    kv = torch.full((b, h, d, d), float("nan"))
+    ksum = torch.full((b, h, d), float("nan"))
+    args = [k.data_ptr(), v.data_ptr(), kv.data_ptr(), ksum.data_ptr(), b, n,
+            h, d, *_st(k), *_st(v), DTYPE[k.dtype]]
+    argtypes = [V] * 4 + [I] * 4 + [L] * 6 + [I, V]
+    lib.yat_linear_attention_state.argtypes = argtypes
+    lib.yat_linear_attention_state_info.argtypes = argtypes
+    info = (ctypes.c_longlong * 6)()
+    assert lib.yat_linear_attention_state_info(*args,
+                                               ctypes.addressof(info)) == 0
+    err = lib.yat_linear_attention_state(*args, None)
+    assert err == 0, err
+    return (kv, ksum), list(info)
+
+
+def run_k3a(lib, q, kv, ksum, round_kv):
+    """One K3a call: (output, [path, copy bytes, ...])."""
+    b, n, h, d = q.shape
+    out = torch.empty((b, n, h, d), dtype=q.dtype)
+    args = [q.data_ptr(), kv.data_ptr(), ksum.data_ptr(), out.data_ptr(), b,
+            n, h, d, *_st(q), *_st(out), 1e-15, int(round_kv),
+            DTYPE[q.dtype]]
+    argtypes = [V] * 4 + [I] * 4 + [L] * 6 + [F, I, I, V]
+    lib.yat_linear_attention_apply.argtypes = argtypes
+    lib.yat_linear_attention_apply_info.argtypes = argtypes
+    info = (ctypes.c_longlong * 6)()
+    assert lib.yat_linear_attention_apply_info(*args,
+                                               ctypes.addressof(info)) == 0
+    err = lib.yat_linear_attention_apply(*args, None)
+    assert err == 0, err
+    return out, list(info)
+
+
+def _int_view(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def check_k3s_k3a(lib, which, dtype, round_kv, case):
+    """K3s (``which`` "k3s") or K3a ("k3a", on the plain state) against its
+    plain half, twice; then K3a on K3s's state against K3 on the same q, k,
+    v, bit for bit where K3 runs the same halves (one process's state is
+    K3's first half)."""
+    b, n, h, d, layout = case
+    q, k, v = k3_inputs(b, n, h, d, dtype, layout)
+    if which == "k3s":
+        got, info = run_k3s(lib, k, v)
+        again, _ = run_k3s(lib, k, v)
+        want = A.linear_attention_state_ref(k, v)
+        name = "linear_attention_state"
+    else:
+        kv, ksum = A.linear_attention_state_ref(k, v)
+        got, info = run_k3a(lib, q, kv, ksum, round_kv)
+        again, _ = run_k3a(lib, q, kv, ksum, round_kv)
+        want = A.linear_attention_apply_ref(q, kv, ksum, 1e-15, round_kv)
+        name = "linear_attention_apply"
+        got, again, want = (got,), (again,), (want,)
+    err, used, ok, _ = chip_smoke.compare(name, got, want)
+    same = all(torch.equal(_int_view(x), _int_view(y))
+               for x, y in zip(got, again))
+    bf16 = dtype == torch.bfloat16
+    as_k3 = True
+    text = (f"{'tensor cores' if info[0] else 'CUDA cores'}, {info[1]}-byte "
+            f"copies: max_abs_err {err:.3e}, {used:.3f} of the allowance, "
+            f"{'ok' if ok else 'MISMATCH'}, "
+            f"{'same bits' if same else 'NOT REPRODUCIBLE'}")
+    if round_kv or not bf16:
+        state, _ = run_k3s(lib, k, v)
+        split, _ = run_k3a(lib, q, *state, round_kv)
+        whole, _ = run_k3(lib, q, k, v, round_kv)
+        as_k3 = torch.equal(_int_view(split), _int_view(whole))
+        text += ", K3s then K3a " + ("K3's bits" if as_k3
+                                     else "NOT K3's BITS")
+    tensor = bf16 and (round_kv or which == "k3s")
+    if not (ok and same and as_k3 and bool(info[0]) == tensor):
+        raise SystemExit(f"{which} {dtype} round_kv={round_kv} {case}: "
+                         f"{text}")
+    return text
+
+
 # K1: (b, n, d, layout): the width the row-in-registers path is built for,
 # another width, and a view whose rows are not 8-byte aligned (the generic
 # loop at D = 1152); ragged N
@@ -641,6 +746,16 @@ def main(argv):
                                     nan)
                     print(f"k3 {str(dtype)[6:]} round_kv={int(round_kv)} "
                           f"{case}{' NaN' if nan else ''}: {text} "
+                          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+            continue
+        if w in ("k3s", "k3a"):
+            for dtype, round_kv in K3S_MODES:
+                for case in K3S_CASES:
+                    t0 = time.perf_counter()
+                    text = check_k3s_k3a(libs[SOURCES[w]], w, dtype,
+                                         round_kv, case)
+                    print(f"{w} {str(dtype)[6:]} round_kv={int(round_kv)} "
+                          f"{case}: {text} "
                           f"({time.perf_counter() - t0:.1f} s)", flush=True)
             continue
         if w in ("k1", "k1b"):

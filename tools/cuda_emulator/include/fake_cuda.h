@@ -53,6 +53,7 @@ template <class T>
 T __ldcg(const T* p) {
   return *p;
 }
+inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }

@@ -11,7 +11,8 @@ into the matching parameter of ``module``:
 * an ``nn.Embed`` ``embedding`` becomes ``weight``, as it is;
 * an int8 or int4 dense ``kernel`` with its ``quant_scales`` leaf
   ``kernel_scale`` becomes the ``AdapterDense`` buffers ``qweight``
-  ``[out, in]`` (int8) and ``weight_scale``;
+  (int8 ``[out, in]``, or int4 packed: uint8 ``[out, ceil(in / 2)]``) and
+  ``weight_scale``;
 * every other leaf keeps its name and shape: ``bias``, norm ``scale``
   (RMSNorm, LayerNorm, flax ``GroupNorm``'s ``scale`` and ``bias``), the
   ``(6, D)`` and ``(2, D)`` scale-shift tables, T5's
@@ -87,7 +88,8 @@ def load_flax_params(module: nn.Module, tree: Mapping,
     """Copy the flax parameter ``tree`` into ``module`` (in place; each
     parameter keeps its own dtype and device).  An int8 or int4 dense
     ``kernel`` (the JAX package's quantized base) becomes the module's
-    int8 ``qweight`` ``[out, in]``, with its ``kernel_scale`` from the same
+    ``qweight`` (int8 ``[out, in]``; int4 packed two values a byte, uint8
+    ``[out, ceil(in / 2)]``), with its ``kernel_scale`` from the same
     path of ``quant_scales``.  A parameter the tree lacks under a module
     named in ``keep`` keeps its value (modules with no checkpoint
     counterpart)."""

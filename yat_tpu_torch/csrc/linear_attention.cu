@@ -1,6 +1,8 @@
 // K3: ReLU linear attention (SANA's LiteMLA), per (batch, head):
 //     o = relu(q) (relu(k)^T v) / (relu(q) . sum_n relu(k) + eps),
 //     on the native [B, N, H, D] layout through strides.
+// K3s and K3a: K3 split into its two products, for token-sharded blocks
+// (sequence parallelism; see the section at the end).
 //
 // Replaces the TPU kernel yat_tpu/ops/attention.py:_linatt_fwd_kernel
 // (called through _linear_attention_p), which took one (batch*head) slab
@@ -45,6 +47,8 @@
 // (yat_tpu/ops/attention.py:498, kv.astype(q.dtype)); the key sum and the
 // denominator stay fp32.  Without it the math is that of the Pallas kernel
 // (_reference_linatt, an fp32 state).
+#include <initializer_list>
+
 #include "attention_tiles.cuh"
 
 namespace {
@@ -66,6 +70,7 @@ constexpr int kRows = 16;             // rows of a group, and of a stage
 constexpr int kMaxD = 64;
 constexpr uint32_t kOnes = 0x3f803f80u;   // two bf16 1.0
 
+// K3
 template <typename T>
 struct Args {
   const T* q;
@@ -73,6 +78,31 @@ struct Args {
   const T* v;
   T* o;
   Strides qs, ks, vs, os;
+  int n, d;
+  float eps;
+  int round_kv;
+};
+
+// K3s: the state kv [B, H, D, D] and key sum [B, H, D] (fp32, contiguous)
+// of k and v
+template <typename T>
+struct StateArgs {
+  const T* k;
+  const T* v;
+  float* kv;
+  float* ksum;
+  Strides ks, vs;
+  int n, d;
+};
+
+// K3a: o from q and a state (fp32, contiguous)
+template <typename T>
+struct ApplyArgs {
+  const T* q;
+  const float* kv;
+  const float* ksum;
+  T* o;
+  Strides qs, os;
   int n, d;
   float eps;
   int round_kv;
@@ -99,7 +129,8 @@ __device__ __forceinline__ int own_groups(int n, int w) {
   return g > w ? (g - w + kWarps - 1) / kWarps : 0;
 }
 
-// The block's head of k, v and q: row 0 of each and its row stride.
+// The block's head of k, v and q: row 0 of each and its row stride (a
+// kernel that reads only some of them points the others anywhere).
 template <typename T>
 struct Heads {
   const T* k;
@@ -114,28 +145,43 @@ __device__ __forceinline__ Heads<T> heads(const Args<T>& a, int b, int h) {
           a.q + b * a.qs.b + h * a.qs.h, a.ks.n, a.vs.n, a.qs.n};
 }
 
+template <typename T>
+__device__ __forceinline__ Heads<T> heads(const StateArgs<T>& a, int b,
+                                          int h) {
+  const T* k = a.k + b * a.ks.b + h * a.ks.h;
+  return {k, a.v + b * a.vs.b + h * a.vs.h, k, a.ks.n, a.vs.n, a.ks.n};
+}
+
+template <typename T>
+__device__ __forceinline__ Heads<T> heads(const ApplyArgs<T>& a, int b,
+                                          int h) {
+  const T* q = a.q + b * a.qs.b + h * a.qs.h;
+  return {q, q, q, a.qs.n, a.qs.n, a.qs.n};
+}
+
 // Start copying item s of warp w's stream into stage s % kStages: k and v
 // of its groups in turn (k_0, v_0, k_1, v_1, ...), then q of its groups;
-// past the stream, nothing.  Rows past n and columns past d are zero-filled.
-// kVec: 16-byte copies, else 4-byte ones.
+// from item `end` on, nothing (K3 streams all 3 * groups items, K3s the
+// first 2 * groups, K3a the last groups).  Rows past n and columns past d
+// are zero-filled.  kVec: 16-byte copies, else 4-byte ones.
 template <typename T, int kDP, bool kVec>
 __device__ __forceinline__ void issue(T* ring, const Heads<T>& hd, int n,
                                       int d, int w, int lane, int s,
-                                      int groups) {
+                                      int groups, int end) {
   using R = Ring<T, kDP>;
   const T* src;
   long long sn;
   int g;
-  if (s < 2 * groups) {
+  if (s >= end) {
+    return;
+  } else if (s < 2 * groups) {
     src = (s & 1) ? hd.v : hd.k;
     sn = (s & 1) ? hd.vn : hd.kn;
     g = w + kWarps * (s >> 1);
-  } else if (s < 3 * groups) {
+  } else {
     src = hd.q;
     sn = hd.qn;
     g = w + kWarps * (s - 2 * groups);
-  } else {
-    return;
   }
   T* dst = ring + (s % R::kStages) * R::kStage;
   const int row0 = g * kRows;
@@ -154,6 +200,18 @@ __device__ __forceinline__ void issue(T* ring, const Heads<T>& hd, int n,
       cp_async16(dst + r * R::kLdt + e, p, ok ? 16 : 0);
     else
       cp_async4(dst + r * R::kLdt + e, p, ok ? 4 : 0);
+  }
+}
+
+// Items first .. first + kStages - 1 of warp w's stream started, one
+// commit group each
+template <typename T, int kDP, bool kVec>
+__device__ __forceinline__ void fill_ring(T* ring, const Heads<T>& hd,
+                                          int n, int d, int w, int lane,
+                                          int first, int groups, int end) {
+  for (int s = first; s < first + Ring<T, kDP>::kStages; ++s) {
+    issue<T, kDP, kVec>(ring, hd, n, d, w, lane, s, groups, end);
+    cp_async_commit();
   }
 }
 
@@ -225,34 +283,33 @@ struct MmaShape {
   static constexpr int kNT = kDP / 8;           // 8-column tiles of the state
   static constexpr int kE = kMT * (kNT + 1) * 4;   // accumulators a lane
   static constexpr int kRedBytes = 2 * kE * 32 * 4;
-  // the rounded state [kDP, kLdt] bf16 and the key sum [kDP] fp32 live in
-  // the second slot of red once the reduction is done
-  static_assert(kDP * Ring<bf16, kDP>::kLdt * 2 + kDP * 4 <= kE * 32 * 4,
+  // the rounded state [kDP, kLdt] bf16 and the key sum [kDP] fp32
+  static constexpr int kStateBytes = kDP * Ring<bf16, kDP>::kLdt * 2 + kDP * 4;
+  // K3 keeps them in the second slot of red once the reduction is done
+  static_assert(kStateBytes <= kE * 32 * 4,
                 "state does not fit the reduction slot");
   static constexpr size_t kSmem = Ring<bf16, kDP>::kBytes + kRedBytes;
+  static constexpr size_t kApplySmem = Ring<bf16, kDP>::kBytes + kStateBytes;
 };
 
-template <int kDP, bool kVec>
-__global__ void __launch_bounds__(kThreads, kDP <= 32 ? 3 : 1)
-linear_attention_fwd_mma(const Args<bf16> a) {
-  using R = Ring<bf16, kDP>;
-  using M = MmaShape<kDP>;
-  constexpr int kMT = M::kMT, kNT = M::kNT, kS = R::kStages, kL = R::kLdt;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int groups = own_groups(a.n, w);
-  const Heads<bf16> hd = heads(a, b, h);
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw) + w * kS * R::kStage;
-  float* red = reinterpret_cast<float*>(smem_raw + R::kBytes);
-  for (int s = 0; s < kS; ++s) {
-    issue<bf16, kDP, kVec>(ring, hd, a.n, a.d, w, lane, s, groups);
-    cp_async_commit();
-  }
-  const int g = lane >> 2, t = lane & 3, mi = lane >> 3, mr = lane & 7;
+// a lane's accumulators of relu(k)^T [v | 1]: [16-row tile][8-column tile,
+// the last one the ones column][fragment entry]
+template <int kDP>
+using StateAcc = float[kDP / 16][kDP / 8 + 1][4];
 
-  // 1) acc[m][j] = relu(k)^T [v | 1] over the warp's groups
-  float acc[kMT][kNT + 1][4];
+// 1) acc = relu(k)^T [v | 1] over warp w's groups: items 2 step and
+// 2 step + 1 of its stream (k and v of its group `step`); each consumed
+// pair of stages refilled with the items kStages further on (none from
+// `end` on)
+template <int kDP, bool kVec>
+__device__ __forceinline__ void state_mma(StateAcc<kDP>& acc, bf16* ring,
+                                          const Heads<bf16>& hd, int n, int d,
+                                          int w, int lane, int groups,
+                                          int end) {
+  using R = Ring<bf16, kDP>;
+  constexpr int kMT = kDP / 16, kNT = kDP / 8, kS = R::kStages,
+                kL = R::kLdt;
+  const int mi = lane >> 3, mr = lane & 7;
 #pragma unroll
   for (int m = 0; m < kMT; ++m)
 #pragma unroll
@@ -285,36 +342,23 @@ linear_attention_fwd_mma(const Args<bf16> a) {
 #pragma unroll
     for (int m = 0; m < kMT; ++m) mma_bf16(acc[m][kNT], af[m], kOnes, kOnes);
     __syncwarp();
-    issue<bf16, kDP, kVec>(ring, hd, a.n, a.d, w, lane, 2 * step + kS, groups);
+    issue<bf16, kDP, kVec>(ring, hd, n, d, w, lane, 2 * step + kS, groups,
+                           end);
     cp_async_commit();
-    issue<bf16, kDP, kVec>(ring, hd, a.n, a.d, w, lane, 2 * step + 1 + kS, groups);
+    issue<bf16, kDP, kVec>(ring, hd, n, d, w, lane, 2 * step + 1 + kS,
+                           groups, end);
     cp_async_commit();
   }
+}
 
-  // 2) the state: the warps' partials added, rounded to bf16 once; the key
-  // sum (any column of the ones tile) kept in fp32
-  reduce_warps<M::kE>(&acc[0][0][0], red, w, lane);
-  bf16* kvb = reinterpret_cast<bf16*>(red + M::kE * 32);
-  float* ksum = reinterpret_cast<float*>(kvb + kDP * kL);
-  if (w == 0) {
-#pragma unroll
-    for (int m = 0; m < kMT; ++m) {
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        *reinterpret_cast<uint32_t*>(kvb + (16 * m + g) * kL + 8 * j + 2 * t) =
-            pack_bf16(acc[m][j][0], acc[m][j][1]);
-        *reinterpret_cast<uint32_t*>(kvb + (16 * m + g + 8) * kL + 8 * j +
-                                     2 * t) =
-            pack_bf16(acc[m][j][2], acc[m][j][3]);
-      }
-      if (t == 0) {
-        ksum[16 * m + g] = acc[m][kNT][0];
-        ksum[16 * m + g + 8] = acc[m][kNT][2];
-      }
-    }
-  }
-  __syncthreads();
-  uint32_t bq[kMT][kNT][2];     // the state as B fragments
+// The rounded state kvb [kDP, kLdt] bf16 as B fragments, and the key sum
+// ksum [kDP] fp32 at this lane's q-fragment columns
+template <int kDP>
+__device__ __forceinline__ void state_fragments(
+    const bf16* kvb, const float* ksum, uint32_t (&bq)[kDP / 16][kDP / 8][2],
+    float (&ks)[kDP / 16][4], int lane) {
+  constexpr int kMT = kDP / 16, kNT = kDP / 8, kL = Ring<bf16, kDP>::kLdt;
+  const int t = lane & 3, mi = lane >> 3, mr = lane & 7;
 #pragma unroll
   for (int c = 0; c < kMT; ++c)
 #pragma unroll
@@ -326,7 +370,6 @@ linear_attention_fwd_mma(const Args<bf16> a) {
       bq[c][j + 1][0] = r[2];
       bq[c][j + 1][1] = r[3];
     }
-  float ks[kMT][4];             // ksum at this lane's q-fragment columns
 #pragma unroll
   for (int c = 0; c < kMT; ++c) {
     ks[c][0] = ksum[16 * c + 2 * t];
@@ -334,12 +377,25 @@ linear_attention_fwd_mma(const Args<bf16> a) {
     ks[c][2] = ksum[16 * c + 8 + 2 * t];
     ks[c][3] = ksum[16 * c + 9 + 2 * t];
   }
+}
 
-  // 3) o = relu(q) kv / (relu(q) . ksum + eps) for the warp's groups
+// 3) o = relu(q) kv / (relu(q) . ksum + eps) for warp w's groups: item
+// first + u of its stream is q of its group u; each consumed stage is
+// refilled with the item kStages further on (none past first + groups).
+// out: the head's row 0, on its row stride.
+template <int kDP, bool kVec>
+__device__ __forceinline__ void apply_mma(
+    bf16* ring, const Heads<bf16>& hd, bf16* out, long long on, int n, int d,
+    float eps, const uint32_t (&bq)[kDP / 16][kDP / 8][2],
+    const float (&ks)[kDP / 16][4], int w, int lane, int groups, int first) {
+  using R = Ring<bf16, kDP>;
+  constexpr int kMT = kDP / 16, kNT = kDP / 8, kS = R::kStages,
+                kL = R::kLdt;
+  const int g = lane >> 2, t = lane & 3, mi = lane >> 3, mr = lane & 7;
   for (int u = 0; u < groups; ++u) {
     cp_async_wait<kS - 1>();
     __syncwarp();
-    const int item = 2 * groups + u;
+    const int item = first + u;
     bf16* qt = ring + (item % kS) * R::kStage;
     uint32_t af[kMT][4];
     float d0 = 0.f, d1 = 0.f;   // rows g and g + 8
@@ -370,7 +426,7 @@ linear_attention_fwd_mma(const Args<bf16> a) {
     for (int c = 0; c < kMT; ++c)
 #pragma unroll
       for (int j = 0; j < kNT; ++j) mma_bf16(num[j], af[c], bq[c][j][0], bq[c][j][1]);
-    const float y0 = d0 + a.eps, y1 = d1 + a.eps;
+    const float y0 = d0 + eps, y1 = d1 + eps;
     const float r0 = 1.0f / y0, r1 = 1.0f / y1;
     __syncwarp();   // every lane has read the stage before it is overwritten
 #pragma unroll
@@ -382,15 +438,14 @@ linear_attention_fwd_mma(const Args<bf16> a) {
     }
     __syncwarp();
     const int row0 = (w + kWarps * u) * kRows;
-    bf16* out = a.o + b * a.os.b + h * a.os.h;
     constexpr int kPer = kVec ? 8 : 2;
     constexpr int kPerRow = kDP / kPer;
 #pragma unroll
     for (int idx = lane; idx < kRows * kPerRow; idx += 32) {
       const int r = idx / kPerRow;
       const int e = (idx - r * kPerRow) * kPer;
-      if (row0 + r < a.n && e < a.d) {
-        bf16* dst = out + (row0 + r) * a.os.n + e;
+      if (row0 + r < n && e < d) {
+        bf16* dst = out + (row0 + r) * on + e;
         if (kVec)
           *reinterpret_cast<uint4*>(dst) =
               *reinterpret_cast<const uint4*>(qt + r * kL + e);
@@ -400,9 +455,63 @@ linear_attention_fwd_mma(const Args<bf16> a) {
       }
     }
     __syncwarp();
-    issue<bf16, kDP, kVec>(ring, hd, a.n, a.d, w, lane, item + kS, groups);
+    issue<bf16, kDP, kVec>(ring, hd, n, d, w, lane, item + kS, groups,
+                           first + groups);
     cp_async_commit();
   }
+}
+
+template <int kDP, bool kVec>
+__global__ void __launch_bounds__(kThreads, kDP <= 32 ? 3 : 1)
+linear_attention_fwd_mma(const Args<bf16> a) {
+  using R = Ring<bf16, kDP>;
+  using M = MmaShape<kDP>;
+  constexpr int kMT = M::kMT, kNT = M::kNT, kS = R::kStages, kL = R::kLdt;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int groups = own_groups(a.n, w);
+  const Heads<bf16> hd = heads(a, b, h);
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw) + w * kS * R::kStage;
+  float* red = reinterpret_cast<float*>(smem_raw + R::kBytes);
+  fill_ring<bf16, kDP, kVec>(ring, hd, a.n, a.d, w, lane, 0, groups,
+                             3 * groups);
+  const int g = lane >> 2, t = lane & 3;
+
+  // 1) relu(k)^T [v | 1] over the warp's groups
+  StateAcc<kDP> acc;
+  state_mma<kDP, kVec>(acc, ring, hd, a.n, a.d, w, lane, groups, 3 * groups);
+
+  // 2) the state: the warps' partials added, rounded to bf16 once; the key
+  // sum (any column of the ones tile) kept in fp32
+  reduce_warps<M::kE>(&acc[0][0][0], red, w, lane);
+  bf16* kvb = reinterpret_cast<bf16*>(red + M::kE * 32);
+  float* ksum = reinterpret_cast<float*>(kvb + kDP * kL);
+  if (w == 0) {
+#pragma unroll
+    for (int m = 0; m < kMT; ++m) {
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        *reinterpret_cast<uint32_t*>(kvb + (16 * m + g) * kL + 8 * j + 2 * t) =
+            pack_bf16(acc[m][j][0], acc[m][j][1]);
+        *reinterpret_cast<uint32_t*>(kvb + (16 * m + g + 8) * kL + 8 * j +
+                                     2 * t) =
+            pack_bf16(acc[m][j][2], acc[m][j][3]);
+      }
+      if (t == 0) {
+        ksum[16 * m + g] = acc[m][kNT][0];
+        ksum[16 * m + g + 8] = acc[m][kNT][2];
+      }
+    }
+  }
+  __syncthreads();
+  uint32_t bq[kMT][kNT][2];     // the state as B fragments
+  float ks[kMT][4];             // ksum at this lane's q-fragment columns
+  state_fragments<kDP>(kvb, ksum, bq, ks, lane);
+
+  // 3) o = relu(q) kv / (relu(q) . ksum + eps) for the warp's groups
+  apply_mma<kDP, kVec>(ring, hd, a.o + b * a.os.b + h * a.os.h, a.os.n, a.n,
+                       a.d, a.eps, bq, ks, w, lane, groups, 2 * groups);
   cp_async_wait<0>();
 }
 
@@ -431,35 +540,25 @@ struct F32Shape {
   static constexpr int kBlocks = (kDP + 31) / 32;  // column blocks (grid z)
   static constexpr int kE = kDP + kBlocks;         // accumulators a lane
   static constexpr int kRedBytes = 2 * kE * 32 * 4;
-  // the block's 32 state columns [kDP, 32] fp32 and the key sum [kDP] in
-  // red's second slot
-  static_assert(kDP * 32 * 4 + kDP * 4 <= kE * 32 * 4,
+  // the block's 32 state columns [kDP, 32] fp32 and the key sum [kDP]
+  static constexpr int kStateBytes = kDP * 32 * 4 + kDP * 4;
+  // K3 keeps them in red's second slot
+  static_assert(kStateBytes <= kE * 32 * 4,
                 "state does not fit the reduction slot");
   static constexpr size_t kSmem = Ring<T, kDP>::kBytes + kRedBytes;
+  static constexpr size_t kApplySmem = Ring<T, kDP>::kBytes + kStateBytes;
 };
 
+// 1) acc[i] = sum_n relu(k)[n][i] v[n][j] for this lane's state column j;
+// acc[kDP + c] = sum_n relu(k)[n][lane + 32 c]; items and refills as in
+// state_mma
 template <typename T, int kDP, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-linear_attention_fwd_f32(const Args<T> a) {
+__device__ __forceinline__ void state_f32(float (&acc)[F32Shape<T, kDP>::kE],
+                                          T* ring, const Heads<T>& hd, int n,
+                                          int d, int w, int lane, int j,
+                                          int groups, int end) {
   using R = Ring<T, kDP>;
-  using F = F32Shape<T, kDP>;
-  constexpr int kS = R::kStages, kL = R::kLdt, kK = F::kBlocks;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int j = 32 * blockIdx.z + lane;    // this lane's state column
-  const int groups = own_groups(a.n, w);
-  const Heads<T> hd = heads(a, b, h);
-  T* ring = reinterpret_cast<T*>(smem_raw) + w * kS * R::kStage;
-  float* red = reinterpret_cast<float*>(smem_raw + R::kBytes);
-  for (int s = 0; s < kS; ++s) {
-    issue<T, kDP, kVec>(ring, hd, a.n, a.d, w, lane, s, groups);
-    cp_async_commit();
-  }
-
-  // 1) acc[i] = sum_n relu(k)[n][i] v[n][j];
-  //    acc[kDP + c] = sum_n relu(k)[n][lane + 32 c]
-  float acc[kDP + kK];
+  constexpr int kS = R::kStages, kL = R::kLdt, kK = F32Shape<T, kDP>::kBlocks;
 #pragma unroll
   for (int i = 0; i < kDP + kK; ++i) acc[i] = 0.f;
   for (int step = 0; step < groups; ++step) {
@@ -483,11 +582,75 @@ linear_attention_fwd_f32(const Args<T> a) {
       }
     }
     __syncwarp();
-    issue<T, kDP, kVec>(ring, hd, a.n, a.d, w, lane, 2 * step + kS, groups);
+    issue<T, kDP, kVec>(ring, hd, n, d, w, lane, 2 * step + kS, groups, end);
     cp_async_commit();
-    issue<T, kDP, kVec>(ring, hd, a.n, a.d, w, lane, 2 * step + 1 + kS, groups);
+    issue<T, kDP, kVec>(ring, hd, n, d, w, lane, 2 * step + 1 + kS, groups,
+                        end);
     cp_async_commit();
   }
+}
+
+// 3) o[n][j] = (relu(q)[n] . kv[:, j]) / (relu(q)[n] . ksum + eps) for warp
+// w's groups, kv the block's [kDP][32] columns and ksum [kDP] in shared
+// memory; items and refills as in apply_mma
+template <typename T, int kDP, bool kVec>
+__device__ __forceinline__ void apply_f32(T* ring, const Heads<T>& hd,
+                                          T* out, long long on, int n, int d,
+                                          float eps, const float* kv,
+                                          const float* ksum, int w, int lane,
+                                          int j, int groups, int first) {
+  using R = Ring<T, kDP>;
+  constexpr int kS = R::kStages, kL = R::kLdt;
+  for (int u = 0; u < groups; ++u) {
+    cp_async_wait<kS - 1>();
+    __syncwarp();
+    const int item = first + u;
+    const T* qt = ring + (item % kS) * R::kStage;
+    const int row0 = (w + kWarps * u) * kRows;
+    for (int r = 0; r < kRows; ++r) {
+      float den = 0.f, num = 0.f;
+#pragma unroll
+      for (int i = 0; i < kDP; i += 4) {
+        float q4[4], s4[4];
+        ld4(qt + r * kL + i, q4);
+        ld4(ksum + i, s4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float qr = relu1(q4[e]);
+          den = fmaf(qr, s4[e], den);
+          num = fmaf(qr, kv[(i + e) * 32 + lane], num);
+        }
+      }
+      if (row0 + r < n && j < d)
+        out[(row0 + r) * on + j] = yat::from_f<T>(num / (den + eps));
+    }
+    __syncwarp();
+    issue<T, kDP, kVec>(ring, hd, n, d, w, lane, item + kS, groups,
+                        first + groups);
+    cp_async_commit();
+  }
+}
+
+template <typename T, int kDP, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+linear_attention_fwd_f32(const Args<T> a) {
+  using R = Ring<T, kDP>;
+  using F = F32Shape<T, kDP>;
+  constexpr int kS = R::kStages, kK = F::kBlocks;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int j = 32 * blockIdx.z + lane;    // this lane's state column
+  const int groups = own_groups(a.n, w);
+  const Heads<T> hd = heads(a, b, h);
+  T* ring = reinterpret_cast<T*>(smem_raw) + w * kS * R::kStage;
+  float* red = reinterpret_cast<float*>(smem_raw + R::kBytes);
+  fill_ring<T, kDP, kVec>(ring, hd, a.n, a.d, w, lane, 0, groups, 3 * groups);
+
+  // 1) the warp's partial state column and key sum
+  float acc[F::kE];
+  state_f32<T, kDP, kVec>(acc, ring, hd, a.n, a.d, w, lane, j, groups,
+                          3 * groups);
 
   // 2) the block's state columns in fp32 (rounded to the storage type with
   // round_kv) and the whole key sum
@@ -504,35 +667,184 @@ linear_attention_fwd_f32(const Args<T> a) {
   }
   __syncthreads();
 
-  // 3) o[n][j] = (relu(q)[n] . kv[:, j]) / (relu(q)[n] . ksum + eps)
-  for (int u = 0; u < groups; ++u) {
-    cp_async_wait<kS - 1>();
-    __syncwarp();
-    const int item = 2 * groups + u;
-    const T* qt = ring + (item % kS) * R::kStage;
-    const int row0 = (w + kWarps * u) * kRows;
-    T* out = a.o + b * a.os.b + h * a.os.h;
-    for (int r = 0; r < kRows; ++r) {
-      float den = 0.f, num = 0.f;
+  // 3) the outputs of column j for the warp's groups
+  apply_f32<T, kDP, kVec>(ring, hd, a.o + b * a.os.b + h * a.os.h, a.os.n,
+                          a.n, a.d, a.eps, kv, ksum, w, lane, j, groups,
+                          2 * groups);
+  cp_async_wait<0>();
+}
+
+// ---------------------------------------------------------------------------
+// K3s and K3a: K3 split into its two products, for token-sharded blocks
+// (sequence parallelism).  Each process holds a slice of the tokens; the
+// state of its slice is summed over the processes before the second
+// product, as GSPMD reduces the JAX einsum branch's fp32 partial state
+// before kv.astype(q.dtype) (yat_tpu/ops/attention.py:494-498).
+//   K3s: kv = relu(k)^T v [B, H, D, D] and ksum = sum_n relu(k) [B, H, D],
+//        fp32, unrounded, contiguous: K3's first half (the ring, the warps'
+//        groups, the fixed-order reduction), each block writing its head's
+//        state from warp 0's registers;
+//   K3a: o = relu(q) . round(kv) / (relu(q) . ksum + eps), with round_kv
+//        rounding the summed state to the storage type first: the block
+//        loads its head's state (read once a block, with q's first stages
+//        already in flight), rounds it once and runs K3's second half.
+// K3s sums bf16 on the tensor cores (bf16 products are exact in fp32 and
+// the sums are fp32, whether or not K3a rounds the state), fp32 on the CUDA
+// cores; K3a takes K3's paths: bf16 with round_kv on the tensor cores, every
+// other case on the CUDA cores, one block a (head, batch element[, 32
+// state columns]).  On one process K3s then K3a give K3's bits where K3
+// runs the same halves: bf16 with round_kv, and fp32.
+// ---------------------------------------------------------------------------
+
+template <int kDP, bool kVec>
+__global__ void __launch_bounds__(kThreads, kDP <= 32 ? 3 : 1)
+linear_attention_state_mma(const StateArgs<bf16> a) {
+  using R = Ring<bf16, kDP>;
+  using M = MmaShape<kDP>;
+  constexpr int kMT = M::kMT, kNT = M::kNT, kS = R::kStages;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int groups = own_groups(a.n, w);
+  const Heads<bf16> hd = heads(a, b, h);
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw) + w * kS * R::kStage;
+  float* red = reinterpret_cast<float*>(smem_raw + R::kBytes);
+  fill_ring<bf16, kDP, kVec>(ring, hd, a.n, a.d, w, lane, 0, groups,
+                             2 * groups);
+  StateAcc<kDP> acc;
+  state_mma<kDP, kVec>(acc, ring, hd, a.n, a.d, w, lane, groups, 2 * groups);
+  reduce_warps<M::kE>(&acc[0][0][0], red, w, lane);
+  if (w == 0) {
+    // rows 16 m + g (+ 8), columns 8 j + 2 t (+ 1); d is even here
+    const int g = lane >> 2, t = lane & 3, d = a.d;
+    const long long head = static_cast<long long>(b) * gridDim.x + h;
+    float* kv = a.kv + head * d * d;
+    float* ksum = a.ksum + head * d;
 #pragma unroll
-      for (int i = 0; i < kDP; i += 4) {
-        float q4[4], s4[4];
-        ld4(qt + r * kL + i, q4);
-        ld4(ksum + i, s4);
+    for (int m = 0; m < kMT; ++m) {
+      const int r0 = 16 * m + g, r1 = r0 + 8;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float qr = relu1(q4[e]);
-          den = fmaf(qr, s4[e], den);
-          num = fmaf(qr, kv[(i + e) * 32 + lane], num);
-        }
+      for (int j = 0; j < kNT; ++j) {
+        const int c = 8 * j + 2 * t;
+        if (c < d && r0 < d)
+          *reinterpret_cast<float2*>(kv + r0 * d + c) =
+              make_float2(acc[m][j][0], acc[m][j][1]);
+        if (c < d && r1 < d)
+          *reinterpret_cast<float2*>(kv + r1 * d + c) =
+              make_float2(acc[m][j][2], acc[m][j][3]);
       }
-      if (row0 + r < a.n && j < a.d)
-        out[(row0 + r) * a.os.n + j] = yat::from_f<T>(num / (den + a.eps));
+      if (t == 0 && r0 < d) ksum[r0] = acc[m][kNT][0];
+      if (t == 0 && r1 < d) ksum[r1] = acc[m][kNT][2];
     }
-    __syncwarp();
-    issue<T, kDP, kVec>(ring, hd, a.n, a.d, w, lane, item + kS, groups);
-    cp_async_commit();
   }
+  cp_async_wait<0>();
+}
+
+template <int kDP, bool kVec>
+__global__ void __launch_bounds__(kThreads, kDP <= 32 ? 3 : 1)
+linear_attention_apply_mma(const ApplyArgs<bf16> a) {
+  using R = Ring<bf16, kDP>;
+  using M = MmaShape<kDP>;
+  constexpr int kMT = M::kMT, kNT = M::kNT, kS = R::kStages, kL = R::kLdt;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int groups = own_groups(a.n, w);
+  const Heads<bf16> hd = heads(a, b, h);
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw) + w * kS * R::kStage;
+  bf16* kvb = reinterpret_cast<bf16*>(smem_raw + R::kBytes);
+  float* ksum = reinterpret_cast<float*>(kvb + kDP * kL);
+  fill_ring<bf16, kDP, kVec>(ring, hd, a.n, a.d, w, lane, 2 * groups, groups,
+                             3 * groups);
+  // the summed state, rounded to bf16 once (zeros past d), and the key sum
+  const int d = a.d;
+  const long long head = static_cast<long long>(b) * gridDim.x + h;
+  const float* kv = a.kv + head * d * d;
+  const float* ks_in = a.ksum + head * d;
+  for (int idx = threadIdx.x; idx < kDP * kDP; idx += kThreads) {
+    const int i = idx / kDP, j = idx - i * kDP;
+    kvb[i * kL + j] = __float2bfloat16_rn(i < d && j < d ? kv[i * d + j] : 0.f);
+  }
+  for (int i = threadIdx.x; i < kDP; i += kThreads)
+    ksum[i] = i < d ? ks_in[i] : 0.f;
+  __syncthreads();
+  uint32_t bq[kMT][kNT][2];
+  float ks[kMT][4];
+  state_fragments<kDP>(kvb, ksum, bq, ks, lane);
+  apply_mma<kDP, kVec>(ring, hd, a.o + b * a.os.b + h * a.os.h, a.os.n, a.n,
+                       d, a.eps, bq, ks, w, lane, groups, 2 * groups);
+  cp_async_wait<0>();
+}
+
+template <typename T, int kDP, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+linear_attention_state_f32(const StateArgs<T> a) {
+  using R = Ring<T, kDP>;
+  using F = F32Shape<T, kDP>;
+  constexpr int kS = R::kStages, kK = F::kBlocks;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int j = 32 * blockIdx.z + lane;
+  const int groups = own_groups(a.n, w);
+  const Heads<T> hd = heads(a, b, h);
+  T* ring = reinterpret_cast<T*>(smem_raw) + w * kS * R::kStage;
+  float* red = reinterpret_cast<float*>(smem_raw + R::kBytes);
+  fill_ring<T, kDP, kVec>(ring, hd, a.n, a.d, w, lane, 0, groups, 2 * groups);
+  float acc[F::kE];
+  state_f32<T, kDP, kVec>(acc, ring, hd, a.n, a.d, w, lane, j, groups,
+                          2 * groups);
+  reduce_warps<F::kE>(acc, red, w, lane);
+  if (w == 0) {
+    const int d = a.d;
+    const long long head = static_cast<long long>(b) * gridDim.x + h;
+    float* kv = a.kv + head * d * d;
+    if (j < d) {
+#pragma unroll
+      for (int i = 0; i < kDP; ++i)
+        if (i < d) kv[i * d + j] = acc[i];
+    }
+    if (blockIdx.z == 0) {
+#pragma unroll
+      for (int c = 0; c < kK; ++c)
+        if (lane + 32 * c < d) a.ksum[head * d + lane + 32 * c] = acc[kDP + c];
+    }
+  }
+  cp_async_wait<0>();
+}
+
+template <typename T, int kDP, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+linear_attention_apply_f32(const ApplyArgs<T> a) {
+  using R = Ring<T, kDP>;
+  constexpr int kS = R::kStages;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int j = 32 * blockIdx.z + lane;
+  const int groups = own_groups(a.n, w);
+  const Heads<T> hd = heads(a, b, h);
+  T* ring = reinterpret_cast<T*>(smem_raw) + w * kS * R::kStage;
+  float* kv = reinterpret_cast<float*>(smem_raw + R::kBytes);   // [kDP][32]
+  float* ksum = kv + kDP * 32;                                   // [kDP]
+  fill_ring<T, kDP, kVec>(ring, hd, a.n, a.d, w, lane, 2 * groups, groups,
+                          3 * groups);
+  // the block's 32 columns of the summed state (rounded to the storage
+  // type with round_kv; zeros past d) and the whole key sum
+  const int d = a.d;
+  const long long head = static_cast<long long>(b) * gridDim.x + h;
+  const float* kv_in = a.kv + head * d * d;
+  for (int idx = threadIdx.x; idx < kDP * 32; idx += kThreads) {
+    const int i = idx >> 5, c = 32 * blockIdx.z + (idx & 31);
+    const float x = i < d && c < d ? kv_in[i * d + c] : 0.f;
+    kv[idx] = a.round_kv ? yat::rnd<T>(x) : x;
+  }
+  for (int i = threadIdx.x; i < kDP; i += kThreads)
+    ksum[i] = i < d ? a.ksum[head * d + i] : 0.f;
+  __syncthreads();
+  apply_f32<T, kDP, kVec>(ring, hd, a.o + b * a.os.b + h * a.os.h, a.os.n,
+                          a.n, d, a.eps, kv, ksum, w, lane, j, groups,
+                          2 * groups);
   cp_async_wait<0>();
 }
 
@@ -540,27 +852,30 @@ linear_attention_fwd_f32(const Args<T> a) {
 // dispatch
 // ---------------------------------------------------------------------------
 
-// whether every row of q/k/v/out starts on a `bytes` boundary and d fills
-// whole copies of that size
-template <typename T>
-bool aligned(const Args<T>& a, int bytes) {
-  const long long es = sizeof(T);
-  auto ok = [&](const void* p, Strides s) {
-    return reinterpret_cast<uintptr_t>(p) % bytes == 0 &&
-           (s.b * es) % bytes == 0 && (s.n * es) % bytes == 0 &&
-           (s.h * es) % bytes == 0;
-  };
-  return (a.d * es) % bytes == 0 && ok(a.q, a.qs) && ok(a.k, a.ks) &&
-         ok(a.v, a.vs) && ok(a.o, a.os);
+// rows of one tensor: its first element and strides
+struct Rows {
+  const void* p;
+  Strides s;
+};
+
+// whether every row of `rows` starts on a `bytes` boundary and d values of
+// es bytes fill whole copies of that size
+inline bool aligned(int d, long long es, int bytes,
+                    std::initializer_list<Rows> rows) {
+  if ((d * es) % bytes) return false;
+  for (const Rows& r : rows)
+    if (reinterpret_cast<uintptr_t>(r.p) % bytes || (r.s.b * es) % bytes ||
+        (r.s.n * es) % bytes || (r.s.h * es) % bytes)
+      return false;
+  return true;
 }
 
 // Launch kernel (info == nullptr), or write its path (1: tensor cores, 0:
 // CUDA cores), copy width in bytes, registers, local bytes, shared bytes
 // and blocks per SM into info[0:6].
-template <typename K, typename T>
+template <typename K, typename A>
 cudaError_t run(K kernel, size_t smem, bool tensor, bool vec, int blocks_z,
-                const Args<T>& a, int b, int h, cudaStream_t st,
-                long long* info) {
+                const A& a, int b, int h, cudaStream_t st, long long* info) {
   if (info != nullptr) {
     info[0] = tensor ? 1 : 0;
     info[1] = vec ? 16 : 4;
@@ -572,39 +887,117 @@ cudaError_t run(K kernel, size_t smem, bool tensor, bool vec, int blocks_z,
   return cudaGetLastError();
 }
 
+// K3 and K3a at one padded head dim: bf16 with round_kv on the tensor
+// cores, the rest on the CUDA cores; K3s: bf16 on the tensor cores, fp32 on
+// the CUDA cores
 template <typename T, int kDP>
-cudaError_t dispatch_dp(const Args<T>& a, int b, int h, bool vec,
+struct Fwd {
+  static cudaError_t go(const Args<T>& a, int b, int h, bool vec,
                         cudaStream_t st, long long* info) {
-  if constexpr (sizeof(T) == 2) {
-    if (a.round_kv) {
+    if constexpr (sizeof(T) == 2) {
+      if (a.round_kv) {
+        constexpr size_t smem = MmaShape<kDP>::kSmem;
+        return vec ? run(linear_attention_fwd_mma<kDP, true>, smem, true,
+                         true, 1, a, b, h, st, info)
+                   : run(linear_attention_fwd_mma<kDP, false>, smem, true,
+                         false, 1, a, b, h, st, info);
+      }
+    }
+    using F = F32Shape<T, kDP>;
+    return vec ? run(linear_attention_fwd_f32<T, kDP, true>, F::kSmem, false,
+                     true, F::kBlocks, a, b, h, st, info)
+               : run(linear_attention_fwd_f32<T, kDP, false>, F::kSmem,
+                     false, false, F::kBlocks, a, b, h, st, info);
+  }
+};
+
+template <typename T, int kDP>
+struct State {
+  static cudaError_t go(const StateArgs<T>& a, int b, int h, bool vec,
+                        cudaStream_t st, long long* info) {
+    if constexpr (sizeof(T) == 2) {
       constexpr size_t smem = MmaShape<kDP>::kSmem;
-      return vec ? run(linear_attention_fwd_mma<kDP, true>, smem, true, true,
-                       1, a, b, h, st, info)
-                 : run(linear_attention_fwd_mma<kDP, false>, smem, true,
+      return vec ? run(linear_attention_state_mma<kDP, true>, smem, true,
+                       true, 1, a, b, h, st, info)
+                 : run(linear_attention_state_mma<kDP, false>, smem, true,
                        false, 1, a, b, h, st, info);
+    } else {
+      using F = F32Shape<T, kDP>;
+      return vec ? run(linear_attention_state_f32<T, kDP, true>, F::kSmem,
+                       false, true, F::kBlocks, a, b, h, st, info)
+                 : run(linear_attention_state_f32<T, kDP, false>, F::kSmem,
+                       false, false, F::kBlocks, a, b, h, st, info);
     }
   }
-  using F = F32Shape<T, kDP>;
-  return vec ? run(linear_attention_fwd_f32<T, kDP, true>, F::kSmem, false,
-                   true, F::kBlocks, a, b, h, st, info)
-             : run(linear_attention_fwd_f32<T, kDP, false>, F::kSmem, false,
-                   false, F::kBlocks, a, b, h, st, info);
+};
+
+template <typename T, int kDP>
+struct Apply {
+  static cudaError_t go(const ApplyArgs<T>& a, int b, int h, bool vec,
+                        cudaStream_t st, long long* info) {
+    if constexpr (sizeof(T) == 2) {
+      if (a.round_kv) {
+        constexpr size_t smem = MmaShape<kDP>::kApplySmem;
+        return vec ? run(linear_attention_apply_mma<kDP, true>, smem, true,
+                         true, 1, a, b, h, st, info)
+                   : run(linear_attention_apply_mma<kDP, false>, smem, true,
+                         false, 1, a, b, h, st, info);
+      }
+    }
+    using F = F32Shape<T, kDP>;
+    return vec ? run(linear_attention_apply_f32<T, kDP, true>, F::kApplySmem,
+                     false, true, F::kBlocks, a, b, h, st, info)
+               : run(linear_attention_apply_f32<T, kDP, false>,
+                     F::kApplySmem, false, false, F::kBlocks, a, b, h, st,
+                     info);
+  }
+};
+
+// K (Fwd, State or Apply) at d padded to 16, 32, 48 or 64; rows that are
+// not 4-byte aligned are refused
+template <template <typename, int> class K, typename T, typename A>
+cudaError_t by_head_dim(const A& a, int b, int h,
+                        std::initializer_list<Rows> rows, cudaStream_t st,
+                        long long* info) {
+  const bool vec = aligned(a.d, sizeof(T), 16, rows);
+  if (!vec && !aligned(a.d, sizeof(T), 4, rows)) return cudaErrorInvalidValue;
+  if (a.d <= 16) return K<T, 16>::go(a, b, h, vec, st, info);
+  if (a.d <= 32) return K<T, 32>::go(a, b, h, vec, st, info);
+  if (a.d <= 48) return K<T, 48>::go(a, b, h, vec, st, info);
+  return K<T, 64>::go(a, b, h, vec, st, info);
 }
 
 template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
-                     int b, int n, int h, int d, Strides qs, Strides ks,
-                     Strides vs, Strides os, float eps, int round_kv,
-                     cudaStream_t st, long long* info) {
+cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
+                int b, int n, int h, int d, Strides qs, Strides ks,
+                Strides vs, Strides os, float eps, int round_kv,
+                cudaStream_t st, long long* info) {
   const Args<T> a{static_cast<const T*>(q), static_cast<const T*>(k),
                   static_cast<const T*>(v), static_cast<T*>(out), qs, ks, vs,
                   os, n, d, eps, round_kv};
-  const bool vec = aligned(a, 16);
-  if (!vec && !aligned(a, 4)) return cudaErrorInvalidValue;
-  if (d <= 16) return dispatch_dp<T, 16>(a, b, h, vec, st, info);
-  if (d <= 32) return dispatch_dp<T, 32>(a, b, h, vec, st, info);
-  if (d <= 48) return dispatch_dp<T, 48>(a, b, h, vec, st, info);
-  return dispatch_dp<T, 64>(a, b, h, vec, st, info);
+  return by_head_dim<Fwd, T>(a, b, h, {{q, qs}, {k, ks}, {v, vs}, {out, os}},
+                             st, info);
+}
+
+template <typename T>
+cudaError_t state(const void* k, const void* v, void* kv, void* ksum, int b,
+                  int n, int h, int d, Strides ks, Strides vs,
+                  cudaStream_t st, long long* info) {
+  const StateArgs<T> a{static_cast<const T*>(k), static_cast<const T*>(v),
+                       static_cast<float*>(kv), static_cast<float*>(ksum),
+                       ks, vs, n, d};
+  return by_head_dim<State, T>(a, b, h, {{k, ks}, {v, vs}}, st, info);
+}
+
+template <typename T>
+cudaError_t apply(const void* q, const void* kv, const void* ksum,
+                  void* out, int b, int n, int h, int d, Strides qs,
+                  Strides os, float eps, int round_kv, cudaStream_t st,
+                  long long* info) {
+  const ApplyArgs<T> a{static_cast<const T*>(q), static_cast<const float*>(kv),
+                       static_cast<const float*>(ksum), static_cast<T*>(out),
+                       qs, os, n, d, eps, round_kv};
+  return by_head_dim<Apply, T>(a, b, h, {{q, qs}, {out, os}}, st, info);
 }
 
 int entry(const void* q, const void* k, const void* v, void* out, int b,
@@ -618,11 +1011,46 @@ int entry(const void* q, const void* k, const void* v, void* out, int b,
   const Strides qs{q_sb, q_sn, q_sh}, ks{k_sb, k_sn, k_sh},
       vs{v_sb, v_sn, v_sh}, os{o_sb, o_sn, o_sh};
   if (dtype == yat::kFloat32)
-    return static_cast<int>(dispatch<float>(q, k, v, out, b, n, h, d, qs, ks,
-                                            vs, os, eps, round_kv, s, info));
+    return static_cast<int>(fwd<float>(q, k, v, out, b, n, h, d, qs, ks, vs,
+                                       os, eps, round_kv, s, info));
   if (dtype == yat::kBFloat16)
-    return static_cast<int>(dispatch<bf16>(q, k, v, out, b, n, h, d, qs, ks,
-                                           vs, os, eps, round_kv, s, info));
+    return static_cast<int>(fwd<bf16>(q, k, v, out, b, n, h, d, qs, ks, vs,
+                                      os, eps, round_kv, s, info));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int state_entry(const void* k, const void* v, void* kv, void* ksum, int b,
+                int n, int h, int d, long long k_sb, long long k_sn,
+                long long k_sh, long long v_sb, long long v_sn,
+                long long v_sh, int dtype, void* stream, long long* info) {
+  if (d > kMaxD || d < 1 || n < 0 || b < 1 || h < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Strides ks{k_sb, k_sn, k_sh}, vs{v_sb, v_sn, v_sh};
+  if (dtype == yat::kFloat32)
+    return static_cast<int>(
+        state<float>(k, v, kv, ksum, b, n, h, d, ks, vs, s, info));
+  if (dtype == yat::kBFloat16)
+    return static_cast<int>(
+        state<bf16>(k, v, kv, ksum, b, n, h, d, ks, vs, s, info));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int apply_entry(const void* q, const void* kv, const void* ksum, void* out,
+                int b, int n, int h, int d, long long q_sb, long long q_sn,
+                long long q_sh, long long o_sb, long long o_sn,
+                long long o_sh, float eps, int round_kv, int dtype,
+                void* stream, long long* info) {
+  if (d > kMaxD || d < 1 || n < 1 || b < 1 || h < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Strides qs{q_sb, q_sn, q_sh}, os{o_sb, o_sn, o_sh};
+  if (dtype == yat::kFloat32)
+    return static_cast<int>(apply<float>(q, kv, ksum, out, b, n, h, d, qs, os,
+                                         eps, round_kv, s, info));
+  if (dtype == yat::kBFloat16)
+    return static_cast<int>(apply<bf16>(q, kv, ksum, out, b, n, h, d, qs, os,
+                                        eps, round_kv, s, info));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -660,170 +1088,48 @@ extern "C" int yat_linear_attention_info(
                nullptr, static_cast<long long*>(info));
 }
 
-// ---------------------------------------------------------------------------
-// K3s and K3a: K3 split into its two products, for token-sharded blocks
-// (sequence parallelism).  Each process holds a slice of the tokens; the
-// state of its slice is summed over the processes before the second
-// product, as GSPMD reduces the JAX einsum branch's fp32 partial state
-// before kv.astype(q.dtype) (yat_tpu/ops/attention.py:494-498).
-//   K3s: kv = relu(k)^T v [B, H, D, D] and ksum = sum_n relu(k) [B, H, D],
-//        fp32, contiguous;
-//   K3a: o = relu(q) . round(kv) / (relu(q) . ksum + eps), with round_kv
-//        rounding the state to the storage type first.
-// Both run on the CUDA cores in fp32, one block of eight warps a (head,
-// batch element) for K3s and a (64-row group, head, batch element) for
-// K3a; every sum runs in a fixed order (two launches give the same bits).
-// ---------------------------------------------------------------------------
-
-namespace {
-
-constexpr int kStateRows = 32;              // rows of k and v a stage
-constexpr int kStateEntries = kMaxD * kMaxD / kThreads;   // per thread
-constexpr int kApplyRows = 64;              // rows of q a block
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-linear_attention_state(const T* k, const T* v, float* kv, float* ksum,
-                       Strides ks, Strides vs, int n, int d) {
-  __shared__ float sk[kStateRows][kMaxD];
-  __shared__ float sv[kStateRows][kMaxD];
-  const int h = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
-  const T* kp = k + b * ks.b + h * ks.h;
-  const T* vp = v + b * vs.b + h * vs.h;
-  float acc[kStateEntries];
-#pragma unroll
-  for (int u = 0; u < kStateEntries; ++u) acc[u] = 0.f;
-  float sacc = 0.f;
-  for (int n0 = 0; n0 < n; n0 += kStateRows) {
-    const int rows = min(kStateRows, n - n0);
-    for (int i = t; i < rows * d; i += kThreads) {
-      const int r = i / d, c = i % d;
-      sk[r][c] = relu1(yat::to_f<T>(kp[(n0 + r) * ks.n + c]));
-      sv[r][c] = yat::to_f<T>(vp[(n0 + r) * vs.n + c]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < kStateEntries; ++u) {
-      const int e = t + kThreads * u;
-      if (e < d * d) {
-        const int i = e / d, j = e % d;
-        float a = acc[u];
-        for (int r = 0; r < rows; ++r) a = fmaf(sk[r][i], sv[r][j], a);
-        acc[u] = a;
-      }
-    }
-    if (t < d)
-      for (int r = 0; r < rows; ++r) sacc += sk[r][t];
-    __syncthreads();
-  }
-  const long long head = static_cast<long long>(b) * gridDim.x + h;
-#pragma unroll
-  for (int u = 0; u < kStateEntries; ++u) {
-    const int e = t + kThreads * u;
-    if (e < d * d) kv[head * d * d + e] = acc[u];
-  }
-  if (t < d) ksum[head * d + t] = sacc;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-linear_attention_apply(const T* q, const float* kv, const float* ksum, T* o,
-                       Strides qs, Strides os, int n, int d, float eps,
-                       int round_kv) {
-  __shared__ float skv[kMaxD * kMaxD];
-  __shared__ float ss[kMaxD];
-  __shared__ float sq[kWarps][kMaxD];
-  const int h = blockIdx.y, b = blockIdx.z, t = threadIdx.x;
-  const int w = t / 32, lane = t % 32;
-  const long long head = static_cast<long long>(b) * gridDim.y + h;
-  for (int e = t; e < d * d; e += kThreads) {
-    const float x = kv[head * d * d + e];
-    skv[e] = round_kv ? yat::rnd<T>(x) : x;
-  }
-  if (t < d) ss[t] = ksum[head * d + t];
-  __syncthreads();
-  const T* qp = q + b * qs.b + h * qs.h;
-  T* op = o + b * os.b + h * os.h;
-  const int end = min(n, (blockIdx.x + 1) * kApplyRows);
-  for (int row = blockIdx.x * kApplyRows + w; row < end; row += kWarps) {
-    for (int c = lane; c < d; c += 32)
-      sq[w][c] = relu1(yat::to_f<T>(qp[row * qs.n + c]));
-    __syncwarp();
-    float den = 0.f;
-    for (int i = 0; i < d; ++i) den = fmaf(sq[w][i], ss[i], den);
-    for (int j = lane; j < d; j += 32) {
-      float num = 0.f;
-      for (int i = 0; i < d; ++i) num = fmaf(sq[w][i], skv[i * d + j], num);
-      op[row * os.n + j] = yat::from_f<T>(num / (den + eps));
-    }
-    __syncwarp();
-  }
-}
-
-template <typename T>
-cudaError_t state_launch(const void* k, const void* v, float* kv,
-                         float* ksum, int b, int n, int h, int d, Strides ks,
-                         Strides vs, cudaStream_t st) {
-  linear_attention_state<T><<<dim3(h, b), kThreads, 0, st>>>(
-      static_cast<const T*>(k), static_cast<const T*>(v), kv, ksum, ks, vs,
-      n, d);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t apply_launch(const void* q, const float* kv, const float* ksum,
-                         void* out, int b, int n, int h, int d, Strides qs,
-                         Strides os, float eps, int round_kv,
-                         cudaStream_t st) {
-  const int groups = (n + kApplyRows - 1) / kApplyRows;
-  linear_attention_apply<T><<<dim3(groups, h, b), kThreads, 0, st>>>(
-      static_cast<const T*>(q), kv, ksum, static_cast<T*>(out), qs, os, n, d,
-      eps, round_kv);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
 // K3s: k/v [B, N, H, D] with strides (b, n, h, 1) -> kv [B, H, D, D] and
-// ksum [B, H, D], fp32 and contiguous.  N may be 0 (zeros).
+// ksum [B, H, D], fp32 and contiguous.  N may be 0 (zeros).  Rows as for
+// yat_linear_attention_fwd.
 extern "C" int yat_linear_attention_state(
     const void* k, const void* v, void* kv, void* ksum, int b, int n, int h,
     int d, long long k_sb, long long k_sn, long long k_sh, long long v_sb,
     long long v_sn, long long v_sh, int dtype, void* stream) {
-  if (d > kMaxD || d < 1 || n < 0 || b < 1 || h < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Strides ks{k_sb, k_sn, k_sh}, vs{v_sb, v_sn, v_sh};
-  float* kvf = static_cast<float*>(kv);
-  float* ksf = static_cast<float*>(ksum);
-  if (dtype == yat::kFloat32)
-    return static_cast<int>(
-        state_launch<float>(k, v, kvf, ksf, b, n, h, d, ks, vs, s));
-  if (dtype == yat::kBFloat16)
-    return static_cast<int>(
-        state_launch<bf16>(k, v, kvf, ksf, b, n, h, d, ks, vs, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return state_entry(k, v, kv, ksum, b, n, h, d, k_sb, k_sn, k_sh, v_sb,
+                     v_sn, v_sh, dtype, stream, nullptr);
+}
+
+// The launch yat_linear_attention_state makes, without making it (info as
+// yat_linear_attention_info's).
+extern "C" int yat_linear_attention_state_info(
+    const void* k, const void* v, void* kv, void* ksum, int b, int n, int h,
+    int d, long long k_sb, long long k_sn, long long k_sh, long long v_sb,
+    long long v_sn, long long v_sh, int dtype, void* info) {
+  return state_entry(k, v, kv, ksum, b, n, h, d, k_sb, k_sn, k_sh, v_sb,
+                     v_sn, v_sh, dtype, nullptr,
+                     static_cast<long long*>(info));
 }
 
 // K3a: q/out [B, N, H, D] with strides (b, n, h, 1), kv [B, H, D, D] and
 // ksum [B, H, D] fp32 contiguous; round_kv: 1 to round the state to the
-// storage type before the product.
+// storage type before the product.  Rows as for yat_linear_attention_fwd.
 extern "C" int yat_linear_attention_apply(
     const void* q, const void* kv, const void* ksum, void* out, int b, int n,
     int h, int d, long long q_sb, long long q_sn, long long q_sh,
     long long o_sb, long long o_sn, long long o_sh, float eps, int round_kv,
     int dtype, void* stream) {
-  if (d > kMaxD || d < 1 || n < 1 || b < 1 || h < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Strides qs{q_sb, q_sn, q_sh}, os{o_sb, o_sn, o_sh};
-  const float* kvf = static_cast<const float*>(kv);
-  const float* ksf = static_cast<const float*>(ksum);
-  if (dtype == yat::kFloat32)
-    return static_cast<int>(apply_launch<float>(q, kvf, ksf, out, b, n, h, d,
-                                                 qs, os, eps, round_kv, s));
-  if (dtype == yat::kBFloat16)
-    return static_cast<int>(apply_launch<bf16>(q, kvf, ksf, out, b, n, h, d,
-                                               qs, os, eps, round_kv, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return apply_entry(q, kv, ksum, out, b, n, h, d, q_sb, q_sn, q_sh, o_sb,
+                     o_sn, o_sh, eps, round_kv, dtype, stream, nullptr);
+}
+
+// The launch yat_linear_attention_apply makes, without making it (info as
+// yat_linear_attention_info's).
+extern "C" int yat_linear_attention_apply_info(
+    const void* q, const void* kv, const void* ksum, void* out, int b, int n,
+    int h, int d, long long q_sb, long long q_sn, long long q_sh,
+    long long o_sb, long long o_sn, long long o_sh, float eps, int round_kv,
+    int dtype, void* info) {
+  return apply_entry(q, kv, ksum, out, b, n, h, d, q_sb, q_sn, q_sh, o_sb,
+                     o_sn, o_sh, eps, round_kv, dtype, nullptr,
+                     static_cast<long long*>(info));
 }

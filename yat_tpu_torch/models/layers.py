@@ -33,8 +33,11 @@ from yat_tpu_torch.ops.attention import (dot_product_attention,
                                          flash_attention, linear_attention,
                                          linear_attention_sharded)
 from yat_tpu_torch.ops.quant import (
+    dequantize_int4,
     dequantize_kernel,
+    pack_int4,
     quantize_kernel,
+    unpack_int4,
     w8a8_matmul,
 )
 from yat_tpu_torch.parallel.tensor import (
@@ -187,8 +190,9 @@ class AdapterDense(nn.Module):
     the rate).
 
     :meth:`quantize` replaces ``weight`` with the buffers ``qweight`` (an
-    int8 ``[out, in]`` payload, -127..127 or, at 4 bits, -7..7) and
-    ``weight_scale`` (fp32 ``[out]``).  The base product is then
+    int8 ``[out, in]`` payload of -127..127, or at 4 bits values -7..7
+    packed two a byte, uint8 ``[out, ceil(in / 2)]``:
+    ``ops.quant.pack_int4``) and ``weight_scale`` (fp32 ``[out]``).  The base product is then
     ``ops.quant.w8a8_matmul`` when ``w8a8`` is set (the trainer sets it from
     ``int8_w8a8``) and the payload has 8 bits, and LoRA takes the chain form
     on top of it, as in the JAX package (a merged ``W + s·A@B`` would need
@@ -244,8 +248,9 @@ class AdapterDense(nn.Module):
 
     def set_quantized(self, q: torch.Tensor, scale: torch.Tensor,
                       bits: int) -> None:
-        """Hold ``q`` (int8 ``[out, in]``) and ``scale`` (fp32 ``[out]``)
-        as the base, in place of the floating weight."""
+        """Hold ``q`` (the values, int8 ``[out, in]``; packed two a byte
+        at 4 bits) and ``scale`` (fp32 ``[out]``) as the base, in place of
+        the floating weight."""
         if tuple(q.shape) != (self.features, self.in_features) \
                 or tuple(scale.shape) != (self.features,):
             raise ValueError(f"quantized base {tuple(q.shape)} / "
@@ -253,13 +258,27 @@ class AdapterDense(nn.Module):
                              f"[{self.in_features} -> {self.features}] layer")
         device = self.weight.device if self.weight is not None else q.device
         self.weight = None
-        self.qweight = q.to(device, torch.int8)
+        q = q.to(device, torch.int8)
+        self.qweight = pack_int4(q) if int(bits) == 4 else q
         self.weight_scale = scale.to(device, torch.float32)
         self.bits = int(bits)
 
+    def _payload_inputs(self) -> int:
+        """The inputs the payload holds: all, or this peer's ``tp``
+        slice (an even count: whole bytes)."""
+        return min(2 * self.qweight.shape[1], self.in_features)
+
+    def payload_values(self) -> torch.Tensor:
+        """The quantized payload's values, int8 ``[out, in]`` (unpacked at
+        4 bits; ``in`` this peer's ``tp`` slice where the payload holds
+        one)."""
+        if self.bits != 4:
+            return self.qweight
+        return unpack_int4(self.qweight, self._payload_inputs())
+
     def dequantize(self, dtype=torch.float32) -> None:
         """Back to a floating weight of ``dtype`` (for export)."""
-        w = dequantize_kernel(self.qweight, self.weight_scale, dtype)
+        w = self.base_weight(dtype)
         self.qweight = self.weight_scale = self.bits = None
         self.weight = nn.Parameter(w, requires_grad=False)
 
@@ -272,6 +291,9 @@ class AdapterDense(nn.Module):
         base is quantized)."""
         if self.qweight is None:
             return self.weight.to(dtype)
+        if self.bits == 4:
+            return dequantize_int4(self.qweight, self.weight_scale,
+                                   self._payload_inputs(), dtype)
         return dequantize_kernel(self.qweight, self.weight_scale, dtype)
 
     def adapter_leaves(self) -> List[Tuple[str, nn.Parameter]]:
@@ -340,30 +362,34 @@ class AdapterDense(nn.Module):
         self.attach_adapter("lora", {"lora_a": lora_a, "lora_b": lora_b},
                             scale, dropout)
 
-    def tp_sliced_leaves(self) -> List[Tuple[str, int]]:
-        """(name, torch dimension) of the frozen leaves that ``tp`` slices
-        (the base weight or its quantized payload and, column-parallel,
-        the per-output-channel scales and a frozen bias)."""
+    def tp_sliced_leaves(self) -> List[Tuple[str, int, bool]]:
+        """(name, torch dimension, whether that dimension is packed two
+        values a byte) of the frozen leaves that ``tp`` slices (the base
+        weight or its quantized payload and, column-parallel, the
+        per-output-channel scales and a frozen bias)."""
         tp = self.tp
         col = tp.role == "col"
         out = []
         if self.weight is not None and not self.weight.requires_grad:
-            out.append(("weight", 0 if col else 1))
+            out.append(("weight", 0 if col else 1, False))
         if self.qweight is not None:
-            out.append(("qweight", 0 if col else 1))
+            # a row-parallel layer slices the 4-bit payload's packed inputs
+            out.append(("qweight", 0 if col else 1,
+                        not col and self.bits == 4))
             if col:
-                out.append(("weight_scale", 0))
+                out.append(("weight_scale", 0, False))
         if col and self.bias is not None and not self.bias.requires_grad:
-            out.append(("bias", 0))
+            out.append(("bias", 0, False))
         return out
 
     def shard_tp_base(self) -> None:
         """Keep only this process's ``tp`` slice of the frozen leaves
         (named in ``tp.sliced``; a trainable leaf stays whole and is sliced
         at use)."""
-        self.tp.sliced = {name for name, _ in self.tp_sliced_leaves()}
-        for name, dim in self.tp_sliced_leaves():
-            part = self.tp.take(getattr(self, name).detach(), dim).contiguous()
+        self.tp.sliced = {name for name, _, _ in self.tp_sliced_leaves()}
+        for name, dim, packed in self.tp_sliced_leaves():
+            part = self.tp.take(getattr(self, name).detach(), dim,
+                                packed).contiguous()
             if name in self._parameters:
                 self._parameters[name] = nn.Parameter(part,
                                                       requires_grad=False)

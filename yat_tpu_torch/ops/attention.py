@@ -637,6 +637,24 @@ def linear_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return linear_attention_apply_ref(q, kv, ksum, eps, round_kv)
 
 
+def _check_linear_rows(name, ts):
+    """K3, K3s and K3a copy rows in 4-byte pieces: raise unless D and the
+    strides of ``ts`` keep every row on a 4-byte boundary and D is at most
+    the kernels' largest head dim."""
+    d = ts[0].shape[3]
+    es = ts[0].element_size()
+    for t in ts:
+        if (d * es) % 4 or t.data_ptr() % 4 or any(
+                (s * es) % 4 for s in t.stride()[:3]):
+            raise ValueError(
+                f"{name} kernel copies rows in 4-byte pieces: D and the "
+                "strides must keep every row on a 4-byte boundary (got "
+                f"D={d}, {t.dtype}, strides {[u.stride() for u in ts]})")
+    max_d = LINEAR_ATTENTION.function("yat_linear_attention_max_head_dim")()
+    if d > max_d:
+        raise ValueError(f"{name} kernel takes head_dim <= {max_d}, got {d}")
+
+
 def _linear_attention_args(q, k, v, out, eps, round_kv):
     """Check q/k/v/out for K3 and return its C arguments up to the dtype
     code (the stream, or the info buffer, follows)."""
@@ -644,19 +662,7 @@ def _linear_attention_args(q, k, v, out, eps, round_kv):
     b, n, h, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError("linear_attention takes q, k, v of one shape")
-    es = q.element_size()
-    for t in (q, k, v, out):
-        if (d * es) % 4 or t.data_ptr() % 4 or any(
-                (s * es) % 4 for s in t.stride()[:3]):
-            raise ValueError(
-                "linear_attention kernel copies rows in 4-byte pieces: D and "
-                "the strides of q, k, v must keep every row on a 4-byte "
-                f"boundary (got D={d}, {q.dtype}, strides "
-                f"{[t.stride() for t in (q, k, v)]})")
-    max_d = LINEAR_ATTENTION.function("yat_linear_attention_max_head_dim")()
-    if d > max_d:
-        raise ValueError(f"linear_attention kernel takes head_dim <= {max_d},"
-                         f" got {d}")
+    _check_linear_rows("linear_attention", (q, k, v, out))
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, n, h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], float(eps), int(round_kv), dtype_code(q))
@@ -681,18 +687,9 @@ def linear_attention_launch_info(q: torch.Tensor, k: torch.Tensor,
     cores"``), copy width in bytes, registers and local (spill) bytes a
     thread, shared bytes and blocks per SM."""
     round_kv = kv_rounding(q.shape[1], q.shape[3], implementation)
-    out = torch.empty_like(q)
-    buf = (ctypes.c_longlong * 6)()
-    fn = LINEAR_ATTENTION.function(
-        "yat_linear_attention_info", LINEAR_ATTENTION.argtypes[:-1] + [_P])
-    err = fn(*_linear_attention_args(q, k, v, out, 1e-15, round_kv),
-             ctypes.addressof(buf))
-    if err != 0:
-        raise RuntimeError(f"linear_attention launch info failed: CUDA error "
-                           f"{err}")
-    return {"path": "tensor cores" if buf[0] else "CUDA cores",
-            "copy_bytes": buf[1], "registers": buf[2], "local_bytes": buf[3],
-            "shared_bytes": buf[4], "blocks_per_sm": buf[5]}
+    return _info_of(LINEAR_ATTENTION, "yat_linear_attention_info",
+                    _linear_attention_args(q, k, v, torch.empty_like(q),
+                                           1e-15, round_kv))
 
 
 class _LinearAttention(torch.autograd.Function):
@@ -717,51 +714,104 @@ class _LinearAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def linear_attention_state(k: torch.Tensor, v: torch.Tensor):
-    """K3s: ``(kv [B, H, D, D], ksum [B, H, D])``, fp32, of k/v ``[B, N,
-    H, D]`` (the plain version on a CPU tensor)."""
-    if k.device.type == "cpu":
-        return linear_attention_state_ref(k, v)
+def _state_args(k, v):
+    """Check k/v for K3s; (kv, ksum, its C arguments up to the dtype
+    code)."""
     _check_cuda("linear_attention_state", (k, v))
     if k.shape != v.shape:
         raise ValueError("linear_attention_state takes k, v of one shape")
+    _check_linear_rows("linear_attention_state", (k, v))
     b, n, h, d = k.shape
     kv = torch.empty((b, h, d, d), dtype=torch.float32, device=k.device)
     ksum = torch.empty((b, h, d), dtype=torch.float32, device=k.device)
+    return kv, ksum, (k.data_ptr(), v.data_ptr(), kv.data_ptr(),
+                      ksum.data_ptr(), b, n, h, d, *k.stride()[:3],
+                      *v.stride()[:3], dtype_code(k))
+
+
+def linear_attention_state(k: torch.Tensor, v: torch.Tensor):
+    """K3s: ``(kv [B, H, D, D], ksum [B, H, D])``, fp32, of k/v ``[B, N,
+    H, D]`` (the plain version on a CPU tensor); bf16 on the tensor cores,
+    fp32 on the CUDA cores."""
+    if k.device.type == "cpu":
+        return linear_attention_state_ref(k, v)
+    kv, ksum, args = _state_args(k, v)
     with torch.cuda.device(k.device):
-        LINEAR_ATTENTION_STATE.launch(
-            k.data_ptr(), v.data_ptr(), kv.data_ptr(), ksum.data_ptr(), b, n,
-            h, d, *k.stride()[:3], *v.stride()[:3], dtype_code(k),
-            stream_of(k))
+        LINEAR_ATTENTION_STATE.launch(*args, stream_of(k))
     return kv, ksum
+
+
+def _apply_args(q, kv, ksum, out, eps, round_kv):
+    """Check q and the state for K3a; its C arguments up to the dtype
+    code."""
+    _check_cuda("linear_attention_apply", (q, out))
+    b, n, h, d = q.shape
+    if kv.shape != (b, h, d, d) or ksum.shape != (b, h, d) or \
+            kv.dtype != torch.float32 or ksum.dtype != torch.float32 or \
+            kv.device != q.device or ksum.device != q.device or \
+            not kv.is_contiguous() or not ksum.is_contiguous():
+        raise ValueError(f"linear_attention_apply takes an fp32 state "
+                         f"[{b}, {h}, {d}, {d}] and key sum [{b}, {h}, {d}] "
+                         f"on {q.device}, got {tuple(kv.shape)} {kv.dtype} "
+                         f"and {tuple(ksum.shape)} {ksum.dtype}")
+    _check_linear_rows("linear_attention_apply", (q, out))
+    return (q.data_ptr(), kv.data_ptr(), ksum.data_ptr(), out.data_ptr(), b,
+            n, h, d, *q.stride()[:3], *out.stride()[:3], float(eps),
+            int(round_kv), dtype_code(q))
 
 
 def linear_attention_apply(q: torch.Tensor, kv: torch.Tensor,
                            ksum: torch.Tensor, eps: float = 1e-15,
                            round_kv: bool = False) -> torch.Tensor:
     """K3a: ``relu(q) . kv / (relu(q) . ksum + eps)`` for q ``[B, N, H,
-    D]`` and an fp32 state (the plain version on a CPU tensor)."""
+    D]`` and an fp32 state (the plain version on a CPU tensor); bf16 with
+    ``round_kv`` on the tensor cores, otherwise on the CUDA cores."""
     if q.device.type == "cpu":
         return linear_attention_apply_ref(q, kv, ksum, eps, round_kv)
-    _check_cuda("linear_attention_apply", (q,))
     b, n, h, d = q.shape
-    if kv.shape != (b, h, d, d) or ksum.shape != (b, h, d) or \
-            kv.dtype != torch.float32 or ksum.dtype != torch.float32 or \
-            kv.device != q.device or ksum.device != q.device:
-        raise ValueError(f"linear_attention_apply takes an fp32 state "
-                         f"[{b}, {h}, {d}, {d}] and key sum [{b}, {h}, {d}] "
-                         f"on {q.device}, got {tuple(kv.shape)} {kv.dtype} "
-                         f"and {tuple(ksum.shape)} {ksum.dtype}")
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    kv, ksum = kv.contiguous(), ksum.contiguous()
+    args = _apply_args(q, kv.contiguous(), ksum.contiguous(), out, eps,
+                       round_kv)
     with torch.cuda.device(q.device):
-        LINEAR_ATTENTION_APPLY.launch(
-            q.data_ptr(), kv.data_ptr(), ksum.data_ptr(), out.data_ptr(), b,
-            n, h, d, *q.stride()[:3], *out.stride()[:3], float(eps),
-            int(round_kv), dtype_code(q), stream_of(q))
+        LINEAR_ATTENTION_APPLY.launch(*args, stream_of(q))
     return out
+
+
+def linear_attention_state_launch_info(k: torch.Tensor,
+                                       v: torch.Tensor) -> dict:
+    """The launch K3s makes for these CUDA tensors (without making it), as
+    :func:`linear_attention_launch_info` gives K3's."""
+    _, _, args = _state_args(k, v)
+    return _info_of(LINEAR_ATTENTION_STATE, "yat_linear_attention_state_info",
+                    args)
+
+
+def linear_attention_apply_launch_info(q: torch.Tensor,
+                                       round_kv: bool = False) -> dict:
+    """The launch K3a makes for this CUDA q (without making it), as
+    :func:`linear_attention_launch_info` gives K3's."""
+    b, n, h, d = q.shape
+    kv = torch.empty((b, h, d, d), dtype=torch.float32, device=q.device)
+    ksum = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
+    return _info_of(LINEAR_ATTENTION_APPLY, "yat_linear_attention_apply_info",
+                    _apply_args(q, kv, ksum, torch.empty_like(q), 1e-15,
+                                round_kv))
+
+
+def _info_of(kernel, symbol, args) -> dict:
+    """K3's, K3s's or K3a's launch info: ``symbol`` takes the launch's C
+    arguments with an info buffer in place of the stream."""
+    buf = (ctypes.c_longlong * 6)()
+    fn = kernel.function(symbol, kernel.argtypes[:-1] + [_P])
+    err = fn(*args, ctypes.addressof(buf))
+    if err != 0:
+        raise RuntimeError(f"{kernel.name} launch info failed: CUDA error "
+                           f"{err}")
+    return {"path": "tensor cores" if buf[0] else "CUDA cores",
+            "copy_bytes": buf[1], "registers": buf[2], "local_bytes": buf[3],
+            "shared_bytes": buf[4], "blocks_per_sm": buf[5]}
 
 
 class _LinearAttentionState(torch.autograd.Function):

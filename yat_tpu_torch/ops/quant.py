@@ -1,13 +1,15 @@
 """Quantized base weights and the w8a8 matmul.
 
 Counterpart of ``yat_tpu/ops/quant.py``: symmetric per-output-channel
-quantization of the frozen base's dense weights (int8, or int4 values held
-in an int8 tensor), and :func:`w8a8_matmul`, the product of an activation
+quantization of the frozen base's dense weights (int8, or int4 packed two
+values a byte), and :func:`w8a8_matmul`, the product of an activation
 with an int8 weight on the int8 tensor cores.
 
 The port keeps PyTorch's ``[out, in]`` weight, so a payload is ``[N, K]``
 int8 with an fp32 scale ``[N]`` (the JAX package's ``kernel [in, out]``
-transposed).  :func:`quantize_params` quantizes only the weights of
+transposed).  A 4-bit payload is held as :func:`pack_int4` packs it,
+uint8 ``[N, ceil(K / 2)]`` (the JAX package stores ``jnp.int4``); its
+values are unpacked (:func:`unpack_int4`) before every rescale.  :func:`quantize_params` quantizes only the weights of
 :class:`~yat_tpu_torch.models.layers.AdapterDense` (the JAX leaves named
 ``kernel``) with at least ``min_size`` elements; the modulation tables,
 embeddings, norms and convolutions stay in floating point, as there.
@@ -89,6 +91,42 @@ def quantize_kernel(w: torch.Tensor, bits: int = 8
     return q.to(torch.int8), scale
 
 
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """4-bit values (an integer tensor holding -7..7) ``[..., n]`` packed
+    two a byte along the last dimension: uint8 ``[..., ceil(n / 2)]``,
+    value 2j in byte j's low nibble and 2j + 1 in its high nibble, each as
+    a two's-complement nibble; an odd ``n`` leaves the last high nibble 0."""
+    u = q.to(torch.uint8) & 0xF
+    if q.shape[-1] % 2:
+        u = F.pad(u, (0, 1))
+    return u[..., 0::2] | (u[..., 1::2] << 4)
+
+
+def unpack_int4(p: torch.Tensor, n: int) -> torch.Tensor:
+    """The first ``n`` values of a :func:`pack_int4` payload ``[..., m]``
+    as int8 ``[..., n]`` (``n`` at most ``2 m``)."""
+    nib = torch.stack([p & 0xF, p >> 4], -1).to(torch.int8)
+    return ((nib ^ 8) - 8).flatten(-2)[..., :n]
+
+
+_INT4_TABLES = {}
+
+
+def dequantize_int4(p: torch.Tensor, scale: torch.Tensor, n: int,
+                    dtype=torch.bfloat16) -> torch.Tensor:
+    """:func:`dequantize_kernel` of the first ``n`` values of a
+    :func:`pack_int4` payload ``[out, m]``, bit for bit: each byte's two
+    values looked up in a 256-entry fp32 table (four launches, where the
+    nibble arithmetic of :func:`unpack_int4` takes ten)."""
+    table = _INT4_TABLES.get(p.device)
+    if table is None:
+        table = _INT4_TABLES[p.device] = unpack_int4(
+            torch.arange(256, dtype=torch.uint8)[:, None], 2).float().to(
+                p.device)
+    v = table.index_select(0, p.flatten().int()).view(p.shape[0], -1)
+    return (v[:, :n] * scale[:, None].float()).to(dtype)
+
+
 def dequantize_kernel(q: torch.Tensor, scale: torch.Tensor,
                       dtype=torch.bfloat16) -> torch.Tensor:
     """``(q * scale)`` in fp32, rounded once to ``dtype``: ``[out, in]``."""
@@ -98,8 +136,9 @@ def dequantize_kernel(q: torch.Tensor, scale: torch.Tensor,
 def quantize_params(module: nn.Module, bits: int = 8,
                     min_size: int = 4096) -> int:
     """Quantize, in place, the weight of every ``AdapterDense`` of
-    ``module`` with at least ``min_size`` elements into an int8 payload
-    and fp32 scale (buffers); returns how many were quantized."""
+    ``module`` with at least ``min_size`` elements into an int8 (or packed
+    4-bit) payload and fp32 scale (buffers); returns how many were
+    quantized."""
     from yat_tpu_torch.models.layers import AdapterDense
     n = 0
     for m in module.modules():

@@ -177,7 +177,7 @@ def shard_dim(names: Sequence[str], shape: Sequence[int],
 def frozen_bytes(model: nn.Module) -> int:
     """The bytes of ``model``'s frozen leaves that this process holds
     (parameters that take no gradient and a quantized base's
-    ``qweight``)."""
+    ``qweight``, a 4-bit one packed two values a byte)."""
     n = sum(p.numel() * p.element_size() for p in model.parameters()
             if not p.requires_grad)
     return n + sum(b.numel() * b.element_size()
@@ -278,9 +278,11 @@ class ShardedBase:
     """The frozen leaves of ``model`` sharded over the processes of
     ``group`` (the ``fsdp`` axis).  Frozen means a parameter that takes no
     gradient, or a quantized base's ``qweight``; :func:`shard_dim` picks
-    which and where.  Each process keeps the slice at its rank in the
-    group; forward hooks on the owning module gather the whole leaf while
-    that module runs."""
+    which and where, on the leaf's flax shape (a 4-bit payload's unpacked
+    ``[in, out]``).  A 4-bit payload sharded along its inputs is cut in
+    whole bytes: ``in`` must divide by ``2 * fsdp``.  Each process keeps the
+    slice at its rank in the group; forward hooks on the owning module
+    gather the whole leaf while that module runs."""
 
     def __init__(self, model: nn.Module, group, fsdp: int):
         import torch.distributed as dist
@@ -304,6 +306,9 @@ class ShardedBase:
                 leaf, dims = _flax_layout(m, n, t)
                 names = flax_module_path(mname, lists) + [leaf]
                 shape = [t.shape[d] for d in dims]
+                packed = n == "qweight" and m.bits == 4
+                if packed:
+                    shape[0] = m.in_features
                 tp = getattr(m, "tp", None)
                 if tp is not None and leaf == "kernel":
                     # the tp rule on the whole leaf: the split dimension
@@ -314,6 +319,12 @@ class ShardedBase:
                 if fd is None:
                     continue
                 td = dims[fd]
+                if packed and td == 1 and shape[0] % (2 * fsdp):
+                    raise ValueError(
+                        f"fsdp {fsdp} shards the 4-bit payload of "
+                        f"{'/'.join(names)} along its {shape[0]} inputs, "
+                        f"packed two a byte: they must divide by "
+                        f"{2 * fsdp} (whole bytes a process)")
                 self.owned.setdefault(m, []).append((n, td, is_param))
                 part = t.detach().chunk(fsdp, td)[self.rank].contiguous()
                 if is_param:

@@ -211,7 +211,8 @@ class TPShard:
     function)."""
 
     def __init__(self, group, size: int, rank: int, role: str, full: int,
-                 idx: Optional[torch.Tensor] = None, lone: bool = True):
+                 idx: Optional[torch.Tensor] = None, lone: bool = True,
+                 name: str = ""):
         self.group, self.size, self.rank = group, size, rank
         self.role, self.full, self.lone = role, full, lone
         self.idx = (idx if idx is not None
@@ -220,11 +221,36 @@ class TPShard:
         self.order: Optional[torch.Tensor] = None
         # the layer's leaves held as this peer's slice (the frozen base)
         self.sliced: set = set()
+        # the layer's module path, for messages
+        self.name = name
 
-    def take(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+    def take(self, t: torch.Tensor, dim: int,
+             packed: bool = False) -> torch.Tensor:
         """``t``'s slice (``full`` long along ``dim``) at this peer's
-        indices."""
-        return t.index_select(dim, self.idx.to(t.device))
+        indices; ``packed``: ``t`` holds two values a byte along ``dim``
+        (a 4-bit payload), whose whole bytes are taken."""
+        idx = packed_index(self.idx, self.name) if packed else self.idx
+        return t.index_select(dim, idx.to(t.device))
+
+    def packed_order(self) -> torch.Tensor:
+        """:attr:`order` for a dimension packed two values a byte: every
+        peer's bytes in their gathered order back to the whole payload's."""
+        return self.order[0::2] // 2
+
+
+def packed_index(idx: torch.Tensor, name: str = "") -> torch.Tensor:
+    """The bytes of a payload packed two values a byte that hold the
+    values at ``idx``: the indices must come in aligned pairs (2j, 2j + 1),
+    else a slice would split a byte and ``ValueError`` names the layer and
+    the indices."""
+    lo, hi = idx[0::2], idx[1::2]
+    if len(idx) % 2 or bool((lo % 2).any()) or not torch.equal(hi, lo + 1):
+        raise ValueError(
+            f"tp slices the 4-bit payload of {name or 'a layer'} at input "
+            f"indices that split a byte ({idx.tolist()[:8]}"
+            f"{' ...' if len(idx) > 8 else ''} of {len(idx)}): a packed "
+            "payload is sliced at aligned pairs (2j, 2j + 1) only")
+    return lo // 2
 
 
 def contiguous_chunk(full: int, size: int, rank: int) -> torch.Tensor:
@@ -273,7 +299,8 @@ class TensorParallel:
                 continue
             role = "col" if d == 1 else "row"
             full = m.features if role == "col" else m.in_features
-            m.tp = TPShard(group, self.size, self.rank, role, full)
+            m.tp = TPShard(group, self.size, self.rank, role, full,
+                           name=mname)
             self.dense.append(m)
         for m in model.modules():
             hook = getattr(m, "tensor_parallel", None)
@@ -306,19 +333,21 @@ class TensorParallel:
         at the exit (a restore)."""
         held = []
         for m in self.dense:
-            for name, dim in m.tp_sliced_leaves():
+            for name, dim, packed in m.tp_sliced_leaves():
                 part = getattr(m, name)
                 full = _all_gather(part.detach(), dim, self.group)
-                full = full.index_select(dim, m.tp.order.to(full.device))
-                held.append((m, name, dim, part, full))
+                order = m.tp.packed_order() if packed else m.tp.order
+                full = full.index_select(dim, order.to(full.device))
+                held.append((m, name, dim, packed, part))
                 _set_leaf(m, name, full)
         try:
             yield
         finally:
-            for m, name, dim, part, full in held:
+            for m, name, dim, packed, part in held:
                 if write_back:
                     with torch.no_grad():
-                        part.copy_(m.tp.take(getattr(m, name).detach(), dim))
+                        part.copy_(m.tp.take(getattr(m, name).detach(), dim,
+                                             packed))
                 _set_leaf(m, name, part)
 
 

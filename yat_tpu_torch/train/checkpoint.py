@@ -132,6 +132,15 @@ def _copy_into(live, saved, path: str):
         if not isinstance(saved, torch.Tensor):
             raise ValueError(f"{path}: the checkpoint holds "
                              f"{type(saved).__name__}, not a tensor")
+        if path.endswith("qweight") and saved.dtype == torch.int8 \
+                and live.dtype == torch.uint8:
+            raise ValueError(
+                f"{path}: the checkpoint holds a 4-bit base in the unpacked "
+                f"layout (int8 {tuple(saved.shape)}, one value a byte); this "
+                "version packs it two values a byte (uint8 "
+                f"{tuple(live.shape)}, [out, ceil(in / 2)]): resume from a "
+                "checkpoint written with the packed layout, or start again "
+                "from the base weights")
         if saved.shape != live.shape or saved.dtype != live.dtype:
             raise ValueError(
                 f"{path}: the checkpoint holds {tuple(saved.shape)} "
